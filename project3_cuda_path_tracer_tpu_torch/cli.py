@@ -1,0 +1,212 @@
+"""Command-line entry point: the main()/runCuda() equivalent.
+
+The same argument surface as the JAX package's CLI, plus `--device`
+(default `cuda`; the CPU renders with the plain PyTorch path only when
+asked with `--device cpu`). A flag whose feature is not ported yet fails
+with a message naming its ROADMAP item, as does a scene that needs one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+
+from .models.scene import load_scene, scene_summary
+from .render import Renderer, RenderSettings
+
+log = logging.getLogger("pathtracer")
+
+# flag (argparse dest) -> (flag, ROADMAP item that ports it)
+UNPORTED_FLAGS = {
+    "nee": ("--nee", "port slice 3 (NEE)"),
+    "direct_lighting": ("--direct-lighting", "port slice 3 (NEE)"),
+    "sort_materials": ("--sort-materials", "port slice 2 (per-bounce kernels)"),
+    "compact": ("--compact", "port slice 2 (per-bounce kernels)"),
+    "cache_first_bounce": (
+        "--cache-first-bounce", "port slice 2 (per-bounce kernels)"
+    ),
+    "motion_blur": ("--motion-blur", "port slice 2 (per-bounce kernels)"),
+    "stratified": ("--stratified", "port slice 2 (per-bounce kernels)"),
+    "sobol": ("--sobol", "port slice 2 (per-bounce kernels)"),
+    "shard": ("--shard", "port slice 5 (sharding)"),
+    "preview": ("--preview", "port slice 5 (viewer)"),
+    "stats": ("--stats", "port slice 5 (profiling)"),
+    "profile": ("--profile", "port slice 5 (profiling)"),
+    "debug": ("--debug", "port slice 5 (CLI remainder)"),
+    "debug_nans": ("--debug-nans", "port slice 5 (CLI remainder)"),
+    "no_pallas": (
+        "--no-pallas",
+        "the device picks the path (use --device cpu for the plain "
+        "PyTorch path); port slice 5 (CLI remainder)",
+    ),
+}
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="project3_cuda_path_tracer_tpu_torch",
+        description="progressive path tracer, PyTorch/CUDA port",
+    )
+    p.add_argument("scene", help="scene file (reference text format)")
+    p.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="cuda: the hand-written kernel; cpu: its plain PyTorch version",
+    )
+    p.add_argument("--iterations", type=int, default=None, help="override spp")
+    p.add_argument("--depth", type=int, default=None, help="override trace depth")
+    p.add_argument("--sort-materials", action="store_true")
+    p.add_argument("--compact", action="store_true")
+    p.add_argument("--cache-first-bounce", action="store_true")
+    p.add_argument("--antialias", action="store_true")
+    p.add_argument("--dof", action="store_true")
+    p.add_argument("--russian-roulette", action="store_true")
+    p.add_argument("--direct-lighting", action="store_true")
+    p.add_argument("--nee", action="store_true")
+    p.add_argument("--stratified", action="store_true")
+    p.add_argument("--sobol", action="store_true")
+    p.add_argument("--motion-blur", action="store_true")
+    p.add_argument(
+        "--rr-start-depth",
+        type=int,
+        default=3,
+        help="first bounce at which Russian roulette may kill paths",
+    )
+    p.add_argument("--shard", default=None, metavar="SPEC")
+    p.add_argument("--no-bvh", action="store_true",
+                   help="accepted; analytic scenes have no BVH")
+    p.add_argument("--pallas", action="store_true",
+                   help="accepted; CUDA always runs the hand-written kernel")
+    p.add_argument("--no-pallas", action="store_true")
+    p.add_argument("--hdr", action="store_true", help="also save Radiance HDR")
+    p.add_argument("--out-dir", default=".")
+    p.add_argument("--checkpoint", default=None, help="resume from / save to .npz")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--preview", action="store_true")
+    p.add_argument("--profile", default=None)
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--debug-nans", action="store_true")
+    p.add_argument("--stats", action="store_true")
+    p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+def refuse_unported(args) -> None:
+    for dest, (flag, item) in UNPORTED_FLAGS.items():
+        if getattr(args, dest):
+            raise NotImplementedError(
+                f"{flag} is not ported yet: see ROADMAP, {item}"
+            )
+
+
+def settings_from_args(args, scene) -> RenderSettings:
+    return RenderSettings(
+        trace_depth=args.depth or scene.state.trace_depth or 8,
+        antialias=args.antialias,
+        depth_of_field=args.dof,
+        russian_roulette=args.russian_roulette,
+        rr_start_depth=args.rr_start_depth,
+    )
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+    )
+    try:
+        return _run(args)
+    except FileNotFoundError as e:
+        log.error("file not found: %s", e.filename or e)
+        return 1
+    except Exception as e:  # clean CLI errors; -v for the traceback
+        from .models.scene import SceneParseError
+
+        if isinstance(e, SceneParseError):
+            log.error("scene parse error: %s", e)
+            return 1
+        if args.verbose:
+            raise
+        log.error("%s: %s (re-run with -v for the traceback)", type(e).__name__, e)
+        return 1
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+
+
+def _run(args) -> int:
+    import os
+
+    refuse_unported(args)
+    scene = load_scene(args.scene)
+    log.info(scene_summary(scene))
+    settings = settings_from_args(args, scene)
+    renderer = Renderer(scene, settings, device=args.device)
+    log.info("device %s", renderer.device)
+
+    if args.checkpoint:
+        # np.savez_compressed appends .npz; normalize once so the resume
+        # existence check and the save target agree on the filename.
+        if not args.checkpoint.endswith(".npz"):
+            args.checkpoint += ".npz"
+        if os.path.exists(args.checkpoint):
+            renderer.load_checkpoint(args.checkpoint)
+            log.info("resumed from %s at iteration %d", args.checkpoint, renderer.iteration)
+
+    target = args.iterations if args.iterations is not None else scene.state.iterations
+
+    t0 = time.perf_counter()
+    last_t, last_iter = t0, renderer.iteration
+    last_ckpt_iter = renderer.iteration
+    rays_per_iter = renderer.camera.pixel_count * settings.trace_depth
+
+    chunk = max(1, min(args.log_every or 50, 50))
+    while renderer.iteration < target:
+        n = min(chunk, target - renderer.iteration)
+        renderer.step_batch(n)
+        it = renderer.iteration
+        if args.log_every and (it % args.log_every == 0 or it >= target):
+            _sync(renderer.device)
+            now = time.perf_counter()
+            dt = now - last_t
+            n_done = it - last_iter
+            mrays = rays_per_iter * n_done / dt / 1e6 if dt > 0 else 0.0
+            log.info(
+                "iter %d/%d  %.1f ms/iter  %.1f Mrays/s (%s)",
+                it, target, 1e3 * dt / max(n_done, 1), mrays, renderer.device,
+            )
+            last_t, last_iter = now, it
+        # iterations advance in chunks: checkpoint whenever a boundary
+        # was crossed since the last checkpoint
+        if (
+            args.checkpoint
+            and args.checkpoint_every
+            and it // args.checkpoint_every > last_ckpt_iter // args.checkpoint_every
+        ):
+            renderer.save_checkpoint(args.checkpoint)
+            last_ckpt_iter = it
+
+    _sync(renderer.device)
+    total = time.perf_counter() - t0
+    log.info("rendered %d spp in %.2fs", renderer.iteration, total)
+
+    path = renderer.save(out_dir=args.out_dir)
+    log.info("saved %s", path)
+    if args.hdr:
+        log.info("saved %s", renderer.save(out_dir=args.out_dir, hdr=True))
+    if args.checkpoint:
+        renderer.save_checkpoint(args.checkpoint)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

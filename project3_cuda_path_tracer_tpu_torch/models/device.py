@@ -1,0 +1,185 @@
+"""Device-resident scene and camera tables (torch tensors).
+
+The analytic subset of the JAX package's `models/device.py`: instance
+matrices, material columns and the constant environment colour, plus
+the static metadata (geom types, material-class flags) that selects the
+shader's RNG draw layout. Mesh, texture and env-map tables arrive with
+their slices (ROADMAP); their flags are kept so that a scene that needs
+them is refused instead of rendered wrong.
+
+Every constructor here takes an explicit `device`; nothing picks one.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..ops.vec import Vec3
+from .scene import Camera, Scene
+
+# DeviceScene tensor fields, in the JAX package's names; Vec3 fields are
+# handed over as (N,3) arrays by device_scene_from_numpy.
+ARRAY_FIELDS = (
+    "transform",
+    "inverse_transform",
+    "inv_transpose",
+    "geom_material_id",
+    "mat_specular_exponent",
+    "mat_has_reflective",
+    "mat_has_refractive",
+    "mat_ior",
+    "mat_emittance",
+    "env_color",
+)
+VEC3_FIELDS = ("mat_color", "mat_specular_color")
+META_FIELDS = (
+    "gtypes",
+    "emissive_geoms",
+    "any_refractive",
+    "any_partial_reflective",
+    "any_glossy",
+    "any_sss",
+    "any_textured",
+    "any_bump",
+    "has_env_const",
+    "has_env_map",
+)
+
+
+@dataclass
+class DeviceScene:
+    # --- geometry ---
+    transform: torch.Tensor  # (G,4,4) f32
+    inverse_transform: torch.Tensor  # (G,4,4) f32
+    inv_transpose: torch.Tensor  # (G,4,4) f32
+    geom_material_id: torch.Tensor  # (G,) int32
+    # --- materials (M rows; colours as Vec3 of (M,) columns) ---
+    mat_color: Vec3
+    mat_specular_exponent: torch.Tensor  # (M,)
+    mat_specular_color: Vec3
+    mat_has_reflective: torch.Tensor  # (M,)
+    mat_has_refractive: torch.Tensor  # (M,)
+    mat_ior: torch.Tensor  # (M,)
+    mat_emittance: torch.Tensor  # (M,)
+    # constant environment radiance for escaped rays (ENVLIGHT)
+    env_color: torch.Tensor  # (3,)
+    # --- static metadata ---
+    gtypes: Tuple[int, ...]
+    emissive_geoms: Tuple[int, ...]  # geoms whose material emits
+    # material-class flags: the shader's RNG draw layout and the set of
+    # branches a scene can take follow from these
+    any_refractive: bool
+    any_partial_reflective: bool  # any 0 < REFL < 1 (probabilistic mix)
+    any_glossy: bool  # any SPECEX > 0 (Phong imperfect specular)
+    # features of later slices: a scene that sets one is refused
+    any_sss: bool
+    any_textured: bool
+    any_bump: bool
+    has_env_const: bool  # nonzero constant ENVLIGHT colour
+    has_env_map: bool  # lat-long ENVMAP present
+
+    @property
+    def device(self) -> torch.device:
+        return self.transform.device
+
+
+@dataclass
+class DeviceCamera:
+    """Camera parameters as small tensors; resolution is static."""
+
+    position: torch.Tensor  # (3,)
+    view: torch.Tensor  # (3,)
+    up: torch.Tensor  # (3,)
+    right: torch.Tensor  # (3,)
+    pixel_length: torch.Tensor  # (2,)
+    aperture: torch.Tensor  # () thin-lens radius, 0 = pinhole
+    focal_distance: torch.Tensor  # ()
+    resolution: Tuple[int, int]
+
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def camera_to_device(cam: Camera, device) -> DeviceCamera:
+    focal = cam.focal_distance
+    if focal <= 0.0:
+        focal = float(np.linalg.norm(cam.look_at - cam.position))
+    return DeviceCamera(
+        position=_f32(cam.position, device),
+        view=_f32(cam.view, device),
+        up=_f32(cam.up, device),
+        right=_f32(cam.right, device),
+        pixel_length=_f32(cam.pixel_length, device),
+        aperture=_f32(cam.aperture, device),
+        focal_distance=_f32(focal, device),
+        resolution=(int(cam.resolution[0]), int(cam.resolution[1])),
+    )
+
+
+def scene_to_device(scene: Scene, device) -> DeviceScene:
+    g = scene.geoms
+    m = scene.materials
+    fields = {
+        "transform": g.transform,
+        "inverse_transform": g.inverse_transform,
+        "inv_transpose": g.inv_transpose,
+        "geom_material_id": g.material_id,
+        "mat_color": m.color,
+        "mat_specular_exponent": m.specular_exponent,
+        "mat_specular_color": m.specular_color,
+        "mat_has_reflective": m.has_reflective,
+        "mat_has_refractive": m.has_refractive,
+        "mat_ior": m.index_of_refraction,
+        "mat_emittance": m.emittance,
+        "env_color": scene.env_color,
+    }
+    meta = dict(
+        gtypes=tuple(int(x) for x in g.gtype),
+        emissive_geoms=tuple(
+            int(i)
+            for i in range(g.count)
+            if m.emittance[g.material_id[i]] > 0
+        ),
+        any_refractive=bool((m.has_refractive > 0).any()),
+        any_partial_reflective=bool(
+            ((m.has_reflective > 0) & (m.has_reflective < 1)).any()
+        ),
+        any_glossy=bool((m.specular_exponent > 0).any()),
+        any_sss=bool((m.subsurface > 0).any()),
+        any_textured=bool((m.tex_kind > 0).any()),
+        any_bump=bool((m.bump_id >= 0).any()),
+        has_env_const=bool((scene.env_color != 0).any()),
+        has_env_map=bool(scene.env_map.size > 0),
+    )
+    return device_scene_from_numpy(fields, meta, device)
+
+
+def device_scene_from_numpy(fields: dict, meta: dict, device) -> DeviceScene:
+    """Build a DeviceScene from numpy tables and static metadata.
+
+    `fields` maps each name of ARRAY_FIELDS and VEC3_FIELDS to an array
+    (Vec3 fields as (N,3)); `meta` maps each name of META_FIELDS to its
+    value. Extra keys are ignored, so the JAX package's DeviceScene,
+    converted to numpy field by field, can be handed over whole: the
+    tests feed both packages identical tables this way."""
+    kw = {}
+    for name in ARRAY_FIELDS:
+        a = np.asarray(fields[name])
+        if name == "geom_material_id":
+            kw[name] = torch.tensor(a.astype(np.int32), device=device)
+        else:
+            kw[name] = _f32(a, device)
+    for name in VEC3_FIELDS:
+        a = np.asarray(fields[name], np.float32)
+        kw[name] = Vec3(*(_f32(a[:, c], device) for c in range(3)))
+    for name in META_FIELDS:
+        v = meta[name]
+        kw[name] = tuple(int(x) for x in v) if name in (
+            "gtypes", "emissive_geoms"
+        ) else bool(v)
+    return DeviceScene(**kw)

@@ -1,0 +1,228 @@
+"""The slice end to end: the whole-iteration kernel's wrapper and the
+progressive renderer of the port against the JAX package, the six
+analytic smoke configs against the XLA goldens, the CLI, and the device
+rules (no drift to the CPU, no JAX in the port)."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from project3_cuda_path_tracer_tpu import render as jrender
+from project3_cuda_path_tracer_tpu.models import device as jdevice
+from project3_cuda_path_tracer_tpu.models import scene as jscene
+from project3_cuda_path_tracer_tpu.ops import megakernel as jmk
+from project3_cuda_path_tracer_tpu_torch import render as trender
+from project3_cuda_path_tracer_tpu_torch.cli import main as tmain
+from project3_cuda_path_tracer_tpu_torch.models import device as tdevice
+from project3_cuda_path_tracer_tpu_torch.models import scene as tscene
+from project3_cuda_path_tracer_tpu_torch.ops import megakernel as tmk
+from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3 as TVec3
+from tests.conftest import REPO_ROOT, SCENES
+
+GOLDENS = os.path.join(REPO_ROOT, "tools", "goldens", "smoke_128.npz")
+# the analytic smoke configs of tools/smoke_pallas.py, with their settings
+ANALYTIC_SMOKE = [
+    ("cornell.txt", {}),
+    ("sphere.txt", {}),
+    ("cornell_glass.txt", {"russian_roulette": True}),
+    ("cornell_dof.txt", {"antialias": True, "depth_of_field": True}),
+    ("env.txt", {}),
+    ("many_materials.txt", {"russian_roulette": True}),
+]
+
+
+def small(mod, name, res):
+    s = mod.load_scene(os.path.join(SCENES, name))
+    c = s.state.camera
+    s.state.camera = mod.derive_camera(
+        res, c.position, c.look_at, np.array([0, 1, 0], np.float32),
+        float(c.fov[1]), c.aperture, c.focal_distance,
+    )
+    return s
+
+
+def assert_image_close(got, want):
+    """tests/test_megakernel.py's image rule: seam-tie outliers only."""
+    diff = np.abs(got - want)
+    assert (diff > 1e-3).mean() < 0.02, (diff > 1e-3).mean()
+    assert np.median(diff) < 1e-5
+
+
+def test_full_iteration_matches_pallas_kernel():
+    """The kernel wrapper (its plain version on CPU tensors) against the
+    JAX package's whole-iteration Pallas kernel in interpret mode:
+    Cornell 32x32, depth 4, AA."""
+    res = (32, 32)
+    js = small(jscene, "cornell.txt", res)
+    ts = small(tscene, "cornell.txt", res)
+    jset = jrender.RenderSettings(trace_depth=4, antialias=True, use_pallas=True)
+    tset = trender.RenderSettings(trace_depth=4, antialias=True)
+    jd = jdevice.scene_to_device(js, use_bvh=False)
+    jc = jdevice.camera_to_device(js.state.camera)
+    td = tdevice.scene_to_device(ts, "cpu")
+    tc = tdevice.camera_to_device(ts.state.camera, "cpu")
+    launches = tmk.full_iteration.launches
+    for it in (1, 2):
+        want = jmk.full_iteration_pallas(
+            jd, jmk.pack_camera(jc), jnp.int32(it), jset, res, 0,
+            interpret=True,
+        )
+        accum = TVec3.zeros(res[0] * res[1], "cpu")
+        tmk.full_iteration(td, tc, it, tset, accum)
+        for g, w in zip(accum, want):
+            assert_image_close(g.numpy(), np.asarray(w))
+    # CPU tensors run the plain version: no kernel launch is counted
+    assert tmk.full_iteration.launches == launches
+
+
+@pytest.mark.parametrize(
+    "name,settings_kw",
+    [("cornell.txt", {"antialias": True}),
+     ("cornell_glass.txt", {"russian_roulette": True})],
+)
+def test_renderer_matches_jax_xla_path(name, settings_kw):
+    """Port Renderer(device='cpu').step_batch(2) against the JAX
+    package's XLA path, Renderer(use_pallas=False).step_batch(2)."""
+    res = (32, 32)
+    jr = jrender.Renderer(
+        small(jscene, name, res),
+        jrender.RenderSettings(trace_depth=4, use_pallas=False, **settings_kw),
+    )
+    with jax.disable_jit():  # op by op: no whole-program compile
+        jr.step_batch(2)
+    tr = trender.Renderer(
+        small(tscene, name, res),
+        trender.RenderSettings(trace_depth=4, **settings_kw),
+        device="cpu",
+    )
+    assert tr.step_batch(2) == 2
+    assert_image_close(tr.image(), jr.image())
+    np.testing.assert_array_equal(
+        tr.frame_uint8(),
+        np.asarray(jrender.tonemap(tr_accum_as_jax(tr), jnp.int32(2), res)),
+    )
+
+
+def tr_accum_as_jax(tr):
+    from project3_cuda_path_tracer_tpu.ops.vec import Vec3 as JVec3
+
+    return JVec3(*(jnp.asarray(c.numpy()) for c in tr.accum))
+
+
+@pytest.mark.parametrize("name,overrides", ANALYTIC_SMOKE)
+def test_analytic_smoke_configs_match_goldens(name, overrides):
+    """tools/smoke_pallas.py's image rule against the XLA path's 128x128,
+    2-iteration goldens: at most 4% of clipped pixels off by > 0.05."""
+    goldens = np.load(GOLDENS)
+    scene = small(tscene, name, (128, 128))
+    settings = trender.RenderSettings(
+        trace_depth=min(scene.state.trace_depth or 8, 8), **overrides
+    )
+    r = trender.Renderer(scene, settings, device="cpu")
+    r.step_batch(2)
+    img = r.image()
+    assert np.isfinite(img).all() and img.max() > 0
+    got = np.clip(img / 2, 0.0, 1.0)
+    ref = goldens[name.replace(" ", "_")].astype(np.float32)
+    assert got.shape == ref.shape
+    assert (np.abs(got - ref) > 0.05).mean() <= 0.04
+
+
+def test_cli_cpu_render_imports_no_jax(tmp_path):
+    """A fresh process renders 2 iterations through the CLI on the CPU,
+    writes the PNG, and never imports JAX or the JAX package."""
+    text = open(os.path.join(SCENES, "cornell.txt")).read()
+    scene = tmp_path / "cornell32.txt"
+    scene.write_text(text.replace("RES         800 800", "RES         32 32"))
+    out = tmp_path / "out"
+    code = (
+        "import sys\n"
+        "from project3_cuda_path_tracer_tpu_torch.cli import main\n"
+        f"rc = main([{str(scene)!r}, '--device', 'cpu', '--iterations', '2',"
+        f" '--antialias', '--out-dir', {str(out)!r}])\n"
+        "assert rc == 0, rc\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('project3_cuda_path_tracer_tpu.')"
+        " or m == 'project3_cuda_path_tracer_tpu']\n"
+        "assert not bad, bad\n"
+        "print('NO_JAX_OK')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "NO_JAX_OK" in proc.stdout
+    pngs = list(out.glob("cornell.*.2samp.png"))
+    assert len(pngs) == 1
+
+
+def test_cuda_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = small(tscene, "cornell.txt", (8, 8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trender.Renderer(scene, device="cuda")
+    assert tmain([os.path.join(SCENES, "cornell.txt"), "--iterations", "1"]) == 1
+
+
+@pytest.mark.parametrize(
+    "name,settings_kw,what",
+    [("textured.txt", {}, "textures"),
+     ("cornell_sss.txt", {}, "subsurface"),
+     ("envmap.txt", {}, "environment maps"),
+     ("cornell.txt", {"nee_mis": True}, "NEE"),
+     ("cornell.txt", {"compact": True}, "compaction"),
+     ("cornell.txt", {"stratified": True}, "stratified")],
+)
+def test_unported_features_raise(name, settings_kw, what):
+    """A scene or setting of a later slice is refused with its ROADMAP
+    item, by the renderer and by the kernel wrapper itself."""
+    scene = small(tscene, name, (8, 8))
+    settings = trender.RenderSettings(**settings_kw)
+    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+        trender.Renderer(scene, settings, device="cpu")
+    ds = tdevice.scene_to_device(scene, "cpu")
+    cam = tdevice.camera_to_device(scene.state.camera, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmk.full_iteration(ds, cam, 1, settings, TVec3.zeros(64, "cpu"))
+
+
+@pytest.mark.parametrize("flag", ["--nee", "--sort-materials", "--shard",
+                                  "--preview", "--no-pallas"])
+def test_cli_unported_flags_fail(flag, caplog):
+    argv = [os.path.join(SCENES, "cornell.txt"), "--device", "cpu", flag]
+    if flag == "--shard":
+        argv.append("spp=2")
+    assert tmain(argv) == 1
+    assert "ROADMAP" in caplog.text
+
+
+def test_checkpoint_round_trip_and_camera_reset(tmp_path):
+    scene = small(tscene, "cornell.txt", (16, 16))
+    r = trender.Renderer(scene, trender.RenderSettings(trace_depth=2),
+                         device="cpu")
+    r.step()
+    r.step_batch(2)
+    assert r.iteration == 3
+    path = r.save_checkpoint(str(tmp_path / "ck.npz"))
+    r2 = trender.Renderer(scene, trender.RenderSettings(trace_depth=2),
+                          device="cpu")
+    r2.load_checkpoint(path)
+    assert r2.iteration == 3
+    np.testing.assert_array_equal(r2.image(), r.image())
+    r2.step()
+    r.step()
+    np.testing.assert_array_equal(r2.image(), r.image())
+    png = r.save(out_dir=str(tmp_path))
+    assert png.endswith(".4samp.png") and os.path.exists(png)
+    r.orbit_camera(dphi=0.1)
+    assert r.iteration == 0 and float(r.accum.x.abs().sum()) == 0.0
+    r.pan_camera(dx=0.5)
+    r.step()
+    assert np.isfinite(r.image()).all()
