@@ -2,17 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds
-it against its plain PyTorch version on the card, renders the analytic
-smoke configs against the XLA goldens (tools/goldens/smoke_128.npz),
-drives the main path (Cornell 800x800, depth 8, AA, progressive) through
-`Renderer.step_batch` and times it, and renders through the CLI. Every
-phase prints one line; any failure raises and exits non-zero before the
-result lines are printed. Imports nothing of JAX or of the JAX package.
+Builds the port's CUDA kernels from the sources in this checkout (one
+nvcc per source, in parallel), holds each against its plain PyTorch
+version on the card (at 64x64 and at the main path's 800x800), renders
+the nine analytic smoke configs against the XLA goldens
+(tools/goldens/smoke_128.npz) through `Renderer.step_batch` and through
+`Renderer.step()`, drives the main path (Cornell 800x800, depth 8, AA,
+progressive) through `Renderer.step_batch` and times it, drives and
+times the four per-bounce paths at 800x800 depth 8 (Cornell AA through
+`Renderer.step()`, --compact, --cache-first-bounce, --motion-blur),
+reads each kernel's device time from torch.profiler beside its plain
+version's time and its bound, and renders through the CLI. Every path is driven with the launch
+counts set to 0 just before it and read just after. Every phase prints
+one line; any failure raises and exits non-zero before the result lines
+are printed. Imports nothing of JAX or of the JAX package.
 
 The last three lines are the card's name and power limit (nvidia-smi),
-one JSON object describing each kernel of the path, and
-{"ok": true, "device": {...}}.
+one JSON object describing each kernel, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -28,8 +34,16 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "project3_cuda_path_tracer_tpu_torch/csrc/full_iteration.cu"
-REPLACES = "project3_cuda_path_tracer_tpu/ops/megakernel.py:2848"
+PKG = "project3_cuda_path_tracer_tpu_torch"
+JAX_MK = "project3_cuda_path_tracer_tpu/ops/megakernel.py"
+KERNEL_SYMBOLS = {k: f"{k}_kernel" for k in (
+    "full_iteration", "first_bounce", "bounce_step", "shade_step")}
+KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
+    "full_iteration": (f"{PKG}/csrc/full_iteration.cu", f"{JAX_MK}:2848"),
+    "first_bounce": (f"{PKG}/csrc/bounce.cu", f"{JAX_MK}:2728"),
+    "bounce_step": (f"{PKG}/csrc/bounce.cu", f"{JAX_MK}:2125"),
+    "shade_step": (f"{PKG}/csrc/bounce.cu", f"{JAX_MK}:2285"),
+}
 # image rule of tests/test_megakernel.py:143-145 (seam-tie outliers only)
 PARITY_BAD = 1e-3
 PARITY_FRAC = 0.02
@@ -37,20 +51,49 @@ PARITY_MEDIAN = 1e-5
 # tools/smoke_pallas.py's golden rule
 GOLDEN_BAD = 0.05
 GOLDEN_FRAC = 0.04
-ANALYTIC_SMOKE = [
-    ("cornell.txt", {}),
-    ("sphere.txt", {}),
-    ("cornell_glass.txt", {"russian_roulette": True}),
-    ("cornell_dof.txt", {"antialias": True, "depth_of_field": True}),
-    ("env.txt", {}),
-    ("many_materials.txt", {"russian_roulette": True}),
+SMOKE = [  # (scene, settings, golden key)
+    ("cornell.txt", {}, "cornell.txt"),
+    ("sphere.txt", {}, "sphere.txt"),
+    ("cornell_glass.txt", {"russian_roulette": True}, "cornell_glass.txt"),
+    ("cornell_dof.txt", {"antialias": True, "depth_of_field": True},
+     "cornell_dof.txt"),
+    ("env.txt", {}, "env.txt"),
+    ("many_materials.txt", {"russian_roulette": True}, "many_materials.txt"),
+    ("checker.txt", {}, "checker.txt"),
+    ("cornell.txt", {"stratified": True}, "cornell.txt_--stratified"),
+    ("cornell.txt", {"sobol": True}, "cornell.txt_--sobol"),
 ]
-PARITY_CONFIGS = [
+FULL_PARITY = [
     ("cornell.txt", {"antialias": True}),
     ("cornell_glass.txt", {"russian_roulette": True}),
     ("cornell_dof.txt", {"antialias": True, "depth_of_field": True}),
     ("many_materials.txt", {"russian_roulette": True}),
+    ("checker.txt", {}),
+    ("cornell.txt", {"stratified": True}),
+    ("cornell.txt", {"sobol": True}),
 ]
+BOUNCE_PARITY = [
+    ("cornell.txt", {"antialias": True}),
+    ("cornell_glass.txt", {"russian_roulette": True, "rr_start_depth": 1}),
+    ("checker.txt", {"sobol": True}),
+    ("cornell.txt", {"stratified": True, "compact": True}),
+]
+
+# ---- the bound: the least time the card could take for a call ----
+# H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): HBM 3.35 TB/s,
+# 67 TFLOP/s float32 outside the tensor cores. Every ALU operation
+# (float or the RNG's integer ones) is counted against the float32 peak,
+# which only lowers the bound.
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+# operations per lane, counted from csrc/path_common.cuh (a division,
+# sqrt or rsqrt as 1; sinf, cosf, powf as 20 each)
+OPS_BOX_TEST = 107  # box_test without the normal
+OPS_SPHERE_TEST = 99  # sphere_test without the normal
+OPS_NORMAL = 130  # the winner's test again, with its normal
+OPS_SHADE = 220  # seed + 2 minstd draws, cosine hemisphere, reflect, tint
+OPS_RAYGEN = 35  # pinhole direction and normalize
+OPS_RAYGEN_AA = 135  # + seed, 4 draws and the jitter
 
 
 def say(phase: str, **kv) -> None:
@@ -65,13 +108,13 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
-def small_scene(name: str, res):
+def small_scene(name: str, res, path=None):
     from project3_cuda_path_tracer_tpu_torch.models.scene import (
         derive_camera,
         load_scene,
     )
 
-    s = load_scene(os.path.join(HERE, "scenes", name))
+    s = load_scene(path or os.path.join(HERE, "scenes", name))
     c = s.state.camera
     s.state.camera = derive_camera(
         res, c.position, c.look_at, np.array([0, 1, 0], np.float32),
@@ -80,33 +123,185 @@ def small_scene(name: str, res):
     return s
 
 
-def parity(dev, name, settings_kw, res, iteration=3):
-    """One iteration through the kernel and through its plain version on
-    the same device tables. Returns (badfrac, median, max_abs_err)."""
-    import torch
-
+def on_card(dev, name, settings_kw, res, depth=8, path=None):
     from project3_cuda_path_tracer_tpu_torch.models.device import (
         camera_to_device,
         scene_to_device,
     )
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel
-    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
     from project3_cuda_path_tracer_tpu_torch.render import RenderSettings
 
-    scene = small_scene(name, res)
-    settings = RenderSettings(trace_depth=8, **settings_kw)
-    ds = scene_to_device(scene, dev)
-    cam = camera_to_device(scene.state.camera, dev)
-    accum = Vec3.zeros(res[0] * res[1], dev)
-    megakernel.full_iteration(ds, cam, iteration, settings, accum)
-    plain = megakernel.full_iteration_reference(ds, cam, iteration, settings)
-    torch.cuda.synchronize()
-    got = torch.stack(list(accum), -1).cpu().numpy()
-    want = torch.stack(list(plain), -1).cpu().numpy()
-    if not (np.isfinite(got).all() and np.isfinite(want).all()):
-        raise RuntimeError(f"{name}: non-finite radiance")
-    diff = np.abs(got - want)
+    scene = small_scene(name, res, path)
+    return (scene_to_device(scene, dev),
+            camera_to_device(scene.state.camera, dev),
+            RenderSettings(trace_depth=depth, **settings_kw))
+
+
+def compare(got, want):
+    """(badfrac, median, max_abs_err) of two lists of tensors, over all
+    their values; non-finite values fail."""
+    g = np.concatenate([a.detach().float().cpu().numpy().ravel() for a in got])
+    w = np.concatenate([a.detach().float().cpu().numpy().ravel() for a in want])
+    if not (np.isfinite(g).all() and np.isfinite(w).all()):
+        raise RuntimeError("non-finite values")
+    diff = np.abs(g.astype(np.float64) - w.astype(np.float64))
     return float((diff > PARITY_BAD).mean()), float(np.median(diff)), float(diff.max())
+
+
+def check_parity(kernel, what, frac, med, err):
+    say("parity", kernel=kernel, **what, badfrac=frac, median=med,
+        max_abs_err=err,
+        rule=f"frac(|d|>{PARITY_BAD})<{PARITY_FRAC}, median<{PARITY_MEDIAN}")
+    if not (frac < PARITY_FRAC and med < PARITY_MEDIAN):
+        raise RuntimeError(f"{kernel} disagrees with its plain version: {what}")
+
+
+def full_parity(dev, name, kw, res, iteration=3):
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+
+    ds, cam, settings = on_card(dev, name, kw, res)
+    accum = Vec3.zeros(res[0] * res[1], dev)
+    mk.full_iteration(ds, cam, iteration, settings, accum)
+    plain = mk.full_iteration_reference(ds, cam, iteration, settings)
+    torch.cuda.synchronize()
+    return compare(list(accum), list(plain))
+
+
+def bounce_parity(dev, name, kw, res, iteration=2):
+    """#2, then #3 at every depth from the plain version's own pool, and
+    #4 over the depth-0 intersections: each against its plain version.
+    Returns {kernel: (badfrac, median, max_abs_err)} (worst over depths)."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops.camera import generate_rays
+    from project3_cuda_path_tracer_tpu_torch.ops.sweep import intersect_scene
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+    from project3_cuda_path_tracer_tpu_torch.render import (
+        _count_alive,
+        _maybe_compact,
+    )
+
+    ds, cam, settings = on_card(dev, name, kw, res)
+    out = {}
+    want = mk.first_bounce_reference(ds, cam, iteration, settings)
+    got = mk.first_bounce(ds, cam, iteration, settings)
+    torch.cuda.synchronize()
+    out["first_bounce"] = compare(mk.pool_lanes(got), mk.pool_lanes(want))
+    pool = want
+    worst = (0.0, 0.0, 0.0)
+    for depth in range(1, settings.trace_depth):
+        pool = _maybe_compact(pool, settings)
+        n_alive = _count_alive(pool) if settings.compact else None
+        want = mk.bounce_step_reference(pool, ds, iteration, depth, settings,
+                                        num_alive=n_alive)
+        got = mk.bounce_step(pool, ds, iteration, depth, settings,
+                             num_alive=n_alive)
+        torch.cuda.synchronize()
+        r = compare(mk.pool_lanes(got), mk.pool_lanes(want))
+        worst = tuple(max(a, b) for a, b in zip(worst, r))
+        pool = want
+    out["bounce_step"] = worst
+    # #4 on the first-bounce cache's path: pinhole rays, depth 0
+    origins, dirs, pix = generate_rays(cam, iteration, False, False)
+    P = pix.shape[0]
+    pool0 = (Vec3(*(c.contiguous() for c in origins)), dirs, Vec3.ones(P, dev),
+             Vec3.zeros(P, dev), torch.ones(P, dtype=torch.int32, device=dev), pix)
+    isect = intersect_scene(origins, dirs, ds)
+    got = mk.shade_step(pool0, isect, ds, iteration, 0, settings)
+    want = mk.shade_step_reference(pool0, isect, ds, iteration, 0, settings)
+    torch.cuda.synchronize()
+    out["shade_step"] = compare(mk.pool_lanes(got), mk.pool_lanes(want))
+    return out
+
+
+def reset_launches():
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+
+    for name in KERNELS:
+        getattr(mk, name).launches = 0
+
+
+def read_launches():
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+
+    return {name: getattr(mk, name).launches for name in KERNELS}
+
+
+def event_ms(fn, reps):
+    """Mean ms of fn() over `reps` runs, CUDA events around each, with a
+    synchronize between runs (for the plain versions: their host time
+    between launches is part of what they cost)."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def profile_device(fn, n_iters):
+    """Run fn() (n_iters iterations of a path) under torch.profiler.
+    Returns (device busy ms per iteration, {kernel: mean device ms per
+    launch}, {kernel: launches seen}): the kernels' own device time, free
+    of the host gaps between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = []
+    per = {k: [] for k in KERNEL_SYMBOLS}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        for k, sym in KERNEL_SYMBOLS.items():
+            if sym in e.name:
+                per[k].append(e.time_range.elapsed_us())
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):  # the union of the device spans
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans:
+        raise RuntimeError("the profiler saw no device activity")
+    return (busy / 1e3 / n_iters,
+            {k: sum(v) / len(v) / 1e3 for k, v in per.items() if v},
+            {k: len(v) for k, v in per.items()})
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = ops / PEAK_OPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sweep_ops(ds) -> int:
+    return sum(OPS_SPHERE_TEST if g == 0 else OPS_BOX_TEST for g in ds.gtypes)
+
+
+def moving_cornell(tmpdir) -> str:
+    """scenes/cornell.txt with its sphere moving (VELOCITY 2 0 0)."""
+    text = open(os.path.join(HERE, "scenes", "cornell.txt")).read()
+    head, sep, tail = text.rpartition("sphere\n")
+    lines = tail.split("\n")
+    # after the sphere's material/TRANS/ROTAT/SCALE lines
+    lines.insert(4, "VELOCITY    2 0 0")
+    path = os.path.join(tmpdir, "cornell_moving.txt")
+    with open(path, "w") as f:
+        f.write(head + sep + "\n".join(lines))
+    return path
 
 
 def main() -> int:
@@ -117,14 +312,27 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from project3_cuda_path_tracer_tpu_torch.ops import _native, megakernel
-    from project3_cuda_path_tracer_tpu_torch.render import Renderer, RenderSettings
+    from project3_cuda_path_tracer_tpu_torch.models.device import (
+        camera_to_device,
+        scene_to_device,
+    )
     from project3_cuda_path_tracer_tpu_torch.models.scene import load_scene
+    from project3_cuda_path_tracer_tpu_torch.ops import _native
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops.camera import generate_rays
+    from project3_cuda_path_tracer_tpu_torch.ops.sweep import intersect_scene
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+    from project3_cuda_path_tracer_tpu_torch.render import (
+        Renderer,
+        RenderSettings,
+        trace_paths,
+    )
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_")
 
     # ---- 1. environment ----
     try:
@@ -142,60 +350,75 @@ def main() -> int:
         device=kind, device_count=torch.cuda.device_count(), nvidia_smi=smi,
         triton=triton_version, nvcc=nvcc_version, python=sys.version.split()[0])
 
-    # ---- 2. build the kernel from this checkout's sources ----
-    lib_path, build_s = _native.build(force=True)
+    # ---- 2. build every kernel from this checkout's sources ----
+    lib_paths, build_s = _native.build(force=True)
     _native.load()
     usage = "not measured"
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if os.path.exists(cuobjdump):
-        res = subprocess.run([cuobjdump, "--dump-resource-usage", str(lib_path)],
-                             capture_output=True, text=True, timeout=60)
-        usage = " | ".join(
-            ln.strip() for ln in res.stdout.splitlines() if "REG" in ln
-        ) or f"cuobjdump rc {res.returncode}"
-    say("build", nvcc_seconds=build_s, library=os.path.relpath(lib_path, HERE),
+        lines = []
+        for p in lib_paths:
+            res = subprocess.run([cuobjdump, "--dump-resource-usage", str(p)],
+                                 capture_output=True, text=True, timeout=60)
+            lines += [ln.strip() for ln in res.stdout.splitlines()
+                      if "REG" in ln or "Function" in ln]
+        usage = " | ".join(lines) or "cuobjdump printed no resource usage"
+    say("build", nvcc_wall_seconds=build_s,
+        libraries=[os.path.relpath(p, HERE) for p in lib_paths],
         resource_usage=usage)
 
-    # ---- 3. kernel vs plain version on the card ----
-    for name, kw in PARITY_CONFIGS:
-        frac, med, mx = parity(dev, name, kw, (64, 64))
-        say("parity", config=name, settings=kw, res="64x64", badfrac=frac,
-            median=med, max_abs_err=mx,
-            rule=f"frac(|d|>{PARITY_BAD})<{PARITY_FRAC}, median<{PARITY_MEDIAN}")
-        if not (frac < PARITY_FRAC and med < PARITY_MEDIAN):
-            raise RuntimeError(f"kernel disagrees with its plain version on {name}")
-    # at the main path's shapes: Cornell 800x800, depth 8, AA
-    main_frac, main_med, main_err = parity(
-        dev, "cornell.txt", {"antialias": True}, (800, 800), iteration=1
-    )
-    say("parity", config="cornell.txt", settings={"antialias": True},
-        res="800x800", badfrac=main_frac, median=main_med, max_abs_err=main_err)
-    if not (main_frac < PARITY_FRAC and main_med < PARITY_MEDIAN):
-        raise RuntimeError("kernel disagrees with its plain version at 800x800")
+    # ---- 3. every kernel against its plain version on the card ----
+    err800 = {}
+    for name, kw in FULL_PARITY:
+        check_parity("full_iteration", {"config": name, "settings": kw,
+                                        "res": "64x64"},
+                     *full_parity(dev, name, kw, (64, 64)))
+    r = full_parity(dev, "cornell.txt", {"antialias": True}, (800, 800), 1)
+    check_parity("full_iteration", {"config": "cornell.txt",
+                                    "settings": {"antialias": True},
+                                    "res": "800x800"}, *r)
+    err800["full_iteration"] = r[2]
+    for name, kw in BOUNCE_PARITY:
+        for kernel, r in bounce_parity(dev, name, kw, (64, 64)).items():
+            check_parity(kernel, {"config": name, "settings": kw,
+                                  "res": "64x64"}, *r)
+    for kernel, r in bounce_parity(dev, "cornell.txt", {"antialias": True},
+                                   (800, 800), 1).items():
+        check_parity(kernel, {"config": "cornell.txt",
+                              "settings": {"antialias": True},
+                              "res": "800x800"}, *r)
+        err800[kernel] = r[2]
 
-    # ---- 4. analytic smoke configs against the XLA goldens ----
+    # ---- 4. the smoke configs against the XLA goldens, both paths ----
     goldens = np.load(os.path.join(HERE, "tools", "goldens", "smoke_128.npz"))
-    for name, kw in ANALYTIC_SMOKE:
-        scene = small_scene(name, (128, 128))
-        settings = RenderSettings(
-            trace_depth=min(scene.state.trace_depth or 8, 8), **kw
-        )
-        r = Renderer(scene, settings, device=dev)
-        r.step_batch(2)
-        img = r.image()
-        if not (np.isfinite(img).all() and img.max() > 0):
-            raise RuntimeError(f"{name}: non-finite or black render")
-        diff = np.abs(np.clip(img / 2, 0.0, 1.0) - goldens[name].astype(np.float32))
-        badfrac = float((diff > GOLDEN_BAD).mean())
-        say("golden", config=name, settings=kw, badfrac=badfrac,
-            mad=float(diff.mean()), rule=f"badfrac<={GOLDEN_FRAC}")
-        if badfrac > GOLDEN_FRAC:
-            raise RuntimeError(f"{name}: badfrac {badfrac} > {GOLDEN_FRAC}")
+    for name, kw, key in SMOKE:
+        for route in ("step_batch", "step"):
+            scene = small_scene(name, (128, 128))
+            settings = RenderSettings(
+                trace_depth=min(scene.state.trace_depth or 8, 8), **kw
+            )
+            r = Renderer(scene, settings, device=dev)
+            if route == "step":
+                r.step()
+                r.step()
+            else:
+                r.step_batch(2)
+            img = r.image()
+            if not (np.isfinite(img).all() and img.max() > 0):
+                raise RuntimeError(f"{name}: non-finite or black render")
+            diff = np.abs(np.clip(img / 2, 0.0, 1.0) - goldens[key].astype(np.float32))
+            badfrac = float((diff > GOLDEN_BAD).mean())
+            say("golden", config=key, settings=kw, route=route,
+                badfrac=badfrac, mad=float(diff.mean()),
+                rule=f"badfrac<={GOLDEN_FRAC}")
+            if badfrac > GOLDEN_FRAC:
+                raise RuntimeError(f"{key} via {route}: badfrac {badfrac} > {GOLDEN_FRAC}")
 
-    # ---- 5. the main path at full size ----
+    # ---- 5. the main path at full size: Cornell 800x800 d8 AA, step_batch ----
     scene = load_scene(os.path.join(HERE, "scenes", "cornell.txt"))
+    pixels = scene.state.camera.pixel_count
     settings = RenderSettings(trace_depth=8, antialias=True)
-    megakernel.full_iteration.launches = 0
+    reset_launches()
     r = Renderer(scene, settings, device=dev)
     batch = 25
     r.step_batch(batch)  # warm-up
@@ -205,11 +428,11 @@ def main() -> int:
         r.step_batch(batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = megakernel.full_iteration.launches
-    if launches != r.iteration or launches != 9 * batch:
-        raise RuntimeError(
-            f"kernel launches {launches} != iterations rendered {r.iteration}"
-        )
+    main_launches = read_launches()
+    if main_launches != {"full_iteration": 9 * batch, "first_bounce": 0,
+                         "bounce_step": 0, "shade_step": 0} or r.iteration != 9 * batch:
+        raise RuntimeError(f"main path launches {main_launches} for "
+                           f"{r.iteration} iterations")
     img = r.image()
     if img.shape != (800, 800, 3) or not np.isfinite(img).all():
         raise RuntimeError(f"main path image bad: shape {img.shape}")
@@ -217,72 +440,187 @@ def main() -> int:
     if not 0.05 < mean < 2.0:
         raise RuntimeError(f"main path mean radiance {mean} out of range")
     n_timed = 8 * batch
-    pixels = scene.state.camera.pixel_count
     ms_per_frame = 1e3 * dt / n_timed
     mrays = pixels * settings.trace_depth * n_timed / dt / 1e6
-
-    # the plain version at the same shape, on the same card
-    from project3_cuda_path_tracer_tpu_torch.models.device import (
-        camera_to_device,
-        scene_to_device,
-    )
+    main_busy, main_kernel_ms, _ = profile_device(lambda: r.step_batch(10), 10)
+    say("profile", path="main", busy_ms_per_iteration=main_busy,
+        device_idle_share=max(0.0, 1.0 - main_busy / ms_per_frame),
+        kernel_ms=main_kernel_ms)
 
     ds = scene_to_device(scene, dev)
     cam = camera_to_device(scene.state.camera, dev)
-    megakernel.full_iteration_reference(ds, cam, 1, settings)  # warm-up
+    mk.full_iteration_reference(ds, cam, 1, settings)  # warm-up
     torch.cuda.synchronize()
     n_plain = 5
     t0 = time.perf_counter()
     for k in range(n_plain):
-        megakernel.full_iteration_reference(ds, cam, 2 + k, settings)
+        mk.full_iteration_reference(ds, cam, 2 + k, settings)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0) / n_plain
-    device_str = f"{smi}"
     print(json.dumps({
         "metric": "Mrays/sec (Cornell 800x800 depth-8 AA, one GPU)",
         "value": mrays,
         "unit": "Mrays/s",
         "ms_per_frame": ms_per_frame,
         "time_to_5000spp_s": ms_per_frame * 5000 / 1e3,
-        "device": device_str,
+        "device": smi,
         "plain_ms_per_frame": plain_ms,
-        "kernel_launches": launches,
+        "kernel_launches": main_launches["full_iteration"],
         "iterations": r.iteration,
         "mean_radiance": mean,
     }), flush=True)
 
-    # ---- 6. the CLI ----
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    try:
+    # ---- 6. the per-bounce paths at 800x800, depth 8 ----
+    D = 8
+    per_bounce = [
+        ("step", "cornell.txt", None, {"antialias": True}),
+        ("compact", "cornell.txt", None, {"antialias": True, "compact": True}),
+        ("cache", "cornell.txt", None, {"cache_first_bounce": True}),
+        ("motion_blur", "cornell_moving.txt", moving_cornell(tmpdir),
+         {"antialias": True, "motion_blur": True}),
+    ]
+    launches_of = {}
+    kernel_ms_of = {}
+    for label, name, path, kw in per_bounce:
+        scene = load_scene(path or os.path.join(HERE, "scenes", name))
+        settings = RenderSettings(trace_depth=D, **kw)
+        cached = settings.effective_cache()
+        reset_launches()
+        r = Renderer(scene, settings, device=dev)
+        n_warm, n_timed = 5, 40
+        if label == "step":
+            for _ in range(n_warm):
+                r.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_timed):
+                r.step()
+        else:
+            r.step_batch(n_warm)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.step_batch(n_timed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = read_launches()
+        n_it = n_warm + n_timed
+        want = {"full_iteration": 0,
+                "first_bounce": 0 if cached else n_it,
+                "bounce_step": n_it * (D - 1),
+                "shade_step": n_it if cached else 0}
+        if got != want or r.iteration != n_it:
+            raise RuntimeError(f"{label}: launches {got}, expected {want}")
+        img = r.image()
+        mean = float(img.mean() / r.iteration)
+        if not (np.isfinite(img).all() and 0.05 < mean < 2.0):
+            raise RuntimeError(f"{label}: bad image (mean {mean})")
+        launches_of[label] = got
+        r.step()  # one more iteration, for its alive counts
+        counts = r.last_alive_counts.cpu().tolist()
+        ms = 1e3 * dt / n_timed
+
+        def ten():
+            if label == "step":
+                for _ in range(10):
+                    r.step()
+            else:
+                r.step_batch(10)
+
+        busy, kernel_ms_of[label], _ = profile_device(ten, 10)
+        say("per_bounce", path=label, scene=name, settings=kw,
+            route="Renderer.step" if label == "step" else "Renderer.step_batch",
+            res="800x800", depth=D, ms_per_frame=ms,
+            mrays_per_s=pixels * D * n_timed / dt / 1e6, launches=got,
+            iterations=n_it, alive_counts=counts, mean_radiance=mean,
+            device_busy_ms_per_iteration=busy,
+            device_idle_share=max(0.0, 1.0 - busy / ms),
+            kernel_device_ms=kernel_ms_of[label])
+
+    # ---- 7. the plain versions and the bounds at the main path's shapes ----
+    settings = RenderSettings(trace_depth=D, antialias=True)
+    it = 7
+    P = pixels
+    _, _, _, counts = trace_paths(ds, cam, it, None, settings, False)
+    counts = counts.cpu().tolist()
+    lanes_in = [P] + counts[:-1]  # live lanes entering each depth
+    per_lane = sweep_ops(ds) + OPS_NORMAL + OPS_SHADE
+
+    fb_plain = event_ms(lambda: mk.first_bounce_reference(ds, cam, it, settings), 3)
+    pool = mk.first_bounce_reference(ds, cam, it, settings)
+    bs_plain = 0.0
+    for depth in range(1, D):
+        t0 = time.perf_counter()
+        pool = mk.bounce_step_reference(pool, ds, it, depth, settings)
+        torch.cuda.synchronize()
+        bs_plain += 1e3 * (time.perf_counter() - t0) / (D - 1)
+    cache_settings = RenderSettings(trace_depth=D, cache_first_bounce=True)
+    origins, dirs, pix = generate_rays(cam, it, False, False)
+    pool0 = (Vec3(*(c.contiguous() for c in origins)), dirs, Vec3.ones(P, dev),
+             Vec3.zeros(P, dev), torch.ones(P, dtype=torch.int32, device=dev), pix)
+    isect_ms = event_ms(lambda: intersect_scene(origins, dirs, ds), 5)
+    isect = intersect_scene(origins, dirs, ds)
+    ss_plain = event_ms(lambda: mk.shade_step_reference(pool0, isect, ds, it, 0,
+                                                        cache_settings), 3)
+    say("plain_times", device=smi, res="800x800", depth=D,
+        first_bounce_plain_ms=fb_plain, bounce_step_plain_ms=bs_plain,
+        shade_step_plain_ms=ss_plain, cache_fill_intersect_scene_ms=isect_ms,
+        alive_counts=counts)
+
+    bounds = {
+        "full_iteration": bound(24 * P, P * OPS_RAYGEN_AA + sum(lanes_in) * per_lane),
+        "first_bounce": bound(56 * P, P * (OPS_RAYGEN_AA + per_lane)),
+        "bounce_step": bound(
+            sum(4 * P + 104 * n for n in lanes_in[1:]) / (D - 1),
+            sum(n * per_lane for n in lanes_in[1:]) / (D - 1),
+        ),
+        "shade_step": bound(132 * P, P * OPS_SHADE),
+    }
+    # device ms per launch from the profiles, beside the plain versions
+    timing = {
+        "full_iteration": (main_kernel_ms["full_iteration"], plain_ms,
+                           main_launches["full_iteration"]),
+        "first_bounce": (kernel_ms_of["step"]["first_bounce"], fb_plain,
+                         launches_of["step"]["first_bounce"]),
+        "bounce_step": (kernel_ms_of["step"]["bounce_step"], bs_plain,
+                        launches_of["step"]["bounce_step"]),
+        "shade_step": (kernel_ms_of["cache"]["shade_step"], ss_plain,
+                       launches_of["cache"]["shade_step"]),
+    }
+
+    # ---- 8. the CLI, plain and with --compact ----
+    for extra in ([], ["--compact"]):
+        out_dir = tempfile.mkdtemp(prefix="cli_", dir=tmpdir)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "project3_cuda_path_tracer_tpu_torch",
-             os.path.join(HERE, "scenes", "cornell.txt"), "--iterations", "50",
-             "--out-dir", out_dir],
+            [sys.executable, "-m", PKG, os.path.join(HERE, "scenes", "cornell.txt"),
+             "--iterations", "50", "--out-dir", out_dir, *extra],
             cwd=HERE, capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
-            raise RuntimeError(f"CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+            raise RuntimeError(f"CLI {extra} exited {proc.returncode}: "
+                               f"{proc.stderr[-3000:]}")
         pngs = [f for f in os.listdir(out_dir) if f.endswith(".50samp.png")]
         if len(pngs) != 1:
-            raise RuntimeError(f"CLI wrote {os.listdir(out_dir)}")
-        say("cli", rc=proc.returncode, png=pngs[0],
+            raise RuntimeError(f"CLI {extra} wrote {os.listdir(out_dir)}")
+        say("cli", flags=extra, rc=proc.returncode, png=pngs[0],
             seconds=time.perf_counter() - t0)
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.rmtree(tmpdir, ignore_errors=True)
 
     say("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "full_iteration",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": ms_per_frame,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        ms, p_ms, launches = timing[name]
+        b_ms, b_by = bounds[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err800[name], "ms": ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            # no single PyTorch call computes any of these functions
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

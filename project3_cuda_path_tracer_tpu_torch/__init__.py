@@ -3,9 +3,10 @@ PyTorch and CUDA (NVIDIA Hopper).
 
 It mirrors the layout of the JAX package `project3_cuda_path_tracer_tpu`,
 which stays the reference; this package imports neither that package
-nor JAX. On CUDA each iteration runs the hand-written whole-iteration
-kernel (ops/megakernel.py, csrc/full_iteration.cu); on the CPU, and only
-when asked for, its plain PyTorch version.
+nor JAX. On CUDA an iteration runs hand-written kernels: the
+whole-iteration kernel, or the per-bounce first-bounce / bounce / shade
+kernels (ops/megakernel.py, csrc/); on the CPU, and only when asked for,
+their plain PyTorch versions.
 """
 
 __version__ = "0.1.0"

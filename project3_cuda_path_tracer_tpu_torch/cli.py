@@ -22,14 +22,7 @@ log = logging.getLogger("pathtracer")
 UNPORTED_FLAGS = {
     "nee": ("--nee", "port slice 3 (NEE)"),
     "direct_lighting": ("--direct-lighting", "port slice 3 (NEE)"),
-    "sort_materials": ("--sort-materials", "port slice 2 (per-bounce kernels)"),
-    "compact": ("--compact", "port slice 2 (per-bounce kernels)"),
-    "cache_first_bounce": (
-        "--cache-first-bounce", "port slice 2 (per-bounce kernels)"
-    ),
-    "motion_blur": ("--motion-blur", "port slice 2 (per-bounce kernels)"),
-    "stratified": ("--stratified", "port slice 2 (per-bounce kernels)"),
-    "sobol": ("--sobol", "port slice 2 (per-bounce kernels)"),
+    "sort_materials": ("--sort-materials", "port slice 5 (material sort)"),
     "shard": ("--shard", "port slice 5 (sharding)"),
     "preview": ("--preview", "port slice 5 (viewer)"),
     "stats": ("--stats", "port slice 5 (profiling)"),
@@ -54,7 +47,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--device",
         choices=("cuda", "cpu"),
         default="cuda",
-        help="cuda: the hand-written kernel; cpu: its plain PyTorch version",
+        help="cuda: the hand-written kernels; cpu: their plain PyTorch versions",
     )
     p.add_argument("--iterations", type=int, default=None, help="override spp")
     p.add_argument("--depth", type=int, default=None, help="override trace depth")
@@ -79,7 +72,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-bvh", action="store_true",
                    help="accepted; analytic scenes have no BVH")
     p.add_argument("--pallas", action="store_true",
-                   help="accepted; CUDA always runs the hand-written kernel")
+                   help="accepted; CUDA always runs the hand-written kernels")
     p.add_argument("--no-pallas", action="store_true")
     p.add_argument("--hdr", action="store_true", help="also save Radiance HDR")
     p.add_argument("--out-dir", default=".")
@@ -110,6 +103,11 @@ def settings_from_args(args, scene) -> RenderSettings:
         depth_of_field=args.dof,
         russian_roulette=args.russian_roulette,
         rr_start_depth=args.rr_start_depth,
+        compact=args.compact,
+        cache_first_bounce=args.cache_first_bounce,
+        motion_blur=args.motion_blur,
+        stratified=args.stratified,
+        sobol=args.sobol,
     )
 
 

@@ -1,0 +1,193 @@
+// Per-bounce (wavefront) path-tracing kernels for Hopper (sm_90a):
+//
+//   #2 first_bounce_kernel replaces ops/megakernel.py::first_bounce_pallas:
+//      raygen + the depth-0 bounce, written to a fresh pool; reads no pool.
+//   #3 bounce_step_kernel  replaces ops/megakernel.py::bounce_step_pallas:
+//      one fused intersect + shade bounce over the pool, in place.
+//   #4 shade_step_kernel   replaces ops/megakernel.py::shade_step_pallas:
+//      the shading half of a bounce over given Intersections (the cached
+//      depth 0 of --cache-first-bounce), written to a fresh pool.
+//
+// The pool is structure-of-arrays, one lane per path: origin, direction,
+// throughput and radiance as 12 float32 lanes, then alive and pix as
+// int32. One thread per lane, 128 to a block, no shared memory; the bounce
+// arithmetic is csrc/path_common.cuh's (`raygen`, `intersect`, `shade`),
+// the same code kernel #1 runs.
+//
+// Dead lanes: a thread whose lane is dead returns at once (#3) or copies
+// it through (#4). Under stream compaction the live lanes come first, and
+// #3 also takes the live count as a device int32 (`num_alive`): every
+// thread at or past it returns without reading its lane. That is the
+// TPU kernel's dead-tile skip, per lane, with no host sync.
+//
+// What bounds them on the H100: the per-lane sweep and shading arithmetic
+// and warp divergence, as for #1; the bytes are the pool lanes (#3 reads
+// 14 and writes 13 per live lane: 108 B; #2 writes 56 B; #4 reads 80 B
+// and writes 52 B), which the card moves in tens of microseconds at
+// 800x800. What the design does about it: nothing yet beyond coalesced
+// SoA lanes and the early return of dead lanes; one thread per path.
+
+#include "path_common.cuh"
+
+namespace {
+
+constexpr int kPoolF32 = 12;
+
+// 12 float lanes (ox oy oz dx dy dz tx ty tz rx ry rz), alive, pix
+struct Lanes {
+  float* f[kPoolF32];
+  int* alive;
+  int* pix;
+};
+
+// pool[] = the 12 float lanes, then alive, then pix (pix may be null
+// where the kernel does not write it)
+inline Lanes make_lanes(void* const* pool) {
+  Lanes l;
+  for (int k = 0; k < kPoolF32; ++k) l.f[k] = static_cast<float*>(pool[k]);
+  l.alive = static_cast<int*>(pool[kPoolF32]);
+  l.pix = static_cast<int*>(pool[kPoolF32 + 1]);
+  return l;
+}
+
+struct IsectLanes {
+  const float* t;
+  const float* nx;
+  const float* ny;
+  const float* nz;
+  const int* mat;
+  const int* outside;
+};
+
+__device__ __forceinline__ Path load_path(const Lanes& l, int i) {
+  Path p;
+  p.org = {l.f[0][i], l.f[1][i], l.f[2][i]};
+  p.dir = {l.f[3][i], l.f[4][i], l.f[5][i]};
+  p.thr = {l.f[6][i], l.f[7][i], l.f[8][i]};
+  p.rad = {l.f[9][i], l.f[10][i], l.f[11][i]};
+  return p;
+}
+
+__device__ __forceinline__ void store_path(const Lanes& l, int i, const Path& p) {
+  l.f[0][i] = p.org.x;
+  l.f[1][i] = p.org.y;
+  l.f[2][i] = p.org.z;
+  l.f[3][i] = p.dir.x;
+  l.f[4][i] = p.dir.y;
+  l.f[5][i] = p.dir.z;
+  l.f[6][i] = p.thr.x;
+  l.f[7][i] = p.thr.y;
+  l.f[8][i] = p.thr.z;
+  l.f[9][i] = p.rad.x;
+  l.f[10][i] = p.rad.y;
+  l.f[11][i] = p.rad.z;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    first_bounce_kernel(const Tables s, const float* __restrict__ cam, const Lanes out,
+                        int iteration, int resx, int resy) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= resx * resy) return;
+  Path p;
+  raygen(cam, pix, resx, resy, iteration, s.flags, &p.org, &p.dir);
+  p.thr = {1.0f, 1.0f, 1.0f};
+  p.rad = {0.0f, 0.0f, 0.0f};
+  const Hit h = intersect(s, p.org, p.dir);
+  const bool alive = shade(s, p, h, static_cast<uint32_t>(iteration), 0,
+                           static_cast<uint32_t>(pix));
+  store_path(out, pix, p);
+  out.alive[pix] = alive ? 1 : 0;
+  out.pix[pix] = pix;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    bounce_step_kernel(const Tables s, const Lanes pool, const int* __restrict__ num_alive,
+                       int n, int iteration, int depth) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (num_alive != nullptr && i >= __ldg(num_alive)) return;
+  if (pool.alive[i] == 0) return;
+  Path p = load_path(pool, i);
+  const Hit h = intersect(s, p.org, p.dir);
+  const bool alive = shade(s, p, h, static_cast<uint32_t>(iteration), depth,
+                           static_cast<uint32_t>(pool.pix[i]));
+  store_path(pool, i, p);
+  pool.alive[i] = alive ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    shade_step_kernel(const Tables s, const Lanes in, const IsectLanes is, const Lanes out,
+                      int n, int iteration, int depth) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Path p = load_path(in, i);
+  bool alive = in.alive[i] != 0;
+  if (alive) {
+    Hit h;
+    h.t = is.t[i];
+    h.n = {is.nx[i], is.ny[i], is.nz[i]};
+    h.mat = is.mat[i];
+    h.outside = is.outside[i] != 0;
+    alive = shade(s, p, h, static_cast<uint32_t>(iteration), depth,
+                  static_cast<uint32_t>(in.pix[i]));
+  }
+  store_path(out, i, p);
+  out.alive[i] = alive ? 1 : 0;
+}
+
+}  // namespace
+
+// Each entry point launches one kernel on `stream` (a cudaStream_t,
+// PyTorch's current stream) of CUDA device `device` and returns
+// cudaGetLastError() of the launch. tables = {xf, inv, invt, gtype, gmat,
+// mat, env}; a pool is 14 pointers (12 float lanes, alive, pix).
+
+extern "C" int pt_first_bounce(void* const* tables, int n_geoms, const float* cam,
+                               void* const* pool, int iteration, int resx, int resy,
+                               int rr_start, int flags, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Tables s = make_tables(tables, n_geoms, flags, rr_start);
+  const int n = resx * resy;
+  if (n > 0) {
+    first_bounce_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        s, cam, make_lanes(pool), iteration, resx, resy);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// num_alive: a device int32 (live lanes first), or null for "all n".
+extern "C" int pt_bounce_step(void* const* tables, int n_geoms, void* const* pool,
+                              const int* num_alive, int n, int iteration, int depth,
+                              int rr_start, int flags, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Tables s = make_tables(tables, n_geoms, flags, rr_start);
+  if (n > 0) {
+    bounce_step_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        s, make_lanes(pool), num_alive, n, iteration, depth);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// isect = {t, nx, ny, nz, material_id (int32), outside (int32)};
+// pool_out's pix pointer is not written (pix passes through).
+extern "C" int pt_shade_step(void* const* tables, int n_geoms, void* const* pool_in,
+                             void* const* isect, void* const* pool_out, int n, int iteration,
+                             int depth, int rr_start, int flags, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Tables s = make_tables(tables, n_geoms, flags, rr_start);
+  IsectLanes is;
+  is.t = static_cast<const float*>(isect[0]);
+  is.nx = static_cast<const float*>(isect[1]);
+  is.ny = static_cast<const float*>(isect[2]);
+  is.nz = static_cast<const float*>(isect[3]);
+  is.mat = static_cast<const int*>(isect[4]);
+  is.outside = static_cast<const int*>(isect[5]);
+  if (n > 0) {
+    shade_step_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        s, make_lanes(pool_in), is, make_lanes(pool_out), n, iteration, depth);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

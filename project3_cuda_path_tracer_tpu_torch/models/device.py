@@ -1,18 +1,19 @@
 """Device-resident scene and camera tables (torch tensors).
 
 The analytic subset of the JAX package's `models/device.py`: instance
-matrices, material columns and the constant environment colour, plus
-the static metadata (geom types, material-class flags) that selects the
-shader's RNG draw layout. Mesh, texture and env-map tables arrive with
-their slices (ROADMAP); their flags are kept so that a scene that needs
-them is refused instead of rendered wrong.
+matrices and their motion-blur velocities, material columns (with the
+procedural checker's kind and scale) and the constant environment
+colour, plus the static metadata (geom types, material-class flags) that
+selects the shader's RNG draw layout. Mesh, file-texture and env-map
+tables arrive with their slices (ROADMAP); their flags are kept so that
+a scene that needs them is refused instead of rendered wrong.
 
 Every constructor here takes an explicit `device`; nothing picks one.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Tuple
 
 import numpy as np
@@ -28,13 +29,17 @@ ARRAY_FIELDS = (
     "inverse_transform",
     "inv_transpose",
     "geom_material_id",
+    "geom_velocity",
     "mat_specular_exponent",
     "mat_has_reflective",
     "mat_has_refractive",
     "mat_ior",
     "mat_emittance",
+    "mat_tex_kind",
+    "mat_tex_scale",
     "env_color",
 )
+INT_FIELDS = ("geom_material_id", "mat_tex_kind")
 VEC3_FIELDS = ("mat_color", "mat_specular_color")
 META_FIELDS = (
     "gtypes",
@@ -47,6 +52,7 @@ META_FIELDS = (
     "any_bump",
     "has_env_const",
     "has_env_map",
+    "n_file_textures",
 )
 
 
@@ -57,6 +63,7 @@ class DeviceScene:
     inverse_transform: torch.Tensor  # (G,4,4) f32
     inv_transpose: torch.Tensor  # (G,4,4) f32
     geom_material_id: torch.Tensor  # (G,) int32
+    geom_velocity: torch.Tensor  # (G,3) world translation per shutter time
     # --- materials (M rows; colours as Vec3 of (M,) columns) ---
     mat_color: Vec3
     mat_specular_exponent: torch.Tensor  # (M,)
@@ -65,6 +72,8 @@ class DeviceScene:
     mat_has_refractive: torch.Tensor  # (M,)
     mat_ior: torch.Tensor  # (M,)
     mat_emittance: torch.Tensor  # (M,)
+    mat_tex_kind: torch.Tensor  # (M,) int32: 0 none, 1 checker, 2 file
+    mat_tex_scale: torch.Tensor  # (M,) texture tiling scale
     # constant environment radiance for escaped rays (ENVLIGHT)
     env_color: torch.Tensor  # (3,)
     # --- static metadata ---
@@ -81,6 +90,7 @@ class DeviceScene:
     any_bump: bool
     has_env_const: bool  # nonzero constant ENVLIGHT colour
     has_env_map: bool  # lat-long ENVMAP present
+    n_file_textures: int  # file textures in the scene's atlas
 
     @property
     def device(self) -> torch.device:
@@ -129,6 +139,7 @@ def scene_to_device(scene: Scene, device) -> DeviceScene:
         "inverse_transform": g.inverse_transform,
         "inv_transpose": g.inv_transpose,
         "geom_material_id": g.material_id,
+        "geom_velocity": g.velocity,
         "mat_color": m.color,
         "mat_specular_exponent": m.specular_exponent,
         "mat_specular_color": m.specular_color,
@@ -136,6 +147,8 @@ def scene_to_device(scene: Scene, device) -> DeviceScene:
         "mat_has_refractive": m.has_refractive,
         "mat_ior": m.index_of_refraction,
         "mat_emittance": m.emittance,
+        "mat_tex_kind": m.tex_kind,
+        "mat_tex_scale": m.tex_scale,
         "env_color": scene.env_color,
     }
     meta = dict(
@@ -155,6 +168,7 @@ def scene_to_device(scene: Scene, device) -> DeviceScene:
         any_bump=bool((m.bump_id >= 0).any()),
         has_env_const=bool((scene.env_color != 0).any()),
         has_env_map=bool(scene.env_map.size > 0),
+        n_file_textures=int(scene.textures.shape[0]),
     )
     return device_scene_from_numpy(fields, meta, device)
 
@@ -170,7 +184,7 @@ def device_scene_from_numpy(fields: dict, meta: dict, device) -> DeviceScene:
     kw = {}
     for name in ARRAY_FIELDS:
         a = np.asarray(fields[name])
-        if name == "geom_material_id":
+        if name in INT_FIELDS:
             kw[name] = torch.tensor(a.astype(np.int32), device=device)
         else:
             kw[name] = _f32(a, device)
@@ -179,7 +193,27 @@ def device_scene_from_numpy(fields: dict, meta: dict, device) -> DeviceScene:
         kw[name] = Vec3(*(_f32(a[:, c], device) for c in range(3)))
     for name in META_FIELDS:
         v = meta[name]
-        kw[name] = tuple(int(x) for x in v) if name in (
-            "gtypes", "emissive_geoms"
-        ) else bool(v)
+        if name in ("gtypes", "emissive_geoms"):
+            kw[name] = tuple(int(x) for x in v)
+        elif name == "n_file_textures":
+            kw[name] = int(v)
+        else:
+            kw[name] = bool(v)
     return DeviceScene(**kw)
+
+
+def advance_time(scene: DeviceScene, t: float) -> DeviceScene:
+    """Translate each geom by velocity * t (motion blur): for
+    M' = T(v t) @ M the transform's translation gains v t, the inverse's
+    loses inverse[:3,:3] @ (v t), and the inverse transpose's 3x3 part is
+    unchanged. The product is an elementwise multiply and a left-to-right
+    sum, as in the JAX package (not a matmul). Returns a new DeviceScene;
+    `scene` is untouched."""
+    vt = scene.geom_velocity * t  # (G,3)
+    xf = scene.transform.clone()
+    xf[:, :3, 3] = xf[:, :3, 3] + vt
+    lin = scene.inverse_transform[:, :3, :3] * vt[:, None, :]  # (G,3,3)
+    delta = lin[:, :, 0] + lin[:, :, 1] + lin[:, :, 2]
+    inv = scene.inverse_transform.clone()
+    inv[:, :3, 3] = inv[:, :3, 3] + (-delta)
+    return replace(scene, transform=xf, inverse_transform=inv)

@@ -1,11 +1,12 @@
-"""Build and bind the CUDA kernels: nvcc into a shared library with a
+"""Build and bind the CUDA kernels: nvcc into shared libraries with a
 plain C interface, loaded with ctypes.
 
-The library is built at first use from the package's own sources
-(csrc/*.cu) into `project3_cuda_path_tracer_tpu_torch/_build/`, under a
-name keyed by a hash of the sources and the flags, so an edited source
-builds anew and an unchanged one is reused. A failed build raises with
-nvcc's stderr; nothing falls back to the plain version.
+Each source (csrc/*.cu) builds at first use into its own library under
+`project3_cuda_path_tracer_tpu_torch/_build/`, one nvcc per source, all
+started together. A library's name is keyed by a hash of every file
+under csrc/ (the shared header included) and the flags, so an edited
+source or header builds anew and an unchanged tree is reused. A failed
+build raises with nvcc's stderr; nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -21,19 +22,43 @@ from dataclasses import dataclass
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "full_iteration.cu",)
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "full_iteration.cu", CSRC / "bounce.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argtypes (every pointer and the stream as c_void_p)
+SIGNATURES = {
+    # tables, n_geoms, cam, acc, iteration, resx, resy, depth, rr_start,
+    # flags, device, stream
+    "pt_full_iteration": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # tables, n_geoms, cam, pool, iteration, resx, resy, rr_start, flags,
+    # device, stream
+    "pt_first_bounce": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # tables, n_geoms, pool, num_alive, n, iteration, depth, rr_start,
+    # flags, device, stream
+    "pt_bounce_step": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # tables, n_geoms, pool_in, isect, pool_out, n, iteration, depth,
+    # rr_start, flags, device, stream
+    "pt_shade_step": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
 
 @dataclass(frozen=True)
 class NativeLibrary:
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float  # nvcc wall time; 0.0 when an earlier build was reused
+    libs: dict  # source stem -> ctypes.CDLL
+    paths: tuple  # the libraries' paths
+    build_seconds: float  # nvcc wall time of the parallel build; 0.0 if reused
+
+    def fn(self, name: str):
+        for lib in self.libs.values():
+            if hasattr(lib, name):
+                return getattr(lib, name)
+        raise AttributeError(f"no CUDA entry point {name}")
 
 
 def find_nvcc() -> str:
@@ -50,43 +75,63 @@ def find_nvcc() -> str:
     )
 
 
-def _library_path() -> Path:
+def _tree_hash() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
+    for f in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(f.relative_to(CSRC).as_posix().encode())
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"pt_kernels_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
 
 
-def build(force: bool = False) -> tuple[Path, float]:
-    """Compile the sources unless this exact build exists (or `force`).
-    Returns the library path and the nvcc wall time (0.0 if reused)."""
-    out = _library_path()
-    if out.exists() and not force:
-        return out, 0.0
+def library_paths() -> tuple:
+    key = _tree_hash()
+    return tuple(BUILD_DIR / f"pt_{src.stem}_{key}.so" for src in SOURCES)
+
+
+def build(force: bool = False) -> tuple[tuple, float]:
+    """Compile every source whose library is missing (all of them with
+    `force`), one nvcc process per source, run in parallel. Returns the
+    library paths and the wall time of the build (0.0 if all reused)."""
+    outs = library_paths()
+    todo = [(src, out) for src, out in zip(SOURCES, outs)
+            if force or not out.exists()]
+    if not todo:
+        return outs, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return out, seconds
+    procs = []
+    for src, out in todo:
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )))
+    failures = []
+    for cmd, tmp, out, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{stderr}{stdout}"
+            )
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return outs, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)
 def load() -> NativeLibrary:
     """Build if needed, load, and declare the C signatures."""
-    path, seconds = build()
-    lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.pt_full_iteration
-    fn.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
-    fn.restype = ctypes.c_int
-    return NativeLibrary(lib=lib, path=path, build_seconds=seconds)
+    paths, seconds = build()
+    libs = {src.stem: ctypes.CDLL(str(p)) for src, p in zip(SOURCES, paths)}
+    lib = NativeLibrary(libs=libs, paths=paths, build_seconds=seconds)
+    for name, argtypes in SIGNATURES.items():
+        fn = lib.fn(name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,21 +1,38 @@
-"""The whole-iteration kernel: wrapper, plain version and launch count.
+"""The path-tracing kernels: wrappers, plain versions and launch counts.
 
-`full_iteration` replaces the JAX package's
-`ops/megakernel.py::full_iteration_pallas`: one launch per iteration does
-raygen and all `trace_depth` bounces and adds each pixel's radiance into
-the accumulator. On CUDA tensors it launches the hand-written kernel
-(csrc/full_iteration.cu, built by ops/_native.py) or raises; on CPU
-tensors, and only there, it runs the plain PyTorch version,
-`full_iteration_reference` (generate_rays -> D x (intersect_scene ->
-_shade_step) -> radiance), the JAX package's XLA path op for op.
+Four wrappers, each replacing one Pallas kernel of the JAX package's
+`ops/megakernel.py`:
 
-The kernel's scene tables (`pack_scene_tables`) keep the JAX kernel's
-(G,16) matrix rows and its first 11 material columns; the mesh, texture
-and env-map tables arrive with their slices (ROADMAP).
+- `full_iteration` (#1, `full_iteration_pallas`): raygen and all
+  `trace_depth` bounces in one launch per iteration, each pixel's
+  radiance added into the accumulator (csrc/full_iteration.cu);
+- `first_bounce` (#2, `first_bounce_pallas`): raygen and the depth-0
+  bounce, written to a new pool (csrc/bounce.cu);
+- `bounce_step` (#3, `bounce_step_pallas`): one fused intersect + shade
+  bounce over the pool, in place, skipping lanes at or past a device-side
+  live count under compaction (csrc/bounce.cu);
+- `shade_step` (#4, `shade_step_pallas`): the shading half of a bounce
+  over given Intersections, written to a new pool (csrc/bounce.cu).
+
+On CUDA tensors a wrapper launches its hand-written kernel (built by
+ops/_native.py) or raises; on CPU tensors, and only there, it runs its
+plain PyTorch version (`*_reference`: generate_rays / intersect_scene /
+render._shade_step, the JAX package's XLA path op for op). Each wrapper
+counts its launches in `<wrapper>.launches`.
+
+The pool is the JAX package's state tuple (origins, dirs, throughput,
+radiance, alive, pix) with Vec3 lanes, `alive` as int32 (0/1) and `pix`
+as int32, every lane a contiguous (P,) tensor.
+
+The kernels' scene tables (`pack_scene_tables`) keep the JAX kernel's
+(G,16) matrix rows and its material column map through column 12
+(tex_kind, tex_scale); the mesh, file-texture and env-map tables arrive
+with their slices (ROADMAP).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -23,10 +40,10 @@ import torch
 from ..models.device import DeviceCamera, DeviceScene
 from .vec import Vec3
 
-# material table columns (the first 11 of the JAX kernel's layout)
-MAT_COLS = 11
+# material table columns: the JAX kernel's fixed map through column 12
+MAT_COLS = 13
 
-# settings / scene-class flags, as csrc/full_iteration.cu reads them
+# settings / scene-class flags, as csrc/path_common.cuh reads them
 FLAG_ANTIALIAS = 1
 FLAG_DOF = 2
 FLAG_PARTIAL_REFL = 4
@@ -34,6 +51,9 @@ FLAG_REFRACTIVE = 8
 FLAG_RUSSIAN_ROULETTE = 16
 FLAG_GLOSSY = 32
 FLAG_ENV_CONST = 64
+FLAG_STRATIFIED = 128
+FLAG_SOBOL = 256
+FLAG_CHECKER = 512
 
 
 class SceneTables(NamedTuple):
@@ -43,7 +63,8 @@ class SceneTables(NamedTuple):
     gtype: torch.Tensor  # (G,) int32
     gmat: torch.Tensor  # (G,) int32 material ids
     mat: torch.Tensor  # (M,MAT_COLS) f32: color rgb, specular rgb,
-    #                    REFL, REFR, IOR, EMITTANCE, SPECEX
+    #                    REFL, REFR, IOR, EMITTANCE, SPECEX, tex_kind,
+    #                    tex_scale
     env: torch.Tensor  # (3,) f32 constant environment radiance
 
 
@@ -67,22 +88,27 @@ def draw_slots(any_partial_refl: bool, any_refractive: bool,
     return n_draws, slot_branch, slot_fresnel, slot_rr
 
 
+def checker_only(scene) -> bool:
+    """True when the scene's only texturing is the procedural checker,
+    which the kernels compute with no table."""
+    return (
+        scene.any_textured
+        and scene.n_file_textures == 0
+        and not scene.any_bump
+    )
+
+
 def check_supported(scene: DeviceScene, settings) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a scene or
-    setting that this slice of the port does not render. The check is
-    the same on every device: the CPU path never renders what the card
-    cannot."""
+    setting that the port does not render yet. The check is the same on
+    every device: the CPU path never renders what the card cannot."""
     refusals = [
         (scene.any_sss, "subsurface scattering (SSS)", 3),
-        (scene.any_textured, "textures (TEXTURE)", 3),
+        (scene.any_textured and not checker_only(scene),
+         "file textures (TEXTURE <file>)", 3),
         (scene.any_bump, "bump maps (BUMP)", 3),
         (scene.has_env_map, "lat-long environment maps (ENVMAP)", 3),
-        (settings.sort_by_material, "material sort", 2),
-        (settings.compact, "stream compaction", 2),
-        (settings.cache_first_bounce, "the first-bounce cache", 2),
-        (settings.stratified, "stratified (R2) sampling", 2),
-        (settings.sobol, "Sobol sampling", 2),
-        (settings.motion_blur, "motion blur", 2),
+        (settings.sort_by_material, "material sort", 5),
         (settings.direct_lighting, "direct lighting (final-bounce NEE)", 3),
         (settings.nee_mis, "NEE with MIS", 3),
         (settings.tri_axis is not None, "triangle sharding", 5),
@@ -104,6 +130,19 @@ def kernel_flags(scene: DeviceScene, settings) -> int:
         | FLAG_RUSSIAN_ROULETTE * bool(settings.russian_roulette)
         | FLAG_GLOSSY * scene.any_glossy
         | FLAG_ENV_CONST * scene.has_env_const
+        | FLAG_STRATIFIED * bool(settings.stratified)
+        | FLAG_SOBOL * bool(settings.sobol)
+        | FLAG_CHECKER * checker_only(scene)
+    )
+
+
+def pack_geom_tables(scene: DeviceScene):
+    """The (G,16) transform and inverse rows: the only tables that
+    motion blur moves, re-packed once per iteration."""
+    G = scene.transform.shape[0]
+    return (
+        scene.transform.reshape(G, 16).contiguous(),
+        scene.inverse_transform.reshape(G, 16).contiguous(),
     )
 
 
@@ -118,12 +157,14 @@ def pack_scene_tables(scene: DeviceScene) -> SceneTables:
             scene.mat_has_reflective, scene.mat_has_refractive,
             scene.mat_ior, scene.mat_emittance,
             scene.mat_specular_exponent,
+            scene.mat_tex_kind.to(torch.float32), scene.mat_tex_scale,
         ],
         dim=1,
     ).contiguous()
+    xf, inv = pack_geom_tables(scene)
     return SceneTables(
-        xf=scene.transform.reshape(G, 16).contiguous(),
-        inv=scene.inverse_transform.reshape(G, 16).contiguous(),
+        xf=xf,
+        inv=inv,
         invt=scene.inv_transpose.reshape(G, 16).contiguous(),
         gtype=torch.tensor(scene.gtypes, dtype=torch.int32, device=dev).reshape(G),
         gmat=scene.geom_material_id.to(torch.int32).contiguous(),
@@ -143,15 +184,102 @@ def pack_camera(cam: DeviceCamera) -> torch.Tensor:
     ).to(torch.float32).contiguous()
 
 
+# ---- the pool ------------------------------------------------------------
+
+def pool_lanes(state) -> list:
+    """The 14 lanes of a pool in kernel order: 12 float32, alive, pix."""
+    origins, dirs, throughput, radiance, alive, pix = state
+    return [*origins, *dirs, *throughput, *radiance, alive, pix]
+
+
+def _pool_from_shade(state):
+    """render._shade_step's state (bool alive) -> a pool (int32 alive)."""
+    return state[:4] + (state[4].to(torch.int32), state[5])
+
+
+def _shade_from_pool(state):
+    return state[:4] + (state[4] != 0, state[5])
+
+
+def _new_pool(P: int, device, pix: torch.Tensor | None = None):
+    """Uninitialised pool lanes: 12 float32 rows of one buffer, alive
+    and (unless given) pix."""
+    f = torch.empty((12, P), dtype=torch.float32, device=device)
+    if pix is None:
+        pix = torch.empty(P, dtype=torch.int32, device=device)
+    return (
+        Vec3(f[0], f[1], f[2]), Vec3(f[3], f[4], f[5]),
+        Vec3(f[6], f[7], f[8]), Vec3(f[9], f[10], f[11]),
+        torch.empty(P, dtype=torch.int32, device=device), pix,
+    )
+
+
+# ---- plain versions --------------------------------------------------------
+
+def first_bounce_reference(scene: DeviceScene, cam: DeviceCamera,
+                           iteration: int, settings):
+    """Raygen + the depth-0 bounce, plain PyTorch: the pool after it."""
+    from ..render import _shade_step
+    from .camera import generate_rays
+    from .sweep import intersect_scene
+
+    origins, dirs, pix = generate_rays(
+        cam, iteration, settings.antialias, settings.depth_of_field
+    )
+    P = pix.shape[0]
+    state = (origins, dirs, Vec3.ones(P, pix.device), Vec3.zeros(P, pix.device),
+             torch.ones(P, dtype=torch.bool, device=pix.device), pix)
+    isect = intersect_scene(origins, dirs, scene)
+    return _pool_from_shade(
+        _shade_step(state, isect, scene, iteration, 0, settings)
+    )
+
+
+def bounce_step_reference(state, scene: DeviceScene, iteration: int,
+                          depth: int, settings, num_alive=None):
+    """One intersect + shade bounce over the pool, plain PyTorch; returns
+    a new pool. Lanes at or past `num_alive` (a scalar tensor) are left
+    as they are, as the kernel leaves them."""
+    from ..render import _shade_step
+    from .sweep import intersect_scene
+
+    s = _shade_from_pool(state)
+    alive_in = s[4]
+    if num_alive is not None:
+        skip = torch.arange(alive_in.shape[0], device=alive_in.device) >= num_alive
+        s = s[:4] + (alive_in & ~skip, s[5])
+    isect = intersect_scene(s[0], s[1], scene)
+    out = _shade_step(s, isect, scene, iteration, depth, settings)
+    if num_alive is not None:
+        out = out[:4] + (torch.where(skip, alive_in, out[4]), out[5])
+    return _pool_from_shade(out)
+
+
+def shade_step_reference(state, isect, scene: DeviceScene, iteration: int,
+                         depth: int, settings):
+    """The shading half of a bounce over given Intersections, plain
+    PyTorch; returns a new pool."""
+    from ..render import _shade_step
+
+    return _pool_from_shade(
+        _shade_step(_shade_from_pool(state), isect, scene, iteration, depth,
+                    settings)
+    )
+
+
 def full_iteration_reference(
     scene: DeviceScene, cam: DeviceCamera, iteration: int, settings
 ) -> Vec3:
-    """The plain PyTorch version: one full sample per pixel, returned as
-    per-pixel radiance (a Vec3 of (P,) lanes). Runs on any device."""
-    from ..render import trace_paths
+    """The plain PyTorch version of #1: one full sample per pixel,
+    returned as per-pixel radiance (a Vec3 of (P,) lanes). Runs on any
+    device."""
+    state = first_bounce_reference(scene, cam, iteration, settings)
+    for depth in range(1, settings.trace_depth):
+        state = bounce_step_reference(state, scene, iteration, depth, settings)
+    return state[3]
 
-    return trace_paths(scene, cam, iteration, settings)
 
+# ---- launch plumbing -------------------------------------------------------
 
 def _check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if t.device != device:
@@ -164,40 +292,25 @@ def _check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def full_iteration(
-    scene: DeviceScene,
-    cam: DeviceCamera,
-    iteration0: int,
-    settings,
-    accum: Vec3,
-    n_iters: int = 1,
-) -> None:
-    """Render iterations iteration0 .. iteration0 + n_iters - 1 (1-based)
-    and add their per-pixel radiance into `accum` (three (P,) float32
-    tensors) in place.
+_LANE_NAMES = ("origins.x", "origins.y", "origins.z", "dirs.x", "dirs.y",
+               "dirs.z", "throughput.x", "throughput.y", "throughput.z",
+               "radiance.x", "radiance.y", "radiance.z", "alive", "pix")
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    once per iteration on PyTorch's current stream, counting each launch
-    in `full_iteration.launches`; any other device raises. The tables
-    are packed once per call."""
-    check_supported(scene, settings)
-    device = accum.x.device
-    if int(iteration0) < 1:
-        raise ValueError(f"iterations are 1-based, got {iteration0}")
-    if device.type == "cpu":
-        for k in range(n_iters):
-            rad = full_iteration_reference(scene, cam, iteration0 + k, settings)
-            for a, r in zip(accum, rad):
-                a.add_(r)
-        return
+
+def _check_pool(state, P: int, device) -> list:
+    lanes = pool_lanes(state)
+    for k, (name, a) in enumerate(zip(_LANE_NAMES, lanes)):
+        dtype = torch.float32 if k < 12 else torch.int32
+        _check_tensor(a, name, dtype, (P,), device)
+    return lanes
+
+
+def _require_cuda(device, what: str) -> None:
     if device.type != "cuda":
-        raise RuntimeError(f"full_iteration: no kernel for device {device}")
+        raise RuntimeError(f"{what}: no kernel for device {device}")
 
-    resx, resy = cam.resolution
-    P = resx * resy
-    for name, a in zip(("accum.x", "accum.y", "accum.z"), accum):
-        _check_tensor(a, name, torch.float32, (P,), device)
-    t = pack_scene_tables(scene)
+
+def _check_tables(t: SceneTables, scene: DeviceScene, device) -> None:
     G = len(scene.gtypes)
     M = t.mat.shape[0]
     for name, a, dtype, shape in (
@@ -210,29 +323,184 @@ def full_iteration(
         ("env", t.env, torch.float32, (3,)),
     ):
         _check_tensor(a, name, dtype, shape, device)
-    cam_vec = pack_camera(cam)
-    _check_tensor(cam_vec, "camera", torch.float32, (16,), device)
 
+
+def _ptrs(tensors) -> ctypes.Array:
+    """A C array of the tensors' device pointers (None -> NULL)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *(None if a is None else a.data_ptr() for a in tensors)
+    )
+
+
+def _launch(name: str, what: str, *args) -> None:
     from ._native import load
 
-    fn = load().lib.pt_full_iteration
-    dev_index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = load().fn(name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _device_args(device):
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(device).cuda_stream
+
+
+def _tables_for(scene: DeviceScene, tables, device):
+    t = tables if tables is not None else pack_scene_tables(scene)
+    _check_tables(t, scene, device)
+    return t, _ptrs(t)
+
+
+# ---- the wrappers ----------------------------------------------------------
+
+def full_iteration(
+    scene: DeviceScene,
+    cam: DeviceCamera,
+    iteration0: int,
+    settings,
+    accum: Vec3,
+    n_iters: int = 1,
+    tables: SceneTables | None = None,
+) -> None:
+    """Render iterations iteration0 .. iteration0 + n_iters - 1 (1-based)
+    and add their per-pixel radiance into `accum` (three (P,) float32
+    tensors) in place.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    once per iteration on PyTorch's current stream, counting each launch
+    in `full_iteration.launches`; any other device raises. The tables
+    are packed once per call unless given."""
+    check_supported(scene, settings)
+    device = accum.x.device
+    if int(iteration0) < 1:
+        raise ValueError(f"iterations are 1-based, got {iteration0}")
+    if device.type == "cpu":
+        for k in range(n_iters):
+            rad = full_iteration_reference(scene, cam, iteration0 + k, settings)
+            for a, r in zip(accum, rad):
+                a.add_(r)
+        return
+    _require_cuda(device, "full_iteration")
+
+    resx, resy = cam.resolution
+    P = resx * resy
+    for name, a in zip(("accum.x", "accum.y", "accum.z"), accum):
+        _check_tensor(a, name, torch.float32, (P,), device)
+    t, tptr = _tables_for(scene, tables, device)
+    cam_vec = pack_camera(cam)
+    _check_tensor(cam_vec, "camera", torch.float32, (16,), device)
+    acc = _ptrs(list(accum))
+    dev_index, stream = _device_args(device)
     flags = kernel_flags(scene, settings)
     for k in range(n_iters):
-        rc = fn(
-            t.xf.data_ptr(), t.inv.data_ptr(), t.invt.data_ptr(),
-            t.gtype.data_ptr(), t.gmat.data_ptr(), G,
-            t.mat.data_ptr(), cam_vec.data_ptr(), t.env.data_ptr(),
-            accum.x.data_ptr(), accum.y.data_ptr(), accum.z.data_ptr(),
+        _launch(
+            "pt_full_iteration", "full_iteration",
+            tptr, len(scene.gtypes), cam_vec.data_ptr(), acc,
             int(iteration0) + k, resx, resy, int(settings.trace_depth),
             int(settings.rr_start_depth), flags, dev_index, stream,
         )
-        if rc != 0:
-            raise RuntimeError(
-                f"full_iteration kernel launch failed: CUDA error {rc}"
-            )
         full_iteration.launches += 1
 
 
+def first_bounce(scene: DeviceScene, cam: DeviceCamera, iteration: int,
+                 settings, tables: SceneTables | None = None):
+    """Raygen + the depth-0 bounce of iteration `iteration` (1-based),
+    returned as a new pool with pix = slot. CPU: the plain version; CUDA:
+    one launch of the kernel, counted in `first_bounce.launches`."""
+    check_supported(scene, settings)
+    device = cam.position.device
+    if device.type == "cpu":
+        return first_bounce_reference(scene, cam, iteration, settings)
+    _require_cuda(device, "first_bounce")
+    resx, resy = cam.resolution
+    t, tptr = _tables_for(scene, tables, device)
+    cam_vec = pack_camera(cam)
+    _check_tensor(cam_vec, "camera", torch.float32, (16,), device)
+    out = _new_pool(resx * resy, device)
+    dev_index, stream = _device_args(device)
+    _launch(
+        "pt_first_bounce", "first_bounce",
+        tptr, len(scene.gtypes), cam_vec.data_ptr(), _ptrs(pool_lanes(out)),
+        int(iteration), resx, resy, int(settings.rr_start_depth),
+        kernel_flags(scene, settings), dev_index, stream,
+    )
+    first_bounce.launches += 1
+    return out
+
+
+def bounce_step(state, scene: DeviceScene, iteration: int, depth: int,
+                settings, num_alive: torch.Tensor | None = None,
+                tables: SceneTables | None = None):
+    """One intersect + shade bounce over the pool, IN PLACE (the JAX
+    version returns new arrays; this one writes the pool's own lanes and
+    returns the same tuple). With `num_alive` (an int32 scalar tensor on
+    the pool's device; live lanes first, as after compaction) lanes at or
+    past it are skipped. CPU: the plain version, copied back into the
+    lanes; CUDA: one launch, counted in `bounce_step.launches`; no host
+    sync either way."""
+    check_supported(scene, settings)
+    device = state[5].device
+    if device.type == "cpu":
+        new = bounce_step_reference(state, scene, iteration, depth, settings,
+                                    num_alive)
+        for dst, src in zip(pool_lanes(state), pool_lanes(new)):
+            dst.copy_(src)
+        return state
+    _require_cuda(device, "bounce_step")
+    P = state[5].shape[0]
+    lanes = _check_pool(state, P, device)
+    if num_alive is not None:
+        _check_tensor(num_alive.reshape(1), "num_alive", torch.int32, (1,), device)
+    t, tptr = _tables_for(scene, tables, device)
+    dev_index, stream = _device_args(device)
+    _launch(
+        "pt_bounce_step", "bounce_step",
+        tptr, len(scene.gtypes), _ptrs(lanes),
+        None if num_alive is None else num_alive.data_ptr(), P,
+        int(iteration), int(depth), int(settings.rr_start_depth),
+        kernel_flags(scene, settings), dev_index, stream,
+    )
+    bounce_step.launches += 1
+    return state
+
+
+def shade_step(state, isect, scene: DeviceScene, iteration: int, depth: int,
+               settings, tables: SceneTables | None = None):
+    """The shading half of a bounce over `isect` (ops.intersect.
+    Intersections in pool order), returned as a new pool; pix passes
+    through. CPU: the plain version; CUDA: one launch, counted in
+    `shade_step.launches`."""
+    check_supported(scene, settings)
+    device = state[5].device
+    if device.type == "cpu":
+        return shade_step_reference(state, isect, scene, iteration, depth,
+                                    settings)
+    _require_cuda(device, "shade_step")
+    P = state[5].shape[0]
+    lanes = _check_pool(state, P, device)
+    is_lanes = [isect.t, *isect.normal, isect.material_id,
+                isect.outside.to(torch.int32)]
+    for name, a, dtype in zip(
+        ("isect.t", "isect.normal.x", "isect.normal.y", "isect.normal.z",
+         "isect.material_id", "isect.outside"),
+        is_lanes, [torch.float32] * 4 + [torch.int32] * 2,
+    ):
+        _check_tensor(a, name, dtype, (P,), device)
+    t, tptr = _tables_for(scene, tables, device)
+    out = _new_pool(P, device, pix=state[5])
+    dev_index, stream = _device_args(device)
+    _launch(
+        "pt_shade_step", "shade_step",
+        tptr, len(scene.gtypes), _ptrs(lanes), _ptrs(is_lanes),
+        _ptrs(pool_lanes(out)), P, int(iteration), int(depth),
+        int(settings.rr_start_depth), kernel_flags(scene, settings),
+        dev_index, stream,
+    )
+    shade_step.launches += 1
+    return out
+
+
 full_iteration.launches = 0
+first_bounce.launches = 0
+bounce_step.launches = 0
+shade_step.launches = 0

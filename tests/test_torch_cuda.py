@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernel on the card: against its plain PyTorch
-version, its launch count on the main path, and the wrapper's checks.
+"""The hand-written CUDA kernels on the card: each against its plain
+PyTorch version, their launch counts on the render paths, and the
+wrappers' checks.
 
-Every test here needs a CUDA device and nvcc (the kernel builds on first
+Every test here needs a CUDA device and nvcc (the kernels build on first
 use) and skips without them. The file imports neither JAX nor the
 shared test harness, so on a machine with a card and no JAX it runs on
 its own:
@@ -22,7 +23,13 @@ from project3_cuda_path_tracer_tpu_torch.models.device import (
 from project3_cuda_path_tracer_tpu_torch.models.scene import derive_camera, load_scene
 from project3_cuda_path_tracer_tpu_torch.ops import megakernel
 from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
-from project3_cuda_path_tracer_tpu_torch.render import Renderer, RenderSettings
+from project3_cuda_path_tracer_tpu_torch.ops.sweep import intersect_scene
+from project3_cuda_path_tracer_tpu_torch.render import (
+    Renderer,
+    RenderSettings,
+    _count_alive,
+    _maybe_compact,
+)
 
 SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
 
@@ -33,7 +40,7 @@ pytestmark = pytest.mark.cuda
 def cuda_device():
     """Decided when the test runs, never at import: skip without a card."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc (the kernel builds on first use)")
+        pytest.skip("needs a CUDA device and nvcc (the kernels build on first use)")
     return torch.device("cuda")
 
 
@@ -52,7 +59,10 @@ def small(name, res):
     [("cornell.txt", {"antialias": True}),
      ("cornell_glass.txt", {"russian_roulette": True}),
      ("cornell_dof.txt", {"antialias": True, "depth_of_field": True}),
-     ("many_materials.txt", {"russian_roulette": True})],
+     ("many_materials.txt", {"russian_roulette": True}),
+     ("checker.txt", {}),
+     ("cornell.txt", {"stratified": True}),
+     ("cornell.txt", {"sobol": True})],
 )
 def test_kernel_matches_plain_on_cuda(cuda_device, name, settings_kw):
     """One iteration at 64x64 through the kernel and its plain version on
@@ -74,13 +84,20 @@ def test_kernel_matches_plain_on_cuda(cuda_device, name, settings_kw):
 
 
 def test_renderer_launches_once_per_iteration(cuda_device):
+    """step_batch launches #1 once per iteration; step() takes the
+    per-bounce path (#2 once, #3 depth-1 times) and launches #1 never."""
     scene = small("cornell.txt", (96, 64))
     r = Renderer(scene, RenderSettings(trace_depth=8, antialias=True),
                  device=cuda_device)
     before = megakernel.full_iteration.launches
+    before_fb = megakernel.first_bounce.launches
+    before_bs = megakernel.bounce_step.launches
     r.step()
     r.step_batch(4)
-    assert megakernel.full_iteration.launches - before == r.iteration == 5
+    assert megakernel.full_iteration.launches - before == 4
+    assert megakernel.first_bounce.launches - before_fb == 1
+    assert megakernel.bounce_step.launches - before_bs == 7
+    assert r.iteration == 5
     img = r.image()
     assert img.shape == (64, 96, 3) and np.isfinite(img).all() and img.max() > 0
 
@@ -103,3 +120,107 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         )
     with pytest.raises(ValueError, match="shape"):
         megakernel.full_iteration(ds, cam, 1, settings, Vec3.zeros(100, cuda_device))
+
+
+def assert_lanes_close(got, want):
+    """The image rule, lane by lane over a pool: seam-tie outliers only;
+    pix exact."""
+    for k, (g, w) in enumerate(zip(megakernel.pool_lanes(got),
+                                   megakernel.pool_lanes(want))):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if k == 13:
+            np.testing.assert_array_equal(g, w)
+            continue
+        diff = np.abs(g.astype(np.float64) - w.astype(np.float64))
+        assert (diff > 1e-3).mean() < 0.02, k
+        assert np.median(diff) < 1e-5, k
+
+
+def _setup(cuda_device, name, settings_kw, res=(64, 64)):
+    scene = small(name, res)
+    settings = RenderSettings(trace_depth=8, **settings_kw)
+    ds = scene_to_device(scene, cuda_device)
+    cam = camera_to_device(scene.state.camera, cuda_device)
+    return ds, cam, settings
+
+
+PER_BOUNCE = [
+    ("cornell.txt", {"antialias": True}),
+    ("cornell_glass.txt", {"russian_roulette": True, "rr_start_depth": 1}),
+    ("checker.txt", {"sobol": True}),
+    ("cornell.txt", {"stratified": True}),
+]
+
+
+@pytest.mark.parametrize("name,settings_kw", PER_BOUNCE)
+def test_first_bounce_matches_plain_on_cuda(cuda_device, name, settings_kw):
+    ds, cam, settings = _setup(cuda_device, name, settings_kw)
+    before = megakernel.first_bounce.launches
+    got = megakernel.first_bounce(ds, cam, 3, settings)
+    torch.cuda.synchronize()
+    assert megakernel.first_bounce.launches == before + 1
+    want = megakernel.first_bounce_reference(ds, cam, 3, settings)
+    assert_lanes_close(got, want)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("name,settings_kw", PER_BOUNCE)
+def test_bounce_step_matches_plain_on_cuda(cuda_device, name, settings_kw,
+                                           compact):
+    """Three bounces in place; with `compact`, the pool is compacted
+    before each and the kernel gets the live count on the device."""
+    ds, cam, settings = _setup(cuda_device, name, dict(settings_kw, compact=compact))
+    pool = megakernel.first_bounce_reference(ds, cam, 2, settings)
+    before = megakernel.bounce_step.launches
+    for depth in (1, 2, 3):
+        pool = _maybe_compact(pool, settings)
+        n_alive = _count_alive(pool) if compact else None
+        want = megakernel.bounce_step_reference(pool, ds, 2, depth, settings,
+                                                num_alive=n_alive)
+        got = megakernel.bounce_step(pool, ds, 2, depth, settings,
+                                     num_alive=n_alive)
+        torch.cuda.synchronize()
+        assert got is pool
+        assert_lanes_close(got, want)
+        pool = want  # the next bounce starts from the same lanes
+    assert megakernel.bounce_step.launches == before + 3
+
+
+@pytest.mark.parametrize("name,settings_kw", PER_BOUNCE)
+def test_shade_step_matches_plain_on_cuda(cuda_device, name, settings_kw):
+    ds, cam, settings = _setup(cuda_device, name, settings_kw)
+    pool = megakernel.first_bounce_reference(ds, cam, 4, settings)
+    for depth in (0, 1):
+        isect = intersect_scene(pool[0], pool[1], ds)
+        before = megakernel.shade_step.launches
+        got = megakernel.shade_step(pool, isect, ds, 4, depth, settings)
+        torch.cuda.synchronize()
+        assert megakernel.shade_step.launches == before + 1
+        want = megakernel.shade_step_reference(pool, isect, ds, 4, depth, settings)
+        assert_lanes_close(got, want)
+
+
+@pytest.mark.parametrize("settings_kw,fb,bs,ss", [
+    ({"antialias": True}, 3, 21, 0),
+    ({"compact": True}, 3, 21, 0),
+    ({"cache_first_bounce": True}, 0, 21, 3),
+])
+def test_step_launches_per_bounce_kernels(cuda_device, settings_kw, fb, bs, ss):
+    """Renderer.step() runs D kernels per iteration: #2 (or #4 under the
+    cache) once, then #3 D-1 times; #1 never."""
+    r = Renderer(small("cornell.txt", (64, 48)),
+                 RenderSettings(trace_depth=8, **settings_kw), device=cuda_device)
+    counts = [f.launches for f in (megakernel.full_iteration,
+                                   megakernel.first_bounce,
+                                   megakernel.bounce_step,
+                                   megakernel.shade_step)]
+    for _ in range(3):
+        r.step()
+    torch.cuda.synchronize()
+    now = [f.launches for f in (megakernel.full_iteration,
+                                megakernel.first_bounce,
+                                megakernel.bounce_step,
+                                megakernel.shade_step)]
+    assert [b - a for a, b in zip(counts, now)] == [0, fb, bs, ss]
+    assert r.last_alive_counts.device.type == "cuda"
+    assert np.isfinite(r.image()).all() and r.image().max() > 0

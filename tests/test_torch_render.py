@@ -177,8 +177,8 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
      ("cornell_sss.txt", {}, "subsurface"),
      ("envmap.txt", {}, "environment maps"),
      ("cornell.txt", {"nee_mis": True}, "NEE"),
-     ("cornell.txt", {"compact": True}, "compaction"),
-     ("cornell.txt", {"stratified": True}, "stratified")],
+     ("cornell.txt", {"sort_by_material": True}, "material sort"),
+     ("cornell.txt", {"direct_lighting": True}, "direct lighting")],
 )
 def test_unported_features_raise(name, settings_kw, what):
     """A scene or setting of a later slice is refused with its ROADMAP
