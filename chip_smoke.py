@@ -3,19 +3,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, in parallel), holds each against its plain PyTorch
-version on the card (at 64x64 and at the main path's 800x800), renders
-the nine analytic smoke configs against the XLA goldens
+nvcc per source, in parallel), holds each of the six against its plain
+PyTorch version on the card (at 64x64 and at the main path's 800x800;
+the NEE kernels #5 and #6 on Cornell AA, Cornell RR + stratified, a
+glossy Cornell and many_materials RR, #5's pix exactly and its alive per
+lane), renders the eleven analytic smoke
+configs (the two --nee ones included) against the XLA goldens
 (tools/goldens/smoke_128.npz) through `Renderer.step_batch` and through
 `Renderer.step()`, drives the main path (Cornell 800x800, depth 8, AA,
 progressive) through `Renderer.step_batch` and times it, drives and
-times the four per-bounce paths at 800x800 depth 8 (Cornell AA through
-`Renderer.step()`, --compact, --cache-first-bounce, --motion-blur),
-reads each kernel's device time from torch.profiler beside its plain
-version's time and its bound, and renders through the CLI. Every path is driven with the launch
-counts set to 0 just before it and read just after. Every phase prints
-one line; any failure raises and exits non-zero before the result lines
-are printed. Imports nothing of JAX or of the JAX package.
+times the other paths at their scenes' own size, depth 8 (Cornell AA
+through `Renderer.step()`, --compact, --cache-first-bounce,
+--motion-blur, --direct-lighting, --nee through `step_batch` (#6) and
+`step()` (#5), many_materials 1920x1080 RR --nee through both), reads
+each kernel's device time from torch.profiler beside its plain version's
+time and its bound (and the --direct-lighting final step's own time), and
+renders through the CLI (plain, --compact, --nee). Every path is driven
+with the launch counts set to 0 just before it and read just after.
+Every phase prints one line; any failure raises and exits non-zero
+before the result lines are printed. Imports nothing of JAX or of the
+JAX package.
 
 The last three lines are the card's name and power limit (nvidia-smi),
 one JSON object describing each kernel, and {"ok": true, "device": {...}}.
@@ -36,14 +43,16 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "project3_cuda_path_tracer_tpu_torch"
 JAX_MK = "project3_cuda_path_tracer_tpu/ops/megakernel.py"
-KERNEL_SYMBOLS = {k: f"{k}_kernel" for k in (
-    "full_iteration", "first_bounce", "bounce_step", "shade_step")}
 KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
     "full_iteration": (f"{PKG}/csrc/full_iteration.cu", f"{JAX_MK}:2848"),
     "first_bounce": (f"{PKG}/csrc/bounce.cu", f"{JAX_MK}:2728"),
     "bounce_step": (f"{PKG}/csrc/bounce.cu", f"{JAX_MK}:2125"),
     "shade_step": (f"{PKG}/csrc/bounce.cu", f"{JAX_MK}:2285"),
+    "full_iteration_nee": (f"{PKG}/csrc/nee.cu", f"{JAX_MK}:2991"),
+    "bounce_step_nee": (f"{PKG}/csrc/nee.cu", f"{JAX_MK}:2553"),
 }
+KERNEL_SYMBOLS = {k: f"{k}_kernel" for k in KERNELS}
+NO_LAUNCHES = {k: 0 for k in KERNELS}
 # image rule of tests/test_megakernel.py:143-145 (seam-tie outliers only)
 PARITY_BAD = 1e-3
 PARITY_FRAC = 0.02
@@ -62,6 +71,20 @@ SMOKE = [  # (scene, settings, golden key)
     ("checker.txt", {}, "checker.txt"),
     ("cornell.txt", {"stratified": True}, "cornell.txt_--stratified"),
     ("cornell.txt", {"sobol": True}, "cornell.txt_--sobol"),
+    ("cornell.txt", {"nee_mis": True}, "cornell.txt_--nee"),
+    ("many_materials.txt", {"nee_mis": True, "russian_roulette": True},
+     "many_materials.txt_--nee"),
+]
+# image rule of tests/test_nee_megakernel.py for the NEE kernels
+NEE_PARITY_FRAC = 0.03
+# lane rule of tests/test_megakernel.py:57-76 for alive: at most 1% of
+# lanes may differ (seam ties, RR draws at p_survive); pix exactly
+ALIVE_FRAC = 0.01
+NEE_PARITY = [  # (scene, settings, glossy sphere)
+    ("cornell.txt", {"antialias": True}, False),
+    ("cornell.txt", {"russian_roulette": True, "stratified": True}, False),
+    ("cornell.txt", {"antialias": True}, True),
+    ("many_materials.txt", {"russian_roulette": True}, False),
 ]
 FULL_PARITY = [
     ("cornell.txt", {"antialias": True}),
@@ -94,6 +117,17 @@ OPS_NORMAL = 130  # the winner's test again, with its normal
 OPS_SHADE = 220  # seed + 2 minstd draws, cosine hemisphere, reflect, tint
 OPS_RAYGEN = 35  # pinhole direction and normalize
 OPS_RAYGEN_AA = 135  # + seed, 4 draws and the jitter
+# the NEE kernels (shade_nee), each charged only to the lanes that do it
+# in this run's data (nee_work); the emissive hit's MIS weight and the
+# glossy lobe's powf are left out, which only lowers the bound:
+OPS_LIGHT = 180  # NEE-able lane: seed + 3 draws, a cube-face sample,
+#                  two transforms, Le
+OPS_TO_LIGHT = 29  # NEE-able lane: to-light vector, r, wi, both cosines
+OPS_MIS = 30  # unoccluded light: geometry term, the BRDF mix, contribution
+OPS_W_LIGHT = 13  # the same, below the last depth: both pdfs, w_light
+OPS_NEXT_PDF = 29  # scattered lane: mirror direction, next pdf, mirror pick
+# a shadow ray costs one normal-free test (OPS_BOX_TEST / OPS_SPHERE_TEST)
+# per geom up to and including its first occluder (shadow_sweep)
 
 
 def say(phase: str, **kv) -> None:
@@ -123,7 +157,9 @@ def small_scene(name: str, res, path=None):
     return s
 
 
-def on_card(dev, name, settings_kw, res, depth=8, path=None):
+def on_card(dev, name, settings_kw, res, depth=8, path=None, glossy=False):
+    """(DeviceScene, DeviceCamera, RenderSettings) on the card; `glossy`
+    gives material 4 (Cornell's mirror sphere) a Phong lobe, SPECEX 24."""
     from project3_cuda_path_tracer_tpu_torch.models.device import (
         camera_to_device,
         scene_to_device,
@@ -131,6 +167,9 @@ def on_card(dev, name, settings_kw, res, depth=8, path=None):
     from project3_cuda_path_tracer_tpu_torch.render import RenderSettings
 
     scene = small_scene(name, res, path)
+    if glossy:
+        scene.materials.specular_exponent = scene.materials.specular_exponent.copy()
+        scene.materials.specular_exponent[4] = 24.0
     return (scene_to_device(scene, dev),
             camera_to_device(scene.state.camera, dev),
             RenderSettings(trace_depth=depth, **settings_kw))
@@ -147,12 +186,159 @@ def compare(got, want):
     return float((diff > PARITY_BAD).mean()), float(np.median(diff)), float(diff.max())
 
 
-def check_parity(kernel, what, frac, med, err):
+def check_parity(kernel, what, frac, med, err, max_frac=PARITY_FRAC):
     say("parity", kernel=kernel, **what, badfrac=frac, median=med,
         max_abs_err=err,
-        rule=f"frac(|d|>{PARITY_BAD})<{PARITY_FRAC}, median<{PARITY_MEDIAN}")
-    if not (frac < PARITY_FRAC and med < PARITY_MEDIAN):
+        rule=f"frac(|d|>{PARITY_BAD})<{max_frac}, median<{PARITY_MEDIAN}")
+    if not (frac < max_frac and med < PARITY_MEDIAN):
         raise RuntimeError(f"{kernel} disagrees with its plain version: {what}")
+
+
+def full_nee_parity(dev, name, kw, res, glossy, iteration=3):
+    """#6 against its plain version, one iteration."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+
+    ds, cam, settings = on_card(dev, name, dict(kw, nee_mis=True), res,
+                                glossy=glossy)
+    accum = Vec3.zeros(res[0] * res[1], dev)
+    mk.full_iteration_nee(ds, cam, iteration, settings, accum)
+    plain = mk.full_iteration_nee_reference(ds, cam, iteration, settings)
+    torch.cuda.synchronize()
+    return compare(list(accum), list(plain))
+
+
+def nee_pool(dev, cam, iteration, settings):
+    """The camera rays as a pool, with the MIS aux at zeros."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops.camera import generate_rays
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+
+    origins, dirs, pix = generate_rays(cam, iteration, settings.antialias,
+                                       settings.depth_of_field)
+    P = pix.shape[0]
+    pool = (Vec3(*(c.contiguous() for c in origins)), dirs, Vec3.ones(P, dev),
+            Vec3.zeros(P, dev), torch.ones(P, dtype=torch.int32, device=dev), pix)
+    return pool, (torch.zeros(P, device=dev), torch.zeros(P, device=dev))
+
+
+def bounce_nee_parity(dev, name, kw, res, glossy, iteration=2):
+    """#5 at every depth from the plain version's own pool, is_last at the
+    last depth (and at depth 1 too): pix exactly and alive per lane on
+    every lane, radiance on every lane, the other lanes and the MIS aux on
+    lanes alive after the bounce in both (no later step reads the others).
+    Returns the worst (badfrac, median, max_abs_err, share of lanes whose
+    alive differs) over the calls."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+
+    ds, cam, settings = on_card(dev, name, dict(kw, nee_mis=True), res,
+                                glossy=glossy)
+    D = settings.trace_depth
+    pool, aux = nee_pool(dev, cam, iteration, settings)
+    worst = (0.0, 0.0, 0.0, 0.0)
+    for depth in range(D):
+        last = depth == D - 1
+        for is_last in {last, depth == 1 or last}:
+            want, want_aux = mk.bounce_step_nee_reference(
+                pool, aux, ds, iteration, depth, settings, is_last)
+            lanes = [a.clone() for a in mk.pool_lanes(pool)]
+            got = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                   Vec3(*lanes[9:12]), lanes[12], lanes[13])
+            got_aux = tuple(a.clone() for a in aux)
+            mk.bounce_step_nee(got, got_aux, ds, iteration, depth, settings,
+                               is_last)
+            torch.cuda.synchronize()
+            g, w = mk.pool_lanes(got), mk.pool_lanes(want)
+            if not torch.equal(g[13], w[13]):
+                raise RuntimeError(f"bounce_step_nee: pix differs at depth "
+                                   f"{depth} ({name}, {kw})")
+            alive_frac = float((g[12] != w[12]).float().mean())
+            alive = (g[12] != 0) & (w[12] != 0)
+            r = compare(g[9:12] + [a[alive] for a in g[:9] + list(got_aux)],
+                        w[9:12] + [a[alive] for a in w[:9] + list(want_aux)])
+            worst = tuple(max(a, b) for a, b in zip(worst, r + (alive_frac,)))
+            if is_last == last:
+                next_pool = (want, want_aux)
+        pool, aux = next_pool
+    return worst
+
+
+def shadow_sweep(ds, o, d, r, cast):
+    """(operations, geom tests) of the NEE kernels' any-hit shadow loop
+    (`unoccluded` in csrc/path_common.cuh) over the lanes `cast`: geoms
+    in index order, each lane stopping at its first geom with
+    0 < t < r - 1e-2."""
+    from project3_cuda_path_tracer_tpu_torch.ops.intersect import (
+        box_intersect,
+        sphere_intersect,
+    )
+
+    going = cast.clone()
+    ops = tests = 0
+    for g, gt in enumerate(ds.gtypes):
+        n = int(going.sum())
+        if n == 0:
+            break
+        tests += n
+        if gt == 0:
+            ops += n * OPS_SPHERE_TEST
+            t = sphere_intersect(ds.transform[g], ds.inverse_transform[g],
+                                 ds.inv_transpose[g], o, d)[0]
+        else:
+            ops += n * OPS_BOX_TEST
+            t = box_intersect(ds.transform[g], ds.inverse_transform[g], o, d)[0]
+        going = going & ~((t > 0) & (t < r - 1e-2))
+    return ops, tests
+
+
+def nee_work(ds, cam, iteration, settings):
+    """One iteration of the plain NEE path (render._nee_mis_bounce, whose
+    probe gives the masks the kernels branch on), counting at each depth
+    the lanes that do each part of the NEE kernels' work: the live lanes
+    (the sweep with its normal), the NEE-able ones (a live non-emissive
+    hit with a non-delta lobe: the light sample), those that cast a shadow
+    ray (the sample faces both ways) and its geom tests, the unoccluded
+    ones (the MIS contribution) and, below the last depth, those that
+    scatter. Returns ({count: [per depth]}, [operations per depth])."""
+    from project3_cuda_path_tracer_tpu_torch.render import _nee_mis_bounce
+
+    pool, aux = nee_pool(ds.device, cam, iteration, settings)
+    state = pool[:4] + (pool[4] != 0, pool[5])
+    aux = (aux[0], aux[1] > 0.5)
+    names = ("lanes_in", "nee_able", "shadow_rays", "shadow_tests",
+             "unoccluded", "scattered")
+    counts = {k: [] for k in names}
+    ops = []
+    D = settings.trace_depth
+    for depth in range(D):
+        is_last = depth == D - 1
+        lanes_in = int(state[4].sum())
+        probe = {}
+        state, aux = _nee_mis_bounce(state, aux, ds, iteration, depth,
+                                     settings, is_last, probe=probe)
+        shadow_ops, tests = shadow_sweep(ds, probe["p_hit"], probe["wi"],
+                                         probe["r"], probe["shadow"])
+        n = dict(zip(names, (
+            lanes_in, int(probe["nee_able"].sum()),
+            int(probe["shadow"].sum()), tests,
+            int((probe["shadow"] & probe["visible"]).sum()),
+            0 if is_last else int((probe["live_hit"] & ~probe["lit"]).sum()),
+        )))
+        for k in names:
+            counts[k].append(n[k])
+        ops.append(
+            n["lanes_in"] * (sweep_ops(ds) + OPS_NORMAL)
+            + n["nee_able"] * (OPS_LIGHT + OPS_TO_LIGHT) + shadow_ops
+            + n["unoccluded"] * (OPS_MIS + (0 if is_last else OPS_W_LIGHT))
+            + n["scattered"] * (OPS_SHADE + OPS_NEXT_PDF)
+        )
+    return counts, ops
 
 
 def full_parity(dev, name, kw, res, iteration=3):
@@ -325,6 +511,7 @@ def main() -> int:
     from project3_cuda_path_tracer_tpu_torch.render import (
         Renderer,
         RenderSettings,
+        _nee_final_step,
         trace_paths,
     )
 
@@ -388,6 +575,26 @@ def main() -> int:
                               "settings": {"antialias": True},
                               "res": "800x800"}, *r)
         err800[kernel] = r[2]
+    # #5 and #6 (NEE + MIS), at 64x64 and 800x800; the error kept for the
+    # kernels line is the main NEE path's (Cornell AA, 800x800)
+    for res in ((64, 64), (800, 800)):
+        for name, kw, glossy in NEE_PARITY:
+            what = {"config": name, "settings": dict(kw, nee_mis=True),
+                    "glossy_sphere": glossy, "res": f"{res[0]}x{res[1]}"}
+            r6 = full_nee_parity(dev, name, kw, res, glossy)
+            check_parity("full_iteration_nee", what, *r6,
+                         max_frac=NEE_PARITY_FRAC)
+            *r5, alive_frac = bounce_nee_parity(dev, name, kw, res, glossy)
+            check_parity("bounce_step_nee",
+                         dict(what, pix="exact", alive_mismatch=alive_frac,
+                              alive_rule=f"<={ALIVE_FRAC}"),
+                         *r5, max_frac=NEE_PARITY_FRAC)
+            if alive_frac > ALIVE_FRAC:
+                raise RuntimeError(f"bounce_step_nee: alive differs on "
+                                   f"{alive_frac:.2%} of lanes: {what}")
+            if res == (800, 800) and (name, kw, glossy) == NEE_PARITY[0]:
+                err800["full_iteration_nee"] = r6[2]
+                err800["bounce_step_nee"] = r5[2]
 
     # ---- 4. the smoke configs against the XLA goldens, both paths ----
     goldens = np.load(os.path.join(HERE, "tools", "goldens", "smoke_128.npz"))
@@ -429,8 +636,8 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     main_launches = read_launches()
-    if main_launches != {"full_iteration": 9 * batch, "first_bounce": 0,
-                         "bounce_step": 0, "shade_step": 0} or r.iteration != 9 * batch:
+    if main_launches != dict(NO_LAUNCHES, full_iteration=9 * batch) \
+            or r.iteration != 9 * batch:
         raise RuntimeError(f"main path launches {main_launches} for "
                            f"{r.iteration} iterations")
     img = r.image()
@@ -442,10 +649,11 @@ def main() -> int:
     n_timed = 8 * batch
     ms_per_frame = 1e3 * dt / n_timed
     mrays = pixels * settings.trace_depth * n_timed / dt / 1e6
-    main_busy, main_kernel_ms, _ = profile_device(lambda: r.step_batch(10), 10)
+    main_busy, main_kernel_ms, seen = profile_device(lambda: r.step_batch(10), 10)
     say("profile", path="main", busy_ms_per_iteration=main_busy,
         device_idle_share=max(0.0, 1.0 - main_busy / ms_per_frame),
-        kernel_ms=main_kernel_ms)
+        kernel_ms=main_kernel_ms,
+        profiled_launches={k: n for k, n in seen.items() if n})
 
     ds = scene_to_device(scene, dev)
     cam = camera_to_device(scene.state.camera, dev)
@@ -470,44 +678,65 @@ def main() -> int:
         "mean_radiance": mean,
     }), flush=True)
 
-    # ---- 6. the per-bounce paths at 800x800, depth 8 ----
+    # ---- 6. the per-bounce and NEE paths at their scenes' own size, depth 8 ----
     D = 8
-    per_bounce = [
-        ("step", "cornell.txt", None, {"antialias": True}),
-        ("compact", "cornell.txt", None, {"antialias": True, "compact": True}),
-        ("cache", "cornell.txt", None, {"cache_first_bounce": True}),
+    paths = [  # (label, scene, scene file or None, settings, route)
+        ("step", "cornell.txt", None, {"antialias": True}, "step"),
+        ("compact", "cornell.txt", None, {"antialias": True, "compact": True},
+         "step_batch"),
+        ("cache", "cornell.txt", None, {"cache_first_bounce": True},
+         "step_batch"),
         ("motion_blur", "cornell_moving.txt", moving_cornell(tmpdir),
-         {"antialias": True, "motion_blur": True}),
+         {"antialias": True, "motion_blur": True}, "step_batch"),
+        ("direct_lighting", "cornell.txt", None,
+         {"antialias": True, "direct_lighting": True}, "step_batch"),
+        ("nee", "cornell.txt", None, {"antialias": True, "nee_mis": True},
+         "step_batch"),
+        ("nee_step", "cornell.txt", None, {"antialias": True, "nee_mis": True},
+         "step"),
+        ("many_materials_nee", "many_materials.txt", None,
+         {"russian_roulette": True, "nee_mis": True}, "step_batch"),
+        ("many_materials_nee_step", "many_materials.txt", None,
+         {"russian_roulette": True, "nee_mis": True}, "step"),
     ]
+
+    def expected_launches(settings, route, n_it):
+        if settings.nee_mis:
+            if route == "step" or settings.motion_blur:
+                return dict(NO_LAUNCHES, bounce_step_nee=n_it * D)
+            return dict(NO_LAUNCHES, full_iteration_nee=n_it)
+        cached = settings.effective_cache()
+        bounces = D - 2 if settings.direct_lighting else D - 1
+        return dict(NO_LAUNCHES, first_bounce=0 if cached else n_it,
+                    bounce_step=n_it * bounces,
+                    shade_step=n_it if cached else 0)
+
     launches_of = {}
     kernel_ms_of = {}
-    for label, name, path, kw in per_bounce:
+    for label, name, path, kw, route in paths:
         scene = load_scene(path or os.path.join(HERE, "scenes", name))
         settings = RenderSettings(trace_depth=D, **kw)
-        cached = settings.effective_cache()
+        res = scene.state.camera.resolution
         reset_launches()
         r = Renderer(scene, settings, device=dev)
+
+        def run(n):
+            if route == "step":
+                for _ in range(n):
+                    r.step()
+            else:
+                r.step_batch(n)
+
         n_warm, n_timed = 5, 40
-        if label == "step":
-            for _ in range(n_warm):
-                r.step()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n_timed):
-                r.step()
-        else:
-            r.step_batch(n_warm)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r.step_batch(n_timed)
+        run(n_warm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n_timed)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         got = read_launches()
         n_it = n_warm + n_timed
-        want = {"full_iteration": 0,
-                "first_bounce": 0 if cached else n_it,
-                "bounce_step": n_it * (D - 1),
-                "shade_step": n_it if cached else 0}
+        want = expected_launches(settings, route, n_it)
         if got != want or r.iteration != n_it:
             raise RuntimeError(f"{label}: launches {got}, expected {want}")
         img = r.image()
@@ -518,23 +747,18 @@ def main() -> int:
         r.step()  # one more iteration, for its alive counts
         counts = r.last_alive_counts.cpu().tolist()
         ms = 1e3 * dt / n_timed
-
-        def ten():
-            if label == "step":
-                for _ in range(10):
-                    r.step()
-            else:
-                r.step_batch(10)
-
-        busy, kernel_ms_of[label], _ = profile_device(ten, 10)
-        say("per_bounce", path=label, scene=name, settings=kw,
-            route="Renderer.step" if label == "step" else "Renderer.step_batch",
-            res="800x800", depth=D, ms_per_frame=ms,
-            mrays_per_s=pixels * D * n_timed / dt / 1e6, launches=got,
-            iterations=n_it, alive_counts=counts, mean_radiance=mean,
-            device_busy_ms_per_iteration=busy,
+        busy, kernel_ms_of[label], seen = profile_device(lambda: run(10), 10)
+        say("path", path=label, scene=name, settings=kw,
+            route=f"Renderer.{route}", res=f"{res[0]}x{res[1]}", depth=D,
+            ms_per_frame=ms,
+            mrays_per_s=res[0] * res[1] * D * n_timed / dt / 1e6,
+            launches=got, iterations=n_it, alive_counts=counts,
+            mean_radiance=mean, device_busy_ms_per_iteration=busy,
             device_idle_share=max(0.0, 1.0 - busy / ms),
-            kernel_device_ms=kernel_ms_of[label])
+            kernel_device_ms=kernel_ms_of[label],
+            # the launches the profiler saw of the 10 iterations' (when
+            # it drops one, the busy time and so the idle share are off)
+            profiled_launches={k: n for k, n in seen.items() if n})
 
     # ---- 7. the plain versions and the bounds at the main path's shapes ----
     settings = RenderSettings(trace_depth=D, antialias=True)
@@ -561,11 +785,41 @@ def main() -> int:
     isect = intersect_scene(origins, dirs, ds)
     ss_plain = event_ms(lambda: mk.shade_step_reference(pool0, isect, ds, it, 0,
                                                         cache_settings), 3)
+    # the NEE kernels' plain versions and lanes (Cornell 800x800 d8 AA --nee)
+    nee_settings = RenderSettings(trace_depth=D, antialias=True, nee_mis=True)
+    nee_counts, nee_ops = nee_work(ds, cam, it, nee_settings)
+    nee_in = nee_counts["lanes_in"]
+    fn_plain = event_ms(
+        lambda: mk.full_iteration_nee_reference(ds, cam, it, nee_settings), 3)
+    pool, aux = nee_pool(dev, cam, it, nee_settings)
+    bn_plain = 0.0
+    for depth in range(D):
+        t0 = time.perf_counter()
+        pool, aux = mk.bounce_step_nee_reference(pool, aux, ds, it, depth,
+                                                 nee_settings, depth == D - 1)
+        torch.cuda.synchronize()
+        bn_plain += 1e3 * (time.perf_counter() - t0) / D
+    # --direct-lighting's final step alone (plain PyTorch on every device),
+    # on the pool entering depth D-1
+    dl_settings = RenderSettings(trace_depth=D, antialias=True,
+                                 direct_lighting=True)
+    pool = mk.first_bounce_reference(ds, cam, it, dl_settings)
+    for depth in range(1, D - 1):
+        pool = mk.bounce_step_reference(pool, ds, it, depth, dl_settings)
+    final_pool = pool[:4] + (pool[4] != 0, pool[5])
+    final_ms = event_ms(
+        lambda: _nee_final_step(final_pool, ds, it, dl_settings), 5)
+    # the plain AA raygen that the #5 route runs before its depth 0
+    raygen_ms = event_ms(lambda: generate_rays(cam, it, True, False), 5)
     say("plain_times", device=smi, res="800x800", depth=D,
         first_bounce_plain_ms=fb_plain, bounce_step_plain_ms=bs_plain,
         shade_step_plain_ms=ss_plain, cache_fill_intersect_scene_ms=isect_ms,
-        alive_counts=counts)
-
+        alive_counts=counts, full_iteration_nee_plain_ms=fn_plain,
+        bounce_step_nee_plain_ms=bn_plain, nee_lanes=nee_counts,
+        nee_ops_per_depth=nee_ops,
+        direct_lighting_final_step_ms=final_ms,
+        direct_lighting_final_step_lanes=int(final_pool[4].sum()),
+        plain_generate_rays_aa_ms=raygen_ms)
     bounds = {
         "full_iteration": bound(24 * P, P * OPS_RAYGEN_AA + sum(lanes_in) * per_lane),
         "first_bounce": bound(56 * P, P * (OPS_RAYGEN_AA + per_lane)),
@@ -574,6 +828,11 @@ def main() -> int:
             sum(n * per_lane for n in lanes_in[1:]) / (D - 1),
         ),
         "shade_step": bound(132 * P, P * OPS_SHADE),
+        "full_iteration_nee": bound(24 * P, P * OPS_RAYGEN_AA + sum(nee_ops)),
+        # every lane's alive flag, then 15 lanes read and 15 written per
+        # live lane (pool + aux, less alive and pix), averaged over depths
+        "bounce_step_nee": bound(sum(4 * P + 120 * n for n in nee_in) / D,
+                                 sum(nee_ops) / D),
     }
     # device ms per launch from the profiles, beside the plain versions
     timing = {
@@ -585,10 +844,16 @@ def main() -> int:
                         launches_of["step"]["bounce_step"]),
         "shade_step": (kernel_ms_of["cache"]["shade_step"], ss_plain,
                        launches_of["cache"]["shade_step"]),
+        "full_iteration_nee": (kernel_ms_of["nee"]["full_iteration_nee"],
+                               fn_plain,
+                               launches_of["nee"]["full_iteration_nee"]),
+        "bounce_step_nee": (kernel_ms_of["nee_step"]["bounce_step_nee"],
+                            bn_plain,
+                            launches_of["nee_step"]["bounce_step_nee"]),
     }
 
-    # ---- 8. the CLI, plain and with --compact ----
-    for extra in ([], ["--compact"]):
+    # ---- 8. the CLI: plain, with --compact and with --nee ----
+    for extra in ([], ["--compact"], ["--nee"]):
         out_dir = tempfile.mkdtemp(prefix="cli_", dir=tmpdir)
         t0 = time.perf_counter()
         proc = subprocess.run(

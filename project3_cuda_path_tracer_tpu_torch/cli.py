@@ -20,8 +20,6 @@ log = logging.getLogger("pathtracer")
 
 # flag (argparse dest) -> (flag, ROADMAP item that ports it)
 UNPORTED_FLAGS = {
-    "nee": ("--nee", "port slice 3 (NEE)"),
-    "direct_lighting": ("--direct-lighting", "port slice 3 (NEE)"),
     "sort_materials": ("--sort-materials", "port slice 5 (material sort)"),
     "shard": ("--shard", "port slice 5 (sharding)"),
     "preview": ("--preview", "port slice 5 (viewer)"),
@@ -105,6 +103,8 @@ def settings_from_args(args, scene) -> RenderSettings:
         rr_start_depth=args.rr_start_depth,
         compact=args.compact,
         cache_first_bounce=args.cache_first_bounce,
+        direct_lighting=args.direct_lighting,
+        nee_mis=args.nee,
         motion_blur=args.motion_blur,
         stratified=args.stratified,
         sobol=args.sobol,

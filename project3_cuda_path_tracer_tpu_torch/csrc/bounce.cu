@@ -10,9 +10,9 @@
 //
 // The pool is structure-of-arrays, one lane per path: origin, direction,
 // throughput and radiance as 12 float32 lanes, then alive and pix as
-// int32. One thread per lane, 128 to a block, no shared memory; the bounce
-// arithmetic is csrc/path_common.cuh's (`raygen`, `intersect`, `shade`),
-// the same code kernel #1 runs.
+// int32 (path_common.cuh's `Lanes`). One thread per lane, 128 to a block,
+// no shared memory; the bounce arithmetic is csrc/path_common.cuh's
+// (`raygen`, `intersect`, `shade`), the same code kernel #1 runs.
 //
 // Dead lanes: a thread whose lane is dead returns at once (#3) or copies
 // it through (#4). Under stream compaction the live lanes come first, and
@@ -31,25 +31,6 @@
 
 namespace {
 
-constexpr int kPoolF32 = 12;
-
-// 12 float lanes (ox oy oz dx dy dz tx ty tz rx ry rz), alive, pix
-struct Lanes {
-  float* f[kPoolF32];
-  int* alive;
-  int* pix;
-};
-
-// pool[] = the 12 float lanes, then alive, then pix (pix may be null
-// where the kernel does not write it)
-inline Lanes make_lanes(void* const* pool) {
-  Lanes l;
-  for (int k = 0; k < kPoolF32; ++k) l.f[k] = static_cast<float*>(pool[k]);
-  l.alive = static_cast<int*>(pool[kPoolF32]);
-  l.pix = static_cast<int*>(pool[kPoolF32 + 1]);
-  return l;
-}
-
 struct IsectLanes {
   const float* t;
   const float* nx;
@@ -58,30 +39,6 @@ struct IsectLanes {
   const int* mat;
   const int* outside;
 };
-
-__device__ __forceinline__ Path load_path(const Lanes& l, int i) {
-  Path p;
-  p.org = {l.f[0][i], l.f[1][i], l.f[2][i]};
-  p.dir = {l.f[3][i], l.f[4][i], l.f[5][i]};
-  p.thr = {l.f[6][i], l.f[7][i], l.f[8][i]};
-  p.rad = {l.f[9][i], l.f[10][i], l.f[11][i]};
-  return p;
-}
-
-__device__ __forceinline__ void store_path(const Lanes& l, int i, const Path& p) {
-  l.f[0][i] = p.org.x;
-  l.f[1][i] = p.org.y;
-  l.f[2][i] = p.org.z;
-  l.f[3][i] = p.dir.x;
-  l.f[4][i] = p.dir.y;
-  l.f[5][i] = p.dir.z;
-  l.f[6][i] = p.thr.x;
-  l.f[7][i] = p.thr.y;
-  l.f[8][i] = p.thr.z;
-  l.f[9][i] = p.rad.x;
-  l.f[10][i] = p.rad.y;
-  l.f[11][i] = p.rad.z;
-}
 
 __global__ void __launch_bounds__(kThreads)
     first_bounce_kernel(const Tables s, const float* __restrict__ cam, const Lanes out,

@@ -23,14 +23,14 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "full_iteration.cu", CSRC / "bounce.cu")
+SOURCES = (CSRC / "full_iteration.cu", CSRC / "bounce.cu", CSRC / "nee.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     # tables, n_geoms, cam, acc, iteration, resx, resy, depth, rr_start,
@@ -45,6 +45,13 @@ SIGNATURES = {
     # tables, n_geoms, pool_in, isect, pool_out, n, iteration, depth,
     # rr_start, flags, device, stream
     "pt_shade_step": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # tables, n_geoms, n_lights, aw, pool (14 lanes + 2 aux), n,
+    # iteration, depth, is_last, rr_start, flags, device, stream
+    "pt_bounce_step_nee": [_P, _I, _I, _F, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # tables, n_geoms, n_lights, aw, cam, acc, iteration, resx, resy,
+    # depth, rr_start, flags, device, stream
+    "pt_full_iteration_nee": [_P, _I, _I, _F, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
 }
 
 

@@ -1,6 +1,6 @@
 """The path-tracing kernels: wrappers, plain versions and launch counts.
 
-Four wrappers, each replacing one Pallas kernel of the JAX package's
+Six wrappers, each replacing one Pallas kernel of the JAX package's
 `ops/megakernel.py`:
 
 - `full_iteration` (#1, `full_iteration_pallas`): raygen and all
@@ -12,22 +12,30 @@ Four wrappers, each replacing one Pallas kernel of the JAX package's
   bounce over the pool, in place, skipping lanes at or past a device-side
   live count under compaction (csrc/bounce.cu);
 - `shade_step` (#4, `shade_step_pallas`): the shading half of a bounce
-  over given Intersections, written to a new pool (csrc/bounce.cu).
+  over given Intersections, written to a new pool (csrc/bounce.cu);
+- `bounce_step_nee` (#5, `bounce_step_pallas_nee`): one NEE + MIS bounce
+  (light sample, shadow ray, power-heuristic weights) over the pool and
+  its two MIS aux lanes, in place (csrc/nee.cu);
+- `full_iteration_nee` (#6, `full_iteration_nee_pallas`): raygen and
+  the whole NEE + MIS estimator over all `trace_depth` bounces in one
+  launch per iteration, added into the accumulator (csrc/nee.cu).
 
 On CUDA tensors a wrapper launches its hand-written kernel (built by
 ops/_native.py) or raises; on CPU tensors, and only there, it runs its
 plain PyTorch version (`*_reference`: generate_rays / intersect_scene /
-render._shade_step, the JAX package's XLA path op for op). Each wrapper
-counts its launches in `<wrapper>.launches`.
+render._shade_step / render._nee_mis_bounce, the JAX package's XLA path
+op for op). Each wrapper counts its launches in `<wrapper>.launches`.
 
 The pool is the JAX package's state tuple (origins, dirs, throughput,
 radiance, alive, pix) with Vec3 lanes, `alive` as int32 (0/1) and `pix`
-as int32, every lane a contiguous (P,) tensor.
+as int32, every lane a contiguous (P,) tensor. The NEE kernels' MIS aux
+is (prev_pdf, prev_nondelta), two float32 (P,) lanes, the flag as 0/1.
 
 The kernels' scene tables (`pack_scene_tables`) keep the JAX kernel's
 (G,16) matrix rows and its material column map through column 12
-(tex_kind, tex_scale); the mesh, file-texture and env-map tables arrive
-with their slices (ROADMAP).
+(tex_kind, tex_scale), plus the emissive geom indices and the MIS light
+pdf model (ops/lights.py::lights_area_weight) for the NEE kernels; the mesh,
+file-texture and env-map tables arrive with their slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.device import DeviceCamera, DeviceScene
+from .lights import lights_area_weight
 from .vec import Vec3
 
 # material table columns: the JAX kernel's fixed map through column 12
@@ -66,6 +75,13 @@ class SceneTables(NamedTuple):
     #                    REFL, REFR, IOR, EMITTANCE, SPECEX, tex_kind,
     #                    tex_scale
     env: torch.Tensor  # (3,) f32 constant environment radiance
+    lights: torch.Tensor  # (L,) int32 emissive geom indices (NEE kernels)
+    aw: float | None  # mean light area x L as a float32 value (the NEE
+    #                   kernels' MIS); None when packed without `nee`
+
+
+# the tables the kernels read, as a C array of pointers in this order
+_TABLE_PTRS = 8
 
 
 def draw_slots(any_partial_refl: bool, any_refractive: bool,
@@ -103,14 +119,12 @@ def check_supported(scene: DeviceScene, settings) -> None:
     setting that the port does not render yet. The check is the same on
     every device: the CPU path never renders what the card cannot."""
     refusals = [
-        (scene.any_sss, "subsurface scattering (SSS)", 3),
+        (scene.any_sss, "subsurface scattering (SSS)", 5),
         (scene.any_textured and not checker_only(scene),
-         "file textures (TEXTURE <file>)", 3),
-        (scene.any_bump, "bump maps (BUMP)", 3),
-        (scene.has_env_map, "lat-long environment maps (ENVMAP)", 3),
+         "file textures (TEXTURE <file>)", 5),
+        (scene.any_bump, "bump maps (BUMP)", 5),
+        (scene.has_env_map, "lat-long environment maps (ENVMAP)", 5),
         (settings.sort_by_material, "material sort", 5),
-        (settings.direct_lighting, "direct lighting (final-bounce NEE)", 3),
-        (settings.nee_mis, "NEE with MIS", 3),
         (settings.tri_axis is not None, "triangle sharding", 5),
     ]
     for needed, what, slice_no in refusals:
@@ -146,7 +160,10 @@ def pack_geom_tables(scene: DeviceScene):
     )
 
 
-def pack_scene_tables(scene: DeviceScene) -> SceneTables:
+def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
+    """The kernels' tables; with `nee` also the MIS light pdf model, read
+    back to the host once here, so no NEE launch waits on the device for
+    it (motion blur only translates, so it never changes the value)."""
     G = scene.transform.shape[0]
     dev = scene.device
     mat = torch.stack(
@@ -170,6 +187,9 @@ def pack_scene_tables(scene: DeviceScene) -> SceneTables:
         gmat=scene.geom_material_id.to(torch.int32).contiguous(),
         mat=mat,
         env=scene.env_color.contiguous(),
+        lights=torch.tensor(scene.emissive_geoms, dtype=torch.int32,
+                            device=dev).reshape(-1),
+        aw=float(lights_area_weight(scene)) if nee else None,
     )
 
 
@@ -279,6 +299,47 @@ def full_iteration_reference(
     return state[3]
 
 
+def bounce_step_nee_reference(state, aux, scene: DeviceScene, iteration: int,
+                              depth: int, settings, is_last: bool):
+    """One NEE + MIS bounce over the pool, plain PyTorch
+    (render._nee_mis_bounce); returns a new (pool, aux), the aux flag as
+    float32 0/1. Unlike the kernel, it also writes the aux lanes of lanes
+    that were dead on entry; no later step reads those."""
+    from ..render import _nee_mis_bounce
+
+    out, (pdf, nondelta) = _nee_mis_bounce(
+        _shade_from_pool(state), (aux[0], aux[1] > 0.5), scene, iteration,
+        depth, settings, is_last,
+    )
+    return _pool_from_shade(out), (pdf, nondelta.to(torch.float32))
+
+
+def full_iteration_nee_reference(
+    scene: DeviceScene, cam: DeviceCamera, iteration: int, settings
+) -> Vec3:
+    """The plain PyTorch version of #6: raygen, then the NEE + MIS
+    estimator (render._nee_mis_bounce) over depths 0..D-1 with the MIS
+    aux starting at zeros and the last depth at is_last; per-pixel
+    radiance as a Vec3 of (P,) lanes. Runs on any device."""
+    from ..render import _nee_mis_bounce
+    from .camera import generate_rays
+
+    origins, dirs, pix = generate_rays(
+        cam, iteration, settings.antialias, settings.depth_of_field
+    )
+    P = pix.shape[0]
+    dev = pix.device
+    state = (origins, dirs, Vec3.ones(P, dev), Vec3.zeros(P, dev),
+             torch.ones(P, dtype=torch.bool, device=dev), pix)
+    aux = (torch.zeros(P, dtype=torch.float32, device=dev),
+           torch.zeros(P, dtype=torch.bool, device=dev))
+    D = settings.trace_depth
+    for depth in range(D):
+        state, aux = _nee_mis_bounce(state, aux, scene, iteration, depth,
+                                     settings, is_last=depth == D - 1)
+    return state[3]
+
+
 # ---- launch plumbing -------------------------------------------------------
 
 def _check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -321,6 +382,7 @@ def _check_tables(t: SceneTables, scene: DeviceScene, device) -> None:
         ("gmat", t.gmat, torch.int32, (G,)),
         ("mat", t.mat, torch.float32, (M, MAT_COLS)),
         ("env", t.env, torch.float32, (3,)),
+        ("lights", t.lights, torch.int32, (len(scene.emissive_geoms),)),
     ):
         _check_tensor(a, name, dtype, shape, device)
 
@@ -345,10 +407,18 @@ def _device_args(device):
     return index, torch.cuda.current_stream(device).cuda_stream
 
 
-def _tables_for(scene: DeviceScene, tables, device):
-    t = tables if tables is not None else pack_scene_tables(scene)
+def _tables_for(scene: DeviceScene, tables, device, nee: bool = False):
+    t = tables if tables is not None else pack_scene_tables(scene, nee)
     _check_tables(t, scene, device)
-    return t, _ptrs(t)
+    if nee and t.aw is None:
+        raise ValueError("the NEE kernels need tables packed with "
+                         "pack_scene_tables(scene, nee=True)")
+    return t, _ptrs(t[:_TABLE_PTRS])
+
+
+def _require_lights(scene: DeviceScene, what: str) -> None:
+    if not scene.emissive_geoms:
+        raise ValueError(f"{what}: NEE needs an emissive geom")
 
 
 # ---- the wrappers ----------------------------------------------------------
@@ -370,23 +440,37 @@ def full_iteration(
     once per iteration on PyTorch's current stream, counting each launch
     in `full_iteration.launches`; any other device raises. The tables
     are packed once per call unless given."""
+    _whole_iterations(full_iteration, full_iteration_reference, False, scene,
+                      cam, iteration0, settings, accum, n_iters, tables)
+
+
+def _whole_iterations(wrapper, reference, nee: bool, scene: DeviceScene,
+                      cam: DeviceCamera, iteration0: int, settings,
+                      accum: Vec3, n_iters: int, tables) -> None:
+    """The body of the two whole-iteration wrappers (#1, and #6 when
+    `nee`): the plain version on CPU tensors, else one launch of
+    `pt_<wrapper>` per iteration, counted in `wrapper.launches`."""
+    what = wrapper.__name__
     check_supported(scene, settings)
+    if nee:
+        _require_lights(scene, what)
     device = accum.x.device
     if int(iteration0) < 1:
         raise ValueError(f"iterations are 1-based, got {iteration0}")
     if device.type == "cpu":
         for k in range(n_iters):
-            rad = full_iteration_reference(scene, cam, iteration0 + k, settings)
+            rad = reference(scene, cam, iteration0 + k, settings)
             for a, r in zip(accum, rad):
                 a.add_(r)
         return
-    _require_cuda(device, "full_iteration")
+    _require_cuda(device, what)
 
     resx, resy = cam.resolution
     P = resx * resy
     for name, a in zip(("accum.x", "accum.y", "accum.z"), accum):
         _check_tensor(a, name, torch.float32, (P,), device)
-    t, tptr = _tables_for(scene, tables, device)
+    t, tptr = _tables_for(scene, tables, device, nee)
+    lights = (len(scene.emissive_geoms), t.aw) if nee else ()
     cam_vec = pack_camera(cam)
     _check_tensor(cam_vec, "camera", torch.float32, (16,), device)
     acc = _ptrs(list(accum))
@@ -394,12 +478,12 @@ def full_iteration(
     flags = kernel_flags(scene, settings)
     for k in range(n_iters):
         _launch(
-            "pt_full_iteration", "full_iteration",
-            tptr, len(scene.gtypes), cam_vec.data_ptr(), acc,
+            f"pt_{what}", what,
+            tptr, len(scene.gtypes), *lights, cam_vec.data_ptr(), acc,
             int(iteration0) + k, resx, resy, int(settings.trace_depth),
             int(settings.rr_start_depth), flags, dev_index, stream,
         )
-        full_iteration.launches += 1
+        wrapper.launches += 1
 
 
 def first_bounce(scene: DeviceScene, cam: DeviceCamera, iteration: int,
@@ -500,7 +584,65 @@ def shade_step(state, isect, scene: DeviceScene, iteration: int, depth: int,
     return out
 
 
+def bounce_step_nee(state, aux, scene: DeviceScene, iteration: int,
+                    depth: int, settings, is_last: bool,
+                    tables: SceneTables | None = None):
+    """One NEE + MIS bounce over the pool and its MIS aux lanes
+    (prev_pdf, prev_nondelta: float32 (P,), the flag 0/1), IN PLACE;
+    returns (state, aux), the same tensors. `is_last`: the light sample
+    takes full weight and every lane ends. A lane dead on entry keeps its
+    lanes and aux; a lane that ends here gets aux (0, 0). CPU: the plain
+    version, copied back into the lanes; CUDA: one launch, counted in
+    `bounce_step_nee.launches`."""
+    check_supported(scene, settings)
+    _require_lights(scene, "bounce_step_nee")
+    device = state[5].device
+    if device.type == "cpu":
+        new, new_aux = bounce_step_nee_reference(
+            state, aux, scene, iteration, depth, settings, is_last
+        )
+        for dst, src in zip(pool_lanes(state) + list(aux),
+                            pool_lanes(new) + list(new_aux)):
+            dst.copy_(src)
+        return state, aux
+    _require_cuda(device, "bounce_step_nee")
+    P = state[5].shape[0]
+    lanes = _check_pool(state, P, device)
+    for name, a in zip(("prev_pdf", "prev_nondelta"), aux):
+        _check_tensor(a, name, torch.float32, (P,), device)
+    t, tptr = _tables_for(scene, tables, device, nee=True)
+    dev_index, stream = _device_args(device)
+    _launch(
+        "pt_bounce_step_nee", "bounce_step_nee",
+        tptr, len(scene.gtypes), len(scene.emissive_geoms), t.aw,
+        _ptrs(lanes + list(aux)), P, int(iteration), int(depth),
+        int(bool(is_last)), int(settings.rr_start_depth),
+        kernel_flags(scene, settings), dev_index, stream,
+    )
+    bounce_step_nee.launches += 1
+    return state, aux
+
+
+def full_iteration_nee(
+    scene: DeviceScene,
+    cam: DeviceCamera,
+    iteration0: int,
+    settings,
+    accum: Vec3,
+    n_iters: int = 1,
+    tables: SceneTables | None = None,
+) -> None:
+    """Render iterations iteration0 .. iteration0 + n_iters - 1 (1-based)
+    with the NEE + MIS estimator and add their per-pixel radiance into
+    `accum` in place. CPU: the plain version; CUDA: one launch per
+    iteration, counted in `full_iteration_nee.launches`."""
+    _whole_iterations(full_iteration_nee, full_iteration_nee_reference, True,
+                      scene, cam, iteration0, settings, accum, n_iters, tables)
+
+
 full_iteration.launches = 0
 first_bounce.launches = 0
 bounce_step.launches = 0
 shade_step.launches = 0
+bounce_step_nee.launches = 0
+full_iteration_nee.launches = 0

@@ -32,10 +32,14 @@ _U32 = 0xFFFFFFFF
 # rounds as the JAX package's float32 multiply does
 _INV_M1 = float(np.float32(1.0 / (_LCG_M - 1)))
 
-# Depth slots that seed the camera-jitter draws (AA/DoF) and the
-# motion-blur shutter time, distinct from every bounce depth.
+# Depth slots that seed the camera-jitter draws (AA/DoF), the final-bounce
+# light sample of --direct-lighting and the motion-blur shutter time,
+# distinct from every bounce depth; the per-bounce NEE light sample of
+# depth d draws from stream NEE_DEPTH_BASE + d.
 RAYGEN_STREAM = 255
+NEE_STREAM = 254
 TIME_STREAM = 253
+NEE_DEPTH_BASE = 128
 
 # R2 lattice increments: round(2^32 / p) and round(2^32 / p^2), p the
 # plastic constant

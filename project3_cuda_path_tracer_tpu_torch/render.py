@@ -1,11 +1,11 @@
-"""The render core: settings, the shading step, the per-bounce path and
+"""The render core: settings, the shading steps, the per-bounce paths and
 the renderer.
 
 The PyTorch counterpart of the JAX package's `render.py`. The CUDA
 reference's shape
     generateRayFromCamera -> while(depth) { computeIntersections; shade }
     -> finalGather -> tonemap
-has two tiers here, as in the JAX package:
+has these tiers here, as in the JAX package:
 - the whole-iteration kernel (ops/megakernel.py::full_iteration, #1),
   which `render_batch` runs whenever no per-bounce feature is on;
 - the per-bounce wavefront path, `trace_paths`: first_bounce (#2) or, on
@@ -13,7 +13,21 @@ has two tiers here, as in the JAX package:
   intersections, then bounce_step (#3) for depths 1..D-1, with stream
   compaction between bounces and the motion-blur shutter time. It runs
   under `Renderer.step()` always and under `render_batch` with
-  --compact, --cache-first-bounce or --motion-blur.
+  --compact, --cache-first-bounce, --motion-blur or --direct-lighting;
+- --direct-lighting (final-bounce NEE): the per-bounce path for depths
+  0..D-2, then `_nee_final_step` at depth D-1 (one shadow ray to a
+  sampled light point from each diffuse lane, RNG stream 254). That step
+  is plain PyTorch over `intersect_scene` on every device, as the JAX
+  package runs it in XLA outside any Pallas kernel;
+- --nee (NEE + MIS at every non-delta vertex, `_nee_mis_bounce`): under
+  `render_batch` the whole-iteration NEE kernel
+  (megakernel.full_iteration_nee, #6), one launch per iteration; under
+  `Renderer.step()`, and under `render_batch` with --motion-blur, the
+  per-bounce NEE kernel (megakernel.bounce_step_nee, #5) once per depth
+  0..D-1 from plain `generate_rays`, the MIS aux state (previous pdf,
+  previous non-delta flag) riding as two pool lanes. --nee takes
+  precedence over --direct-lighting and refuses compaction and the
+  first-bounce cache (ValueError), as the JAX package does.
 Between the kernels runs only the glue the JAX package runs in XLA: the
 compaction permutation, the alive sums, the radiance scatter
 (`index_add_`), and the per-iteration re-pack of the moved transforms.
@@ -26,6 +40,7 @@ device by megakernel.check_supported.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -40,16 +55,19 @@ from .models.device import (
 )
 from .models.scene import Scene, derive_camera
 from .ops import rng
-from .ops.bsdf import scatter
+from .ops.bsdf import reflect, scatter
 from .ops.camera import generate_rays
 from .ops.intersect import Intersections
+from .ops.lights import lights_area_weight, sample_lights
 from .ops.megakernel import (
     SceneTables,
     bounce_step,
+    bounce_step_nee,
     check_supported,
     draw_slots,
     first_bounce,
     full_iteration,
+    full_iteration_nee,
     pack_geom_tables,
     pack_scene_tables,
     shade_step,
@@ -68,7 +86,17 @@ class RenderSettings:
     (megakernel.check_supported). `use_bvh` and `use_pallas` select
     nothing here: analytic scenes have no BVH, and the device alone
     decides the path (the kernels on CUDA, their plain versions on the
-    CPU)."""
+    CPU).
+
+    The two light-sampling tiers: `direct_lighting` replaces the last
+    bounce's hemisphere sample of diffuse lanes with one shadow ray to a
+    sampled light point (per-bounce path, then `_nee_final_step`);
+    `nee_mis` samples a light at every non-delta vertex and weights it
+    against the BSDF sample by the power heuristic (kernel #6 under
+    `step_batch`, kernel #5 per depth under `step()` and with motion
+    blur). `nee_mis` wins when both are set; both need an emissive geom,
+    and `nee_mis` refuses `compact` and an effective first-bounce
+    cache."""
 
     trace_depth: int = 8
     sort_by_material: bool = False
@@ -109,18 +137,25 @@ def _gather_materials(scene: DeviceScene, mat_id: torch.Tensor):
 
 
 def _shade_step(state, isect: Intersections, scene: DeviceScene,
-                iteration: int, depth: int, settings: RenderSettings):
+                iteration: int, depth: int, settings: RenderSettings,
+                add_emission: bool = True,
+                textured_color: Vec3 | None = None):
     """One masked shading step over the whole pool; the JAX package's
     `_shade_step` for analytic materials and the constant environment.
 
     state = (origins, dirs, throughput, radiance, alive, pix). RNG draws
     follow the scene-specialised slot layout (megakernel.draw_slots),
-    keyed (iteration, pixelIndex, depth)."""
+    keyed (iteration, pixelIndex, depth).
+
+    add_emission=False (the NEE + MIS continuation, `_nee_mis_bounce`):
+    emissive hits still end their lane but add nothing, and escaped lanes
+    collect no environment; the caller has added both. textured_color:
+    the albedo the caller already textured, used as it is."""
     origins, dirs, throughput, radiance, alive, pix = state
     hit = isect.t > 0.0
     zeros = Vec3.zeros(pix.shape[0], pix.device)
 
-    if scene.has_env_const:
+    if scene.has_env_const and add_emission:
         # escaped rays collect the environment radiance, then die
         env = Vec3.broadcast(scene.env_color, pix.shape[0])
         radiance = radiance + vwhere(alive & ~hit, throughput * env, zeros)
@@ -139,7 +174,9 @@ def _shade_step(state, isect: Intersections, scene: DeviceScene,
         u = pair(iteration, pix, 0) + u[2:]
 
     mats = _gather_materials(scene, isect.material_id)
-    if scene.any_textured:
+    if textured_color is not None:
+        mats = (textured_color,) + mats[1:]
+    elif scene.any_textured:
         p_hit = origins + dirs * (isect.t - 1e-4)
         mats = (apply_textures(scene, p_hit, isect.material_id, mats[0]),) + mats[1:]
     new_origin, new_dir, tint, emitted, at_light = scatter(
@@ -158,7 +195,8 @@ def _shade_step(state, isect: Intersections, scene: DeviceScene,
     live_hit = alive & hit
     # light hit: contribute throughput * (color*emittance), terminate
     lit = live_hit & at_light
-    radiance = radiance + vwhere(lit, throughput * emitted, zeros)
+    if add_emission:
+        radiance = radiance + vwhere(lit, throughput * emitted, zeros)
     cont = live_hit & ~at_light
     throughput = vwhere(cont, throughput * tint, throughput)
 
@@ -175,6 +213,216 @@ def _shade_step(state, isect: Intersections, scene: DeviceScene,
     origins = vwhere(alive, new_origin, origins)
     dirs = vwhere(alive, new_dir, dirs)
     return (origins, dirs, throughput, radiance, alive, pix)
+
+
+_INV_PI = 1.0 / math.pi
+_HALF_INV_PI = 0.5 / math.pi
+
+
+def _nee_final_step(state, scene: DeviceScene, iteration: int,
+                    settings: RenderSettings):
+    """The last bounce of --direct-lighting (the JAX package's
+    `_nee_final_step`): escaped lanes collect the environment, emissive
+    hits add their emission, and each live DIFFUSE lane trades its last
+    hemisphere sample for one shadow ray to a light point (RNG stream
+    NEE_STREAM). Albedo and emission are untextured, as there. Every
+    lane ends here. Plain PyTorch on every device: the JAX package runs
+    this step in XLA, outside any Pallas kernel."""
+    origins, dirs, throughput, radiance, alive, pix = state
+    P = pix.shape[0]
+    zeros = Vec3.zeros(P, pix.device)
+    isect = intersect_scene(origins, dirs, scene)
+    hit = isect.t > 0.0
+    m_color, _spec, m_refl, m_refr, _ior, m_emit, _sexp = _gather_materials(
+        scene, isect.material_id
+    )
+
+    if scene.has_env_const:
+        env = Vec3.broadcast(scene.env_color, P)
+        radiance = radiance + vwhere(alive & ~hit, throughput * env, zeros)
+
+    live_hit = alive & hit
+    lit = live_hit & (m_emit > 0.0)
+    radiance = radiance + vwhere(lit, throughput * (m_color * m_emit), zeros)
+
+    diffuse = live_hit & (m_emit <= 0.0) & (m_refl <= 0.0) & (m_refr <= 0.0)
+    p_hit = origins + dirs * (isect.t - 1e-4)
+
+    u = rng.uniforms(iteration, pix, rng.NEE_STREAM, 3)
+    lp, ln, weight, le = sample_lights(scene, u[0], u[1], u[2])
+
+    to_l = lp - p_hit
+    r2 = torch.clamp(to_l.length_sq(), min=1e-8)
+    r = torch.sqrt(r2)
+    wi = to_l * (1.0 / r)
+    cos_s = torch.clamp(isect.normal.dot(wi), min=0.0)
+    cos_l = torch.clamp(-ln.dot(wi), min=0.0)
+
+    shadow = intersect_scene(p_hit, wi, scene)
+    visible = (shadow.t < 0.0) | (shadow.t >= r - 1e-2)
+
+    g = cos_s * cos_l / r2 * weight * _INV_PI
+    contrib = throughput * m_color * le * g
+    take = diffuse & visible & (cos_s > 0) & (cos_l > 0)
+    radiance = radiance + vwhere(take, contrib, zeros)
+
+    dead = torch.zeros(P, dtype=torch.bool, device=pix.device)
+    return (origins, dirs, throughput, radiance, dead, pix)
+
+
+def _nee_mis_bounce(state, aux, scene: DeviceScene, iteration: int,
+                    depth: int, settings: RenderSettings, is_last: bool,
+                    probe: dict | None = None):
+    """One bounce of the NEE + MIS estimator (the JAX package's
+    `_nee_mis_bounce`, op for op): at every vertex with a non-delta lobe
+    one area-sampled shadow ray adds
+        throughput * f_mix * Le * G * (A*n) * w_light,
+    and an emissive hit of the BSDF-sampled ray adds its emission times
+    w_bsdf (power heuristic, beta = 2; both sides use the mean-area light
+    pdf model of `ops.lights.lights_area_weight`, so the weights sum to
+    one). The camera vertex and delta vertices (SPECEX == 0 mirror picks,
+    refraction) keep full weight at an emissive hit. f_mix is the mixed
+    BRDF the BSDF sampler implies: (1-p) albedo/pi + p spec
+    pdf_lobe/cos_s, p = clip(REFL, 0, 1).
+
+    state = (origins, dirs, throughput, radiance, alive bool, pix); aux =
+    (prev_pdf (P,) f32, prev_nondelta (P,) bool), zeros at depth 0.
+    is_last: the light sample takes full weight and every lane ends, its
+    throughput untouched. Order of the radiance terms: the environment on
+    escape, the MIS-weighted emission, the NEE term with the entry
+    throughput, then the continuation's tint and Russian roulette.
+    Returns (state', aux').
+
+    probe: a dict that, when given, receives the (P,) bool masks that
+    decide the kernels' work per lane, for counting it (chip_smoke.py's
+    bounds): `live_hit`, `lit` (an emissive hit), `nee_able` (a live
+    non-emissive hit with a non-delta lobe), `shadow` (the NEE-able
+    lanes whose light sample faces both ways, the ones that cast a shadow
+    ray) and `visible`; and the shadow rays themselves as `p_hit`, `wi`
+    and the light distance `r`."""
+    origins, dirs, throughput, radiance, alive, pix = state
+    prev_pdf, prev_nondelta = aux
+    P = pix.shape[0]
+    zeros = Vec3.zeros(P, pix.device)
+
+    isect = intersect_scene(origins, dirs, scene)
+    hit = isect.t > 0.0
+    live_hit = alive & hit
+    m_color, m_spec, m_refl, m_refr, _ior, m_emit, m_sexp = _gather_materials(
+        scene, isect.material_id
+    )
+    normal = isect.normal
+    if scene.any_textured:
+        p_tex = origins + dirs * (isect.t - 1e-4)
+        m_color = apply_textures(scene, p_tex, isect.material_id, m_color)
+
+    if scene.has_env_const:
+        env = Vec3.broadcast(scene.env_color, P)
+        radiance = radiance + vwhere(alive & ~hit, throughput * env, zeros)
+
+    # --- emissive hit: MIS-weighted by the previous vertex's strategy ---
+    lit = live_hit & (m_emit > 0.0)
+    area_weight = lights_area_weight(scene)
+    cos_l_hit = torch.abs(normal.dot(dirs))
+    pdf_light_hit = (isect.t * isect.t) / torch.clamp(
+        cos_l_hit * area_weight, min=1e-8
+    )
+    w_bsdf = torch.where(
+        prev_nondelta,
+        (prev_pdf * prev_pdf)
+        / torch.clamp(prev_pdf * prev_pdf + pdf_light_hit * pdf_light_hit,
+                      min=1e-20),
+        1.0,
+    )
+    emitted = m_color * m_emit
+    radiance = radiance + vwhere(lit, throughput * emitted * w_bsdf, zeros)
+
+    # --- the light sample at every vertex with a non-delta lobe ---
+    p_mix = torch.clamp(m_refl, 0.0, 1.0)
+    glossy_ok = m_sexp is not None
+    nee_able = live_hit & (m_emit <= 0.0) & (m_refr <= 0.0)
+    has_diffuse_lobe = p_mix < 1.0
+    if glossy_ok:
+        has_glossy_lobe = (p_mix > 0.0) & (m_sexp > 0.0)
+    else:
+        has_glossy_lobe = torch.zeros(P, dtype=torch.bool, device=pix.device)
+    nee_able = nee_able & (has_diffuse_lobe | has_glossy_lobe)
+
+    p_hit = origins + dirs * (isect.t - 1e-4)
+    ul = rng.uniforms(iteration, pix, rng.NEE_DEPTH_BASE + depth, 3)
+    lp, ln, weight, le = sample_lights(scene, ul[0], ul[1], ul[2])
+    to_l = lp - p_hit
+    r2 = torch.clamp(to_l.length_sq(), min=1e-8)
+    r = torch.sqrt(r2)
+    wi = to_l * (1.0 / r)
+    cos_s = torch.clamp(normal.dot(wi), min=0.0)
+    cos_l = torch.clamp(-ln.dot(wi), min=0.0)
+    shadow = intersect_scene(p_hit, wi, scene)
+    visible = (shadow.t < 0.0) | (shadow.t >= r - 1e-2)
+
+    # Phong lobe pdf of the light direction (glossy lanes)
+    mirror = reflect(dirs, normal)
+    if glossy_ok:
+        cos_a = torch.clamp(mirror.dot(wi), min=0.0)
+        pdf_lobe = torch.where(
+            has_glossy_lobe,
+            (m_sexp + 1.0) * _HALF_INV_PI * torch.pow(cos_a, m_sexp),
+            0.0,
+        )
+    else:
+        pdf_lobe = torch.zeros(P, dtype=torch.float32, device=pix.device)
+
+    pdf_light_sa = r2 / torch.clamp(cos_l * area_weight, min=1e-8)
+    pdf_bsdf_sa = (1.0 - p_mix) * cos_s * _INV_PI + p_mix * pdf_lobe
+    if is_last:
+        w_light = torch.ones_like(cos_s)  # no continuation competes
+    else:
+        w_light = (pdf_light_sa * pdf_light_sa) / torch.clamp(
+            pdf_light_sa * pdf_light_sa + pdf_bsdf_sa * pdf_bsdf_sa, min=1e-20
+        )
+    # geometric factor without the BRDF; f folds in per lobe below
+    g_geo = cos_s * cos_l / r2 * weight
+    f_diff = m_color * ((1.0 - p_mix) * _INV_PI)
+    f_spec_scale = p_mix * pdf_lobe / torch.clamp(cos_s, min=1e-6)
+    f_mix = f_diff + m_spec * f_spec_scale
+    contrib = throughput * f_mix * le * (g_geo * w_light)
+    shadow = nee_able & (cos_s > 0) & (cos_l > 0)
+    radiance = radiance + vwhere(shadow & visible, contrib, zeros)
+    if probe is not None:
+        probe.update(live_hit=live_hit, lit=lit, nee_able=nee_able,
+                     shadow=shadow, visible=visible, p_hit=p_hit, wi=wi, r=r)
+
+    if is_last:
+        dead = torch.zeros(P, dtype=torch.bool, device=pix.device)
+        return ((origins, dirs, throughput, radiance, dead, pix),
+                (torch.zeros_like(prev_pdf), dead))
+
+    # --- the BSDF continuation (the ordinary scatter step) ---
+    new_state = _shade_step(
+        (origins, dirs, throughput, radiance, alive, pix), isect, scene,
+        iteration, depth, settings, add_emission=False,
+        textured_color=m_color,
+    )
+    n_dirs, n_alive = new_state[1], new_state[4]
+
+    # next-vertex MIS bookkeeping: the pdf of the sampled direction under
+    # the lane's mixed strategy; a mirror pick (a delta lobe, detected by
+    # the new direction coinciding with the mirror direction) keeps full
+    # weight at the next emissive hit
+    cos_new = torch.clamp(normal.dot(n_dirs), min=0.0)
+    next_pdf = (1.0 - p_mix) * cos_new * _INV_PI
+    if glossy_ok:
+        cos_an = torch.clamp(mirror.dot(n_dirs), min=0.0)
+        next_pdf = next_pdf + p_mix * torch.where(
+            has_glossy_lobe,
+            (m_sexp + 1.0) * _HALF_INV_PI * torch.pow(cos_an, m_sexp),
+            0.0,
+        )
+    mirror_pick = (
+        (p_mix > 0.0) & ~has_glossy_lobe & (mirror.dot(n_dirs) > 1.0 - 1e-6)
+    )
+    next_nondelta = nee_able & n_alive & ~mirror_pick
+    return new_state, (next_pdf, next_nondelta)
 
 
 def _permute_state(state, perm: torch.Tensor):
@@ -235,10 +483,76 @@ def shutter_time(iteration: int) -> float:
     return float(u[0][0])
 
 
-def _device_tables(scene: DeviceScene) -> SceneTables | None:
-    """The kernels' packed tables on CUDA; None on the CPU (the plain
-    versions read the DeviceScene itself)."""
-    return pack_scene_tables(scene) if scene.device.type == "cuda" else None
+def _device_tables(scene: DeviceScene,
+                   settings: RenderSettings) -> SceneTables | None:
+    """The kernels' packed tables on CUDA (with the light pdf model under
+    --nee); None on the CPU (the plain versions read the DeviceScene
+    itself)."""
+    if scene.device.type != "cuda":
+        return None
+    return pack_scene_tables(scene, nee=settings.nee_mis)
+
+
+def _check_lighting(scene: DeviceScene, settings: RenderSettings) -> None:
+    """The JAX package's ValueErrors for the light-sampling tiers: both
+    need an emissive geom, and the NEE + MIS aux state is not
+    pool-permutation aware."""
+    if (settings.nee_mis or settings.direct_lighting) and not scene.emissive_geoms:
+        raise ValueError(
+            "NEE/direct lighting needs an area light: no geom in this "
+            "scene has an emissive material (EMITTANCE > 0). "
+            "Environment-only scenes (e.g. scenes/env.txt) must render "
+            "without --nee/--direct-lighting."
+        )
+    if settings.nee_mis and (
+        settings.sort_by_material or settings.compact
+        or settings.effective_cache()
+    ):
+        raise ValueError(
+            "nee_mis composes with AA/DoF/RR/stratified but not with "
+            "sort/compact/first-bounce cache (the MIS aux state is not "
+            "pool-permutation aware)"
+        )
+
+
+def _camera_pool(cam: DeviceCamera, iteration: int, settings: RenderSettings):
+    """The camera rays of an iteration (plain `generate_rays`) as a fresh
+    pool: every lane alive, unit throughput, no radiance, pix = slot."""
+    origins, dirs, pix = generate_rays(
+        cam, iteration, settings.antialias, settings.depth_of_field
+    )
+    P = pix.shape[0]
+    device = pix.device
+    return (
+        Vec3(*(c.contiguous() for c in origins)), dirs,
+        Vec3.ones(P, device), Vec3.zeros(P, device),
+        torch.ones(P, dtype=torch.int32, device=device), pix,
+    )
+
+
+def _trace_nee(scene: DeviceScene, cam: DeviceCamera, iteration: int,
+               settings: RenderSettings, tables: SceneTables | None,
+               count_alive: bool):
+    """The per-bounce NEE + MIS route: plain `generate_rays` for the
+    depth-0 rays, then bounce_step_nee (#5) at every depth 0..D-1, the
+    last at is_last, with the MIS aux starting at zeros. Returns what
+    `trace_paths` returns; the pool is never permuted."""
+    device = scene.device
+    state = _camera_pool(cam, iteration, settings)
+    P = state[5].shape[0]
+    aux = (torch.zeros(P, dtype=torch.float32, device=device),
+           torch.zeros(P, dtype=torch.float32, device=device))
+    D = settings.trace_depth
+    counts = []
+    for depth in range(D):
+        state, aux = bounce_step_nee(
+            state, aux, scene, iteration, depth, settings,
+            is_last=depth == D - 1, tables=tables,
+        )
+        if count_alive:
+            counts.append(_count_alive(state))
+    alive_counts = torch.stack(counts) if count_alive else None
+    return state[3], state[5], _empty_cache(P, device), alive_counts
 
 
 def trace_paths(
@@ -254,7 +568,9 @@ def trace_paths(
     """One full sample per pixel through the per-bounce path: first_bounce
     (#2), or shade_step (#4) over the depth-0 intersections under the
     first-bounce cache, then bounce_step (#3) for depths 1..D-1, with
-    compaction between bounces.
+    compaction between bounces. Under --direct-lighting the last depth is
+    `_nee_final_step` instead of #3; under --nee every depth is
+    bounce_step_nee (#5), from plain `generate_rays` (`_trace_nee`).
 
     `iteration` is 1-based. `cache` holds the depth-0 Intersections in
     pixel order and is read only when `use_cache`. `tables` are the
@@ -263,6 +579,7 @@ def trace_paths(
     depth-0 Intersections, alive_counts (D,) int32 on the device, or
     None when neither `count_alive` nor compaction needs them). pix
     tracks the pool permutation of compaction."""
+    _check_lighting(scene, settings)
     if settings.motion_blur:
         # one shutter-time sample per iteration: move the geoms, re-pack
         # only the two (G,16) tables that change
@@ -271,22 +588,17 @@ def trace_paths(
             xf, inv = pack_geom_tables(scene)
             tables = tables._replace(xf=xf, inv=inv)
     if tables is None:
-        tables = _device_tables(scene)
+        tables = _device_tables(scene, settings)
+    if settings.nee_mis:
+        return _trace_nee(scene, cam, iteration, settings, tables, count_alive)
     device = scene.device
 
     if settings.effective_cache():
         # depth 0 from the cached (or freshly computed) intersections of
         # the pinhole camera rays; the cache is pixel-ordered
-        origins, dirs, pix = generate_rays(
-            cam, iteration, settings.antialias, settings.depth_of_field
-        )
-        P = pix.shape[0]
-        state = (
-            Vec3(*(c.contiguous() for c in origins)), dirs,
-            Vec3.ones(P, device), Vec3.zeros(P, device),
-            torch.ones(P, dtype=torch.int32, device=device), pix,
-        )
-        isect0 = cache if use_cache else intersect_scene(origins, dirs, scene)
+        state = _camera_pool(cam, iteration, settings)
+        isect0 = cache if use_cache else intersect_scene(state[0], state[1],
+                                                         scene)
         cache_out = isect0
         state = shade_step(state, isect0, scene, iteration, 0, settings,
                            tables=tables)
@@ -298,14 +610,21 @@ def trace_paths(
     if count_alive or settings.compact:
         counts = [_count_alive(state)]
 
-    # depths 1..D-1: the wavefront bounce loop (src/pathtrace.cu:340-377)
-    for depth in range(1, settings.trace_depth):
+    # depths 1..D-1 (1..D-2 under direct lighting): the wavefront bounce
+    # loop (src/pathtrace.cu:340-377)
+    D = settings.trace_depth
+    for depth in range(1, D - 1 if settings.direct_lighting else D):
         state = bounce_step(
             state, scene, iteration, depth, settings,
             num_alive=counts[-1] if settings.compact else None,
             tables=tables,
         )
         state = _maybe_compact(state, settings)
+        if counts is not None:
+            counts.append(_count_alive(state))
+    if settings.direct_lighting and D > 1:
+        state = _nee_final_step(state[:4] + (state[4] != 0, state[5]), scene,
+                                iteration, settings)
         if counts is not None:
             counts.append(_count_alive(state))
 
@@ -349,14 +668,23 @@ def render_iteration(
 
 
 def whole_kernel(settings: RenderSettings) -> bool:
-    """Whether render_batch runs the whole-iteration kernel: the JAX
+    """Whether render_batch runs the whole-iteration kernel #1: the JAX
     package's kernel_plan.whole_kernel for what the port renders, without
     its geoms x materials limit (a TPU compile-time trade-off)."""
     return not (
         settings.compact
         or settings.effective_cache()
         or settings.motion_blur
+        or settings.direct_lighting
+        or settings.nee_mis
     )
+
+
+def nee_kernel(settings: RenderSettings) -> bool:
+    """Whether render_batch runs the whole-iteration NEE kernel #6 (the
+    JAX package's kernel_plan.nee_kernel, again without its body limit,
+    so many_materials --nee takes it too): --nee without motion blur."""
+    return settings.nee_mis and not settings.motion_blur
 
 
 def render_batch(scene: DeviceScene, cam: DeviceCamera, accum: Vec3,
@@ -365,15 +693,21 @@ def render_batch(scene: DeviceScene, cam: DeviceCamera, accum: Vec3,
                  tables: SceneTables | None = None) -> Vec3:
     """n_iters full samples added into accum (in place), starting at the
     1-based iteration id `iteration0`: the whole-iteration kernel when
-    `whole_kernel(settings)`, else the per-bounce path, with the
+    `whole_kernel(settings)`, the whole-iteration NEE kernel when
+    `nee_kernel(settings)`, else the per-bounce path, with the
     first-bounce cache computed once per batch from iteration0's pinhole
     rays. CPU tensors take the plain versions throughout."""
+    _check_lighting(scene, settings)
     if whole_kernel(settings):
         full_iteration(scene, cam, iteration0, settings, accum,
                        n_iters=n_iters, tables=tables)
         return accum
+    if nee_kernel(settings):
+        full_iteration_nee(scene, cam, iteration0, settings, accum,
+                           n_iters=n_iters, tables=tables)
+        return accum
     if tables is None:
-        tables = _device_tables(scene)
+        tables = _device_tables(scene, settings)
     use_cache = settings.effective_cache()
     cache = None
     if use_cache:
@@ -431,7 +765,7 @@ class Renderer:
             self.settings = replace(self.settings, trace_depth=8)
         self.dev_scene = scene_to_device(scene, self.device)
         check_supported(self.dev_scene, self.settings)
-        self.tables = _device_tables(self.dev_scene)
+        self.tables = _device_tables(self.dev_scene, self.settings)
         self.camera = scene.state.camera
         self.dev_camera = camera_to_device(self.camera, self.device)
         self.start_time_string = image_io.current_time_string()
@@ -511,9 +845,10 @@ class Renderer:
     # -- rendering ---------------------------------------------------------
     def step(self) -> int:
         """Render one sample per pixel (one `pathtrace()` call) through
-        the per-bounce path; fills `last_alive_counts` (live paths after
-        each depth, on the device) and, on the first step with an
-        effective first-bounce cache, the cache."""
+        the per-bounce path (under --nee: kernel #5 once per depth);
+        fills `last_alive_counts` (live paths after each depth, on the
+        device) and, on the first step with an effective first-bounce
+        cache, the cache."""
         self.iteration += 1
         # trust the cache only once a step has filled it: after
         # load_checkpoint (or a reset) it is zeros, and zeros read as

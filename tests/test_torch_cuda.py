@@ -224,3 +224,122 @@ def test_step_launches_per_bounce_kernels(cuda_device, settings_kw, fb, bs, ss):
     assert [b - a for a, b in zip(counts, now)] == [0, fb, bs, ss]
     assert r.last_alive_counts.device.type == "cuda"
     assert np.isfinite(r.image()).all() and r.image().max() > 0
+
+
+# ---- kernels #5 and #6: NEE + MIS ----
+
+NEE = [
+    ("cornell.txt", {"antialias": True}, None),
+    ("cornell.txt", {"russian_roulette": True, "rr_start_depth": 2,
+                     "stratified": True}, None),
+    ("cornell.txt", {"antialias": True}, 4),  # the sphere made glossy
+    ("many_materials.txt", {"russian_roulette": True}, None),
+]
+
+
+def _nee_setup(cuda_device, name, settings_kw, glossy_mat, res=(64, 64)):
+    scene = small(name, res)
+    if glossy_mat is not None:
+        m = scene.materials
+        m.specular_exponent = m.specular_exponent.copy()
+        m.specular_exponent[glossy_mat] = 24.0
+    settings = RenderSettings(trace_depth=8, nee_mis=True, **settings_kw)
+    ds = scene_to_device(scene, cuda_device)
+    cam = camera_to_device(scene.state.camera, cuda_device)
+    return ds, cam, settings
+
+
+@pytest.mark.parametrize("name,settings_kw,glossy_mat", NEE)
+def test_full_iteration_nee_matches_plain_on_cuda(cuda_device, name, settings_kw,
+                                                  glossy_mat):
+    """#6 against its plain version, one iteration at 64x64, with
+    tests/test_nee_megakernel.py's image rule."""
+    ds, cam, settings = _nee_setup(cuda_device, name, settings_kw, glossy_mat)
+    accum = Vec3.zeros(64 * 64, cuda_device)
+    before = megakernel.full_iteration_nee.launches
+    megakernel.full_iteration_nee(ds, cam, 3, settings, accum)
+    torch.cuda.synchronize()
+    assert megakernel.full_iteration_nee.launches == before + 1
+    plain = megakernel.full_iteration_nee_reference(ds, cam, 3, settings)
+    for g, w in zip(accum, plain):
+        diff = np.abs(g.cpu().numpy() - w.cpu().numpy())
+        assert (diff > 1e-3).mean() < 0.03
+        assert np.median(diff) < 1e-5
+
+
+def assert_nee_lanes_close(got, got_aux, want, want_aux):
+    """pix exactly; alive per lane under the lane rule of
+    tests/test_megakernel.py:57-76 (at most 1% of lanes differ); radiance
+    on every lane; the other lanes and the aux on lanes alive after the
+    bounce in both (no later step reads the others)."""
+    g = [a.cpu().numpy() for a in megakernel.pool_lanes(got)]
+    w = [a.cpu().numpy() for a in megakernel.pool_lanes(want)]
+    np.testing.assert_array_equal(g[13], w[13])
+    assert (g[12] != w[12]).mean() <= 0.01
+    both_alive = (g[12] != 0) & (w[12] != 0)
+    ga = [a.cpu().numpy() for a in got_aux]
+    wa = [a.cpu().numpy() for a in want_aux]
+    for k, (a, b) in enumerate(zip(g[:12] + ga, w[:12] + wa)):
+        diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
+        if 9 <= k <= 11:  # radiance: every lane
+            assert (diff > 1e-3).mean() < 0.02, k
+        elif both_alive.any():
+            assert (diff[both_alive] > 1e-3).mean() < 0.02, k
+
+
+@pytest.mark.parametrize("name,settings_kw,glossy_mat", NEE)
+def test_bounce_step_nee_matches_plain_on_cuda(cuda_device, name, settings_kw,
+                                               glossy_mat):
+    """#5 in place at depths 0-2 and at depth 3 with is_last, each from
+    the plain version's own pool."""
+    from project3_cuda_path_tracer_tpu_torch.ops.camera import generate_rays
+
+    ds, cam, settings = _nee_setup(cuda_device, name, settings_kw, glossy_mat)
+    origins, dirs, pix = generate_rays(cam, 2, settings.antialias, False)
+    P = pix.shape[0]
+    pool = (Vec3(*(c.contiguous() for c in origins)), dirs,
+            Vec3.ones(P, cuda_device), Vec3.zeros(P, cuda_device),
+            torch.ones(P, dtype=torch.int32, device=cuda_device), pix)
+    aux = (torch.zeros(P, device=cuda_device), torch.zeros(P, device=cuda_device))
+    before = megakernel.bounce_step_nee.launches
+    for depth, is_last in ((0, False), (1, False), (2, False), (3, True)):
+        want, want_aux = megakernel.bounce_step_nee_reference(
+            pool, aux, ds, 2, depth, settings, is_last)
+        start = [a.clone() for a in megakernel.pool_lanes(pool)]
+        start_pool = (Vec3(*start[0:3]), Vec3(*start[3:6]), Vec3(*start[6:9]),
+                      Vec3(*start[9:12]), start[12], start[13])
+        start_aux = tuple(a.clone() for a in aux)
+        got, got_aux = megakernel.bounce_step_nee(start_pool, start_aux, ds, 2,
+                                                  depth, settings, is_last)
+        torch.cuda.synchronize()
+        assert got is start_pool and got_aux is start_aux
+        assert_nee_lanes_close(got, got_aux, want, want_aux)
+        pool, aux = want, want_aux
+    assert megakernel.bounce_step_nee.launches == before + 4
+
+
+@pytest.mark.parametrize("settings_kw,counts", [
+    # (full_iteration, first_bounce, bounce_step, shade_step,
+    #  bounce_step_nee, full_iteration_nee) per 3 step() + 3 step_batch
+    ({"nee_mis": True, "antialias": True}, [0, 0, 0, 0, 24, 3]),
+    ({"nee_mis": True, "motion_blur": True}, [0, 0, 0, 0, 48, 0]),
+    ({"direct_lighting": True}, [0, 6, 36, 0, 0, 0]),
+])
+def test_light_sampling_launches(cuda_device, settings_kw, counts):
+    """--nee: step_batch runs #6 once per iteration, step() runs #5 once
+    per depth (so does step_batch under motion blur); --direct-lighting:
+    #2 once, #3 for depths 1..D-2, then the plain final step."""
+    wrappers = (megakernel.full_iteration, megakernel.first_bounce,
+                megakernel.bounce_step, megakernel.shade_step,
+                megakernel.bounce_step_nee, megakernel.full_iteration_nee)
+    r = Renderer(small("cornell.txt", (64, 48)),
+                 RenderSettings(trace_depth=8, **settings_kw), device=cuda_device)
+    before = [f.launches for f in wrappers]
+    for _ in range(3):
+        r.step()
+    r.step_batch(3)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(wrappers, before)] == counts
+    assert r.last_alive_counts.device.type == "cuda"
+    assert int(r.last_alive_counts[-1]) == 0
+    assert np.isfinite(r.image()).all() and r.image().max() > 0

@@ -176,13 +176,18 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
     [("textured.txt", {}, "textures"),
      ("cornell_sss.txt", {}, "subsurface"),
      ("envmap.txt", {}, "environment maps"),
-     ("cornell.txt", {"nee_mis": True}, "NEE"),
+     ("cornell.txt", {"tri_axis": "tri"}, "triangle sharding"),
      ("cornell.txt", {"sort_by_material": True}, "material sort"),
-     ("cornell.txt", {"direct_lighting": True}, "direct lighting")],
+     ("mesh.txt", {}, "mesh")],
 )
 def test_unported_features_raise(name, settings_kw, what):
     """A scene or setting of a later slice is refused with its ROADMAP
-    item, by the renderer and by the kernel wrapper itself."""
+    item, by the renderer and by the kernel wrapper itself; a mesh scene
+    already when it is read."""
+    if name == "mesh.txt":
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+            small(tscene, name, (8, 8))
+        return
     scene = small(tscene, name, (8, 8))
     settings = trender.RenderSettings(**settings_kw)
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
@@ -193,7 +198,7 @@ def test_unported_features_raise(name, settings_kw, what):
         tmk.full_iteration(ds, cam, 1, settings, TVec3.zeros(64, "cpu"))
 
 
-@pytest.mark.parametrize("flag", ["--nee", "--sort-materials", "--shard",
+@pytest.mark.parametrize("flag", ["--stats", "--sort-materials", "--shard",
                                   "--preview", "--no-pallas"])
 def test_cli_unported_flags_fail(flag, caplog):
     argv = [os.path.join(SCENES, "cornell.txt"), "--device", "cpu", flag]
@@ -201,6 +206,22 @@ def test_cli_unported_flags_fail(flag, caplog):
         argv.append("spp=2")
     assert tmain(argv) == 1
     assert "ROADMAP" in caplog.text
+
+
+@pytest.mark.parametrize("flag", ["--nee", "--direct-lighting"])
+def test_cli_renders_light_sampling_on_cpu(flag, tmp_path):
+    """--nee and --direct-lighting render through the CLI on the CPU (the
+    plain versions: no kernel launch is counted)."""
+    text = open(os.path.join(SCENES, "cornell.txt")).read()
+    scene = tmp_path / "cornell16.txt"
+    scene.write_text(text.replace("RES         800 800", "RES         16 16"))
+    launches = [tmk.full_iteration_nee.launches, tmk.bounce_step_nee.launches]
+    rc = tmain([str(scene), "--device", "cpu", "--iterations", "2",
+                "--depth", "3", flag, "--out-dir", str(tmp_path)])
+    assert rc == 0
+    assert len(list(tmp_path.glob("cornell.*.2samp.png"))) == 1
+    assert launches == [tmk.full_iteration_nee.launches,
+                        tmk.bounce_step_nee.launches]
 
 
 def test_checkpoint_round_trip_and_camera_reset(tmp_path):
