@@ -3,23 +3,29 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, in parallel), holds each of the six against its plain
+nvcc per source, in parallel), holds each of the ten against its plain
 PyTorch version on the card (at 64x64 and at the main path's 800x800;
 the NEE kernels #5 and #6 on Cornell AA, Cornell RR + stratified, a
 glossy Cornell and many_materials RR, #5's pix exactly and its alive per
-lane), renders the eleven analytic smoke
-configs (the two --nee ones included) against the XLA goldens
-(tools/goldens/smoke_128.npz) through `Renderer.step_batch` and through
-`Renderer.step()`, drives the main path (Cornell 800x800, depth 8, AA,
-progressive) through `Renderer.step_batch` and times it, drives and
-times the other paths at their scenes' own size, depth 8 (Cornell AA
-through `Renderer.step()`, --compact, --cache-first-bounce,
---motion-blur, --direct-lighting, --nee through `step_batch` (#6) and
-`step()` (#5), many_materials 1920x1080 RR --nee through both), reads
-each kernel's device time from torch.profiler beside its plain version's
-time and its bound (and the --direct-lighting final step's own time), and
-renders through the CLI (plain, --compact, --nee). Every path is driven
-with the launch counts set to 0 just before it and read just after.
+lane; the mesh kernels #7-#10 on mesh.txt plain, AA, RR + stratified and
+--compact, #7's candidate set per lane and #9's pix exactly), renders
+the twelve smoke configs (the two --nee ones and mesh.txt included)
+against the XLA goldens (tools/goldens/smoke_128.npz) through
+`Renderer.step_batch` and through `Renderer.step()`, drives the main
+path (Cornell 800x800, depth 8, AA, progressive) through
+`Renderer.step_batch` and times it, drives and times the other paths at
+their scenes' own size, depth 8 (Cornell AA through `Renderer.step()`,
+--compact, --cache-first-bounce, --motion-blur, --direct-lighting,
+--nee through `step_batch` (#6) and `step()` (#5), many_materials
+1920x1080 RR --nee through both; mesh.txt AA through `step_batch` and
+`step()` (#7 -> #8 -> #9 at every depth), with --cache-first-bounce
+(#7 -> #8 -> #10 once per batch, then #4) and with --direct-lighting
+(the final step's two intersects through #7 -> #8 -> #10)), reads each
+kernel's device time from torch.profiler beside its plain version's time
+and its bound (and the --direct-lighting final step's own time), and
+renders through the CLI (Cornell plain, --compact, --nee; mesh.txt).
+Every path is driven with the launch counts set to 0 just before it and
+read just after.
 Every phase prints one line; any failure raises and exits non-zero
 before the result lines are printed. Imports nothing of JAX or of the
 JAX package.
@@ -43,6 +49,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "project3_cuda_path_tracer_tpu_torch"
 JAX_MK = "project3_cuda_path_tracer_tpu/ops/megakernel.py"
+JAX_PL = "project3_cuda_path_tracer_tpu/ops/pipeline.py"
 KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
     "full_iteration": (f"{PKG}/csrc/full_iteration.cu", f"{JAX_MK}:2848"),
     "first_bounce": (f"{PKG}/csrc/bounce.cu", f"{JAX_MK}:2728"),
@@ -50,7 +57,15 @@ KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
     "shade_step": (f"{PKG}/csrc/bounce.cu", f"{JAX_MK}:2285"),
     "full_iteration_nee": (f"{PKG}/csrc/nee.cu", f"{JAX_MK}:2991"),
     "bounce_step_nee": (f"{PKG}/csrc/nee.cu", f"{JAX_MK}:2553"),
+    # the mesh pipeline (ops/pipeline.py): K1 and K2 of _intersect_phase
+    # (their pallas_call lines), the two K3s (their functions)
+    "mesh_candidates": (f"{PKG}/csrc/mesh.cu", f"{JAX_PL}:2322"),
+    "mesh_sweep": (f"{PKG}/csrc/mesh.cu", f"{JAX_PL}:2549"),
+    "bounce_step_mesh": (f"{PKG}/csrc/mesh.cu", f"{JAX_PL}:2650"),
+    "intersect_mesh": (f"{PKG}/csrc/mesh.cu", f"{JAX_PL}:2844"),
 }
+MESH_KERNELS = ("mesh_candidates", "mesh_sweep", "bounce_step_mesh",
+                "intersect_mesh")
 KERNEL_SYMBOLS = {k: f"{k}_kernel" for k in KERNELS}
 NO_LAUNCHES = {k: 0 for k in KERNELS}
 # image rule of tests/test_megakernel.py:143-145 (seam-tie outliers only)
@@ -74,6 +89,7 @@ SMOKE = [  # (scene, settings, golden key)
     ("cornell.txt", {"nee_mis": True}, "cornell.txt_--nee"),
     ("many_materials.txt", {"nee_mis": True, "russian_roulette": True},
      "many_materials.txt_--nee"),
+    ("mesh.txt", {}, "mesh.txt"),
 ]
 # image rule of tests/test_nee_megakernel.py for the NEE kernels
 NEE_PARITY_FRAC = 0.03
@@ -101,6 +117,19 @@ BOUNCE_PARITY = [
     ("checker.txt", {"sobol": True}),
     ("cornell.txt", {"stratified": True, "compact": True}),
 ]
+# the mesh kernels on mesh.txt, each against its plain version, with the
+# lane rule of tests/test_megakernel.py:57-76 (at most 1% of lanes off by
+# more than 1e-4), #7's candidate set per lane (at most 0.1% of lanes
+# differ) and pix exactly
+MESH_PARITY = [
+    {},
+    {"antialias": True},
+    {"russian_roulette": True, "stratified": True},
+    {"compact": True},
+]
+LANE_ATOL = 1e-4
+LANE_FRAC = 0.01
+CAND_FRAC = 0.001
 
 # ---- the bound: the least time the card could take for a call ----
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): HBM 3.35 TB/s,
@@ -126,6 +155,17 @@ OPS_TO_LIGHT = 29  # NEE-able lane: to-light vector, r, wi, both cosines
 OPS_MIS = 30  # unoccluded light: geometry term, the BRDF mix, contribution
 OPS_W_LIGHT = 13  # the same, below the last depth: both pdfs, w_light
 OPS_NEXT_PDF = 29  # scattered lane: mirror direction, next pdf, mirror pick
+# the mesh kernels (csrc/mesh.cu), each charged only to the lanes that do
+# it in this run's data (mesh_work), the walk's nodes and triangles from
+# the plain walk's own probe (pipeline.mesh_sweep_reference(probe=...)):
+OPS_CANDIDACY = 94  # per lane and mesh geom: ray to object space (two
+#                     transforms, normalize, 3 reciprocals), the bound
+#                     (Frobenius norm), the root box's slab test
+OPS_APPEND = 5  # candidate lane: the ballot share of one list append
+OPS_NODE = 30  # per node visited: the slab test and the step
+OPS_MT = 64  # per triangle tested: Moller-Trumbore and the min-t update
+OPS_MESH_HIT = 100  # per walk that hits: normal, UVs, world distance
+OPS_MERGE = 4  # per lane: the analytic/mesh merge of #9 and #10
 # a shadow ray costs one normal-free test (OPS_BOX_TEST / OPS_SPHERE_TEST)
 # per geom up to and including its first occluder (shadow_sweep)
 
@@ -403,17 +443,160 @@ def bounce_parity(dev, name, kw, res, iteration=2):
     return out
 
 
-def reset_launches():
+def wrapper(name: str):
+    """The wrapper function of a kernel (its launch count lives on it)."""
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
 
+    return getattr(pipeline if name in MESH_KERNELS else mk, name)
+
+
+def lane_rule(got, want):
+    """(worst share of lanes off by more than LANE_ATOL, max_abs_err) over
+    parallel lists of (P,) tensors; non-finite values fail."""
+    worst = err = 0.0
+    for g, w in zip(got, want):
+        g = g.detach().double().cpu().numpy()
+        w = w.detach().double().cpu().numpy()
+        if not (np.isfinite(g).all() and np.isfinite(w).all()):
+            raise RuntimeError("non-finite values")
+        if g.size:
+            diff = np.abs(g - w)
+            worst = max(worst, float((diff > LANE_ATOL).mean()))
+            err = max(err, float(diff.max()))
+    return worst, err
+
+
+def hit_lanes(h):
+    """An Intersections' lanes (the mesh kernels' outputs)."""
+    return [h.t, *h.normal, h.material_id, h.outside, h.tex_u, h.tex_v,
+            h.has_uv]
+
+
+def mesh_parity(dev, kw, res, iteration=2):
+    """#7-#10 on mesh.txt at every depth of one iteration, each from the
+    plain version's own inputs (the pool after the plain #9 of the depth
+    before): #7's analytic hits on the lanes it processed and its
+    candidate set (the listed lanes must be exactly its flagged ones), #8
+    on the candidates, #9 on the pool (pix exactly), #10 on every lane of
+    the intersect route. Returns ({kernel: (worst lane share, max_abs_err)},
+    the share of lanes whose candidacy differs)."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+    from project3_cuda_path_tracer_tpu_torch.render import (
+        _camera_pool,
+        _count_alive,
+        _maybe_compact,
+    )
+
+    ds, cam, settings = on_card(dev, "mesh.txt", kw, res)
+    P = res[0] * res[1]
+    pool = _camera_pool(cam, iteration, settings)
+    worst = {k: (0.0, 0.0) for k in MESH_KERNELS}
+    cand_off = 0.0
+    for depth in range(settings.trace_depth):
+        pool = _maybe_compact(pool, settings)
+        n_alive = _count_alive(pool) if settings.compact else None
+        o, d, alive = pool[0], pool[1], pool[4]
+        live = alive != 0
+        if n_alive is not None:
+            live = live & (torch.arange(P, device=dev) < n_alive)
+        want7 = pl.mesh_candidates_reference(o, d, alive, ds, n_alive)
+        got7 = pl.mesh_candidates(o, d, alive, ds, num_alive=n_alive)
+        torch.cuda.synchronize()
+        n = int(got7.count[0])
+        listed = torch.zeros(P, dtype=torch.bool, device=dev)
+        listed[got7.lanes[:n].long()] = True
+        if not torch.equal(listed, got7.cand & live):
+            raise RuntimeError("mesh_candidates: its list and its flags disagree")
+        cand_off = max(cand_off, float((listed != want7.cand).float().mean()))
+        r7 = lane_rule([a[live] for a in (got7.t, *got7.normal, got7.material_id)],
+                       [a[live] for a in (want7.t, *want7.normal,
+                                          want7.material_id)])
+        want8 = pl.mesh_sweep_reference(o, d, want7, ds)
+        got8 = pl.mesh_sweep(o, d, want7, ds)
+        torch.cuda.synchronize()
+        r8 = lane_rule([a[want7.cand] for a in hit_lanes(got8)],
+                       [a[want7.cand] for a in hit_lanes(want8)])
+        all7 = pl.mesh_candidates_reference(o, d, alive, ds)
+        all8 = pl.mesh_sweep_reference(o, d, all7, ds)
+        got10 = pl.intersect_mesh(all7, all8)
+        torch.cuda.synchronize()
+        r10 = lane_rule(hit_lanes(got10), hit_lanes(pl.merge_hits(all7, all8)))
+        want9 = pl.bounce_step_mesh_reference(pool, want7, want8, ds, iteration,
+                                              depth, settings, n_alive)
+        lanes = [a.clone() for a in mk.pool_lanes(pool)]
+        got9 = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                Vec3(*lanes[9:12]), lanes[12], lanes[13])
+        pl.bounce_step_mesh(got9, want7, want8, ds, iteration, depth, settings,
+                            num_alive=n_alive)
+        torch.cuda.synchronize()
+        g9, w9 = mk.pool_lanes(got9), mk.pool_lanes(want9)
+        if not torch.equal(g9[13], w9[13]):
+            raise RuntimeError(f"bounce_step_mesh: pix differs at depth {depth}")
+        r9 = lane_rule(g9[:13], w9[:13])
+        for k, r in zip(MESH_KERNELS, (r7, r8, r9, r10)):
+            worst[k] = tuple(max(a, b) for a, b in zip(worst[k], r))
+        pool = want9
+    return worst, cand_off
+
+
+def mesh_work(ds, cam, iteration, settings):
+    """One iteration of the plain mesh path (#7 -> #8 -> #9's plain
+    versions) at every depth, counting per depth the lanes that do each
+    part of the mesh kernels' work: the live lanes entering (#7's sweep,
+    #9's shading), the candidates (#8's threads), the geom walks, nodes
+    and triangles they test (the plain walk's probe) and the walks that
+    hit; and timing each plain version (host clock, synchronised).
+    Returns ({count: [per depth]}, {kernel: plain ms per call})."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    pool = _camera_pool(cam, iteration, settings)
+    names = ("lanes_in", "candidates", "walks", "nodes", "tris", "mesh_hits")
+    counts = {k: [] for k in names}
+    plain = {k: 0.0 for k in MESH_KERNELS[:3]}
+    D = settings.trace_depth
+    for depth in range(D):
+        o, d, alive = pool[0], pool[1], pool[4]
+        lanes_in = int((alive != 0).sum())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cands = pl.mesh_candidates_reference(o, d, alive, ds)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        probe = {}
+        hits = pl.mesh_sweep_reference(o, d, cands, ds, probe=probe)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pool = pl.bounce_step_mesh_reference(pool, cands, hits, ds, iteration,
+                                             depth, settings)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, dt in zip(MESH_KERNELS, (t1 - t0, t2 - t1, t3 - t2)):
+            plain[k] += 1e3 * dt / D
+        n = dict(zip(names, (
+            lanes_in, int(cands.count[0]), int(probe["walks"].sum()),
+            int(probe["nodes"].sum()), int(probe["tris"].sum()),
+            int((hits.t > 0).sum()),
+        )))
+        for k in names:
+            counts[k].append(n[k])
+    return counts, plain
+
+
+def reset_launches():
     for name in KERNELS:
-        getattr(mk, name).launches = 0
+        wrapper(name).launches = 0
 
 
 def read_launches():
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
-
-    return {name: getattr(mk, name).launches for name in KERNELS}
+    return {name: wrapper(name).launches for name in KERNELS}
 
 
 def event_ms(fn, reps):
@@ -474,7 +657,9 @@ def bound(nbytes: float, ops: float):
 
 
 def sweep_ops(ds) -> int:
-    return sum(OPS_SPHERE_TEST if g == 0 else OPS_BOX_TEST for g in ds.gtypes)
+    """The analytic sweep's operations per lane (mesh geoms not counted)."""
+    return sum(OPS_SPHERE_TEST if g == 0 else OPS_BOX_TEST
+               for g in ds.gtypes if g != 2)
 
 
 def moving_cornell(tmpdir) -> str:
@@ -505,6 +690,7 @@ def main() -> int:
     from project3_cuda_path_tracer_tpu_torch.models.scene import load_scene
     from project3_cuda_path_tracer_tpu_torch.ops import _native
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
     from project3_cuda_path_tracer_tpu_torch.ops.camera import generate_rays
     from project3_cuda_path_tracer_tpu_torch.ops.sweep import intersect_scene
     from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
@@ -595,6 +781,28 @@ def main() -> int:
             if res == (800, 800) and (name, kw, glossy) == NEE_PARITY[0]:
                 err800["full_iteration_nee"] = r6[2]
                 err800["bounce_step_nee"] = r5[2]
+
+    # #7-#10 (the mesh pipeline) on mesh.txt; the error kept for the
+    # kernels line is the mesh path's (AA, 800x800)
+    for res in ((64, 64), (800, 800)):
+        for kw in MESH_PARITY:
+            worst, cand_off = mesh_parity(dev, kw, res)
+            what = {"config": "mesh.txt", "settings": kw,
+                    "res": f"{res[0]}x{res[1]}"}
+            say("mesh_parity", **what, candidate_mismatch=cand_off,
+                candidate_rule=f"<={CAND_FRAC}", pix="exact",
+                lanes={k: {"outlier_share": w, "max_abs_err": e}
+                       for k, (w, e) in worst.items()},
+                rule=f"share(|d|>{LANE_ATOL})<={LANE_FRAC}")
+            if cand_off > CAND_FRAC:
+                raise RuntimeError(f"mesh_candidates: candidacy differs on "
+                                   f"{cand_off:.3%} of lanes: {what}")
+            for k, (w, e) in worst.items():
+                if w > LANE_FRAC:
+                    raise RuntimeError(f"{k} disagrees with its plain version "
+                                       f"on {w:.2%} of lanes: {what}")
+                if res == (800, 800) and kw == {"antialias": True}:
+                    err800[k] = e
 
     # ---- 4. the smoke configs against the XLA goldens, both paths ----
     goldens = np.load(os.path.join(HERE, "tools", "goldens", "smoke_128.npz"))
@@ -698,18 +906,36 @@ def main() -> int:
          {"russian_roulette": True, "nee_mis": True}, "step_batch"),
         ("many_materials_nee_step", "many_materials.txt", None,
          {"russian_roulette": True, "nee_mis": True}, "step"),
+        # the mesh path: #7 -> #8 -> #9 at every depth
+        ("mesh", "mesh.txt", None, {"antialias": True}, "step_batch"),
+        ("mesh_step", "mesh.txt", None, {"antialias": True}, "step"),
+        ("mesh_cache", "mesh.txt", None, {"cache_first_bounce": True},
+         "step_batch"),
+        ("mesh_direct_lighting", "mesh.txt", None,
+         {"antialias": True, "direct_lighting": True}, "step_batch"),
     ]
 
-    def expected_launches(settings, route, n_it):
+    def expected_launches(settings, route, n_it, n_calls, mesh):
+        """The launches of n_it iterations in n_calls calls of the route."""
         if settings.nee_mis:
             if route == "step" or settings.motion_blur:
                 return dict(NO_LAUNCHES, bounce_step_nee=n_it * D)
             return dict(NO_LAUNCHES, full_iteration_nee=n_it)
         cached = settings.effective_cache()
         bounces = D - 2 if settings.direct_lighting else D - 1
-        return dict(NO_LAUNCHES, first_bounce=0 if cached else n_it,
-                    bounce_step=n_it * bounces,
-                    shade_step=n_it if cached else 0)
+        if not mesh:
+            return dict(NO_LAUNCHES, first_bounce=0 if cached else n_it,
+                        bounce_step=n_it * bounces,
+                        shade_step=n_it if cached else 0)
+        # depth 0 through the pipeline too, or #4 over the cache, filled
+        # through #7 -> #8 -> #10 once per batch (once in all by step());
+        # --direct-lighting's final step intersects twice the same way
+        fills = (n_calls if route == "step_batch" else 1) if cached else 0
+        isects = fills + (2 * n_it if settings.direct_lighting else 0)
+        shaded = n_it * (bounces + (0 if cached else 1))
+        return dict(NO_LAUNCHES, mesh_candidates=isects + shaded,
+                    mesh_sweep=isects + shaded, bounce_step_mesh=shaded,
+                    intersect_mesh=isects, shade_step=n_it if cached else 0)
 
     launches_of = {}
     kernel_ms_of = {}
@@ -736,7 +962,8 @@ def main() -> int:
         dt = time.perf_counter() - t0
         got = read_launches()
         n_it = n_warm + n_timed
-        want = expected_launches(settings, route, n_it)
+        want = expected_launches(settings, route, n_it, 2,
+                                 bool(scene.triangles.count))
         if got != want or r.iteration != n_it:
             raise RuntimeError(f"{label}: launches {got}, expected {want}")
         img = r.image()
@@ -809,8 +1036,24 @@ def main() -> int:
     final_pool = pool[:4] + (pool[4] != 0, pool[5])
     final_ms = event_ms(
         lambda: _nee_final_step(final_pool, ds, it, dl_settings), 5)
-    # the plain AA raygen that the #5 route runs before its depth 0
+    # the plain AA raygen that the #5 route and the mesh path run before
+    # their depth 0
     raygen_ms = event_ms(lambda: generate_rays(cam, it, True, False), 5)
+    # the mesh kernels' plain versions and lanes (mesh.txt 800x800 d8 AA)
+    mesh_scene = load_scene(os.path.join(HERE, "scenes", "mesh.txt"))
+    mds = scene_to_device(mesh_scene, dev)
+    mcam = camera_to_device(mesh_scene.state.camera, dev)
+    mesh_settings = RenderSettings(trace_depth=D, antialias=True)
+    mesh_counts, mesh_plain = mesh_work(mds, mcam, it, mesh_settings)
+    # #10 at the cache fill: the pinhole camera rays, every lane alive
+    morigins, mdirs, _ = generate_rays(mcam, it, False, False)
+    fill_cands = pl.mesh_candidates_reference(morigins, mdirs, None, mds)
+    fill_hits = pl.mesh_sweep_reference(morigins, mdirs, fill_cands, mds)
+    fill_n = int(fill_cands.count[0])
+    mesh_plain["intersect_mesh"] = event_ms(
+        lambda: pl.merge_hits(fill_cands, fill_hits), 5)
+    mesh_table_bytes = sum(a.numel() * a.element_size()
+                           for a in mk.pack_mesh_tables(mds))
     say("plain_times", device=smi, res="800x800", depth=D,
         first_bounce_plain_ms=fb_plain, bounce_step_plain_ms=bs_plain,
         shade_step_plain_ms=ss_plain, cache_fill_intersect_scene_ms=isect_ms,
@@ -819,7 +1062,36 @@ def main() -> int:
         nee_ops_per_depth=nee_ops,
         direct_lighting_final_step_ms=final_ms,
         direct_lighting_final_step_lanes=int(final_pool[4].sum()),
-        plain_generate_rays_aa_ms=raygen_ms)
+        plain_generate_rays_aa_ms=raygen_ms,
+        mesh_lanes=mesh_counts, mesh_plain_ms=mesh_plain,
+        mesh_cache_fill_candidates=fill_n)
+    # the mesh kernels' bounds, per launch averaged over the depths
+    n_mesh = len(mds.mesh_geoms)
+    mc = {k: np.array(v, np.float64) for k, v in mesh_counts.items()}
+    mesh_bounds = {
+        # every lane's alive; per live lane 6 ray lanes in, the analytic
+        # winner out (22 B); per candidate its list entry
+        "mesh_candidates": bound(
+            np.mean(4 * P + 46 * mc["lanes_in"] + 4 * mc["candidates"]),
+            np.mean(mc["lanes_in"] * (sweep_ops(mds) + OPS_NORMAL
+                                      + n_mesh * OPS_CANDIDACY)
+                    + mc["candidates"] * OPS_APPEND)),
+        # the tables once; per candidate its list entry, ray, t_a in and
+        # 9 lanes (30 B) out
+        "mesh_sweep": bound(
+            np.mean(mesh_table_bytes + 62 * mc["candidates"]),
+            np.mean(mc["candidates"] * n_mesh * OPS_CANDIDACY
+                    + mc["nodes"] * OPS_NODE + mc["tris"] * OPS_MT
+                    + mc["mesh_hits"] * OPS_MESH_HIT)),
+        # #3's pool bytes, the analytic winner (22 B) per live lane and
+        # the mesh winner (21 B) per candidate
+        "bounce_step_mesh": bound(
+            np.mean(4 * P + 126 * mc["lanes_in"] + 21 * mc["candidates"]),
+            np.mean(mc["lanes_in"] * (OPS_MERGE + OPS_SHADE))),
+        # the cache fill: every lane's analytic winner in, 9 lanes out; the
+        # mesh winner of each candidate
+        "intersect_mesh": bound(52 * P + 30 * fill_n, P * OPS_MERGE),
+    }
     bounds = {
         "full_iteration": bound(24 * P, P * OPS_RAYGEN_AA + sum(lanes_in) * per_lane),
         "first_bounce": bound(56 * P, P * (OPS_RAYGEN_AA + per_lane)),
@@ -851,13 +1123,19 @@ def main() -> int:
                             bn_plain,
                             launches_of["nee_step"]["bounce_step_nee"]),
     }
+    bounds.update(mesh_bounds)
+    for name in MESH_KERNELS:
+        path = "mesh_cache" if name == "intersect_mesh" else "mesh"
+        timing[name] = (kernel_ms_of[path][name], mesh_plain[name],
+                        launches_of[path][name])
 
-    # ---- 8. the CLI: plain, with --compact and with --nee ----
-    for extra in ([], ["--compact"], ["--nee"]):
+    # ---- 8. the CLI: Cornell plain, with --compact and with --nee; mesh.txt ----
+    for name, extra in (("cornell.txt", []), ("cornell.txt", ["--compact"]),
+                        ("cornell.txt", ["--nee"]), ("mesh.txt", [])):
         out_dir = tempfile.mkdtemp(prefix="cli_", dir=tmpdir)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", PKG, os.path.join(HERE, "scenes", "cornell.txt"),
+            [sys.executable, "-m", PKG, os.path.join(HERE, "scenes", name),
              "--iterations", "50", "--out-dir", out_dir, *extra],
             cwd=HERE, capture_output=True, text=True, timeout=600,
         )
@@ -867,7 +1145,7 @@ def main() -> int:
         pngs = [f for f in os.listdir(out_dir) if f.endswith(".50samp.png")]
         if len(pngs) != 1:
             raise RuntimeError(f"CLI {extra} wrote {os.listdir(out_dir)}")
-        say("cli", flags=extra, rc=proc.returncode, png=pngs[0],
+        say("cli", scene=name, flags=extra, rc=proc.returncode, png=pngs[0],
             seconds=time.perf_counter() - t0)
     shutil.rmtree(tmpdir, ignore_errors=True)
 
@@ -883,6 +1161,7 @@ def main() -> int:
             "max_abs_err": err800[name], "ms": ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             # no single PyTorch call computes any of these functions
+            # (a BVH walk, a path-tracing bounce, a merge of two winners)
             "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

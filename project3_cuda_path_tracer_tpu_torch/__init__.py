@@ -5,8 +5,10 @@ It mirrors the layout of the JAX package `project3_cuda_path_tracer_tpu`,
 which stays the reference; this package imports neither that package
 nor JAX. On CUDA an iteration runs hand-written kernels: the
 whole-iteration kernel, or the per-bounce first-bounce / bounce / shade
-kernels (ops/megakernel.py, csrc/); on the CPU, and only when asked for,
-their plain PyTorch versions.
+kernels (ops/megakernel.py, csrc/), the NEE + MIS kernels, and on a mesh
+scene the mesh pipeline (ops/pipeline.py: candidates, BVH sweep, merge +
+shade or merge); on the CPU, and only when asked for, their plain
+PyTorch versions.
 """
 
 __version__ = "0.1.0"

@@ -20,17 +20,17 @@ log = logging.getLogger("pathtracer")
 
 # flag (argparse dest) -> (flag, ROADMAP item that ports it)
 UNPORTED_FLAGS = {
-    "sort_materials": ("--sort-materials", "port slice 5 (material sort)"),
-    "shard": ("--shard", "port slice 5 (sharding)"),
-    "preview": ("--preview", "port slice 5 (viewer)"),
-    "stats": ("--stats", "port slice 5 (profiling)"),
-    "profile": ("--profile", "port slice 5 (profiling)"),
-    "debug": ("--debug", "port slice 5 (CLI remainder)"),
-    "debug_nans": ("--debug-nans", "port slice 5 (CLI remainder)"),
+    "sort_materials": ("--sort-materials", "port slice 6 (material sort)"),
+    "shard": ("--shard", "port slice 6 (sharding)"),
+    "preview": ("--preview", "port slice 6 (viewer)"),
+    "stats": ("--stats", "port slice 6 (profiling)"),
+    "profile": ("--profile", "port slice 6 (profiling)"),
+    "debug": ("--debug", "port slice 6 (CLI remainder)"),
+    "debug_nans": ("--debug-nans", "port slice 6 (CLI remainder)"),
     "no_pallas": (
         "--no-pallas",
         "the device picks the path (use --device cpu for the plain "
-        "PyTorch path); port slice 5 (CLI remainder)",
+        "PyTorch path); port slice 6 (CLI remainder)",
     ),
 }
 
@@ -68,7 +68,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--shard", default=None, metavar="SPEC")
     p.add_argument("--no-bvh", action="store_true",
-                   help="accepted; analytic scenes have no BVH")
+                   help="the plain path sweeps every triangle instead of "
+                        "walking the BVH (the CUDA mesh kernel always walks it)")
     p.add_argument("--pallas", action="store_true",
                    help="accepted; CUDA always runs the hand-written kernels")
     p.add_argument("--no-pallas", action="store_true")
@@ -108,6 +109,7 @@ def settings_from_args(args, scene) -> RenderSettings:
         motion_blur=args.motion_blur,
         stratified=args.stratified,
         sobol=args.sobol,
+        use_bvh=not args.no_bvh,
     )
 
 

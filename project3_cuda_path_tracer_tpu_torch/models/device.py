@@ -1,18 +1,33 @@
 """Device-resident scene and camera tables (torch tensors).
 
-The analytic subset of the JAX package's `models/device.py`: instance
+The port's subset of the JAX package's `models/device.py`: instance
 matrices and their motion-blur velocities, material columns (with the
-procedural checker's kind and scale) and the constant environment
-colour, plus the static metadata (geom types, material-class flags) that
-selects the shader's RNG draw layout. Mesh, file-texture and env-map
-tables arrive with their slices (ROADMAP); their flags are kept so that
-a scene that needs them is refused instead of rendered wrong.
+procedural checker's kind and scale), the constant environment colour,
+the triangle soup and the flat BVH of every mesh geom (the JAX names:
+`tri_*`, `bvh_*`, `tri_ranges`, `bvh_roots`, `mesh_has_uv`), plus the
+static metadata (geom types, material-class flags) that selects the
+shader's RNG draw layout. File-texture and env-map tables arrive with
+their slice (ROADMAP); their flags are kept so that a scene that needs
+them is refused instead of rendered wrong. The TPU-only mesh tables
+(packed triangle rows, chunk and supernode boxes, bf16 attribute slabs)
+have no counterpart: the CUDA kernels walk the BVH itself.
+
+Triangle order: with `use_bvh` (the default, and what `Renderer` always
+builds, because the mesh kernels walk the BVH) the soup is reordered
+exactly as the JAX package's `scene_to_device(use_bvh=True)` reorders it,
+so both packages hold identical tables; the reorder happens on a copy,
+and the caller's host `Scene` keeps file order. `RenderSettings.use_bvh`
+then selects only the plain path's traversal: the naive sweep over the
+same (BVH-ordered) soup, or the BVH walk. With `use_bvh=False` here the
+soup keeps file order and no BVH is built, as in the JAX package; the
+mesh kernels refuse such tables.
 
 Every constructor here takes an explicit `device`; nothing picks one.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, replace
 from typing import Tuple
 
@@ -38,11 +53,37 @@ ARRAY_FIELDS = (
     "mat_tex_kind",
     "mat_tex_scale",
     "env_color",
+    "tri_uv0u",
+    "tri_uv0v",
+    "tri_uv1u",
+    "tri_uv1v",
+    "tri_uv2u",
+    "tri_uv2v",
+    "bvh_first",
+    "bvh_count",
+    "bvh_skip",
+    "bvh_leaf",
 )
-INT_FIELDS = ("geom_material_id", "mat_tex_kind")
-VEC3_FIELDS = ("mat_color", "mat_specular_color")
+INT_FIELDS = ("geom_material_id", "mat_tex_kind", "bvh_first", "bvh_count",
+              "bvh_skip")
+BOOL_FIELDS = ("bvh_leaf",)
+VEC3_FIELDS = (
+    "mat_color",
+    "mat_specular_color",
+    "tri_v0",
+    "tri_v1",
+    "tri_v2",
+    "tri_n0",
+    "tri_n1",
+    "tri_n2",
+    "bvh_min",
+    "bvh_max",
+)
 META_FIELDS = (
     "gtypes",
+    "tri_ranges",
+    "bvh_roots",
+    "mesh_has_uv",
     "emissive_geoms",
     "any_refractive",
     "any_partial_reflective",
@@ -76,8 +117,35 @@ class DeviceScene:
     mat_tex_scale: torch.Tensor  # (M,) texture tiling scale
     # constant environment radiance for escaped rays (ENVLIGHT)
     env_color: torch.Tensor  # (3,)
+    # --- triangle soup (object space, all meshes concatenated; BVH
+    # order, see the module docstring) as Vec3 of (T,) columns ---
+    tri_v0: Vec3
+    tri_v1: Vec3
+    tri_v2: Vec3
+    tri_n0: Vec3  # per-corner normals (the face normal where the OBJ has none)
+    tri_n1: Vec3
+    tri_n2: Vec3
+    # per-corner texture coordinates as (T,) columns; zeros where the
+    # geom's OBJ had no vt (mesh_has_uv)
+    tri_uv0u: torch.Tensor
+    tri_uv0v: torch.Tensor
+    tri_uv1u: torch.Tensor
+    tri_uv1v: torch.Tensor
+    tri_uv2u: torch.Tensor
+    tri_uv2v: torch.Tensor
+    # --- flat BVH of every mesh geom, concatenated (models/bvh.py):
+    # preorder with escape pointers, one (B,) column per field ---
+    bvh_min: Vec3  # node AABB min (object space)
+    bvh_max: Vec3
+    bvh_first: torch.Tensor  # (B,) int32 leaf's first triangle (global)
+    bvh_count: torch.Tensor  # (B,) int32 leaf's triangle count
+    bvh_skip: torch.Tensor  # (B,) int32 escape pointer (global node index)
+    bvh_leaf: torch.Tensor  # (B,) bool
     # --- static metadata ---
     gtypes: Tuple[int, ...]
+    tri_ranges: Tuple[Tuple[int, int], ...]  # per geom (tri_start, tri_count)
+    bvh_roots: Tuple[Tuple[int, int], ...]  # per geom (node_start, node_count)
+    mesh_has_uv: Tuple[bool, ...]  # per geom: its OBJ carried vt records
     emissive_geoms: Tuple[int, ...]  # geoms whose material emits
     # material-class flags: the shader's RNG draw layout and the set of
     # branches a scene can take follow from these
@@ -95,6 +163,11 @@ class DeviceScene:
     @property
     def device(self) -> torch.device:
         return self.transform.device
+
+    @property
+    def mesh_geoms(self) -> Tuple[int, ...]:
+        """The mesh geoms that hold triangles, in geom order."""
+        return tuple(i for i, (_, c) in enumerate(self.tri_ranges) if c > 0)
 
 
 @dataclass
@@ -131,9 +204,24 @@ def camera_to_device(cam: Camera, device) -> DeviceCamera:
     )
 
 
-def scene_to_device(scene: Scene, device) -> DeviceScene:
+def scene_to_device(scene: Scene, device, use_bvh: bool = True) -> DeviceScene:
+    """The scene's tables on `device`; with `use_bvh`, each mesh geom's
+    BVH and the soup in BVH order (see the module docstring)."""
     g = scene.geoms
     m = scene.materials
+    t = scene.triangles
+    if use_bvh and t.count > 0:
+        from .bvh import build_scene_bvh
+
+        # build_scene_bvh reorders the soup in place: give it a copy
+        scene = replace(scene, triangles=copy.copy(t))
+        nodes_min, nodes_max, meta, bvh_roots = build_scene_bvh(scene)
+        t = scene.triangles
+    else:
+        nodes_min = np.zeros((0, 3), np.float32)
+        nodes_max = np.zeros((0, 3), np.float32)
+        meta = np.zeros((0, 4), np.int32)
+        bvh_roots = [(0, 0)] * g.count
     fields = {
         "transform": g.transform,
         "inverse_transform": g.inverse_transform,
@@ -150,9 +238,32 @@ def scene_to_device(scene: Scene, device) -> DeviceScene:
         "mat_tex_kind": m.tex_kind,
         "mat_tex_scale": m.tex_scale,
         "env_color": scene.env_color,
+        "tri_v0": t.v0,
+        "tri_v1": t.v1,
+        "tri_v2": t.v2,
+        "tri_n0": t.n0,
+        "tri_n1": t.n1,
+        "tri_n2": t.n2,
+        "tri_uv0u": t.uv0[:, 0],
+        "tri_uv0v": t.uv0[:, 1],
+        "tri_uv1u": t.uv1[:, 0],
+        "tri_uv1v": t.uv1[:, 1],
+        "tri_uv2u": t.uv2[:, 0],
+        "tri_uv2v": t.uv2[:, 1],
+        "bvh_min": nodes_min,
+        "bvh_max": nodes_max,
+        "bvh_first": meta[:, 0],
+        "bvh_count": meta[:, 1],
+        "bvh_skip": meta[:, 2],
+        "bvh_leaf": meta[:, 3].astype(bool),
     }
-    meta = dict(
+    info = dict(
         gtypes=tuple(int(x) for x in g.gtype),
+        tri_ranges=tuple(
+            (int(s), int(c)) for s, c in zip(g.tri_start, g.tri_count)
+        ),
+        bvh_roots=tuple(bvh_roots),
+        mesh_has_uv=tuple(bool(x) for x in g.has_uv),
         emissive_geoms=tuple(
             int(i)
             for i in range(g.count)
@@ -170,7 +281,7 @@ def scene_to_device(scene: Scene, device) -> DeviceScene:
         has_env_map=bool(scene.env_map.size > 0),
         n_file_textures=int(scene.textures.shape[0]),
     )
-    return device_scene_from_numpy(fields, meta, device)
+    return device_scene_from_numpy(fields, info, device)
 
 
 def device_scene_from_numpy(fields: dict, meta: dict, device) -> DeviceScene:
@@ -186,15 +297,21 @@ def device_scene_from_numpy(fields: dict, meta: dict, device) -> DeviceScene:
         a = np.asarray(fields[name])
         if name in INT_FIELDS:
             kw[name] = torch.tensor(a.astype(np.int32), device=device)
+        elif name in BOOL_FIELDS:
+            kw[name] = torch.tensor(a.astype(bool), device=device)
         else:
             kw[name] = _f32(a, device)
     for name in VEC3_FIELDS:
-        a = np.asarray(fields[name], np.float32)
+        a = np.asarray(fields[name], np.float32).reshape(-1, 3)
         kw[name] = Vec3(*(_f32(a[:, c], device) for c in range(3)))
     for name in META_FIELDS:
         v = meta[name]
         if name in ("gtypes", "emissive_geoms"):
             kw[name] = tuple(int(x) for x in v)
+        elif name in ("tri_ranges", "bvh_roots"):
+            kw[name] = tuple((int(a), int(b)) for a, b in v)
+        elif name == "mesh_has_uv":
+            kw[name] = tuple(bool(x) for x in v)
         elif name == "n_file_textures":
             kw[name] = int(v)
         else:

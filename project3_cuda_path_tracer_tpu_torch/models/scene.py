@@ -1,9 +1,9 @@
 """Scene data model and text-format parser.
 
 A copy of the JAX package's `models/scene.py` (numpy only), so that the
-port imports nothing of that package. Meshes are not ported yet: an
-OBJECT of type `mesh` raises NotImplementedError (ROADMAP, slice 4 of
-the port: meshes and the BVH kernel).
+port imports nothing of that package: an OBJECT of type `mesh` reads its
+OBJ (`FILE`, models/mesh.py) into the scene's concatenated triangle
+soup, indexed per geom by `tri_start`/`tri_count`.
 
 Replaces the CUDA reference's AoS POD structs + istream parser
 (src/sceneStructs.h:8-76, src/scene.cpp) with SoA numpy arrays:
@@ -60,9 +60,19 @@ class GeomsSoA:
     transform: np.ndarray  # float32 (G,4,4)
     inverse_transform: np.ndarray  # float32 (G,4,4)
     inv_transpose: np.ndarray  # float32 (G,4,4)
+    # Mesh instancing: for gtype==MESH, [tri_start, tri_count) indexes the
+    # scene-level concatenated triangle soup; 0/0 otherwise.
+    tri_start: np.ndarray  # int32 (G,)
+    tri_count: np.ndarray  # int32 (G,)
     # Motion blur (INSTRUCTION.md:119-120): world-space translation per
     # unit shutter time; zero for static geoms. Scene key: VELOCITY.
     velocity: np.ndarray  # float32 (G,3)
+    # True for mesh geoms whose OBJ carried vt records (per-corner UVs)
+    has_uv: np.ndarray = None  # bool (G,)
+
+    def __post_init__(self):
+        if self.has_uv is None:
+            self.has_uv = np.zeros((self.gtype.shape[0],), bool)
 
     @property
     def count(self) -> int:
@@ -194,6 +204,40 @@ class RenderState:
 
 
 @dataclass
+class TriangleSoup:
+    """Concatenated object-space triangle soup for all mesh geoms, as
+    loaded from the OBJs; the world transform is applied through each
+    geom's instance matrices like sphere/cube."""
+
+    v0: np.ndarray  # (T,3)
+    v1: np.ndarray  # (T,3)
+    v2: np.ndarray  # (T,3)
+    n0: np.ndarray  # (T,3) per-vertex normals (face normal if absent)
+    n1: np.ndarray
+    n2: np.ndarray
+    # per-corner texture coordinates from the OBJ's vt records; zeros +
+    # has_uv=False when the OBJ carries none
+    uv0: np.ndarray = None  # (T,2)
+    uv1: np.ndarray = None
+    uv2: np.ndarray = None
+    has_uv: bool = False
+
+    def __post_init__(self):
+        if self.uv0 is None:
+            z2 = np.zeros((self.v0.shape[0], 2), np.float32)
+            self.uv0, self.uv1, self.uv2 = z2, z2.copy(), z2.copy()
+
+    @property
+    def count(self) -> int:
+        return int(self.v0.shape[0])
+
+    @staticmethod
+    def empty() -> "TriangleSoup":
+        z = np.zeros((0, 3), dtype=np.float32)
+        return TriangleSoup(z, z, z, z, z, z)
+
+
+@dataclass
 class Scene:
     """Host-side parsed scene: geoms + materials + render state.
 
@@ -204,6 +248,7 @@ class Scene:
     geoms: GeomsSoA
     materials: MaterialsSoA
     state: RenderState
+    triangles: TriangleSoup = field(default_factory=TriangleSoup.empty)
     source_path: str = ""
     # texture atlas: all file textures resampled to TEX_RES^2 (albedo RGB
     # and bump heights); empty arrays when no textures are used
@@ -261,6 +306,8 @@ def load_scene(path: str) -> Scene:
     trace_depth = 0
     image_name = "render"
     env = {"color": np.zeros(3, np.float32), "map_path": None, "scale": 1.0}
+    tri_blocks: List[TriangleSoup] = []
+    tri_total = 0
 
     while True:
         line = rd.next_line()
@@ -287,7 +334,16 @@ def load_scene(path: str) -> Scene:
                 raise SceneParseError(
                     f"OBJECT ID {oid} does not match expected {len(geoms)}"
                 )
-            geoms.append(_parse_geom(rd))
+            g, tris = _parse_geom(
+                rd, base_dir=os.path.dirname(os.path.abspath(path))
+            )
+            if tris is not None:
+                g["tri_start"] = tri_total
+                g["tri_count"] = tris.count
+                g["has_uv"] = tris.has_uv
+                tri_blocks.append(tris)
+                tri_total += tris.count
+            geoms.append(g)
         elif tokens[0] == "CAMERA":
             camera, iterations, trace_depth, image_name, env = _parse_camera(
                 rd, base_dir=os.path.dirname(os.path.abspath(path))
@@ -298,6 +354,7 @@ def load_scene(path: str) -> Scene:
 
     geoms_soa = _build_geoms_soa(geoms)
     mats_soa, textures, bumps = _build_materials_soa(materials)
+    triangles = _concat_triangles(tri_blocks)
     state = RenderState(
         camera=camera,
         iterations=iterations,
@@ -311,6 +368,7 @@ def load_scene(path: str) -> Scene:
         geoms=geoms_soa,
         materials=mats_soa,
         state=state,
+        triangles=triangles,
         source_path=path,
         textures=textures,
         bumps=bumps,
@@ -409,17 +467,21 @@ def _resolve(path: str, base_dir: str) -> str:
     return path if os.path.isabs(path) else os.path.join(base_dir, path)
 
 
-def _parse_geom(rd: _LineReader) -> dict:
+def _parse_geom(rd: _LineReader, base_dir: str):
     """Type line, material link, TRANS/ROTAT/SCALE until blank
-    per src/scene.cpp:35-90. VELOCITY is our motion-blur extension."""
+    per src/scene.cpp:35-90. VELOCITY (motion blur) and `mesh` + FILE
+    are our extensions. Returns (geom dict, TriangleSoup or None)."""
     g = dict(
         gtype=GeomType.SPHERE,
         material_id=0,
         translation=np.zeros(3, np.float32),
         rotation=np.zeros(3, np.float32),
         scale=np.ones(3, np.float32),
+        tri_start=0,
+        tri_count=0,
         velocity=np.zeros(3, np.float32),
     )
+    tris = None
 
     line = rd.next_line()
     if line:
@@ -429,10 +491,7 @@ def _parse_geom(rd: _LineReader) -> dict:
         elif name == "cube":
             g["gtype"] = GeomType.CUBE
         elif name == "mesh":
-            raise NotImplementedError(
-                "mesh OBJECTs are not ported yet: they arrive with the "
-                "meshes-and-BVH slice of the port (ROADMAP, port slice 4)"
-            )
+            g["gtype"] = GeomType.MESH
         else:
             raise SceneParseError(f"unknown geom type {name!r}")
 
@@ -455,7 +514,11 @@ def _parse_geom(rd: _LineReader) -> dict:
             g["scale"] = np.array([float(t) for t in tokens[1:4]], np.float32)
         elif key == "VELOCITY":
             g["velocity"] = np.array([float(t) for t in tokens[1:4]], np.float32)
-    return g
+        elif key == "FILE":
+            from .mesh import load_obj
+
+            tris = load_obj(_resolve(tokens[1], base_dir))
+    return g, tris
 
 
 def _parse_camera(rd: _LineReader, base_dir: str = "."):
@@ -541,7 +604,10 @@ def _build_geoms_soa(geoms: List[dict]) -> GeomsSoA:
     inv_transposes = np.zeros((n, 4, 4), np.float32)
     gtypes = np.zeros((n,), np.int32)
     mat_ids = np.zeros((n,), np.int32)
+    tri_start = np.zeros((n,), np.int32)
+    tri_count = np.zeros((n,), np.int32)
     velocity = np.zeros((n, 3), np.float32)
+    has_uv = np.zeros((n,), bool)
     for i, g in enumerate(geoms):
         # TRS composition + inverse + invTranspose per src/scene.cpp:82-85.
         t = math3d.build_transformation_matrix(
@@ -552,14 +618,20 @@ def _build_geoms_soa(geoms: List[dict]) -> GeomsSoA:
         inv_transposes[i] = math3d.inverse_transpose(t)
         gtypes[i] = int(g["gtype"])
         mat_ids[i] = g["material_id"]
+        tri_start[i] = g["tri_start"]
+        tri_count[i] = g["tri_count"]
         velocity[i] = g["velocity"]
+        has_uv[i] = g.get("has_uv", False)
     return GeomsSoA(
         gtype=gtypes,
         material_id=mat_ids,
         transform=transforms,
         inverse_transform=inverses,
         inv_transpose=inv_transposes,
+        tri_start=tri_start,
+        tri_count=tri_count,
         velocity=velocity,
+        has_uv=has_uv,
     )
 
 
@@ -646,11 +718,29 @@ def _build_materials_soa(materials: List[dict]):
     return soa, textures, bumps
 
 
+def _concat_triangles(blocks: List[TriangleSoup]) -> TriangleSoup:
+    if not blocks:
+        return TriangleSoup.empty()
+    return TriangleSoup(
+        v0=np.concatenate([b.v0 for b in blocks]),
+        v1=np.concatenate([b.v1 for b in blocks]),
+        v2=np.concatenate([b.v2 for b in blocks]),
+        n0=np.concatenate([b.n0 for b in blocks]),
+        n1=np.concatenate([b.n1 for b in blocks]),
+        n2=np.concatenate([b.n2 for b in blocks]),
+        uv0=np.concatenate([b.uv0 for b in blocks]),
+        uv1=np.concatenate([b.uv1 for b in blocks]),
+        uv2=np.concatenate([b.uv2 for b in blocks]),
+        has_uv=any(b.has_uv for b in blocks),
+    )
+
+
 def scene_summary(scene: Scene) -> str:
     s = scene.state
     return (
         f"scene {os.path.basename(scene.source_path) or '<inline>'}: "
         f"{scene.geoms.count} geoms, {scene.materials.count} materials, "
+        f"{scene.triangles.count} triangles, "
         f"{s.camera.resolution[0]}x{s.camera.resolution[1]} "
         f"@ {s.iterations} spp, depth {s.trace_depth}"
     )

@@ -23,7 +23,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "full_iteration.cu", CSRC / "bounce.cu", CSRC / "nee.cu")
+SOURCES = (CSRC / "full_iteration.cu", CSRC / "bounce.cu", CSRC / "nee.cu",
+           CSRC / "mesh.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,6 +53,17 @@ SIGNATURES = {
     # depth, rr_start, flags, device, stream
     "pt_full_iteration_nee": [_P, _I, _I, _F, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _P],
+    # tables, n_geoms, mesh, n_mesh, rays, num_alive, n, all_lanes,
+    # analytic, list, count, device, stream
+    "pt_mesh_candidates": [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P],
+    # tables, n_geoms, mesh, n_mesh, rays, t_a, list, count, n, hits,
+    # device, stream
+    "pt_mesh_sweep": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P],
+    # tables, n_geoms, pool, num_alive, n, analytic, hits, iteration,
+    # depth, rr_start, flags, device, stream
+    "pt_bounce_step_mesh": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    # analytic, hits, n, out, device, stream
+    "pt_intersect_mesh": [_P, _P, _I, _P, _I, _P],
 }
 
 

@@ -1,9 +1,8 @@
 """Ray-primitive intersection over the whole path pool (plain PyTorch).
 
-The twin of the JAX package's `ops/intersect.py`, analytic primitives
-only (`triangle_intersect` arrives with the mesh slice, ROADMAP). It
-reimplements the unit-object-space instance tests of the CUDA
-reference's src/intersections.h:
+The twin of the JAX package's `ops/intersect.py`. It reimplements the
+unit-object-space instance tests of the CUDA reference's
+src/intersections.h:
 - unit cube [-0.5,0.5]^3 slab test incl. inside/outside handling and the
   slab-winning normal (:48-90),
 - radius-0.5 sphere quadratic, nearer-positive-root, inside normal flip
@@ -11,7 +10,8 @@ reference's src/intersections.h:
 - object-space ray direction NORMALIZED before the test, returned "t" is
   the world-space euclidean distance |origin - hit|, -1 on miss,
 - getPointOnRay's 1e-4 backoff (:27-29),
-- box normals via `transform`, sphere normals via invTranspose.
+- box normals via `transform`, sphere normals via invTranspose;
+and the lane-wise Moller-Trumbore triangle test of the mesh paths.
 
 The 4x4 instance matrices are applied as scalar-broadcast multiply-adds,
 so each lane's arithmetic matches the JAX package's order.
@@ -32,12 +32,23 @@ FLT_MAX = 3.402823466e38
 
 @dataclass
 class Intersections:
-    """SoA ShadeableIntersection (src/sceneStructs.h:72-76) + outside flag."""
+    """SoA ShadeableIntersection (src/sceneStructs.h:72-76) + outside flag
+    + the interpolated OBJ texture coordinates of a UV-mapped mesh hit
+    (zeros / False for analytic geoms and meshes without vt records)."""
 
     t: torch.Tensor  # (P,) world euclidean distance, -1 = miss
     normal: Vec3  # (P,) lanes, world normal, oriented per reference rules
     material_id: torch.Tensor  # (P,) int32, -1 on miss
     outside: torch.Tensor  # (P,) bool: the ray started outside the surface
+    tex_u: torch.Tensor = None  # (P,) barycentric-interpolated OBJ u
+    tex_v: torch.Tensor = None  # (P,)
+    has_uv: torch.Tensor = None  # (P,) bool: tex_u/v valid on this lane
+
+    def __post_init__(self):
+        if self.tex_u is None:
+            z = torch.zeros_like(self.t)
+            self.tex_u, self.tex_v = z, z.clone()
+            self.has_uv = torch.zeros_like(self.t, dtype=torch.bool)
 
 
 def transform_point(m: torch.Tensor, p: Vec3) -> Vec3:
@@ -146,6 +157,27 @@ def sphere_intersect(
     n_world = n_world * torch.where(outside, 1.0, -1.0)
     dist = (origins - p_world).length()
     return torch.where(hit, dist, MISS), n_world, outside
+
+
+def triangle_intersect(v0: Vec3, v1: Vec3, v2: Vec3, o: Vec3, d: Vec3):
+    """Moller-Trumbore, lane-wise: each lane tests its own triangle (the
+    vertices may broadcast). The glm::intersectRayTriangle analog
+    (INSTRUCTION.md:127).
+
+    Returns (t (P,), u, v, valid) with t = FLT_MAX where invalid."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    pvec = d.cross(e2)
+    det = e1.dot(pvec)
+    ok_det = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok_det, 1.0 / det, 0.0)
+    tvec = o - v0
+    u = tvec.dot(pvec) * inv_det
+    qvec = tvec.cross(e1)
+    v = d.dot(qvec) * inv_det
+    t = e2.dot(qvec) * inv_det
+    valid = ok_det & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > RAY_EPS)
+    return torch.where(valid, t, FLT_MAX), u, v, valid
 
 
 def closer_hit(t_new: torch.Tensor, t_best: torch.Tensor) -> torch.Tensor:

@@ -34,8 +34,12 @@ is (prev_pdf, prev_nondelta), two float32 (P,) lanes, the flag as 0/1.
 The kernels' scene tables (`pack_scene_tables`) keep the JAX kernel's
 (G,16) matrix rows and its material column map through column 12
 (tex_kind, tex_scale), plus the emissive geom indices and the MIS light
-pdf model (ops/lights.py::lights_area_weight) for the NEE kernels; the mesh,
-file-texture and env-map tables arrive with their slices (ROADMAP).
+pdf model (ops/lights.py::lights_area_weight) for the NEE kernels, and on
+a mesh scene the triangle and BVH tables of the mesh pipeline
+(`pack_mesh_tables`, read by ops/pipeline.py's kernels #7-#10). These six
+kernels sweep analytic geoms only: a mesh scene takes ops/pipeline.py
+(and #4, which intersects nothing), and their wrappers refuse one. The
+file-texture and env-map tables arrive with their slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -64,6 +68,11 @@ FLAG_STRATIFIED = 128
 FLAG_SOBOL = 256
 FLAG_CHECKER = 512
 
+# the dense mesh route's limit: a mesh geom above this many triangles
+# takes the JAX package's sorted-stream route (ops/pipeline.py::
+# SORT_SUPER_MIN_TRIS), which the port has not ported yet
+MAX_DENSE_MESH_TRIS = 16384
+
 
 class SceneTables(NamedTuple):
     xf: torch.Tensor  # (G,16) f32 transforms, row-major
@@ -78,6 +87,8 @@ class SceneTables(NamedTuple):
     lights: torch.Tensor  # (L,) int32 emissive geom indices (NEE kernels)
     aw: float | None  # mean light area x L as a float32 value (the NEE
     #                   kernels' MIS); None when packed without `nee`
+    # the mesh pipeline's tables (pack_mesh_tables); None without meshes
+    mesh: tuple | None = None
 
 
 # the tables the kernels read, as a C array of pointers in this order
@@ -114,25 +125,47 @@ def checker_only(scene) -> bool:
     )
 
 
+def _refuse(what: str, slice_no: int):
+    raise NotImplementedError(
+        f"{what} is not ported yet: see ROADMAP, port slice {slice_no}"
+    )
+
+
+def check_mesh_sizes(tri_counts) -> None:
+    """Refuse a mesh geom above MAX_DENSE_MESH_TRIS triangles (the
+    big-mesh route); the host Scene's `geoms.tri_count` is enough, so
+    `Renderer` checks before it builds any BVH."""
+    if any(int(c) > MAX_DENSE_MESH_TRIS for c in tri_counts):
+        _refuse(f"mesh geoms above {MAX_DENSE_MESH_TRIS:,} triangles (the "
+                f"big-mesh route)", 5)
+
+
 def check_supported(scene: DeviceScene, settings) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a scene or
     setting that the port does not render yet. The check is the same on
     every device: the CPU path never renders what the card cannot."""
+    check_mesh_sizes(c for _, c in scene.tri_ranges)
     refusals = [
-        (scene.any_sss, "subsurface scattering (SSS)", 5),
+        (settings.nee_mis and scene.mesh_geoms,
+         "NEE + MIS (--nee) on a mesh scene", 5),
+        (scene.any_sss, "subsurface scattering (SSS)", 6),
         (scene.any_textured and not checker_only(scene),
-         "file textures (TEXTURE <file>)", 5),
-        (scene.any_bump, "bump maps (BUMP)", 5),
-        (scene.has_env_map, "lat-long environment maps (ENVMAP)", 5),
-        (settings.sort_by_material, "material sort", 5),
-        (settings.tri_axis is not None, "triangle sharding", 5),
+         "file textures (TEXTURE <file>)", 6),
+        (scene.any_bump, "bump maps (BUMP)", 6),
+        (scene.has_env_map, "lat-long environment maps (ENVMAP)", 6),
+        (settings.sort_by_material, "material sort", 6),
+        (settings.tri_axis is not None, "triangle sharding", 6),
     ]
     for needed, what, slice_no in refusals:
         if needed:
-            raise NotImplementedError(
-                f"{what} is not ported yet: see ROADMAP, port slice "
-                f"{slice_no}"
-            )
+            _refuse(what, slice_no)
+
+
+def _require_analytic(scene: DeviceScene, what: str) -> None:
+    """The six kernels of this module sweep analytic geoms only."""
+    if scene.mesh_geoms:
+        raise ValueError(f"{what}: a mesh scene takes the mesh pipeline "
+                         "(ops/pipeline.py), not this kernel")
 
 
 def kernel_flags(scene: DeviceScene, settings) -> int:
@@ -160,10 +193,43 @@ def pack_geom_tables(scene: DeviceScene):
     )
 
 
+def pack_mesh_tables(scene: DeviceScene) -> tuple:
+    """The mesh pipeline's tables (csrc/mesh.cu's MeshTables), on the
+    scene's device: tri (T,12) f32 [v0, v1, v2, 3 pad], attr (T,16) f32
+    [n0, n1, n2, uv0, uv1, uv2, pad], box (B,8) f32 [min, pad, max, pad],
+    node (B,4) i32 [first, count, skip, is_leaf] and geoms (M,4) i32 [geom
+    index, first node, node count, has_uv] for the M mesh geoms. They
+    live in object space, so motion blur never re-packs them."""
+    mesh = scene.mesh_geoms
+    if any(scene.bvh_roots[g][1] == 0 for g in mesh):
+        raise ValueError("the mesh kernels walk the BVH: build the tables "
+                         "with scene_to_device(scene, device, use_bvh=True)")
+    T = scene.tri_v0.x.shape[0]
+    B = scene.bvh_first.shape[0]
+    dev = scene.device
+    zt = torch.zeros(T, dtype=torch.float32, device=dev)
+    zb = torch.zeros(B, dtype=torch.float32, device=dev)
+    tri = torch.stack([*scene.tri_v0, *scene.tri_v1, *scene.tri_v2, zt, zt, zt],
+                      dim=1).contiguous()
+    attr = torch.stack(
+        [*scene.tri_n0, *scene.tri_n1, *scene.tri_n2,
+         scene.tri_uv0u, scene.tri_uv0v, scene.tri_uv1u, scene.tri_uv1v,
+         scene.tri_uv2u, scene.tri_uv2v, zt], dim=1).contiguous()
+    box = torch.stack([*scene.bvh_min, zb, *scene.bvh_max, zb], dim=1).contiguous()
+    node = torch.stack([scene.bvh_first, scene.bvh_count, scene.bvh_skip,
+                        scene.bvh_leaf.to(torch.int32)], dim=1).contiguous()
+    geoms = torch.tensor(
+        [[g, *scene.bvh_roots[g], int(scene.mesh_has_uv[g])] for g in mesh],
+        dtype=torch.int32, device=dev,
+    ).reshape(len(mesh), 4)
+    return tri, attr, box, node, geoms
+
+
 def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
     """The kernels' tables; with `nee` also the MIS light pdf model, read
     back to the host once here, so no NEE launch waits on the device for
-    it (motion blur only translates, so it never changes the value)."""
+    it (motion blur only translates, so it never changes the value); on a
+    mesh scene also the mesh pipeline's tables."""
     G = scene.transform.shape[0]
     dev = scene.device
     mat = torch.stack(
@@ -190,6 +256,7 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
         lights=torch.tensor(scene.emissive_geoms, dtype=torch.int32,
                             device=dev).reshape(-1),
         aw=float(lights_area_weight(scene)) if nee else None,
+        mesh=pack_mesh_tables(scene) if scene.mesh_geoms else None,
     )
 
 
@@ -256,10 +323,12 @@ def first_bounce_reference(scene: DeviceScene, cam: DeviceCamera,
 
 
 def bounce_step_reference(state, scene: DeviceScene, iteration: int,
-                          depth: int, settings, num_alive=None):
+                          depth: int, settings, num_alive=None, isect=None):
     """One intersect + shade bounce over the pool, plain PyTorch; returns
     a new pool. Lanes at or past `num_alive` (a scalar tensor) are left
-    as they are, as the kernel leaves them."""
+    as they are, as the kernel leaves them. `isect`: the pool's
+    Intersections when the caller has them (the mesh pipeline's #9),
+    else `intersect_scene` computes them."""
     from ..render import _shade_step
     from .sweep import intersect_scene
 
@@ -268,7 +337,8 @@ def bounce_step_reference(state, scene: DeviceScene, iteration: int,
     if num_alive is not None:
         skip = torch.arange(alive_in.shape[0], device=alive_in.device) >= num_alive
         s = s[:4] + (alive_in & ~skip, s[5])
-    isect = intersect_scene(s[0], s[1], scene)
+    if isect is None:
+        isect = intersect_scene(s[0], s[1], scene)
     out = _shade_step(s, isect, scene, iteration, depth, settings)
     if num_alive is not None:
         out = out[:4] + (torch.where(skip, alive_in, out[4]), out[5])
@@ -452,6 +522,7 @@ def _whole_iterations(wrapper, reference, nee: bool, scene: DeviceScene,
     `pt_<wrapper>` per iteration, counted in `wrapper.launches`."""
     what = wrapper.__name__
     check_supported(scene, settings)
+    _require_analytic(scene, what)
     if nee:
         _require_lights(scene, what)
     device = accum.x.device
@@ -492,6 +563,7 @@ def first_bounce(scene: DeviceScene, cam: DeviceCamera, iteration: int,
     returned as a new pool with pix = slot. CPU: the plain version; CUDA:
     one launch of the kernel, counted in `first_bounce.launches`."""
     check_supported(scene, settings)
+    _require_analytic(scene, "first_bounce")
     device = cam.position.device
     if device.type == "cpu":
         return first_bounce_reference(scene, cam, iteration, settings)
@@ -523,6 +595,7 @@ def bounce_step(state, scene: DeviceScene, iteration: int, depth: int,
     lanes; CUDA: one launch, counted in `bounce_step.launches`; no host
     sync either way."""
     check_supported(scene, settings)
+    _require_analytic(scene, "bounce_step")
     device = state[5].device
     if device.type == "cpu":
         new = bounce_step_reference(state, scene, iteration, depth, settings,
@@ -595,6 +668,7 @@ def bounce_step_nee(state, aux, scene: DeviceScene, iteration: int,
     version, copied back into the lanes; CUDA: one launch, counted in
     `bounce_step_nee.launches`."""
     check_supported(scene, settings)
+    _require_analytic(scene, "bounce_step_nee")
     _require_lights(scene, "bounce_step_nee")
     device = state[5].device
     if device.type == "cpu":

@@ -2,7 +2,7 @@
 
 The checker-only part of the JAX package's `ops/texture.py`: `checker`
 and the `kind == 1` branch of `apply_textures`. File textures (`kind ==
-2`), box-projected UVs and bump maps arrive with port slice 5 (ROADMAP);
+2`), box-projected UVs and bump maps arrive with port slice 6 (ROADMAP);
 megakernel.check_supported refuses a scene that needs them. The CUDA
 kernels compute the same factor in csrc/path_common.cuh (`checker`).
 """
@@ -30,7 +30,7 @@ def apply_textures(scene, p_hit: Vec3, mat_id: torch.Tensor,
     if scene.n_file_textures > 0 or scene.any_bump:
         raise NotImplementedError(
             "file textures and bump maps are not ported yet: see ROADMAP, "
-            "port slice 5"
+            "port slice 6"
         )
     safe = torch.clamp(mat_id, min=0).to(torch.int64)
     kind = scene.mat_tex_kind[safe]

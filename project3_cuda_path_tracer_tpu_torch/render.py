@@ -14,11 +14,20 @@ has these tiers here, as in the JAX package:
   compaction between bounces and the motion-blur shutter time. It runs
   under `Renderer.step()` always and under `render_batch` with
   --compact, --cache-first-bounce, --motion-blur or --direct-lighting;
+- the mesh path (a scene with mesh geoms), `trace_paths` too: plain
+  `generate_rays` for the depth-0 rays, as the JAX package's mesh route,
+  then the mesh pipeline (ops/pipeline.py::bounce_step_pipeline: #7
+  candidates -> #8 BVH sweep -> #9 merge + shade) at every depth, with
+  the same compaction, cache (#4 over `intersect_scene_any`'s depth 0),
+  motion blur, RR and QMC as the analytic path; `render_batch` always
+  takes it on a mesh scene (#1 and #6 sweep analytic geoms only);
 - --direct-lighting (final-bounce NEE): the per-bounce path for depths
   0..D-2, then `_nee_final_step` at depth D-1 (one shadow ray to a
   sampled light point from each diffuse lane, RNG stream 254). That step
-  is plain PyTorch over `intersect_scene` on every device, as the JAX
-  package runs it in XLA outside any Pallas kernel;
+  is plain PyTorch on every device, as the JAX package runs it in XLA
+  outside any Pallas kernel; its two intersect calls go through
+  `intersect_scene_any` (the mesh pipeline #7 -> #8 -> #10 on a mesh
+  scene on CUDA);
 - --nee (NEE + MIS at every non-delta vertex, `_nee_mis_bounce`): under
   `render_batch` the whole-iteration NEE kernel
   (megakernel.full_iteration_nee, #6), one launch per iteration; under
@@ -63,6 +72,7 @@ from .ops.megakernel import (
     SceneTables,
     bounce_step,
     bounce_step_nee,
+    check_mesh_sizes,
     check_supported,
     draw_slots,
     first_bounce,
@@ -72,6 +82,7 @@ from .ops.megakernel import (
     pack_scene_tables,
     shade_step,
 )
+from .ops.pipeline import bounce_step_pipeline, intersect_pipeline
 from .ops.sweep import intersect_scene
 from .ops.texture import apply_textures
 from .ops.vec import Vec3, take as vtake, where as vwhere
@@ -83,10 +94,12 @@ class RenderSettings:
     """Runtime toggles; the same fields and defaults as the JAX
     package's RenderSettings. Fields of later slices are kept so that a
     setting the port does not render yet is refused by name
-    (megakernel.check_supported). `use_bvh` and `use_pallas` select
-    nothing here: analytic scenes have no BVH, and the device alone
-    decides the path (the kernels on CUDA, their plain versions on the
-    CPU).
+    (megakernel.check_supported). `use_bvh` selects the plain path's
+    mesh traversal (the BVH walk, or the naive sweep over every
+    triangle); the mesh kernel always walks the BVH, as the JAX package's
+    Pallas pipeline ignores the flag. `use_pallas` selects nothing: the
+    device alone decides the path (the kernels on CUDA, their plain
+    versions on the CPU).
 
     The two light-sampling tiers: `direct_lighting` replaces the last
     bounce's hemisphere sample of diffuse lanes with one shadow ray to a
@@ -219,19 +232,37 @@ _INV_PI = 1.0 / math.pi
 _HALF_INV_PI = 0.5 / math.pi
 
 
+def intersect_scene_any(origins: Vec3, dirs: Vec3, scene: DeviceScene,
+                        settings: RenderSettings, alive=None,
+                        tables: SceneTables | None = None) -> Intersections:
+    """`intersect_scene`, through the mesh pipeline (#7 -> #8 -> #10,
+    ops/pipeline.py::intersect_pipeline) on a mesh scene on CUDA, as the
+    JAX package's `intersect_scene_any` swaps in its Pallas pipeline;
+    everywhere else (analytic scenes, the CPU) plain `intersect_scene`
+    with `settings.use_bvh`. `alive` (None: all alive) marks the lanes the
+    pipeline tests for meshes; dead lanes keep their analytic hit."""
+    if scene.mesh_geoms and scene.device.type == "cuda":
+        return intersect_pipeline(origins, dirs, alive, scene, tables=tables,
+                                  use_bvh=settings.use_bvh)
+    return intersect_scene(origins, dirs, scene, use_bvh=settings.use_bvh)
+
+
 def _nee_final_step(state, scene: DeviceScene, iteration: int,
-                    settings: RenderSettings):
+                    settings: RenderSettings,
+                    tables: SceneTables | None = None):
     """The last bounce of --direct-lighting (the JAX package's
     `_nee_final_step`): escaped lanes collect the environment, emissive
     hits add their emission, and each live DIFFUSE lane trades its last
     hemisphere sample for one shadow ray to a light point (RNG stream
     NEE_STREAM). Albedo and emission are untextured, as there. Every
-    lane ends here. Plain PyTorch on every device: the JAX package runs
-    this step in XLA, outside any Pallas kernel."""
+    lane ends here. Plain PyTorch on every device (the JAX package runs
+    this step in XLA, outside any Pallas kernel), but both intersect
+    calls go through `intersect_scene_any`, as there."""
     origins, dirs, throughput, radiance, alive, pix = state
     P = pix.shape[0]
     zeros = Vec3.zeros(P, pix.device)
-    isect = intersect_scene(origins, dirs, scene)
+    isect = intersect_scene_any(origins, dirs, scene, settings, alive=alive,
+                                tables=tables)
     hit = isect.t > 0.0
     m_color, _spec, m_refl, m_refr, _ior, m_emit, _sexp = _gather_materials(
         scene, isect.material_id
@@ -258,7 +289,8 @@ def _nee_final_step(state, scene: DeviceScene, iteration: int,
     cos_s = torch.clamp(isect.normal.dot(wi), min=0.0)
     cos_l = torch.clamp(-ln.dot(wi), min=0.0)
 
-    shadow = intersect_scene(p_hit, wi, scene)
+    shadow = intersect_scene_any(p_hit, wi, scene, settings, alive=alive,
+                                 tables=tables)
     visible = (shadow.t < 0.0) | (shadow.t >= r - 1e-2)
 
     g = cos_s * cos_l / r2 * weight * _INV_PI
@@ -568,8 +600,10 @@ def trace_paths(
     """One full sample per pixel through the per-bounce path: first_bounce
     (#2), or shade_step (#4) over the depth-0 intersections under the
     first-bounce cache, then bounce_step (#3) for depths 1..D-1, with
-    compaction between bounces. Under --direct-lighting the last depth is
-    `_nee_final_step` instead of #3; under --nee every depth is
+    compaction between bounces. On a mesh scene every bounce is the mesh
+    pipeline (#7 -> #8 -> #9), depth 0 from plain `generate_rays`, and
+    the cache fill runs `intersect_scene_any`. Under --direct-lighting the
+    last depth is `_nee_final_step` instead; under --nee every depth is
     bounce_step_nee (#5), from plain `generate_rays` (`_trace_nee`).
 
     `iteration` is 1-based. `cache` holds the depth-0 Intersections in
@@ -592,16 +626,24 @@ def trace_paths(
     if settings.nee_mis:
         return _trace_nee(scene, cam, iteration, settings, tables, count_alive)
     device = scene.device
+    mesh = bool(scene.mesh_geoms)
+    bounce = bounce_step_pipeline if mesh else bounce_step
 
     if settings.effective_cache():
         # depth 0 from the cached (or freshly computed) intersections of
         # the pinhole camera rays; the cache is pixel-ordered
         state = _camera_pool(cam, iteration, settings)
-        isect0 = cache if use_cache else intersect_scene(state[0], state[1],
-                                                         scene)
+        isect0 = cache if use_cache else intersect_scene_any(
+            state[0], state[1], scene, settings, tables=tables)
         cache_out = isect0
         state = shade_step(state, isect0, scene, iteration, 0, settings,
                            tables=tables)
+    elif mesh:
+        # the JAX package's mesh route: plain camera rays, then the mesh
+        # pipeline from depth 0
+        state = bounce(_camera_pool(cam, iteration, settings), scene,
+                       iteration, 0, settings, tables=tables)
+        cache_out = _empty_cache(state[5].shape[0], device)
     else:
         state = first_bounce(scene, cam, iteration, settings, tables=tables)
         cache_out = _empty_cache(state[5].shape[0], device)
@@ -614,7 +656,7 @@ def trace_paths(
     # loop (src/pathtrace.cu:340-377)
     D = settings.trace_depth
     for depth in range(1, D - 1 if settings.direct_lighting else D):
-        state = bounce_step(
+        state = bounce(
             state, scene, iteration, depth, settings,
             num_alive=counts[-1] if settings.compact else None,
             tables=tables,
@@ -624,7 +666,7 @@ def trace_paths(
             counts.append(_count_alive(state))
     if settings.direct_lighting and D > 1:
         state = _nee_final_step(state[:4] + (state[4] != 0, state[5]), scene,
-                                iteration, settings)
+                                iteration, settings, tables=tables)
         if counts is not None:
             counts.append(_count_alive(state))
 
@@ -667,12 +709,15 @@ def render_iteration(
     return accum, cache_out, alive_counts
 
 
-def whole_kernel(settings: RenderSettings) -> bool:
+def whole_kernel(settings: RenderSettings,
+                 scene: DeviceScene | None = None) -> bool:
     """Whether render_batch runs the whole-iteration kernel #1: the JAX
     package's kernel_plan.whole_kernel for what the port renders, without
-    its geoms x materials limit (a TPU compile-time trade-off)."""
+    its geoms x materials limit (a TPU compile-time trade-off); never on a
+    mesh `scene`."""
     return not (
-        settings.compact
+        (scene is not None and scene.mesh_geoms)
+        or settings.compact
         or settings.effective_cache()
         or settings.motion_blur
         or settings.direct_lighting
@@ -680,11 +725,14 @@ def whole_kernel(settings: RenderSettings) -> bool:
     )
 
 
-def nee_kernel(settings: RenderSettings) -> bool:
+def nee_kernel(settings: RenderSettings,
+               scene: DeviceScene | None = None) -> bool:
     """Whether render_batch runs the whole-iteration NEE kernel #6 (the
     JAX package's kernel_plan.nee_kernel, again without its body limit,
-    so many_materials --nee takes it too): --nee without motion blur."""
-    return settings.nee_mis and not settings.motion_blur
+    so many_materials --nee takes it too): --nee without motion blur, on
+    an analytic scene (--nee on a mesh scene is refused)."""
+    return (settings.nee_mis and not settings.motion_blur
+            and not (scene is not None and scene.mesh_geoms))
 
 
 def render_batch(scene: DeviceScene, cam: DeviceCamera, accum: Vec3,
@@ -693,16 +741,17 @@ def render_batch(scene: DeviceScene, cam: DeviceCamera, accum: Vec3,
                  tables: SceneTables | None = None) -> Vec3:
     """n_iters full samples added into accum (in place), starting at the
     1-based iteration id `iteration0`: the whole-iteration kernel when
-    `whole_kernel(settings)`, the whole-iteration NEE kernel when
-    `nee_kernel(settings)`, else the per-bounce path, with the
-    first-bounce cache computed once per batch from iteration0's pinhole
-    rays. CPU tensors take the plain versions throughout."""
+    `whole_kernel(settings, scene)`, the whole-iteration NEE kernel when
+    `nee_kernel(settings, scene)`, else the per-bounce path (the mesh
+    path on a mesh scene), with the first-bounce cache computed once per
+    batch from iteration0's pinhole rays. CPU tensors take the plain
+    versions throughout."""
     _check_lighting(scene, settings)
-    if whole_kernel(settings):
+    if whole_kernel(settings, scene):
         full_iteration(scene, cam, iteration0, settings, accum,
                        n_iters=n_iters, tables=tables)
         return accum
-    if nee_kernel(settings):
+    if nee_kernel(settings, scene):
         full_iteration_nee(scene, cam, iteration0, settings, accum,
                            n_iters=n_iters, tables=tables)
         return accum
@@ -712,7 +761,8 @@ def render_batch(scene: DeviceScene, cam: DeviceCamera, accum: Vec3,
     cache = None
     if use_cache:
         origins, dirs, _ = generate_rays(cam, iteration0, False, False)
-        cache = intersect_scene(origins, dirs, scene)
+        cache = intersect_scene_any(origins, dirs, scene, settings,
+                                    tables=tables)
     for k in range(n_iters):
         render_iteration(scene, cam, accum, iteration0 + k, cache, settings,
                          use_cache, tables=tables, count_alive=False)
@@ -763,6 +813,9 @@ class Renderer:
         )
         if self.settings.trace_depth <= 0:
             self.settings = replace(self.settings, trace_depth=8)
+        # before any BVH is built: the big-mesh route is not ported
+        check_mesh_sizes(scene.geoms.tri_count)
+        # always with the BVH, which the mesh kernels walk (models/device.py)
         self.dev_scene = scene_to_device(scene, self.device)
         check_supported(self.dev_scene, self.settings)
         self.tables = _device_tables(self.dev_scene, self.settings)

@@ -343,3 +343,119 @@ def test_light_sampling_launches(cuda_device, settings_kw, counts):
     assert r.last_alive_counts.device.type == "cuda"
     assert int(r.last_alive_counts[-1]) == 0
     assert np.isfinite(r.image()).all() and r.image().max() > 0
+
+
+# ---- kernels #7-#10: the mesh pipeline ----
+
+MESH = [
+    {},
+    {"antialias": True},
+    {"russian_roulette": True, "rr_start_depth": 1, "stratified": True},
+    {"compact": True},
+]
+
+
+def assert_lane_rule(got, want, atol=1e-4, frac=0.01):
+    """tests/test_megakernel.py:57-76's lane rule over parallel lists of
+    (P,) tensors: at most `frac` of the lanes off by more than `atol`."""
+    for k, (g, w) in enumerate(zip(got, want)):
+        g = g.detach().cpu().numpy().astype(np.float64)
+        w = w.detach().cpu().numpy().astype(np.float64)
+        assert (np.abs(g - w) > atol).mean() <= frac, k
+
+
+def hit_lanes(h):
+    return [h.t, *h.normal, h.material_id, h.outside, h.tex_u, h.tex_v, h.has_uv]
+
+
+@pytest.mark.parametrize("settings_kw", MESH)
+def test_mesh_kernels_match_plain_on_cuda(cuda_device, settings_kw):
+    """#7, #8, #9 and #10 on mesh.txt at 64x64, depths 0-3, each from the
+    plain version's own inputs: #7's candidate set within 0.1% of the
+    lanes and its analytic hits, #8's, #9's and #10's lanes under the lane
+    rule, pix exactly."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam, settings = _setup(cuda_device, "mesh.txt", settings_kw)
+    P = 64 * 64
+    pool = _camera_pool(cam, 2, settings)
+    counts = [getattr(pipeline, k).launches for k in
+              ("mesh_candidates", "mesh_sweep", "bounce_step_mesh",
+               "intersect_mesh")]
+    for depth in range(4):
+        pool = _maybe_compact(pool, settings)
+        n_alive = _count_alive(pool) if settings.compact else None
+        o, d, alive = pool[0], pool[1], pool[4]
+        want7 = pipeline.mesh_candidates_reference(o, d, alive, ds, n_alive)
+        got7 = pipeline.mesh_candidates(o, d, alive, ds, num_alive=n_alive)
+        torch.cuda.synchronize()
+        n = int(got7.count[0])
+        listed = torch.zeros(P, dtype=torch.bool, device=cuda_device)
+        listed[got7.lanes[:n].long()] = True
+        live = (alive != 0) & (torch.arange(P, device=cuda_device)
+                               < (P if n_alive is None else n_alive))
+        assert torch.equal(listed, got7.cand & live)
+        assert float((listed != want7.cand).float().mean()) <= 0.001
+        assert_lane_rule([a[live] for a in (got7.t, *got7.normal)],
+                         [a[live] for a in (want7.t, *want7.normal)])
+        want8 = pipeline.mesh_sweep_reference(o, d, want7, ds)
+        got8 = pipeline.mesh_sweep(o, d, want7, ds)
+        torch.cuda.synchronize()
+        assert_lane_rule([a[want7.cand] for a in hit_lanes(got8)],
+                         [a[want7.cand] for a in hit_lanes(want8)])
+        # #10 on every lane of the intersect route
+        all7 = pipeline.mesh_candidates_reference(o, d, alive, ds)
+        all8 = pipeline.mesh_sweep_reference(o, d, all7, ds)
+        got10 = pipeline.intersect_mesh(all7, all8)
+        torch.cuda.synchronize()
+        assert_lane_rule(hit_lanes(got10), hit_lanes(pipeline.merge_hits(all7, all8)))
+        want9 = pipeline.bounce_step_mesh_reference(pool, want7, want8, ds, 2,
+                                                    depth, settings, n_alive)
+        lanes = [a.clone() for a in megakernel.pool_lanes(pool)]
+        start = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                 Vec3(*lanes[9:12]), lanes[12], lanes[13])
+        got9 = pipeline.bounce_step_mesh(start, want7, want8, ds, 2, depth,
+                                         settings, num_alive=n_alive)
+        torch.cuda.synchronize()
+        assert got9 is start
+        g9, w9 = megakernel.pool_lanes(got9), megakernel.pool_lanes(want9)
+        assert torch.equal(g9[13], w9[13])
+        assert_lane_rule(g9[:13], w9[:13])
+        pool = want9
+    now = [getattr(pipeline, k).launches for k in
+           ("mesh_candidates", "mesh_sweep", "bounce_step_mesh", "intersect_mesh")]
+    assert [b - a for a, b in zip(counts, now)] == [4, 4, 4, 4]
+
+
+@pytest.mark.parametrize("settings_kw,counts", [
+    # (#7, #8, #9, #10, #4) over 2 step() + 2 step_batch at depth 8
+    ({"antialias": True}, [32, 32, 32, 0, 0]),
+    ({"compact": True}, [32, 32, 32, 0, 0]),
+    # the cache: #7 -> #8 -> #10 on the first step() and once per batch
+    ({"cache_first_bounce": True}, [30, 30, 28, 2, 4]),
+    # direct lighting: 7 bounces, then the final step's two intersects
+    ({"direct_lighting": True}, [36, 36, 28, 8, 0]),
+])
+def test_mesh_path_launches(cuda_device, settings_kw, counts):
+    """The mesh path runs the mesh pipeline at every depth and never
+    #1, #2, #3, #5 or #6."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+
+    wrappers = (pipeline.mesh_candidates, pipeline.mesh_sweep,
+                pipeline.bounce_step_mesh, pipeline.intersect_mesh,
+                megakernel.shade_step)
+    others = (megakernel.full_iteration, megakernel.first_bounce,
+              megakernel.bounce_step, megakernel.bounce_step_nee,
+              megakernel.full_iteration_nee)
+    r = Renderer(small("mesh.txt", (64, 48)),
+                 RenderSettings(trace_depth=8, **settings_kw), device=cuda_device)
+    before = [f.launches for f in wrappers + others]
+    r.step()
+    r.step()
+    r.step_batch(2)
+    torch.cuda.synchronize()
+    got = [f.launches - b for f, b in zip(wrappers + others, before)]
+    assert got == counts + [0] * len(others)
+    img = r.image()
+    assert np.isfinite(img).all() and img.max() > 0

@@ -178,16 +178,12 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
      ("envmap.txt", {}, "environment maps"),
      ("cornell.txt", {"tri_axis": "tri"}, "triangle sharding"),
      ("cornell.txt", {"sort_by_material": True}, "material sort"),
-     ("mesh.txt", {}, "mesh")],
+     ("mesh.txt", {"nee_mis": True}, "mesh")],
 )
 def test_unported_features_raise(name, settings_kw, what):
     """A scene or setting of a later slice is refused with its ROADMAP
-    item, by the renderer and by the kernel wrapper itself; a mesh scene
-    already when it is read."""
-    if name == "mesh.txt":
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-            small(tscene, name, (8, 8))
-        return
+    item, by the renderer and by the kernel wrapper itself (here --nee on
+    a mesh scene: the mesh tables of #5 and #6)."""
     scene = small(tscene, name, (8, 8))
     settings = trender.RenderSettings(**settings_kw)
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):

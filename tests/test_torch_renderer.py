@@ -159,7 +159,7 @@ def test_cli_still_refuses_sort(caplog):
     argv = [os.path.join(SCENES, "cornell.txt"), "--device", "cpu",
             "--sort-materials"]
     assert tmain(argv) == 1
-    assert "material sort" in caplog.text and "slice 5" in caplog.text
+    assert "material sort" in caplog.text and "slice 6" in caplog.text
 
 
 def _imported_modules(path):

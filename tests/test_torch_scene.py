@@ -1,6 +1,7 @@
 """The port's scene parser and device tables against the JAX package's:
 for the six analytic smoke scenes the tables and flags must be exactly
-equal, the camera derivation identical, and a mesh scene refused."""
+equal, the camera derivation identical, and a mesh geom above the dense
+route's 16,384 triangles refused."""
 
 import os
 
@@ -10,6 +11,7 @@ import torch
 
 from project3_cuda_path_tracer_tpu.models import device as jdevice
 from project3_cuda_path_tracer_tpu.models import scene as jscene
+from project3_cuda_path_tracer_tpu_torch import render as trender
 from project3_cuda_path_tracer_tpu_torch.models import device as tdevice
 from project3_cuda_path_tracer_tpu_torch.models import scene as tscene
 from project3_cuda_path_tracer_tpu_torch.ops.megakernel import (
@@ -135,8 +137,13 @@ def test_device_scene_from_numpy_round_trip(name):
 
 
 def test_mesh_scene_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tscene.load_scene(os.path.join(SCENES, "mesh.txt"))
+    """A mesh geom above 16,384 triangles (mesh_big.txt's 51,200: the
+    big-mesh route) is refused from the host scene's triangle counts,
+    before any BVH is built."""
+    scene = tscene.load_scene(os.path.join(SCENES, "mesh_big.txt"))
+    assert int(scene.geoms.tri_count.max()) == 51_200
+    with pytest.raises(NotImplementedError, match="big-mesh route.*ROADMAP"):
+        trender.Renderer(scene, device="cpu")
 
 
 @pytest.mark.parametrize(
