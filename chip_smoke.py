@@ -3,29 +3,38 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, in parallel), holds each of the ten against its plain
-PyTorch version on the card (at 64x64 and at the main path's 800x800;
-the NEE kernels #5 and #6 on Cornell AA, Cornell RR + stratified, a
-glossy Cornell and many_materials RR, #5's pix exactly and its alive per
-lane; the mesh kernels #7-#10 on mesh.txt plain, AA, RR + stratified and
---compact, #7's candidate set per lane and #9's pix exactly), renders
-the twelve smoke configs (the two --nee ones and mesh.txt included)
-against the XLA goldens (tools/goldens/smoke_128.npz) through
-`Renderer.step_batch` and through `Renderer.step()`, drives the main
-path (Cornell 800x800, depth 8, AA, progressive) through
-`Renderer.step_batch` and times it, drives and times the other paths at
-their scenes' own size, depth 8 (Cornell AA through `Renderer.step()`,
---compact, --cache-first-bounce, --motion-blur, --direct-lighting,
---nee through `step_batch` (#6) and `step()` (#5), many_materials
-1920x1080 RR --nee through both; mesh.txt AA through `step_batch` and
-`step()` (#7 -> #8 -> #9 at every depth), with --cache-first-bounce
-(#7 -> #8 -> #10 once per batch, then #4) and with --direct-lighting
-(the final step's two intersects through #7 -> #8 -> #10)), reads each
-kernel's device time from torch.profiler beside its plain version's time
-and its bound (and the --direct-lighting final step's own time), and
-renders through the CLI (Cornell plain, --compact, --nee; mesh.txt).
-Every path is driven with the launch counts set to 0 just before it and
-read just after.
+nvcc per source, in parallel), holds each of the fourteen against its
+plain PyTorch version on the card (at 64x64 and at the main path's
+800x800; the NEE kernels #5 and #6 on Cornell AA, Cornell RR +
+stratified, a glossy Cornell and many_materials RR, #5's pix exactly and
+its alive per lane; the mesh kernels #7-#10 on mesh.txt plain, AA, RR +
+stratified and --compact, #7's candidate set per lane and #9's pix
+exactly; the big-mesh route's A-D (super_keys, place_entries,
+window_sweep, merge_entries) on mesh_big.txt AA at 64x64 and 800x800 at
+every depth and on bunny.txt at 800x800 depth 0, A's keys and B's stream
+per key exactly, and the route's work per depth for their bounds),
+renders the twelve smoke configs (the two --nee ones and mesh.txt
+included) and the four big-mesh scenes (mesh_big, bunny, mesh_critter,
+mesh_stream, each loaded once) against the XLA goldens
+(tools/goldens/smoke_128.npz) through `Renderer.step_batch` and through
+`Renderer.step()`, drives the main path (Cornell 800x800, depth 8, AA,
+progressive) through `Renderer.step_batch` and times it, drives and
+times the other paths at their scenes' own size, depth 8 (Cornell AA
+through `Renderer.step()`, --compact, --cache-first-bounce,
+--motion-blur, --direct-lighting, --nee through `step_batch` (#6) and
+`step()` (#5), many_materials 1920x1080 RR --nee through both; mesh.txt
+AA through `step_batch` and `step()` (#7 -> #8 -> #9 at every depth),
+with --cache-first-bounce (#7 -> #8 -> #10 once per batch, then #4) and
+with --direct-lighting (the final step's two intersects through #7 -> #8
+-> #10); mesh_big.txt AA through `step_batch` and `step()` and bunny.txt
+AA through `step_batch` (#7 -> #8 -> A -> B -> C -> D -> #9 at every
+depth)), times the dense BVH walk on mesh_big as a yardstick (the routing
+threshold raised here only), reads each kernel's device time from
+torch.profiler beside its plain version's time and its bound (and the
+--direct-lighting final step's own time), and renders through the CLI
+(Cornell plain, --compact, --nee; mesh.txt; mesh_big.txt). Every path is
+driven with the launch counts set to 0 just before it and read just
+after.
 Every phase prints one line; any failure raises and exits non-zero
 before the result lines are printed. Imports nothing of JAX or of the
 JAX package.
@@ -63,9 +72,19 @@ KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
     "mesh_sweep": (f"{PKG}/csrc/mesh.cu", f"{JAX_PL}:2549"),
     "bounce_step_mesh": (f"{PKG}/csrc/mesh.cu", f"{JAX_PL}:2650"),
     "intersect_mesh": (f"{PKG}/csrc/mesh.cu", f"{JAX_PL}:2844"),
+    # the big-mesh route (ops/pipeline.py's sorted route, csrc/sorted.cu):
+    # A replaces _super_rank_xla and the counting half of #12 _kc_compact,
+    # B #12's packing and #13 _ks_stitch, C #11 _window_sweep, D #14
+    # _kx_expand (their functions)
+    "super_keys": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:1203"),
+    "place_entries": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:1257"),
+    "window_sweep": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:746"),
+    "merge_entries": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:1350"),
 }
+SORTED_KERNELS = ("super_keys", "place_entries", "window_sweep",
+                  "merge_entries")
 MESH_KERNELS = ("mesh_candidates", "mesh_sweep", "bounce_step_mesh",
-                "intersect_mesh")
+                "intersect_mesh") + SORTED_KERNELS
 KERNEL_SYMBOLS = {k: f"{k}_kernel" for k in KERNELS}
 NO_LAUNCHES = {k: 0 for k in KERNELS}
 # image rule of tests/test_megakernel.py:143-145 (seam-tie outliers only)
@@ -91,6 +110,11 @@ SMOKE = [  # (scene, settings, golden key)
      "many_materials.txt_--nee"),
     ("mesh.txt", {}, "mesh.txt"),
 ]
+# the scenes of the big-mesh route (one geom above 16,384 triangles each),
+# loaded once (their BVH build is most of their cost) and rendered against
+# their goldens with the smoke settings ({}, depth 8)
+BIG_SCENES = ("mesh_big.txt", "bunny.txt", "mesh_critter.txt",
+              "mesh_stream.txt")
 # image rule of tests/test_nee_megakernel.py for the NEE kernels
 NEE_PARITY_FRAC = 0.03
 # lane rule of tests/test_megakernel.py:57-76 for alive: at most 1% of
@@ -168,6 +192,16 @@ OPS_MESH_HIT = 100  # per walk that hits: normal, UVs, world distance
 OPS_MERGE = 4  # per lane: the analytic/mesh merge of #9 and #10
 # a shadow ray costs one normal-free test (OPS_BOX_TEST / OPS_SPHERE_TEST)
 # per geom up to and including its first occluder (shadow_sweep)
+# the sorted route (csrc/sorted.cu), from its plain versions' counts
+# (sorted_work): A per listed lane its object-space ray and bound, and one
+# supernode slab test per supernode; C per entry one slab test per chunk
+# box it tests and OPS_MT per triangle; D per listed lane the slot merge,
+# per winner the epilogue (OPS_MESH_HIT)
+OPS_OBJ_RAY = 69  # two transforms, normalize, 3 reciprocals, the bound
+OPS_SUPER_TEST = 29  # slab test with te = max(tmin, 0), the key update
+OPS_CHUNK_TEST = 27  # slab test against the running best t
+OPS_SLOT = 3  # per slot of D's merge: load, compare, select
+OPS_PLACE = 8  # B per real entry: the compare, the warp match, the address
 
 
 def say(phase: str, **kv) -> None:
@@ -495,7 +529,7 @@ def mesh_parity(dev, kw, res, iteration=2):
     ds, cam, settings = on_card(dev, "mesh.txt", kw, res)
     P = res[0] * res[1]
     pool = _camera_pool(cam, iteration, settings)
-    worst = {k: (0.0, 0.0) for k in MESH_KERNELS}
+    worst = {k: (0.0, 0.0) for k in MESH_KERNELS[:4]}
     cand_off = 0.0
     for depth in range(settings.trace_depth):
         pool = _maybe_compact(pool, settings)
@@ -538,7 +572,7 @@ def mesh_parity(dev, kw, res, iteration=2):
         if not torch.equal(g9[13], w9[13]):
             raise RuntimeError(f"bounce_step_mesh: pix differs at depth {depth}")
         r9 = lane_rule(g9[:13], w9[:13])
-        for k, r in zip(MESH_KERNELS, (r7, r8, r9, r10)):
+        for k, r in zip(MESH_KERNELS[:4], (r7, r8, r9, r10)):
             worst[k] = tuple(max(a, b) for a, b in zip(worst[k], r))
         pool = want9
     return worst, cand_off
@@ -590,6 +624,166 @@ def mesh_work(ds, cam, iteration, settings):
     return counts, plain
 
 
+def camera_at(camera, res):
+    """A host camera at another resolution (the same view and fovy)."""
+    from project3_cuda_path_tracer_tpu_torch.models.scene import derive_camera
+
+    return derive_camera(res, camera.position, camera.look_at,
+                         np.array([0, 1, 0], np.float32), float(camera.fov[1]),
+                         camera.aperture, camera.focal_distance)
+
+
+def clone_hits(h):
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+
+    return type(h)(h.t.clone(), Vec3(*(c.clone() for c in h.normal)),
+                   h.material_id.clone(), h.outside.clone(), h.tex_u.clone(),
+                   h.tex_v.clone(), h.has_uv.clone())
+
+
+def sorted_parity(ds, cam, settings, depths, tables, iteration=2):
+    """A-D on a big-mesh scene at each depth in `depths` of one iteration,
+    each kernel from the plain version's own inputs (the pool after the
+    plain bounce before, #8's plain hits): A's keys exactly `super_rank`'s
+    over A's own object-space rays and bounds (and its histogram exactly),
+    its rays and its keys against the plain A's (lane rule; keys on all but
+    0.1% of the lanes: ulps of FMA contraction near a slab face); B's
+    stream per key exactly the plain one's over A's keys; C's t, u, v on
+    the entries both hit by the lane rule, its hit flag and triangle on 99%
+    of the entries (ties); D's hit lanes and the whole bounce (#7 -> #8 ->
+    A-D -> #9 against the plain chain) by the lane rule, #9's pix exactly.
+    Also counts, per depth, the work of the plain route (for the bounds)
+    and times each plain version (host clock, synchronised).
+    Returns ({kernel: (worst share, max_abs_err)}, {count: [per depth]},
+    {kernel: plain ms per call})."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    E = pl.SORT_EXPAND
+    pool = _camera_pool(cam, iteration, settings)
+    worst = {k: (0.0, 0.0) for k in SORTED_KERNELS + ("chain",)}
+    names = ("lanes_in", "candidates", "entries", "tail_entries", "chunks",
+             "tris", "mesh_hits")
+    work = {k: [] for k in names}
+    plain = dict.fromkeys(SORTED_KERNELS, 0.0)
+    calls = 0
+
+    def bump(k, r):
+        worst[k] = tuple(max(a, b) for a, b in zip(worst[k], r))
+
+    def timed(k, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain[k] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    for depth in range(max(depths) + 1):
+        o, d, alive = pool[0], pool[1], pool[4]
+        cands = pl.mesh_candidates_reference(o, d, alive, ds)
+        n = int(cands.count[0])
+        listed = cands.lanes[:n].long()
+        hits = pl.mesh_sweep_reference(o, d, cands, ds)
+        count = dict.fromkeys(names, 0)
+        count["lanes_in"] = int((alive != 0).sum())
+        count["candidates"] = n
+        for g in pl.sorted_geoms(ds):
+            ss, sn = ds.super_ranges[g]
+            check = depth in depths
+            if check:
+                sk = pl.super_keys(o, d, cands, hits, ds, g, tables=tables)
+                torch.cuda.synchronize()
+                keys = pl.super_rank(tuple(sk.rays[:, :n]), sk.bt0[:n],
+                                     ds.mesh_super_aabbs[ss:ss + sn], E)
+                real = keys[keys < 2 * sn].long()
+                if not (torch.equal(sk.keys[:, :n], keys) and torch.equal(
+                        sk.hist, torch.bincount(real, minlength=2 * sn).int())):
+                    raise RuntimeError(f"super_keys: keys differ at depth {depth}")
+            psk = timed("super_keys", lambda: pl.super_keys_reference(
+                o, d, cands, hits, ds, g, E))
+            pst = timed("place_entries",
+                        lambda: pl.place_entries_reference(psk, cands.count))
+            probe = {}
+            peh = timed("window_sweep", lambda: pl.window_sweep_reference(
+                pst, psk, ds, g, probe=probe))
+            before = hits.t.clone()
+            phits = timed("merge_entries", lambda: pl.merge_entries_reference(
+                o, d, cands, clone_hits(hits), psk, peh, ds, g))
+            calls += 1
+            m = int(pst.total[0])
+            count["entries"] += m
+            count["tail_entries"] += int((pst.key[:m] >= sn).sum())
+            count["chunks"] += int(probe["chunks"].sum())
+            count["tris"] += int(probe["tris"].sum())
+            count["mesh_hits"] += int((phits.t[listed] != before[listed]).sum())
+            if check:
+                key_off = float((sk.keys[:, :n] != psk.keys[:, :n]).float().mean())
+                w, e = lane_rule(list(sk.rays[:, :n]), list(psk.rays[:, :n]))
+                bump("super_keys", (max(w, key_off), e))
+                if key_off > 0.001:
+                    raise RuntimeError(f"super_keys: {key_off:.3%} of the keys "
+                                       f"differ from the plain A's")
+                st = pl.place_entries(sk, cands.count)
+                want_st = pl.place_entries_reference(sk, cands.count)
+                torch.cuda.synchronize()
+                total = int(st.total[0])
+                pairs = lambda s: torch.sort(  # noqa: E731
+                    s.key[:total].long() * (1 << 32) + s.entry[:total].long()).values
+                if total != int(want_st.total[0]) or not torch.equal(
+                        pairs(st), pairs(want_st)):
+                    raise RuntimeError(f"place_entries: stream differs at depth "
+                                       f"{depth}")
+                eh = pl.window_sweep(st, sk, ds, g, tables=tables)
+                want_eh = pl.window_sweep_reference(st, sk, ds, g)
+                torch.cuda.synchronize()
+                ids = st.entry[:total].long()
+                flat = lambda a: a.reshape(-1)[ids]  # noqa: E731
+                hit_g = flat(eh.t) < pl.FLT_MAX
+                hit_w = flat(want_eh.t) < pl.FLT_MAX
+                both = hit_g & hit_w
+                off = max(float((hit_g != hit_w).float().mean()),
+                          float((flat(eh.tri) != flat(want_eh.tri)).float().mean()))
+                w, e = lane_rule([flat(a)[both] for a in (eh.t, eh.u, eh.v)],
+                                 [flat(a)[both] for a in
+                                  (want_eh.t, want_eh.u, want_eh.v)])
+                bump("window_sweep", (max(w, off), e))
+                if off > 0.01:
+                    raise RuntimeError(f"window_sweep: winners differ on "
+                                       f"{off:.2%} of the entries")
+                got = pl.merge_entries(o, d, cands, clone_hits(hits), sk, eh, ds,
+                                       g, tables=tables)
+                want = pl.merge_entries_reference(o, d, cands, clone_hits(hits),
+                                                  sk, eh, ds, g)
+                torch.cuda.synchronize()
+                bump("merge_entries", lane_rule([a[listed] for a in hit_lanes(got)],
+                                                [a[listed] for a in hit_lanes(want)]))
+            hits = phits
+        for k in names:
+            work[k].append(count[k])
+        if depth in depths:
+            lanes = [a.clone() for a in mk.pool_lanes(pool)]
+            start = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                     Vec3(*lanes[9:12]), lanes[12], lanes[13])
+            got9 = pl.bounce_step_pipeline(start, ds, iteration, depth, settings,
+                                           tables=tables)
+        want9 = pl.bounce_step_mesh_reference(pool, cands, hits, ds, iteration,
+                                              depth, settings)
+        if depth in depths:
+            torch.cuda.synchronize()
+            g9, w9 = mk.pool_lanes(got9), mk.pool_lanes(want9)
+            if not torch.equal(g9[13], w9[13]):
+                raise RuntimeError(f"the big-mesh bounce: pix differs at depth "
+                                   f"{depth}")
+            bump("chain", lane_rule(g9[:13], w9[:13]))
+        pool = want9
+    return worst, work, {k: v / max(calls, 1) for k, v in plain.items()}
+
+
 def reset_launches():
     for name in KERNELS:
         wrapper(name).launches = 0
@@ -617,11 +811,13 @@ def event_ms(fn, reps):
     return total / reps
 
 
-def profile_device(fn, n_iters):
+def profile_device(fn, n_iters, by_depth=()):
     """Run fn() (n_iters iterations of a path) under torch.profiler.
     Returns (device busy ms per iteration, {kernel: mean device ms per
     launch}, {kernel: launches seen}): the kernels' own device time, free
-    of the host gaps between launches."""
+    of the host gaps between launches. For each kernel named in
+    `by_depth`, launched once per depth, the mean is also given per depth
+    (launch k of an iteration is depth k), as `<kernel>@depth`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -638,6 +834,12 @@ def profile_device(fn, n_iters):
         for k, sym in KERNEL_SYMBOLS.items():
             if sym in e.name:
                 per[k].append(e.time_range.elapsed_us())
+    starts = {k: [] for k in by_depth}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in by_depth:
+                if KERNEL_SYMBOLS[k] in e.name:
+                    starts[k].append((e.time_range.start, e.time_range.elapsed_us()))
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):  # the union of the device spans
         if b > end:
@@ -645,9 +847,14 @@ def profile_device(fn, n_iters):
             end = b
     if not spans:
         raise RuntimeError("the profiler saw no device activity")
-    return (busy / 1e3 / n_iters,
-            {k: sum(v) / len(v) / 1e3 for k, v in per.items() if v},
-            {k: len(v) for k, v in per.items()})
+    mean = {k: sum(v) / len(v) / 1e3 for k, v in per.items() if v}
+    for k, v in starts.items():
+        times = [us for _, us in sorted(v)]
+        D = len(times) // n_iters
+        if D and len(times) == D * n_iters:
+            mean[f"{k}@depth"] = [sum(times[i::D]) / n_iters / 1e3
+                                  for i in range(D)]
+    return (busy / 1e3 / n_iters, mean, {k: len(v) for k, v in per.items()})
 
 
 def bound(nbytes: float, ops: float):
@@ -804,6 +1011,56 @@ def main() -> int:
                 if res == (800, 800) and kw == {"antialias": True}:
                     err800[k] = e
 
+    # A-D (the sorted route, #11-#14's counterparts) on the big-mesh scenes,
+    # each loaded once: mesh_big at 64x64 and 800x800 at every depth, bunny
+    # at 800x800 depth 0; the error kept for the kernels line is mesh_big's
+    # at 800x800 (AA), whose plain route also gives the work counts
+    big = {}
+    for name in BIG_SCENES:
+        t0 = time.perf_counter()
+        scene = small_scene(name, (128, 128))
+        big[name] = Renderer(scene, RenderSettings(trace_depth=8), device=dev)
+        ds_big = big[name].dev_scene
+        say("load", scene=name, seconds=time.perf_counter() - t0,
+            triangles=int(scene.triangles.count),
+            sorted_geoms=list(pl.sorted_geoms(ds_big)),
+            supernodes=[ds_big.super_ranges[g][1] for g in pl.sorted_geoms(ds_big)])
+        if not pl.sorted_geoms(ds_big):
+            raise RuntimeError(f"{name}: no geom takes the sorted route")
+    aa = {"antialias": True}
+    for name, res, depths in (("mesh_big.txt", (64, 64), range(8)),
+                              ("mesh_big.txt", (800, 800), range(8)),
+                              ("bunny.txt", (800, 800), (0,))):
+        rb = big[name]
+        bcam = camera_to_device(camera_at(rb.scene.state.camera, res), dev)
+        worst, work, plain = sorted_parity(
+            rb.dev_scene, bcam, RenderSettings(trace_depth=8, **aa),
+            tuple(depths), rb.tables)
+        what = {"config": name, "settings": aa, "res": f"{res[0]}x{res[1]}",
+                "depths": list(depths), "E": pl.SORT_EXPAND}
+        say("sorted_parity", **what, keys="exact", stream="exact per key",
+            pix="exact",
+            lanes={k: {"outlier_share": w, "max_abs_err": e}
+                   for k, (w, e) in worst.items()},
+            rule=f"share(|d|>{LANE_ATOL})<={LANE_FRAC}")
+        for k, (w, e) in worst.items():
+            if w > LANE_FRAC:
+                raise RuntimeError(f"{k} disagrees with its plain version on "
+                                   f"{w:.2%} of lanes: {what}")
+        if name == "mesh_big.txt" and res == (800, 800):
+            for k in SORTED_KERNELS:
+                err800[k] = worst[k][1]
+            big_work, big_plain = work, plain
+            cand = np.maximum(np.array(work["candidates"], np.float64), 1)
+            ent = np.maximum(np.array(work["entries"], np.float64), 1)
+            say("sorted_work", config=name, res="800x800", settings=aa,
+                counts=work,
+                entries_per_candidate=(np.array(work["entries"]) / cand).tolist(),
+                tail_share=(np.array(work["tail_entries"]) / ent).tolist(),
+                triangles_per_entry=(np.array(work["tris"]) / ent).tolist(),
+                chunks_per_entry=(np.array(work["chunks"]) / ent).tolist(),
+                plain_ms=plain)
+
     # ---- 4. the smoke configs against the XLA goldens, both paths ----
     goldens = np.load(os.path.join(HERE, "tools", "goldens", "smoke_128.npz"))
     for name, kw, key in SMOKE:
@@ -828,6 +1085,26 @@ def main() -> int:
                 rule=f"badfrac<={GOLDEN_FRAC}")
             if badfrac > GOLDEN_FRAC:
                 raise RuntimeError(f"{key} via {route}: badfrac {badfrac} > {GOLDEN_FRAC}")
+    # the big-mesh scenes through the sorted route, each Renderer reused
+    # (set_camera resets its accumulator)
+    for name in BIG_SCENES:
+        rb = big[name]
+        for route in ("step_batch", "step"):
+            rb.set_camera(rb.camera)
+            if route == "step":
+                rb.step()
+                rb.step()
+            else:
+                rb.step_batch(2)
+            img = rb.image()
+            if not (np.isfinite(img).all() and img.max() > 0):
+                raise RuntimeError(f"{name}: non-finite or black render")
+            diff = np.abs(np.clip(img / 2, 0.0, 1.0) - goldens[name].astype(np.float32))
+            badfrac = float((diff > GOLDEN_BAD).mean())
+            say("golden", config=name, settings={}, route=route, badfrac=badfrac,
+                mad=float(diff.mean()), rule=f"badfrac<={GOLDEN_FRAC}")
+            if badfrac > GOLDEN_FRAC:
+                raise RuntimeError(f"{name} via {route}: badfrac {badfrac} > {GOLDEN_FRAC}")
 
     # ---- 5. the main path at full size: Cornell 800x800 d8 AA, step_batch ----
     scene = load_scene(os.path.join(HERE, "scenes", "cornell.txt"))
@@ -913,10 +1190,17 @@ def main() -> int:
          "step_batch"),
         ("mesh_direct_lighting", "mesh.txt", None,
          {"antialias": True, "direct_lighting": True}, "step_batch"),
+        # the big-mesh route: #7 -> #8 -> A -> B -> C -> D -> #9 at every
+        # depth, on the Renderers loaded above at their own 800x800
+        ("big_mesh", "mesh_big.txt", None, {"antialias": True}, "step_batch"),
+        ("big_mesh_step", "mesh_big.txt", None, {"antialias": True}, "step"),
+        ("bunny", "bunny.txt", None, {"antialias": True}, "step_batch"),
     ]
 
-    def expected_launches(settings, route, n_it, n_calls, mesh):
-        """The launches of n_it iterations in n_calls calls of the route."""
+    def expected_launches(settings, route, n_it, n_calls, mesh, n_sorted=0):
+        """The launches of n_it iterations in n_calls calls of the route
+        (n_sorted: the scene's geoms on the sorted route, each running A-D
+        once per #8)."""
         if settings.nee_mis:
             if route == "step" or settings.motion_blur:
                 return dict(NO_LAUNCHES, bounce_step_nee=n_it * D)
@@ -935,16 +1219,32 @@ def main() -> int:
         shaded = n_it * (bounces + (0 if cached else 1))
         return dict(NO_LAUNCHES, mesh_candidates=isects + shaded,
                     mesh_sweep=isects + shaded, bounce_step_mesh=shaded,
-                    intersect_mesh=isects, shade_step=n_it if cached else 0)
+                    intersect_mesh=isects, shade_step=n_it if cached else 0,
+                    **dict.fromkeys(SORTED_KERNELS, n_sorted * (isects + shaded)))
 
     launches_of = {}
     kernel_ms_of = {}
+    frame_ms_of = {}
+    busy_of = {}
+    def big_renderer(name, settings):
+        """The loaded Renderer of a big-mesh scene, at the scene file's own
+        resolution with `settings` (its tables do not depend on them)."""
+        rb = big[name]
+        rb.settings = settings
+        rb.set_camera(camera_at(rb.camera, load_res[name]))
+        return rb
+
+    load_res = {name: (800, 800) for name in BIG_SCENES}
     for label, name, path, kw, route in paths:
-        scene = load_scene(path or os.path.join(HERE, "scenes", name))
         settings = RenderSettings(trace_depth=D, **kw)
-        res = scene.state.camera.resolution
         reset_launches()
-        r = Renderer(scene, settings, device=dev)
+        if name in big:
+            r = big_renderer(name, settings)
+            scene = r.scene
+        else:
+            scene = load_scene(path or os.path.join(HERE, "scenes", name))
+            r = Renderer(scene, settings, device=dev)
+        res = r.camera.resolution
 
         def run(n):
             if route == "step":
@@ -963,7 +1263,8 @@ def main() -> int:
         got = read_launches()
         n_it = n_warm + n_timed
         want = expected_launches(settings, route, n_it, 2,
-                                 bool(scene.triangles.count))
+                                 bool(scene.triangles.count),
+                                 len(pl.sorted_geoms(r.dev_scene)))
         if got != want or r.iteration != n_it:
             raise RuntimeError(f"{label}: launches {got}, expected {want}")
         img = r.image()
@@ -974,7 +1275,10 @@ def main() -> int:
         r.step()  # one more iteration, for its alive counts
         counts = r.last_alive_counts.cpu().tolist()
         ms = 1e3 * dt / n_timed
-        busy, kernel_ms_of[label], seen = profile_device(lambda: run(10), 10)
+        busy, kernel_ms_of[label], seen = profile_device(
+            lambda: run(10), 10,
+            by_depth=SORTED_KERNELS if name in BIG_SCENES else ())
+        frame_ms_of[label], busy_of[label] = ms, busy
         say("path", path=label, scene=name, settings=kw,
             route=f"Renderer.{route}", res=f"{res[0]}x{res[1]}", depth=D,
             ms_per_frame=ms,
@@ -986,6 +1290,43 @@ def main() -> int:
             # the launches the profiler saw of the 10 iterations' (when
             # it drops one, the busy time and so the idle share are off)
             profiled_launches={k: n for k, n in seen.items() if n})
+
+    # the yardstick (no path of the port): mesh_big 800x800 d8 AA through
+    # step_batch with its geom on the dense BVH walk (#7 -> #8 -> #9), the
+    # routing threshold raised here only
+    threshold = pl.SORT_SUPER_MIN_TRIS
+    r = big_renderer("mesh_big.txt", RenderSettings(trace_depth=D, antialias=True))
+    pl.SORT_SUPER_MIN_TRIS = 2**31
+    try:
+        r.tables = mk.pack_scene_tables(r.dev_scene)  # #8 walks the geom again
+        reset_launches()
+        r.step_batch(5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.step_batch(40)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = read_launches()
+        want = expected_launches(r.settings, "step_batch", 45, 2, True)
+        if got != want:
+            raise RuntimeError(f"dense-walk yardstick: launches {got}, expected {want}")
+        img = r.image()
+        if not np.isfinite(img).all():
+            raise RuntimeError("dense-walk yardstick: non-finite image")
+        busy, walk_ms, seen = profile_device(lambda: r.step_batch(10), 10,
+                                             by_depth=("mesh_sweep",))
+        say("yardstick", path="mesh_big dense BVH walk (not a path of the port)",
+            scene="mesh_big.txt", settings={"antialias": True},
+            route="Renderer.step_batch", res="800x800", depth=D,
+            ms_per_frame=1e3 * dt / 40, device_busy_ms_per_iteration=busy,
+            device_idle_share=max(0.0, 1.0 - busy / (1e3 * dt / 40)),
+            kernel_device_ms=walk_ms,
+            profiled_launches={k: n for k, n in seen.items() if n},
+            sorted_route_ms_per_frame=frame_ms_of["big_mesh"],
+            sorted_route_busy_ms_per_iteration=busy_of["big_mesh"])
+    finally:
+        pl.SORT_SUPER_MIN_TRIS = threshold
+        r.tables = mk.pack_scene_tables(r.dev_scene)
 
     # ---- 7. the plain versions and the bounds at the main path's shapes ----
     settings = RenderSettings(trace_depth=D, antialias=True)
@@ -1124,14 +1465,51 @@ def main() -> int:
                             launches_of["nee_step"]["bounce_step_nee"]),
     }
     bounds.update(mesh_bounds)
-    for name in MESH_KERNELS:
+    for name in MESH_KERNELS[:4]:
         path = "mesh_cache" if name == "intersect_mesh" else "mesh"
         timing[name] = (kernel_ms_of[path][name], mesh_plain[name],
                         launches_of[path][name])
+    # the sorted route's bounds, per launch averaged over the depths of
+    # mesh_big 800x800 d8 AA (sorted_work's counts of the plain route)
+    bds = big["mesh_big.txt"].dev_scene
+    (bg,) = pl.sorted_geoms(bds)
+    b_sn, b_cn, b_tc = (bds.super_ranges[bg][1], bds.chunk_ranges[bg][1],
+                        bds.tri_ranges[bg][1])
+    E = pl.SORT_EXPAND
+    bw = {k: np.array(v, np.float64) for k, v in big_work.items()}
+    bounds.update({
+        # per listed lane: list entry, world ray, both t in (36 B), E keys,
+        # the object ray and bt0 out; the supernode boxes once
+        "super_keys": bound(
+            32 * b_sn + np.mean((36 + 4 * E + 28) * bw["candidates"]),
+            np.mean(bw["candidates"] * (OPS_OBJ_RAY + b_sn * OPS_SUPER_TEST))),
+        # every listed lane's E keys read, each real entry's key and id out
+        "place_entries": bound(
+            np.mean(4 * E * bw["candidates"] + 8 * bw["entries"]),
+            np.mean(OPS_PLACE * bw["entries"])),
+        # the geom's triangles (48 B) and chunk boxes once; per entry its
+        # key, id and object ray in, (t, triangle, u, v) out
+        "window_sweep": bound(
+            48 * b_tc + 32 * b_cn + np.mean(48 * bw["entries"]),
+            np.mean(OPS_CHUNK_TEST * bw["chunks"] + OPS_MT * bw["tris"])),
+        # per listed lane: list entry, E keys, object ray, bt0, world ray
+        # and its hit t; per real entry C's 16 B; per winner its corner
+        # normals and UVs (64 B) in and 9 hit lanes (30 B) out
+        "merge_entries": bound(
+            np.mean((4 + 4 * E + 28 + 24 + 4) * bw["candidates"]
+                    + 16 * bw["entries"] + 94 * bw["mesh_hits"]),
+            np.mean(OPS_SLOT * E * bw["candidates"]
+                    + OPS_MESH_HIT * bw["mesh_hits"])),
+    })
+    for name in SORTED_KERNELS:
+        timing[name] = (kernel_ms_of["big_mesh"][name], big_plain[name],
+                        launches_of["big_mesh"][name])
 
-    # ---- 8. the CLI: Cornell plain, with --compact and with --nee; mesh.txt ----
+    # ---- 8. the CLI: Cornell plain, with --compact and with --nee; mesh.txt;
+    # mesh_big.txt (the sorted route) ----
     for name, extra in (("cornell.txt", []), ("cornell.txt", ["--compact"]),
-                        ("cornell.txt", ["--nee"]), ("mesh.txt", [])):
+                        ("cornell.txt", ["--nee"]), ("mesh.txt", []),
+                        ("mesh_big.txt", [])):
         out_dir = tempfile.mkdtemp(prefix="cli_", dir=tmpdir)
         t0 = time.perf_counter()
         proc = subprocess.run(

@@ -4,13 +4,16 @@ The port's subset of the JAX package's `models/device.py`: instance
 matrices and their motion-blur velocities, material columns (with the
 procedural checker's kind and scale), the constant environment colour,
 the triangle soup and the flat BVH of every mesh geom (the JAX names:
-`tri_*`, `bvh_*`, `tri_ranges`, `bvh_roots`, `mesh_has_uv`), plus the
-static metadata (geom types, material-class flags) that selects the
-shader's RNG draw layout. File-texture and env-map tables arrive with
-their slice (ROADMAP); their flags are kept so that a scene that needs
-them is refused instead of rendered wrong. The TPU-only mesh tables
-(packed triangle rows, chunk and supernode boxes, bf16 attribute slabs)
-have no counterpart: the CUDA kernels walk the BVH itself.
+`tri_*`, `bvh_*`, `tri_ranges`, `bvh_roots`, `mesh_has_uv`), the chunk
+and supernode boxes of every mesh geom (`mesh_chunk_aabbs`,
+`mesh_super_aabbs`, `chunk_ranges`, `super_ranges`, `mesh_obj_aabbs`: the
+big-mesh route's hierarchy), plus the static metadata (geom types,
+material-class flags) that selects the shader's RNG draw layout.
+File-texture and env-map tables arrive with their slice (ROADMAP); their
+flags are kept so that a scene that needs them is refused instead of
+rendered wrong. The TPU-only mesh tables (packed 96-lane triangle rows
+and their stream padding, bf16 attribute slabs) have no counterpart: the
+CUDA kernels read the soup itself.
 
 Triangle order: with `use_bvh` (the default, and what `Renderer` always
 builds, because the mesh kernels walk the BVH) the soup is reordered
@@ -35,7 +38,12 @@ import numpy as np
 import torch
 
 from ..ops.vec import Vec3
-from .scene import Camera, Scene
+from .scene import Camera, GeomType, Scene
+
+# triangles per chunk and chunks per supernode of the big-mesh route's
+# hierarchy (the JAX package's ops/megakernel.py MESH_CHUNK / MESH_SUPER)
+MESH_CHUNK = 32
+MESH_SUPER = 32
 
 # DeviceScene tensor fields, in the JAX package's names; Vec3 fields are
 # handed over as (N,3) arrays by device_scene_from_numpy.
@@ -63,6 +71,8 @@ ARRAY_FIELDS = (
     "bvh_count",
     "bvh_skip",
     "bvh_leaf",
+    "mesh_chunk_aabbs",
+    "mesh_super_aabbs",
 )
 INT_FIELDS = ("geom_material_id", "mat_tex_kind", "bvh_first", "bvh_count",
               "bvh_skip")
@@ -84,6 +94,9 @@ META_FIELDS = (
     "tri_ranges",
     "bvh_roots",
     "mesh_has_uv",
+    "chunk_ranges",
+    "super_ranges",
+    "mesh_obj_aabbs",
     "emissive_geoms",
     "any_refractive",
     "any_partial_reflective",
@@ -141,11 +154,20 @@ class DeviceScene:
     bvh_count: torch.Tensor  # (B,) int32 leaf's triangle count
     bvh_skip: torch.Tensor  # (B,) int32 escape pointer (global node index)
     bvh_leaf: torch.Tensor  # (B,) bool
+    # --- chunk and supernode boxes of every mesh geom, concatenated: a
+    # chunk is MESH_CHUNK consecutive triangles of the (BVH-ordered) soup,
+    # a supernode MESH_SUPER consecutive chunks; rows [min xyz, max xyz,
+    # 0, 0] in object space ---
+    mesh_chunk_aabbs: torch.Tensor  # (C,8) f32
+    mesh_super_aabbs: torch.Tensor  # (S,8) f32
     # --- static metadata ---
     gtypes: Tuple[int, ...]
     tri_ranges: Tuple[Tuple[int, int], ...]  # per geom (tri_start, tri_count)
     bvh_roots: Tuple[Tuple[int, int], ...]  # per geom (node_start, node_count)
     mesh_has_uv: Tuple[bool, ...]  # per geom: its OBJ carried vt records
+    chunk_ranges: Tuple[Tuple[int, int], ...]  # per geom (first chunk, count)
+    super_ranges: Tuple[Tuple[int, int], ...]  # per geom (first super, count)
+    mesh_obj_aabbs: Tuple[Tuple[float, ...], ...]  # per geom (min xyz, max xyz)
     emissive_geoms: Tuple[int, ...]  # geoms whose material emits
     # material-class flags: the shader's RNG draw layout and the set of
     # branches a scene can take follow from these
@@ -204,6 +226,54 @@ def camera_to_device(cam: Camera, device) -> DeviceCamera:
     )
 
 
+def _mesh_hierarchy(scene: Scene):
+    """The chunk and supernode boxes of every mesh geom over the scene's
+    soup as it stands (BVH order once the BVH is built), exactly as the
+    JAX package's `scene_to_device` builds them: (chunk rows (C,8),
+    super rows (S,8), chunk_ranges, super_ranges, mesh_obj_aabbs)."""
+    g = scene.geoms
+    t = scene.triangles
+    chunks, supers = [], []
+    chunk_ranges, super_ranges, obj_aabbs = [], [], []
+    n_chunk = n_super = 0
+    for gi in range(g.count):
+        s, c = int(g.tri_start[gi]), int(g.tri_count[gi])
+        if g.gtype[gi] != int(GeomType.MESH) or c == 0:
+            chunk_ranges.append((0, 0))
+            super_ranges.append((0, 0))
+            obj_aabbs.append((0.0,) * 6)
+            continue
+        n_c = -(-c // MESH_CHUNK)
+        n_s = -(-n_c // MESH_SUPER)
+        # per-triangle bounds, padded to whole chunks with empty boxes; a
+        # min or max is exact in any order
+        lo = np.full((n_c * MESH_CHUNK, 3), np.inf, np.float32)
+        hi = np.full((n_c * MESH_CHUNK, 3), -np.inf, np.float32)
+        lo[:c] = np.minimum(np.minimum(t.v0[s:s + c], t.v1[s:s + c]), t.v2[s:s + c])
+        hi[:c] = np.maximum(np.maximum(t.v0[s:s + c], t.v1[s:s + c]), t.v2[s:s + c])
+        c_lo = lo.reshape(n_c, MESH_CHUNK, 3).min(axis=1)
+        c_hi = hi.reshape(n_c, MESH_CHUNK, 3).max(axis=1)
+        s_lo = np.full((n_s * MESH_SUPER, 3), np.inf, np.float32)
+        s_hi = np.full((n_s * MESH_SUPER, 3), -np.inf, np.float32)
+        s_lo[:n_c], s_hi[:n_c] = c_lo, c_hi
+        s_lo = s_lo.reshape(n_s, MESH_SUPER, 3).min(axis=1)
+        s_hi = s_hi.reshape(n_s, MESH_SUPER, 3).max(axis=1)
+        for rows, a, b in ((chunks, c_lo, c_hi), (supers, s_lo, s_hi)):
+            r = np.zeros((a.shape[0], 8), np.float32)
+            r[:, 0:3], r[:, 3:6] = a, b
+            rows.append(r)
+        obj_aabbs.append(tuple(float(x) for x in c_lo.min(axis=0))
+                         + tuple(float(x) for x in c_hi.max(axis=0)))
+        chunk_ranges.append((n_chunk, n_c))
+        super_ranges.append((n_super, n_s))
+        n_chunk += n_c
+        n_super += n_s
+    stack = lambda rows: (np.concatenate(rows) if rows  # noqa: E731
+                          else np.zeros((0, 8), np.float32))
+    return (stack(chunks), stack(supers), tuple(chunk_ranges),
+            tuple(super_ranges), tuple(obj_aabbs))
+
+
 def scene_to_device(scene: Scene, device, use_bvh: bool = True) -> DeviceScene:
     """The scene's tables on `device`; with `use_bvh`, each mesh geom's
     BVH and the soup in BVH order (see the module docstring)."""
@@ -222,6 +292,8 @@ def scene_to_device(scene: Scene, device, use_bvh: bool = True) -> DeviceScene:
         nodes_max = np.zeros((0, 3), np.float32)
         meta = np.zeros((0, 4), np.int32)
         bvh_roots = [(0, 0)] * g.count
+    chunk_aabbs, super_aabbs, chunk_ranges, super_ranges, obj_aabbs = (
+        _mesh_hierarchy(scene))
     fields = {
         "transform": g.transform,
         "inverse_transform": g.inverse_transform,
@@ -256,6 +328,8 @@ def scene_to_device(scene: Scene, device, use_bvh: bool = True) -> DeviceScene:
         "bvh_count": meta[:, 1],
         "bvh_skip": meta[:, 2],
         "bvh_leaf": meta[:, 3].astype(bool),
+        "mesh_chunk_aabbs": chunk_aabbs,
+        "mesh_super_aabbs": super_aabbs,
     }
     info = dict(
         gtypes=tuple(int(x) for x in g.gtype),
@@ -264,6 +338,9 @@ def scene_to_device(scene: Scene, device, use_bvh: bool = True) -> DeviceScene:
         ),
         bvh_roots=tuple(bvh_roots),
         mesh_has_uv=tuple(bool(x) for x in g.has_uv),
+        chunk_ranges=chunk_ranges,
+        super_ranges=super_ranges,
+        mesh_obj_aabbs=obj_aabbs,
         emissive_geoms=tuple(
             int(i)
             for i in range(g.count)
@@ -308,8 +385,11 @@ def device_scene_from_numpy(fields: dict, meta: dict, device) -> DeviceScene:
         v = meta[name]
         if name in ("gtypes", "emissive_geoms"):
             kw[name] = tuple(int(x) for x in v)
-        elif name in ("tri_ranges", "bvh_roots"):
+        elif name in ("tri_ranges", "bvh_roots", "chunk_ranges",
+                      "super_ranges"):
             kw[name] = tuple((int(a), int(b)) for a, b in v)
+        elif name == "mesh_obj_aabbs":
+            kw[name] = tuple(tuple(float(x) for x in box) for box in v)
         elif name == "mesh_has_uv":
             kw[name] = tuple(bool(x) for x in v)
         elif name == "n_file_textures":

@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "full_iteration.cu", CSRC / "bounce.cu", CSRC / "nee.cu",
-           CSRC / "mesh.cu")
+           CSRC / "mesh.cu", CSRC / "sorted.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -64,6 +64,21 @@ SIGNATURES = {
     "pt_bounce_step_mesh": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     # analytic, hits, n, out, device, stream
     "pt_intersect_mesh": [_P, _P, _I, _P, _I, _P],
+    # tables, n_geoms, mesh, rays, t_a, t_m, list, count, n, geom,
+    # super_start, n_supers, E, keys, q, bt0, hist, device, stream
+    "pt_super_keys": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                      _P, _P, _P, _I, _P],
+    # keys, count, n, E, n_supers, offsets, cursor, out_key, out_entry,
+    # device, stream
+    "pt_place_entries": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # mesh, key, entry, total, q, n, E, n_supers, chunk_start, n_chunks,
+    # tri_start, tri_count, t, tri, u, v, device, stream
+    "pt_window_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                        _P, _P, _I, _P],
+    # tables, n_geoms, mesh, rays, list, count, n, E, n_supers, geom,
+    # has_uv, keys, t, tri, u, v, q, bt0, hits, device, stream
+    "pt_merge_entries": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 

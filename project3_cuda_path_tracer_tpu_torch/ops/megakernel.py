@@ -36,7 +36,7 @@ The kernels' scene tables (`pack_scene_tables`) keep the JAX kernel's
 (tex_kind, tex_scale), plus the emissive geom indices and the MIS light
 pdf model (ops/lights.py::lights_area_weight) for the NEE kernels, and on
 a mesh scene the triangle and BVH tables of the mesh pipeline
-(`pack_mesh_tables`, read by ops/pipeline.py's kernels #7-#10). These six
+(`pack_mesh_tables`, read by ops/pipeline.py's kernels #7-#14). These six
 kernels sweep analytic geoms only: a mesh scene takes ops/pipeline.py
 (and #4, which intersects nothing), and their wrappers refuse one. The
 file-texture and env-map tables arrive with their slice (ROADMAP).
@@ -67,12 +67,6 @@ FLAG_ENV_CONST = 64
 FLAG_STRATIFIED = 128
 FLAG_SOBOL = 256
 FLAG_CHECKER = 512
-
-# the dense mesh route's limit: a mesh geom above this many triangles
-# takes the JAX package's sorted-stream route (ops/pipeline.py::
-# SORT_SUPER_MIN_TRIS), which the port has not ported yet
-MAX_DENSE_MESH_TRIS = 16384
-
 
 class SceneTables(NamedTuple):
     xf: torch.Tensor  # (G,16) f32 transforms, row-major
@@ -131,20 +125,10 @@ def _refuse(what: str, slice_no: int):
     )
 
 
-def check_mesh_sizes(tri_counts) -> None:
-    """Refuse a mesh geom above MAX_DENSE_MESH_TRIS triangles (the
-    big-mesh route); the host Scene's `geoms.tri_count` is enough, so
-    `Renderer` checks before it builds any BVH."""
-    if any(int(c) > MAX_DENSE_MESH_TRIS for c in tri_counts):
-        _refuse(f"mesh geoms above {MAX_DENSE_MESH_TRIS:,} triangles (the "
-                f"big-mesh route)", 5)
-
-
 def check_supported(scene: DeviceScene, settings) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a scene or
     setting that the port does not render yet. The check is the same on
     every device: the CPU path never renders what the card cannot."""
-    check_mesh_sizes(c for _, c in scene.tri_ranges)
     refusals = [
         (settings.nee_mis and scene.mesh_geoms,
          "NEE + MIS (--nee) on a mesh scene", 5),
@@ -194,13 +178,20 @@ def pack_geom_tables(scene: DeviceScene):
 
 
 def pack_mesh_tables(scene: DeviceScene) -> tuple:
-    """The mesh pipeline's tables (csrc/mesh.cu's MeshTables), on the
-    scene's device: tri (T,12) f32 [v0, v1, v2, 3 pad], attr (T,16) f32
-    [n0, n1, n2, uv0, uv1, uv2, pad], box (B,8) f32 [min, pad, max, pad],
-    node (B,4) i32 [first, count, skip, is_leaf] and geoms (M,4) i32 [geom
-    index, first node, node count, has_uv] for the M mesh geoms. They
-    live in object space, so motion blur never re-packs them."""
+    """The mesh pipeline's tables (csrc/mesh_common.cuh's MeshTables), on
+    the scene's device: tri (T,12) f32 [v0, v1, v2, 3 pad], attr (T,16)
+    f32 [n0, n1, n2, uv0, uv1, uv2, pad], box (B,8) f32 [min, pad, max,
+    pad], node (B,4) i32 [first, count, skip, is_leaf], geoms (M,4) i32
+    [geom index, first node, nodes #8 walks, has_uv] for the M mesh geoms,
+    and the big-mesh route's chunk (C,8) and supernode (S,8) boxes [min,
+    max, 0, 0]. A geom that takes the sorted route (ops/pipeline.py::
+    sorted_geoms) has 0 nodes to walk, so #8 skips it; #7 still reads its
+    root box. The tables live in object space, so motion blur never
+    re-packs them."""
+    from .pipeline import sorted_geoms
+
     mesh = scene.mesh_geoms
+    big = sorted_geoms(scene)
     if any(scene.bvh_roots[g][1] == 0 for g in mesh):
         raise ValueError("the mesh kernels walk the BVH: build the tables "
                          "with scene_to_device(scene, device, use_bvh=True)")
@@ -219,10 +210,12 @@ def pack_mesh_tables(scene: DeviceScene) -> tuple:
     node = torch.stack([scene.bvh_first, scene.bvh_count, scene.bvh_skip,
                         scene.bvh_leaf.to(torch.int32)], dim=1).contiguous()
     geoms = torch.tensor(
-        [[g, *scene.bvh_roots[g], int(scene.mesh_has_uv[g])] for g in mesh],
+        [[g, scene.bvh_roots[g][0], 0 if g in big else scene.bvh_roots[g][1],
+          int(scene.mesh_has_uv[g])] for g in mesh],
         dtype=torch.int32, device=dev,
     ).reshape(len(mesh), 4)
-    return tri, attr, box, node, geoms
+    return (tri, attr, box, node, geoms, scene.mesh_chunk_aabbs.contiguous(),
+            scene.mesh_super_aabbs.contiguous())
 
 
 def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:

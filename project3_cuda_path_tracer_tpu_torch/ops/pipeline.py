@@ -1,8 +1,9 @@
-"""The mesh pipeline: kernels #7-#10, their plain versions and launch
-counts, and the two chains the JAX package's `ops/pipeline.py` names.
+"""The mesh pipeline: kernels #7-#10 and the big-mesh route's four, their
+plain versions and launch counts, and the two chains the JAX package's
+`ops/pipeline.py` names.
 
 Four wrappers, each replacing one Pallas kernel of the JAX package's
-dense mesh route (its geoms of at most 16,384 triangles):
+dense mesh route:
 
 - `mesh_candidates` (#7, `_intersect_phase` K1): the analytic winner of
   each lane, and the lanes whose ray enters a mesh geom's object-space
@@ -14,9 +15,29 @@ dense mesh route (its geoms of at most 16,384 triangles):
 - `intersect_mesh` (#10, `intersect_pipeline` K3): the same merge, as
   Intersections.
 
-The chains: `bounce_step_pipeline` is #7 -> #8 -> #9 (one bounce of the
-mesh path), `intersect_pipeline` #7 -> #8 -> #10 (the first-bounce cache
-fill and --direct-lighting's two intersect calls).
+A mesh geom above SORT_SUPER_MIN_TRIS triangles (`sorted_geoms`) takes
+the JAX package's sorted-stream route (`_sorted_mesh_merge`) instead of
+#8: `sorted_mesh_merge` runs four wrappers over #7's candidate list for
+each such geom, in geom order, after #8 has swept the others
+(csrc/sorted.cu):
+
+- `super_keys` (A; `_super_rank_xla` and #12 `_kc_compact`'s counts): the
+  object-space ray, the pruning bound and up to SORT_EXPAND supernode keys
+  per listed lane (the last one the overflow tail), and a histogram of the
+  keys;
+- `place_entries` (B; #12's packing, #13 `_ks_stitch`, the global sort):
+  a counting sort of the real entries by key into one dense stream;
+- `window_sweep` (C; #11 `_window_sweep`): each entry's winner over the
+  triangles of its supernode (a tail entry: of every supernode from its
+  start on);
+- `merge_entries` (D; #14 `_kx_expand`, the slot merge, `_mesh_epilogue`):
+  each lane's winner over its entries, in world space, merged into #8's
+  hit lanes.
+
+The chains: `bounce_step_pipeline` is #7 -> #8 [-> A -> B -> C -> D per
+big geom] -> #9 (one bounce of the mesh path), `intersect_pipeline` #7 ->
+#8 [-> A-D] -> #10 (the first-bounce cache fill and --direct-lighting's
+two intersect calls).
 
 On CUDA tensors a wrapper launches its hand-written kernel
 (csrc/mesh.cu, built by ops/_native.py) or raises; on CPU tensors, and
@@ -24,7 +45,8 @@ only there, it runs its plain PyTorch version (`*_reference`): #7 the
 analytic `intersect_scene` plus the candidacy mask plus `torch.nonzero`,
 #8 `mesh_intersect_bvh` on the candidate rays (the naive sweep when
 `use_bvh` is off, as `RenderSettings.use_bvh` selects for the plain
-path), #9 the merge plus `render._shade_step`, #10 the merge. Each
+path), #9 the merge plus `render._shade_step`, #10 the merge, A-D the
+sorted route op for op (`super_rank` mirrors `_super_rank_xla`). Each
 wrapper counts its launches in `<wrapper>.launches`.
 
 The merge (`merge_hits`): the mesh hit wins iff the lane is a candidate,
@@ -39,15 +61,17 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.device import DeviceScene
+from ..models.device import MESH_CHUNK, MESH_SUPER, DeviceScene
 from .bvh_traverse import _aabb_hit, mesh_intersect_bvh
 from .intersect import (
     FLT_MAX,
     MISS,
+    RAY_EPS,
     Intersections,
     closer_hit,
     transform_dir,
     transform_point,
+    triangle_intersect,
 )
 from .megakernel import (
     SceneTables,
@@ -67,6 +91,28 @@ from .megakernel import (
 from .sweep import _mesh_intersect_naive, intersect_scene
 from .vec import Vec3, take as vtake, where as vwhere
 
+# a mesh geom above this many triangles takes the sorted route (the JAX
+# package's ops/pipeline.py SORT_SUPER_MIN_TRIS)
+SORT_SUPER_MIN_TRIS = 16384
+# entries per candidate lane of the sorted route: one per entered
+# supernode, the last slot the overflow tail (the JAX package's
+# SORT_EXPAND)
+SORT_EXPAND = 6
+# A's histogram lives in 48 KB of shared memory: 2 bins per supernode
+MAX_SUPERS = 6144
+
+
+def sorted_geoms(scene: DeviceScene) -> tuple:
+    """The mesh geoms that take the sorted route, in geom order."""
+    return tuple(g for g in scene.mesh_geoms
+                 if scene.tri_ranges[g][1] > SORT_SUPER_MIN_TRIS)
+
+
+def dense_geoms(scene: DeviceScene) -> tuple:
+    """The mesh geoms that #8 walks, in geom order."""
+    big = sorted_geoms(scene)
+    return tuple(g for g in scene.mesh_geoms if g not in big)
+
 
 class Candidates(NamedTuple):
     """#7's output. The analytic fields hold every lane #7 processed (in
@@ -85,6 +131,15 @@ class Candidates(NamedTuple):
 
 # ---- plain versions --------------------------------------------------------
 
+def _frobenius3(inv: torch.Tensor) -> torch.Tensor:
+    """The Frobenius norm of inv's 3x3 block, summed row by row."""
+    return torch.sqrt(
+        inv[0, 0] * inv[0, 0] + inv[0, 1] * inv[0, 1] + inv[0, 2] * inv[0, 2]
+        + inv[1, 0] * inv[1, 0] + inv[1, 1] * inv[1, 1] + inv[1, 2] * inv[1, 2]
+        + inv[2, 0] * inv[2, 0] + inv[2, 1] * inv[2, 1] + inv[2, 2] * inv[2, 2]
+    )
+
+
 def mesh_candidacy(scene: DeviceScene, g: int, origins: Vec3, dirs: Vec3,
                    t_a: torch.Tensor) -> torch.Tensor:
     """Does each ray enter mesh geom g's object-space root box before the
@@ -95,12 +150,7 @@ def mesh_candidacy(scene: DeviceScene, g: int, origins: Vec3, dirs: Vec3,
     inv = scene.inverse_transform[g]
     ro = transform_point(inv, origins)
     rd = transform_dir(inv, dirs).normalize()
-    fro = torch.sqrt(
-        inv[0, 0] * inv[0, 0] + inv[0, 1] * inv[0, 1] + inv[0, 2] * inv[0, 2]
-        + inv[1, 0] * inv[1, 0] + inv[1, 1] * inv[1, 1] + inv[1, 2] * inv[1, 2]
-        + inv[2, 0] * inv[2, 0] + inv[2, 1] * inv[2, 1] + inv[2, 2] * inv[2, 2]
-    )
-    bound = torch.where(t_a > 0, t_a * fro, FLT_MAX)
+    bound = torch.where(t_a > 0, t_a * _frobenius3(inv), FLT_MAX)
     root = scene.bvh_roots[g][0]
     lo = Vec3(*(c[root] for c in scene.bvh_min))
     hi = Vec3(*(c[root] for c in scene.bvh_max))
@@ -161,11 +211,11 @@ def _select(mask: torch.Tensor, a: Intersections, b: Intersections) -> Intersect
 def mesh_sweep_reference(origins: Vec3, dirs: Vec3, cands: Candidates,
                          scene: DeviceScene, use_bvh: bool = True,
                          probe: dict | None = None) -> Intersections:
-    """#8, plain: for each candidate lane and each mesh geom it is a
-    candidate of, `mesh_intersect_bvh` (or the naive sweep without
-    `use_bvh`), the winners merged in geom order with the min-t rule.
-    Lanes that are no candidate get no hit (t = -1), as do candidates
-    that hit no triangle.
+    """#8, plain: for each candidate lane and each mesh geom that #8 walks
+    (`dense_geoms`) it is a candidate of, `mesh_intersect_bvh` (or the
+    naive sweep without `use_bvh`), the winners merged in geom order with
+    the min-t rule. Lanes that are no candidate get no hit (t = -1), as do
+    candidates that hit no triangle.
 
     probe: a dict that, when given, receives the walk's work per
     candidate lane, summed over the geoms walked (for kernel #8's bound):
@@ -179,7 +229,7 @@ def mesh_sweep_reference(origins: Vec3, dirs: Vec3, cands: Candidates,
     best = _miss(n, device)
     work = {k: torch.zeros(n, dtype=torch.int64, device=device)
             for k in ("walks", "nodes", "tris")}
-    for g in scene.mesh_geoms:
+    for g in dense_geoms(scene):
         sel = torch.nonzero(mesh_candidacy(scene, g, o, d, ta))[:, 0]
         sub = {}
         if use_bvh:
@@ -239,20 +289,291 @@ def bounce_step_mesh_reference(state, cands: Candidates, hits: Intersections,
                                  num_alive, isect=merge_hits(cands, hits))
 
 
+# ---- the sorted route, plain versions --------------------------------------
+
+class SuperKeys(NamedTuple):
+    """A's output for one big geom. Column j is entry j of #7's candidate
+    list (j < count; the rest are not written by the kernel); every array
+    is (.., P), P the pool size, so an entry's id is slot * P + j."""
+
+    keys: torch.Tensor  # (E, P) int32 slot-major keys, 2 * n_supers: no entry
+    rays: torch.Tensor  # (6, P) f32 object-space origin and unit direction
+    bt0: torch.Tensor  # (P,) f32 object-space pruning bound
+    hist: torch.Tensor  # (2 * n_supers,) int32 real entries per key
+
+
+class Stream(NamedTuple):
+    """B's output: the real entries sorted by key, at [0, total)."""
+
+    key: torch.Tensor  # (E * P,) int32
+    entry: torch.Tensor  # (E * P,) int32 entry id slot * P + j
+    total: torch.Tensor  # (1,) int32 on the device
+
+
+class EntryHits(NamedTuple):
+    """C's output at each real entry's id (the rest not written by the
+    kernel): its winner over its supernode(s), in object space."""
+
+    t: torch.Tensor  # (E, P) f32, FLT_MAX where no triangle won
+    tri: torch.Tensor  # (E, P) int32 winning soup triangle, -1 for none
+    u: torch.Tensor  # (E, P) f32 barycentrics
+    v: torch.Tensor
+
+
+def super_rank(q, bt: torch.Tensor, boxes: torch.Tensor, E: int) -> torch.Tensor:
+    """The JAX package's `_super_rank_xla`, op for op: for object-space
+    rays q = (ox, oy, oz, dx, dy, dz) and pruning bounds bt (each (n,)),
+    the (E, n) int32 keys over the geom's supernode boxes (S, 8): slot k
+    the k-th entered super (ascending index), 2 * S where there is none;
+    a lane entering more than E supers turns its last slot into the
+    overflow tail key S + slot[E-2] + 1 (S + slot[0] at E == 1)."""
+    qox, qoy, qoz, qdx, qdy, qdz = q
+    idx_ = 1.0 / qdx
+    idy_ = 1.0 / qdy
+    idz_ = 1.0 / qdz
+    n_supers = boxes.shape[0]
+    dead = 2 * n_supers
+    slots = [torch.full_like(qox, dead, dtype=torch.int32) for _ in range(E)]
+    cnt = torch.zeros_like(qox, dtype=torch.int32)
+    for s in range(n_supers):
+        row = boxes[s]
+        t1x = (row[0] - qox) * idx_
+        t2x = (row[3] - qox) * idx_
+        t1y = (row[1] - qoy) * idy_
+        t2y = (row[4] - qoy) * idy_
+        t1z = (row[2] - qoz) * idz_
+        t2z = (row[5] - qoz) * idz_
+        tmin = torch.maximum(
+            torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+            torch.minimum(t1z, t2z),
+        )
+        tmax = torch.minimum(
+            torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+            torch.maximum(t1z, t2z),
+        )
+        te = torch.clamp(tmin, min=0.0)
+        ok = (tmax >= tmin) & (tmax > 0) & (te < bt)
+        slots = [torch.where(ok & (cnt == j), s, sl) for j, sl in enumerate(slots)]
+        cnt = cnt + ok.to(torch.int32)
+    over = cnt > E
+    if E == 1:
+        return torch.where(over, n_supers + slots[0], slots[0])[None]
+    last = torch.where(over, n_supers + slots[E - 2] + 1, slots[E - 1])
+    return torch.stack(slots[:E - 1] + [last]).to(torch.int32)
+
+
+def _geom_rows(scene: DeviceScene, g: int) -> dict:
+    """Big geom g's ranges: its supers, chunks and soup triangles."""
+    (ss, sn), (cs, cn), (ts, tc) = (scene.super_ranges[g], scene.chunk_ranges[g],
+                                    scene.tri_ranges[g])
+    return dict(super_start=ss, n_supers=sn, chunk_start=cs, n_chunks=cn,
+                tri_start=ts, tri_count=tc)
+
+
+def super_keys_reference(origins: Vec3, dirs: Vec3, cands: Candidates,
+                         hits: Intersections, scene: DeviceScene, g: int,
+                         E: int) -> SuperKeys:
+    """A, plain: for each listed lane, the ray in geom g's object space,
+    its bound min(analytic t, mesh t so far) times the Frobenius norm of
+    inv's 3x3 (FLT_MAX with neither, as `_sorted_mesh_merge`'s bt0), then
+    `super_rank` and the keys' histogram."""
+    P = cands.lanes.shape[0]
+    device = cands.t.device
+    n = int(cands.count[0])
+    r = _geom_rows(scene, g)
+    sn = r["n_supers"]
+    idx = cands.lanes[:n].to(torch.int64)
+    inv = scene.inverse_transform[g]
+    ro = transform_point(inv, vtake(origins, idx))
+    rd = transform_dir(inv, vtake(dirs, idx)).normalize()
+    ta, tm = cands.t[idx], hits.t[idx]
+    eff = torch.where(tm > 0, torch.where(ta > 0, torch.minimum(tm, ta), tm), ta)
+    bt = torch.where(eff > 0, eff * _frobenius3(inv), FLT_MAX)
+    boxes = scene.mesh_super_aabbs[r["super_start"]:r["super_start"] + sn]
+    q = (*ro, *rd)
+    k = super_rank(q, bt, boxes, E)
+    keys = torch.full((E, P), 2 * sn, dtype=torch.int32, device=device)
+    keys[:, :n] = k
+    rays = torch.zeros((6, P), dtype=torch.float32, device=device)
+    rays[:, :n] = torch.stack(q)
+    bt0 = torch.full((P,), FLT_MAX, dtype=torch.float32, device=device)
+    bt0[:n] = bt
+    real = k[k < 2 * sn].to(torch.int64)
+    hist = torch.bincount(real, minlength=2 * sn).to(torch.int32)
+    return SuperKeys(keys, rays, bt0, hist)
+
+
+def place_entries_reference(sk: SuperKeys, count: torch.Tensor) -> Stream:
+    """B, plain: the real entries of the `count` listed lanes
+    (`torch.nonzero` of the keys below the dead key, in id order) in a
+    stable sort by key."""
+    E, P = sk.keys.shape
+    dead = sk.hist.shape[0]
+    listed = sk.keys[:, :int(count[0])]
+    slot, j = torch.nonzero(listed < dead, as_tuple=True)
+    k = listed[slot, j]
+    order = torch.sort(k, stable=True).indices
+    m = k.shape[0]
+    key = torch.full((E * P,), dead, dtype=torch.int32, device=k.device)
+    entry = torch.zeros(E * P, dtype=torch.int32, device=k.device)
+    key[:m] = k[order]
+    entry[:m] = (slot * P + j)[order].to(torch.int32)
+    return Stream(key, entry, torch.tensor([m], dtype=torch.int32,
+                                           device=k.device))
+
+
+def _entry_supers(key: torch.Tensor, n_supers: int, s2: int) -> torch.Tensor:
+    """The entries (by key) that sweep super s2: a window entry its own
+    super, a tail entry every super from its start on."""
+    tail = key >= n_supers
+    return (~tail & (key == s2)) | (tail & (key - n_supers <= s2))
+
+
+def window_sweep_reference(stream: Stream, sk: SuperKeys, scene: DeviceScene,
+                           g: int, probe: dict | None = None) -> EntryHits:
+    """C, plain: vectorised over the entries that sweep a super x one
+    chunk of MESH_CHUNK triangles, looping over the supers in ascending
+    order and their chunks in order. Each entry's carry starts at
+    FLT_MAX; a chunk whose box the entry's ray does not enter before its
+    running best t is skipped for that entry (exact, see csrc/sorted.cu);
+    within a chunk the first least t wins if it beats the carry strictly,
+    which is the kernel's ascending strict-< scan.
+
+    probe: a dict that, when given, receives the work per entry, for C's
+    bound: `chunks` (chunk boxes tested) and `tris` (triangles tested),
+    each (total,) int64 in stream order."""
+    E, P = sk.keys.shape
+    device = sk.keys.device
+    r = _geom_rows(scene, g)
+    sn, cs, cn = r["n_supers"], r["chunk_start"], r["n_chunks"]
+    ts, tc = r["tri_start"], r["tri_count"]
+    m = int(stream.total[0])
+    key = stream.key[:m].to(torch.int64)
+    entry = stream.entry[:m].to(torch.int64)
+    q = sk.rays[:, entry % P]
+    bt = torch.full((m,), FLT_MAX, dtype=torch.float32, device=device)
+    best = torch.full((m,), -1, dtype=torch.int64, device=device)
+    bu = torch.zeros(m, dtype=torch.float32, device=device)
+    bv = torch.zeros(m, dtype=torch.float32, device=device)
+    n_chunks = torch.zeros(m, dtype=torch.int64, device=device)
+    n_tris = torch.zeros(m, dtype=torch.int64, device=device)
+    for s2 in range(sn):
+        sel = torch.nonzero(_entry_supers(key, sn, s2))[:, 0]
+        if sel.shape[0] == 0:
+            continue
+        ro = Vec3(*q[0:3, sel])
+        rd = Vec3(*q[3:6, sel])
+        inv_d = Vec3(1.0 / rd.x, 1.0 / rd.y, 1.0 / rd.z)
+        ro_b = Vec3(ro.x[None], ro.y[None], ro.z[None])
+        rd_b = Vec3(rd.x[None], rd.y[None], rd.z[None])
+        sbt, sbest, su, sv = bt[sel], best[sel], bu[sel], bv[sel]
+        for c in range(min(MESH_SUPER, cn - s2 * MESH_SUPER)):
+            cg = s2 * MESH_SUPER + c
+            row = scene.mesh_chunk_aabbs[cs + cg]
+            ok = _aabb_hit(Vec3(row[0], row[1], row[2]), Vec3(row[3], row[4], row[5]),
+                           ro, inv_d, sbt)
+            lo = ts + cg * MESH_CHUNK
+            hi = min(ts + tc, lo + MESH_CHUNK)
+            n_chunks[sel] += 1
+            n_tris[sel] += ok * (hi - lo)
+
+            def col(v: Vec3) -> Vec3:
+                return Vec3(v.x[lo:hi, None], v.y[lo:hi, None], v.z[lo:hi, None])
+
+            t, u, v, _ = triangle_intersect(col(scene.tri_v0), col(scene.tri_v1),
+                                            col(scene.tri_v2), ro_b, rd_b)
+            t = torch.where(ok[None], t, FLT_MAX)
+            k = torch.argmin(t, dim=0)  # the first least t
+            tmin = t.gather(0, k[None])[0]
+            better = tmin < sbt
+            sbt = torch.where(better, tmin, sbt)
+            sbest = torch.where(better, lo + k, sbest)
+            su = torch.where(better, u.gather(0, k[None])[0], su)
+            sv = torch.where(better, v.gather(0, k[None])[0], sv)
+        bt[sel], best[sel], bu[sel], bv[sel] = sbt, sbest, su, sv
+    if probe is not None:
+        probe.update(chunks=n_chunks, tris=n_tris)
+    out = EntryHits(
+        t=torch.full((E, P), FLT_MAX, dtype=torch.float32, device=device),
+        tri=torch.full((E, P), -1, dtype=torch.int32, device=device),
+        u=torch.zeros((E, P), dtype=torch.float32, device=device),
+        v=torch.zeros((E, P), dtype=torch.float32, device=device),
+    )
+    for a, val in zip(out, (bt, best.to(torch.int32), bu, bv)):
+        a.view(-1)[entry] = val
+    return out
+
+
+def merge_entries_reference(origins: Vec3, dirs: Vec3, cands: Candidates,
+                            hits: Intersections, sk: SuperKeys, eh: EntryHits,
+                            scene: DeviceScene, g: int) -> Intersections:
+    """D, plain, IN PLACE on `hits`: per listed lane the least t over its
+    real slots in slot order (strict <), the hit rule t < FLT_MAX and t <
+    bt0, the winner's interpolated normal and UVs and the world-space tail
+    of `mesh_intersect_bvh`, then the strict merge into the lane's mesh
+    hit. Returns `hits`."""
+    E, P = sk.keys.shape
+    n = int(cands.count[0])
+    dead = sk.hist.shape[0]
+    real = sk.keys[:, :n] < dead
+    ts = torch.where(real, eh.t[:, :n], FLT_MAX)
+    bt, tri, bu, bv = ts[0], eh.tri[0, :n], eh.u[0, :n], eh.v[0, :n]
+    for e in range(1, E):
+        better = ts[e] < bt
+        bt = torch.where(better, ts[e], bt)
+        tri = torch.where(better, eh.tri[e, :n], tri)
+        bu = torch.where(better, eh.u[e, :n], bu)
+        bv = torch.where(better, eh.v[e, :n], bv)
+    hit = (bt < FLT_MAX) & (bt < sk.bt0[:n])
+    tri = torch.where(hit, tri, 0).to(torch.int64)
+    w = 1.0 - bu - bv
+    n_obj = (vtake(scene.tri_n0, tri) * w + vtake(scene.tri_n1, tri) * bu
+             + vtake(scene.tri_n2, tri) * bv).normalize()
+    has_uv = scene.mesh_has_uv[g]
+    if has_uv:
+        tex_u = (w * scene.tri_uv0u[tri] + bu * scene.tri_uv1u[tri]
+                 + bv * scene.tri_uv2u[tri])
+        tex_v = (w * scene.tri_uv0v[tri] + bu * scene.tri_uv1v[tri]
+                 + bv * scene.tri_uv2v[tri])
+    else:
+        tex_u = tex_v = torch.zeros_like(bt)
+    idx = cands.lanes[:n].to(torch.int64)
+    o, d = vtake(origins, idx), vtake(dirs, idx)
+    ro, rd = Vec3(*sk.rays[0:3, :n]), Vec3(*sk.rays[3:6, :n])
+    p_world = transform_point(scene.transform[g], ro + rd * (bt - RAY_EPS))
+    n_world = transform_dir(scene.inv_transpose[g], n_obj).normalize()
+    outside = n_world.dot(d) < 0.0
+    n_world = n_world * torch.where(outside, 1.0, -1.0)
+    t_g = torch.where(hit, (o - p_world).length(), MISS)
+    better = closer_hit(t_g, hits.t[idx])
+    win = idx[better]
+    hits.t[win] = t_g[better]
+    for dst, src in zip(hits.normal, n_world):
+        dst[win] = src[better]
+    hits.material_id[win] = scene.geom_material_id[g]
+    hits.outside[win] = outside[better]
+    hits.has_uv[win] = has_uv
+    hits.tex_u[win] = tex_u[better]
+    hits.tex_v[win] = tex_v[better]
+    return hits
+
+
 # ---- launch plumbing -------------------------------------------------------
 
 def _mesh_tables(scene: DeviceScene, tables, device):
     """(tables, table pointers, mesh pointers) for the mesh kernels."""
     t, tptr = _tables_for(scene, tables, device)
-    if t.mesh is None or len(t.mesh) != 5:
+    if t.mesh is None or len(t.mesh) != 7:
         raise ValueError("the mesh kernels need tables packed from a mesh "
                          "scene (pack_scene_tables)")
     T = scene.tri_v0.x.shape[0]
     B = scene.bvh_first.shape[0]
     for name, a, dtype, shape in zip(
-        ("mesh.tri", "mesh.attr", "mesh.box", "mesh.node", "mesh.geoms"), t.mesh,
-        (torch.float32, torch.float32, torch.float32, torch.int32, torch.int32),
-        ((T, 12), (T, 16), (B, 8), (B, 4), (len(scene.mesh_geoms), 4)),
+        ("mesh.tri", "mesh.attr", "mesh.box", "mesh.node", "mesh.geoms",
+         "mesh.chunk", "mesh.super"), t.mesh,
+        (torch.float32,) * 3 + (torch.int32,) * 2 + (torch.float32,) * 2,
+        ((T, 12), (T, 16), (B, 8), (B, 4), (len(scene.mesh_geoms), 4),
+         tuple(scene.mesh_chunk_aabbs.shape), tuple(scene.mesh_super_aabbs.shape)),
     ):
         _check_tensor(a, name, dtype, shape, device)
     return t, tptr, _ptrs(list(t.mesh))
@@ -428,6 +749,178 @@ def intersect_mesh(cands: Candidates, hits: Intersections) -> Intersections:
     return out
 
 
+def _check_list(cands: Candidates, P: int, device) -> None:
+    _check_tensor(cands.t, "cands.t", torch.float32, (P,), device)
+    _check_tensor(cands.lanes, "lanes", torch.int32, (P,), device)
+    _check_tensor(cands.count, "count", torch.int32, (1,), device)
+
+
+def _check_keys(sk: SuperKeys, n_supers: int, device) -> tuple:
+    """(E, P) of A's output, after checking its four tensors."""
+    E, P = sk.keys.shape
+    for name, a, dtype, shape in (
+        ("keys", sk.keys, torch.int32, (E, P)),
+        ("rays", sk.rays, torch.float32, (6, P)),
+        ("bt0", sk.bt0, torch.float32, (P,)),
+        ("hist", sk.hist, torch.int32, (2 * n_supers,)),
+    ):
+        _check_tensor(a, name, dtype, shape, device)
+    return E, P
+
+
+def super_keys(origins: Vec3, dirs: Vec3, cands: Candidates,
+               hits: Intersections, scene: DeviceScene, g: int,
+               E: int | None = None,
+               tables: SceneTables | None = None) -> SuperKeys:
+    """A for big geom g over #7's list `cands`, with `hits` the mesh hit
+    lanes so far (#8's, merged with earlier big geoms); E defaults to
+    SORT_EXPAND. CPU: the plain version; CUDA: one launch sized by the
+    pool, counted in `super_keys.launches`."""
+    E = SORT_EXPAND if E is None else E
+    device = origins.x.device
+    if device.type == "cpu":
+        return super_keys_reference(origins, dirs, cands, hits, scene, g, E)
+    _require_cuda(device, "super_keys")
+    P = cands.lanes.shape[0]
+    r = _geom_rows(scene, g)
+    sn = r["n_supers"]
+    if E < 1:
+        raise ValueError(f"super_keys: E must be at least 1, got {E}")
+    if sn > MAX_SUPERS:
+        raise ValueError(f"super_keys: geom {g} has {sn} supernodes, the "
+                         f"histogram holds {MAX_SUPERS}")
+    rays = _rays(origins, dirs, P, device)
+    _check_list(cands, P, device)
+    _check_tensor(hits.t, "hits.t", torch.float32, (P,), device)
+    t, tptr, mptr = _mesh_tables(scene, tables, device)
+    out = SuperKeys(
+        keys=torch.empty((E, P), dtype=torch.int32, device=device),
+        rays=torch.empty((6, P), dtype=torch.float32, device=device),
+        bt0=torch.empty(P, dtype=torch.float32, device=device),
+        hist=torch.empty(2 * sn, dtype=torch.int32, device=device),
+    )
+    dev_index, stream = _device_args(device)
+    _launch(
+        "pt_super_keys", "super_keys",
+        tptr, len(scene.gtypes), mptr, _ptrs(rays + [None]), cands.t.data_ptr(),
+        hits.t.data_ptr(), cands.lanes.data_ptr(), cands.count.data_ptr(), P, g,
+        r["super_start"], sn, E, out.keys.data_ptr(), out.rays.data_ptr(),
+        out.bt0.data_ptr(), out.hist.data_ptr(), dev_index, stream,
+    )
+    super_keys.launches += 1
+    return out
+
+
+def place_entries(sk: SuperKeys, count: torch.Tensor) -> Stream:
+    """B over A's keys of the `count` listed lanes (#7's device-side
+    count): each key's window from the exclusive scan of A's histogram
+    (`torch.cumsum`, on the device), then the real entries placed by key.
+    CPU: the plain version; CUDA: one launch sized by E x the pool,
+    counted in `place_entries.launches`."""
+    device = sk.keys.device
+    if device.type == "cpu":
+        return place_entries_reference(sk, count)
+    _require_cuda(device, "place_entries")
+    E, P = _check_keys(sk, sk.hist.shape[0] // 2, device)
+    _check_tensor(count, "count", torch.int32, (1,), device)
+    csum = torch.cumsum(sk.hist, 0, dtype=torch.int32)
+    offsets = csum - sk.hist
+    out = Stream(
+        key=torch.empty(E * P, dtype=torch.int32, device=device),
+        entry=torch.empty(E * P, dtype=torch.int32, device=device),
+        total=csum[-1:],
+    )
+    cursor = torch.empty_like(sk.hist)
+    dev_index, stream = _device_args(device)
+    _launch(
+        "pt_place_entries", "place_entries",
+        sk.keys.data_ptr(), count.data_ptr(), P, E, sk.hist.shape[0] // 2,
+        offsets.data_ptr(), cursor.data_ptr(), out.key.data_ptr(),
+        out.entry.data_ptr(), dev_index, stream,
+    )
+    place_entries.launches += 1
+    return out
+
+
+def window_sweep(st: Stream, sk: SuperKeys, scene: DeviceScene, g: int,
+                 tables: SceneTables | None = None) -> EntryHits:
+    """C over B's stream, for big geom g. CPU: the plain version; CUDA:
+    one launch of 256-entry blocks sized by E x the pool, counted in
+    `window_sweep.launches`."""
+    device = sk.keys.device
+    if device.type == "cpu":
+        return window_sweep_reference(st, sk, scene, g)
+    _require_cuda(device, "window_sweep")
+    r = _geom_rows(scene, g)
+    E, P = _check_keys(sk, r["n_supers"], device)
+    for name, a in (("stream.key", st.key), ("stream.entry", st.entry)):
+        _check_tensor(a, name, torch.int32, (E * P,), device)
+    _check_tensor(st.total, "stream.total", torch.int32, (1,), device)
+    t, tptr, mptr = _mesh_tables(scene, tables, device)
+    out = EntryHits(
+        t=torch.empty((E, P), dtype=torch.float32, device=device),
+        tri=torch.empty((E, P), dtype=torch.int32, device=device),
+        u=torch.empty((E, P), dtype=torch.float32, device=device),
+        v=torch.empty((E, P), dtype=torch.float32, device=device),
+    )
+    dev_index, stream = _device_args(device)
+    _launch(
+        "pt_window_sweep", "window_sweep",
+        mptr, st.key.data_ptr(), st.entry.data_ptr(), st.total.data_ptr(),
+        sk.rays.data_ptr(), P, E, r["n_supers"], r["chunk_start"], r["n_chunks"],
+        r["tri_start"], r["tri_count"], *(a.data_ptr() for a in out),
+        dev_index, stream,
+    )
+    window_sweep.launches += 1
+    return out
+
+
+def merge_entries(origins: Vec3, dirs: Vec3, cands: Candidates,
+                  hits: Intersections, sk: SuperKeys, eh: EntryHits,
+                  scene: DeviceScene, g: int,
+                  tables: SceneTables | None = None) -> Intersections:
+    """D: big geom g's winner of each listed lane merged IN PLACE into
+    `hits` (returned). CPU: the plain version; CUDA: one launch sized by
+    the pool, counted in `merge_entries.launches`."""
+    device = origins.x.device
+    if device.type == "cpu":
+        return merge_entries_reference(origins, dirs, cands, hits, sk, eh, scene, g)
+    _require_cuda(device, "merge_entries")
+    E, P = _check_keys(sk, _geom_rows(scene, g)["n_supers"], device)
+    for name, a, dtype in zip(("t", "tri", "u", "v"), eh,
+                              (torch.float32, torch.int32, torch.float32,
+                               torch.float32)):
+        _check_tensor(a, f"entry hits.{name}", dtype, (E, P), device)
+    _check_list(cands, P, device)
+    rays = _rays(origins, dirs, P, device)
+    t, tptr, mptr = _mesh_tables(scene, tables, device)
+    dev_index, stream = _device_args(device)
+    _launch(
+        "pt_merge_entries", "merge_entries",
+        tptr, len(scene.gtypes), mptr, _ptrs(rays + [None]),
+        cands.lanes.data_ptr(), cands.count.data_ptr(), P, E,
+        sk.hist.shape[0] // 2, g, int(scene.mesh_has_uv[g]), sk.keys.data_ptr(),
+        *(a.data_ptr() for a in eh), sk.rays.data_ptr(), sk.bt0.data_ptr(),
+        _ptrs(_check_hits(hits, P, device)), dev_index, stream,
+    )
+    merge_entries.launches += 1
+    return hits
+
+
+def sorted_mesh_merge(origins: Vec3, dirs: Vec3, cands: Candidates,
+                      hits: Intersections, scene: DeviceScene,
+                      tables: SceneTables | None = None) -> Intersections:
+    """The JAX package's `_sorted_mesh_merge`: for each geom of the sorted
+    route, in geom order, A -> B -> C -> D, merging its winner of each
+    candidate lane into `hits` (#8's output) IN PLACE. Returns `hits`."""
+    for g in sorted_geoms(scene):
+        sk = super_keys(origins, dirs, cands, hits, scene, g, tables=tables)
+        st = place_entries(sk, cands.count)
+        eh = window_sweep(st, sk, scene, g, tables=tables)
+        merge_entries(origins, dirs, cands, hits, sk, eh, scene, g, tables=tables)
+    return hits
+
+
 # ---- the chains ------------------------------------------------------------
 
 def bounce_step_pipeline(state, scene: DeviceScene, iteration: int,
@@ -435,8 +928,10 @@ def bounce_step_pipeline(state, scene: DeviceScene, iteration: int,
                          num_alive: torch.Tensor | None = None,
                          tables: SceneTables | None = None):
     """One bounce of the mesh path over the pool, IN PLACE: #7 -> #8 ->
-    #9 (the JAX package's `bounce_step_pipeline`, K1 -> K2 -> K3). No
-    host sync on CUDA. The tables are packed once here unless given."""
+    the sorted route (A -> B -> C -> D per big geom) -> #9 (the JAX
+    package's `bounce_step_pipeline`, K1 -> K2 -> `_sorted_mesh_merge` ->
+    K3). No host sync on CUDA. The tables are packed once here unless
+    given."""
     check_supported(scene, settings)
     if tables is None and scene.device.type == "cuda":
         tables = pack_scene_tables(scene)
@@ -445,6 +940,7 @@ def bounce_step_pipeline(state, scene: DeviceScene, iteration: int,
                             tables=tables)
     hits = mesh_sweep(origins, dirs, cands, scene, tables=tables,
                       use_bvh=settings.use_bvh)
+    sorted_mesh_merge(origins, dirs, cands, hits, scene, tables=tables)
     return bounce_step_mesh(state, cands, hits, scene, iteration, depth,
                             settings, num_alive=num_alive, tables=tables)
 
@@ -452,9 +948,10 @@ def bounce_step_pipeline(state, scene: DeviceScene, iteration: int,
 def intersect_pipeline(origins: Vec3, dirs: Vec3, alive, scene: DeviceScene,
                        tables: SceneTables | None = None,
                        use_bvh: bool = True) -> Intersections:
-    """`intersect_scene` for a mesh scene through #7 -> #8 -> #10 (the JAX
-    package's `intersect_pipeline`): the same Intersections contract, dead
-    lanes (`alive`, None for all alive) with their analytic hit."""
+    """`intersect_scene` for a mesh scene through #7 -> #8 -> the sorted
+    route -> #10 (the JAX package's `intersect_pipeline`): the same
+    Intersections contract, dead lanes (`alive`, None for all alive) with
+    their analytic hit."""
     if tables is None and scene.device.type == "cuda":
         tables = pack_scene_tables(scene)
     # contiguous once here, not once in each of #7 and #8
@@ -464,6 +961,7 @@ def intersect_pipeline(origins: Vec3, dirs: Vec3, alive, scene: DeviceScene,
                             tables=tables)
     hits = mesh_sweep(origins, dirs, cands, scene, tables=tables,
                       use_bvh=use_bvh)
+    sorted_mesh_merge(origins, dirs, cands, hits, scene, tables=tables)
     return intersect_mesh(cands, hits)
 
 
@@ -471,3 +969,7 @@ mesh_candidates.launches = 0
 mesh_sweep.launches = 0
 bounce_step_mesh.launches = 0
 intersect_mesh.launches = 0
+super_keys.launches = 0
+place_entries.launches = 0
+window_sweep.launches = 0
+merge_entries.launches = 0

@@ -17,7 +17,8 @@ has these tiers here, as in the JAX package:
 - the mesh path (a scene with mesh geoms), `trace_paths` too: plain
   `generate_rays` for the depth-0 rays, as the JAX package's mesh route,
   then the mesh pipeline (ops/pipeline.py::bounce_step_pipeline: #7
-  candidates -> #8 BVH sweep -> #9 merge + shade) at every depth, with
+  candidates -> #8 BVH sweep -> the sorted route #11-#14 for each geom
+  above 16,384 triangles -> #9 merge + shade) at every depth, with
   the same compaction, cache (#4 over `intersect_scene_any`'s depth 0),
   motion blur, RR and QMC as the analytic path; `render_batch` always
   takes it on a mesh scene (#1 and #6 sweep analytic geoms only);
@@ -26,8 +27,8 @@ has these tiers here, as in the JAX package:
   sampled light point from each diffuse lane, RNG stream 254). That step
   is plain PyTorch on every device, as the JAX package runs it in XLA
   outside any Pallas kernel; its two intersect calls go through
-  `intersect_scene_any` (the mesh pipeline #7 -> #8 -> #10 on a mesh
-  scene on CUDA);
+  `intersect_scene_any` (the mesh pipeline #7 -> #8 [-> A-D] -> #10 on a
+  mesh scene on CUDA);
 - --nee (NEE + MIS at every non-delta vertex, `_nee_mis_bounce`): under
   `render_batch` the whole-iteration NEE kernel
   (megakernel.full_iteration_nee, #6), one launch per iteration; under
@@ -72,7 +73,6 @@ from .ops.megakernel import (
     SceneTables,
     bounce_step,
     bounce_step_nee,
-    check_mesh_sizes,
     check_supported,
     draw_slots,
     first_bounce,
@@ -235,10 +235,10 @@ _HALF_INV_PI = 0.5 / math.pi
 def intersect_scene_any(origins: Vec3, dirs: Vec3, scene: DeviceScene,
                         settings: RenderSettings, alive=None,
                         tables: SceneTables | None = None) -> Intersections:
-    """`intersect_scene`, through the mesh pipeline (#7 -> #8 -> #10,
-    ops/pipeline.py::intersect_pipeline) on a mesh scene on CUDA, as the
-    JAX package's `intersect_scene_any` swaps in its Pallas pipeline;
-    everywhere else (analytic scenes, the CPU) plain `intersect_scene`
+    """`intersect_scene`, through the mesh pipeline (#7 -> #8 [-> the
+    sorted route A-D] -> #10, ops/pipeline.py::intersect_pipeline) on a
+    mesh scene on CUDA, as the JAX package's `intersect_scene_any` swaps
+    in its Pallas pipeline; everywhere else (analytic scenes, the CPU) plain `intersect_scene`
     with `settings.use_bvh`. `alive` (None: all alive) marks the lanes the
     pipeline tests for meshes; dead lanes keep their analytic hit."""
     if scene.mesh_geoms and scene.device.type == "cuda":
@@ -601,8 +601,8 @@ def trace_paths(
     (#2), or shade_step (#4) over the depth-0 intersections under the
     first-bounce cache, then bounce_step (#3) for depths 1..D-1, with
     compaction between bounces. On a mesh scene every bounce is the mesh
-    pipeline (#7 -> #8 -> #9), depth 0 from plain `generate_rays`, and
-    the cache fill runs `intersect_scene_any`. Under --direct-lighting the
+    pipeline (#7 -> #8 [-> A-D] -> #9), depth 0 from plain
+    `generate_rays`, and the cache fill runs `intersect_scene_any`. Under --direct-lighting the
     last depth is `_nee_final_step` instead; under --nee every depth is
     bounce_step_nee (#5), from plain `generate_rays` (`_trace_nee`).
 
@@ -813,8 +813,6 @@ class Renderer:
         )
         if self.settings.trace_depth <= 0:
             self.settings = replace(self.settings, trace_depth=8)
-        # before any BVH is built: the big-mesh route is not ported
-        check_mesh_sizes(scene.geoms.tri_count)
         # always with the BVH, which the mesh kernels walk (models/device.py)
         self.dev_scene = scene_to_device(scene, self.device)
         check_supported(self.dev_scene, self.settings)

@@ -459,3 +459,134 @@ def test_mesh_path_launches(cuda_device, settings_kw, counts):
     assert got == counts + [0] * len(others)
     img = r.image()
     assert np.isfinite(img).all() and img.max() > 0
+
+
+@pytest.fixture(scope="module")
+def big_mesh():
+    """mesh_big.txt (one 51,200-triangle geom: the sorted route) at 64x64
+    on the card, loaded once: (DeviceScene, DeviceCamera)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the kernels build on first use)")
+    s = small("mesh_big.txt", (64, 64))
+    dev = torch.device("cuda")
+    return scene_to_device(s, dev), camera_to_device(s.state.camera, dev)
+
+
+def entry_pairs(key, entry, total):
+    """The (key, entry) pairs of a stream's real entries, sorted, as one
+    int64 array (the order within a key is the atomics')."""
+    m = int(total[0])
+    pairs = key[:m].long() * (1 << 32) + entry[:m].long()
+    return torch.sort(pairs).values
+
+
+@pytest.mark.parametrize("E", [6, 2, 1])
+def test_sorted_route_matches_plain_on_cuda(cuda_device, big_mesh, E):
+    """A-D on mesh_big.txt at 64x64, depths 0-7, each from the plain
+    version's own inputs (the pool after the plain bounce before): A's
+    keys exactly those of `super_rank` over its own object-space rays and
+    bounds, which match the plain ones by the lane rule; B's stream per
+    key exactly the plain one's; C's t and u, v by the lane rule, its
+    triangle on 99% of the entries (ties); D's hit lanes and the whole
+    chain (#9's pool) by the lane rule, pix exactly. #8 walks no big
+    geom."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam = big_mesh
+    settings = RenderSettings(trace_depth=8, antialias=True)
+    (g,) = pipeline.sorted_geoms(ds)
+    ss, sn = ds.super_ranges[g]
+    pool = _camera_pool(cam, 2, settings)
+    route = ("super_keys", "place_entries", "window_sweep", "merge_entries")
+    before = [getattr(pipeline, k).launches for k in route]
+    for depth in range(8):
+        o, d, alive = pool[0], pool[1], pool[4]
+        cands = pipeline.mesh_candidates_reference(o, d, alive, ds)
+        n = int(cands.count[0])
+        hits = pipeline.mesh_sweep(o, d, cands, ds)
+        torch.cuda.synchronize()
+        assert bool((hits.t[cands.lanes[:n].long()] == -1).all())  # #8 skips g
+        hits = pipeline.mesh_sweep_reference(o, d, cands, ds)
+        sk = pipeline.super_keys(o, d, cands, hits, ds, g, E)
+        torch.cuda.synchronize()
+        keys = pipeline.super_rank(tuple(sk.rays[:, :n]), sk.bt0[:n],
+                                   ds.mesh_super_aabbs[ss:ss + sn], E)
+        assert torch.equal(sk.keys[:, :n], keys)
+        real = keys[keys < 2 * sn].long()
+        assert torch.equal(sk.hist, torch.bincount(real, minlength=2 * sn).int())
+        want_sk = pipeline.super_keys_reference(o, d, cands, hits, ds, g, E)
+        assert (sk.keys[:, :n] != want_sk.keys[:, :n]).float().mean() <= 0.001
+        assert_lane_rule(list(sk.rays[:, :n]), list(want_sk.rays[:, :n]))
+        st = pipeline.place_entries(sk, cands.count)
+        want_st = pipeline.place_entries_reference(sk, cands.count)
+        torch.cuda.synchronize()
+        assert int(st.total[0]) == int(want_st.total[0]) == real.shape[0]
+        assert torch.equal(entry_pairs(*st), entry_pairs(*want_st))
+        eh = pipeline.window_sweep(st, sk, ds, g)
+        want_eh = pipeline.window_sweep_reference(st, sk, ds, g)
+        torch.cuda.synchronize()
+        ids = st.entry[:int(st.total[0])].long()
+        flat = lambda a: a.reshape(-1)[ids]  # noqa: E731
+        assert_lane_rule([flat(eh.t), flat(eh.u), flat(eh.v)],
+                         [flat(want_eh.t), flat(want_eh.u), flat(want_eh.v)])
+        assert (flat(eh.tri) != flat(want_eh.tri)).float().mean() <= 0.01
+        clone = lambda h: type(h)(*(  # noqa: E731
+            Vec3(*(c.clone() for c in f)) if isinstance(f, Vec3) else f.clone()
+            for f in (h.t, h.normal, h.material_id, h.outside, h.tex_u, h.tex_v,
+                      h.has_uv)))
+        got = pipeline.merge_entries(o, d, cands, clone(hits), sk, eh, ds, g)
+        want = pipeline.merge_entries_reference(o, d, cands, clone(hits), sk, eh,
+                                                ds, g)
+        torch.cuda.synchronize()
+        lanes = cands.lanes[:n].long()
+        assert_lane_rule([a[lanes] for a in hit_lanes(got)],
+                         [a[lanes] for a in hit_lanes(want)])
+        # the whole bounce: #7 -> #8 -> A-D -> #9 against its plain chain
+        lanes = [a.clone() for a in megakernel.pool_lanes(pool)]
+        start = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                 Vec3(*lanes[9:12]), lanes[12], lanes[13])
+        tables = megakernel.pack_scene_tables(ds)
+        pipeline.SORT_EXPAND, old = E, pipeline.SORT_EXPAND
+        try:
+            chain = pipeline.bounce_step_pipeline(start, ds, 2, depth, settings,
+                                                  tables=tables)
+        finally:
+            pipeline.SORT_EXPAND = old
+        torch.cuda.synchronize()
+        plain = pipeline.merge_entries_reference(
+            o, d, cands, clone(hits), want_sk,
+            pipeline.window_sweep_reference(
+                pipeline.place_entries_reference(want_sk, cands.count), want_sk,
+                ds, g), ds, g)
+        want9 = pipeline.bounce_step_mesh_reference(pool, cands, plain, ds, 2,
+                                                    depth, settings)
+        g9, w9 = megakernel.pool_lanes(chain), megakernel.pool_lanes(want9)
+        assert torch.equal(g9[13], w9[13])
+        assert_lane_rule(g9[:13], w9[:13])
+        pool = want9
+    now = [getattr(pipeline, k).launches for k in route]
+    assert [b - a for a, b in zip(before, now)] == [16] * 4
+
+
+def test_big_mesh_path_launches(cuda_device):
+    """mesh_big.txt through the Renderer: #7 -> #8 -> A -> B -> C -> D ->
+    #9 at every depth of step() and step_batch, nothing of #1-#6."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+
+    wrappers = tuple(getattr(pipeline, k) for k in (
+        "mesh_candidates", "mesh_sweep", "super_keys", "place_entries",
+        "window_sweep", "merge_entries", "bounce_step_mesh", "intersect_mesh"))
+    others = (megakernel.full_iteration, megakernel.first_bounce,
+              megakernel.bounce_step, megakernel.bounce_step_nee,
+              megakernel.full_iteration_nee)
+    r = Renderer(small("mesh_big.txt", (64, 48)),
+                 RenderSettings(trace_depth=8, antialias=True), device=cuda_device)
+    before = [f.launches for f in wrappers + others]
+    r.step()
+    r.step_batch(2)
+    torch.cuda.synchronize()
+    got = [f.launches - b for f, b in zip(wrappers + others, before)]
+    assert got == [24] * 7 + [0] + [0] * len(others)
+    img = r.image()
+    assert np.isfinite(img).all() and img.max() > 0

@@ -17,10 +17,8 @@ from project3_cuda_path_tracer_tpu_torch.models import bvh as tbvh
 from project3_cuda_path_tracer_tpu_torch.models import device as tdevice
 from project3_cuda_path_tracer_tpu_torch.models import mesh as tmesh
 from project3_cuda_path_tracer_tpu_torch.models import scene as tscene
-from project3_cuda_path_tracer_tpu_torch.ops.megakernel import (
-    check_mesh_sizes,
-    pack_scene_tables,
-)
+from project3_cuda_path_tracer_tpu_torch.ops import pipeline as tpipe
+from project3_cuda_path_tracer_tpu_torch.ops.megakernel import pack_scene_tables
 from tests.conftest import SCENES
 from tests.test_torch_scene import (
     assert_scene_tables_equal,
@@ -142,7 +140,9 @@ def test_pack_mesh_tables():
     """The mesh kernels' packed tables carry the DeviceScene's numbers."""
     td = tdevice.scene_to_device(tscene.load_scene(
         os.path.join(SCENES, "mesh.txt")), "cpu")
-    tri, attr, box, node, geoms = pack_scene_tables(td).mesh
+    tri, attr, box, node, geoms, chunk, sup = pack_scene_tables(td).mesh
+    assert torch.equal(chunk, td.mesh_chunk_aabbs) and chunk.shape == (160, 8)
+    assert torch.equal(sup, td.mesh_super_aabbs) and sup.shape == (5, 8)
     T, B = td.tri_v0.x.shape[0], td.bvh_first.shape[0]
     assert (T, B) == (5120, td.bvh_roots[6][1])
     assert tri.shape == (T, 12) and attr.shape == (T, 16)
@@ -164,6 +164,23 @@ def test_pack_mesh_tables():
 
 
 def test_check_mesh_sizes():
-    check_mesh_sizes([0, 5120, 16384])
-    with pytest.raises(NotImplementedError, match="big-mesh route.*slice 5"):
-        check_mesh_sizes([0, 16385])
+    """The routing threshold: a mesh geom above 16,384 triangles takes the
+    sorted route (#11-#14's counterparts), one of at most 16,384 the dense
+    BVH walk (#8), in geom order; mesh_big.txt's 51,200-triangle geom is
+    routed to the sorted route from the host scene's triangle counts."""
+    from types import SimpleNamespace
+
+    scene = SimpleNamespace(mesh_geoms=(1, 2, 4),
+                            tri_ranges=((0, 0), (0, 5120), (5120, 16384),
+                                        (0, 0), (21504, 16385)))
+    assert tpipe.SORT_SUPER_MIN_TRIS == 16384
+    assert tpipe.sorted_geoms(scene) == (4,)
+    assert tpipe.dense_geoms(scene) == (1, 2)
+    big = tscene.load_scene(os.path.join(SCENES, "mesh_big.txt"))
+    (g,) = np.nonzero(big.geoms.tri_count)[0]
+    big_scene = SimpleNamespace(
+        mesh_geoms=(int(g),),
+        tri_ranges=tuple(zip(big.geoms.tri_start.tolist(),
+                             big.geoms.tri_count.tolist())))
+    assert tpipe.sorted_geoms(big_scene) == (g,)
+    assert big_scene.tri_ranges[g][1] == 51_200

@@ -1,7 +1,7 @@
 """The port's scene parser and device tables against the JAX package's:
 for the six analytic smoke scenes the tables and flags must be exactly
 equal, the camera derivation identical, and a mesh geom above the dense
-route's 16,384 triangles refused."""
+route's 16,384 triangles built for the sorted route."""
 
 import os
 
@@ -137,13 +137,18 @@ def test_device_scene_from_numpy_round_trip(name):
 
 
 def test_mesh_scene_raises():
-    """A mesh geom above 16,384 triangles (mesh_big.txt's 51,200: the
-    big-mesh route) is refused from the host scene's triangle counts,
-    before any BVH is built."""
+    """A mesh geom above 16,384 triangles (mesh_big.txt's 51,200) is no
+    longer refused: the Renderer builds it, with the chunk and supernode
+    tables of the sorted route. A mesh scene under --nee still is."""
     scene = tscene.load_scene(os.path.join(SCENES, "mesh_big.txt"))
     assert int(scene.geoms.tri_count.max()) == 51_200
-    with pytest.raises(NotImplementedError, match="big-mesh route.*ROADMAP"):
-        trender.Renderer(scene, device="cpu")
+    r = trender.Renderer(scene, device="cpu")
+    (g,) = r.dev_scene.mesh_geoms
+    assert r.dev_scene.super_ranges[g] == (0, 50)
+    assert r.dev_scene.mesh_chunk_aabbs.shape == (1600, 8)
+    with pytest.raises(NotImplementedError, match="--nee.*ROADMAP"):
+        trender.Renderer(tscene.load_scene(os.path.join(SCENES, "mesh.txt")),
+                         trender.RenderSettings(nee_mis=True), device="cpu")
 
 
 @pytest.mark.parametrize(
