@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, in parallel), holds each of the fourteen against its
+nvcc per source, in parallel), holds each of the eighteen against its
 plain PyTorch version on the card (at 64x64 and at the main path's
 800x800; the NEE kernels #5 and #6 on Cornell AA, Cornell RR +
 stratified, a glossy Cornell and many_materials RR, #5's pix exactly and
@@ -12,12 +12,19 @@ stratified and --compact, #7's candidate set per lane and #9's pix
 exactly; the big-mesh route's A-D (super_keys, place_entries,
 window_sweep, merge_entries) on mesh_big.txt AA at 64x64 and 800x800 at
 every depth and on bunny.txt at 800x800 depth 0, A's keys and B's stream
-per key exactly, and the route's work per depth for their bounds),
-renders the twelve smoke configs (the two --nee ones and mesh.txt
-included) and the four big-mesh scenes (mesh_big, bunny, mesh_critter,
-mesh_stream, each loaded once) against the XLA goldens
+per key exactly, and the route's work per depth for their bounds; at
+the same depths the radix route of PT_TPU_SORT_RADIX=1 (radix_counts,
+radix_scatter, radix_unscatter and C's stream-order instantiation
+window_sweep_stream): every split and unsplit exactly, the sorted stream
+against a stable torch.sort gather, the unsort's round trip, and the
+route's entries, lanes and whole bounce against the counting route's,
+bit for bit), renders the twelve smoke configs (the two --nee ones and
+mesh.txt included) and the four big-mesh scenes (mesh_big, bunny,
+mesh_critter, mesh_stream, each loaded once) against the XLA goldens
 (tools/goldens/smoke_128.npz) through `Renderer.step_batch` and through
-`Renderer.step()`, drives the main path (Cornell 800x800, depth 8, AA,
+`Renderer.step()`, and the four again under the radix route through
+`step_batch` (mesh_big through `step()` too), drives the main path
+(Cornell 800x800, depth 8, AA,
 progressive) through `Renderer.step_batch` and times it, drives and
 times the other paths at their scenes' own size, depth 8 (Cornell AA
 through `Renderer.step()`, --compact, --cache-first-bounce,
@@ -28,13 +35,16 @@ with --cache-first-bounce (#7 -> #8 -> #10 once per batch, then #4) and
 with --direct-lighting (the final step's two intersects through #7 -> #8
 -> #10); mesh_big.txt AA through `step_batch` and `step()` and bunny.txt
 AA through `step_batch` (#7 -> #8 -> A -> B -> C -> D -> #9 at every
-depth)), times the dense BVH walk on mesh_big as a yardstick (the routing
-threshold raised here only), reads each kernel's device time from
-torch.profiler beside its plain version's time and its bound (and the
---direct-lighting final step's own time), and renders through the CLI
-(Cornell plain, --compact, --nee; mesh.txt; mesh_big.txt). Every path is
-driven with the launch counts set to 0 just before it and read just
-after.
+depth); mesh_big.txt and bunny.txt AA through `step_batch` under the
+radix route (#7 -> #8 -> A -> 8 splits -> C in stream order -> 8
+unsplits -> D -> #9)), times the dense BVH walk on mesh_big as a
+yardstick (the routing threshold raised here only), reads each kernel's
+device time from torch.profiler beside its plain version's time, its
+bound and, where one PyTorch call computes the same function, that
+call's time (and the --direct-lighting final step's own time), and
+renders through the CLI (Cornell plain, --compact, --nee; mesh.txt;
+mesh_big.txt, and again with PT_TPU_SORT_RADIX=1). Every path is driven
+with the launch counts set to 0 just before it and read just after.
 Every phase prints one line; any failure raises and exits non-zero
 before the result lines are printed. Imports nothing of JAX or of the
 JAX package.
@@ -47,6 +57,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -80,12 +91,26 @@ KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
     "place_entries": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:1257"),
     "window_sweep": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:746"),
     "merge_entries": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:1350"),
+    # the radix route (PT_TPU_SORT_RADIX=1, csrc/radix.cu): the count half
+    # of #15 _kr_partition, its packing with #16 _kr_stitch2, #17
+    # _kr_unpartition; and C's stream-order instantiation (#11 on the radix
+    # branch)
+    "radix_counts": (f"{PKG}/csrc/radix.cu", f"{JAX_PL}:1433"),
+    "radix_scatter": (f"{PKG}/csrc/radix.cu", f"{JAX_PL}:1479"),
+    "radix_unscatter": (f"{PKG}/csrc/radix.cu", f"{JAX_PL}:1578"),
+    "window_sweep_stream": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:746"),
 }
 SORTED_KERNELS = ("super_keys", "place_entries", "window_sweep",
                   "merge_entries")
+RADIX_KERNELS = ("radix_counts", "radix_scatter", "radix_unscatter",
+                 "window_sweep_stream")
 MESH_KERNELS = ("mesh_candidates", "mesh_sweep", "bounce_step_mesh",
-                "intersect_mesh") + SORTED_KERNELS
-KERNEL_SYMBOLS = {k: f"{k}_kernel" for k in KERNELS}
+                "intersect_mesh") + SORTED_KERNELS + RADIX_KERNELS
+# each kernel's symbol in the profiler's (demangled or mangled) names; C's
+# two instantiations by their template argument
+KERNEL_SYMBOLS = {k: re.compile(re.escape(f"{k}_kernel")) for k in KERNELS}
+KERNEL_SYMBOLS["window_sweep"] = re.compile(r"window_sweep_kernel(<false>|ILb0E)")
+KERNEL_SYMBOLS["window_sweep_stream"] = re.compile(r"window_sweep_kernel(<true>|ILb1E)")
 NO_LAUNCHES = {k: 0 for k in KERNELS}
 # image rule of tests/test_megakernel.py:143-145 (seam-tie outliers only)
 PARITY_BAD = 1e-3
@@ -202,6 +227,8 @@ OPS_SUPER_TEST = 29  # slab test with te = max(tmin, 0), the key update
 OPS_CHUNK_TEST = 27  # slab test against the running best t
 OPS_SLOT = 3  # per slot of D's merge: load, compare, select
 OPS_PLACE = 8  # B per real entry: the compare, the warp match, the address
+OPS_RADIX = 12  # per element of a split: the flag, the ballot prefix, the
+#                 place (csrc/radix.cu); every radix kernel is bytes-bound
 
 
 def say(phase: str, **kv) -> None:
@@ -653,9 +680,12 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2):
     of the entries (ties); D's hit lanes and the whole bounce (#7 -> #8 ->
     A-D -> #9 against the plain chain) by the lane rule, #9's pix exactly.
     Also counts, per depth, the work of the plain route (for the bounds)
-    and times each plain version (host clock, synchronised).
-    Returns ({kernel: (worst share, max_abs_err)}, {count: [per depth]},
-    {kernel: plain ms per call})."""
+    and times each plain version (host clock, synchronised). At the same
+    depths the radix route (`radix_check`), and the whole bounce under
+    SORT_RADIX against the counting route's bounce, bit for bit (any
+    difference reported and held to the lane rule).
+    Returns ({kernel or check: (worst share, max_abs_err)}, {count: [per
+    depth]}, {kernel: plain ms per call}, {library call: ms per call})."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
@@ -670,10 +700,11 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2):
              "tris", "mesh_hits")
     work = {k: [] for k in names}
     plain = dict.fromkeys(SORTED_KERNELS, 0.0)
+    radix_plain, library = {}, {}
     calls = 0
 
     def bump(k, r):
-        worst[k] = tuple(max(a, b) for a, b in zip(worst[k], r))
+        worst[k] = tuple(max(a, b) for a, b in zip(worst.get(k, (0.0, 0.0)), r))
 
     def timed(k, fn):
         torch.cuda.synchronize()
@@ -762,6 +793,9 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2):
                 torch.cuda.synchronize()
                 bump("merge_entries", lane_rule([a[listed] for a in hit_lanes(got)],
                                                 [a[listed] for a in hit_lanes(want)]))
+                for k, r in radix_check(o, d, cands, hits, sk, eh, ds, g, tables,
+                                        radix_plain, library).items():
+                    bump(k, r)
             hits = phits
         for k in names:
             work[k].append(count[k])
@@ -771,6 +805,15 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2):
                      Vec3(*lanes[9:12]), lanes[12], lanes[13])
             got9 = pl.bounce_step_pipeline(start, ds, iteration, depth, settings,
                                            tables=tables)
+            lanes = [a.clone() for a in mk.pool_lanes(pool)]
+            start = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                     Vec3(*lanes[9:12]), lanes[12], lanes[13])
+            pl.SORT_RADIX, radix = True, pl.SORT_RADIX
+            try:
+                got9r = pl.bounce_step_pipeline(start, ds, iteration, depth,
+                                                settings, tables=tables)
+            finally:
+                pl.SORT_RADIX = radix
         want9 = pl.bounce_step_mesh_reference(pool, cands, hits, ds, iteration,
                                               depth, settings)
         if depth in depths:
@@ -780,8 +823,187 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2):
                 raise RuntimeError(f"the big-mesh bounce: pix differs at depth "
                                    f"{depth}")
             bump("chain", lane_rule(g9[:13], w9[:13]))
+            r9 = mk.pool_lanes(got9r)
+            same = torch.ones_like(r9[13], dtype=torch.bool)
+            for a, b in zip(r9, g9):
+                same &= bitwise(a) == bitwise(b)
+            w, e = lane_rule(r9[:13], g9[:13])
+            bump("radix_chain", (float((~same).float().mean()), e))
+            if w > LANE_FRAC or not torch.equal(r9[13], g9[13]):
+                raise RuntimeError(f"the radix route's bounce is off the counting "
+                                   f"route's on {w:.2%} of the lanes at depth {depth}")
         pool = want9
-    return worst, work, {k: v / max(calls, 1) for k, v in plain.items()}
+    per_call = {k: v / max(calls, 1) for k, v in plain.items()}
+    per_call.update({k: ms / n for k, (ms, n) in radix_plain.items()})
+    return worst, work, per_call, {k: ms / n for k, (ms, n) in library.items()}
+
+
+def bitwise(a):
+    """A tensor's 32-bit words as int32 (exact comparisons of floats)."""
+    import torch
+
+    return a.view(torch.int32) if a.dtype == torch.float32 else a
+
+
+def radix_check(o, d, cands, hits, sk, eh, ds, g, tables, plain, library):
+    """The radix route of big geom g at one depth, from A's keys `sk` and
+    the counting route's C results `eh` (both the kernels'): every split
+    (the compaction split, then each one-bit pass) and every unsplit
+    against its plain version exactly (counts, keys, moved words); the
+    sorted stream against a stable torch.sort gather of the compacted one;
+    the unsort's round trip; C in stream order against its plain version
+    by C's rule; the route's results at every real [slot, j] and D's lanes
+    over them against the counting route's, bit for bit (any difference
+    reported and held to the lane rule). Adds each plain version's host
+    ms per call to `plain` and the library calls' ms to `library` ({name:
+    [ms, calls]}): per split a stable torch.sort of its 0/1 flags with the
+    key and payload gathers, per unsplit an index_copy_ through that
+    permutation, the whole sort a stable torch.sort of the compacted keys
+    with the payload gather, B a stable torch.sort of A's masked keys.
+    Returns {check: (share that differs, max_abs_err)}."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+
+    E, P = sk.keys.shape
+    sn = ds.super_ranges[g][1]
+    dead = 2 * sn
+    n = int(cands.count[0])
+    out = {}
+
+    def add(table, k, ms):
+        table.setdefault(k, [0.0, 0])
+        table[k][0] += ms
+        table[k][1] += 1
+
+    def timed(k, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        add(plain, k, 1e3 * (time.perf_counter() - t0))
+        return res
+
+    def exact(what, got, want):
+        if not torch.equal(bitwise(got), bitwise(want)):
+            raise RuntimeError(f"radix route: {what} differs from its plain version")
+
+    real = (sk.keys < dead) & (torch.arange(P, device=sk.keys.device) < n)[None]
+    masked = torch.where(real, sk.keys, dead).reshape(-1)
+    add(library, "place_entries", event_ms(lambda: torch.sort(masked, stable=True), 3))
+
+    def split(sp, payload):
+        counts = pl.radix_counts(sp)
+        csum = torch.cumsum(counts, 0, dtype=torch.int32)
+        key, moved = pl.radix_scatter(sp, csum, payload)
+        want_counts = timed("radix_counts", lambda: pl.radix_counts_reference(sp))
+        want_key, want = timed("radix_scatter",
+                               lambda: pl.radix_split_reference(sp, payload))
+        m = int(csum[-1] if sp.bit < 0 else sp.count[0])  # the elements placed
+        exact(f"counts of split {sp.bit}", counts, want_counts)
+        exact(f"keys of split {sp.bit}", key[:m], want_key[:m])
+        exact(f"payload of split {sp.bit}", moved[:, :m], want[:, :m])
+        if sp.bit < 0:
+            flag = (~real).reshape(-1).to(torch.int32)
+            src = lambda idx: idx % P  # noqa: E731
+        else:
+            flag = (sp.key[:m] >> sp.bit) & 1
+            src = lambda idx: idx  # noqa: E731
+        keys = sp.key.reshape(-1)
+
+        def lib():
+            idx = torch.sort(flag, stable=True).indices[:m]
+            return keys[idx], payload[:, src(idx)]
+
+        add(library, "radix_scatter", event_ms(lib, 3))
+        order = torch.sort(flag, stable=True).indices[:m]
+        return key, moved, csum, m, order
+
+    compact = pl.RadixSplit(sk.keys, cands.count, -1, dead)
+    key, rays, csum_c, total, order_c = split(compact, sk.rays)
+    compacted = stream = pl.RadixStream(key, rays, csum_c[-1:])
+    stages = []
+    for b in range(max(1, dead.bit_length())):
+        sp = pl.RadixSplit(stream.key, stream.length, b)
+        key, pay, csum, _, order = split(sp, stream.payload)
+        stages.append((sp, csum, order))
+        stream = pl.RadixStream(key, pay, stream.length)
+    ck, cp = compacted.key[:total], compacted.payload[:, :total]
+    idx = torch.sort(ck, stable=True).indices
+    if not (torch.equal(stream.key[:total], ck[idx])
+            and torch.equal(stream.payload[:, :total], cp[:, idx])):
+        raise RuntimeError("radix route: the sorted stream is not the stable "
+                           "torch.sort gather of the compacted stream")
+
+    def lib_sort():
+        i = torch.sort(ck, stable=True).indices
+        return ck[i], cp[:, i]
+
+    add(library, "sort", event_ms(lib_sort, 3))
+    res = pl.window_sweep_stream(stream, ds, g, tables=tables)
+    want = timed("window_sweep_stream",
+                 lambda: pl.window_sweep_stream_reference(stream, ds, g))
+    got_h, want_h = pl.entry_hits(res), pl.entry_hits(want)
+    hit_g, hit_w = got_h.t[:total] < pl.FLT_MAX, want_h.t[:total] < pl.FLT_MAX
+    both = hit_g & hit_w
+    off = max(float((hit_g != hit_w).float().mean()),
+              float((got_h.tri[:total] != want_h.tri[:total]).float().mean()))
+    w, e = lane_rule([a[:total][both] for a in (got_h.t, got_h.u, got_h.v)],
+                     [a[:total][both] for a in (want_h.t, want_h.u, want_h.v)])
+    out["window_sweep_stream"] = (max(w, off), e)
+    if off > 0.01 or w > LANE_FRAC:
+        raise RuntimeError(f"window_sweep_stream: winners differ on {off:.2%} of "
+                           f"the entries, {w:.2%} off the lane rule")
+    back = res
+    for sp, csum, order in reversed(stages):
+        got = pl.radix_unscatter(sp, csum, back)
+        want_b = timed("radix_unscatter", lambda: pl.radix_unsplit_reference(sp, back))
+        exact(f"unsplit {sp.bit}", got[:, :total], want_b[:, :total])
+        src = back[:, :total]
+        dst = torch.empty_like(src)
+        add(library, "radix_unscatter",
+            event_ms(lambda: dst.index_copy_(1, order, src), 3))
+        back = got
+    full = pl.radix_unscatter(compact, csum_c, back)
+    want_f = timed("radix_unscatter", lambda: pl.radix_unsplit_reference(compact, back))
+    flat = real.reshape(-1)
+    exact("the expansion", full[:, flat], want_f[:, flat])
+    src = back[:, :total]
+    dst = torch.empty_like(full)
+    add(library, "radix_unscatter",
+        event_ms(lambda: dst.index_copy_(1, order_c, src), 3))
+    trip = pl.radix_unsort_stream(stream.payload, [st[:2] for st in stages])
+    if not torch.equal(bitwise(trip[:, :total]), bitwise(cp)):
+        raise RuntimeError("radix route: the unsort does not round-trip")
+    # the route against the counting route: C's results at every real
+    # [slot, j], then D over each
+    rad = pl.entry_hits(full.view(4, E, P))
+    same = torch.ones_like(real)
+    for a, b in zip(rad, eh):
+        same &= bitwise(a) == bitwise(b)
+    diff = float((~same[real]).float().mean())
+    w, e = lane_rule([a[real] for a in (rad.t, rad.u, rad.v)],
+                     [a[real] for a in (eh.t, eh.u, eh.v)])
+    tri_off = float((rad.tri[real] != eh.tri[real]).float().mean())
+    out["route_entries"] = (diff, e)
+    if w > LANE_FRAC or tri_off > 0.01:
+        raise RuntimeError(f"radix route: C's results off the counting route's "
+                           f"on {max(w, tri_off):.2%} of the entries")
+    got = pl.merge_entries(o, d, cands, clone_hits(hits), sk, rad, ds, g, tables=tables)
+    want = pl.merge_entries(o, d, cands, clone_hits(hits), sk, eh, ds, g, tables=tables)
+    torch.cuda.synchronize()
+    listed = cands.lanes[:n].long()
+    lanes_g = [a[listed] for a in hit_lanes(got)]
+    lanes_w = [a[listed] for a in hit_lanes(want)]
+    same = torch.ones(n, dtype=torch.bool, device=listed.device)
+    for a, b in zip(lanes_g, lanes_w):
+        same &= bitwise(a) == bitwise(b)
+    w, e = lane_rule(lanes_g, lanes_w)
+    out["route_lanes"] = (float((~same).float().mean()) if n else 0.0, e)
+    if w > LANE_FRAC:
+        raise RuntimeError(f"radix route: D's lanes off the counting route's on "
+                           f"{w:.2%} of the lanes")
+    return out
 
 
 def reset_launches():
@@ -832,13 +1054,13 @@ def profile_device(fn, n_iters, by_depth=()):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         for k, sym in KERNEL_SYMBOLS.items():
-            if sym in e.name:
+            if sym.search(e.name):
                 per[k].append(e.time_range.elapsed_us())
     starts = {k: [] for k in by_depth}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             for k in by_depth:
-                if KERNEL_SYMBOLS[k] in e.name:
+                if KERNEL_SYMBOLS[k].search(e.name):
                     starts[k].append((e.time_range.start, e.time_range.elapsed_us()))
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):  # the union of the device spans
@@ -1033,24 +1255,41 @@ def main() -> int:
                               ("bunny.txt", (800, 800), (0,))):
         rb = big[name]
         bcam = camera_to_device(camera_at(rb.scene.state.camera, res), dev)
-        worst, work, plain = sorted_parity(
+        worst, work, plain, library = sorted_parity(
             rb.dev_scene, bcam, RenderSettings(trace_depth=8, **aa),
             tuple(depths), rb.tables)
         what = {"config": name, "settings": aa, "res": f"{res[0]}x{res[1]}",
                 "depths": list(depths), "E": pl.SORT_EXPAND}
+        radix = ("route_entries", "route_lanes", "radix_chain")
         say("sorted_parity", **what, keys="exact", stream="exact per key",
             pix="exact",
             lanes={k: {"outlier_share": w, "max_abs_err": e}
-                   for k, (w, e) in worst.items()},
+                   for k, (w, e) in worst.items() if k not in radix},
             rule=f"share(|d|>{LANE_ATOL})<={LANE_FRAC}")
+        # the radix route: splits, unsplits, the sorted stream and the round
+        # trip exact (radix_check raises otherwise); the route against the
+        # counting route, the share of entries / lanes not bit-equal
+        say("radix_parity", **what, bits=max(1, (2 * max(
+                rb.dev_scene.super_ranges[g][1] for g in pl.sorted_geoms(
+                    rb.dev_scene))).bit_length()),
+            splits="exact", unsplits="exact", sorted_stream="stable torch.sort gather",
+            round_trip="exact",
+            not_bit_equal={k: {"share": worst[k][0], "max_abs_err": worst[k][1]}
+                           for k in radix},
+            window_sweep_stream={"outlier_share": worst["window_sweep_stream"][0],
+                                 "max_abs_err": worst["window_sweep_stream"][1]},
+            library_ms=library,
+            plain_ms={k: plain[k] for k in RADIX_KERNELS})
         for k, (w, e) in worst.items():
-            if w > LANE_FRAC:
+            if w > LANE_FRAC and k not in radix:
                 raise RuntimeError(f"{k} disagrees with its plain version on "
                                    f"{w:.2%} of lanes: {what}")
         if name == "mesh_big.txt" and res == (800, 800):
-            for k in SORTED_KERNELS:
+            for k in SORTED_KERNELS + ("window_sweep_stream",):
                 err800[k] = worst[k][1]
-            big_work, big_plain = work, plain
+            for k in RADIX_KERNELS[:3]:
+                err800[k] = 0.0  # held exactly
+            big_work, big_plain, big_library = work, plain, library
             cand = np.maximum(np.array(work["candidates"], np.float64), 1)
             ent = np.maximum(np.array(work["entries"], np.float64), 1)
             say("sorted_work", config=name, res="800x800", settings=aa,
@@ -1086,25 +1325,37 @@ def main() -> int:
             if badfrac > GOLDEN_FRAC:
                 raise RuntimeError(f"{key} via {route}: badfrac {badfrac} > {GOLDEN_FRAC}")
     # the big-mesh scenes through the sorted route, each Renderer reused
-    # (set_camera resets its accumulator)
-    for name in BIG_SCENES:
+    # (set_camera resets its accumulator); then through the radix route
+    # (SORT_RADIX set here and restored, as the JAX package's
+    # tools/ab_bigmesh.py toggles its module constant): all four through
+    # step_batch, mesh_big through step() too
+    runs = [(name, route, False) for name in BIG_SCENES
+            for route in ("step_batch", "step")]
+    runs += [(name, "step_batch", True) for name in BIG_SCENES]
+    runs += [("mesh_big.txt", "step", True)]
+    for name, route, radix in runs:
         rb = big[name]
-        for route in ("step_batch", "step"):
-            rb.set_camera(rb.camera)
+        rb.set_camera(rb.camera)
+        pl.SORT_RADIX, flag = radix, pl.SORT_RADIX
+        try:
             if route == "step":
                 rb.step()
                 rb.step()
             else:
                 rb.step_batch(2)
-            img = rb.image()
-            if not (np.isfinite(img).all() and img.max() > 0):
-                raise RuntimeError(f"{name}: non-finite or black render")
-            diff = np.abs(np.clip(img / 2, 0.0, 1.0) - goldens[name].astype(np.float32))
-            badfrac = float((diff > GOLDEN_BAD).mean())
-            say("golden", config=name, settings={}, route=route, badfrac=badfrac,
-                mad=float(diff.mean()), rule=f"badfrac<={GOLDEN_FRAC}")
-            if badfrac > GOLDEN_FRAC:
-                raise RuntimeError(f"{name} via {route}: badfrac {badfrac} > {GOLDEN_FRAC}")
+        finally:
+            pl.SORT_RADIX = flag
+        img = rb.image()
+        if not (np.isfinite(img).all() and img.max() > 0):
+            raise RuntimeError(f"{name}: non-finite or black render")
+        diff = np.abs(np.clip(img / 2, 0.0, 1.0) - goldens[name].astype(np.float32))
+        badfrac = float((diff > GOLDEN_BAD).mean())
+        say("golden", config=name, settings={}, route=route,
+            sort="radix" if radix else "counting", badfrac=badfrac,
+            mad=float(diff.mean()), rule=f"badfrac<={GOLDEN_FRAC}")
+        if badfrac > GOLDEN_FRAC:
+            raise RuntimeError(f"{name} via {route} (radix {radix}): badfrac "
+                               f"{badfrac} > {GOLDEN_FRAC}")
 
     # ---- 5. the main path at full size: Cornell 800x800 d8 AA, step_batch ----
     scene = load_scene(os.path.join(HERE, "scenes", "cornell.txt"))
@@ -1195,12 +1446,22 @@ def main() -> int:
         ("big_mesh", "mesh_big.txt", None, {"antialias": True}, "step_batch"),
         ("big_mesh_step", "mesh_big.txt", None, {"antialias": True}, "step"),
         ("bunny", "bunny.txt", None, {"antialias": True}, "step_batch"),
+        # the radix route (SORT_RADIX set for these only): #7 -> #8 -> A ->
+        # the compaction split and 7 one-bit passes -> C in stream order ->
+        # 7 unsplits and the expansion -> D -> #9 at every depth
+        ("big_mesh_radix", "mesh_big.txt", None, {"antialias": True},
+         "step_batch"),
+        ("bunny_radix", "bunny.txt", None, {"antialias": True}, "step_batch"),
     ]
+    radix_paths = ("big_mesh_radix", "bunny_radix")
 
-    def expected_launches(settings, route, n_it, n_calls, mesh, n_sorted=0):
+    def expected_launches(settings, route, n_it, n_calls, mesh, n_sorted=0,
+                          splits=None):
         """The launches of n_it iterations in n_calls calls of the route
         (n_sorted: the scene's geoms on the sorted route, each running A-D
-        once per #8)."""
+        once per #8; splits: under the radix route, the splits of one #8
+        summed over those geoms, each 1 + bit_length(2 * n_supers), which
+        take the place of B and C)."""
         if settings.nee_mis:
             if route == "step" or settings.motion_blur:
                 return dict(NO_LAUNCHES, bounce_step_nee=n_it * D)
@@ -1217,10 +1478,16 @@ def main() -> int:
         fills = (n_calls if route == "step_batch" else 1) if cached else 0
         isects = fills + (2 * n_it if settings.direct_lighting else 0)
         shaded = n_it * (bounces + (0 if cached else 1))
-        return dict(NO_LAUNCHES, mesh_candidates=isects + shaded,
-                    mesh_sweep=isects + shaded, bounce_step_mesh=shaded,
-                    intersect_mesh=isects, shade_step=n_it if cached else 0,
-                    **dict.fromkeys(SORTED_KERNELS, n_sorted * (isects + shaded)))
+        walks = isects + shaded
+        out = dict(NO_LAUNCHES, mesh_candidates=walks, mesh_sweep=walks,
+                   bounce_step_mesh=shaded, intersect_mesh=isects,
+                   shade_step=n_it if cached else 0,
+                   **dict.fromkeys(SORTED_KERNELS, n_sorted * walks))
+        if splits is not None:
+            out.update(place_entries=0, window_sweep=0,
+                       window_sweep_stream=n_sorted * walks,
+                       **dict.fromkeys(RADIX_KERNELS[:3], splits * walks))
+        return out
 
     launches_of = {}
     kernel_ms_of = {}
@@ -1235,6 +1502,7 @@ def main() -> int:
         return rb
 
     load_res = {name: (800, 800) for name in BIG_SCENES}
+    radix_default = pl.SORT_RADIX
     for label, name, path, kw, route in paths:
         settings = RenderSettings(trace_depth=D, **kw)
         reset_launches()
@@ -1245,13 +1513,20 @@ def main() -> int:
             scene = load_scene(path or os.path.join(HERE, "scenes", name))
             r = Renderer(scene, settings, device=dev)
         res = r.camera.resolution
+        radix = label in radix_paths
+        splits = sum(1 + max(1, (2 * r.dev_scene.super_ranges[g][1]).bit_length())
+                     for g in pl.sorted_geoms(r.dev_scene)) if radix else None
 
         def run(n):
-            if route == "step":
-                for _ in range(n):
-                    r.step()
-            else:
-                r.step_batch(n)
+            pl.SORT_RADIX = radix
+            try:
+                if route == "step":
+                    for _ in range(n):
+                        r.step()
+                else:
+                    r.step_batch(n)
+            finally:
+                pl.SORT_RADIX = radix_default
 
         n_warm, n_timed = 5, 40
         run(n_warm)
@@ -1264,7 +1539,7 @@ def main() -> int:
         n_it = n_warm + n_timed
         want = expected_launches(settings, route, n_it, 2,
                                  bool(scene.triangles.count),
-                                 len(pl.sorted_geoms(r.dev_scene)))
+                                 len(pl.sorted_geoms(r.dev_scene)), splits)
         if got != want or r.iteration != n_it:
             raise RuntimeError(f"{label}: launches {got}, expected {want}")
         img = r.image()
@@ -1277,10 +1552,12 @@ def main() -> int:
         ms = 1e3 * dt / n_timed
         busy, kernel_ms_of[label], seen = profile_device(
             lambda: run(10), 10,
-            by_depth=SORTED_KERNELS if name in BIG_SCENES else ())
+            by_depth=SORTED_KERNELS + ("window_sweep_stream",)
+            if name in BIG_SCENES else ())
         frame_ms_of[label], busy_of[label] = ms, busy
         say("path", path=label, scene=name, settings=kw,
             route=f"Renderer.{route}", res=f"{res[0]}x{res[1]}", depth=D,
+            sort="radix" if radix else "counting",
             ms_per_frame=ms,
             mrays_per_s=res[0] * res[1] * D * n_timed / dt / 1e6,
             launches=got, iterations=n_it, alive_counts=counts,
@@ -1323,7 +1600,9 @@ def main() -> int:
             kernel_device_ms=walk_ms,
             profiled_launches={k: n for k, n in seen.items() if n},
             sorted_route_ms_per_frame=frame_ms_of["big_mesh"],
-            sorted_route_busy_ms_per_iteration=busy_of["big_mesh"])
+            sorted_route_busy_ms_per_iteration=busy_of["big_mesh"],
+            radix_route_ms_per_frame=frame_ms_of["big_mesh_radix"],
+            radix_route_busy_ms_per_iteration=busy_of["big_mesh_radix"])
     finally:
         pl.SORT_SUPER_MIN_TRIS = threshold
         r.tables = mk.pack_scene_tables(r.dev_scene)
@@ -1475,6 +1754,7 @@ def main() -> int:
     (bg,) = pl.sorted_geoms(bds)
     b_sn, b_cn, b_tc = (bds.super_ranges[bg][1], bds.chunk_ranges[bg][1],
                         bds.tri_ranges[bg][1])
+    b_p = 800 * 800
     E = pl.SORT_EXPAND
     bw = {k: np.array(v, np.float64) for k, v in big_work.items()}
     bounds.update({
@@ -1504,18 +1784,62 @@ def main() -> int:
     for name in SORTED_KERNELS:
         timing[name] = (kernel_ms_of["big_mesh"][name], big_plain[name],
                         launches_of["big_mesh"][name])
+    # the radix route's bounds, per launch averaged over its launches on
+    # (q) mesh_big 800x800 d8 AA: per depth the compaction split of the
+    # listed lanes' E keys (only the listed columns are read) and their
+    # rays, then `bits` one-bit passes over the depth's real entries; the
+    # per-block counts (4 B a block) read back by the scatter
+    bits = max(1, (2 * b_sn).bit_length())
+    blocks = -(-E * b_p // pl.RADIX_BLOCK)
+    cand, ent = bw["candidates"], bw["entries"]
+    splits = 1 + bits
+    bounds.update({
+        # each key read once
+        "radix_counts": bound(
+            np.mean((4 * E * cand + 4 * bits * ent) / splits + 4 * blocks),
+            np.mean(OPS_RADIX * (E * cand + bits * ent) / splits)),
+        # the keys read, 28 B of key and ray moved per entry (the rays read
+        # once per listed lane in the compaction split)
+        "radix_scatter": bound(
+            np.mean((4 * E * cand + 24 * cand + 28 * ent + 56 * bits * ent) / splits
+                    + 4 * blocks),
+            np.mean(OPS_RADIX * (E * cand + bits * ent) / splits)),
+        # the stage key read, 16 B of C's results moved per entry
+        "radix_unscatter": bound(
+            np.mean((4 * E * cand + 32 * ent + 36 * bits * ent) / splits
+                    + 4 * blocks),
+            np.mean(OPS_RADIX * (E * cand + bits * ent) / splits)),
+        # C's: the geom's triangles and chunk boxes once, per entry its key
+        # and ray in and its 16 B out
+        "window_sweep_stream": bound(
+            48 * b_tc + 32 * b_cn + np.mean(44 * ent),
+            np.mean(OPS_CHUNK_TEST * bw["chunks"] + OPS_MT * bw["tris"])),
+    })
+    for name in RADIX_KERNELS:
+        timing[name] = (kernel_ms_of["big_mesh_radix"][name], big_plain[name],
+                        launches_of["big_mesh_radix"][name])
+    # one PyTorch call computing the same function on the same inputs,
+    # where there is one (timed in radix_check, used nowhere in the port):
+    # B a stable torch.sort of A's masked keys; a split a stable torch.sort
+    # of its flags with the key and payload gathers; an unsplit an
+    # index_copy_ through that permutation. No single call computes the
+    # others (a path-tracing bounce, a BVH walk, a merge of two winners, a
+    # per-block count of the flags, a window sweep).
+    library = {name: big_library.get(name) for name in KERNELS}
 
     # ---- 8. the CLI: Cornell plain, with --compact and with --nee; mesh.txt;
     # mesh_big.txt (the sorted route) ----
-    for name, extra in (("cornell.txt", []), ("cornell.txt", ["--compact"]),
-                        ("cornell.txt", ["--nee"]), ("mesh.txt", []),
-                        ("mesh_big.txt", [])):
+    for name, extra, env in (("cornell.txt", [], {}), ("cornell.txt", ["--compact"], {}),
+                             ("cornell.txt", ["--nee"], {}), ("mesh.txt", [], {}),
+                             ("mesh_big.txt", [], {}),
+                             ("mesh_big.txt", [], {"PT_TPU_SORT_RADIX": "1"})):
         out_dir = tempfile.mkdtemp(prefix="cli_", dir=tmpdir)
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", PKG, os.path.join(HERE, "scenes", name),
              "--iterations", "50", "--out-dir", out_dir, *extra],
             cwd=HERE, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, **env),
         )
         if proc.returncode != 0:
             raise RuntimeError(f"CLI {extra} exited {proc.returncode}: "
@@ -1523,7 +1847,7 @@ def main() -> int:
         pngs = [f for f in os.listdir(out_dir) if f.endswith(".50samp.png")]
         if len(pngs) != 1:
             raise RuntimeError(f"CLI {extra} wrote {os.listdir(out_dir)}")
-        say("cli", scene=name, flags=extra, rc=proc.returncode, png=pngs[0],
+        say("cli", scene=name, flags=extra, env=env, rc=proc.returncode, png=pngs[0],
             seconds=time.perf_counter() - t0)
     shutil.rmtree(tmpdir, ignore_errors=True)
 
@@ -1537,10 +1861,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": err800[name], "ms": ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
-            # no single PyTorch call computes any of these functions
-            # (a BVH walk, a path-tracing bounce, a merge of two winners)
-            "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library[name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

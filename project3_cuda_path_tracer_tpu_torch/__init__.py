@@ -7,8 +7,10 @@ nor JAX. On CUDA an iteration runs hand-written kernels: the
 whole-iteration kernel, or the per-bounce first-bounce / bounce / shade
 kernels (ops/megakernel.py, csrc/), the NEE + MIS kernels, and on a mesh
 scene the mesh pipeline (ops/pipeline.py: candidates, BVH sweep, the
-big-mesh route's sorted supernode sweep, merge + shade or merge); on the
-CPU, and only when asked for, their plain PyTorch versions.
+big-mesh route's sorted supernode sweep, sorted by a counting sort or,
+under PT_TPU_SORT_RADIX=1, by the radix kernels, merge + shade or
+merge); on the CPU, and only when asked for, their plain PyTorch
+versions.
 """
 
 __version__ = "0.1.0"

@@ -41,7 +41,11 @@
 //      per lane); Moller-Trumbore is _mt_chunk's expression in ascending
 //      triangle order with strict t < bt. Each entry's (t, triangle, u, v)
 //      goes to [slot, j]: no entry's result depends on the stream's order
-//      or length.
+//      or length. The stream-order instantiation (kStream, the radix
+//      route's C: ops/pipeline.py's SORT_RADIX) reads each entry's ray from
+//      the sorted stream's payload at its place e and writes its result at
+//      e, which is what the JAX package's windows_sweep does on its radix
+//      branch; the per-entry arithmetic is the same code.
 //      Bound: operations (entries x triangles tested x ~64).
 //   D  merge_entries_kernel replaces #14 _kx_expand, the E-slot strict-<
 //      merge and _mesh_epilogue. One thread per listed lane: the min over
@@ -166,6 +170,7 @@ __global__ void __launch_bounds__(kThreads)
   out_entry[pos] = static_cast<int>(e);
 }
 
+template <bool kStream>
 __global__ void __launch_bounds__(kSweepThreads)
     window_sweep_kernel(const float4* __restrict__ tri, const float* __restrict__ chunks,
                         const int* __restrict__ key, const int* __restrict__ entry,
@@ -198,8 +203,14 @@ __global__ void __launch_bounds__(kSweepThreads)
   int slot_j = 0;
   ObjRay r;
   if (valid) {
-    slot_j = __ldg(entry + e);
-    const int j = slot_j % n;
+    int j;
+    if constexpr (kStream) {  // the entry's ray and result at its stream place
+      slot_j = e;
+      j = e;
+    } else {
+      slot_j = __ldg(entry + e);
+      j = slot_j % n;
+    }
     r.o = {__ldg(q + j), __ldg(q + n + j), __ldg(q + 2 * n + j)};
     r.d = {__ldg(q + 3 * n + j), __ldg(q + 4 * n + j), __ldg(q + 5 * n + j)};
     r.inv_d = {1.0f / r.d.x, 1.0f / r.d.y, 1.0f / r.d.z};
@@ -362,9 +373,29 @@ extern "C" int pt_window_sweep(void* const* mesh, const int* key, const int* ent
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     const float* chunks = static_cast<const float*>(mesh[5]) + 8 * chunk_start;
-    window_sweep_kernel<<<blocks_of(static_cast<long long>(E) * n, kSweepThreads),
-                          kSweepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    window_sweep_kernel<false><<<blocks_of(static_cast<long long>(E) * n, kSweepThreads),
+                                 kSweepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(mesh[0]), chunks, key, entry, total, q, n, n_supers,
+        n_chunks, tri_start, tri_count, out_t, out_tri, out_u, out_v);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C in stream order (the radix route): key, q (6, n) and total are the
+// sorted stream of the radix passes (n its capacity); each entry's ray is
+// q[:, e] and its (t, triangle, u, v) goes to [e].
+extern "C" int pt_window_sweep_stream(void* const* mesh, const int* key, const int* total,
+                                      const float* q, int n, int n_supers, int chunk_start,
+                                      int n_chunks, int tri_start, int tri_count, float* out_t,
+                                      int* out_tri, float* out_u, float* out_v, int device,
+                                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    const float* chunks = static_cast<const float*>(mesh[5]) + 8 * chunk_start;
+    window_sweep_kernel<true><<<blocks_of(n, kSweepThreads), kSweepThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(mesh[0]), chunks, key, nullptr, total, q, n, n_supers,
         n_chunks, tri_start, tri_count, out_t, out_tri, out_u, out_v);
   }
   return static_cast<int>(cudaGetLastError());

@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "full_iteration.cu", CSRC / "bounce.cu", CSRC / "nee.cu",
-           CSRC / "mesh.cu", CSRC / "sorted.cu")
+           CSRC / "mesh.cu", CSRC / "sorted.cu", CSRC / "radix.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -75,10 +75,21 @@ SIGNATURES = {
     # tri_start, tri_count, t, tri, u, v, device, stream
     "pt_window_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                         _P, _P, _I, _P],
+    # mesh, key, total, q, n, n_supers, chunk_start, n_chunks, tri_start,
+    # tri_count, t, tri, u, v, device, stream
+    "pt_window_sweep_stream": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                               _P, _P, _I, _P],
     # tables, n_geoms, mesh, rays, list, count, n, E, n_supers, geom,
     # has_uv, keys, t, tri, u, v, q, bt0, hits, device, stream
     "pt_merge_entries": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                          _P, _P, _P, _P, _P, _P, _I, _P],
+    # a split (key, count, capacity, n, bit, dead), then: counts, device,
+    # stream
+    "pt_radix_counts": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # split, csum, in, out, n_words, key_out, device, stream
+    "pt_radix_scatter": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P],
+    # split, csum, in, out, n_words, device, stream
+    "pt_radix_unscatter": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P],
 }
 
 

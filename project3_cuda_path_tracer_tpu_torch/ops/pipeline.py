@@ -34,13 +34,31 @@ each such geom, in geom order, after #8 has swept the others
   each lane's winner over its entries, in world space, merged into #8's
   hit lanes.
 
+Under SORT_RADIX (the JAX package's `PT_TPU_SORT_RADIX=1`, off by
+default) B gives way to the radix route (csrc/radix.cu), as the JAX
+package's radix kernels #15-#17 replace both of its sorts
+(`radix_window_sweep`): three wrappers over one stable binary split,
+
+- `radix_counts` (the count half of #15 `_kr_partition`): per block of
+  RADIX_BLOCK elements, the elements whose split flag is 0;
+- `radix_scatter` (#15's packing and #16 `_kr_stitch2`): each element's
+  key and payload to its place, from the blocks' scanned counts;
+- `radix_unscatter` (#17 `_kr_unpartition`): one split undone on the
+  result arrays;
+
+run as the compaction split of A's keys (the real entries in entry-id
+order, with their rays), `bit_length(2 * n_supers)` one-bit LSB passes
+(`radix_sort_stream`), C in stream order (`window_sweep_stream`), the
+passes undone in reverse (`radix_unsort_stream`) and the compaction split
+undone (the results back to [slot, j]) before D.
+
 The chains: `bounce_step_pipeline` is #7 -> #8 [-> A -> B -> C -> D per
 big geom] -> #9 (one bounce of the mesh path), `intersect_pipeline` #7 ->
 #8 [-> A-D] -> #10 (the first-bounce cache fill and --direct-lighting's
 two intersect calls).
 
 On CUDA tensors a wrapper launches its hand-written kernel
-(csrc/mesh.cu, built by ops/_native.py) or raises; on CPU tensors, and
+(csrc/mesh.cu, sorted.cu or radix.cu, built by ops/_native.py) or raises; on CPU tensors, and
 only there, it runs its plain PyTorch version (`*_reference`): #7 the
 analytic `intersect_scene` plus the candidacy mask plus `torch.nonzero`,
 #8 `mesh_intersect_bvh` on the candidate rays (the naive sweep when
@@ -57,6 +75,7 @@ merges in geom order instead, which differs only on exact ties).
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -100,6 +119,14 @@ SORT_SUPER_MIN_TRIS = 16384
 SORT_EXPAND = 6
 # A's histogram lives in 48 KB of shared memory: 2 bins per supernode
 MAX_SUPERS = 6144
+# the radix route in place of B (the JAX package's SORT_RADIX, read from
+# the same environment variable at import, off by default; read again at
+# each call, so a caller may set the module constant)
+SORT_RADIX = os.environ.get("PT_TPU_SORT_RADIX", "0") == "1"
+# elements per block of the radix kernels (csrc/radix.cu kRadixThreads)
+RADIX_BLOCK = 256
+# 32-bit arrays one radix launch moves at most (csrc/radix.cu kMaxWords)
+RADIX_MAX_WORDS = 8
 
 
 def sorted_geoms(scene: DeviceScene) -> tuple:
@@ -320,6 +347,37 @@ class EntryHits(NamedTuple):
     v: torch.Tensor
 
 
+def entry_hits(res: torch.Tensor) -> EntryHits:
+    """EntryHits over the rows of one float32 buffer (4, ...): t, the
+    triangle's int32 bits, u, v (the layout the radix route moves)."""
+    return EntryHits(res[0], res[1].view(torch.int32), res[2], res[3])
+
+
+class RadixSplit(NamedTuple):
+    """One stable binary split: the elements whose flag is 0 first, in
+    order, then the others, in order. `bit` >= 0: a pass over the first
+    `count` elements of a stream key (L,), flag bit `bit` of the key. `bit`
+    < 0: the compaction split of A's slot-major keys (E, P), flag 0 iff the
+    entry is real (column j < count, #7's listed lanes, and key < `dead`);
+    its zeros are the real entries in entry-id order, its ones are not
+    placed, and its payload is read by column (lane j's object-space ray).
+    Recorded as a stage, it is what the unsplit recomputes."""
+
+    key: torch.Tensor  # (L,) int32 stream keys, or (E, P) A's keys
+    count: torch.Tensor  # (1,) int32 on the device: length, or listed lanes
+    bit: int  # the key bit; -1: the compaction split
+    dead: int = 0  # the compaction split's dead key, 2 * n_supers
+
+
+class RadixStream(NamedTuple):
+    """A stream of the radix route: entries at [0, length) of buffers of
+    capacity L (E x the pool)."""
+
+    key: torch.Tensor  # (L,) int32
+    payload: torch.Tensor  # (k, L) 32-bit words (the six ray lanes, f32)
+    length: torch.Tensor  # (1,) int32 on the device
+
+
 def super_rank(q, bt: torch.Tensor, boxes: torch.Tensor, E: int) -> torch.Tensor:
     """The JAX package's `_super_rank_xla`, op for op: for object-space
     rays q = (ox, oy, oz, dx, dy, dz) and pruning bounds bt (each (n,)),
@@ -444,13 +502,52 @@ def window_sweep_reference(stream: Stream, sk: SuperKeys, scene: DeviceScene,
     each (total,) int64 in stream order."""
     E, P = sk.keys.shape
     device = sk.keys.device
+    m = int(stream.total[0])
+    entry = stream.entry[:m].to(torch.int64)
+    bt, best, bu, bv = _sweep_entries(stream.key[:m], sk.rays[:, entry % P], scene,
+                                      g, probe)
+    out = EntryHits(
+        t=torch.full((E, P), FLT_MAX, dtype=torch.float32, device=device),
+        tri=torch.full((E, P), -1, dtype=torch.int32, device=device),
+        u=torch.zeros((E, P), dtype=torch.float32, device=device),
+        v=torch.zeros((E, P), dtype=torch.float32, device=device),
+    )
+    for a, val in zip(out, (bt, best, bu, bv)):
+        a.view(-1)[entry] = val
+    return out
+
+
+def window_sweep_stream_reference(stream: RadixStream, scene: DeviceScene,
+                                  g: int, probe: dict | None = None) -> torch.Tensor:
+    """C in stream order, plain (the radix route's C): each entry of the
+    sorted stream swept as `window_sweep_reference` sweeps it, its ray the
+    stream's payload at its place. Returns a (4, L) float32 buffer (rows t,
+    the triangle's int32 bits, u, v; `entry_hits`) holding each entry's
+    result at its place, FLT_MAX, -1, 0, 0 past the length. probe: as
+    `window_sweep_reference`'s."""
+    L = stream.key.shape[0]
+    m = int(stream.length[0])
+    res = torch.zeros((4, L), dtype=torch.float32, device=stream.key.device)
+    eh = entry_hits(res)
+    eh.t.fill_(FLT_MAX)
+    eh.tri.fill_(-1)
+    found = _sweep_entries(stream.key[:m], stream.payload[:, :m], scene, g, probe)
+    for a, val in zip(eh, found):
+        a[:m] = val
+    return res
+
+
+def _sweep_entries(key: torch.Tensor, q: torch.Tensor, scene: DeviceScene, g: int,
+                   probe: dict | None) -> tuple:
+    """C's sweep of m entries with keys `key` (m,) and object-space rays
+    `q` (6, m), vectorised per super and chunk; returns their (t, triangle
+    int32, u, v), each (m,)."""
+    device = key.device
     r = _geom_rows(scene, g)
     sn, cs, cn = r["n_supers"], r["chunk_start"], r["n_chunks"]
     ts, tc = r["tri_start"], r["tri_count"]
-    m = int(stream.total[0])
-    key = stream.key[:m].to(torch.int64)
-    entry = stream.entry[:m].to(torch.int64)
-    q = sk.rays[:, entry % P]
+    m = key.shape[0]
+    key = key.to(torch.int64)
     bt = torch.full((m,), FLT_MAX, dtype=torch.float32, device=device)
     best = torch.full((m,), -1, dtype=torch.int64, device=device)
     bu = torch.zeros(m, dtype=torch.float32, device=device)
@@ -493,15 +590,7 @@ def window_sweep_reference(stream: Stream, sk: SuperKeys, scene: DeviceScene,
         bt[sel], best[sel], bu[sel], bv[sel] = sbt, sbest, su, sv
     if probe is not None:
         probe.update(chunks=n_chunks, tris=n_tris)
-    out = EntryHits(
-        t=torch.full((E, P), FLT_MAX, dtype=torch.float32, device=device),
-        tri=torch.full((E, P), -1, dtype=torch.int32, device=device),
-        u=torch.zeros((E, P), dtype=torch.float32, device=device),
-        v=torch.zeros((E, P), dtype=torch.float32, device=device),
-    )
-    for a, val in zip(out, (bt, best.to(torch.int32), bu, bv)):
-        a.view(-1)[entry] = val
-    return out
+    return bt, best.to(torch.int32), bu, bv
 
 
 def merge_entries_reference(origins: Vec3, dirs: Vec3, cands: Candidates,
@@ -556,6 +645,79 @@ def merge_entries_reference(origins: Vec3, dirs: Vec3, cands: Candidates,
     hits.tex_u[win] = tex_u[better]
     hits.tex_v[win] = tex_v[better]
     return hits
+
+
+# ---- the radix route, plain versions ---------------------------------------
+
+def _split_flags(sp: RadixSplit) -> tuple:
+    """(valid, zero), each (capacity,) bool: the elements the split orders
+    and those among them whose flag is 0."""
+    device = sp.key.device
+    if sp.bit < 0:
+        E, P = sp.key.shape
+        listed = torch.arange(P, device=device) < sp.count
+        zero = (listed[None, :] & (sp.key < sp.dead)).reshape(-1)
+        return torch.ones_like(zero), zero
+    valid = torch.arange(sp.key.shape[0], device=device) < sp.count
+    return valid, valid & (((sp.key >> sp.bit) & 1) == 0)
+
+
+def _split_dest(sp: RadixSplit) -> torch.Tensor:
+    """Each element's place in the split stream, (capacity,) int64: the
+    zeros by their order among the zeros, the ones after all zeros by
+    their order among the ones; -1 for an element the split does not
+    place (past the length, or a one of the compaction split)."""
+    valid, zero = _split_flags(sp)
+    z = zero.to(torch.int64)
+    one = valid & ~zero
+    o = one.to(torch.int64)
+    dest = torch.where(zero, torch.cumsum(z, 0) - z, -1)
+    if sp.bit >= 0:
+        dest = torch.where(one, z.sum() + torch.cumsum(o, 0) - o, dest)
+    return dest
+
+
+def radix_counts_reference(sp: RadixSplit) -> torch.Tensor:
+    """radix_counts, plain: the zeros of the split per block of RADIX_BLOCK
+    elements of the capacity, (blocks,) int32."""
+    _, zero = _split_flags(sp)
+    pad = -zero.shape[0] % RADIX_BLOCK
+    zero = torch.cat([zero, zero.new_zeros(pad)])
+    return zero.view(-1, RADIX_BLOCK).sum(1, dtype=torch.int32)
+
+
+def radix_split_reference(sp: RadixSplit, payload: torch.Tensor) -> tuple:
+    """One stable binary split, plain (radix_counts -> scan ->
+    radix_scatter): the key and the payload (k, capacity) of 32-bit words
+    (for the compaction split (k, P), read by column) in split order.
+    Returns (key (capacity,), payload (k, capacity)): the split's elements
+    at [0, length) ([0, real entries) for the compaction split), zeros
+    after."""
+    dest = _split_dest(sp)
+    placed = torch.nonzero(dest >= 0)[:, 0]
+    src = placed % sp.key.shape[1] if sp.bit < 0 else placed
+    key = torch.zeros(dest.shape[0], dtype=torch.int32, device=dest.device)
+    key[dest[placed]] = sp.key.reshape(-1)[placed]
+    words = payload.view(torch.int32)
+    out = torch.zeros((words.shape[0], dest.shape[0]), dtype=torch.int32,
+                      device=dest.device)
+    out[:, dest[placed]] = words[:, src]
+    return key, out.view(payload.dtype)
+
+
+def radix_unsplit_reference(sp: RadixSplit, results: torch.Tensor) -> torch.Tensor:
+    """One split undone on result arrays, plain (radix_unscatter): from
+    `results` (k, capacity) of 32-bit words in split order, each element's
+    word back at its place before the split, out[e] = results[dest(e)],
+    dest recomputed from the recorded split. For the compaction split the
+    real entries' results go to [slot, j] (reshape to (k, E, P)); the
+    elements the split does not place get zeros."""
+    dest = _split_dest(sp)
+    placed = torch.nonzero(dest >= 0)[:, 0]
+    words = results.view(torch.int32)
+    out = torch.zeros_like(words)
+    out[:, placed] = words[:, dest[placed]]
+    return out.view(results.dtype)
 
 
 # ---- launch plumbing -------------------------------------------------------
@@ -907,16 +1069,196 @@ def merge_entries(origins: Vec3, dirs: Vec3, cands: Candidates,
     return hits
 
 
+def _split_args(sp: RadixSplit, device) -> tuple:
+    """(capacity, row stride n, blocks) of a split, after checking it."""
+    if sp.bit < 0:
+        if sp.key.dim() != 2:
+            raise ValueError("the compaction split takes A's (E, P) keys")
+        E, n = sp.key.shape
+        cap = E * n
+    else:
+        (cap,) = sp.key.shape
+        n = cap
+    _check_tensor(sp.key, "split.key", torch.int32, tuple(sp.key.shape), device)
+    _check_tensor(sp.count, "split.count", torch.int32, (1,), device)
+    if not 0 < cap < 2**31 - RADIX_BLOCK or sp.bit > 30:
+        raise ValueError(f"radix split: capacity {cap}, bit {sp.bit} out of range")
+    return cap, n, -(-cap // RADIX_BLOCK)
+
+
+def _check_words(a: torch.Tensor, name: str, rows_max: int, cols: int, device) -> None:
+    """A (k, cols) array of 32-bit words, k <= rows_max."""
+    if a.dim() != 2 or not 0 < a.shape[0] <= rows_max:
+        raise ValueError(f"{name} must be (k, {cols}) with 0 < k <= {rows_max}")
+    if a.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"{name} has dtype {a.dtype}, expected 32-bit words")
+    _check_tensor(a, name, a.dtype, (a.shape[0], cols), device)
+
+
+def radix_counts(sp: RadixSplit) -> torch.Tensor:
+    """The zeros of split `sp` per block of RADIX_BLOCK elements, (blocks,)
+    int32 on the device (0 for a block past the length). CPU: the plain
+    version; CUDA: one launch sized by the capacity, counted in
+    `radix_counts.launches`."""
+    device = sp.key.device
+    if device.type == "cpu":
+        return radix_counts_reference(sp)
+    _require_cuda(device, "radix_counts")
+    cap, n, blocks = _split_args(sp, device)
+    counts = torch.empty(blocks, dtype=torch.int32, device=device)
+    dev_index, stream = _device_args(device)
+    _launch("pt_radix_counts", "radix_counts", sp.key.data_ptr(), sp.count.data_ptr(),
+            cap, n, sp.bit, sp.dead, counts.data_ptr(), dev_index, stream)
+    radix_counts.launches += 1
+    return counts
+
+
+def radix_scatter(sp: RadixSplit, csum: torch.Tensor, payload: torch.Tensor) -> tuple:
+    """Split `sp` carried out: the key and the payload (k, capacity) of
+    32-bit words ((k, P) for the compaction split, read by column) each to
+    its place, from `csum`, the inclusive scan of `radix_counts(sp)`.
+    Returns (key (capacity,), payload (k, capacity)), written at [0,
+    length) ([0, real entries) for the compaction split). CPU: the plain
+    version (which needs no csum); CUDA: one launch sized by the capacity,
+    counted in `radix_scatter.launches`."""
+    device = sp.key.device
+    if device.type == "cpu":
+        return radix_split_reference(sp, payload)
+    _require_cuda(device, "radix_scatter")
+    cap, n, blocks = _split_args(sp, device)
+    _check_tensor(csum, "csum", torch.int32, (blocks,), device)
+    _check_words(payload, "payload", RADIX_MAX_WORDS, n, device)
+    key = torch.empty(cap, dtype=torch.int32, device=device)
+    out = torch.empty((payload.shape[0], cap), dtype=payload.dtype, device=device)
+    dev_index, stream = _device_args(device)
+    _launch("pt_radix_scatter", "radix_scatter", sp.key.data_ptr(), sp.count.data_ptr(),
+            cap, n, sp.bit, sp.dead, csum.data_ptr(), _ptrs(list(payload)),
+            _ptrs(list(out)), payload.shape[0], key.data_ptr(), dev_index, stream)
+    radix_scatter.launches += 1
+    return key, out
+
+
+def radix_unscatter(sp: RadixSplit, csum: torch.Tensor,
+                    results: torch.Tensor) -> torch.Tensor:
+    """Split `sp` undone on `results` (k, capacity) of 32-bit words in split
+    order: each element's words back at its place before the split, from
+    the recorded split and its `csum`. For the compaction split, the real
+    entries' results at [slot, j] of a (k, E * P) buffer, the rest not
+    written. CPU: the plain version; CUDA: one launch sized by the
+    capacity, counted in `radix_unscatter.launches`."""
+    device = sp.key.device
+    if device.type == "cpu":
+        return radix_unsplit_reference(sp, results)
+    _require_cuda(device, "radix_unscatter")
+    cap, n, blocks = _split_args(sp, device)
+    _check_tensor(csum, "csum", torch.int32, (blocks,), device)
+    _check_words(results, "results", RADIX_MAX_WORDS, cap, device)
+    out = torch.empty_like(results)
+    dev_index, stream = _device_args(device)
+    _launch("pt_radix_unscatter", "radix_unscatter", sp.key.data_ptr(),
+            sp.count.data_ptr(), cap, n, sp.bit, sp.dead, csum.data_ptr(),
+            _ptrs(list(results)), _ptrs(list(out)), results.shape[0], dev_index,
+            stream)
+    radix_unscatter.launches += 1
+    return out
+
+
+def window_sweep_stream(stream: RadixStream, scene: DeviceScene, g: int,
+                        tables: SceneTables | None = None) -> torch.Tensor:
+    """C in stream order over the radix route's sorted stream (its payload
+    the six object-space ray lanes), for big geom g: a (4, L) float32
+    buffer of each entry's (t, triangle bits, u, v) at its place
+    (`entry_hits`). CPU: the plain version; CUDA: one launch of C's
+    stream-order instantiation, 256-entry blocks sized by the capacity,
+    counted in `window_sweep_stream.launches`."""
+    device = stream.key.device
+    if device.type == "cpu":
+        return window_sweep_stream_reference(stream, scene, g)
+    _require_cuda(device, "window_sweep_stream")
+    r = _geom_rows(scene, g)
+    L = stream.key.shape[0]
+    _check_tensor(stream.key, "stream.key", torch.int32, (L,), device)
+    _check_tensor(stream.payload, "stream.payload", torch.float32, (6, L), device)
+    _check_tensor(stream.length, "stream.length", torch.int32, (1,), device)
+    t, tptr, mptr = _mesh_tables(scene, tables, device)
+    res = torch.empty((4, L), dtype=torch.float32, device=device)
+    dev_index, cuda_stream = _device_args(device)
+    _launch(
+        "pt_window_sweep_stream", "window_sweep_stream",
+        mptr, stream.key.data_ptr(), stream.length.data_ptr(),
+        stream.payload.data_ptr(), L, r["n_supers"], r["chunk_start"],
+        r["n_chunks"], r["tri_start"], r["tri_count"],
+        *(a.data_ptr() for a in entry_hits(res)), dev_index, cuda_stream,
+    )
+    window_sweep_stream.launches += 1
+    return res
+
+
+def radix_split(sp: RadixSplit, payload: torch.Tensor) -> tuple:
+    """One split: `radix_counts`, their inclusive scan (`torch.cumsum`, on
+    the device), `radix_scatter`. Returns (key, payload, csum)."""
+    csum = torch.cumsum(radix_counts(sp), 0, dtype=torch.int32)
+    key, out = radix_scatter(sp, csum, payload)
+    return key, out, csum
+
+
+def radix_sort_stream(stream: RadixStream, bits: int) -> tuple:
+    """The JAX package's `_radix_sort_stream`: a stable LSB binary-radix
+    sort of the stream by its key, one split per bit from bit 0 up. Stable
+    on a stream in entry-id order, it is the (key, entry) sort with no
+    entry id carried. Returns (the sorted RadixStream, the stages: each
+    pass's (RadixSplit, csum), for `radix_unsort_stream`)."""
+    stages = []
+    for b in range(bits):
+        sp = RadixSplit(stream.key, stream.length, b)
+        key, payload, csum = radix_split(sp, stream.payload)
+        stages.append((sp, csum))
+        stream = RadixStream(key, payload, stream.length)
+    return stream, stages
+
+
+def radix_unsort_stream(results: torch.Tensor, stages: list) -> torch.Tensor:
+    """The JAX package's `_radix_unsort_stream`: the sort's permutation
+    undone on `results` (k, L) in sorted order, pass by pass in reverse
+    (`radix_unscatter`), with no sort."""
+    for sp, csum in reversed(stages):
+        results = radix_unscatter(sp, csum, results)
+    return results
+
+
+def radix_window_sweep(sk: SuperKeys, count: torch.Tensor, scene: DeviceScene,
+                       g: int, tables: SceneTables | None = None) -> EntryHits:
+    """C's results at [slot, j] by the radix route (the JAX package's
+    SORT_RADIX branch of `_sorted_mesh_merge`, in place of B and C): the
+    compaction split of A's keys with their rays, bit_length(2 * n_supers)
+    one-bit passes (`radix_sort_stream`), C in stream order, the passes
+    undone (`radix_unsort_stream`) and the compaction split undone. The
+    real entries' results are those of B -> C; the rest not written."""
+    E, P = sk.keys.shape
+    sn = sk.hist.shape[0] // 2
+    compact = RadixSplit(sk.keys, count, -1, 2 * sn)
+    key, rays, csum = radix_split(compact, sk.rays)
+    srt, stages = radix_sort_stream(RadixStream(key, rays, csum[-1:]),
+                                    max(1, (2 * sn).bit_length()))
+    back = radix_unsort_stream(window_sweep_stream(srt, scene, g, tables=tables),
+                               stages)
+    return entry_hits(radix_unscatter(compact, csum, back).view(4, E, P))
+
+
 def sorted_mesh_merge(origins: Vec3, dirs: Vec3, cands: Candidates,
                       hits: Intersections, scene: DeviceScene,
                       tables: SceneTables | None = None) -> Intersections:
     """The JAX package's `_sorted_mesh_merge`: for each geom of the sorted
-    route, in geom order, A -> B -> C -> D, merging its winner of each
-    candidate lane into `hits` (#8's output) IN PLACE. Returns `hits`."""
+    route, in geom order, A -> B -> C -> D (under SORT_RADIX A -> the radix
+    route -> D), merging its winner of each candidate lane into `hits`
+    (#8's output) IN PLACE. Returns `hits`."""
     for g in sorted_geoms(scene):
         sk = super_keys(origins, dirs, cands, hits, scene, g, tables=tables)
-        st = place_entries(sk, cands.count)
-        eh = window_sweep(st, sk, scene, g, tables=tables)
+        if SORT_RADIX:
+            eh = radix_window_sweep(sk, cands.count, scene, g, tables=tables)
+        else:
+            st = place_entries(sk, cands.count)
+            eh = window_sweep(st, sk, scene, g, tables=tables)
         merge_entries(origins, dirs, cands, hits, sk, eh, scene, g, tables=tables)
     return hits
 
@@ -973,3 +1315,7 @@ super_keys.launches = 0
 place_entries.launches = 0
 window_sweep.launches = 0
 merge_entries.launches = 0
+radix_counts.launches = 0
+radix_scatter.launches = 0
+radix_unscatter.launches = 0
+window_sweep_stream.launches = 0

@@ -590,3 +590,172 @@ def test_big_mesh_path_launches(cuda_device):
     assert got == [24] * 7 + [0] + [0] * len(others)
     img = r.image()
     assert np.isfinite(img).all() and img.max() > 0
+
+
+def test_radix_kernels_match_plain_on_cuda(cuda_device):
+    """radix_counts, radix_scatter and radix_unscatter against their plain
+    versions, exactly (integers and moved floats): the compaction split of
+    seeded (E, P) keys (dead keys and unwritten columns past the count
+    included), then every one-bit pass of the compacted stream over
+    bit_length(2 * 50) bits, each pass and each unpass held separately;
+    the sorted stream is the stable torch.sort gather, and the unsort
+    round-trips. Bad inputs raise."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+
+    rng = np.random.default_rng(5)
+    E, P, count, dead = 6, 20000, 17777, 100
+    keys = rng.integers(0, dead + 1, (E, P)).astype(np.int32)
+    keys[rng.uniform(size=(E, P)) < 0.5] = dead
+    keys = torch.tensor(keys, device=cuda_device)
+    rays = torch.tensor(rng.standard_normal((6, P)).astype(np.float32),
+                        device=cuda_device)
+    cnt = torch.tensor([count], dtype=torch.int32, device=cuda_device)
+    wrappers = (pl.radix_counts, pl.radix_scatter, pl.radix_unscatter)
+    before = [f.launches for f in wrappers]
+
+    def split(sp, payload):
+        counts = pl.radix_counts(sp)
+        want_counts = pl.radix_counts_reference(sp)
+        csum = torch.cumsum(counts, 0, dtype=torch.int32)
+        key, out = pl.radix_scatter(sp, csum, payload)
+        want_key, want = pl.radix_split_reference(sp, payload)
+        torch.cuda.synchronize()
+        m = int(csum[-1] if sp.bit < 0 else sp.count[0])  # the elements placed
+        assert torch.equal(counts, want_counts)
+        assert torch.equal(key[:m], want_key[:m])
+        assert torch.equal(out[:, :m].view(torch.int32), want[:, :m].view(torch.int32))
+        return key, out, csum, int(csum[-1])
+
+    compact = pl.RadixSplit(keys, cnt, -1, dead)
+    key, pay, csum_c, total = split(compact, rays)
+    real = (keys < dead) & (torch.arange(P, device=cuda_device) < count)[None]
+    assert total == int(real.sum())
+    compacted = stream = pl.RadixStream(key, pay, csum_c[-1:])
+    stages = []
+    for b in range((2 * 50).bit_length()):
+        sp = pl.RadixSplit(stream.key, stream.length, b)
+        key, pay, csum, m = split(sp, stream.payload)
+        assert m == int((((stream.key[:total] >> b) & 1) == 0).sum())
+        stages.append((sp, csum))
+        stream = pl.RadixStream(key, pay, stream.length)
+    order = torch.sort(compacted.key[:total], stable=True).indices
+    assert torch.equal(stream.key[:total], compacted.key[:total][order])
+    assert torch.equal(stream.payload[:, :total], compacted.payload[:, order])
+    res = stream.payload[:4].clone()
+    for sp, csum in reversed(stages):
+        back = pl.radix_unscatter(sp, csum, res)
+        want = pl.radix_unsplit_reference(sp, res)
+        torch.cuda.synchronize()
+        assert torch.equal(back[:, :total].view(torch.int32),
+                           want[:, :total].view(torch.int32))
+        res = back
+    assert torch.equal(res[:, :total], compacted.payload[:4, :total])
+    full = pl.radix_unscatter(compact, csum_c, res)
+    want = pl.radix_unsplit_reference(compact, res)
+    torch.cuda.synchronize()
+    flat = real.reshape(-1)
+    assert torch.equal(full[:, flat], want[:, flat])
+    assert torch.equal(full[:, flat], rays[:4, None, :].expand(4, E, P).reshape(4, -1)[:, flat])
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [8, 8, 8]
+    with pytest.raises(ValueError):
+        pl.radix_scatter(compact, csum_c, torch.zeros((9, P), device=cuda_device))
+    with pytest.raises(ValueError):
+        pl.radix_counts(pl.RadixSplit(keys[:, :-1], cnt, -1, dead))
+    with pytest.raises(TypeError):
+        pl.radix_unscatter(compact, csum_c, res.double())
+
+
+@pytest.mark.parametrize("E", [6, 2])
+def test_radix_route_matches_counting_route_on_cuda(cuda_device, big_mesh, E):
+    """mesh_big.txt at 64x64, depths 0-7, from the plain bounce's pool: the
+    stream-order C against its plain version over the radix kernels' sorted
+    stream (C's rule: t, u, v by the lane rule, the triangle on 99% of the
+    entries), the radix route's C results at every real [slot, j] and the
+    whole bounce (#7 -> #8 -> A -> radix route -> D -> #9) bit-equal to the
+    counting route's (B -> C) on every lane."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam = big_mesh
+    settings = RenderSettings(trace_depth=8, antialias=True)
+    tables = megakernel.pack_scene_tables(ds)
+    (g,) = pipeline.sorted_geoms(ds)
+    sn = ds.super_ranges[g][1]
+    pool = _camera_pool(cam, 2, settings)
+    radix = ("radix_counts", "radix_scatter", "radix_unscatter", "window_sweep_stream")
+    before = [getattr(pipeline, k).launches for k in radix]
+    for depth in range(8):
+        o, d, alive = pool[0], pool[1], pool[4]
+        cands = pipeline.mesh_candidates_reference(o, d, alive, ds)
+        n = int(cands.count[0])
+        hits = pipeline.mesh_sweep_reference(o, d, cands, ds)
+        sk = pipeline.super_keys(o, d, cands, hits, ds, g, E, tables=tables)
+        eh = pipeline.window_sweep(pipeline.place_entries(sk, cands.count), sk, ds, g,
+                                   tables=tables)
+        compact = pipeline.RadixSplit(sk.keys, cands.count, -1, 2 * sn)
+        key, rays, csum = pipeline.radix_split(compact, sk.rays)
+        srt, _ = pipeline.radix_sort_stream(pipeline.RadixStream(key, rays, csum[-1:]),
+                                            (2 * sn).bit_length())
+        got = pipeline.entry_hits(pipeline.window_sweep_stream(srt, ds, g, tables=tables))
+        want = pipeline.entry_hits(pipeline.window_sweep_stream_reference(srt, ds, g))
+        torch.cuda.synchronize()
+        m = int(srt.length[0])
+        assert_lane_rule([a[:m] for a in (got.t, got.u, got.v)],
+                         [a[:m] for a in (want.t, want.u, want.v)])
+        assert (got.tri[:m] != want.tri[:m]).float().mean() <= 0.01
+        rad = pipeline.radix_window_sweep(sk, cands.count, ds, g, tables=tables)
+        torch.cuda.synchronize()
+        real = (sk.keys < 2 * sn) & (torch.arange(sk.keys.shape[1], device=cuda_device)
+                                     < n)[None]
+        for a, b in zip(rad, eh):
+            assert torch.equal(a[real], b[real])
+        chains = []
+        for flag in (False, True):
+            lanes = [a.clone() for a in megakernel.pool_lanes(pool)]
+            start = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                     Vec3(*lanes[9:12]), lanes[12], lanes[13])
+            old = pipeline.SORT_RADIX, pipeline.SORT_EXPAND
+            pipeline.SORT_RADIX, pipeline.SORT_EXPAND = flag, E
+            try:
+                chains.append(pipeline.bounce_step_pipeline(start, ds, 2, depth, settings,
+                                                            tables=tables))
+            finally:
+                pipeline.SORT_RADIX, pipeline.SORT_EXPAND = old
+        torch.cuda.synchronize()
+        for a, b in zip(megakernel.pool_lanes(chains[1]), megakernel.pool_lanes(chains[0])):
+            assert torch.equal(a, b)
+        pool = pipeline.bounce_step_mesh_reference(
+            pool, cands, pipeline.merge_entries_reference(
+                o, d, cands, hits, sk, eh, ds, g), ds, 2, depth, settings)
+    bits = (2 * sn).bit_length()
+    now = [getattr(pipeline, k).launches for k in radix]
+    # per depth: the split and sort above, the route, the radix chain
+    assert [b - a for a, b in zip(before, now)] == [8 * 3 * (1 + bits)] * 2 + [
+        8 * 2 * (1 + bits), 8 * 3]
+
+
+def test_big_mesh_radix_path_launches(cuda_device):
+    """mesh_big.txt through the Renderer under SORT_RADIX: #7 -> #8 -> A ->
+    the radix route (1 + 7 splits and unsplits, C in stream order) -> D ->
+    #9 at every depth of step() and step_batch; neither B nor the
+    counting-route C."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+
+    names = ("mesh_candidates", "mesh_sweep", "super_keys", "merge_entries",
+             "bounce_step_mesh", "window_sweep_stream", "radix_counts",
+             "radix_scatter", "radix_unscatter", "place_entries", "window_sweep",
+             "intersect_mesh")
+    r = Renderer(small("mesh_big.txt", (64, 48)),
+                 RenderSettings(trace_depth=8, antialias=True), device=cuda_device)
+    before = [getattr(pipeline, k).launches for k in names]
+    pipeline.SORT_RADIX, old = True, pipeline.SORT_RADIX
+    try:
+        r.step()
+        r.step_batch(2)
+    finally:
+        pipeline.SORT_RADIX = old
+    torch.cuda.synchronize()
+    got = [getattr(pipeline, k).launches - b for k, b in zip(names, before)]
+    assert got == [24] * 6 + [24 * 8] * 3 + [0] * 3
+    img = r.image()
+    assert np.isfinite(img).all() and img.max() > 0
