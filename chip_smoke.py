@@ -18,8 +18,10 @@ radix_scatter, radix_unscatter and C's stream-order instantiation
 window_sweep_stream): every split and unsplit exactly, the sorted stream
 against a stable torch.sort gather, the unsort's round trip, and the
 route's entries, lanes and whole bounce against the counting route's,
-bit for bit), renders the twelve smoke configs (the two --nee ones and
-mesh.txt included) and the four big-mesh scenes (mesh_big, bunny,
+bit for bit; on mesh_big 800x800 C alone over the window part and the
+tail part of each depth's stream, and C's registers and shared memory
+from `nvcc -Xptxas -v`), renders the twelve smoke configs (the two --nee
+ones and mesh.txt included) and the four big-mesh scenes (mesh_big, bunny,
 mesh_critter, mesh_stream, each loaded once) against the XLA goldens
 (tools/goldens/smoke_128.npz) through `Renderer.step_batch` and through
 `Renderer.step()`, and the four again under the radix route through
@@ -668,7 +670,66 @@ def clone_hits(h):
                    h.tex_v.clone(), h.has_uv.clone())
 
 
-def sorted_parity(ds, cam, settings, depths, tables, iteration=2):
+def replay_ms(fn, reps):
+    """ms per launch of the one kernel launch that fn() (a wrapper of
+    ops/pipeline.py) makes: its C entry point called again `reps` times
+    back to back with the same arguments between two CUDA events, so no
+    wrapper's host time falls between the launches."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import _native
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+
+    calls, launch = [], pl._launch
+    pl._launch = lambda name, what, *args: (calls.append((name, args)),
+                                            launch(name, what, *args))
+    try:
+        keep = fn()  # the outputs the replays write into stay allocated
+    finally:
+        pl._launch = launch
+    (name, args), = calls
+    entry = _native.load().fn(name)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        if entry(*args) != 0:
+            raise RuntimeError(f"{name}: launch failed")
+    end.record()
+    torch.cuda.synchronize()
+    del keep
+    return start.elapsed_time(end) / reps
+
+
+def window_tail_ms(st, sk, ds, g, tables, out, reps=10):
+    """C alone over the window part and over the tail part of B's stream
+    `st` (its prefix and its suffix, split at the first tail key) and over
+    the whole stream: ms per launch (`replay_ms`) and the parts' entry
+    counts, appended to out's per-depth lists."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+
+    sn = ds.super_ranges[g][1]
+    total = int(st.total[0])
+    window = int((st.key[:total] < sn).sum())
+    row = {"window_entries": window, "tail_entries": total - window}
+    for part, lo, hi in (("window_ms", 0, window), ("tail_ms", window, total),
+                         ("whole_ms", 0, total)):
+        key = torch.full_like(st.key, 2 * sn)
+        entry = torch.zeros_like(st.entry)
+        key[:hi - lo] = st.key[lo:hi]
+        entry[:hi - lo] = st.entry[lo:hi]
+        sub = pl.Stream(key, entry, torch.tensor([hi - lo], dtype=torch.int32,
+                                                 device=key.device))
+        row[part] = replay_ms(lambda sub=sub: pl.window_sweep(sub, sk, ds, g,
+                                                              tables=tables), reps)
+    for k, v in row.items():
+        out.setdefault(k, []).append(v)
+
+
+def sorted_parity(ds, cam, settings, depths, tables, iteration=2, split=None):
     """A-D on a big-mesh scene at each depth in `depths` of one iteration,
     each kernel from the plain version's own inputs (the pool after the
     plain bounce before, #8's plain hits): A's keys exactly `super_rank`'s
@@ -684,6 +745,8 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2):
     depths the radix route (`radix_check`), and the whole bounce under
     SORT_RADIX against the counting route's bounce, bit for bit (any
     difference reported and held to the lane rule).
+    With `split` (a dict), C's time on the window and on the tail part of
+    B's stream at each checked depth (`window_tail_ms`) goes into it.
     Returns ({kernel or check: (worst share, max_abs_err)}, {count: [per
     depth]}, {kernel: plain ms per call}, {library call: ms per call})."""
     import torch
@@ -786,6 +849,8 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2):
                 if off > 0.01:
                     raise RuntimeError(f"window_sweep: winners differ on "
                                        f"{off:.2%} of the entries")
+                if split is not None:
+                    window_tail_ms(st, sk, ds, g, tables, split)
                 got = pl.merge_entries(o, d, cands, clone_hits(hits), sk, eh, ds,
                                        g, tables=tables)
                 want = pl.merge_entries_reference(o, d, cands, clone_hits(hits),
@@ -1079,6 +1144,34 @@ def profile_device(fn, n_iters, by_depth=()):
     return (busy / 1e3 / n_iters, mean, {k: len(v) for k, v in per.items()})
 
 
+def ptxas_verbose(nvcc: str, source: str, out_dir: str):
+    """Start `nvcc -Xptxas -v` on one source with the build's own flags
+    (into a throwaway library under out_dir); `ptxas_usage` reads it."""
+    from project3_cuda_path_tracer_tpu_torch.ops import _native
+
+    out = os.path.join(out_dir, "ptxas_" + os.path.basename(source) + ".so")
+    return subprocess.Popen([nvcc, *_native.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
+                             os.path.join(HERE, source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def ptxas_usage(proc, pattern: str) -> dict:
+    """{kernel symbol matching `pattern`: ptxas's registers, shared memory,
+    stack and spills} from a finished `ptxas_verbose` process."""
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed: {err[-3000:]}")
+    usage, name = {}, None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and re.search(pattern, name) and (
+                "Used" in line or "stack frame" in line):
+            usage.setdefault(name, []).append(line.split(" : ")[-1].strip())
+    return {k: "; ".join(v) for k, v in usage.items()}
+
+
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES
     t_ops = ops / PEAK_OPS
@@ -1153,6 +1246,8 @@ def main() -> int:
         triton=triton_version, nvcc=nvcc_version, python=sys.version.split()[0])
 
     # ---- 2. build every kernel from this checkout's sources ----
+    # (C's registers and shared memory from ptxas, compiled beside the build)
+    ptxas = ptxas_verbose(nvcc, f"{PKG}/csrc/sorted.cu", tmpdir)
     lib_paths, build_s = _native.build(force=True)
     _native.load()
     usage = "not measured"
@@ -1168,6 +1263,8 @@ def main() -> int:
     say("build", nvcc_wall_seconds=build_s,
         libraries=[os.path.relpath(p, HERE) for p in lib_paths],
         resource_usage=usage)
+    say("ptxas", source=f"{PKG}/csrc/sorted.cu", flags="-Xptxas -v",
+        window_sweep=ptxas_usage(ptxas, r"window_sweep"))
 
     # ---- 3. every kernel against its plain version on the card ----
     err800 = {}
@@ -1255,9 +1352,16 @@ def main() -> int:
                               ("bunny.txt", (800, 800), (0,))):
         rb = big[name]
         bcam = camera_to_device(camera_at(rb.scene.state.camera, res), dev)
+        split = {} if (name, res) == ("mesh_big.txt", (800, 800)) else None
         worst, work, plain, library = sorted_parity(
             rb.dev_scene, bcam, RenderSettings(trace_depth=8, **aa),
-            tuple(depths), rb.tables)
+            tuple(depths), rb.tables, split=split)
+        if split:
+            w, t = np.array(split["window_ms"]), np.array(split["tail_ms"])
+            say("window_sweep_split", config=name, res=f"{res[0]}x{res[1]}",
+                settings=aa, device=smi, per_depth=split,
+                tail_share=(t / (w + t)).tolist(),
+                tail_share_all_depths=float(t.sum() / (w + t).sum()))
         what = {"config": name, "settings": aa, "res": f"{res[0]}x{res[1]}",
                 "depths": list(depths), "E": pl.SORT_EXPAND}
         radix = ("route_entries", "route_lanes", "radix_chain")

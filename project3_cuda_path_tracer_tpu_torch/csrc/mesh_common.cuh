@@ -110,24 +110,46 @@ __device__ __forceinline__ float frobenius3(const float* inv) {
                i10 * i10);
 }
 
-// Slab test of an AABB (IEEE inf for axis-parallel rays): entered, ahead
-// of the origin, and before `bound`.
-__device__ __forceinline__ bool slab_enter(float4 lo, float4 hi, const ObjRay& r, float bound) {
+// The slab interval of an AABB (IEEE inf for axis-parallel rays): the t
+// at which the ray's line enters and leaves the box.
+__device__ __forceinline__ void slab_span(float4 lo, float4 hi, const ObjRay& r, float* tmin,
+                                          float* tmax) {
   const float t1x = (lo.x - r.o.x) * r.inv_d.x;
   const float t2x = (hi.x - r.o.x) * r.inv_d.x;
   const float t1y = (lo.y - r.o.y) * r.inv_d.y;
   const float t2y = (hi.y - r.o.y) * r.inv_d.y;
   const float t1z = (lo.z - r.o.z) * r.inv_d.z;
   const float t2z = (hi.z - r.o.z) * r.inv_d.z;
-  const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-  const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+  *tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+  *tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+}
+
+// Slab test of an AABB: entered, ahead of the origin, and before `bound`.
+__device__ __forceinline__ bool slab_enter(float4 lo, float4 hi, const ObjRay& r, float bound) {
+  float tmin, tmax;
+  slab_span(lo, hi, r, &tmin, &tmax);
   return tmax >= tmin && tmax > 0.0f && tmin < bound;
+}
+
+// How mt_test rounds u's dot product tvec . pvec. nvcc fuses the dot's
+// first add with one of its two products (-fmad) and picks which from the
+// code around it, an ulp apart on some hits; left to it, an edit around
+// one caller could change that caller's bits. So each caller names its
+// own: the BVH walk (#8) the x product fused, the big-mesh route's C the
+// y product, the roundings their results have always had.
+enum class URound { kFuseX, kFuseY };
+
+template <URound kU>
+__device__ __forceinline__ float u_dot(V3 a, V3 b) {
+  return kU == URound::kFuseX ? __fmaf_rn(a.z, b.z, __fmaf_rn(a.x, b.x, __fmul_rn(a.y, b.y)))
+                              : __fmaf_rn(a.z, b.z, __fmaf_rn(a.y, b.y, __fmul_rn(a.x, b.x)));
 }
 
 // Moller-Trumbore on a triangle given by its first corner and two edges
 // (ops/intersect.py::triangle_intersect; the JAX package's _mt_chunk with
 // its pre-subtracted edges): the hit's t, u and v when the ray meets the
 // triangle past RAY_EPS.
+template <URound kU>
 __device__ __forceinline__ bool mt_test(V3 v0, V3 e1, V3 e2, const ObjRay& r, float* t_out,
                                         float* u_out, float* v_out) {
   const V3 pvec = cross(r.d, e2);
@@ -135,7 +157,7 @@ __device__ __forceinline__ bool mt_test(V3 v0, V3 e1, V3 e2, const ObjRay& r, fl
   if (!(fabsf(det) > 1e-12f)) return false;
   const float inv_det = 1.0f / det;
   const V3 tvec = r.o - v0;
-  const float u = dot(tvec, pvec) * inv_det;
+  const float u = u_dot<kU>(tvec, pvec) * inv_det;
   const V3 qvec = cross(tvec, e1);
   const float v = dot(r.d, qvec) * inv_det;
   const float t = dot(e2, qvec) * inv_det;
@@ -146,14 +168,15 @@ __device__ __forceinline__ bool mt_test(V3 v0, V3 e1, V3 e2, const ObjRay& r, fl
   return true;
 }
 
-// mt_test on soup triangle `tri` of the tables.
+// mt_test on soup triangle `tri` of the tables (#8's rounding).
 __device__ __forceinline__ bool tri_test(const MeshTables& m, int tri, const ObjRay& r,
                                          float* t_out, float* u_out, float* v_out) {
   const float4 a = __ldg(m.tri + 3 * tri);
   const float4 b = __ldg(m.tri + 3 * tri + 1);
   const float4 c = __ldg(m.tri + 3 * tri + 2);
   const V3 v0 = {a.x, a.y, a.z};
-  return mt_test(v0, V3{a.w, b.x, b.y} - v0, V3{b.z, b.w, c.x} - v0, r, t_out, u_out, v_out);
+  return mt_test<URound::kFuseX>(v0, V3{a.w, b.x, b.y} - v0, V3{b.z, b.w, c.x} - v0, r, t_out,
+                                 u_out, v_out);
 }
 
 // One mesh instance's winner in object space.

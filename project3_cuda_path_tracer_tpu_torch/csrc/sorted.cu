@@ -28,25 +28,35 @@
 //      key is what the atomics give; no result depends on it (see C).
 //      Bound: bytes (each key read once, each real entry's key and id
 //      written once).
-//   C  window_sweep_kernel replaces #11 _window_sweep. One block per 256
-//      consecutive sorted entries. The block walks the supers its entries
-//      need, in ascending order; for each, it stages the super's <= 1024
-//      triangles (v0, e1 = v1-v0, e2 = v2-v0: 36 KB) and its 32 chunk boxes
-//      in shared memory, and each thread that needs the super sweeps it:
-//      a window entry its own super, a tail entry every super from its
-//      start on. The carry starts at FLT_MAX; per chunk the thread
-//      slab-tests the chunk box against its running best t and skips a
-//      chunk it cannot win (exact: a triangle in the box hits at t >= the
-//      slab's entry, and updates are strict-<; SWEEP_CULL's argument, made
-//      per lane); Moller-Trumbore is _mt_chunk's expression in ascending
-//      triangle order with strict t < bt. Each entry's (t, triangle, u, v)
-//      goes to [slot, j]: no entry's result depends on the stream's order
-//      or length. The stream-order instantiation (kStream, the radix
-//      route's C: ops/pipeline.py's SORT_RADIX) reads each entry's ray from
-//      the sorted stream's payload at its place e and writes its result at
-//      e, which is what the JAX package's windows_sweep does on its radix
-//      branch; the per-entry arithmetic is the same code.
-//      Bound: operations (entries x triangles tested x ~64).
+//   C  window_sweep_kernel replaces #11 _window_sweep: for each real entry
+//      of B's stream, the least (t, triangle, u, v) over the triangles of
+//      its supers, a window entry its own super, a tail entry every super
+//      from key - n_supers on; the carry starts at FLT_MAX and ties go to
+//      the lowest soup index (an ascending strict-< scan). One warp per
+//      entry, its ray uniform across the warp: lane c slab-tests chunk box
+//      c of a super against the running best t, a ballot lists the chunks
+//      entered, and each of them, in ascending order and culled again
+//      whenever the best t falls, is one Moller-Trumbore step with lane x
+//      on triangle x and a warp-wide min of the t bits, the lowest lane on
+//      ties (exact: a triangle in a box hits at t >= the slab's entry,
+//      SWEEP_CULL's argument). A tail entry first culls each super by its
+//      supernode box, lanes over supers (exact: a super box is the min/max
+//      of its chunk boxes). Triangles and chunk boxes come from C's
+//      lane-major tables (ops/pipeline.py::pack_sweep_tables; v0, e1 and
+//      e2 rounded as the kernel itself would round them), one
+//      128-byte access per word of a warp's 32 triangles or boxes; a mesh
+//      of 1e5 triangles is a few MB and stays in L2, so nothing is staged
+//      in shared memory. The grid is the blocks that stay resident; each
+//      warp strides over the stream from its end, so the tail entries (the
+//      longest sweeps) start first and spread over every SM. Each entry's
+//      result goes to [slot, j]; the stream-order instantiation (kStream,
+//      the radix route's C: ops/pipeline.py's SORT_RADIX) reads the ray
+//      from the sorted stream's payload at the entry's place e and writes
+//      its result at e, as the JAX package's windows_sweep does on its
+//      radix branch. No result depends on the stream's order. Tensor cores
+//      do not apply: Moller-Trumbore is no matrix product.
+//      Bound: operations (entries x triangles tested x 64 plus chunk and
+//      super boxes tested x 27: chip_smoke.py's OPS_MT and OPS_CHUNK_TEST).
 //   D  merge_entries_kernel replaces #14 _kx_expand, the E-slot strict-<
 //      merge and _mesh_epilogue. One thread per listed lane: the min over
 //      its real slots in slot order (ascending super order, the dense
@@ -56,24 +66,28 @@
 //      merge into #8's hit lanes at the lane's own index.
 //      Bound: bytes (E slots of 16 B and the lane's 9 hit lanes).
 //
-// Every grid is sized by its upper bound (the pool, or E x the pool);
-// threads at or past the count that stays on the device return, so no
-// host sync sits between the kernels. What the design does about the
-// bounds: C's sorted stream gives a block entries of one super, so its
-// triangles come from shared memory and a warp's rays are a coherent beam;
-// the per-lane chunk cull skips most of a super a ray only grazes. A, B
-// and D are one pass over their lanes.
-
-#include <climits>
+// Every grid but C's is sized by its upper bound (the pool, or E x the
+// pool), and threads at or past the count that stays on the device
+// return; C's resident warps read that count too, so no host sync sits
+// between the kernels. What the design does about the bounds: C spends a
+// warp's lanes on one ray's boxes and triangles, never on a chunk that ray
+// does not enter (a thread per entry runs the union of its warp's 32
+// culls), and no block walks every super from a tail's start (blocks that
+// stage each super for their entries spend most of a launch on its few
+// tail entries, PERF.md §5); what holds C above its bound is each warp's
+// chain of dependent loads and reductions. A, B and D are one pass over
+// their lanes.
 
 #include "mesh_common.cuh"
 
 namespace {
 
-constexpr int kChunk = 32;  // models/device.py::MESH_CHUNK
-constexpr int kSuper = 32;  // models/device.py::MESH_SUPER
-constexpr int kSuperTris = kChunk * kSuper;
-constexpr int kSweepThreads = 256;
+constexpr int kChunk = 32;  // models/device.py::MESH_CHUNK: one triangle per lane
+constexpr int kSuper = 32;  // models/device.py::MESH_SUPER: one chunk box per lane
+constexpr int kSweepWarps = 8;  // C: warps per block, one entry per warp at a time
+constexpr int kSweepThreads = 32 * kSweepWarps;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr unsigned kInfBits = 0x7f800000u;  // +inf: above every hit's t bits
 
 inline int blocks_of(long long n, int threads) {
   return static_cast<int>((n + threads - 1) / threads);
@@ -170,40 +184,90 @@ __global__ void __launch_bounds__(kThreads)
   out_entry[pos] = static_cast<int>(e);
 }
 
+// The slab interval of row i of a (rows, 8) box table [min xyz, max xyz,
+// 0, 0] (the supernode boxes).
+__device__ __forceinline__ void row_span(const float* __restrict__ rows, int i, const ObjRay& r,
+                                         float* tmin, float* tmax) {
+  const float* b = rows + 8 * i;
+  slab_span(make_float4(__ldg(b), __ldg(b + 1), __ldg(b + 2), 0.0f),
+            make_float4(__ldg(b + 3), __ldg(b + 4), __ldg(b + 5), 0.0f), r, tmin, tmax);
+}
+
+// One entry's sweep of super s (geom-relative) by its warp, the ray `r`
+// uniform across the warp, from C's lane-major tables (pack_sweep_tables:
+// word k of every lane's box or triangle is one 128-byte access). Lane c
+// slab-tests chunk box c, a ballot gives the chunks entered before the
+// running best t, and each of them in ascending order (re-culled whenever
+// bt falls) is one Moller-Trumbore step with lane x on its triangle x; the
+// chunk's first least t is a min-reduction of the t bits (positive floats
+// order as their bits) and a ballot for the lowest lane that holds it; it
+// wins if strictly below bt. So a chunk is tested iff the ascending
+// per-thread scan tested it, and bt, best, u and v follow that scan's
+// strict-< updates exactly.
+__device__ __forceinline__ void sweep_super(const float* __restrict__ tris,
+                                            const float* __restrict__ boxes, int s,
+                                            int n_chunks, int tri_start, int tri_count,
+                                            const ObjRay& r, int lane, float& bt, int& best,
+                                            float& bu, float& bv) {
+  const int c0 = s * kSuper;
+  float c_tmin = 0.0f;
+  bool c_in = false;  // the line crosses the box ahead of the origin
+  if (lane < n_chunks - c0) {
+    const float* b = boxes + s * 8 * kSuper + lane;
+    float c_tmax;
+    slab_span(make_float4(__ldg(b), __ldg(b + kSuper), __ldg(b + 2 * kSuper), 0.0f),
+              make_float4(__ldg(b + 3 * kSuper), __ldg(b + 4 * kSuper), __ldg(b + 5 * kSuper),
+                          0.0f),
+              r, &c_tmin, &c_tmax);
+    c_in = c_tmax >= c_tmin && c_tmax > 0.0f;
+  }
+  unsigned todo = __ballot_sync(kFullMask, c_in && c_tmin < bt);
+  while (todo != 0u) {
+    const int c = __ffs(todo) - 1;
+    todo &= todo - 1u;
+    unsigned t_bits = kInfBits;  // no hit
+    float u = 0.0f, v = 0.0f;
+    if ((c0 + c) * kChunk + lane < tri_count) {  // this lane's triangle is real
+      const float* w = tris + (c0 + c) * 9 * kChunk + lane;
+      float t;
+      if (mt_test<URound::kFuseY>(
+              V3{__ldg(w), __ldg(w + kChunk), __ldg(w + 2 * kChunk)},
+              V3{__ldg(w + 3 * kChunk), __ldg(w + 4 * kChunk), __ldg(w + 5 * kChunk)},
+              V3{__ldg(w + 6 * kChunk), __ldg(w + 7 * kChunk), __ldg(w + 8 * kChunk)}, r, &t,
+              &u, &v)) {
+        t_bits = __float_as_uint(t);  // t > RAY_EPS > 0
+      }
+    }
+    const unsigned least = __reduce_min_sync(kFullMask, t_bits);
+    if (least < __float_as_uint(bt)) {  // warp-uniform
+      const int win = __ffs(__ballot_sync(kFullMask, t_bits == least)) - 1;
+      bt = __uint_as_float(least);
+      best = tri_start + (c0 + c) * kChunk + win;
+      bu = __shfl_sync(kFullMask, u, win);
+      bv = __shfl_sync(kFullMask, v, win);
+      todo &= __ballot_sync(kFullMask, c_in && c_tmin < bt);
+    }
+  }
+}
+
 template <bool kStream>
 __global__ void __launch_bounds__(kSweepThreads)
-    window_sweep_kernel(const float4* __restrict__ tri, const float* __restrict__ chunks,
-                        const int* __restrict__ key, const int* __restrict__ entry,
-                        const int* __restrict__ total, const float* __restrict__ q, int n,
-                        int n_supers, int n_chunks, int tri_start, int tri_count,
-                        float* __restrict__ out_t, int* __restrict__ out_tri,
-                        float* __restrict__ out_u, float* __restrict__ out_v) {
-  __shared__ float s_tri[9][kSuperTris];  // v0, e1, e2 of the staged super
-  __shared__ float4 s_box[kSuper][2];     // its chunk boxes: min, max
-  __shared__ int s_range[2];
+    window_sweep_kernel(const float* __restrict__ tris, const float* __restrict__ boxes,
+                        const float* __restrict__ supers, const int* __restrict__ key,
+                        const int* __restrict__ entry, const int* __restrict__ total,
+                        const float* __restrict__ q, int n, int n_supers, int n_chunks,
+                        int tri_start, int tri_count, float* __restrict__ out_t,
+                        int* __restrict__ out_tri, float* __restrict__ out_u,
+                        float* __restrict__ out_v) {
   const int m = __ldg(total);
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (static_cast<int>(blockIdx.x * blockDim.x) >= m) return;  // the whole block
-  const bool valid = e < m;
-  const int k = valid ? __ldg(key + e) : 0;
-  const bool tail = k >= n_supers;
-  const int first = tail ? k - n_supers : k;  // the first super the entry sweeps
-  if (threadIdx.x == 0) {
-    s_range[0] = INT_MAX;
-    s_range[1] = -1;
-  }
-  __syncthreads();
-  if (valid) {
-    atomicMin(s_range, first);
-    atomicMax(s_range + 1, tail ? n_supers - 1 : k);
-  }
-  __syncthreads();
-  const int s_lo = s_range[0];
-  const int s_hi = s_range[1];
-  int slot_j = 0;
-  ObjRay r;
-  if (valid) {
-    int j;
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * kSweepWarps;
+  // persistent warps, strided over the stream from its end: the tail
+  // entries (the largest keys, the longest sweeps) go first and to every SM
+  for (int w = blockIdx.x * kSweepWarps + (threadIdx.x >> 5); w < m; w += warps) {
+    const int e = m - 1 - w;
+    const int k = __ldg(key + e);
+    int slot_j, j;
     if constexpr (kStream) {  // the entry's ray and result at its stream place
       slot_j = e;
       j = e;
@@ -211,65 +275,64 @@ __global__ void __launch_bounds__(kSweepThreads)
       slot_j = __ldg(entry + e);
       j = slot_j % n;
     }
+    ObjRay r;
     r.o = {__ldg(q + j), __ldg(q + n + j), __ldg(q + 2 * n + j)};
     r.d = {__ldg(q + 3 * n + j), __ldg(q + 4 * n + j), __ldg(q + 5 * n + j)};
     r.inv_d = {1.0f / r.d.x, 1.0f / r.d.y, 1.0f / r.d.z};
-  }
-  float bt = kFltMax;
-  int best = -1;
-  float bu = 0.0f, bv = 0.0f;
-  for (int s2 = s_lo; s2 <= s_hi; ++s2) {
-    const bool need = valid && (tail ? s2 >= first : s2 == k);
-    if (!__syncthreads_or(need)) continue;
-    const int t0 = s2 * kSuperTris;
-    const int nt = min(kSuperTris, tri_count - t0);
-    for (int x = threadIdx.x; x < nt; x += blockDim.x) {
-      const float4 a = __ldg(tri + 3 * (tri_start + t0 + x));
-      const float4 b = __ldg(tri + 3 * (tri_start + t0 + x) + 1);
-      const float4 c = __ldg(tri + 3 * (tri_start + t0 + x) + 2);
-      s_tri[0][x] = a.x;
-      s_tri[1][x] = a.y;
-      s_tri[2][x] = a.z;
-      s_tri[3][x] = a.w - a.x;
-      s_tri[4][x] = b.x - a.y;
-      s_tri[5][x] = b.y - a.z;
-      s_tri[6][x] = b.z - a.x;
-      s_tri[7][x] = b.w - a.y;
-      s_tri[8][x] = c.x - a.z;
-    }
-    const int nc = min(kSuper, n_chunks - s2 * kSuper);
-    for (int x = threadIdx.x; x < nc; x += blockDim.x) {
-      const float* row = chunks + 8 * (s2 * kSuper + x);
-      s_box[x][0] = make_float4(__ldg(row), __ldg(row + 1), __ldg(row + 2), 0.0f);
-      s_box[x][1] = make_float4(__ldg(row + 3), __ldg(row + 4), __ldg(row + 5), 0.0f);
-    }
-    __syncthreads();
-    if (need) {
-      for (int c = 0; c < nc; ++c) {
-        if (!slab_enter(s_box[c][0], s_box[c][1], r, bt)) continue;
-        const int hi = min(c * kChunk + kChunk, nt);
-        for (int x = c * kChunk; x < hi; ++x) {
-          float t, u, v;
-          if (mt_test(V3{s_tri[0][x], s_tri[1][x], s_tri[2][x]},
-                      V3{s_tri[3][x], s_tri[4][x], s_tri[5][x]},
-                      V3{s_tri[6][x], s_tri[7][x], s_tri[8][x]}, r, &t, &u, &v) &&
-              t < bt) {
-            bt = t;
-            best = tri_start + t0 + x;
-            bu = u;
-            bv = v;
-          }
+    float bt = kFltMax;
+    int best = -1;
+    float bu = 0.0f, bv = 0.0f;
+    if (k < n_supers) {
+      sweep_super(tris, boxes, k, n_chunks, tri_start, tri_count, r, lane, bt, best, bu, bv);
+    } else {
+      // a tail: every super from k - n_supers on, in ascending order, each
+      // culled first by its super box against the running bt (lanes over
+      // supers). Exact: a super box is the min/max of its chunk boxes, so
+      // with finite reciprocals (no 0 * inf) every chunk slab interval lies
+      // inside its super's and a chunk that passes passes its super too.
+      const bool cull = isfinite(r.inv_d.x) && isfinite(r.inv_d.y) && isfinite(r.inv_d.z);
+      for (int s0 = k - n_supers; s0 < n_supers; s0 += 32) {
+        const int s = s0 + lane;
+        float s_tmin = -kFltMax;
+        bool s_in = s < n_supers;
+        if (s_in && cull) {
+          float s_tmax;
+          row_span(supers, s, r, &s_tmin, &s_tmax);
+          s_in = s_tmax >= s_tmin && s_tmax > 0.0f;
+        }
+        unsigned todo = __ballot_sync(kFullMask, s_in && s_tmin < bt);
+        while (todo != 0u) {
+          const int b = __ffs(todo) - 1;
+          todo &= todo - 1u;
+          if (!(__shfl_sync(kFullMask, s_tmin, b) < bt)) continue;  // bt fell since
+          sweep_super(tris, boxes, s0 + b, n_chunks, tri_start, tri_count, r, lane, bt, best,
+                      bu, bv);
         }
       }
     }
-    __syncthreads();  // before the next super overwrites the stage
+    if (lane == 0) {
+      out_t[slot_j] = bt;
+      out_tri[slot_j] = best;
+      out_u[slot_j] = bu;
+      out_v[slot_j] = bv;
+    }
   }
-  if (valid) {
-    out_t[slot_j] = bt;
-    out_tri[slot_j] = best;
-    out_u[slot_j] = bu;
-    out_v[slot_j] = bv;
+}
+
+// C's grid: as many blocks as stay resident on the device at once.
+template <bool kStream>
+int sweep_blocks(int device, long long entries) {
+  static int resident[64] = {};
+  int& blocks = resident[device & 63];
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_sweep_kernel<kStream>,
+                                                  kSweepThreads, 0);
+    blocks = sms * per_sm > 0 ? sms * per_sm : 1;
   }
+  const long long need = (entries + kSweepWarps - 1) / kSweepWarps;
+  return static_cast<int>(need < blocks ? need : blocks);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -362,21 +425,23 @@ extern "C" int pt_place_entries(const int* keys, const int* count, int n, int E,
   return static_cast<int>(cudaGetLastError());
 }
 
+// sweep = {tris (C, 9, 32), boxes (S, 8, 32)}: C's lane-major tables;
 // total: the count of real entries (device). Out: per entry id, the
 // object-space t (FLT_MAX: no triangle), triangle, u and v.
-extern "C" int pt_window_sweep(void* const* mesh, const int* key, const int* entry,
-                               const int* total, const float* q, int n, int E, int n_supers,
-                               int chunk_start, int n_chunks, int tri_start, int tri_count,
-                               float* out_t, int* out_tri, float* out_u, float* out_v,
-                               int device, void* stream) {
+extern "C" int pt_window_sweep(void* const* mesh, void* const* sweep, const int* key,
+                               const int* entry, const int* total, const float* q, int n, int E,
+                               int super_start, int n_supers, int chunk_start, int n_chunks,
+                               int tri_start, int tri_count, float* out_t, int* out_tri,
+                               float* out_u, float* out_v, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    const float* chunks = static_cast<const float*>(mesh[5]) + 8 * chunk_start;
-    window_sweep_kernel<false><<<blocks_of(static_cast<long long>(E) * n, kSweepThreads),
+    window_sweep_kernel<false><<<sweep_blocks<false>(device, static_cast<long long>(E) * n),
                                  kSweepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(mesh[0]), chunks, key, entry, total, q, n, n_supers,
-        n_chunks, tri_start, tri_count, out_t, out_tri, out_u, out_v);
+        static_cast<const float*>(sweep[0]) + 9 * kChunk * chunk_start,
+        static_cast<const float*>(sweep[1]) + 8 * kSuper * super_start,
+        static_cast<const float*>(mesh[6]) + 8 * super_start, key, entry, total, q, n,
+        n_supers, n_chunks, tri_start, tri_count, out_t, out_tri, out_u, out_v);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -384,19 +449,20 @@ extern "C" int pt_window_sweep(void* const* mesh, const int* key, const int* ent
 // C in stream order (the radix route): key, q (6, n) and total are the
 // sorted stream of the radix passes (n its capacity); each entry's ray is
 // q[:, e] and its (t, triangle, u, v) goes to [e].
-extern "C" int pt_window_sweep_stream(void* const* mesh, const int* key, const int* total,
-                                      const float* q, int n, int n_supers, int chunk_start,
-                                      int n_chunks, int tri_start, int tri_count, float* out_t,
-                                      int* out_tri, float* out_u, float* out_v, int device,
-                                      void* stream) {
+extern "C" int pt_window_sweep_stream(void* const* mesh, void* const* sweep, const int* key,
+                                      const int* total, const float* q, int n, int super_start,
+                                      int n_supers, int chunk_start, int n_chunks,
+                                      int tri_start, int tri_count, float* out_t, int* out_tri,
+                                      float* out_u, float* out_v, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    const float* chunks = static_cast<const float*>(mesh[5]) + 8 * chunk_start;
-    window_sweep_kernel<true><<<blocks_of(n, kSweepThreads), kSweepThreads, 0,
+    window_sweep_kernel<true><<<sweep_blocks<true>(device, n), kSweepThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(mesh[0]), chunks, key, nullptr, total, q, n, n_supers,
-        n_chunks, tri_start, tri_count, out_t, out_tri, out_u, out_v);
+        static_cast<const float*>(sweep[0]) + 9 * kChunk * chunk_start,
+        static_cast<const float*>(sweep[1]) + 8 * kSuper * super_start,
+        static_cast<const float*>(mesh[6]) + 8 * super_start, key, nullptr, total, q, n,
+        n_supers, n_chunks, tri_start, tri_count, out_t, out_tri, out_u, out_v);
   }
   return static_cast<int>(cudaGetLastError());
 }

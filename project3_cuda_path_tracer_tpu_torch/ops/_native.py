@@ -71,14 +71,15 @@ SIGNATURES = {
     # keys, count, n, E, n_supers, offsets, cursor, out_key, out_entry,
     # device, stream
     "pt_place_entries": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    # mesh, key, entry, total, q, n, E, n_supers, chunk_start, n_chunks,
-    # tri_start, tri_count, t, tri, u, v, device, stream
-    "pt_window_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                        _P, _P, _I, _P],
-    # mesh, key, total, q, n, n_supers, chunk_start, n_chunks, tri_start,
-    # tri_count, t, tri, u, v, device, stream
-    "pt_window_sweep_stream": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                               _P, _P, _I, _P],
+    # mesh, sweep, key, entry, total, q, n, E, super_start, n_supers,
+    # chunk_start, n_chunks, tri_start, tri_count, t, tri, u, v, device,
+    # stream
+    "pt_window_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _I, _P],
+    # mesh, sweep, key, total, q, n, super_start, n_supers, chunk_start,
+    # n_chunks, tri_start, tri_count, t, tri, u, v, device, stream
+    "pt_window_sweep_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _P, _P, _I, _P],
     # tables, n_geoms, mesh, rays, list, count, n, E, n_supers, geom,
     # has_uv, keys, t, tri, u, v, q, bt0, hits, device, stream
     "pt_merge_entries": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,

@@ -83,6 +83,9 @@ class SceneTables(NamedTuple):
     #                   kernels' MIS); None when packed without `nee`
     # the mesh pipeline's tables (pack_mesh_tables); None without meshes
     mesh: tuple | None = None
+    # C's lane-major tables (ops/pipeline.py::pack_sweep_tables); None
+    # without meshes
+    sweep: tuple | None = None
 
 
 # the tables the kernels read, as a C array of pointers in this order
@@ -222,7 +225,9 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
     """The kernels' tables; with `nee` also the MIS light pdf model, read
     back to the host once here, so no NEE launch waits on the device for
     it (motion blur only translates, so it never changes the value); on a
-    mesh scene also the mesh pipeline's tables."""
+    mesh scene also the mesh pipeline's tables and C's."""
+    from .pipeline import pack_sweep_tables
+
     G = scene.transform.shape[0]
     dev = scene.device
     mat = torch.stack(
@@ -250,6 +255,7 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
                             device=dev).reshape(-1),
         aw=float(lights_area_weight(scene)) if nee else None,
         mesh=pack_mesh_tables(scene) if scene.mesh_geoms else None,
+        sweep=pack_sweep_tables(scene) if scene.mesh_geoms else None,
     )
 
 

@@ -29,7 +29,8 @@ each such geom, in geom order, after #8 has swept the others
   a counting sort of the real entries by key into one dense stream;
 - `window_sweep` (C; #11 `_window_sweep`): each entry's winner over the
   triangles of its supernode (a tail entry: of every supernode from its
-  start on);
+  start on), one warp per entry over C's lane-major tables
+  (`pack_sweep_tables`);
 - `merge_entries` (D; #14 `_kx_expand`, the slot merge, `_mesh_epilogue`):
   each lane's winner over its entries, in world space, merged into #8's
   hit lanes.
@@ -741,6 +742,48 @@ def _mesh_tables(scene: DeviceScene, tables, device):
     return t, tptr, _ptrs(list(t.mesh))
 
 
+def pack_sweep_tables(scene: DeviceScene) -> tuple:
+    """C's two tables, lane-major so that lane x of a warp reads word k of
+    a row with one 128-byte access per warp: `tris` (C, 9, MESH_CHUNK) f32,
+    per chunk its triangle x's v0, e1 = v1 - v0 and e2 = v2 - v0 (the
+    kernel's Moller-Trumbore operands, float32 differences as the kernel
+    would take them); `boxes` (S, 8, MESH_SUPER) f32, per supernode its
+    chunk c's [min, max, 0, 0]. Zeros past a geom's last triangle and
+    chunk. Over every mesh geom's chunks and supernodes, in the chunk and
+    supernode tables' order."""
+    dev = scene.device
+    tris = torch.zeros((scene.mesh_chunk_aabbs.shape[0], 9, MESH_CHUNK),
+                       dtype=torch.float32, device=dev)
+    boxes = torch.zeros((scene.mesh_super_aabbs.shape[0], 8, MESH_SUPER),
+                        dtype=torch.float32, device=dev)
+    v0, v1, v2 = (torch.stack(list(v), 1) for v in (scene.tri_v0, scene.tri_v1,
+                                                     scene.tri_v2))
+    corners = torch.cat([v0, v1 - v0, v2 - v0], 1)
+    for g in scene.mesh_geoms:
+        r = _geom_rows(scene, g)
+        cs, cn, ss, sn = r["chunk_start"], r["n_chunks"], r["super_start"], r["n_supers"]
+        lanes = torch.zeros((cn * MESH_CHUNK, 9), dtype=torch.float32, device=dev)
+        lanes[:r["tri_count"]] = corners[r["tri_start"]:r["tri_start"] + r["tri_count"]]
+        tris[cs:cs + cn] = lanes.view(cn, MESH_CHUNK, 9).transpose(1, 2)
+        rows = torch.zeros((sn * MESH_SUPER, 8), dtype=torch.float32, device=dev)
+        rows[:cn] = scene.mesh_chunk_aabbs[cs:cs + cn]
+        boxes[ss:ss + sn] = rows.view(sn, MESH_SUPER, 8).transpose(1, 2)
+    return tris, boxes
+
+
+def _sweep_ptrs(t: SceneTables, scene: DeviceScene, device):
+    """C's table pointers {tris, boxes} after checking them."""
+    if t.sweep is None or len(t.sweep) != 2:
+        raise ValueError("C needs tables packed from a mesh scene (pack_scene_tables)")
+    for name, a, shape in zip(
+        ("sweep.tris", "sweep.boxes"), t.sweep,
+        ((scene.mesh_chunk_aabbs.shape[0], 9, MESH_CHUNK),
+         (scene.mesh_super_aabbs.shape[0], 8, MESH_SUPER)),
+    ):
+        _check_tensor(a, name, torch.float32, shape, device)
+    return _ptrs(list(t.sweep))
+
+
 def _rays(origins: Vec3, dirs: Vec3, P: int, device) -> list:
     """The six ray lanes, contiguous float32 (P,) on `device`."""
     lanes = [a.contiguous() for a in (*origins, *dirs)]
@@ -1007,7 +1050,9 @@ def place_entries(sk: SuperKeys, count: torch.Tensor) -> Stream:
 def window_sweep(st: Stream, sk: SuperKeys, scene: DeviceScene, g: int,
                  tables: SceneTables | None = None) -> EntryHits:
     """C over B's stream, for big geom g. CPU: the plain version; CUDA:
-    one launch of 256-entry blocks sized by E x the pool, counted in
+    one launch of the blocks that stay resident, one warp per entry at a
+    time (csrc/sorted.cu), over C's lane-major tables
+    (`pack_sweep_tables`, packed with the scene's tables), counted in
     `window_sweep.launches`."""
     device = sk.keys.device
     if device.type == "cpu":
@@ -1028,9 +1073,10 @@ def window_sweep(st: Stream, sk: SuperKeys, scene: DeviceScene, g: int,
     dev_index, stream = _device_args(device)
     _launch(
         "pt_window_sweep", "window_sweep",
-        mptr, st.key.data_ptr(), st.entry.data_ptr(), st.total.data_ptr(),
-        sk.rays.data_ptr(), P, E, r["n_supers"], r["chunk_start"], r["n_chunks"],
-        r["tri_start"], r["tri_count"], *(a.data_ptr() for a in out),
+        mptr, _sweep_ptrs(t, scene, device), st.key.data_ptr(), st.entry.data_ptr(),
+        st.total.data_ptr(), sk.rays.data_ptr(), P, E, r["super_start"], r["n_supers"],
+        r["chunk_start"], r["n_chunks"], r["tri_start"], r["tri_count"],
+        *(a.data_ptr() for a in out),
         dev_index, stream,
     )
     window_sweep.launches += 1
@@ -1169,7 +1215,7 @@ def window_sweep_stream(stream: RadixStream, scene: DeviceScene, g: int,
     the six object-space ray lanes), for big geom g: a (4, L) float32
     buffer of each entry's (t, triangle bits, u, v) at its place
     (`entry_hits`). CPU: the plain version; CUDA: one launch of C's
-    stream-order instantiation, 256-entry blocks sized by the capacity,
+    stream-order instantiation, one warp per entry as `window_sweep`,
     counted in `window_sweep_stream.launches`."""
     device = stream.key.device
     if device.type == "cpu":
@@ -1185,9 +1231,9 @@ def window_sweep_stream(stream: RadixStream, scene: DeviceScene, g: int,
     dev_index, cuda_stream = _device_args(device)
     _launch(
         "pt_window_sweep_stream", "window_sweep_stream",
-        mptr, stream.key.data_ptr(), stream.length.data_ptr(),
-        stream.payload.data_ptr(), L, r["n_supers"], r["chunk_start"],
-        r["n_chunks"], r["tri_start"], r["tri_count"],
+        mptr, _sweep_ptrs(t, scene, device), stream.key.data_ptr(), stream.length.data_ptr(),
+        stream.payload.data_ptr(), L, r["super_start"], r["n_supers"],
+        r["chunk_start"], r["n_chunks"], r["tri_start"], r["tri_count"],
         *(a.data_ptr() for a in entry_hits(res)), dev_index, cuda_stream,
     )
     window_sweep_stream.launches += 1

@@ -734,6 +734,122 @@ def test_radix_route_matches_counting_route_on_cuda(cuda_device, big_mesh, E):
         8 * 2 * (1 + bits), 8 * 3]
 
 
+def c_rule(got, want, m):
+    """C's rule over the first m entries of two EntryHits-like tuples (t,
+    triangle, u, v): t, u and v by the lane rule, the triangle on 99% of
+    the entries (ties)."""
+    assert_lane_rule([a[:m] for a in (got[0], got[2], got[3])],
+                     [a[:m] for a in (want[0], want[2], want[3])])
+    assert (got[1][:m] != want[1][:m]).float().mean() <= 0.01
+
+
+@pytest.mark.parametrize("part", ["window", "tail_from_0"])
+def test_window_sweep_work_split_on_cuda(cuda_device, big_mesh, part):
+    """C's two instantiations on streams that stress the warp-per-entry
+    split, from mesh_big.txt's 64x64 AA camera rays and the rays after one
+    bounce: (window) only B's window entries, the prefix of its
+    stream; (tail_from_0) every real entry made a tail from super 0, the
+    worst case for a tail (every super swept). Each against its plain
+    version by C's rule, and the two bit-equal entry for entry."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam = big_mesh
+    settings = RenderSettings(trace_depth=8, antialias=True)
+    tables = megakernel.pack_scene_tables(ds)
+    (g,) = pipeline.sorted_geoms(ds)
+    sn = ds.super_ranges[g][1]
+    pool = _camera_pool(cam, 2, settings)
+    for depth in range(2):
+        o, d, alive = pool[0], pool[1], pool[4]
+        cands = pipeline.mesh_candidates_reference(o, d, alive, ds)
+        hits = pipeline.mesh_sweep_reference(o, d, cands, ds)
+        sk = pipeline.super_keys(o, d, cands, hits, ds, g, tables=tables)
+        st = pipeline.place_entries(sk, cands.count)
+        torch.cuda.synchronize()
+        m = int(st.total[0])
+        P = sk.keys.shape[1]
+        key = st.key.clone()
+        if part == "window":
+            m = int((st.key[:m] < sn).sum())
+            key[m:] = 2 * sn
+        else:
+            key[:m] = sn
+        assert m > 100
+        total = torch.tensor([m], dtype=torch.int32, device=cuda_device)
+        part_st = pipeline.Stream(key, st.entry, total)
+        eh = pipeline.window_sweep(part_st, sk, ds, g, tables=tables)
+        want = pipeline.window_sweep_reference(part_st, sk, ds, g)
+        payload = torch.zeros((6, key.shape[0]), device=cuda_device)
+        ids = st.entry[:m].long()
+        payload[:, :m] = sk.rays[:, ids % P]
+        stream = pipeline.RadixStream(key, payload, total)
+        res = pipeline.entry_hits(pipeline.window_sweep_stream(stream, ds, g, tables=tables))
+        want_s = pipeline.entry_hits(pipeline.window_sweep_stream_reference(stream, ds, g))
+        torch.cuda.synchronize()
+        flat = [a.reshape(-1)[ids] for a in eh]
+        c_rule(flat, [a.reshape(-1)[ids] for a in want], m)
+        c_rule(res, want_s, m)
+        for a, b in zip(flat, res):
+            assert torch.equal(a.view(torch.int32), b[:m].view(torch.int32))
+        assert (flat[0] < pipeline.FLT_MAX).float().mean() > 0.05  # entries hit
+        pool = pipeline.bounce_step_pipeline(pool, ds, 2, depth, settings, tables=tables)
+
+
+@pytest.mark.parametrize("E", [6, 1])
+def test_window_sweep_routes_bit_equal_on_cuda(cuda_device, big_mesh, E):
+    """mesh_big.txt at 64x64, every depth, from the plain bounce's pool:
+    C on the counting route against its plain version by C's rule, C's
+    results at every real [slot, j] of the radix route bit-equal to the
+    counting route's, and D's hit lanes over each bit-equal (E = 1: every
+    lane that enters two supers has one tail entry)."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam = big_mesh
+    settings = RenderSettings(trace_depth=8, antialias=True)
+    tables = megakernel.pack_scene_tables(ds)
+    (g,) = pipeline.sorted_geoms(ds)
+    sn = ds.super_ranges[g][1]
+    pool = _camera_pool(cam, 2, settings)
+    tails = 0
+    for depth in range(8):
+        o, d, alive = pool[0], pool[1], pool[4]
+        cands = pipeline.mesh_candidates_reference(o, d, alive, ds)
+        n = int(cands.count[0])
+        hits = pipeline.mesh_sweep_reference(o, d, cands, ds)
+        sk = pipeline.super_keys(o, d, cands, hits, ds, g, E, tables=tables)
+        st = pipeline.place_entries(sk, cands.count)
+        eh = pipeline.window_sweep(st, sk, ds, g, tables=tables)
+        want = pipeline.window_sweep_reference(st, sk, ds, g)
+        rad = pipeline.radix_window_sweep(sk, cands.count, ds, g, tables=tables)
+        torch.cuda.synchronize()
+        m = int(st.total[0])
+        tails += int((st.key[:m] >= sn).sum())
+        ids = st.entry[:m].long()
+        c_rule([a.reshape(-1)[ids] for a in eh], [a.reshape(-1)[ids] for a in want], m)
+        real = (sk.keys < 2 * sn) & (torch.arange(sk.keys.shape[1], device=cuda_device)
+                                     < n)[None]
+        for a, b in zip(rad, eh):
+            assert torch.equal(a[real].view(torch.int32), b[real].view(torch.int32))
+        lanes = cands.lanes[:n].long()
+        got = [pipeline.merge_entries(o, d, cands, hits_copy(hits), sk, x, ds, g,
+                                      tables=tables) for x in (eh, rad)]
+        torch.cuda.synchronize()
+        for a, b in zip(hit_lanes(got[0]), hit_lanes(got[1])):
+            assert torch.equal(a[lanes], b[lanes])
+        pool = pipeline.bounce_step_mesh_reference(
+            pool, cands, pipeline.merge_entries_reference(o, d, cands, hits, sk, eh, ds, g),
+            ds, 2, depth, settings)
+    assert tails > 0
+
+
+def hits_copy(h):
+    return type(h)(*(Vec3(*(c.clone() for c in f)) if isinstance(f, Vec3) else f.clone()
+                     for f in (h.t, h.normal, h.material_id, h.outside, h.tex_u,
+                               h.tex_v, h.has_uv)))
+
+
 def test_big_mesh_radix_path_launches(cuda_device):
     """mesh_big.txt through the Renderer under SORT_RADIX: #7 -> #8 -> A ->
     the radix route (1 + 7 splits and unsplits, C in stream order) -> D ->
