@@ -3,10 +3,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, in parallel), holds each of the eighteen against its
-plain PyTorch version on the card (at 64x64 and at the main path's
-800x800; the NEE kernels #5 and #6 on Cornell AA, Cornell RR +
-stratified, a glossy Cornell and many_materials RR, #5's pix exactly and
+nvcc per source, in parallel), prints the registers, shared memory and
+stack frames of C, #1 and #8 (`nvcc -Xptxas -v`), holds each of the
+eighteen against its plain PyTorch version on the card (at 64x64 and at
+the main path's 800x800; #1 on nine configs at 64x64 and 37x23, bit for
+bit against the per-bounce kernels #2 -> #3 and on all but 0.1% of the
+pixels against its plain version; the NEE kernels #5 and #6 on Cornell
+AA, Cornell RR + stratified, a glossy Cornell and many_materials RR, #5's
+pix exactly and
 its alive per lane; the mesh kernels #7-#10 on mesh.txt plain, AA, RR +
 stratified and --compact, #7's candidate set per lane and #9's pix
 exactly; the big-mesh route's A-D (super_keys, place_entries,
@@ -19,8 +23,7 @@ window_sweep_stream): every split and unsplit exactly, the sorted stream
 against a stable torch.sort gather, the unsort's round trip, and the
 route's entries, lanes and whole bounce against the counting route's,
 bit for bit; on mesh_big 800x800 C alone over the window part and the
-tail part of each depth's stream, and C's registers and shared memory
-from `nvcc -Xptxas -v`), renders the twelve smoke configs (the two --nee
+tail part of each depth's stream), renders the twelve smoke configs (the two --nee
 ones and mesh.txt included) and the four big-mesh scenes (mesh_big, bunny,
 mesh_critter, mesh_stream, each loaded once) against the XLA goldens
 (tools/goldens/smoke_128.npz) through `Renderer.step_batch` and through
@@ -45,7 +48,11 @@ device time from torch.profiler beside its plain version's time, its
 bound and, where one PyTorch call computes the same function, that
 call's time (and the --direct-lighting final step's own time), and
 renders through the CLI (Cornell plain, --compact, --nee; mesh.txt;
-mesh_big.txt, and again with PT_TPU_SORT_RADIX=1). Every path is driven
+mesh_big.txt, and again with PT_TPU_SORT_RADIX=1). It also times #1 at
+1x, 2x and 4x the main path's pixels, prints #1's lane use with one
+thread per pixel (from the plain path lengths) and #8's
+work per walk on its wide tables beside the binary walk's, with the lanes
+on which the two walks' winners differ. Every path is driven
 with the launch counts set to 0 just before it and read just after.
 Every phase prints one line; any failure raises and exits non-zero
 before the result lines are printed. Imports nothing of JAX or of the
@@ -161,7 +168,14 @@ FULL_PARITY = [
     ("checker.txt", {}),
     ("cornell.txt", {"stratified": True}),
     ("cornell.txt", {"sobol": True}),
+    ("env.txt", {}),
+    ("cornell_glass.txt", {"russian_roulette": True, "antialias": True}),
 ]
+# #1 is bit-identical to its plain version but on at most this share of
+# the pixels: the handful on which a float op of the kernel and its torch
+# counterpart round an ulp apart and a lottery flips (the per-bounce
+# kernels #2 -> #3, bit-identical to #1, differ on the same pixels)
+FULL_BITS_OFF = 0.001
 BOUNCE_PARITY = [
     ("cornell.txt", {"antialias": True}),
     ("cornell_glass.txt", {"russian_roulette": True, "rr_start_depth": 1}),
@@ -445,6 +459,11 @@ def nee_work(ds, cam, iteration, settings):
 
 
 def full_parity(dev, name, kw, res, iteration=3):
+    """#1 against its plain version, one iteration: compare()'s numbers
+    and the share of pixels not bit-identical (fails above
+    FULL_BITS_OFF); and bit for bit against the per-bounce kernels (#2,
+    then #3 at every depth, thread per pixel: the same device code), which
+    fails on any bit."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
@@ -454,8 +473,21 @@ def full_parity(dev, name, kw, res, iteration=3):
     accum = Vec3.zeros(res[0] * res[1], dev)
     mk.full_iteration(ds, cam, iteration, settings, accum)
     plain = mk.full_iteration_reference(ds, cam, iteration, settings)
+    pool = mk.first_bounce(ds, cam, iteration, settings)
+    for depth in range(1, settings.trace_depth):
+        pool = mk.bounce_step(pool, ds, iteration, depth, settings)
     torch.cuda.synchronize()
-    return compare(list(accum), list(plain))
+    off = torch.zeros_like(accum.x, dtype=torch.bool)
+    for g, w, c in zip(accum, plain, pool[3]):
+        off |= bitwise(g) != bitwise(w)
+        if not torch.equal(bitwise(g), bitwise(c)):
+            raise RuntimeError(f"full_iteration is not bit-identical to first_bounce "
+                               f"-> bounce_step ({name}, {kw}, {res})")
+    bits_off = float(off.float().mean())
+    if bits_off > FULL_BITS_OFF:
+        raise RuntimeError(f"full_iteration: {bits_off:.3%} of the pixels are not "
+                           f"bit-identical to the plain version ({name}, {kw}, {res})")
+    return compare(list(accum), list(plain)) + (bits_off,)
 
 
 def bounce_parity(dev, name, kw, res, iteration=2):
@@ -611,9 +643,12 @@ def mesh_work(ds, cam, iteration, settings):
     """One iteration of the plain mesh path (#7 -> #8 -> #9's plain
     versions) at every depth, counting per depth the lanes that do each
     part of the mesh kernels' work: the live lanes entering (#7's sweep,
-    #9's shading), the candidates (#8's threads), the geom walks, nodes
-    and triangles they test (the plain walk's probe) and the walks that
-    hit; and timing each plain version (host clock, synchronised).
+    #9's shading), the candidates (#8's lists), the geom walks, nodes
+    and triangles they test (the plain binary walk's probe) and the walks
+    that hit; the same walks over #8's wide tables (the plain wide walk's
+    probe: inner wide nodes, leaves, triangles, the deepest stack) and the
+    lanes whose winner's t it gives other bits than the binary walk; and
+    timing each plain version (host clock, synchronised).
     Returns ({count: [per depth]}, {kernel: plain ms per call})."""
     import torch
 
@@ -621,7 +656,10 @@ def mesh_work(ds, cam, iteration, settings):
     from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
 
     pool = _camera_pool(cam, iteration, settings)
-    names = ("lanes_in", "candidates", "walks", "nodes", "tris", "mesh_hits")
+    wide = pl.pack_wide_tables(ds)
+    names = ("lanes_in", "candidates", "walks", "nodes", "tris", "mesh_hits",
+             "wide_nodes", "wide_leaves", "wide_tris", "wide_stack_max",
+             "slab_ulp_lanes")
     counts = {k: [] for k in names}
     plain = {k: 0.0 for k in MESH_KERNELS[:3]}
     D = settings.trace_depth
@@ -643,10 +681,19 @@ def mesh_work(ds, cam, iteration, settings):
         t3 = time.perf_counter()
         for k, dt in zip(MESH_KERNELS, (t1 - t0, t2 - t1, t3 - t2)):
             plain[k] += 1e3 * dt / D
+        # #8's own walk over the wide tables: its work, and the lanes whose
+        # winner it gives other bits than the binary walk (a triangle whose
+        # t lies an ulp inside a box's slab entry, or an exact tie)
+        wprobe = {}
+        listed = cands.lanes[:int(cands.count[0])].long()
+        wide_hits = pl.mesh_sweep_wide_reference(o, d, cands, ds, wide, probe=wprobe)
         n = dict(zip(names, (
             lanes_in, int(cands.count[0]), int(probe["walks"].sum()),
             int(probe["nodes"].sum()), int(probe["tris"].sum()),
-            int((hits.t > 0).sum()),
+            int((hits.t > 0).sum()), int(wprobe["nodes"].sum()),
+            int(wprobe["leaves"].sum()), int(wprobe["tris"].sum()),
+            int(wprobe["stack"].max()) if listed.numel() else 0,
+            int((bitwise(wide_hits.t[listed]) != bitwise(hits.t[listed])).sum()),
         )))
         for k in names:
             counts[k].append(n[k])
@@ -1246,8 +1293,10 @@ def main() -> int:
         triton=triton_version, nvcc=nvcc_version, python=sys.version.split()[0])
 
     # ---- 2. build every kernel from this checkout's sources ----
-    # (C's registers and shared memory from ptxas, compiled beside the build)
-    ptxas = ptxas_verbose(nvcc, f"{PKG}/csrc/sorted.cu", tmpdir)
+    # (the registers, shared memory and stack frames of C, #1 and #8 from
+    # ptxas, compiled beside the build)
+    ptxas = {src: ptxas_verbose(nvcc, f"{PKG}/csrc/{src}", tmpdir)
+             for src in ("sorted.cu", "full_iteration.cu", "mesh.cu")}
     lib_paths, build_s = _native.build(force=True)
     _native.load()
     usage = "not measured"
@@ -1263,19 +1312,28 @@ def main() -> int:
     say("build", nvcc_wall_seconds=build_s,
         libraries=[os.path.relpath(p, HERE) for p in lib_paths],
         resource_usage=usage)
-    say("ptxas", source=f"{PKG}/csrc/sorted.cu", flags="-Xptxas -v",
-        window_sweep=ptxas_usage(ptxas, r"window_sweep"))
+    for src, kernel in (("sorted.cu", "window_sweep"),
+                        ("full_iteration.cu", "full_iteration"),
+                        ("mesh.cu", "mesh_sweep")):
+        say("ptxas", source=f"{PKG}/csrc/{src}", flags="-Xptxas -v",
+            **{kernel: ptxas_usage(ptxas[src], kernel)})
 
     # ---- 3. every kernel against its plain version on the card ----
     err800 = {}
-    for name, kw in FULL_PARITY:
-        check_parity("full_iteration", {"config": name, "settings": kw,
-                                        "res": "64x64"},
-                     *full_parity(dev, name, kw, (64, 64)))
-    r = full_parity(dev, "cornell.txt", {"antialias": True}, (800, 800), 1)
+    for res in ((64, 64), (37, 23)):
+        for name, kw in FULL_PARITY:
+            *r, off = full_parity(dev, name, kw, res)
+            check_parity("full_iteration", {"config": name, "settings": kw,
+                                            "res": f"{res[0]}x{res[1]}",
+                                            "not_bit_identical": off,
+                                            "bit_rule": f"<={FULL_BITS_OFF}",
+                                            "per_bounce_kernels": "bit-identical"}, *r)
+    *r, off = full_parity(dev, "cornell.txt", {"antialias": True}, (800, 800), 1)
     check_parity("full_iteration", {"config": "cornell.txt",
                                     "settings": {"antialias": True},
-                                    "res": "800x800"}, *r)
+                                    "res": "800x800", "not_bit_identical": off,
+                                    "bit_rule": f"<={FULL_BITS_OFF}",
+                                    "per_bounce_kernels": "bit-identical"}, *r)
     err800["full_iteration"] = r[2]
     for name, kw in BOUNCE_PARITY:
         for kernel, r in bounce_parity(dev, name, kw, (64, 64)).items():
@@ -1476,7 +1534,8 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     main_launches = read_launches()
-    if main_launches != dict(NO_LAUNCHES, full_iteration=9 * batch) \
+    per_batch = -(-batch // mk.ITERATIONS_PER_LAUNCH)  # #1's launches per call
+    if main_launches != dict(NO_LAUNCHES, full_iteration=9 * per_batch) \
             or r.iteration != 9 * batch:
         raise RuntimeError(f"main path launches {main_launches} for "
                            f"{r.iteration} iterations")
@@ -1489,7 +1548,9 @@ def main() -> int:
     n_timed = 8 * batch
     ms_per_frame = 1e3 * dt / n_timed
     mrays = pixels * settings.trace_depth * n_timed / dt / 1e6
-    main_busy, main_kernel_ms, seen = profile_device(lambda: r.step_batch(10), 10)
+    # one call as the path makes it: #1's ms per launch covers `batch`
+    # iterations
+    main_busy, main_kernel_ms, seen = profile_device(lambda: r.step_batch(batch), batch)
     say("profile", path="main", busy_ms_per_iteration=main_busy,
         device_idle_share=max(0.0, 1.0 - main_busy / ms_per_frame),
         kernel_ms=main_kernel_ms,
@@ -1517,6 +1578,21 @@ def main() -> int:
         "iterations": r.iteration,
         "mean_radiance": mean,
     }), flush=True)
+    # #1 at 1x, 2x and 4x the main path's pixels (Cornell AA, its camera at
+    # each size), 20 iterations a launch: the persistent warps' last paths
+    # end in a tail that does not grow with the pixels, so the time per
+    # pixel falls with the size
+    scaling = {}
+    for side in (800, 1131, 1600):
+        sds, scam, sset = on_card(dev, "cornell.txt", {"antialias": True}, (side, side))
+        acc = Vec3.zeros(side * side, dev)
+        stables = mk.pack_scene_tables(sds)
+        mk.full_iteration(sds, scam, 1, sset, acc, n_iters=2, tables=stables)  # warm-up
+        ms = event_ms(lambda: mk.full_iteration(  # noqa: B023
+            sds, scam, 3, sset, acc, n_iters=20, tables=stables), 3) / 20
+        scaling[f"{side}x{side}"] = {"ms": ms, "ns_per_pixel": 1e6 * ms / side**2}
+    say("full_iteration_scaling", device=smi, settings={"antialias": True}, depth=8,
+        per_size=scaling)
 
     # ---- 6. the per-bounce and NEE paths at their scenes' own size, depth 8 ----
     D = 8
@@ -1723,11 +1799,24 @@ def main() -> int:
     fb_plain = event_ms(lambda: mk.first_bounce_reference(ds, cam, it, settings), 3)
     pool = mk.first_bounce_reference(ds, cam, it, settings)
     bs_plain = 0.0
+    length = torch.ones(P, dtype=torch.int64, device=dev)  # depths run, per pixel
     for depth in range(1, D):
+        length += (pool[4] != 0).long()
         t0 = time.perf_counter()
         pool = mk.bounce_step_reference(pool, ds, it, depth, settings)
         torch.cuda.synchronize()
         bs_plain += 1e3 * (time.perf_counter() - t0) / (D - 1)
+    # #1's lane use with one thread per pixel: warps of 32 consecutive
+    # pixels each run as many steps as their longest path; the persistent
+    # warps keep every lane on a path until the pixels run out
+    warps = length.view(-1, 32)
+    steps = int(warps.max(1).values.sum())
+    say("lane_use", kernel="full_iteration", config="cornell.txt", res="800x800",
+        settings={"antialias": True}, iteration=it, depth=D,
+        pixels_by_length=torch.bincount(length, minlength=D + 1)[1:].tolist(),
+        lane_bounces=int(length.sum()), share_of_p_x_d=float(length.sum()) / (P * D),
+        thread_per_pixel_busy_share=float(length.sum()) / (32 * steps),
+        warps_running_all_depths=float((warps.max(1).values == D).float().mean()))
     cache_settings = RenderSettings(trace_depth=D, cache_first_bounce=True)
     origins, dirs, pix = generate_rays(cam, it, False, False)
     pool0 = (Vec3(*(c.contiguous() for c in origins)), dirs, Vec3.ones(P, dev),
@@ -1778,6 +1867,17 @@ def main() -> int:
         lambda: pl.merge_hits(fill_cands, fill_hits), 5)
     mesh_table_bytes = sum(a.numel() * a.element_size()
                            for a in mk.pack_mesh_tables(mds))
+    mc8 = {k: float(sum(v)) for k, v in mesh_counts.items()}
+    walks8 = max(mc8["walks"], 1.0)
+    say("mesh_sweep_work", config="mesh.txt", res="800x800", settings={"antialias": True},
+        iteration=it, depth=D, per_walk={
+            "binary_nodes": mc8["nodes"] / walks8, "binary_tris": mc8["tris"] / walks8,
+            "wide_nodes": mc8["wide_nodes"] / walks8,
+            "wide_leaves": mc8["wide_leaves"] / walks8,
+            "wide_tris": mc8["wide_tris"] / walks8},
+        wide_stack_max=max(mesh_counts["wide_stack_max"]),
+        slab_ulp_lanes=int(mc8["slab_ulp_lanes"]), candidates=int(mc8["candidates"]),
+        bound_from="the binary walk's counts (mesh_bounds), unchanged")
     say("plain_times", device=smi, res="800x800", depth=D,
         first_bounce_plain_ms=fb_plain, bounce_step_plain_ms=bs_plain,
         shade_step_plain_ms=ss_plain, cache_fill_intersect_scene_ms=isect_ms,
@@ -1817,7 +1917,9 @@ def main() -> int:
         "intersect_mesh": bound(52 * P + 30 * fill_n, P * OPS_MERGE),
     }
     bounds = {
-        "full_iteration": bound(24 * P, P * OPS_RAYGEN_AA + sum(lanes_in) * per_lane),
+        # per launch: the main path's `batch` iterations of one call
+        "full_iteration": bound(24 * P * batch,
+                                batch * (P * OPS_RAYGEN_AA + sum(lanes_in) * per_lane)),
         "first_bounce": bound(56 * P, P * (OPS_RAYGEN_AA + per_lane)),
         "bounce_step": bound(
             sum(4 * P + 104 * n for n in lanes_in[1:]) / (D - 1),
@@ -1832,7 +1934,7 @@ def main() -> int:
     }
     # device ms per launch from the profiles, beside the plain versions
     timing = {
-        "full_iteration": (main_kernel_ms["full_iteration"], plain_ms,
+        "full_iteration": (main_kernel_ms["full_iteration"], plain_ms * batch,
                            main_launches["full_iteration"]),
         "first_bounce": (kernel_ms_of["step"]["first_bounce"], fb_plain,
                          launches_of["step"]["first_bounce"]),

@@ -11,18 +11,33 @@
 //       one atomic counter per warp (a ballot, then one atomicAdd); the
 //       count stays on the device. This takes the place of the TPU's
 //       in-tile compaction network, per-tile counts and cumsum glue.
-//   #8  mesh_sweep_kernel replaces K2: one thread per list entry (the grid
-//       is sized by the pool; a thread at or past the device-side count
-//       returns). For each mesh geom the lane is a candidate of, it walks
-//       the geom's BVH in object space, stackless over the preorder +
-//       escape-pointer layout of models/bvh.py (the same nodes in the same
-//       order as the plain ops/bvh_traverse.py::mesh_intersect_bvh), runs
-//       Moller-Trumbore on each leaf's triangles with the strict-< rule,
-//       then the world-space tail (distance, oriented normal, UVs). It
-//       writes the mesh winner at the lane's own index, so the output does
-//       not depend on the order the atomics gave the list. A geom of the
-//       big-mesh route has no nodes to walk in the geoms table: sorted.cu
-//       sweeps it after #8.
+//   #8  mesh_sweep_kernel replaces K2: a group of kWide lanes per list
+//       entry, over a persistent grid (as many blocks as stay resident)
+//       whose groups take entries from an atomic counter until they reach
+//       the device-side count, so the launch does not depend on the pool
+//       and a group whose walks end early takes more. For each mesh geom the
+//       lane is a candidate of, the group walks the geom's wide BVH
+//       (models/wide_bvh.py, packed by ops/pipeline.py::pack_wide_tables)
+//       in object space: it pops an entry of its stack in shared memory,
+//       skips it when its tmin is past the best t, and at an inner node
+//       lane k slab-tests child k (tmin <= t enters; the node's children
+//       are structure-of-arrays, so a row is one load for the group), a
+//       group ballot lists the entered ones and each lane pushes its own
+//       child at its rank (nearer tmin first, the lower child on equal
+//       tmin, so the nearest is on top); at a leaf lane k runs
+//       Moller-Trumbore on triangle k, the group takes the least t bits
+//       (the lowest lane, so the lowest triangle, on equal t) and that
+//       (t, triangle) replaces the best when it is less. The winner is
+//       the least (t, triangle) the walk tested: the plain binary walk's
+//       (ops/bvh_traverse.py::mesh_intersect_bvh, which meets leaves in
+//       ascending triangle order with the strict-< rule), but on lanes
+//       whose winning t lies an ulp inside a box's slab entry. Then the
+//       world-space tail (distance, oriented normal, UVs); the group's
+//       first lane writes the mesh winner at the lane's own index, so the
+//       output does not depend on the order the atomics gave the list. A
+//       geom of the big-mesh route has no wide root (-1): sorted.cu sweeps
+//       it after #8. When no geom has a root, mesh_sweep_kernel_no_walk
+//       writes each listed lane's "no hit", one thread per entry.
 //   #9  bounce_step_mesh_kernel replaces bounce_step_pipeline's K3: one
 //       thread per lane, in place on the pool. The mesh hit wins iff the
 //       lane is a candidate, t_mesh > 0 and (t_a > 0 ? t_a : FLT_MAX) >
@@ -34,21 +49,26 @@
 //       material, outside, tex_u, tex_v, has_uv). Dead lanes keep their
 //       analytic hit, as the JAX package returns them.
 //
-// What bounds them on the H100: #8 is per-thread control flow over the
-// BVH (node boxes and triangles read through the read-only cache, warp
-// divergence between rays that walk different subtrees), #7 and #9 the
-// same arithmetic as kernel #3's sweep and shading, #10 its bytes. What
-// the design does about it: nothing yet beyond compacting the candidates
-// so that #8's warps hold only rays that enter a mesh, and 16-byte loads
-// of nodes and triangles; shared-memory node caches, near-child-first
-// order and ray reordering are later work.
+// What bounds them on the H100: #8 is each walk's chain of dependent
+// loads (a wide node's boxes, a leaf's triangles, both through the
+// read-only cache) and the group's reductions, #7 and #9 the same
+// arithmetic as kernel #3's sweep and shading, #10 its bytes. What the
+// designs do about it: #7 compacts the candidates so that #8 works on rays
+// that enter a mesh; #8 puts kWide lanes on each ray, so a walk of
+// mesh.txt takes about 4.6 inner nodes and 1.5 leaves where the binary
+// walk took 35.7 nodes and 7.3 triangles one after another, keeps every
+// resident warp on list entries and visits children nearest first, so the
+// running t shrinks early.
+
+#include <algorithm>
 
 #include "mesh_common.cuh"
 
 namespace {
 
 constexpr int kMesh = 2;  // models/scene.py::GeomType.MESH
-constexpr int kLeafSize = 4;  // models/bvh.py::LEAF_SIZE
+constexpr int kWide = 8;  // models/wide_bvh.py::WIDTH: #8's lanes per ray
+constexpr int kGroups = kThreads / kWide;  // #8's rays per block
 
 // intersect() of path_common.cuh over the analytic geoms alone: the same
 // geom order and strict-< rule, mesh geoms skipped.
@@ -89,24 +109,97 @@ __device__ __forceinline__ bool mesh_candidate(const Tables& s, const MeshTables
   return slab_enter(__ldg(m.box + 2 * mg.y), __ldg(m.box + 2 * mg.y + 1), *r, bound);
 }
 
-// The stackless walk of one mesh instance's BVH: its winner in object
-// space.
-__device__ __forceinline__ TriHit walk(const MeshTables& m, int node_start, int node_end,
-                                       const ObjRay& r) {
-  TriHit best = {kFltMax, 0, 0.0f, 0.0f};
-  int cur = node_start;
-  while (cur < node_end) {
-    const int4 nd = __ldg(m.node + cur);  // first, count, skip, is_leaf
-    const bool hit = slab_enter(__ldg(m.box + 2 * cur), __ldg(m.box + 2 * cur + 1), r, best.t);
-    if (hit && nd.w) {
-      for (int k = 0; k < kLeafSize && k < nd.y; ++k) {
-        float t, u, v;
-        if (tri_test(m, nd.x + k, r, &t, &u, &v) && t < best.t) {
-          best = TriHit{t, nd.x + k, u, v};
-        }
+// #8's wide BVH (ops/pipeline.py::pack_wide_tables).
+struct WideTables {
+  const float* box;  // (N, 6, kWide): child min xyz, max xyz
+  const int* ref;    // (N, 2, kWide): child reference, triangle count
+  const int* root;   // (M,): per mesh geom its root, -1 if not walked
+};
+
+// wide[] = {box, ref, root}
+inline WideTables make_wide(void* const* t) {
+  WideTables w;
+  w.box = static_cast<const float*>(t[0]);
+  w.ref = static_cast<const int*>(t[1]);
+  w.root = static_cast<const int*>(t[2]);
+  return w;
+}
+
+// Lane i's mesh winner, as #8 writes it.
+__device__ __forceinline__ void store_mesh_hit(const HitLanes& out, int i, float t, V3 n, int mat,
+                                               bool outside, bool has_uv, float u, float v) {
+  out.t[i] = t;
+  out.n[0][i] = n.x;
+  out.n[1][i] = n.y;
+  out.n[2][i] = n.z;
+  out.mat[i] = mat;
+  out.outside[i] = outside ? 1 : 0;
+  out.flag[i] = has_uv ? 1 : 0;
+  out.u[i] = u;
+  out.v[i] = v;
+}
+
+// An entry of a walk's stack: a wide node (count 0) or a leaf's first
+// triangle and count, and the tmin its box was entered at.
+struct StackEntry {
+  int ref;
+  int count;
+  float tmin;
+};
+
+// One mesh instance's winner in object space, walked by the kWide lanes
+// of `gmask` (lane k of the group, the group's first lane `g0` of the
+// warp) over its wide BVH from `root`, with `stack` in shared memory.
+// Every value that steers the loop (sp, best, the popped entry) is the
+// same in all the group's lanes.
+__device__ __forceinline__ TriHit wide_walk(const MeshTables& m, const WideTables& w, int root,
+                                            const ObjRay& r, StackEntry* stack, unsigned gmask,
+                                            int k, int g0) {
+  TriHit best = {kFltMax, 0x7fffffff, 0.0f, 0.0f};
+  if (k == 0) stack[0] = StackEntry{root, 0, -kFltMax};
+  int sp = 1;
+  __syncwarp(gmask);
+  while (sp > 0) {
+    --sp;
+    const StackEntry e = stack[sp];
+    __syncwarp(gmask);  // every lane has read it before any push over it
+    if (!(e.tmin <= best.t)) continue;
+    if (e.count == 0) {
+      const float* b = w.box + static_cast<size_t>(e.ref) * 6 * kWide + k;
+      const int* rf = w.ref + static_cast<size_t>(e.ref) * 2 * kWide + k;
+      const int cref = __ldg(rf);
+      const int ccount = __ldg(rf + kWide);
+      const float4 lo = {__ldg(b), __ldg(b + kWide), __ldg(b + 2 * kWide), 0.0f};
+      const float4 hi = {__ldg(b + 3 * kWide), __ldg(b + 4 * kWide), __ldg(b + 5 * kWide), 0.0f};
+      float tmin, tmax;
+      slab_span(lo, hi, r, &tmin, &tmax);
+      const bool enter = ccount >= 0 && tmax >= tmin && tmax > 0.0f && tmin <= best.t;
+      const unsigned entered = __ballot_sync(gmask, enter);
+      int rank = 0;  // entered children before this one: nearer, or as near and lower
+#pragma unroll
+      for (int j = 0; j < kWide; ++j) {
+        const float tj = __shfl_sync(gmask, tmin, g0 + j);
+        rank += ((entered >> (g0 + j)) & 1u) && (tj < tmin || (tj == tmin && j < k));
+      }
+      const int n_entered = __popc(entered);
+      if (enter) stack[sp + n_entered - 1 - rank] = StackEntry{cref, ccount, tmin};
+      sp += n_entered;
+      __syncwarp(gmask);
+    } else {
+      float t = 0.0f, u = 0.0f, v = 0.0f;
+      const bool hit = k < e.count && tri_test(m, e.ref + k, r, &t, &u, &v);
+      // t > RAY_EPS > 0, so the order of its bits is the order of t
+      const unsigned bits = hit ? __float_as_uint(t) : 0xffffffffu;
+      const unsigned least = __reduce_min_sync(gmask, bits);
+      if (least != 0xffffffffu) {
+        const int at = __ffs(__ballot_sync(gmask, bits == least)) - 1;
+        const float wu = __shfl_sync(gmask, u, at);
+        const float wv = __shfl_sync(gmask, v, at);
+        const float wt = __uint_as_float(least);
+        const int wtri = e.ref + (at - g0);
+        if (wt < best.t || (wt == best.t && wtri < best.tri)) best = TriHit{wt, wtri, wu, wv};
       }
     }
-    cur = (hit && !nd.w) ? cur + 1 : nd.z;
   }
   return best;
 }
@@ -153,50 +246,98 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 __global__ void __launch_bounds__(kThreads)
-    mesh_sweep_kernel(const Tables s, const MeshTables m, const RayLanes rays,
-                      const float* __restrict__ t_a, const int* __restrict__ list,
-                      const int* __restrict__ count, int n, const HitLanes out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n || j >= __ldg(count)) return;
-  const int i = __ldg(list + j);
-  const V3 o = ray_o(rays, i);
-  const V3 d = ray_d(rays, i);
-  const float ta = t_a[i];
-  // the winner over the mesh geoms, in geom order with the min-t rule
-  float best_t = -1.0f;
-  V3 best_n = {0.0f, 0.0f, 0.0f};
-  int best_mat = -1;
-  bool best_out = true, best_huv = false;
-  float best_u = 0.0f, best_v = 0.0f;
-  for (int k = 0; k < m.n_mesh; ++k) {
-    ObjRay r;
-    if (!mesh_candidate(s, m, k, o, d, ta, &r)) continue;
-    const int4 mg = __ldg(m.geoms + k);
-    const TriHit th = walk(m, mg.y, mg.y + mg.z, r);
-    if (!(th.t < kFltMax)) continue;
-    const MeshHit h = epilogue(s, m, mg.x, mg.w != 0, r, th, o, d);
-    const float prev = best_t > 0.0f ? best_t : kFltMax;
-    if (h.t > 0.0f && prev > h.t) {
-      best_t = h.t;
-      best_n = h.n;
-      best_mat = __ldg(s.gmat + mg.x);
-      best_out = h.outside;
-      best_huv = mg.w != 0;
-      if (best_huv) {
-        best_u = h.u;
-        best_v = h.v;
+    mesh_sweep_kernel(const Tables s, const MeshTables m, const WideTables w, int stack_len,
+                      const RayLanes rays, const float* __restrict__ t_a,
+                      const int* __restrict__ list, const int* __restrict__ count, int n,
+                      const HitLanes out, int* __restrict__ next) {
+  extern __shared__ StackEntry stacks[];
+  const int group = threadIdx.x / kWide;
+  const int k = threadIdx.x % kWide;
+  const int g0 = (threadIdx.x & 31) & ~(kWide - 1);
+  const unsigned gmask = ((1u << kWide) - 1u) << g0;
+  StackEntry* stack = stacks + group * stack_len;
+  const int total = min(n, __ldg(count));
+  for (;;) {
+    // the next list entry, for the group: walks differ in length, so a
+    // group that ends early takes more
+    int j = 0;
+    if (k == 0) j = atomicAdd(next, 1);
+    j = __shfl_sync(gmask, j, g0);
+    if (j >= total) break;
+    const int i = __ldg(list + j);
+    const V3 o = ray_o(rays, i);
+    const V3 d = ray_d(rays, i);
+    const float ta = t_a[i];
+    // the winner over the mesh geoms, in geom order with the min-t rule
+    float best_t = -1.0f;
+    V3 best_n = {0.0f, 0.0f, 0.0f};
+    int best_mat = -1;
+    bool best_out = true, best_huv = false;
+    float best_u = 0.0f, best_v = 0.0f;
+    for (int g = 0; g < m.n_mesh; ++g) {
+      const int root = __ldg(w.root + g);
+      ObjRay r;
+      if (root < 0 || !mesh_candidate(s, m, g, o, d, ta, &r)) continue;
+      const TriHit th = wide_walk(m, w, root, r, stack, gmask, k, g0);
+      if (!(th.t < kFltMax)) continue;
+      const int4 mg = __ldg(m.geoms + g);
+      const MeshHit h = epilogue(s, m, mg.x, mg.w != 0, r, th, o, d);
+      const float prev = best_t > 0.0f ? best_t : kFltMax;
+      if (h.t > 0.0f && prev > h.t) {
+        best_t = h.t;
+        best_n = h.n;
+        best_mat = __ldg(s.gmat + mg.x);
+        best_out = h.outside;
+        best_huv = mg.w != 0;
+        if (best_huv) {
+          best_u = h.u;
+          best_v = h.v;
+        }
       }
     }
+    if (k == 0) {
+      store_mesh_hit(out, i, best_t, best_n, best_mat, best_out, best_huv, best_u, best_v);
+    }
   }
-  out.t[i] = best_t;
-  out.n[0][i] = best_n.x;
-  out.n[1][i] = best_n.y;
-  out.n[2][i] = best_n.z;
-  out.mat[i] = best_mat;
-  out.outside[i] = best_out ? 1 : 0;
-  out.flag[i] = best_huv ? 1 : 0;
-  out.u[i] = best_u;
-  out.v[i] = best_v;
+}
+
+// #8 when no mesh geom has a wide BVH to walk (every mesh of the scene
+// takes the big-mesh route): each listed lane's mesh winner is no hit, the
+// values the walk starts from, one thread per entry over the same grid.
+__global__ void __launch_bounds__(kThreads)
+    mesh_sweep_kernel_no_walk(const int* __restrict__ list, const int* __restrict__ count, int n,
+                              const HitLanes out) {
+  const int total = min(n, __ldg(count));
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < total; j += gridDim.x * blockDim.x) {
+    store_mesh_hit(out, __ldg(list + j), -1.0f, V3{0.0f, 0.0f, 0.0f}, -1, true, false, 0.0f,
+                   0.0f);
+  }
+}
+
+// The blocks of #8 that stay resident on `device` with `smem` bytes of
+// stack per block; the last query is kept.
+cudaError_t sweep_blocks(int device, int smem, int* out) {
+  static int last_device = -1, last_smem = -1, last_blocks = 0;
+  if (device != last_device || smem != last_smem) {
+    cudaError_t err = cudaSuccess;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(mesh_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return err;
+    }
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mesh_sweep_kernel, kThreads,
+                                                        smem);
+    if (err != cudaSuccess) return err;
+    if (sms * per_sm <= 0) return cudaErrorInvalidConfiguration;
+    last_device = device;
+    last_smem = smem;
+    last_blocks = sms * per_sm;
+  }
+  *out = last_blocks;
+  return cudaSuccess;
 }
 
 // The merged hit of lane i: the mesh winner iff the lane is a candidate,
@@ -282,17 +423,33 @@ extern "C" int pt_mesh_candidates(void* const* tables, int n_geoms, void* const*
   return static_cast<int>(cudaGetLastError());
 }
 
-// t_a: #7's analytic t; list/count: #7's candidate list; hits: 9 lanes.
+// wide: {box, ref, root} of pack_wide_tables; stack: the entries a walk's
+// stack may need; walked: how many mesh geoms have a root (0: the
+// no-walk kernel); t_a: #7's analytic t; list/count: #7's candidate list;
+// hits: 9 lanes; next: one int32 of scratch, zeroed on the stream here
+// (the groups take list entries from it).
 extern "C" int pt_mesh_sweep(void* const* tables, int n_geoms, void* const* mesh, int n_mesh,
-                             void* const* rays, const float* t_a, const int* list,
-                             const int* count, int n, void* const* hits, int device,
-                             void* stream) {
+                             void* const* wide, int stack, int walked, void* const* rays,
+                             const float* t_a, const int* list, const int* count, int n,
+                             void* const* hits, int* next, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    mesh_sweep_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        make_tables(tables, n_geoms, 0, 0), make_mesh_tables(mesh, n_mesh), make_rays(rays), t_a,
-        list, count, n, make_hits(hits, true));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int smem = kGroups * stack * static_cast<int>(sizeof(StackEntry));
+    int blocks = 0;
+    err = sweep_blocks(device, smem, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (walked == 0) {
+      mesh_sweep_kernel_no_walk<<<std::min(blocks, n_blocks(n)), kThreads, 0, st>>>(
+          list, count, n, make_hits(hits, true));
+    } else {
+      err = cudaMemsetAsync(next, 0, sizeof(int), st);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      mesh_sweep_kernel<<<std::min(blocks, (n + kGroups - 1) / kGroups), kThreads, smem, st>>>(
+          make_tables(tables, n_geoms, 0, 0), make_mesh_tables(mesh, n_mesh), make_wide(wide),
+          stack, make_rays(rays), t_a, list, count, n, make_hits(hits, true), next);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,13 +12,13 @@
 namespace {
 
 // The mesh tables, as ops/megakernel.py::pack_mesh_tables lays them out
-// (the first five of its seven; the big-mesh route reads the chunk and
-// supernode boxes itself).
+// (four of its seven: no kernel walks the binary nodes since #8 walks its
+// wide tables, and the big-mesh route reads the chunk and supernode boxes
+// itself).
 struct MeshTables {
   const float4* tri;  // (T,3) float4: v0.xyz v1.x | v1.yz v2.xy | v2.z - - -
   const float* attr;  // (T,16): n0 n1 n2 (xyz each), uv0 uv1 uv2 (uv each), -
   const float4* box;  // (B,2) float4: min.xyz - | max.xyz -
-  const int4* node;   // (B,) first triangle, triangle count, skip, is_leaf
   const int4* geoms;  // (M,) geom index, first node, node count, has_uv
   int n_mesh;
 };
@@ -29,7 +29,6 @@ inline MeshTables make_mesh_tables(void* const* t, int n_mesh) {
   m.tri = static_cast<const float4*>(t[0]);
   m.attr = static_cast<const float*>(t[1]);
   m.box = static_cast<const float4*>(t[2]);
-  m.node = static_cast<const int4*>(t[3]);
   m.geoms = static_cast<const int4*>(t[4]);
   m.n_mesh = n_mesh;
   return m;

@@ -34,9 +34,10 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    # tables, n_geoms, cam, acc, iteration, resx, resy, depth, rr_start,
-    # flags, device, stream
-    "pt_full_iteration": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # tables, n_geoms, cam, acc, iteration0, n_iters, resx, resy, depth,
+    # rr_start, flags, counter, device, stream
+    "pt_full_iteration": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                          _P],
     # tables, n_geoms, cam, pool, iteration, resx, resy, rr_start, flags,
     # device, stream
     "pt_first_bounce": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -56,9 +57,10 @@ SIGNATURES = {
     # tables, n_geoms, mesh, n_mesh, rays, num_alive, n, all_lanes,
     # analytic, list, count, device, stream
     "pt_mesh_candidates": [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P],
-    # tables, n_geoms, mesh, n_mesh, rays, t_a, list, count, n, hits,
-    # device, stream
-    "pt_mesh_sweep": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P],
+    # tables, n_geoms, mesh, n_mesh, wide, stack, walked, rays, t_a, list,
+    # count, n, hits, next, device, stream
+    "pt_mesh_sweep": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P,
+                      _I, _P],
     # tables, n_geoms, pool, num_alive, n, analytic, hits, iteration,
     # depth, rr_start, flags, device, stream
     "pt_bounce_step_mesh": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],

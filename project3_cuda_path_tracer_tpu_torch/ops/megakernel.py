@@ -4,8 +4,11 @@ Six wrappers, each replacing one Pallas kernel of the JAX package's
 `ops/megakernel.py`:
 
 - `full_iteration` (#1, `full_iteration_pallas`): raygen and all
-  `trace_depth` bounces in one launch per iteration, each pixel's
-  radiance added into the accumulator (csrc/full_iteration.cu);
+  `trace_depth` bounces of up to ITERATIONS_PER_LAUNCH iterations in one
+  launch, each pixel's radiance added into the accumulator iteration
+  after iteration, by persistent warps whose lanes start the pixel's
+  next path when one ends and take a new pixel from a device-side
+  counter when the pixel's iterations are done (csrc/full_iteration.cu);
 - `first_bounce` (#2, `first_bounce_pallas`): raygen and the depth-0
   bounce, written to a new pool (csrc/bounce.cu);
 - `bounce_step` (#3, `bounce_step_pallas`): one fused intersect + shade
@@ -86,10 +89,19 @@ class SceneTables(NamedTuple):
     # C's lane-major tables (ops/pipeline.py::pack_sweep_tables); None
     # without meshes
     sweep: tuple | None = None
+    # #8's wide BVH (ops/pipeline.py::pack_wide_tables); None without
+    # meshes
+    wide: tuple | None = None
 
 
 # the tables the kernels read, as a C array of pointers in this order
 _TABLE_PTRS = 8
+
+# #1's iterations per launch: a lane renders its pixel's paths of all of
+# them before it takes the next pixel, so the launch's tail (the last
+# paths of the last pixels) is paid once per launch, not per iteration;
+# at 800x800 a launch of 32 iterations lasts about 7 ms on an H100
+ITERATIONS_PER_LAUNCH = 32
 
 
 def draw_slots(any_partial_refl: bool, any_refractive: bool,
@@ -185,12 +197,13 @@ def pack_mesh_tables(scene: DeviceScene) -> tuple:
     the scene's device: tri (T,12) f32 [v0, v1, v2, 3 pad], attr (T,16)
     f32 [n0, n1, n2, uv0, uv1, uv2, pad], box (B,8) f32 [min, pad, max,
     pad], node (B,4) i32 [first, count, skip, is_leaf], geoms (M,4) i32
-    [geom index, first node, nodes #8 walks, has_uv] for the M mesh geoms,
+    [geom index, first node, node count (0 for a geom of the sorted
+    route, ops/pipeline.py::sorted_geoms), has_uv] for the M mesh geoms,
     and the big-mesh route's chunk (C,8) and supernode (S,8) boxes [min,
-    max, 0, 0]. A geom that takes the sorted route (ops/pipeline.py::
-    sorted_geoms) has 0 nodes to walk, so #8 skips it; #7 still reads its
-    root box. The tables live in object space, so motion blur never
-    re-packs them."""
+    max, 0, 0]. #7 reads each geom's root box; #8 walks the wide BVH
+    collapsed from these binary nodes (ops/pipeline.py::pack_wide_tables),
+    which gives a geom of the sorted route no root. The tables live in
+    object space, so motion blur never re-packs them."""
     from .pipeline import sorted_geoms
 
     mesh = scene.mesh_geoms
@@ -225,8 +238,8 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
     """The kernels' tables; with `nee` also the MIS light pdf model, read
     back to the host once here, so no NEE launch waits on the device for
     it (motion blur only translates, so it never changes the value); on a
-    mesh scene also the mesh pipeline's tables and C's."""
-    from .pipeline import pack_sweep_tables
+    mesh scene also the mesh pipeline's tables, C's and #8's wide BVH."""
+    from .pipeline import pack_sweep_tables, pack_wide_tables
 
     G = scene.transform.shape[0]
     dev = scene.device
@@ -256,6 +269,7 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
         aw=float(lights_area_weight(scene)) if nee else None,
         mesh=pack_mesh_tables(scene) if scene.mesh_geoms else None,
         sweep=pack_sweep_tables(scene) if scene.mesh_geoms else None,
+        wide=pack_wide_tables(scene) if scene.mesh_geoms else None,
     )
 
 
@@ -503,12 +517,13 @@ def full_iteration(
 ) -> None:
     """Render iterations iteration0 .. iteration0 + n_iters - 1 (1-based)
     and add their per-pixel radiance into `accum` (three (P,) float32
-    tensors) in place.
+    tensors) in place, iteration after iteration.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    once per iteration on PyTorch's current stream, counting each launch
-    in `full_iteration.launches`; any other device raises. The tables
-    are packed once per call unless given."""
+    once per ITERATIONS_PER_LAUNCH iterations (or fewer) on PyTorch's
+    current stream, counting each launch in `full_iteration.launches`;
+    any other device raises. The tables are packed once per call unless
+    given."""
     _whole_iterations(full_iteration, full_iteration_reference, False, scene,
                       cam, iteration0, settings, accum, n_iters, tables)
 
@@ -517,8 +532,12 @@ def _whole_iterations(wrapper, reference, nee: bool, scene: DeviceScene,
                       cam: DeviceCamera, iteration0: int, settings,
                       accum: Vec3, n_iters: int, tables) -> None:
     """The body of the two whole-iteration wrappers (#1, and #6 when
-    `nee`): the plain version on CPU tensors, else one launch of
-    `pt_<wrapper>` per iteration, counted in `wrapper.launches`."""
+    `nee`): the plain version on CPU tensors, else launches of
+    `pt_<wrapper>`, counted in `wrapper.launches`: #6 one per iteration,
+    #1 one per ITERATIONS_PER_LAUNCH iterations or fewer. #1's persistent
+    warps take pixels from a device-side counter, one int32 word per
+    launch, so no launch shares a count with another and the host never
+    reads one."""
     what = wrapper.__name__
     check_supported(scene, settings)
     _require_analytic(scene, what)
@@ -546,12 +565,20 @@ def _whole_iterations(wrapper, reference, nee: bool, scene: DeviceScene,
     acc = _ptrs(list(accum))
     dev_index, stream = _device_args(device)
     flags = kernel_flags(scene, settings)
-    for k in range(n_iters):
+    per_launch = 1 if nee else ITERATIONS_PER_LAUNCH
+    runs = [(int(iteration0) + k, min(per_launch, n_iters - k))
+            for k in range(0, n_iters, per_launch)]
+    # #1's pixel counters: one word per launch, zeroed by one memset here
+    counters = (None if nee else
+                torch.zeros(len(runs), dtype=torch.int32, device=device))
+    for j, (first, count) in enumerate(runs):
+        run = () if nee else (count,)
+        counter = () if nee else (counters[j].data_ptr(),)
         _launch(
             f"pt_{what}", what,
             tptr, len(scene.gtypes), *lights, cam_vec.data_ptr(), acc,
-            int(iteration0) + k, resx, resy, int(settings.trace_depth),
-            int(settings.rr_start_depth), flags, dev_index, stream,
+            first, *run, resx, resy, int(settings.trace_depth),
+            int(settings.rr_start_depth), flags, *counter, dev_index, stream,
         )
         wrapper.launches += 1
 

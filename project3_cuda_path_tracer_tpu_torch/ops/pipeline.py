@@ -9,7 +9,9 @@ dense mesh route:
   each lane, and the lanes whose ray enters a mesh geom's object-space
   root box before that winner (`mesh_candidacy`), listed on the device;
 - `mesh_sweep` (#8, `_intersect_phase` K2): the mesh winner of each
-  listed lane, by a walk of each candidate geom's BVH;
+  listed lane, by a walk of each candidate geom's wide BVH
+  (`pack_wide_tables`, models/wide_bvh.py), a group of eight threads per
+  listed lane;
 - `bounce_step_mesh` (#9, `bounce_step_pipeline` K3): the merge of the two
   winners and the shading half of the bounce, in place on the pool;
 - `intersect_mesh` (#10, `intersect_pipeline` K3): the same merge, as
@@ -64,9 +66,11 @@ only there, it runs its plain PyTorch version (`*_reference`): #7 the
 analytic `intersect_scene` plus the candidacy mask plus `torch.nonzero`,
 #8 `mesh_intersect_bvh` on the candidate rays (the naive sweep when
 `use_bvh` is off, as `RenderSettings.use_bvh` selects for the plain
-path), #9 the merge plus `render._shade_step`, #10 the merge, A-D the
-sorted route op for op (`super_rank` mirrors `_super_rank_xla`). Each
-wrapper counts its launches in `<wrapper>.launches`.
+path; `mesh_sweep_wide_reference` walks #8's wide tables in the kernel's
+order, for the tests), #9 the merge plus `render._shade_step`, #10 the
+merge, A-D the sorted route op for op (`super_rank` mirrors
+`_super_rank_xla`). Each wrapper counts its launches in
+`<wrapper>.launches`.
 
 The merge (`merge_hits`): the mesh hit wins iff the lane is a candidate,
 t_mesh > 0 and (t_a > 0 ? t_a : FLT_MAX) > t_mesh, so an exact tie goes to
@@ -79,10 +83,12 @@ from __future__ import annotations
 import os
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..models.device import MESH_CHUNK, MESH_SUPER, DeviceScene
-from .bvh_traverse import _aabb_hit, mesh_intersect_bvh
+from ..models.wide_bvh import WIDTH, collapse, stack_bound
+from .bvh_traverse import _aabb_hit, mesh_intersect_bvh, mesh_intersect_wide
 from .intersect import (
     FLT_MAX,
     MISS,
@@ -240,32 +246,59 @@ def mesh_sweep_reference(origins: Vec3, dirs: Vec3, cands: Candidates,
                          scene: DeviceScene, use_bvh: bool = True,
                          probe: dict | None = None) -> Intersections:
     """#8, plain: for each candidate lane and each mesh geom that #8 walks
-    (`dense_geoms`) it is a candidate of, `mesh_intersect_bvh` (or the
-    naive sweep without `use_bvh`), the winners merged in geom order with
-    the min-t rule. Lanes that are no candidate get no hit (t = -1), as do
-    candidates that hit no triangle.
+    (`dense_geoms`) it is a candidate of, `mesh_intersect_bvh` (the binary
+    walk; or the naive sweep without `use_bvh`), the winners merged in
+    geom order with the min-t rule. Lanes that are no candidate get no hit
+    (t = -1), as do candidates that hit no triangle.
 
     probe: a dict that, when given, receives the walk's work per
     candidate lane, summed over the geoms walked (for kernel #8's bound):
     `walks` (geom walks), `nodes` (nodes tested) and `tris` (triangles
     tested), each (count,) int64."""
+    def walk(g, o, d, sub):
+        if use_bvh:
+            return mesh_intersect_bvh(scene, g, o, d, probe=sub)
+        return _mesh_intersect_naive(scene, g, o, d)
+
+    return _mesh_sweep_plain(origins, dirs, cands, scene, walk, probe)
+
+
+def mesh_sweep_wide_reference(origins: Vec3, dirs: Vec3, cands: Candidates,
+                              scene: DeviceScene, wide: WideTables | None = None,
+                              probe: dict | None = None) -> Intersections:
+    """#8's own walk, plain: `mesh_sweep_reference` with each geom walked
+    over its wide BVH (`mesh_intersect_wide`, the kernel's order), from
+    `wide` (`pack_wide_tables(scene)` when not given). It differs from the
+    binary walk only on lanes whose winning triangle's t lies an ulp
+    inside a box's slab entry. Used by the tests, never on a path.
+
+    probe: as mesh_sweep_reference's, with `walks`, `nodes` (inner wide
+    nodes), `leaves`, `tris` summed over the geoms walked and `stack` (the
+    deepest stack) their max."""
+    wide = pack_wide_tables(scene) if wide is None else wide
+
+    def walk(g, o, d, sub):
+        root = int(wide.root[scene.mesh_geoms.index(g)])
+        return mesh_intersect_wide(scene, wide, g, root, o, d, probe=sub)
+
+    return _mesh_sweep_plain(origins, dirs, cands, scene, walk, probe)
+
+
+def _mesh_sweep_plain(origins: Vec3, dirs: Vec3, cands: Candidates,
+                      scene: DeviceScene, walk, probe) -> Intersections:
+    """The body of #8's plain versions: `walk(g, o, d, sub)` gives one
+    geom's hits of the rays (o, d), its per-lane work in `sub`."""
     P = origins.x.shape[0]
     device = origins.x.device
     n = int(cands.count[0])
     idx = cands.lanes[:n].to(torch.int64)
     o, d, ta = vtake(origins, idx), vtake(dirs, idx), cands.t[idx]
     best = _miss(n, device)
-    work = {k: torch.zeros(n, dtype=torch.int64, device=device)
-            for k in ("walks", "nodes", "tris")}
+    work = {"walks": torch.zeros(n, dtype=torch.int64, device=device)}
     for g in dense_geoms(scene):
         sel = torch.nonzero(mesh_candidacy(scene, g, o, d, ta))[:, 0]
         sub = {}
-        if use_bvh:
-            t, nrm, out, tu, tv = mesh_intersect_bvh(
-                scene, g, vtake(o, sel), vtake(d, sel), probe=sub)
-        else:
-            t, nrm, out, tu, tv = _mesh_intersect_naive(
-                scene, g, vtake(o, sel), vtake(d, sel))
+        t, nrm, out, tu, tv = walk(g, vtake(o, sel), vtake(d, sel), sub)
         hit = _miss(n, device)
         hit.t[sel] = t
         for dst, src in zip(hit.normal, nrm):
@@ -280,10 +313,12 @@ def mesh_sweep_reference(origins: Vec3, dirs: Vec3, cands: Candidates,
             hit.tex_u, hit.tex_v = best.tex_u, best.tex_v
         best = _select(closer_hit(hit.t, best.t), hit, best)
         work["walks"][sel] += 1
-        for k in ("nodes", "tris"):
-            if k in sub:
-                work[k][sel] += sub[k]
+        for k, v in sub.items():
+            w = work.setdefault(k, torch.zeros(n, dtype=torch.int64, device=device))
+            w[sel] = torch.maximum(w[sel], v) if k == "stack" else w[sel] + v
     if probe is not None:
+        for k in ("nodes", "tris"):
+            work.setdefault(k, torch.zeros(n, dtype=torch.int64, device=device))
         probe.update(work)
     out = _miss(P, device)
     out.t[idx] = best.t
@@ -771,6 +806,40 @@ def pack_sweep_tables(scene: DeviceScene) -> tuple:
     return tris, boxes
 
 
+class WideTables(NamedTuple):
+    """#8's wide BVH (models/wide_bvh.py) on the scene's device."""
+
+    box: torch.Tensor  # (N, 6, WIDTH) f32 child boxes
+    ref: torch.Tensor  # (N, 2, WIDTH) i32 child reference and count
+    root: torch.Tensor  # (M,) i32 per mesh geom: its root, -1 if #8 skips it
+    stack: int  # stack entries a walk may need (wide_bvh.stack_bound)
+    walked: int  # mesh geoms with a root (0: #8 writes "no hit" alone)
+
+
+def pack_wide_tables(scene: DeviceScene) -> WideTables:
+    """The wide BVH of every geom #8 walks (`dense_geoms`), collapsed in
+    numpy from the scene's binary BVH; root -1 for the geoms of the sorted
+    route. The triangles stay where they are. Packed once, with the
+    scene's tables (object space: motion blur never re-packs them)."""
+    dense = dense_geoms(scene)
+    host = lambda a: a.detach().cpu().numpy()  # noqa: E731
+    wide = collapse(
+        np.stack([host(c) for c in scene.bvh_min], 1),
+        np.stack([host(c) for c in scene.bvh_max], 1),
+        host(scene.bvh_first), host(scene.bvh_count), host(scene.bvh_skip),
+        host(scene.bvh_leaf),
+        [scene.bvh_roots[g] if g in dense else (0, 0) for g in scene.mesh_geoms],
+    )
+    dev = scene.device
+    return WideTables(
+        box=torch.from_numpy(wide.box).to(dev),
+        ref=torch.from_numpy(wide.ref).to(dev),
+        root=torch.from_numpy(wide.root).to(dev),
+        stack=stack_bound(max(wide.depth, 1)),
+        walked=int((wide.root >= 0).sum()),
+    )
+
+
 def _sweep_ptrs(t: SceneTables, scene: DeviceScene, device):
     """C's table pointers {tris, boxes} after checking them."""
     if t.sweep is None or len(t.sweep) != 2:
@@ -782,6 +851,21 @@ def _sweep_ptrs(t: SceneTables, scene: DeviceScene, device):
     ):
         _check_tensor(a, name, torch.float32, shape, device)
     return _ptrs(list(t.sweep))
+
+
+def _wide_ptrs(t: SceneTables, scene: DeviceScene, device):
+    """#8's wide table pointers {box, ref, root} after checking them."""
+    w = t.wide
+    if not isinstance(w, WideTables):
+        raise ValueError("#8 needs tables packed from a mesh scene (pack_scene_tables)")
+    N = w.box.shape[0]
+    for name, a, dtype, shape in (
+        ("wide.box", w.box, torch.float32, (N, 6, WIDTH)),
+        ("wide.ref", w.ref, torch.int32, (N, 2, WIDTH)),
+        ("wide.root", w.root, torch.int32, (len(scene.mesh_geoms),)),
+    ):
+        _check_tensor(a, name, dtype, shape, device)
+    return _ptrs([w.box, w.ref, w.root])
 
 
 def _rays(origins: Vec3, dirs: Vec3, P: int, device) -> list:
@@ -875,8 +959,9 @@ def mesh_sweep(origins: Vec3, dirs: Vec3, cands: Candidates,
     output), as Intersections lanes written at the lane's own index; the
     other lanes are not written (the kernel) or hold no hit (the plain
     version). `use_bvh` selects the plain version's traversal; the kernel
-    always walks the BVH. CPU: the plain version; CUDA: one launch sized
-    by the pool, counted in `mesh_sweep.launches`."""
+    always walks the wide BVH (`pack_wide_tables`), WIDTH lanes per
+    candidate. CPU: the plain version; CUDA: one launch of as many blocks
+    as stay resident, whatever the pool, counted in `mesh_sweep.launches`."""
     device = origins.x.device
     if device.type == "cpu":
         return mesh_sweep_reference(origins, dirs, cands, scene, use_bvh)
@@ -887,13 +972,16 @@ def mesh_sweep(origins: Vec3, dirs: Vec3, cands: Candidates,
     _check_tensor(cands.lanes, "lanes", torch.int32, (P,), device)
     _check_tensor(cands.count, "count", torch.int32, (1,), device)
     t, tptr, mptr = _mesh_tables(scene, tables, device)
+    wptr = _wide_ptrs(t, scene, device)
     out = _new_hits(P, device)
+    next_entry = torch.empty(1, dtype=torch.int32, device=device)
     dev_index, stream = _device_args(device)
     _launch(
         "pt_mesh_sweep", "mesh_sweep",
-        tptr, len(scene.gtypes), mptr, len(scene.mesh_geoms),
-        _ptrs(rays + [None]), cands.t.data_ptr(), cands.lanes.data_ptr(),
-        cands.count.data_ptr(), P, _ptrs(_hit_lanes(out)), dev_index, stream,
+        tptr, len(scene.gtypes), mptr, len(scene.mesh_geoms), wptr,
+        int(t.wide.stack), int(t.wide.walked), _ptrs(rays + [None]),
+        cands.t.data_ptr(), cands.lanes.data_ptr(), cands.count.data_ptr(), P,
+        _ptrs(_hit_lanes(out)), next_entry.data_ptr(), dev_index, stream,
     )
     mesh_sweep.launches += 1
     return out

@@ -54,6 +54,42 @@ def small(name, res):
     return s
 
 
+# pixels of #1 that may differ in any bit from its plain version: a
+# handful (about 1 in 4,000 at 64x64) on which a float op of the kernel
+# and its torch counterpart round an ulp apart and a lottery flips; the
+# per-bounce kernels #2 -> #3, bit-identical to #1, differ on the same
+# pixels
+FULL_BITS_OFF = 0.001
+
+
+def per_bounce_radiance(ds, cam, settings, iteration):
+    """#2, then #3 at every depth: the per-bounce kernels run the same
+    device code as #1 one thread per pixel, so #1 matches them bit for
+    bit."""
+    pool = megakernel.first_bounce(ds, cam, iteration, settings)
+    for depth in range(1, settings.trace_depth):
+        pool = megakernel.bounce_step(pool, ds, iteration, depth, settings)
+    return pool[3]
+
+
+def assert_bit_identical(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def assert_full_matches_plain(accum, plain, iterations=1):
+    """#1's rule: bit-identical to the plain version on all but
+    FULL_BITS_OFF of the pixels per iteration summed, and
+    tests/test_megakernel.py's image rule over all of them."""
+    off = torch.zeros_like(accum[0], dtype=torch.bool)
+    for g, w in zip(accum, plain):
+        off |= g.view(torch.int32) != w.view(torch.int32)
+        diff = np.abs(g.cpu().numpy() - w.cpu().numpy())
+        assert (diff > 1e-3).mean() < 0.02
+        assert np.median(diff) < 1e-5
+    assert float(off.float().mean()) <= FULL_BITS_OFF * iterations
+
+
 @pytest.mark.parametrize(
     "name,settings_kw",
     [("cornell.txt", {"antialias": True}),
@@ -62,11 +98,15 @@ def small(name, res):
      ("many_materials.txt", {"russian_roulette": True}),
      ("checker.txt", {}),
      ("cornell.txt", {"stratified": True}),
-     ("cornell.txt", {"sobol": True})],
+     ("cornell.txt", {"sobol": True}),
+     ("env.txt", {}),
+     ("cornell_glass.txt", {"russian_roulette": True, "antialias": True})],
 )
 def test_kernel_matches_plain_on_cuda(cuda_device, name, settings_kw):
     """One iteration at 64x64 through the kernel and its plain version on
-    identical inputs; tests/test_megakernel.py's image rule."""
+    identical inputs: bit for bit but on a handful of pixels, and
+    tests/test_megakernel.py's image rule; bit for bit against the
+    per-bounce kernels."""
     scene = small(name, (64, 64))
     settings = RenderSettings(trace_depth=8, **settings_kw)
     ds = scene_to_device(scene, cuda_device)
@@ -77,15 +117,63 @@ def test_kernel_matches_plain_on_cuda(cuda_device, name, settings_kw):
     torch.cuda.synchronize()
     assert megakernel.full_iteration.launches == before + 1
     plain = megakernel.full_iteration_reference(ds, cam, 3, settings)
-    for g, w in zip(accum, plain):
-        diff = np.abs(g.cpu().numpy() - w.cpu().numpy())
-        assert (diff > 1e-3).mean() < 0.02
-        assert np.median(diff) < 1e-5
+    assert_full_matches_plain(accum, plain)
+    assert_bit_identical(accum, per_bounce_radiance(ds, cam, settings, 3))
+
+
+@pytest.mark.parametrize("res", [(64, 64), (800, 800), (37, 23)])
+def test_full_iteration_matches_plain_at_sizes_on_cuda(cuda_device, res):
+    """#1's persistent warps at 4,096 pixels, at the main path's 640,000
+    and at an odd 851 (the last chunk ragged), on Cornell AA at two
+    iterations: #1's rule against the plain version, and bit for bit
+    against the per-bounce kernels."""
+    ds, cam, settings = _setup(cuda_device, "cornell.txt", {"antialias": True}, res)
+    for it in (1, 6):
+        accum = Vec3.zeros(res[0] * res[1], cuda_device)
+        megakernel.full_iteration(ds, cam, it, settings, accum)
+        torch.cuda.synchronize()
+        assert_full_matches_plain(accum, megakernel.full_iteration_reference(
+            ds, cam, it, settings))
+        assert_bit_identical(accum, per_bounce_radiance(ds, cam, settings, it))
+
+
+def test_full_iteration_launches_are_independent_on_cuda(cuda_device):
+    """One call of ITERATIONS_PER_LAUNCH + 8 iterations (two back-to-back
+    launches, each its own pixel counter) adds exactly what as many
+    one-iteration calls add, whichever lanes the counters gave the pixels
+    to; step_batch(25), one launch, against 25 plain iterations summed in
+    the same order."""
+    ds, cam, settings = _setup(cuda_device, "cornell_glass.txt",
+                               {"russian_roulette": True, "antialias": True})
+    P = 64 * 64
+    n = megakernel.ITERATIONS_PER_LAUNCH + 8
+    both = Vec3.zeros(P, cuda_device)
+    before = megakernel.full_iteration.launches
+    megakernel.full_iteration(ds, cam, 4, settings, both, n_iters=n)
+    assert megakernel.full_iteration.launches - before == 2
+    apart = Vec3.zeros(P, cuda_device)
+    for it in range(4, 4 + n):
+        megakernel.full_iteration(ds, cam, it, settings, apart)
+    torch.cuda.synchronize()
+    assert_bit_identical(both, apart)
+    r = Renderer(small("cornell.txt", (64, 64)),
+                 RenderSettings(trace_depth=8, antialias=True), device=cuda_device)
+    before = megakernel.full_iteration.launches
+    r.step_batch(25)
+    torch.cuda.synchronize()
+    assert megakernel.full_iteration.launches - before == 1
+    want = Vec3.zeros(P, cuda_device)
+    for it in range(1, 26):
+        for a, w in zip(want, megakernel.full_iteration_reference(
+                r.dev_scene, r.dev_camera, it, r.settings)):
+            a.add_(w)
+    assert_full_matches_plain(r.accum, want, iterations=25)
 
 
 def test_renderer_launches_once_per_iteration(cuda_device):
-    """step_batch launches #1 once per iteration; step() takes the
-    per-bounce path (#2 once, #3 depth-1 times) and launches #1 never."""
+    """step_batch launches #1 once per run of up to
+    ITERATIONS_PER_LAUNCH iterations; step() takes the per-bounce path
+    (#2 once, #3 depth-1 times) and launches #1 never."""
     scene = small("cornell.txt", (96, 64))
     r = Renderer(scene, RenderSettings(trace_depth=8, antialias=True),
                  device=cuda_device)
@@ -94,7 +182,7 @@ def test_renderer_launches_once_per_iteration(cuda_device):
     before_bs = megakernel.bounce_step.launches
     r.step()
     r.step_batch(4)
-    assert megakernel.full_iteration.launches - before == 4
+    assert megakernel.full_iteration.launches - before == 1
     assert megakernel.first_bounce.launches - before_fb == 1
     assert megakernel.bounce_step.launches - before_bs == 7
     assert r.iteration == 5
@@ -459,6 +547,123 @@ def test_mesh_path_launches(cuda_device, settings_kw, counts):
     assert got == counts + [0] * len(others)
     img = r.image()
     assert np.isfinite(img).all() and img.max() > 0
+
+
+def two_meshes(tmp_path):
+    """mesh.txt with a second mesh geom, the UV-mapped quad."""
+    text = open(os.path.join(SCENES, "mesh.txt")).read().replace(
+        "assets/", os.path.join(SCENES, "assets") + "/")
+    text += ("\nOBJECT 7\nmesh\nmaterial 1\nFILE        "
+             + os.path.join(SCENES, "assets", "uv_quad.obj")
+             + "\nTRANS       2 2 -2\nROTAT       0 30 0\nSCALE       2 2 2\n")
+    path = tmp_path / "two_meshes.txt"
+    path.write_text(text)
+    return load_scene(str(path))
+
+
+def seeded_rays(device, n, aims, seed):
+    """n rays from seeded points in the Cornell room, each aimed near one
+    of `aims` (world points) in turn."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-4.5, 0.5, -4.5], [4.5, 9.5, 4.5], (n, 3))
+    aim = np.asarray(aims, np.float64)[np.arange(n) % len(aims)]
+    d = aim + rng.normal(0, 0.6, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (Vec3(*(torch.tensor(c, dtype=torch.float32, device=device) for c in o.T)),
+            Vec3(*(torch.tensor(c, dtype=torch.float32, device=device) for c in d.T)))
+
+
+def test_mesh_sweep_on_two_mesh_geoms_on_cuda(cuda_device, tmp_path):
+    """#8 over a scene of two mesh geoms, on rays aimed at the icosphere
+    and at the quad, some of them candidates of both: the lane rule
+    against the plain binary walk and against the plain wide walk."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+
+    ds = scene_to_device(two_meshes(tmp_path), cuda_device)
+    o, d = seeded_rays(cuda_device, 4096, [(-1, 4, -1), (2, 2, -2)], seed=21)
+    cands = pipeline.mesh_candidates_reference(o, d, None, ds)
+    n = int(cands.count[0])
+    probe = {}
+    want = pipeline.mesh_sweep_reference(o, d, cands, ds)
+    wide = pipeline.mesh_sweep_wide_reference(o, d, cands, ds, probe=probe)
+    got = pipeline.mesh_sweep(o, d, cands, ds)
+    torch.cuda.synchronize()
+    assert int((probe["walks"] == 2).sum()) > 0
+    lanes = cands.lanes[:n].long()
+    assert_lane_rule([a[lanes] for a in hit_lanes(got)],
+                     [a[lanes] for a in hit_lanes(want)])
+    assert_lane_rule([a[lanes] for a in hit_lanes(got)],
+                     [a[lanes] for a in hit_lanes(wide)])
+    assert float((got.material_id[lanes] != want.material_id[lanes]).float().mean()) <= 0.001
+
+
+def test_mesh_sweep_dense_walk_on_big_mesh_on_cuda(cuda_device, big_mesh, monkeypatch):
+    """The dense-walk yardstick: mesh_big's 51,200 triangles on #8's wide
+    walk (the routing threshold raised in this test only), at depths 0-2
+    of a 64x64 AA iteration, each from the plain chain's pool: the lane
+    rule against the plain binary walk, #9's pix exactly."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam = big_mesh
+    monkeypatch.setattr(pipeline, "SORT_SUPER_MIN_TRIS", 2**31)
+    tables = megakernel.pack_scene_tables(ds)
+    assert int(tables.wide.root[0]) == 0 and pipeline.sorted_geoms(ds) == ()
+    settings = RenderSettings(trace_depth=8, antialias=True)
+    pool = _camera_pool(cam, 2, settings)
+    for depth in range(3):
+        o, d, alive = pool[0], pool[1], pool[4]
+        cands = pipeline.mesh_candidates_reference(o, d, alive, ds)
+        n = int(cands.count[0])
+        want = pipeline.mesh_sweep_reference(o, d, cands, ds)
+        got = pipeline.mesh_sweep(o, d, cands, ds, tables=tables)
+        torch.cuda.synchronize()
+        assert n > 0
+        lanes = cands.lanes[:n].long()
+        assert_lane_rule([a[lanes] for a in hit_lanes(got)],
+                         [a[lanes] for a in hit_lanes(want)])
+        want9 = pipeline.bounce_step_mesh_reference(pool, cands, want, ds, 2, depth,
+                                                    settings)
+        lanes9 = [a.clone() for a in megakernel.pool_lanes(pool)]
+        start = (Vec3(*lanes9[0:3]), Vec3(*lanes9[3:6]), Vec3(*lanes9[6:9]),
+                 Vec3(*lanes9[9:12]), lanes9[12], lanes9[13])
+        got9 = pipeline.bounce_step_mesh(start, cands, got, ds, 2, depth, settings,
+                                         tables=tables)
+        torch.cuda.synchronize()
+        assert torch.equal(megakernel.pool_lanes(got9)[13],
+                           megakernel.pool_lanes(want9)[13])
+        pool = want9
+
+
+def test_mesh_sweep_tie_and_slab_lanes_on_cuda(cuda_device):
+    """The lanes on which the wide walk's order can change the winner: the
+    plain wide walk against the plain binary walk (the same float ops, so
+    only a triangle whose t lies an ulp inside a box's slab entry, or an
+    exact tie, can part them) and #8 against the plain wide walk, counted
+    at every depth of mesh.txt 64x64 AA: each at most 0.1% of the
+    candidate lanes."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam, settings = _setup(cuda_device, "mesh.txt", {"antialias": True})
+    tables = megakernel.pack_scene_tables(ds)
+    pool = _camera_pool(cam, 2, settings)
+    slab = off = total = 0
+    for depth in range(8):
+        o, d, alive = pool[0], pool[1], pool[4]
+        cands = pipeline.mesh_candidates_reference(o, d, alive, ds)
+        lanes = cands.lanes[:int(cands.count[0])].long()
+        binary = pipeline.mesh_sweep_reference(o, d, cands, ds)
+        wide = pipeline.mesh_sweep_wide_reference(o, d, cands, ds, tables.wide)
+        got = pipeline.mesh_sweep(o, d, cands, ds, tables=tables)
+        torch.cuda.synchronize()
+        slab += int((wide.t[lanes] != binary.t[lanes]).sum())
+        off += int(((got.t[lanes] - wide.t[lanes]).abs() > 1e-4).sum())
+        total += lanes.shape[0]
+        pool = pipeline.bounce_step_mesh_reference(pool, cands, binary, ds, 2, depth,
+                                                   settings)
+    assert total > 1000
+    assert slab <= 0.001 * total and off <= 0.001 * total
 
 
 @pytest.fixture(scope="module")
