@@ -4,14 +4,19 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, in parallel), prints the registers, shared memory and
-stack frames of C, #1 and #8 (`nvcc -Xptxas -v`), holds each of the
+stack frames of C, #1, #8, #5 and #6 (`nvcc -Xptxas -v`), holds each of the
 eighteen against its plain PyTorch version on the card (at 64x64 and at
 the main path's 800x800; #1 on nine configs at 64x64 and 37x23, bit for
 bit against the per-bounce kernels #2 -> #3 and on all but 0.1% of the
 pixels against its plain version; the NEE kernels #5 and #6 on Cornell
 AA, Cornell RR + stratified, a glossy Cornell and many_materials RR, #5's
-pix exactly and
-its alive per lane; the mesh kernels #7-#10 on mesh.txt plain, AA, RR +
+pix exactly and its alive per lane, #6 over one iteration and over a
+run of iterations in one call (32 at 64x64 and at the main NEE path's
+800x800, 4 on the other 800x800 configs) against the plain iterations
+summed in order, and #6 bit for bit against the #5 route on every pixel
+whose camera ray the plain raygen reproduces (`nee_route_bits`, with a
+probe of the kernels' raygen built beside them; also on many_materials
+1920x1080 RR); the mesh kernels #7-#10 on mesh.txt plain, AA, RR +
 stratified and --compact, #7's candidate set per lane and #9's pix
 exactly; the big-mesh route's A-D (super_keys, place_entries,
 window_sweep, merge_entries) on mesh_big.txt AA at 64x64 and 800x800 at
@@ -44,15 +49,20 @@ depth); mesh_big.txt and bunny.txt AA through `step_batch` under the
 radix route (#7 -> #8 -> A -> 8 splits -> C in stream order -> 8
 unsplits -> D -> #9)), times the dense BVH walk on mesh_big as a
 yardstick (the routing threshold raised here only), reads each kernel's
-device time from torch.profiler beside its plain version's time, its
+device time from torch.profiler beside its plain version's time (for
+#1 and #6 over the same run of iterations as the kernel's launch), its
 bound and, where one PyTorch call computes the same function, that
 call's time (and the --direct-lighting final step's own time), and
 renders through the CLI (Cornell plain, --compact, --nee; mesh.txt;
 mesh_big.txt, and again with PT_TPU_SORT_RADIX=1). It also times #1 at
 1x, 2x and 4x the main path's pixels, prints #1's lane use with one
-thread per pixel (from the plain path lengths) and #8's
-work per walk on its wide tables beside the binary walk's, with the lanes
-on which the two walks' winners differ. Every path is driven
+thread per pixel (from the plain path lengths), #6's lane use with one
+thread per pixel against its persistent warps' model and #5's
+warp-slots against its live lanes per depth, on Cornell and on
+many_materials 1920x1080 RR --nee (from the plain NEE path's masks), the
+two kernels' device times, launches and bounds on the four NEE paths,
+and #8's work per walk on its wide tables beside the binary walk's, with
+the lanes on which the two walks' winners differ. Every path is driven
 with the launch counts set to 0 just before it and read just after.
 Every phase prints one line; any failure raises and exits non-zero
 before the result lines are printed. Imports nothing of JAX or of the
@@ -151,6 +161,10 @@ BIG_SCENES = ("mesh_big.txt", "bunny.txt", "mesh_critter.txt",
               "mesh_stream.txt")
 # image rule of tests/test_nee_megakernel.py for the NEE kernels
 NEE_PARITY_FRAC = 0.03
+# #6's run of iterations against the plain ones at 800x800 (a run of
+# ITERATIONS_PER_LAUNCH is held at 64x64, and at the main NEE path's
+# 800x800 where its plain time is taken)
+NEE_RUN_800 = 4
 # lane rule of tests/test_megakernel.py:57-76 for alive: at most 1% of
 # lanes may differ (seam ties, RR draws at p_survive); pix exactly
 ALIVE_FRAC = 0.01
@@ -311,8 +325,12 @@ def check_parity(kernel, what, frac, med, err, max_frac=PARITY_FRAC):
         raise RuntimeError(f"{kernel} disagrees with its plain version: {what}")
 
 
-def full_nee_parity(dev, name, kw, res, glossy, iteration=3):
-    """#6 against its plain version, one iteration."""
+def full_nee_parity(dev, name, kw, res, glossy, iteration=3, n_iters=1):
+    """#6 against its plain version over `n_iters` iterations from
+    `iteration`: one wrapper call (one launch per ITERATIONS_PER_LAUNCH
+    iterations, each lane summing its pixel's iterations in a register)
+    against the plain iterations summed in order; compare()'s numbers on
+    the mean image (the sums over n_iters)."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
@@ -321,10 +339,120 @@ def full_nee_parity(dev, name, kw, res, glossy, iteration=3):
     ds, cam, settings = on_card(dev, name, dict(kw, nee_mis=True), res,
                                 glossy=glossy)
     accum = Vec3.zeros(res[0] * res[1], dev)
-    mk.full_iteration_nee(ds, cam, iteration, settings, accum)
-    plain = mk.full_iteration_nee_reference(ds, cam, iteration, settings)
+    mk.full_iteration_nee(ds, cam, iteration, settings, accum, n_iters=n_iters)
+    plain = plain_run(mk.full_iteration_nee_reference, ds, cam, iteration,
+                      settings, n_iters)
     torch.cuda.synchronize()
-    return compare(list(accum), list(plain))
+    return compare([a / n_iters for a in accum], [a / n_iters for a in plain])
+
+
+def plain_run(reference, ds, cam, iteration0, settings, n_iters):
+    """The plain version of a whole-iteration kernel (#1 or #6) over
+    iterations iteration0 .. iteration0 + n_iters - 1, each iteration's
+    radiance added into a zeroed accumulator in order."""
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+
+    acc = Vec3.zeros(cam.resolution[0] * cam.resolution[1], ds.device)
+    for it in range(iteration0, iteration0 + n_iters):
+        for a, r in zip(acc, reference(ds, cam, it, settings)):
+            a.add_(r)
+    return acc
+
+
+# The camera rays of the kernels' raygen (csrc/path_common.cuh `raygen`,
+# which #1, #2 and #6 inline), for `nee_route_bits`: a probe of this
+# check, built beside the kernels from this checkout's header, and no
+# kernel of the port.
+RAYGEN_PROBE = r"""
+#include "path_common.cuh"
+__global__ void raygen_probe_kernel(const float* cam, int resx, int resy, int iteration,
+                                    int flags, float* out) {
+  const int n = resx * resy;
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= n) return;
+  V3 o, d;
+  raygen(cam, pix, resx, resy, iteration, flags, &o, &d);
+  const float v[6] = {o.x, o.y, o.z, d.x, d.y, d.z};
+  for (int k = 0; k < 6; ++k) out[k * n + pix] = v[k];
+}
+extern "C" int raygen_probe(const float* cam, int resx, int resy, int iteration, int flags,
+                            float* out) {
+  const int n = resx * resy;
+  raygen_probe_kernel<<<(n + 127) / 128, 128>>>(cam, resx, resy, iteration, flags, out);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def build_raygen_probe(nvcc: str, out_dir: str):
+    """Start nvcc on RAYGEN_PROBE with the build's flags; returns (the
+    process, the library it writes)."""
+    from project3_cuda_path_tracer_tpu_torch.ops import _native
+
+    src = os.path.join(out_dir, "raygen_probe.cu")
+    with open(src, "w") as f:
+        f.write(RAYGEN_PROBE)
+    lib = os.path.join(out_dir, "raygen_probe.so")
+    proc = subprocess.Popen([nvcc, *_native.NVCC_FLAGS, "-I", os.path.join(HERE, PKG, "csrc"),
+                             "-o", lib, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, lib
+
+
+def load_raygen_probe(proc, lib: str):
+    """The probe's C entry point, once its nvcc has finished."""
+    import ctypes
+
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the raygen probe did not build: {err[-2000:]}")
+    fn = ctypes.CDLL(lib).raygen_probe
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def nee_route_bits(dev, name, kw, res, glossy, probe, iteration=3):
+    """#6 (one iteration) bit for bit against the #5 route (plain
+    generate_rays, then #5 at every depth: `Renderer.step()`'s trace) on
+    every pixel whose camera ray generate_rays gives with the same bits as
+    the kernels' raygen (the probe). #5 shades with `shade_nee`, #6 with
+    its own split of it (csrc/nee.cu), so this holds the two copies of
+    the estimator equal. Returns (share of pixels whose camera rays
+    differ, share whose radiance differs); fails on any pixel with the
+    same ray and other radiance bits, or when fewer than half the pixels
+    have the same ray."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops.camera import generate_rays
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+    from project3_cuda_path_tracer_tpu_torch.render import _trace_nee
+
+    ds, cam, settings = on_card(dev, name, dict(kw, nee_mis=True), res, glossy=glossy)
+    P = res[0] * res[1]
+    rays = torch.empty(6, P, device=dev)
+    cam_vec = mk.pack_camera(cam)
+    torch.cuda.synchronize()
+    if probe(cam_vec.data_ptr(), res[0], res[1], iteration, mk.kernel_flags(ds, settings),
+             rays.data_ptr()) != 0:
+        raise RuntimeError("the raygen probe failed")
+    origins, dirs, _ = generate_rays(cam, iteration, settings.antialias,
+                                     settings.depth_of_field)
+    ray_off = (bitwise(rays) != bitwise(torch.stack([*origins, *dirs]))).any(0)
+    acc = Vec3.zeros(P, dev)
+    mk.full_iteration_nee(ds, cam, iteration, settings, acc)
+    radiance = _trace_nee(ds, cam, iteration, settings, None, False)[0]
+    torch.cuda.synchronize()
+    off = torch.zeros(P, dtype=torch.bool, device=dev)
+    for g, c in zip(acc, radiance):
+        off |= bitwise(g) != bitwise(c)
+    bad = int((off & ~ray_off).sum())
+    if bad or float(ray_off.float().mean()) > 0.5:
+        raise RuntimeError(f"full_iteration_nee differs from the bounce_step_nee route on "
+                           f"{bad} pixels with the same camera ray ({name}, {kw}, {res}, "
+                           f"glossy {glossy}; rays differ on {int(ray_off.sum())})")
+    return float(ray_off.float().mean()), float(off.float().mean())
 
 
 def nee_pool(dev, cam, iteration, settings):
@@ -422,27 +550,34 @@ def nee_work(ds, cam, iteration, settings):
     hit with a non-delta lobe: the light sample), those that cast a shadow
     ray (the sample faces both ways) and its geom tests, the unoccluded
     ones (the MIS contribution) and, below the last depth, those that
-    scatter. Returns ({count: [per depth]}, [operations per depth])."""
+    scatter; and the warps of 32 consecutive slots that hold a live lane
+    (the pool is never permuted, so slot = pixel). Returns ({count: [per
+    depth]}, [operations per depth], the depths each pixel's path ran)."""
+    import torch
+
     from project3_cuda_path_tracer_tpu_torch.render import _nee_mis_bounce
 
     pool, aux = nee_pool(ds.device, cam, iteration, settings)
     state = pool[:4] + (pool[4] != 0, pool[5])
     aux = (aux[0], aux[1] > 0.5)
-    names = ("lanes_in", "nee_able", "shadow_rays", "shadow_tests",
-             "unoccluded", "scattered")
+    names = ("lanes_in", "warps_with_live", "nee_able", "shadow_rays",
+             "shadow_tests", "unoccluded", "scattered")
     counts = {k: [] for k in names}
     ops = []
     D = settings.trace_depth
+    length = torch.zeros(state[5].shape[0], dtype=torch.int64, device=ds.device)
     for depth in range(D):
         is_last = depth == D - 1
         lanes_in = int(state[4].sum())
+        length += state[4].long()
+        warps_with_live = int(state[4].view(-1, 32).any(1).sum())
         probe = {}
         state, aux = _nee_mis_bounce(state, aux, ds, iteration, depth,
                                      settings, is_last, probe=probe)
         shadow_ops, tests = shadow_sweep(ds, probe["p_hit"], probe["wi"],
                                          probe["r"], probe["shadow"])
         n = dict(zip(names, (
-            lanes_in, int(probe["nee_able"].sum()),
+            lanes_in, warps_with_live, int(probe["nee_able"].sum()),
             int(probe["shadow"].sum()), tests,
             int((probe["shadow"] & probe["visible"]).sum()),
             0 if is_last else int((probe["live_hit"] & ~probe["lit"]).sum()),
@@ -455,8 +590,48 @@ def nee_work(ds, cam, iteration, settings):
             + n["unoccluded"] * (OPS_MIS + (0 if is_last else OPS_W_LIGHT))
             + n["scattered"] * (OPS_SHADE + OPS_NEXT_PDF)
         )
-    return counts, ops
+    return counts, ops, length
 
+
+def warp_busy_share(length) -> float:
+    """Lane use of a thread-per-pixel kernel: warps of 32 consecutive
+    pixels each run as many steps as their longest path."""
+    warps = length.view(-1, 32)
+    return float(length.sum()) / (32 * int(warps.max(1).values.sum()))
+
+
+def regenerated_busy_share(cost, lanes: int) -> float:
+    """Lane use of a persistent kernel with path regeneration (#1, #6),
+    in a model: `lanes` lanes, all stepping together, each taking the next
+    pixel (in order) when it is free and spending cost[pixel] steps on it;
+    a warp of 32 lanes runs until its last lane is done. The busy share of
+    its lane-steps is 1 but for that tail."""
+    cost = np.asarray(cost, np.int64)
+    rem = np.zeros(lanes, np.int64)
+    end = np.zeros(lanes, np.int64)
+    t = nxt = 0
+    while True:
+        free = np.flatnonzero(rem == 0)
+        k = min(len(free), len(cost) - nxt)
+        rem[free[:k]] = cost[nxt:nxt + k]
+        end[free[:k]] = t + cost[nxt:nxt + k]
+        nxt += k
+        busy = rem > 0
+        if not busy.any():
+            break
+        step = int(rem[busy].min())
+        rem[busy] -= step
+        t += step
+    warp_steps = int(end.reshape(-1, 32).max(1).sum())
+    return float(cost.sum()) / (32 * warp_steps)
+
+
+def resident_lanes(regs: int, sms: int) -> int:
+    """Lanes of a persistent grid of 128-thread blocks at `regs`
+    registers a thread: registers are allocated per warp in units of 256,
+    at most 16 such blocks (2,048 threads) per SM."""
+    per_warp = -(-regs * 32 // 256) * 256
+    return sms * min(16, 65536 // (4 * per_warp)) * 128
 
 def full_parity(dev, name, kw, res, iteration=3):
     """#1 against its plain version, one iteration: compare()'s numbers
@@ -1293,10 +1468,13 @@ def main() -> int:
         triton=triton_version, nvcc=nvcc_version, python=sys.version.split()[0])
 
     # ---- 2. build every kernel from this checkout's sources ----
-    # (the registers, shared memory and stack frames of C, #1 and #8 from
-    # ptxas, compiled beside the build)
+    # (the registers, shared memory and stack frames of C, #1, #8, #5 and
+    # #6 from ptxas, compiled beside the build)
+    ptxas_of = (("sorted.cu", "window_sweep"), ("full_iteration.cu", "full_iteration"),
+                ("mesh.cu", "mesh_sweep"), ("nee.cu", "nee_kernel"))
     ptxas = {src: ptxas_verbose(nvcc, f"{PKG}/csrc/{src}", tmpdir)
-             for src in ("sorted.cu", "full_iteration.cu", "mesh.cu")}
+             for src, _ in ptxas_of}
+    probe_build = build_raygen_probe(nvcc, tmpdir)
     lib_paths, build_s = _native.build(force=True)
     _native.load()
     usage = "not measured"
@@ -1312,11 +1490,14 @@ def main() -> int:
     say("build", nvcc_wall_seconds=build_s,
         libraries=[os.path.relpath(p, HERE) for p in lib_paths],
         resource_usage=usage)
-    for src, kernel in (("sorted.cu", "window_sweep"),
-                        ("full_iteration.cu", "full_iteration"),
-                        ("mesh.cu", "mesh_sweep")):
+    ptx = {}
+    for src, kernel in ptxas_of:
+        ptx.update(ptxas_usage(ptxas[src], kernel))
         say("ptxas", source=f"{PKG}/csrc/{src}", flags="-Xptxas -v",
-            **{kernel: ptxas_usage(ptxas[src], kernel)})
+            **{kernel: {k: v for k, v in ptx.items() if re.search(kernel, k)}})
+    # #6's registers, for the persistent grid of its lane-use model
+    (nee_regs,) = (int(re.search(r"Used (\d+) registers", v).group(1))
+                   for k, v in ptx.items() if "full_iteration_nee" in k)
 
     # ---- 3. every kernel against its plain version on the card ----
     err800 = {}
@@ -1351,9 +1532,14 @@ def main() -> int:
         for name, kw, glossy in NEE_PARITY:
             what = {"config": name, "settings": dict(kw, nee_mis=True),
                     "glossy_sphere": glossy, "res": f"{res[0]}x{res[1]}"}
-            r6 = full_nee_parity(dev, name, kw, res, glossy)
-            check_parity("full_iteration_nee", what, *r6,
-                         max_frac=NEE_PARITY_FRAC)
+            # one iteration, and a run of iterations in one call (one
+            # launch of ITERATIONS_PER_LAUNCH at 64x64)
+            r6 = (0.0, 0.0, 0.0)
+            for n in (1, mk.ITERATIONS_PER_LAUNCH if res == (64, 64) else NEE_RUN_800):
+                r = full_nee_parity(dev, name, kw, res, glossy, n_iters=n)
+                check_parity("full_iteration_nee", dict(what, iterations=n), *r,
+                             max_frac=NEE_PARITY_FRAC)
+                r6 = tuple(max(a, b) for a, b in zip(r6, r))
             *r5, alive_frac = bounce_nee_parity(dev, name, kw, res, glossy)
             check_parity("bounce_step_nee",
                          dict(what, pix="exact", alive_mismatch=alive_frac,
@@ -1365,6 +1551,19 @@ def main() -> int:
             if res == (800, 800) and (name, kw, glossy) == NEE_PARITY[0]:
                 err800["full_iteration_nee"] = r6[2]
                 err800["bounce_step_nee"] = r5[2]
+    # #6 against the #5 route, bit for bit on every pixel whose camera ray
+    # the plain raygen reproduces, on the same configs and on (h)'s
+    # many_materials 1920x1080 RR
+    probe = load_raygen_probe(*probe_build)
+    for res, name, kw, glossy in ([(r, *c) for r in ((64, 64), (800, 800)) for c in NEE_PARITY]
+                                  + [((1920, 1080), "many_materials.txt",
+                                      {"russian_roulette": True}, False)]):
+        rays_off, pixels_off = nee_route_bits(dev, name, kw, res, glossy, probe)
+        say("nee_route_bits", kernels=["full_iteration_nee", "bounce_step_nee"],
+            config=name, settings=dict(kw, nee_mis=True), glossy_sphere=glossy,
+            res=f"{res[0]}x{res[1]}", camera_rays_differing=rays_off,
+            pixels_differing=pixels_off,
+            rule="bit-identical on every pixel whose camera ray is; rays differ on <=50%")
 
     # #7-#10 (the mesh pipeline) on mesh.txt; the error kept for the
     # kernels line is the mesh path's (AA, 800x800)
@@ -1559,13 +1758,11 @@ def main() -> int:
     ds = scene_to_device(scene, dev)
     cam = camera_to_device(scene.state.camera, dev)
     mk.full_iteration_reference(ds, cam, 1, settings)  # warm-up
-    torch.cuda.synchronize()
-    n_plain = 5
-    t0 = time.perf_counter()
-    for k in range(n_plain):
-        mk.full_iteration_reference(ds, cam, 2 + k, settings)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0) / n_plain
+    # the plain version over the `batch` iterations of one main-path call
+    # (the work of #1's launch in the kernels line)
+    plain_run_ms = event_ms(lambda: plain_run(mk.full_iteration_reference, ds, cam, 2,
+                                              settings, batch), 1)
+    plain_ms = plain_run_ms / batch
     print(json.dumps({
         "metric": "Mrays/sec (Cornell 800x800 depth-8 AA, one GPU)",
         "value": mrays,
@@ -1635,17 +1832,19 @@ def main() -> int:
     ]
     radix_paths = ("big_mesh_radix", "bunny_radix")
 
-    def expected_launches(settings, route, n_it, n_calls, mesh, n_sorted=0,
+    def expected_launches(settings, route, calls, mesh, n_sorted=0,
                           splits=None):
-        """The launches of n_it iterations in n_calls calls of the route
+        """The launches of the route's calls, `calls` iterations each
         (n_sorted: the scene's geoms on the sorted route, each running A-D
         once per #8; splits: under the radix route, the splits of one #8
         summed over those geoms, each 1 + bit_length(2 * n_supers), which
         take the place of B and C)."""
+        n_it, n_calls = sum(calls), len(calls)
         if settings.nee_mis:
             if route == "step" or settings.motion_blur:
                 return dict(NO_LAUNCHES, bounce_step_nee=n_it * D)
-            return dict(NO_LAUNCHES, full_iteration_nee=n_it)
+            return dict(NO_LAUNCHES, full_iteration_nee=sum(
+                -(-n // mk.ITERATIONS_PER_LAUNCH) for n in calls))
         cached = settings.effective_cache()
         bounces = D - 2 if settings.direct_lighting else D - 1
         if not mesh:
@@ -1717,7 +1916,7 @@ def main() -> int:
         dt = time.perf_counter() - t0
         got = read_launches()
         n_it = n_warm + n_timed
-        want = expected_launches(settings, route, n_it, 2,
+        want = expected_launches(settings, route, (n_warm, n_timed),
                                  bool(scene.triangles.count),
                                  len(pl.sorted_geoms(r.dev_scene)), splits)
         if got != want or r.iteration != n_it:
@@ -1730,8 +1929,12 @@ def main() -> int:
         r.step()  # one more iteration, for its alive counts
         counts = r.last_alive_counts.cpu().tolist()
         ms = 1e3 * dt / n_timed
+        # a window of 10 iterations; under --nee through step_batch one
+        # launch of #6 of ITERATIONS_PER_LAUNCH iterations
+        n_prof = (mk.ITERATIONS_PER_LAUNCH if settings.nee_mis and route == "step_batch"
+                  else 10)
         busy, kernel_ms_of[label], seen = profile_device(
-            lambda: run(10), 10,
+            lambda: run(n_prof), n_prof,
             by_depth=SORTED_KERNELS + ("window_sweep_stream",)
             if name in BIG_SCENES else ())
         frame_ms_of[label], busy_of[label] = ms, busy
@@ -1764,7 +1967,7 @@ def main() -> int:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         got = read_launches()
-        want = expected_launches(r.settings, "step_batch", 45, 2, True)
+        want = expected_launches(r.settings, "step_batch", (5, 40), True)
         if got != want:
             raise RuntimeError(f"dense-walk yardstick: launches {got}, expected {want}")
         img = r.image()
@@ -1827,10 +2030,24 @@ def main() -> int:
                                                         cache_settings), 3)
     # the NEE kernels' plain versions and lanes (Cornell 800x800 d8 AA --nee)
     nee_settings = RenderSettings(trace_depth=D, antialias=True, nee_mis=True)
-    nee_counts, nee_ops = nee_work(ds, cam, it, nee_settings)
+    nee_counts, nee_ops, nee_length = nee_work(ds, cam, it, nee_settings)
     nee_in = nee_counts["lanes_in"]
-    fn_plain = event_ms(
-        lambda: mk.full_iteration_nee_reference(ds, cam, it, nee_settings), 3)
+    # #6's plain version over one launch's ITERATIONS_PER_LAUNCH
+    # iterations, against that launch on the same iterations
+    n_run = mk.ITERATIONS_PER_LAUNCH
+    runs = {}
+    fn_plain_run = event_ms(lambda: runs.update(plain=plain_run(
+        mk.full_iteration_nee_reference, ds, cam, it, nee_settings, n_run)), 1)
+    fn_plain = fn_plain_run / n_run
+    runs["kernel"] = Vec3.zeros(P, dev)
+    mk.full_iteration_nee(ds, cam, it, nee_settings, runs["kernel"], n_iters=n_run)
+    torch.cuda.synchronize()
+    r = compare([a / n_run for a in runs["kernel"]], [a / n_run for a in runs["plain"]])
+    check_parity("full_iteration_nee", {"config": "cornell.txt",
+                                        "settings": {"antialias": True, "nee_mis": True},
+                                        "res": "800x800", "iterations": n_run}, *r,
+                 max_frac=NEE_PARITY_FRAC)
+    err800["full_iteration_nee"] = max(err800["full_iteration_nee"], r[2])
     pool, aux = nee_pool(dev, cam, it, nee_settings)
     bn_plain = 0.0
     for depth in range(D):
@@ -1839,6 +2056,45 @@ def main() -> int:
                                                  nee_settings, depth == D - 1)
         torch.cuda.synchronize()
         bn_plain += 1e3 * (time.perf_counter() - t0) / D
+    # the same counts on (h) and (i)'s many_materials 1920x1080 RR --nee
+    mm_scene = load_scene(os.path.join(HERE, "scenes", "many_materials.txt"))
+    mm_ds = scene_to_device(mm_scene, dev)
+    mm_cam = camera_to_device(mm_scene.state.camera, dev)
+    mm_P = mm_scene.state.camera.pixel_count
+    mm_settings = RenderSettings(trace_depth=D, russian_roulette=True, nee_mis=True)
+    mm_counts, mm_ops, mm_length = nee_work(mm_ds, mm_cam, it, mm_settings)
+    # #6's lane use: one thread per pixel (the path lengths of one plain
+    # iteration, warps of 32 consecutive pixels) against the persistent
+    # warps' model (`regenerated_busy_share`, as many lanes as #6's grid
+    # holds at its registers) over this iteration's paths: also its share
+    # for a launch of many iterations whose paths repeat these, and a
+    # lower bound for independent paths, whose sums per pixel spread
+    # less; #5's warp-slots against live lanes per depth: one
+    # thread per slot runs every warp of 32 slots that holds a live one,
+    # the packed kernel ceil(live / 32) warps (and at most one more per
+    # persistent warp, for its last slots)
+    lanes6 = resident_lanes(nee_regs, torch.cuda.get_device_properties(dev).multi_processor_count)
+    for (l6, l5), name, res_n, counts_n, length in (
+            (("nee", "nee_step"), "cornell.txt", "800x800", nee_counts, nee_length),
+            (("many_materials_nee", "many_materials_nee_step"), "many_materials.txt",
+             "1920x1080", mm_counts, mm_length)):
+        L = length.cpu().numpy()
+        say("nee_lane_use", kernel="full_iteration_nee", path=l6, config=name, res=res_n,
+            iteration=it, depth=D, device=smi,
+            pixels_by_length=np.bincount(L, minlength=D + 1)[1:].tolist(),
+            lane_bounces=int(L.sum()), share_of_p_x_d=float(L.sum()) / (L.size * D),
+            thread_per_pixel_busy_share=warp_busy_share(length),
+            regenerated_busy_share=regenerated_busy_share(L, lanes6),
+            model_lanes=lanes6, registers=nee_regs)
+        live = np.array(counts_n["lanes_in"], np.int64)
+        warps = np.array(counts_n["warps_with_live"], np.int64)
+        packed = -(-live // 32)
+        say("nee_pack", kernel="bounce_step_nee", path=l5, config=name, res=res_n,
+            iteration=it, depth=D, device=smi, live_lanes=live.tolist(),
+            thread_per_slot_warps=warps.tolist(), packed_warps=packed.tolist(),
+            warp_slots_per_pixel={"thread_per_slot": float(32 * warps.sum()) / L.size,
+                                  "packed": float(32 * packed.sum()) / L.size},
+            live_lane_bounces_per_pixel=float(live.sum()) / L.size)
     # --direct-lighting's final step alone (plain PyTorch on every device),
     # on the pool entering depth D-1
     dl_settings = RenderSettings(trace_depth=D, antialias=True,
@@ -1882,8 +2138,11 @@ def main() -> int:
         first_bounce_plain_ms=fb_plain, bounce_step_plain_ms=bs_plain,
         shade_step_plain_ms=ss_plain, cache_fill_intersect_scene_ms=isect_ms,
         alive_counts=counts, full_iteration_nee_plain_ms=fn_plain,
+        full_iteration_nee_plain_ms_per_launch=fn_plain_run,
+        full_iteration_plain_ms_per_launch=plain_run_ms,
         bounce_step_nee_plain_ms=bn_plain, nee_lanes=nee_counts,
-        nee_ops_per_depth=nee_ops,
+        nee_ops_per_depth=nee_ops, many_materials_nee_lanes=mm_counts,
+        many_materials_nee_ops_per_depth=mm_ops,
         direct_lighting_final_step_ms=final_ms,
         direct_lighting_final_step_lanes=int(final_pool[4].sum()),
         plain_generate_rays_aa_ms=raygen_ms,
@@ -1926,15 +2185,34 @@ def main() -> int:
             sum(n * per_lane for n in lanes_in[1:]) / (D - 1),
         ),
         "shade_step": bound(132 * P, P * OPS_SHADE),
-        "full_iteration_nee": bound(24 * P, P * OPS_RAYGEN_AA + sum(nee_ops)),
+        # per launch of ITERATIONS_PER_LAUNCH iterations: the
+        # accumulator read and written once, every iteration's work
+        "full_iteration_nee": bound(24 * P, n_run * (P * OPS_RAYGEN_AA + sum(nee_ops))),
         # every lane's alive flag, then 15 lanes read and 15 written per
         # live lane (pool + aux, less alive and pix), averaged over depths
         "bounce_step_nee": bound(sum(4 * P + 120 * n for n in nee_in) / D,
                                  sum(nee_ops) / D),
     }
+    # the same on (h) and (i), for PERF.md's ranking
+    mm_in = mm_counts["lanes_in"]
+    nee_path_bounds = {
+        "many_materials_nee": bound(24 * mm_P, n_run * (mm_P * OPS_RAYGEN + sum(mm_ops))),
+        "many_materials_nee_step": bound(sum(4 * mm_P + 120 * n for n in mm_in) / D,
+                                         sum(mm_ops) / D),
+        "nee": bounds["full_iteration_nee"], "nee_step": bounds["bounce_step_nee"],
+    }
+    say("nee_paths", device=smi, paths={
+        label: {"kernel": kernel, "ms_per_launch": kernel_ms_of[label][kernel],
+                "launches": launches_of[label][kernel],
+                "iterations_per_profiled_launch": n_run if kernel == "full_iteration_nee" else 1,
+                "bound_ms": nee_path_bounds[label][0], "bound_by": nee_path_bounds[label][1],
+                "device_busy_ms_per_iteration": busy_of[label]}
+        for label, kernel in (("nee", "full_iteration_nee"), ("nee_step", "bounce_step_nee"),
+                              ("many_materials_nee", "full_iteration_nee"),
+                              ("many_materials_nee_step", "bounce_step_nee"))})
     # device ms per launch from the profiles, beside the plain versions
     timing = {
-        "full_iteration": (main_kernel_ms["full_iteration"], plain_ms * batch,
+        "full_iteration": (main_kernel_ms["full_iteration"], plain_run_ms,
                            main_launches["full_iteration"]),
         "first_bounce": (kernel_ms_of["step"]["first_bounce"], fb_plain,
                          launches_of["step"]["first_bounce"]),
@@ -1942,8 +2220,9 @@ def main() -> int:
                         launches_of["step"]["bounce_step"]),
         "shade_step": (kernel_ms_of["cache"]["shade_step"], ss_plain,
                        launches_of["cache"]["shade_step"]),
+        # per launch of ITERATIONS_PER_LAUNCH iterations
         "full_iteration_nee": (kernel_ms_of["nee"]["full_iteration_nee"],
-                               fn_plain,
+                               fn_plain_run,
                                launches_of["nee"]["full_iteration_nee"]),
         "bounce_step_nee": (kernel_ms_of["nee_step"]["bounce_step_nee"],
                             bn_plain,

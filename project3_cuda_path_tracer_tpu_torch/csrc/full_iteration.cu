@@ -117,24 +117,7 @@ __global__ void __launch_bounds__(kThreads, 7)
   }
 }
 
-// The blocks of the kernel that stay resident on `device` (SMs x
-// occupancy), queried once per device.
-cudaError_t resident_blocks(int device, int* out) {
-  static int cached[64] = {0};
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (cached[device] == 0) {
-    int sms = 0, per_sm = 0;
-    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, full_iteration_kernel, kThreads,
-                                                        0);
-    if (err != cudaSuccess) return err;
-    if (sms * per_sm <= 0) return cudaErrorInvalidConfiguration;
-    cached[device] = sms * per_sm;
-  }
-  *out = cached[device];
-  return cudaSuccess;
-}
+int g_resident[64];  // resident blocks per device, 0 until queried
 
 }  // namespace
 
@@ -154,7 +137,7 @@ extern "C" int pt_full_iteration(void* const* tables, int n_geoms, const float* 
   const int n_pixels = resx * resy;
   if (n_pixels > 0 && n_iters > 0) {
     int resident = 0;
-    err = resident_blocks(device, &resident);
+    err = resident_blocks(full_iteration_kernel, device, g_resident, &resident);
     if (err != cudaSuccess) return static_cast<int>(err);
     full_iteration_kernel<<<std::min(resident, n_blocks(n_pixels)), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(

@@ -18,10 +18,13 @@ Six wrappers, each replacing one Pallas kernel of the JAX package's
   over given Intersections, written to a new pool (csrc/bounce.cu);
 - `bounce_step_nee` (#5, `bounce_step_pallas_nee`): one NEE + MIS bounce
   (light sample, shadow ray, power-heuristic weights) over the pool and
-  its two MIS aux lanes, in place (csrc/nee.cu);
+  its two MIS aux lanes, in place, by persistent warps that pack the
+  pool's live slots into full warps (csrc/nee.cu);
 - `full_iteration_nee` (#6, `full_iteration_nee_pallas`): raygen and
-  the whole NEE + MIS estimator over all `trace_depth` bounces in one
-  launch per iteration, added into the accumulator (csrc/nee.cu).
+  the whole NEE + MIS estimator over all `trace_depth` bounces of up to
+  ITERATIONS_PER_LAUNCH iterations in one launch, added into the
+  accumulator iteration after iteration, by persistent warps as #1's
+  (csrc/nee.cu).
 
 On CUDA tensors a wrapper launches its hand-written kernel (built by
 ops/_native.py) or raises; on CPU tensors, and only there, it runs its
@@ -533,11 +536,10 @@ def _whole_iterations(wrapper, reference, nee: bool, scene: DeviceScene,
                       accum: Vec3, n_iters: int, tables) -> None:
     """The body of the two whole-iteration wrappers (#1, and #6 when
     `nee`): the plain version on CPU tensors, else launches of
-    `pt_<wrapper>`, counted in `wrapper.launches`: #6 one per iteration,
-    #1 one per ITERATIONS_PER_LAUNCH iterations or fewer. #1's persistent
-    warps take pixels from a device-side counter, one int32 word per
-    launch, so no launch shares a count with another and the host never
-    reads one."""
+    `pt_<wrapper>`, one per ITERATIONS_PER_LAUNCH iterations or fewer,
+    counted in `wrapper.launches`. The kernels' persistent warps take
+    pixels from a device-side counter, one int32 word per launch, so no
+    launch shares a count with another and the host never reads one."""
     what = wrapper.__name__
     check_supported(scene, settings)
     _require_analytic(scene, what)
@@ -565,20 +567,17 @@ def _whole_iterations(wrapper, reference, nee: bool, scene: DeviceScene,
     acc = _ptrs(list(accum))
     dev_index, stream = _device_args(device)
     flags = kernel_flags(scene, settings)
-    per_launch = 1 if nee else ITERATIONS_PER_LAUNCH
-    runs = [(int(iteration0) + k, min(per_launch, n_iters - k))
-            for k in range(0, n_iters, per_launch)]
-    # #1's pixel counters: one word per launch, zeroed by one memset here
-    counters = (None if nee else
-                torch.zeros(len(runs), dtype=torch.int32, device=device))
+    runs = [(int(iteration0) + k, min(ITERATIONS_PER_LAUNCH, n_iters - k))
+            for k in range(0, n_iters, ITERATIONS_PER_LAUNCH)]
+    # the pixel counters: one word per launch, zeroed by one memset here
+    counters = torch.zeros(len(runs), dtype=torch.int32, device=device)
     for j, (first, count) in enumerate(runs):
-        run = () if nee else (count,)
-        counter = () if nee else (counters[j].data_ptr(),)
         _launch(
             f"pt_{what}", what,
             tptr, len(scene.gtypes), *lights, cam_vec.data_ptr(), acc,
-            first, *run, resx, resy, int(settings.trace_depth),
-            int(settings.rr_start_depth), flags, *counter, dev_index, stream,
+            first, count, resx, resy, int(settings.trace_depth),
+            int(settings.rr_start_depth), flags, counters[j].data_ptr(),
+            dev_index, stream,
         )
         wrapper.launches += 1
 
@@ -685,25 +684,31 @@ def shade_step(state, isect, scene: DeviceScene, iteration: int, depth: int,
 
 def bounce_step_nee(state, aux, scene: DeviceScene, iteration: int,
                     depth: int, settings, is_last: bool,
-                    tables: SceneTables | None = None):
+                    tables: SceneTables | None = None,
+                    counter: torch.Tensor | None = None):
     """One NEE + MIS bounce over the pool and its MIS aux lanes
     (prev_pdf, prev_nondelta: float32 (P,), the flag 0/1), IN PLACE;
     returns (state, aux), the same tensors. `is_last`: the light sample
     takes full weight and every lane ends. A lane dead on entry keeps its
-    lanes and aux; a lane that ends here gets aux (0, 0). CPU: the plain
-    version, copied back into the lanes; CUDA: one launch, counted in
-    `bounce_step_nee.launches`."""
+    lanes and aux bit for bit; a lane that ends here gets aux (0, 0).
+    CPU: the plain version, copied back into the lanes alive on entry;
+    CUDA: one launch, counted in `bounce_step_nee.launches`, whose
+    persistent warps take the pool in chunks from a device-side counter
+    and bounce its live slots 32 at a time. `counter`: that word, an
+    int32 zero on the device that no other launch uses (`_trace_nee`
+    zeroes one per depth together); allocated here when None."""
     check_supported(scene, settings)
     _require_analytic(scene, "bounce_step_nee")
     _require_lights(scene, "bounce_step_nee")
     device = state[5].device
     if device.type == "cpu":
+        live = state[4] != 0
         new, new_aux = bounce_step_nee_reference(
             state, aux, scene, iteration, depth, settings, is_last
         )
         for dst, src in zip(pool_lanes(state) + list(aux),
                             pool_lanes(new) + list(new_aux)):
-            dst.copy_(src)
+            dst.copy_(torch.where(live, src, dst))
         return state, aux
     _require_cuda(device, "bounce_step_nee")
     P = state[5].shape[0]
@@ -711,13 +716,16 @@ def bounce_step_nee(state, aux, scene: DeviceScene, iteration: int,
     for name, a in zip(("prev_pdf", "prev_nondelta"), aux):
         _check_tensor(a, name, torch.float32, (P,), device)
     t, tptr = _tables_for(scene, tables, device, nee=True)
+    if counter is None:
+        counter = torch.zeros((), dtype=torch.int32, device=device)
+    _check_tensor(counter, "counter", torch.int32, (), device)
     dev_index, stream = _device_args(device)
     _launch(
         "pt_bounce_step_nee", "bounce_step_nee",
         tptr, len(scene.gtypes), len(scene.emissive_geoms), t.aw,
         _ptrs(lanes + list(aux)), P, int(iteration), int(depth),
         int(bool(is_last)), int(settings.rr_start_depth),
-        kernel_flags(scene, settings), dev_index, stream,
+        kernel_flags(scene, settings), counter.data_ptr(), dev_index, stream,
     )
     bounce_step_nee.launches += 1
     return state, aux
@@ -734,8 +742,9 @@ def full_iteration_nee(
 ) -> None:
     """Render iterations iteration0 .. iteration0 + n_iters - 1 (1-based)
     with the NEE + MIS estimator and add their per-pixel radiance into
-    `accum` in place. CPU: the plain version; CUDA: one launch per
-    iteration, counted in `full_iteration_nee.launches`."""
+    `accum` in place, iteration after iteration. CPU: the plain version;
+    CUDA: one launch per ITERATIONS_PER_LAUNCH iterations (or fewer),
+    counted in `full_iteration_nee.launches`, as `full_iteration`."""
     _whole_iterations(full_iteration_nee, full_iteration_nee_reference, True,
                       scene, cam, iteration0, settings, accum, n_iters, tables)
 

@@ -31,7 +31,8 @@ has these tiers here, as in the JAX package:
   mesh scene on CUDA);
 - --nee (NEE + MIS at every non-delta vertex, `_nee_mis_bounce`): under
   `render_batch` the whole-iteration NEE kernel
-  (megakernel.full_iteration_nee, #6), one launch per iteration; under
+  (megakernel.full_iteration_nee, #6), one launch per run of up to
+  ITERATIONS_PER_LAUNCH iterations; under
   `Renderer.step()`, and under `render_batch` with --motion-blur, the
   per-bounce NEE kernel (megakernel.bounce_step_nee, #5) once per depth
   0..D-1 from plain `generate_rays`, the MIS aux state (previous pdf,
@@ -575,11 +576,14 @@ def _trace_nee(scene: DeviceScene, cam: DeviceCamera, iteration: int,
     aux = (torch.zeros(P, dtype=torch.float32, device=device),
            torch.zeros(P, dtype=torch.float32, device=device))
     D = settings.trace_depth
+    # #5's slot counters, one word per depth, zeroed together (unused on
+    # the CPU)
+    counters = torch.zeros(D, dtype=torch.int32, device=device)
     counts = []
     for depth in range(D):
         state, aux = bounce_step_nee(
             state, aux, scene, iteration, depth, settings,
-            is_last=depth == D - 1, tables=tables,
+            is_last=depth == D - 1, tables=tables, counter=counters[depth],
         )
         if count_alive:
             counts.append(_count_alive(state))

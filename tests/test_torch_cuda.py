@@ -406,16 +406,112 @@ def test_bounce_step_nee_matches_plain_on_cuda(cuda_device, name, settings_kw,
     assert megakernel.bounce_step_nee.launches == before + 4
 
 
+@pytest.mark.parametrize("res", [(64, 64), (37, 23)])
+def test_full_iteration_nee_matches_plain_at_sizes_on_cuda(cuda_device, res):
+    """#6's persistent warps at 4,096 pixels and at an odd 851 (the last
+    warp's pixels ragged), Cornell AA and many_materials RR, two
+    iterations in one call against two plain iterations summed in order:
+    tests/test_nee_megakernel.py's image rule."""
+    for name, kw in (("cornell.txt", {"antialias": True}),
+                     ("many_materials.txt", {"russian_roulette": True})):
+        ds, cam, settings = _nee_setup(cuda_device, name, kw, None, res)
+        P = res[0] * res[1]
+        accum = Vec3.zeros(P, cuda_device)
+        before = megakernel.full_iteration_nee.launches
+        megakernel.full_iteration_nee(ds, cam, 5, settings, accum, n_iters=2)
+        torch.cuda.synchronize()
+        assert megakernel.full_iteration_nee.launches == before + 1
+        want = Vec3.zeros(P, cuda_device)
+        for it in (5, 6):
+            for a, w in zip(want, megakernel.full_iteration_nee_reference(
+                    ds, cam, it, settings)):
+                a.add_(w)
+        for g, w in zip(accum, want):
+            diff = np.abs(g.cpu().numpy() - w.cpu().numpy())
+            assert (diff > 1e-3).mean() < 0.03
+            assert np.median(diff) < 1e-5
+
+
+def test_full_iteration_nee_launches_are_independent_on_cuda(cuda_device):
+    """One call of ITERATIONS_PER_LAUNCH + 8 iterations (two back-to-back
+    launches, each its own pixel counter) adds, bit for bit, what as many
+    one-iteration calls add, whichever lanes took the pixels."""
+    ds, cam, settings = _nee_setup(cuda_device, "cornell.txt",
+                                   {"antialias": True, "russian_roulette": True},
+                                   4)
+    P = 64 * 64
+    n = megakernel.ITERATIONS_PER_LAUNCH + 8
+    both = Vec3.zeros(P, cuda_device)
+    before = megakernel.full_iteration_nee.launches
+    megakernel.full_iteration_nee(ds, cam, 4, settings, both, n_iters=n)
+    assert megakernel.full_iteration_nee.launches - before == 2
+    apart = Vec3.zeros(P, cuda_device)
+    for it in range(4, 4 + n):
+        megakernel.full_iteration_nee(ds, cam, it, settings, apart)
+    torch.cuda.synchronize()
+    assert megakernel.full_iteration_nee.launches - before == 2 + n
+    assert_bit_identical(both, apart)
+
+
+def _thinned_nee_pool(cuda_device, res, live_share, seed):
+    """Cornell AA --nee's pool and aux after the plain version's depths 0
+    and 1 (a real aux), with `alive` drawn anew: each slot live with
+    probability `live_share` (numpy, seeded)."""
+    ds, cam, settings = _nee_setup(cuda_device, "cornell.txt", {"antialias": True},
+                                   None, res)
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    pool = _camera_pool(cam, 2, settings)
+    P = pool[5].shape[0]
+    aux = (torch.zeros(P, device=cuda_device), torch.zeros(P, device=cuda_device))
+    for depth in (0, 1):
+        pool, aux = megakernel.bounce_step_nee_reference(pool, aux, ds, 2, depth,
+                                                         settings, False)
+    live = np.random.default_rng(seed).random(P) < live_share
+    lanes = [a.clone().contiguous() for a in megakernel.pool_lanes(pool)]
+    lanes[12] = torch.tensor(live.astype(np.int32), device=cuda_device)
+    pool = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+            Vec3(*lanes[9:12]), lanes[12], lanes[13])
+    return ds, settings, pool, tuple(a.contiguous() for a in aux)
+
+
+@pytest.mark.parametrize("live_share", [0.0, 0.05, 0.9])
+def test_bounce_step_nee_packs_live_slots_on_cuda(cuda_device, live_share):
+    """#5's packed warps on pools 0%, 5% and 90% live, at 37x23 (851
+    slots, not a multiple of 32) and 64x64, depth 2 and depth 7 with
+    is_last: every value of a slot dead on entry unchanged (lanes and
+    aux), live slots against the plain version with pix exactly."""
+    for k, res in enumerate(((37, 23), (64, 64))):
+        ds, settings, pool, aux = _thinned_nee_pool(cuda_device, res, live_share, k)
+        dead = pool[4] == 0
+        for depth, is_last in ((2, False), (7, True)):
+            want, want_aux = megakernel.bounce_step_nee_reference(
+                pool, aux, ds, 2, depth, settings, is_last)
+            start = [a.clone() for a in megakernel.pool_lanes(pool)]
+            got = (Vec3(*start[0:3]), Vec3(*start[3:6]), Vec3(*start[6:9]),
+                   Vec3(*start[9:12]), start[12], start[13])
+            got_aux = tuple(a.clone() for a in aux)
+            megakernel.bounce_step_nee(got, got_aux, ds, 2, depth, settings, is_last)
+            torch.cuda.synchronize()
+            for g, b in zip(megakernel.pool_lanes(got) + list(got_aux),
+                            megakernel.pool_lanes(pool) + list(aux)):
+                assert torch.equal(g[dead].view(torch.int32), b[dead].view(torch.int32))
+            assert_nee_lanes_close(got, got_aux, want, want_aux)
+            if live_share == 0.0:
+                assert not got[4].any()
+
+
 @pytest.mark.parametrize("settings_kw,counts", [
     # (full_iteration, first_bounce, bounce_step, shade_step,
     #  bounce_step_nee, full_iteration_nee) per 3 step() + 3 step_batch
-    ({"nee_mis": True, "antialias": True}, [0, 0, 0, 0, 24, 3]),
+    ({"nee_mis": True, "antialias": True}, [0, 0, 0, 0, 24, 1]),
     ({"nee_mis": True, "motion_blur": True}, [0, 0, 0, 0, 48, 0]),
     ({"direct_lighting": True}, [0, 6, 36, 0, 0, 0]),
 ])
 def test_light_sampling_launches(cuda_device, settings_kw, counts):
-    """--nee: step_batch runs #6 once per iteration, step() runs #5 once
-    per depth (so does step_batch under motion blur); --direct-lighting:
+    """--nee: step_batch runs #6 once per run of up to
+    ITERATIONS_PER_LAUNCH iterations, step() runs #5 once per depth (so
+    does step_batch under motion blur); --direct-lighting:
     #2 once, #3 for depths 1..D-2, then the plain final step."""
     wrappers = (megakernel.full_iteration, megakernel.first_bounce,
                 megakernel.bounce_step, megakernel.shade_step,

@@ -1,0 +1,228 @@
+"""Hold the PyTorch/CUDA port's NEE kernels #5 and #6 against those of
+another checkout of this repository, bit for bit, and time both in turns
+on one NVIDIA GPU.
+
+    python tools/torch_nee_ab.py --other DIR [--out FILE]
+
+DIR is another checkout (or `git archive`) of the repository. Its port
+package is loaded into this process beside this one, under the name
+`other_port` (the package imports its own modules relatively), and
+builds its own sources with its own ops/_native.py into its own build
+directory. Each side is driven through its own public wrappers,
+`ops/megakernel.full_iteration_nee` and `bounce_step_nee`, on its own
+device scene made from this checkout's scene files, so the two kernels
+may launch in any way (per iteration or per run, with or without
+counters):
+
+- (f) Cornell 800x800 depth 8 AA --nee: #6 over 25 iterations in one
+  wrapper call, the accumulators compared on every value;
+- (h) many_materials 1920x1080 depth 8 RR --nee: the same over 40
+  iterations;
+- (g), (i): the same two scenes, #5 at every depth of one iteration from
+  the camera pool (plain `generate_rays`, aux at zeros), each depth's
+  input given to both wrappers: every value of the 16 lanes (pool and
+  aux) compared, and each side's slots dead on entry against the input.
+
+Then it times both in turns (other, this, this, other) under
+torch.profiler: the device time of the kernels whose names hold the
+wrapper's name, per iteration for #6 (summed over the call's launches)
+and per launch for #5 (each depth's launch repeated on fresh copies of
+its input). It prints one JSON line per path and the card's name and
+power limit, writes them all to FILE when given, and exits non-zero if
+any bit differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "project3_cuda_path_tracer_tpu_torch"
+PATHS = {  # label -> (scene, settings, kernel, iterations)
+    "f": ("cornell.txt", {"antialias": True}, "full_iteration_nee", 25),
+    "h": ("many_materials.txt", {"russian_roulette": True}, "full_iteration_nee", 40),
+    "g": ("cornell.txt", {"antialias": True}, "bounce_step_nee", 1),
+    "i": ("many_materials.txt", {"russian_roulette": True}, "bounce_step_nee", 1),
+}
+ORDER = ("other", "this", "this", "other")
+
+
+def load_port(name: str, path: str) -> dict:
+    """The port package under `path` imported as `name`: its modules that
+    this tool drives."""
+    if name == PKG:
+        sys.path.insert(0, path)
+    else:
+        pkg_dir = os.path.join(path, PKG)
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(pkg_dir, "__init__.py"),
+            submodule_search_locations=[pkg_dir])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod  # its submodules import it by this name
+        spec.loader.exec_module(mod)
+    return {k: importlib.import_module(f"{name}.{m}") for k, m in (
+        ("mk", "ops.megakernel"), ("vec", "ops.vec"), ("device", "models.device"),
+        ("scene", "models.scene"), ("render", "render"))}
+
+
+def setup(port, name, kw, dev):
+    scene = port["scene"].load_scene(os.path.join(ROOT, "scenes", name))
+    ds = port["device"].scene_to_device(scene, dev)
+    cam = port["device"].camera_to_device(scene.state.camera, dev)
+    settings = port["render"].RenderSettings(trace_depth=8, nee_mis=True, **kw)
+    return ds, cam, settings, port["mk"].pack_scene_tables(ds, nee=True)
+
+
+def bits_differ(a, b) -> int:
+    import torch
+
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def kernel_ms(fn, kernel: str) -> tuple[float, int]:
+    """(device ms summed over the kernels whose names hold `kernel`,
+    their launches) of fn() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    if not us:
+        raise RuntimeError(f"the profiler saw no {kernel} kernel")
+    return sum(us) / 1e3, len(us)
+
+
+def full_iteration_ab(ports, dev, label, name, kw, n):
+    """#6: bits differing between the two accumulators after n
+    iterations, and each side's device ms per iteration in turns."""
+    import torch
+
+    sides = {who: setup(port, name, kw, dev) for who, port in ports.items()}
+    resx, resy = sides["this"][1].resolution
+    P = resx * resy
+
+    def run(who):
+        ds, cam, settings, t = sides[who]
+        acc = ports[who]["vec"].Vec3.zeros(P, dev)
+        ports[who]["mk"].full_iteration_nee(ds, cam, 1, settings, acc, n_iters=n,
+                                            tables=t)
+        return acc
+
+    accs = {who: run(who) for who in ports}
+    torch.cuda.synchronize()
+    differ = sum(bits_differ(a, b) for a, b in zip(accs["other"], accs["this"]))
+    ms = {who: [] for who in ports}
+    launches = {}
+    for who in ORDER:
+        total, launches[who] = kernel_ms(lambda: run(who), "full_iteration_nee")  # noqa: B023
+        ms[who].append(total / n)
+    return {"path": label, "kernel": "full_iteration_nee", "scene": name,
+            "settings": kw, "res": f"{resx}x{resy}", "iterations": n,
+            "values_differing": differ, "values": 3 * P,
+            "ms_per_iteration": ms, "launches": launches}
+
+
+def bounce_step_ab(ports, dev, label, name, kw, reps=3):
+    """#5 at every depth of one iteration: values differing between the
+    two sides' outputs (all 16 lanes) and in each side's dead slots
+    against the input, and each side's device ms per launch in turns."""
+    import torch
+
+    sides = {who: setup(port, name, kw, dev) for who, port in ports.items()}
+    it = 2
+    pool = ports["this"]["render"]._camera_pool(sides["this"][1], it, sides["this"][2])
+    P = pool[5].shape[0]
+    lanes = ports["this"]["mk"].pool_lanes(pool) + [torch.zeros(P, device=dev),
+                                                   torch.zeros(P, device=dev)]
+    D = sides["this"][2].trace_depth
+
+    def bounce(who, src, depth):
+        """One call of `who`'s wrapper on a copy of `src` (16 lanes)."""
+        ds, _, settings, t = sides[who]
+        V = ports[who]["vec"].Vec3
+        w = [a.clone() for a in src]
+        state = (V(*w[0:3]), V(*w[3:6]), V(*w[6:9]), V(*w[9:12]), w[12], w[13])
+        ports[who]["mk"].bounce_step_nee(state, (w[14], w[15]), ds, it, depth,
+                                         settings, depth == D - 1, tables=t)
+        return w
+
+    rows = []
+    for depth in range(D):
+        out = {who: bounce(who, lanes, depth) for who in ports}
+        torch.cuda.synchronize()
+        dead = lanes[12] == 0
+        by_lane = [bits_differ(a, b) for a, b in zip(out["other"], out["this"])]
+        row = {
+            "depth": depth, "live_in": int((~dead).sum()),
+            "values_differing": sum(by_lane), "values_differing_by_lane": by_lane,
+            "dead_values_changed": {who: sum(bits_differ(a[dead], b[dead])
+                                             for a, b in zip(out[who], lanes))
+                                    for who in ports},
+            "ms": {who: [] for who in ports},
+        }
+        for who in ORDER:
+            total, k = kernel_ms(lambda: [bounce(who, lanes, depth)  # noqa: B023
+                                          for _ in range(reps)], "bounce_step_nee")
+            row["ms"][who].append(total / k)
+        rows.append(row)
+        lanes = out["this"]
+    return {"path": label, "kernel": "bounce_step_nee", "scene": name,
+            "settings": kw, "res": "x".join(map(str, sides["this"][1].resolution)),
+            "per_depth": rows,
+            "values_differing": sum(r["values_differing"] for r in rows),
+            "dead_values_changed": sum(sum(r["dead_values_changed"].values())
+                                       for r in rows),
+            "ms_per_launch": {who: [sum(r["ms"][who][j] for r in rows) / D
+                                    for j in range(2)] for who in ports}}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True, help="another checkout of the repository")
+    ap.add_argument("--out", help="write the results here as JSON")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_nee_ab: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    ports = {"this": load_port(PKG, ROOT),
+             "other": load_port("other_port", os.path.abspath(args.other))}
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    results = []
+    for label, (name, kw, kernel, n) in PATHS.items():
+        if kernel == "full_iteration_nee":
+            row = full_iteration_ab(ports, dev, label, name, kw, n)
+        else:
+            row = bounce_step_ab(ports, dev, label, name, kw)
+        row["device"] = smi
+        results.append(row)
+        print(json.dumps(row), flush=True)
+    print(smi, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    bad = [r["path"] for r in results
+           if r["values_differing"] or r.get("dead_values_changed")]
+    if bad:
+        print(f"torch_nee_ab: bits differ on paths {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
