@@ -4,9 +4,9 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, in parallel), prints the registers, shared memory and
-stack frames of C, #1, #8, #5 and #6 (`nvcc -Xptxas -v`), holds each of the
-eighteen against its plain PyTorch version on the card (at 64x64 and at
-the main path's 800x800; #1 on nine configs at 64x64 and 37x23, bit for
+stack frames of C, #1, #8, #5, #6 and the radix kernels (`nvcc -Xptxas
+-v`), holds each of the seventeen against its plain PyTorch version on
+the card (at 64x64 and at the main path's 800x800; #1 on nine configs at 64x64 and 37x23, bit for
 bit against the per-bounce kernels #2 -> #3 and on all but 0.1% of the
 pixels against its plain version; the NEE kernels #5 and #6 on Cornell
 AA, Cornell RR + stratified, a glossy Cornell and many_materials RR, #5's
@@ -22,12 +22,14 @@ exactly; the big-mesh route's A-D (super_keys, place_entries,
 window_sweep, merge_entries) on mesh_big.txt AA at 64x64 and 800x800 at
 every depth and on bunny.txt at 800x800 depth 0, A's keys and B's stream
 per key exactly, and the route's work per depth for their bounds; at
-the same depths the radix route of PT_TPU_SORT_RADIX=1 (radix_counts,
-radix_scatter, radix_unscatter and C's stream-order instantiation
-window_sweep_stream): every split and unsplit exactly, the sorted stream
-against a stable torch.sort gather, the unsort's round trip, and the
-route's entries, lanes and whole bounce against the counting route's,
-bit for bit; on mesh_big 800x800 C alone over the window part and the
+the same depths the radix route of PT_TPU_SORT_RADIX=1 (radix_split,
+radix_unscatter and C's stream-order instantiation window_sweep_stream):
+the compaction split (keys, rays, entry ids, length, digit histograms),
+each 8-bit pass and a one-bit pass and the unscatter exactly, the sorted
+stream against a stable torch.sort gather, the unsort's round trip, and
+the route's entries, lanes and whole bounce against the counting route's,
+bit for bit, with the split's tiles and look-back steps per depth
+(`radix_work`); on mesh_big 800x800 C alone over the window part and the
 tail part of each depth's stream), renders the twelve smoke configs (the two --nee
 ones and mesh.txt included) and the four big-mesh scenes (mesh_big, bunny,
 mesh_critter, mesh_stream, each loaded once) against the XLA goldens
@@ -46,9 +48,9 @@ with --direct-lighting (the final step's two intersects through #7 -> #8
 -> #10); mesh_big.txt AA through `step_batch` and `step()` and bunny.txt
 AA through `step_batch` (#7 -> #8 -> A -> B -> C -> D -> #9 at every
 depth); mesh_big.txt and bunny.txt AA through `step_batch` under the
-radix route (#7 -> #8 -> A -> 8 splits -> C in stream order -> 8
-unsplits -> D -> #9)), times the dense BVH walk on mesh_big as a
-yardstick (the routing threshold raised here only), reads each kernel's
+radix route (#7 -> #8 -> A -> the compaction split and one 8-bit pass
+-> C in stream order -> one unscatter -> D -> #9)), times the dense BVH
+walk on mesh_big as a yardstick (the routing threshold raised here only), reads each kernel's
 device time from torch.profiler beside its plain version's time (for
 #1 and #6 over the same run of iterations as the kernel's launch), its
 bound and, where one PyTorch call computes the same function, that
@@ -110,19 +112,17 @@ KERNELS = {  # wrapper -> (source, the TPU kernel it replaces)
     "place_entries": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:1257"),
     "window_sweep": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:746"),
     "merge_entries": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:1350"),
-    # the radix route (PT_TPU_SORT_RADIX=1, csrc/radix.cu): the count half
-    # of #15 _kr_partition, its packing with #16 _kr_stitch2, #17
-    # _kr_unpartition; and C's stream-order instantiation (#11 on the radix
-    # branch)
-    "radix_counts": (f"{PKG}/csrc/radix.cu", f"{JAX_PL}:1433"),
-    "radix_scatter": (f"{PKG}/csrc/radix.cu", f"{JAX_PL}:1479"),
+    # the radix route (PT_TPU_SORT_RADIX=1, csrc/radix.cu): the split,
+    # #15 _kr_partition with #16 _kr_stitch2 (:1479) in one single-pass
+    # launch; the unscatter, #17 _kr_unpartition; and C's stream-order
+    # instantiation (#11 on the radix branch)
+    "radix_split": (f"{PKG}/csrc/radix.cu", f"{JAX_PL}:1433"),
     "radix_unscatter": (f"{PKG}/csrc/radix.cu", f"{JAX_PL}:1578"),
     "window_sweep_stream": (f"{PKG}/csrc/sorted.cu", f"{JAX_PL}:746"),
 }
 SORTED_KERNELS = ("super_keys", "place_entries", "window_sweep",
                   "merge_entries")
-RADIX_KERNELS = ("radix_counts", "radix_scatter", "radix_unscatter",
-                 "window_sweep_stream")
+RADIX_KERNELS = ("radix_split", "radix_unscatter", "window_sweep_stream")
 MESH_KERNELS = ("mesh_candidates", "mesh_sweep", "bounce_step_mesh",
                 "intersect_mesh") + SORTED_KERNELS + RADIX_KERNELS
 # each kernel's symbol in the profiler's (demangled or mangled) names; C's
@@ -130,6 +130,9 @@ MESH_KERNELS = ("mesh_candidates", "mesh_sweep", "bounce_step_mesh",
 KERNEL_SYMBOLS = {k: re.compile(re.escape(f"{k}_kernel")) for k in KERNELS}
 KERNEL_SYMBOLS["window_sweep"] = re.compile(r"window_sweep_kernel(<false>|ILb0E)")
 KERNEL_SYMBOLS["window_sweep_stream"] = re.compile(r"window_sweep_kernel(<true>|ILb1E)")
+# the split's two instantiations, timed apart beside the wrapper's mean
+KERNEL_SYMBOLS["radix_split@compaction"] = re.compile(r"radix_split_kernel(<true>|ILb1E)")
+KERNEL_SYMBOLS["radix_split@pass"] = re.compile(r"radix_split_kernel(<false>|ILb0E)")
 NO_LAUNCHES = {k: 0 for k in KERNELS}
 # image rule of tests/test_megakernel.py:143-145 (seam-tie outliers only)
 PARITY_BAD = 1e-3
@@ -257,8 +260,9 @@ OPS_SUPER_TEST = 29  # slab test with te = max(tmin, 0), the key update
 OPS_CHUNK_TEST = 27  # slab test against the running best t
 OPS_SLOT = 3  # per slot of D's merge: load, compare, select
 OPS_PLACE = 8  # B per real entry: the compare, the warp match, the address
-OPS_RADIX = 12  # per element of a split: the flag, the ballot prefix, the
-#                 place (csrc/radix.cu); every radix kernel is bytes-bound
+OPS_RADIX = 12  # per element of a split: the digit, the warp match and
+#                 rank, the place (csrc/radix.cu); bytes-bound
+OPS_UNSCATTER = 2  # per entry of the unscatter: the id and the address
 
 
 def say(phase: str, **kv) -> None:
@@ -970,7 +974,8 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2, split=None):
     With `split` (a dict), C's time on the window and on the tail part of
     B's stream at each checked depth (`window_tail_ms`) goes into it.
     Returns ({kernel or check: (worst share, max_abs_err)}, {count: [per
-    depth]}, {kernel: plain ms per call}, {library call: ms per call})."""
+    depth]}, {kernel: plain ms per call}, {library call: ms per call}, the
+    radix route's work {count: [per checked depth]})."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
@@ -985,7 +990,7 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2, split=None):
              "tris", "mesh_hits")
     work = {k: [] for k in names}
     plain = dict.fromkeys(SORTED_KERNELS, 0.0)
-    radix_plain, library = {}, {}
+    radix_plain, library, radix_work = {}, {}, {}
     calls = 0
 
     def bump(k, r):
@@ -1081,7 +1086,7 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2, split=None):
                 bump("merge_entries", lane_rule([a[listed] for a in hit_lanes(got)],
                                                 [a[listed] for a in hit_lanes(want)]))
                 for k, r in radix_check(o, d, cands, hits, sk, eh, ds, g, tables,
-                                        radix_plain, library).items():
+                                        radix_plain, library, radix_work).items():
                     bump(k, r)
             hits = phits
         for k in names:
@@ -1122,7 +1127,8 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2, split=None):
         pool = want9
     per_call = {k: v / max(calls, 1) for k, v in plain.items()}
     per_call.update({k: ms / n for k, (ms, n) in radix_plain.items()})
-    return worst, work, per_call, {k: ms / n for k, (ms, n) in library.items()}
+    return (worst, work, per_call, {k: ms / n for k, (ms, n) in library.items()},
+            radix_work)
 
 
 def bitwise(a):
@@ -1132,22 +1138,28 @@ def bitwise(a):
     return a.view(torch.int32) if a.dtype == torch.float32 else a
 
 
-def radix_check(o, d, cands, hits, sk, eh, ds, g, tables, plain, library):
+def radix_check(o, d, cands, hits, sk, eh, ds, g, tables, plain, library, work):
     """The radix route of big geom g at one depth, from A's keys `sk` and
-    the counting route's C results `eh` (both the kernels'): every split
-    (the compaction split, then each one-bit pass) and every unsplit
-    against its plain version exactly (counts, keys, moved words); the
-    sorted stream against a stable torch.sort gather of the compacted one;
-    the unsort's round trip; C in stream order against its plain version
-    by C's rule; the route's results at every real [slot, j] and D's lanes
-    over them against the counting route's, bit for bit (any difference
-    reported and held to the lane rule). Adds each plain version's host
-    ms per call to `plain` and the library calls' ms to `library` ({name:
-    [ms, calls]}): per split a stable torch.sort of its 0/1 flags with the
-    key and payload gathers, per unsplit an index_copy_ through that
-    permutation, the whole sort a stable torch.sort of the compacted keys
-    with the payload gather, B a stable torch.sort of A's masked keys.
-    Returns {check: (share that differs, max_abs_err)}."""
+    the counting route's C results `eh` (both the kernels'): the compaction
+    split (keys, rays, entry ids, length, digit histograms), each digit
+    pass of the route and a one-bit pass (width 1, one `_kr_partition` +
+    `_kr_stitch2`) against their plain versions exactly; the sorted stream
+    against a stable torch.sort gather of the compacted one; C in stream
+    order against its plain version by C's rule; the unscatter against its
+    plain version exactly and its round trip (the sorted rays back at every
+    real [slot, j]); `radix_window_sweep` itself equal to that chain and
+    its launches counted; the route's results at every real [slot, j] and
+    D's lanes over them against the counting route's, bit for bit (any
+    difference reported and held to the lane rule). Adds each plain
+    version's host ms per call to `plain` and the library calls' ms to
+    `library` ({name: [ms, calls]}): the sort a stable torch.sort of the
+    compacted keys with the payload and id gathers, the unscatter an
+    index_copy_ by the ids, B a stable torch.sort of A's masked keys.
+    Appends the split's work to `work` ({count: [per call]}: tiles of the
+    compaction split and of each pass, the route's launches, the
+    look-back's steps and spins over a probed run of the splits, the
+    unscatter's ms replayed into its warm output). Returns
+    {check: (share that differs, max_abs_err)}."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
@@ -1155,7 +1167,9 @@ def radix_check(o, d, cands, hits, sk, eh, ds, g, tables, plain, library):
     E, P = sk.keys.shape
     sn = ds.super_ranges[g][1]
     dead = 2 * sn
+    bits = pl.radix_key_bits(dead)
     n = int(cands.count[0])
+    dev = sk.keys.device
     out = {}
 
     def add(table, k, ms):
@@ -1175,61 +1189,54 @@ def radix_check(o, d, cands, hits, sk, eh, ds, g, tables, plain, library):
         if not torch.equal(bitwise(got), bitwise(want)):
             raise RuntimeError(f"radix route: {what} differs from its plain version")
 
-    real = (sk.keys < dead) & (torch.arange(P, device=sk.keys.device) < n)[None]
+    def same_stream(what, got, want, m):
+        exact(f"keys of {what}", got.key[:m], want.key[:m])
+        exact(f"payload of {what}", got.payload[:, :m], want.payload[:, :m])
+        exact(f"entry ids of {what}", got.entry[:m], want.entry[:m])
+
+    real = (sk.keys < dead) & (torch.arange(P, device=dev) < n)[None]
     masked = torch.where(real, sk.keys, dead).reshape(-1)
     add(library, "place_entries", event_ms(lambda: torch.sort(masked, stable=True), 3))
 
-    def split(sp, payload):
-        counts = pl.radix_counts(sp)
-        csum = torch.cumsum(counts, 0, dtype=torch.int32)
-        key, moved = pl.radix_scatter(sp, csum, payload)
-        want_counts = timed("radix_counts", lambda: pl.radix_counts_reference(sp))
-        want_key, want = timed("radix_scatter",
-                               lambda: pl.radix_split_reference(sp, payload))
-        m = int(csum[-1] if sp.bit < 0 else sp.count[0])  # the elements placed
-        exact(f"counts of split {sp.bit}", counts, want_counts)
-        exact(f"keys of split {sp.bit}", key[:m], want_key[:m])
-        exact(f"payload of split {sp.bit}", moved[:, :m], want[:, :m])
-        if sp.bit < 0:
-            flag = (~real).reshape(-1).to(torch.int32)
-            src = lambda idx: idx % P  # noqa: E731
-        else:
-            flag = (sp.key[:m] >> sp.bit) & 1
-            src = lambda idx: idx  # noqa: E731
-        keys = sp.key.reshape(-1)
-
-        def lib():
-            idx = torch.sort(flag, stable=True).indices[:m]
-            return keys[idx], payload[:, src(idx)]
-
-        add(library, "radix_scatter", event_ms(lib, 3))
-        order = torch.sort(flag, stable=True).indices[:m]
-        return key, moved, csum, m, order
-
+    scratch = pl.radix_work(E * P, bits, dev)
     compact = pl.RadixSplit(sk.keys, cands.count, -1, dead)
-    key, rays, csum_c, total, order_c = split(compact, sk.rays)
-    compacted = stream = pl.RadixStream(key, rays, csum_c[-1:])
-    stages = []
-    for b in range(max(1, dead.bit_length())):
-        sp = pl.RadixSplit(stream.key, stream.length, b)
-        key, pay, csum, _, order = split(sp, stream.payload)
-        stages.append((sp, csum, order))
-        stream = pl.RadixStream(key, pay, stream.length)
-    ck, cp = compacted.key[:total], compacted.payload[:, :total]
+    stream = pl.radix_split(compact, sk.rays, work=scratch)
+    want_c = timed("radix_split", lambda: pl.radix_split_reference(compact, sk.rays))
+    torch.cuda.synchronize()
+    total = int(stream.length[0])
+    if total != int(want_c.length[0]) or total != int(real.sum()):
+        raise RuntimeError(f"radix route: the compaction split placed {total} entries")
+    same_stream("the compaction split", stream, want_c, total)
+    exact("digit histograms of the compaction split", stream.hist, want_c.hist)
+    srt = stream
+    for p, (shift, width) in enumerate(pl.radix_passes(bits)):
+        sp = pl.RadixSplit(srt.key, srt.length, shift, width=width, hist=srt.hist[p])
+        got = pl.radix_split(sp, srt.payload, srt.entry, work=scratch)
+        want = timed("radix_split",
+                     lambda: pl.radix_split_reference(sp, srt.payload, srt.entry))
+        same_stream(f"digit pass {shift}:{width}", got, want, total)
+        srt = got._replace(hist=srt.hist)
+    sp1 = pl.RadixSplit(stream.key, stream.length, 0, width=1,
+                        hist=pl.radix_digit_counts(stream.key, stream.length, 0, 1))
+    same_stream("the one-bit pass", pl.radix_split(sp1, stream.payload, stream.entry),
+                pl.radix_split_reference(sp1, stream.payload, stream.entry), total)
+    ck, cp, ce = (stream.key[:total], stream.payload[:, :total],
+                  stream.entry[:total])
     idx = torch.sort(ck, stable=True).indices
-    if not (torch.equal(stream.key[:total], ck[idx])
-            and torch.equal(stream.payload[:, :total], cp[:, idx])):
+    if not (torch.equal(srt.key[:total], ck[idx])
+            and torch.equal(srt.payload[:, :total], cp[:, idx])
+            and torch.equal(srt.entry[:total], ce[idx])):
         raise RuntimeError("radix route: the sorted stream is not the stable "
                            "torch.sort gather of the compacted stream")
 
     def lib_sort():
         i = torch.sort(ck, stable=True).indices
-        return ck[i], cp[:, i]
+        return ck[i], cp[:, i], ce[i]
 
     add(library, "sort", event_ms(lib_sort, 3))
-    res = pl.window_sweep_stream(stream, ds, g, tables=tables)
+    res = pl.window_sweep_stream(srt, ds, g, tables=tables)
     want = timed("window_sweep_stream",
-                 lambda: pl.window_sweep_stream_reference(stream, ds, g))
+                 lambda: pl.window_sweep_stream_reference(srt, ds, g))
     got_h, want_h = pl.entry_hits(res), pl.entry_hits(want)
     hit_g, hit_w = got_h.t[:total] < pl.FLT_MAX, want_h.t[:total] < pl.FLT_MAX
     both = hit_g & hit_w
@@ -1241,30 +1248,56 @@ def radix_check(o, d, cands, hits, sk, eh, ds, g, tables, plain, library):
     if off > 0.01 or w > LANE_FRAC:
         raise RuntimeError(f"window_sweep_stream: winners differ on {off:.2%} of "
                            f"the entries, {w:.2%} off the lane rule")
-    back = res
-    for sp, csum, order in reversed(stages):
-        got = pl.radix_unscatter(sp, csum, back)
-        want_b = timed("radix_unscatter", lambda: pl.radix_unsplit_reference(sp, back))
-        exact(f"unsplit {sp.bit}", got[:, :total], want_b[:, :total])
-        src = back[:, :total]
-        dst = torch.empty_like(src)
-        add(library, "radix_unscatter",
-            event_ms(lambda: dst.index_copy_(1, order, src), 3))
-        back = got
-    full = pl.radix_unscatter(compact, csum_c, back)
-    want_f = timed("radix_unscatter", lambda: pl.radix_unsplit_reference(compact, back))
+    full = pl.radix_unscatter(srt, res)
+    # the same launch replayed into its own output, whose sectors are then
+    # in L2 (the route's launch writes into a fresh, cold buffer)
+    warm_ms = replay_ms(lambda: pl.radix_unscatter(srt, res), 10)
+    want_f = timed("radix_unscatter", lambda: pl.radix_unsplit_reference(srt, res))
     flat = real.reshape(-1)
-    exact("the expansion", full[:, flat], want_f[:, flat])
-    src = back[:, :total]
+    exact("the unscatter", full[:, flat], want_f[:, flat])
+    ids = srt.entry[:total].long()
+    src = res[:, :total]
     dst = torch.empty_like(full)
-    add(library, "radix_unscatter",
-        event_ms(lambda: dst.index_copy_(1, order_c, src), 3))
-    trip = pl.radix_unsort_stream(stream.payload, [st[:2] for st in stages])
-    if not torch.equal(bitwise(trip[:, :total]), bitwise(cp)):
+    add(library, "radix_unscatter", event_ms(lambda: dst.index_copy_(1, ids, src), 3))
+    trip = pl.radix_unscatter(srt, srt.payload)
+    if not torch.equal(bitwise(trip.view(6, E, P)[:, real]),
+                       bitwise(sk.rays[:, None, :].expand(6, E, P)[:, real])):
         raise RuntimeError("radix route: the unsort does not round-trip")
+    # the route itself: the same results, 1 + passes splits and 1 unscatter
+    before = (pl.radix_split.launches, pl.radix_unscatter.launches)
+    route = pl.radix_window_sweep(sk, cands.count, ds, g, tables=tables)
+    launched = (pl.radix_split.launches - before[0],
+                pl.radix_unscatter.launches - before[1])
+    rad = pl.entry_hits(full.view(4, E, P))
+    for a, b in zip(route, rad):
+        if not torch.equal(bitwise(a[real]), bitwise(b[real])):
+            raise RuntimeError("radix route: radix_window_sweep differs from its "
+                               "kernels' chain")
+    if launched != (1 + len(pl.radix_passes(bits)), 1):
+        raise RuntimeError(f"radix route: {launched} (split, unscatter) launches")
+    # the look-back's work over a probed run of the splits
+    probe = torch.zeros(2, dtype=torch.int32, device=dev)
+    scratch = pl.radix_work(E * P, bits, dev)
+    s2 = pl.radix_split(compact, sk.rays, work=scratch, probe=probe)
+    for p, (shift, width) in enumerate(pl.radix_passes(bits)):
+        s2 = pl.radix_split(pl.RadixSplit(s2.key, s2.length, shift, width=width,
+                                          hist=s2.hist[p]), s2.payload, s2.entry,
+                            work=scratch, probe=probe)._replace(hist=s2.hist)
+    steps, spins = probe.tolist()
+    c_tiles, p_tiles = -(-E * n // pl.RADIX_TILE), -(-total // pl.RADIX_TILE)
+    row = {"listed": n, "entries": total, "compaction_tiles": c_tiles,
+           "pass_tiles": p_tiles, "passes": len(pl.radix_passes(bits)),
+           "split_launches": launched[0], "unscatter_launches": launched[1],
+           "memsets": 1,
+           # one look-back per tile after the first, per digit value
+           "lookbacks": max(0, c_tiles - 1) + sum(max(0, p_tiles - 1) << w
+                                                   for _, w in pl.radix_passes(bits)),
+           "lookback_steps": steps, "lookback_spins": spins,
+           "unscatter_replay_ms": warm_ms}
+    for k, v in row.items():
+        work.setdefault(k, []).append(v)
     # the route against the counting route: C's results at every real
     # [slot, j], then D over each
-    rad = pl.entry_hits(full.view(4, E, P))
     same = torch.ones_like(real)
     for a, b in zip(rad, eh):
         same &= bitwise(a) == bitwise(b)
@@ -1326,36 +1359,40 @@ def profile_device(fn, n_iters, by_depth=()):
     launch}, {kernel: launches seen}): the kernels' own device time, free
     of the host gaps between launches. For each kernel named in
     `by_depth`, launched once per depth, the mean is also given per depth
-    (launch k of an iteration is depth k), as `<kernel>@depth`."""
+    (launch k of an iteration is depth k), as `<kernel>@depth`. A
+    profile that records no device activity at all (the profiler drops
+    the whole trace, rarely) is taken once more; a second such one
+    raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(2):
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    else:
+        raise RuntimeError("the profiler saw no device activity, twice")
     spans = []
     per = {k: [] for k in KERNEL_SYMBOLS}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    starts = {k: [] for k in by_depth}
+    for e in events:
         spans.append((e.time_range.start, e.time_range.end))
         for k, sym in KERNEL_SYMBOLS.items():
             if sym.search(e.name):
                 per[k].append(e.time_range.elapsed_us())
-    starts = {k: [] for k in by_depth}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for k in by_depth:
-                if KERNEL_SYMBOLS[k].search(e.name):
-                    starts[k].append((e.time_range.start, e.time_range.elapsed_us()))
+        for k in by_depth:
+            if KERNEL_SYMBOLS[k].search(e.name):
+                starts[k].append((e.time_range.start, e.time_range.elapsed_us()))
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):  # the union of the device spans
         if b > end:
             busy += b - max(a, end)
             end = b
-    if not spans:
-        raise RuntimeError("the profiler saw no device activity")
     mean = {k: sum(v) / len(v) / 1e3 for k, v in per.items() if v}
     for k, v in starts.items():
         times = [us for _, us in sorted(v)]
@@ -1471,7 +1508,7 @@ def main() -> int:
     # (the registers, shared memory and stack frames of C, #1, #8, #5 and
     # #6 from ptxas, compiled beside the build)
     ptxas_of = (("sorted.cu", "window_sweep"), ("full_iteration.cu", "full_iteration"),
-                ("mesh.cu", "mesh_sweep"), ("nee.cu", "nee_kernel"))
+                ("mesh.cu", "mesh_sweep"), ("nee.cu", "nee_kernel"), ("radix.cu", "radix_"))
     ptxas = {src: ptxas_verbose(nvcc, f"{PKG}/csrc/{src}", tmpdir)
              for src, _ in ptxas_of}
     probe_build = build_raygen_probe(nvcc, tmpdir)
@@ -1610,7 +1647,7 @@ def main() -> int:
         rb = big[name]
         bcam = camera_to_device(camera_at(rb.scene.state.camera, res), dev)
         split = {} if (name, res) == ("mesh_big.txt", (800, 800)) else None
-        worst, work, plain, library = sorted_parity(
+        worst, work, plain, library, rwork = sorted_parity(
             rb.dev_scene, bcam, RenderSettings(trace_depth=8, **aa),
             tuple(depths), rb.tables, split=split)
         if split:
@@ -1627,20 +1664,28 @@ def main() -> int:
             lanes={k: {"outlier_share": w, "max_abs_err": e}
                    for k, (w, e) in worst.items() if k not in radix},
             rule=f"share(|d|>{LANE_ATOL})<={LANE_FRAC}")
-        # the radix route: splits, unsplits, the sorted stream and the round
-        # trip exact (radix_check raises otherwise); the route against the
-        # counting route, the share of entries / lanes not bit-equal
-        say("radix_parity", **what, bits=max(1, (2 * max(
-                rb.dev_scene.super_ranges[g][1] for g in pl.sorted_geoms(
-                    rb.dev_scene))).bit_length()),
-            splits="exact", unsplits="exact", sorted_stream="stable torch.sort gather",
-            round_trip="exact",
+        # the radix route: the compaction split, each pass, a one-bit pass,
+        # the unscatter, the sorted stream and the round trip exact
+        # (radix_check raises otherwise); the route against the counting
+        # route, the share of entries / lanes not bit-equal
+        bits = pl.radix_key_bits(2 * max(rb.dev_scene.super_ranges[g][1]
+                                         for g in pl.sorted_geoms(rb.dev_scene)))
+        say("radix_parity", **what, bits=bits, passes=pl.radix_passes(bits),
+            compaction_split="exact (keys, rays, ids, length, digit histograms)",
+            digit_passes="exact", one_bit_pass="exact", unscatter="exact",
+            sorted_stream="stable torch.sort gather", round_trip="exact",
             not_bit_equal={k: {"share": worst[k][0], "max_abs_err": worst[k][1]}
                            for k in radix},
             window_sweep_stream={"outlier_share": worst["window_sweep_stream"][0],
                                  "max_abs_err": worst["window_sweep_stream"][1]},
             library_ms=library,
             plain_ms={k: plain[k] for k in RADIX_KERNELS})
+        # the radix route's work per checked depth: tiles of the compaction
+        # split (over the listed columns) and of each pass, its launches
+        # and the look-back's steps and spins (a probed run of the splits)
+        say("radix_work", **what, tile=pl.RADIX_TILE, per_depth=rwork,
+            steps_per_lookback=float(sum(rwork["lookback_steps"])
+                                     / max(1, sum(rwork["lookbacks"]))))
         for k, (w, e) in worst.items():
             if w > LANE_FRAC and k not in radix:
                 raise RuntimeError(f"{k} disagrees with its plain version on "
@@ -1648,7 +1693,7 @@ def main() -> int:
         if name == "mesh_big.txt" and res == (800, 800):
             for k in SORTED_KERNELS + ("window_sweep_stream",):
                 err800[k] = worst[k][1]
-            for k in RADIX_KERNELS[:3]:
+            for k in RADIX_KERNELS[:2]:
                 err800[k] = 0.0  # held exactly
             big_work, big_plain, big_library = work, plain, library
             cand = np.maximum(np.array(work["candidates"], np.float64), 1)
@@ -1824,8 +1869,8 @@ def main() -> int:
         ("big_mesh_step", "mesh_big.txt", None, {"antialias": True}, "step"),
         ("bunny", "bunny.txt", None, {"antialias": True}, "step_batch"),
         # the radix route (SORT_RADIX set for these only): #7 -> #8 -> A ->
-        # the compaction split and 7 one-bit passes -> C in stream order ->
-        # 7 unsplits and the expansion -> D -> #9 at every depth
+        # the compaction split and one 8-bit pass -> C in stream order ->
+        # one unscatter -> D -> #9 at every depth
         ("big_mesh_radix", "mesh_big.txt", None, {"antialias": True},
          "step_batch"),
         ("bunny_radix", "bunny.txt", None, {"antialias": True}, "step_batch"),
@@ -1837,8 +1882,8 @@ def main() -> int:
         """The launches of the route's calls, `calls` iterations each
         (n_sorted: the scene's geoms on the sorted route, each running A-D
         once per #8; splits: under the radix route, the splits of one #8
-        summed over those geoms, each 1 + bit_length(2 * n_supers), which
-        take the place of B and C)."""
+        summed over those geoms, each 1 + ceil(bit_length(2 * n_supers) /
+        8), which with one unscatter per geom take the place of B and C)."""
         n_it, n_calls = sum(calls), len(calls)
         if settings.nee_mis:
             if route == "step" or settings.motion_blur:
@@ -1865,7 +1910,7 @@ def main() -> int:
         if splits is not None:
             out.update(place_entries=0, window_sweep=0,
                        window_sweep_stream=n_sorted * walks,
-                       **dict.fromkeys(RADIX_KERNELS[:3], splits * walks))
+                       radix_split=splits * walks, radix_unscatter=n_sorted * walks)
         return out
 
     launches_of = {}
@@ -1893,8 +1938,9 @@ def main() -> int:
             r = Renderer(scene, settings, device=dev)
         res = r.camera.resolution
         radix = label in radix_paths
-        splits = sum(1 + max(1, (2 * r.dev_scene.super_ranges[g][1]).bit_length())
-                     for g in pl.sorted_geoms(r.dev_scene)) if radix else None
+        splits = sum(1 + len(pl.radix_passes(pl.radix_key_bits(
+            2 * r.dev_scene.super_ranges[g][1]))) for g in pl.sorted_geoms(r.dev_scene)
+                     ) if radix else None
 
         def run(n):
             pl.SORT_RADIX = radix
@@ -1935,7 +1981,8 @@ def main() -> int:
                   else 10)
         busy, kernel_ms_of[label], seen = profile_device(
             lambda: run(n_prof), n_prof,
-            by_depth=SORTED_KERNELS + ("window_sweep_stream",)
+            by_depth=SORTED_KERNELS + ("window_sweep_stream", "radix_split@compaction",
+                                       "radix_split@pass", "radix_unscatter")
             if name in BIG_SCENES else ())
         frame_ms_of[label], busy_of[label] = ms, busy
         say("path", path=label, scene=name, settings=kw,
@@ -2270,30 +2317,18 @@ def main() -> int:
         timing[name] = (kernel_ms_of["big_mesh"][name], big_plain[name],
                         launches_of["big_mesh"][name])
     # the radix route's bounds, per launch averaged over its launches on
-    # (q) mesh_big 800x800 d8 AA: per depth the compaction split of the
-    # listed lanes' E keys (only the listed columns are read) and their
-    # rays, then `bits` one-bit passes over the depth's real entries; the
-    # per-block counts (4 B a block) read back by the scatter
-    bits = max(1, (2 * b_sn).bit_length())
-    blocks = -(-E * b_p // pl.RADIX_BLOCK)
+    # (q) mesh_big 800x800 d8 AA: per depth the compaction split (the
+    # listed lanes' E keys and rays read once; per real entry its key, ray
+    # and id out, 32 B) and `passes` digit passes (per entry 32 B in and 32
+    # B out); the unscatter per entry its id and C's 16 B in, 16 B out
+    passes = len(pl.radix_passes(pl.radix_key_bits(2 * b_sn)))
     cand, ent = bw["candidates"], bw["entries"]
-    splits = 1 + bits
+    splits = 1 + passes
     bounds.update({
-        # each key read once
-        "radix_counts": bound(
-            np.mean((4 * E * cand + 4 * bits * ent) / splits + 4 * blocks),
-            np.mean(OPS_RADIX * (E * cand + bits * ent) / splits)),
-        # the keys read, 28 B of key and ray moved per entry (the rays read
-        # once per listed lane in the compaction split)
-        "radix_scatter": bound(
-            np.mean((4 * E * cand + 24 * cand + 28 * ent + 56 * bits * ent) / splits
-                    + 4 * blocks),
-            np.mean(OPS_RADIX * (E * cand + bits * ent) / splits)),
-        # the stage key read, 16 B of C's results moved per entry
-        "radix_unscatter": bound(
-            np.mean((4 * E * cand + 32 * ent + 36 * bits * ent) / splits
-                    + 4 * blocks),
-            np.mean(OPS_RADIX * (E * cand + bits * ent) / splits)),
+        "radix_split": bound(
+            np.mean((4 * E * cand + 24 * cand + 32 * ent + 64 * passes * ent) / splits),
+            np.mean(OPS_RADIX * (E * cand + passes * ent) / splits)),
+        "radix_unscatter": bound(np.mean(36 * ent), np.mean(OPS_UNSCATTER * ent)),
         # C's: the geom's triangles and chunk boxes once, per entry its key
         # and ray in and its 16 B out
         "window_sweep_stream": bound(
@@ -2305,12 +2340,14 @@ def main() -> int:
                         launches_of["big_mesh_radix"][name])
     # one PyTorch call computing the same function on the same inputs,
     # where there is one (timed in radix_check, used nowhere in the port):
-    # B a stable torch.sort of A's masked keys; a split a stable torch.sort
-    # of its flags with the key and payload gathers; an unsplit an
-    # index_copy_ through that permutation. No single call computes the
-    # others (a path-tracing bounce, a BVH walk, a merge of two winners, a
-    # per-block count of the flags, a window sweep).
+    # B a stable torch.sort of A's masked keys; the split the whole sort's
+    # call, a stable torch.sort of the compacted keys with the payload and
+    # id gathers (the route's sort is its digit passes); the unscatter an
+    # index_copy_ by the entry ids. No single call computes the others (a
+    # path-tracing bounce, a BVH walk, a merge of two winners, a window
+    # sweep).
     library = {name: big_library.get(name) for name in KERNELS}
+    library["radix_split"] = big_library["sort"]
 
     # ---- 8. the CLI: Cornell plain, with --compact and with --nee; mesh.txt;
     # mesh_big.txt (the sorted route) ----

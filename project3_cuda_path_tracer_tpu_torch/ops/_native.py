@@ -87,13 +87,13 @@ SIGNATURES = {
     # has_uv, keys, t, tri, u, v, q, bt0, hits, device, stream
     "pt_merge_entries": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                          _P, _P, _P, _P, _P, _P, _I, _P],
-    # a split (key, count, capacity, n, bit, dead), then: counts, device,
-    # stream
-    "pt_radix_counts": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
-    # split, csum, in, out, n_words, key_out, device, stream
-    "pt_radix_scatter": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P],
-    # split, csum, in, out, n_words, device, stream
-    "pt_radix_unscatter": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P],
+    # key, count, hist, capacity, n, E, shift, width, dead, in, out,
+    # n_words, key_out, entry_out, length_out, hist_out, tiles, status,
+    # clear, clear_words, probe, device, stream
+    "pt_radix_split": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+                       _P, _P, _P, _I, _P, _I, _P],
+    # entry, length, capacity, in, out, n_words, device, stream
+    "pt_radix_unscatter": [_P, _P, _I, _P, _P, _I, _I, _P],
 }
 
 

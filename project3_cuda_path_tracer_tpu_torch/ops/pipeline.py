@@ -40,20 +40,20 @@ each such geom, in geom order, after #8 has swept the others
 Under SORT_RADIX (the JAX package's `PT_TPU_SORT_RADIX=1`, off by
 default) B gives way to the radix route (csrc/radix.cu), as the JAX
 package's radix kernels #15-#17 replace both of its sorts
-(`radix_window_sweep`): three wrappers over one stable binary split,
+(`radix_window_sweep`), over two wrappers:
 
-- `radix_counts` (the count half of #15 `_kr_partition`): per block of
-  RADIX_BLOCK elements, the elements whose split flag is 0;
-- `radix_scatter` (#15's packing and #16 `_kr_stitch2`): each element's
-  key and payload to its place, from the blocks' scanned counts;
-- `radix_unscatter` (#17 `_kr_unpartition`): one split undone on the
-  result arrays;
+- `radix_split` (#15 `_kr_partition` and #16 `_kr_stitch2` in one
+  single-pass launch): each element's key and payload to its place in
+  the stable split by a digit of the key (up to 8 bits), its place from
+  a decoupled look-back over the tiles before it;
+- `radix_unscatter` (#17 `_kr_unpartition`, the whole unsort): each
+  result back at the entry id the sort carried;
 
 run as the compaction split of A's keys (the real entries in entry-id
-order, with their rays), `bit_length(2 * n_supers)` one-bit LSB passes
-(`radix_sort_stream`), C in stream order (`window_sweep_stream`), the
-passes undone in reverse (`radix_unsort_stream`) and the compaction split
-undone (the results back to [slot, j]) before D.
+order, with their rays and ids, and the digit histograms of their keys),
+ceil(bit_length(2 * n_supers) / 8) 8-bit LSB passes (`radix_sort_stream`;
+one pass up to 127 supernodes), C in stream order (`window_sweep_stream`)
+and one unscatter of C's results to [slot, j] before D.
 
 The chains: `bounce_step_pipeline` is #7 -> #8 [-> A -> B -> C -> D per
 big geom] -> #9 (one bounce of the mesh path), `intersect_pipeline` #7 ->
@@ -130,9 +130,14 @@ MAX_SUPERS = 6144
 # the same environment variable at import, off by default; read again at
 # each call, so a caller may set the module constant)
 SORT_RADIX = os.environ.get("PT_TPU_SORT_RADIX", "0") == "1"
-# elements per block of the radix kernels (csrc/radix.cu kRadixThreads)
-RADIX_BLOCK = 256
-# 32-bit arrays one radix launch moves at most (csrc/radix.cu kMaxWords)
+# the radix kernels (csrc/radix.cu): threads per block, elements per tile
+# of a split (8 a thread), digit values (one 8-bit digit at most), passes
+# at most (keys of up to 31 bits), and 32-bit arrays one launch moves
+RADIX_THREADS = 256
+RADIX_TILE = 2048
+RADIX_MAX_WIDTH = 8
+RADIX_DIGITS = 1 << RADIX_MAX_WIDTH
+RADIX_MAX_PASSES = 4
 RADIX_MAX_WORDS = 8
 
 
@@ -390,19 +395,25 @@ def entry_hits(res: torch.Tensor) -> EntryHits:
 
 
 class RadixSplit(NamedTuple):
-    """One stable binary split: the elements whose flag is 0 first, in
-    order, then the others, in order. `bit` >= 0: a pass over the first
-    `count` elements of a stream key (L,), flag bit `bit` of the key. `bit`
-    < 0: the compaction split of A's slot-major keys (E, P), flag 0 iff the
-    entry is real (column j < count, #7's listed lanes, and key < `dead`);
-    its zeros are the real entries in entry-id order, its ones are not
-    placed, and its payload is read by column (lane j's object-space ray).
-    Recorded as a stage, it is what the unsplit recomputes."""
+    """One stable split: the elements in order of a digit of their key, in
+    their order within a digit. `shift` >= 0: a digit pass over the first
+    `count` elements of a stream key (L,), digit (key >> shift) & (2**width
+    - 1) with width <= RADIX_MAX_WIDTH, `hist` its counts over those
+    elements (`radix_digit_counts`); width 1 is one binary pass (one
+    `_kr_partition` + `_kr_stitch2`). `shift` < 0: the compaction split of
+    A's slot-major keys (E, P), flag 0 iff the entry is real (column j <
+    count, #7's listed lanes, and key < `dead`); its zeros are the real
+    entries in entry-id order, its ones are not placed, its payload is read
+    by column (lane j's object-space ray), and it also gives each real
+    entry's id and the stream's digit histograms (`radix_passes` of
+    `radix_key_bits(dead)`)."""
 
     key: torch.Tensor  # (L,) int32 stream keys, or (E, P) A's keys
     count: torch.Tensor  # (1,) int32 on the device: length, or listed lanes
-    bit: int  # the key bit; -1: the compaction split
+    shift: int  # the digit's lowest key bit; -1: the compaction split
     dead: int = 0  # the compaction split's dead key, 2 * n_supers
+    width: int = 1  # the digit's bits
+    hist: torch.Tensor | None = None  # (RADIX_DIGITS,) int32 digit counts
 
 
 class RadixStream(NamedTuple):
@@ -412,6 +423,25 @@ class RadixStream(NamedTuple):
     key: torch.Tensor  # (L,) int32
     payload: torch.Tensor  # (k, L) 32-bit words (the six ray lanes, f32)
     length: torch.Tensor  # (1,) int32 on the device
+    entry: torch.Tensor | None = None  # (L,) int32 entry id slot * P + j
+    # (passes, RADIX_DIGITS) int32: the keys' count of each value of each
+    # digit of `radix_passes` (a permutation of the stream keeps it)
+    hist: torch.Tensor | None = None
+
+
+class RadixWork(NamedTuple):
+    """The device scratch of one sort (one depth of the radix route): one
+    int32 buffer, zeroed by the compaction split's launch, holding the
+    stream's digit histograms and length (the compaction split's outputs)
+    and, per split (the compaction split, then each of `radix_passes`), its
+    tile counter and its look-back words (a word per tile of the capacity
+    and digit value)."""
+
+    buf: torch.Tensor  # (words,) int32, all of the below
+    hist: torch.Tensor  # (passes, RADIX_DIGITS)
+    length: torch.Tensor  # (1,)
+    tiles: torch.Tensor  # (1 + passes,) tile counters
+    status: tuple  # per split, (tiles x 2**width,) look-back words
 
 
 def super_rank(q, bt: torch.Tensor, boxes: torch.Tensor, E: int) -> torch.Tensor:
@@ -685,74 +715,79 @@ def merge_entries_reference(origins: Vec3, dirs: Vec3, cands: Candidates,
 
 # ---- the radix route, plain versions ---------------------------------------
 
-def _split_flags(sp: RadixSplit) -> tuple:
-    """(valid, zero), each (capacity,) bool: the elements the split orders
-    and those among them whose flag is 0."""
+def radix_key_bits(dead: int) -> int:
+    """The key bits the radix route sorts: bit_length(2 * n_supers), the
+    dead key's (the JAX package's bit count)."""
+    return max(1, dead.bit_length())
+
+
+def radix_passes(bits: int) -> list:
+    """The digit passes of a sort of `bits`-bit keys: (shift, width) of
+    each RADIX_MAX_WIDTH-bit digit from bit 0 up, the last one narrower."""
+    return [(b, min(RADIX_MAX_WIDTH, bits - b)) for b in range(0, bits, RADIX_MAX_WIDTH)]
+
+
+def radix_digit_counts(key: torch.Tensor, length: torch.Tensor, shift: int,
+                       width: int) -> torch.Tensor:
+    """A digit pass's `hist`, plain: how many of the stream's keys at [0,
+    length) hold each value of the digit (key >> shift) & (2**width - 1),
+    (RADIX_DIGITS,) int32 (zeros past 2**width)."""
+    k = key[:int(length[0])].to(torch.int64)
+    return torch.bincount((k >> shift) & ((1 << width) - 1),
+                          minlength=RADIX_DIGITS).to(torch.int32)
+
+
+def radix_split_reference(sp: RadixSplit, payload: torch.Tensor,
+                          entry: torch.Tensor | None = None) -> RadixStream:
+    """One stable split, plain (`radix_split`): a stable sort by the digit
+    (or the compaction's nonzero) with the gathers. The key, the payload
+    (k, capacity) of 32-bit words ((k, P) for the compaction split, read by
+    column) and the entry ids (`entry`, carried by a digit pass; made by
+    the compaction split) at their places. Returns the split stream at [0,
+    length), zeros after; for the compaction split with its entry ids,
+    length and digit histograms; for a digit pass with `sp.count` as its
+    length and no histograms."""
     device = sp.key.device
-    if sp.bit < 0:
+    words = payload.view(torch.int32)
+    hist = None
+    if sp.shift < 0:
         E, P = sp.key.shape
         listed = torch.arange(P, device=device) < sp.count
-        zero = (listed[None, :] & (sp.key < sp.dead)).reshape(-1)
-        return torch.ones_like(zero), zero
-    valid = torch.arange(sp.key.shape[0], device=device) < sp.count
-    return valid, valid & (((sp.key >> sp.bit) & 1) == 0)
+        real = (listed[None, :] & (sp.key < sp.dead)).reshape(-1)
+        src = torch.nonzero(real)[:, 0]  # the real entries' ids, in order
+        cols, ids = src % P, src
+        length = torch.tensor([src.shape[0]], dtype=torch.int32, device=device)
+    else:
+        m = int(sp.count[0])
+        digit = (sp.key[:m] >> sp.shift) & ((1 << sp.width) - 1)
+        src = torch.sort(digit, stable=True).indices
+        cols, ids = src, None if entry is None else entry[src]
+        length = sp.count
+    cap, m = sp.key.numel(), src.shape[0]
+    key = torch.zeros(cap, dtype=torch.int32, device=device)
+    key[:m] = sp.key.reshape(-1)[src]
+    out = torch.zeros((words.shape[0], cap), dtype=torch.int32, device=device)
+    out[:, :m] = words[:, cols]
+    if ids is not None:
+        ent = torch.zeros(cap, dtype=torch.int32, device=device)
+        ent[:m] = ids
+        ids = ent
+    if sp.shift < 0:
+        hist = torch.stack([radix_digit_counts(key, length, b, w)
+                            for b, w in radix_passes(radix_key_bits(sp.dead))])
+    return RadixStream(key, out.view(payload.dtype), length, ids, hist)
 
 
-def _split_dest(sp: RadixSplit) -> torch.Tensor:
-    """Each element's place in the split stream, (capacity,) int64: the
-    zeros by their order among the zeros, the ones after all zeros by
-    their order among the ones; -1 for an element the split does not
-    place (past the length, or a one of the compaction split)."""
-    valid, zero = _split_flags(sp)
-    z = zero.to(torch.int64)
-    one = valid & ~zero
-    o = one.to(torch.int64)
-    dest = torch.where(zero, torch.cumsum(z, 0) - z, -1)
-    if sp.bit >= 0:
-        dest = torch.where(one, z.sum() + torch.cumsum(o, 0) - o, dest)
-    return dest
-
-
-def radix_counts_reference(sp: RadixSplit) -> torch.Tensor:
-    """radix_counts, plain: the zeros of the split per block of RADIX_BLOCK
-    elements of the capacity, (blocks,) int32."""
-    _, zero = _split_flags(sp)
-    pad = -zero.shape[0] % RADIX_BLOCK
-    zero = torch.cat([zero, zero.new_zeros(pad)])
-    return zero.view(-1, RADIX_BLOCK).sum(1, dtype=torch.int32)
-
-
-def radix_split_reference(sp: RadixSplit, payload: torch.Tensor) -> tuple:
-    """One stable binary split, plain (radix_counts -> scan ->
-    radix_scatter): the key and the payload (k, capacity) of 32-bit words
-    (for the compaction split (k, P), read by column) in split order.
-    Returns (key (capacity,), payload (k, capacity)): the split's elements
-    at [0, length) ([0, real entries) for the compaction split), zeros
-    after."""
-    dest = _split_dest(sp)
-    placed = torch.nonzero(dest >= 0)[:, 0]
-    src = placed % sp.key.shape[1] if sp.bit < 0 else placed
-    key = torch.zeros(dest.shape[0], dtype=torch.int32, device=dest.device)
-    key[dest[placed]] = sp.key.reshape(-1)[placed]
-    words = payload.view(torch.int32)
-    out = torch.zeros((words.shape[0], dest.shape[0]), dtype=torch.int32,
-                      device=dest.device)
-    out[:, dest[placed]] = words[:, src]
-    return key, out.view(payload.dtype)
-
-
-def radix_unsplit_reference(sp: RadixSplit, results: torch.Tensor) -> torch.Tensor:
-    """One split undone on result arrays, plain (radix_unscatter): from
-    `results` (k, capacity) of 32-bit words in split order, each element's
-    word back at its place before the split, out[e] = results[dest(e)],
-    dest recomputed from the recorded split. For the compaction split the
-    real entries' results go to [slot, j] (reshape to (k, E, P)); the
-    elements the split does not place get zeros."""
-    dest = _split_dest(sp)
-    placed = torch.nonzero(dest >= 0)[:, 0]
+def radix_unsplit_reference(stream: RadixStream, results: torch.Tensor) -> torch.Tensor:
+    """The whole unsort, plain (`radix_unscatter`): from `results` (k, L)
+    of 32-bit words in the order of `stream` (sorted), each entry's words
+    at its id, out[:, entry[i]] = results[:, i] for i below the stream's
+    length; zeros elsewhere. With ids slot * P + j, (k, E * P) reshapes to
+    (k, E, P)."""
+    m = int(stream.length[0])
     words = results.view(torch.int32)
     out = torch.zeros_like(words)
-    out[:, placed] = words[:, dest[placed]]
+    out[:, stream.entry[:m].long()] = words[:, :m]
     return out.view(results.dtype)
 
 
@@ -1203,23 +1238,6 @@ def merge_entries(origins: Vec3, dirs: Vec3, cands: Candidates,
     return hits
 
 
-def _split_args(sp: RadixSplit, device) -> tuple:
-    """(capacity, row stride n, blocks) of a split, after checking it."""
-    if sp.bit < 0:
-        if sp.key.dim() != 2:
-            raise ValueError("the compaction split takes A's (E, P) keys")
-        E, n = sp.key.shape
-        cap = E * n
-    else:
-        (cap,) = sp.key.shape
-        n = cap
-    _check_tensor(sp.key, "split.key", torch.int32, tuple(sp.key.shape), device)
-    _check_tensor(sp.count, "split.count", torch.int32, (1,), device)
-    if not 0 < cap < 2**31 - RADIX_BLOCK or sp.bit > 30:
-        raise ValueError(f"radix split: capacity {cap}, bit {sp.bit} out of range")
-    return cap, n, -(-cap // RADIX_BLOCK)
-
-
 def _check_words(a: torch.Tensor, name: str, rows_max: int, cols: int, device) -> None:
     """A (k, cols) array of 32-bit words, k <= rows_max."""
     if a.dim() != 2 or not 0 < a.shape[0] <= rows_max:
@@ -1229,70 +1247,132 @@ def _check_words(a: torch.Tensor, name: str, rows_max: int, cols: int, device) -
     _check_tensor(a, name, a.dtype, (a.shape[0], cols), device)
 
 
-def radix_counts(sp: RadixSplit) -> torch.Tensor:
-    """The zeros of split `sp` per block of RADIX_BLOCK elements, (blocks,)
-    int32 on the device (0 for a block past the length). CPU: the plain
-    version; CUDA: one launch sized by the capacity, counted in
-    `radix_counts.launches`."""
-    device = sp.key.device
-    if device.type == "cpu":
-        return radix_counts_reference(sp)
-    _require_cuda(device, "radix_counts")
-    cap, n, blocks = _split_args(sp, device)
-    counts = torch.empty(blocks, dtype=torch.int32, device=device)
-    dev_index, stream = _device_args(device)
-    _launch("pt_radix_counts", "radix_counts", sp.key.data_ptr(), sp.count.data_ptr(),
-            cap, n, sp.bit, sp.dead, counts.data_ptr(), dev_index, stream)
-    radix_counts.launches += 1
-    return counts
+def radix_work(capacity: int, bits: int, device) -> RadixWork:
+    """The scratch (`RadixWork`) of one sort of up to `capacity` elements
+    by `bits`-bit keys, not zeroed (the compaction split's launch zeroes
+    it)."""
+    passes = radix_passes(bits)
+    tiles = -(-capacity // RADIX_TILE)
+    sizes = [tiles] + [tiles << w for _, w in passes]
+    head = len(passes) * RADIX_DIGITS + 1
+    buf = torch.empty(head + 1 + len(passes) + sum(sizes), dtype=torch.int32,
+                      device=device)
+    status, at = [], head + 1 + len(passes)
+    for size in sizes:
+        status.append(buf[at:at + size])
+        at += size
+    return RadixWork(buf, buf[:head - 1].view(len(passes), RADIX_DIGITS),
+                     buf[head - 1:head], buf[head:head + 1 + len(passes)], tuple(status))
 
 
-def radix_scatter(sp: RadixSplit, csum: torch.Tensor, payload: torch.Tensor) -> tuple:
-    """Split `sp` carried out: the key and the payload (k, capacity) of
-    32-bit words ((k, P) for the compaction split, read by column) each to
-    its place, from `csum`, the inclusive scan of `radix_counts(sp)`.
-    Returns (key (capacity,), payload (k, capacity)), written at [0,
-    length) ([0, real entries) for the compaction split). CPU: the plain
-    version (which needs no csum); CUDA: one launch sized by the capacity,
-    counted in `radix_scatter.launches`."""
+def radix_split(sp: RadixSplit, payload: torch.Tensor, entry: torch.Tensor | None = None,
+                work: RadixWork | None = None,
+                probe: torch.Tensor | None = None) -> RadixStream:
+    """One stable split (`RadixSplit`, #15 + #16) carried out: the key, the
+    payload (k, capacity) of 32-bit words ((k, P) for the compaction split,
+    read by column) and the entry ids (`entry`, (capacity,) int32, carried
+    by a digit pass; made by the compaction split) each at its place.
+    Returns the split stream at [0, length), the rest not written: for the
+    compaction split with its entry ids, length and digit histograms (views
+    of `work`), for a digit pass with `sp.count` as its length and no
+    histograms. `work`: the sort's scratch (`radix_work`), which the
+    compaction split's launch zeroes and a digit pass at shift 8p uses as
+    pass p's; None: a scratch of the split's own, zeroed by its launch.
+    `probe`: None, or (2,) int32 on the device to which the launch adds its
+    look-back's steps and spins. CPU: the plain version; CUDA: one launch
+    on a persistent grid (after one memset where it zeroes the scratch), no
+    host sync, counted in `radix_split.launches`."""
     device = sp.key.device
     if device.type == "cpu":
-        return radix_split_reference(sp, payload)
-    _require_cuda(device, "radix_scatter")
-    cap, n, blocks = _split_args(sp, device)
-    _check_tensor(csum, "csum", torch.int32, (blocks,), device)
-    _check_words(payload, "payload", RADIX_MAX_WORDS, n, device)
+        return radix_split_reference(sp, payload, entry)
+    _require_cuda(device, "radix_split")
+    _check_tensor(sp.count, "split.count", torch.int32, (1,), device)
+    compact = sp.shift < 0
+    if compact:
+        if sp.key.dim() != 2:
+            raise ValueError("the compaction split takes A's (E, P) keys")
+        E, n = sp.key.shape
+        cap, cols, width = E * n, n, radix_key_bits(sp.dead)
+        if entry is not None or sp.dead <= 0 or width >= RADIX_MAX_WIDTH * RADIX_MAX_PASSES:
+            raise ValueError(f"compaction split: dead key {sp.dead}, entry {entry}")
+    else:
+        (cap,) = sp.key.shape
+        E, n, cols, width = 1, cap, cap, sp.width
+        if not 1 <= width <= RADIX_MAX_WIDTH or sp.shift + width > 31:
+            raise ValueError(f"digit pass: shift {sp.shift}, width {width} out of range")
+        if sp.hist is None:
+            raise ValueError("a digit pass needs its digit counts (split.hist)")
+        _check_tensor(sp.hist, "split.hist", torch.int32, (RADIX_DIGITS,), device)
+        if entry is not None:
+            _check_tensor(entry, "entry", torch.int32, (cap,), device)
+    _check_tensor(sp.key, "split.key", torch.int32, tuple(sp.key.shape), device)
+    if not 0 < cap <= 2**30 - RADIX_TILE:
+        raise ValueError(f"radix split: capacity {cap} out of range")
+    _check_words(payload, "payload", RADIX_MAX_WORDS - (entry is not None), cols, device)
+    # the split's tile counter and look-back words: the compaction split's
+    # are the work's first, pass p's the (1 + p)-th; the compaction split
+    # (or a split with a scratch of its own) zeroes the whole work first
+    region = 0 if compact else 1 + sp.shift // RADIX_MAX_WIDTH
+    clear = None
+    if work is None:
+        work = radix_work(cap, width, device)
+        region, clear = min(region, 1), work.buf
+    elif compact:
+        clear = work.buf
+    elif sp.shift % RADIX_MAX_WIDTH or region >= len(work.status):
+        raise ValueError(f"digit pass at shift {sp.shift}: no such pass in the work")
+    if work.status[region].shape[0] < -(-cap // RADIX_TILE) << (0 if compact else width):
+        raise ValueError("the work was made for a smaller sort")
+    if probe is not None:
+        _check_tensor(probe, "probe", torch.int32, (2,), device)
     key = torch.empty(cap, dtype=torch.int32, device=device)
     out = torch.empty((payload.shape[0], cap), dtype=payload.dtype, device=device)
+    ent = None if entry is None and not compact else torch.empty(
+        cap, dtype=torch.int32, device=device)
+    ins, outs = list(payload), list(out)
+    if entry is not None:
+        ins, outs = ins + [entry], outs + [ent]
     dev_index, stream = _device_args(device)
-    _launch("pt_radix_scatter", "radix_scatter", sp.key.data_ptr(), sp.count.data_ptr(),
-            cap, n, sp.bit, sp.dead, csum.data_ptr(), _ptrs(list(payload)),
-            _ptrs(list(out)), payload.shape[0], key.data_ptr(), dev_index, stream)
-    radix_scatter.launches += 1
-    return key, out
+    _launch("pt_radix_split", "radix_split", sp.key.data_ptr(), sp.count.data_ptr(),
+            None if compact else sp.hist.data_ptr(), cap, n, E, sp.shift, width, sp.dead,
+            _ptrs(ins), _ptrs(outs), len(ins), key.data_ptr(),
+            ent.data_ptr() if compact else None,
+            work.length.data_ptr() if compact else None,
+            work.hist.data_ptr() if compact else None,
+            work.tiles[region:region + 1].data_ptr(), work.status[region].data_ptr(),
+            None if clear is None else clear.data_ptr(),
+            0 if clear is None else clear.numel(),
+            None if probe is None else probe.data_ptr(), dev_index, stream)
+    radix_split.launches += 1
+    if compact:
+        return RadixStream(key, out, work.length, ent, work.hist)
+    return RadixStream(key, out, sp.count, ent)
 
 
-def radix_unscatter(sp: RadixSplit, csum: torch.Tensor,
-                    results: torch.Tensor) -> torch.Tensor:
-    """Split `sp` undone on `results` (k, capacity) of 32-bit words in split
-    order: each element's words back at its place before the split, from
-    the recorded split and its `csum`. For the compaction split, the real
-    entries' results at [slot, j] of a (k, E * P) buffer, the rest not
-    written. CPU: the plain version; CUDA: one launch sized by the
-    capacity, counted in `radix_unscatter.launches`."""
-    device = sp.key.device
+def radix_unscatter(stream: RadixStream, results: torch.Tensor) -> torch.Tensor:
+    """The whole unsort (#17; the JAX package's `_radix_unsort_stream`, the
+    inverse of the sort's permutation) in one launch: each entry's result
+    words back at its id, out[:, entry[i]] = results[:, i] for i below the
+    stream's length, from `results` (k, L) of 32-bit words in the order of
+    `stream` into a (k, L) buffer (L = E * P: reshape to (k, E, P) for
+    [slot, j]), the rest not written. CPU: the plain version (zeros
+    there); CUDA: one launch on a persistent grid, counted in
+    `radix_unscatter.launches`."""
+    device = stream.key.device
     if device.type == "cpu":
-        return radix_unsplit_reference(sp, results)
+        return radix_unsplit_reference(stream, results)
     _require_cuda(device, "radix_unscatter")
-    cap, n, blocks = _split_args(sp, device)
-    _check_tensor(csum, "csum", torch.int32, (blocks,), device)
+    (cap,) = stream.key.shape
+    if stream.entry is None:
+        raise ValueError("the unsort needs the stream's entry ids")
+    _check_tensor(stream.entry, "stream.entry", torch.int32, (cap,), device)
+    _check_tensor(stream.length, "stream.length", torch.int32, (1,), device)
     _check_words(results, "results", RADIX_MAX_WORDS, cap, device)
     out = torch.empty_like(results)
-    dev_index, stream = _device_args(device)
-    _launch("pt_radix_unscatter", "radix_unscatter", sp.key.data_ptr(),
-            sp.count.data_ptr(), cap, n, sp.bit, sp.dead, csum.data_ptr(),
-            _ptrs(list(results)), _ptrs(list(out)), results.shape[0], dev_index,
-            stream)
+    dev_index, cuda_stream = _device_args(device)
+    _launch("pt_radix_unscatter", "radix_unscatter", stream.entry.data_ptr(),
+            stream.length.data_ptr(), cap, _ptrs(list(results)), _ptrs(list(out)),
+            results.shape[0], dev_index, cuda_stream)
     radix_unscatter.launches += 1
     return out
 
@@ -1328,55 +1408,41 @@ def window_sweep_stream(stream: RadixStream, scene: DeviceScene, g: int,
     return res
 
 
-def radix_split(sp: RadixSplit, payload: torch.Tensor) -> tuple:
-    """One split: `radix_counts`, their inclusive scan (`torch.cumsum`, on
-    the device), `radix_scatter`. Returns (key, payload, csum)."""
-    csum = torch.cumsum(radix_counts(sp), 0, dtype=torch.int32)
-    key, out = radix_scatter(sp, csum, payload)
-    return key, out, csum
-
-
-def radix_sort_stream(stream: RadixStream, bits: int) -> tuple:
-    """The JAX package's `_radix_sort_stream`: a stable LSB binary-radix
-    sort of the stream by its key, one split per bit from bit 0 up. Stable
-    on a stream in entry-id order, it is the (key, entry) sort with no
-    entry id carried. Returns (the sorted RadixStream, the stages: each
-    pass's (RadixSplit, csum), for `radix_unsort_stream`)."""
-    stages = []
-    for b in range(bits):
-        sp = RadixSplit(stream.key, stream.length, b)
-        key, payload, csum = radix_split(sp, stream.payload)
-        stages.append((sp, csum))
-        stream = RadixStream(key, payload, stream.length)
-    return stream, stages
-
-
-def radix_unsort_stream(results: torch.Tensor, stages: list) -> torch.Tensor:
-    """The JAX package's `_radix_unsort_stream`: the sort's permutation
-    undone on `results` (k, L) in sorted order, pass by pass in reverse
-    (`radix_unscatter`), with no sort."""
-    for sp, csum in reversed(stages):
-        results = radix_unscatter(sp, csum, results)
-    return results
+def radix_sort_stream(stream: RadixStream, bits: int,
+                      work: RadixWork | None = None) -> RadixStream:
+    """The JAX package's `_radix_sort_stream`: a stable LSB radix sort of
+    the stream by its `bits`-bit key, one `radix_split` per digit of
+    `radix_passes(bits)` (one up to 8 bits), each from the stream's digit
+    histograms (`stream.hist`, needed on CUDA). Stable on a stream in
+    entry-id order, it is the (key, entry) sort; the entry ids ride along
+    for the unsort. Returns the sorted stream (the histograms kept)."""
+    for p, (shift, width) in enumerate(radix_passes(bits)):
+        hist = None if stream.hist is None else stream.hist[p]
+        sp = RadixSplit(stream.key, stream.length, shift, width=width, hist=hist)
+        stream = radix_split(sp, stream.payload, stream.entry,
+                             work=work)._replace(hist=stream.hist)
+    return stream
 
 
 def radix_window_sweep(sk: SuperKeys, count: torch.Tensor, scene: DeviceScene,
                        g: int, tables: SceneTables | None = None) -> EntryHits:
     """C's results at [slot, j] by the radix route (the JAX package's
     SORT_RADIX branch of `_sorted_mesh_merge`, in place of B and C): the
-    compaction split of A's keys with their rays, bit_length(2 * n_supers)
-    one-bit passes (`radix_sort_stream`), C in stream order, the passes
-    undone (`radix_unsort_stream`) and the compaction split undone. The
-    real entries' results are those of B -> C; the rest not written."""
+    compaction split of A's keys with their rays (entry ids and digit
+    histograms made in the same launch), ceil(bit_length(2 * n_supers) /
+    8) digit passes (`radix_sort_stream`), C in stream order and one
+    unscatter of its results to their ids. The real entries' results are
+    those of B -> C; the rest not written. On CUDA: 2 + passes launches
+    and one memset (the sort's scratch), no host sync."""
     E, P = sk.keys.shape
-    sn = sk.hist.shape[0] // 2
-    compact = RadixSplit(sk.keys, count, -1, 2 * sn)
-    key, rays, csum = radix_split(compact, sk.rays)
-    srt, stages = radix_sort_stream(RadixStream(key, rays, csum[-1:]),
-                                    max(1, (2 * sn).bit_length()))
-    back = radix_unsort_stream(window_sweep_stream(srt, scene, g, tables=tables),
-                               stages)
-    return entry_hits(radix_unscatter(compact, csum, back).view(4, E, P))
+    dead = sk.hist.shape[0]
+    bits = radix_key_bits(dead)
+    device = sk.keys.device
+    work = radix_work(E * P, bits, device) if device.type == "cuda" else None
+    stream = radix_split(RadixSplit(sk.keys, count, -1, dead), sk.rays, work=work)
+    srt = radix_sort_stream(stream, bits, work=work)
+    res = window_sweep_stream(srt, scene, g, tables=tables)
+    return entry_hits(radix_unscatter(srt, res).view(4, E, P))
 
 
 def sorted_mesh_merge(origins: Vec3, dirs: Vec3, cands: Candidates,
@@ -1449,7 +1515,6 @@ super_keys.launches = 0
 place_entries.launches = 0
 window_sweep.launches = 0
 merge_entries.launches = 0
-radix_counts.launches = 0
-radix_scatter.launches = 0
+radix_split.launches = 0
 radix_unscatter.launches = 0
 window_sweep_stream.launches = 0

@@ -893,14 +893,65 @@ def test_big_mesh_path_launches(cuda_device):
     assert np.isfinite(img).all() and img.max() > 0
 
 
+def radix_exact(pl, got, want, m):
+    """Two split streams equal on [0, m): keys, moved words and ids."""
+    assert torch.equal(got.key[:m], want.key[:m])
+    assert torch.equal(got.payload[:, :m].view(torch.int32),
+                       want.payload[:, :m].view(torch.int32))
+    assert (got.entry is None) == (want.entry is None)
+    if got.entry is not None:
+        assert torch.equal(got.entry[:m], want.entry[:m])
+
+
+def radix_sort_on_cuda(pl, keys, rays, count, dead):
+    """The compaction split and every digit pass of the route's sort of A-
+    like keys (E, P) on the card, each against its plain version exactly
+    (keys, moved words, ids; the compaction's length and digit
+    histograms); the sorted stream the stable torch.sort gather of the
+    compacted one with its ids; the unscatter exactly its plain version
+    and the round trip of the rays to every real [slot, j]. Returns (the
+    sorted stream, its length)."""
+    E, P = keys.shape
+    compact = pl.RadixSplit(keys, count, -1, dead)
+    work = pl.radix_work(E * P, pl.radix_key_bits(dead), keys.device)
+    stream = pl.radix_split(compact, rays, work=work)
+    want = pl.radix_split_reference(compact, rays)
+    torch.cuda.synchronize()
+    total = int(stream.length[0])
+    real = (keys < dead) & (torch.arange(P, device=keys.device) < count)[None]
+    assert total == int(want.length[0]) == int(real.sum())
+    radix_exact(pl, stream, want, total)
+    assert torch.equal(stream.hist, want.hist)
+    srt = stream
+    for p, (shift, width) in enumerate(pl.radix_passes(pl.radix_key_bits(dead))):
+        sp = pl.RadixSplit(srt.key, srt.length, shift, width=width, hist=srt.hist[p])
+        got = pl.radix_split(sp, srt.payload, srt.entry, work=work)
+        torch.cuda.synchronize()
+        radix_exact(pl, got, pl.radix_split_reference(sp, srt.payload, srt.entry), total)
+        srt = got._replace(hist=srt.hist)
+    order = torch.sort(stream.key[:total], stable=True).indices
+    assert torch.equal(srt.key[:total], stream.key[:total][order])
+    assert torch.equal(srt.payload[:, :total], stream.payload[:, order])
+    assert torch.equal(srt.entry[:total], stream.entry[:total][order])
+    back = pl.radix_unscatter(srt, srt.payload[:4].clone())
+    want_back = pl.radix_unsplit_reference(srt, srt.payload[:4])
+    torch.cuda.synchronize()
+    flat = real.reshape(-1)
+    assert torch.equal(back[:, flat], want_back[:, flat])
+    assert torch.equal(back[:, flat],
+                       rays[:4, None, :].expand(4, E, P).reshape(4, -1)[:, flat])
+    return srt, total
+
+
 def test_radix_kernels_match_plain_on_cuda(cuda_device):
-    """radix_counts, radix_scatter and radix_unscatter against their plain
-    versions, exactly (integers and moved floats): the compaction split of
-    seeded (E, P) keys (dead keys and unwritten columns past the count
-    included), then every one-bit pass of the compacted stream over
-    bit_length(2 * 50) bits, each pass and each unpass held separately;
-    the sorted stream is the stable torch.sort gather, and the unsort
-    round-trips. Bad inputs raise."""
+    """radix_split and radix_unscatter against their plain versions,
+    exactly (integers and moved floats): the compaction split of seeded
+    (E, P) keys (dead keys and unwritten columns past the count included)
+    with its ids, length and digit histograms, the one 8-bit pass of
+    bit_length(2 * 50) bits and a one-bit pass (width 1, the function of
+    one `_kr_partition` + `_kr_stitch2`), each with its own scratch; the
+    sorted stream is the stable torch.sort gather, and the unsort by id
+    round-trips. 2 + 1 split launches and 1 unscatter. Bad inputs raise."""
     from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
 
     rng = np.random.default_rng(5)
@@ -911,59 +962,71 @@ def test_radix_kernels_match_plain_on_cuda(cuda_device):
     rays = torch.tensor(rng.standard_normal((6, P)).astype(np.float32),
                         device=cuda_device)
     cnt = torch.tensor([count], dtype=torch.int32, device=cuda_device)
-    wrappers = (pl.radix_counts, pl.radix_scatter, pl.radix_unscatter)
+    wrappers = (pl.radix_split, pl.radix_unscatter)
     before = [f.launches for f in wrappers]
-
-    def split(sp, payload):
-        counts = pl.radix_counts(sp)
-        want_counts = pl.radix_counts_reference(sp)
-        csum = torch.cumsum(counts, 0, dtype=torch.int32)
-        key, out = pl.radix_scatter(sp, csum, payload)
-        want_key, want = pl.radix_split_reference(sp, payload)
+    srt, total = radix_sort_on_cuda(pl, keys, rays, cnt, dead)
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [2, 1]
+    for bit in (0, 4):
+        sp = pl.RadixSplit(srt.key, srt.length, bit, width=1,
+                           hist=pl.radix_digit_counts(srt.key, srt.length, bit, 1))
+        got = pl.radix_split(sp, srt.payload, srt.entry)  # its own scratch
         torch.cuda.synchronize()
-        m = int(csum[-1] if sp.bit < 0 else sp.count[0])  # the elements placed
-        assert torch.equal(counts, want_counts)
-        assert torch.equal(key[:m], want_key[:m])
-        assert torch.equal(out[:, :m].view(torch.int32), want[:, :m].view(torch.int32))
-        return key, out, csum, int(csum[-1])
-
+        radix_exact(pl, got, pl.radix_split_reference(sp, srt.payload, srt.entry), total)
     compact = pl.RadixSplit(keys, cnt, -1, dead)
-    key, pay, csum_c, total = split(compact, rays)
-    real = (keys < dead) & (torch.arange(P, device=cuda_device) < count)[None]
-    assert total == int(real.sum())
-    compacted = stream = pl.RadixStream(key, pay, csum_c[-1:])
-    stages = []
-    for b in range((2 * 50).bit_length()):
-        sp = pl.RadixSplit(stream.key, stream.length, b)
-        key, pay, csum, m = split(sp, stream.payload)
-        assert m == int((((stream.key[:total] >> b) & 1) == 0).sum())
-        stages.append((sp, csum))
-        stream = pl.RadixStream(key, pay, stream.length)
-    order = torch.sort(compacted.key[:total], stable=True).indices
-    assert torch.equal(stream.key[:total], compacted.key[:total][order])
-    assert torch.equal(stream.payload[:, :total], compacted.payload[:, order])
-    res = stream.payload[:4].clone()
-    for sp, csum in reversed(stages):
-        back = pl.radix_unscatter(sp, csum, res)
-        want = pl.radix_unsplit_reference(sp, res)
-        torch.cuda.synchronize()
-        assert torch.equal(back[:, :total].view(torch.int32),
-                           want[:, :total].view(torch.int32))
-        res = back
-    assert torch.equal(res[:, :total], compacted.payload[:4, :total])
-    full = pl.radix_unscatter(compact, csum_c, res)
-    want = pl.radix_unsplit_reference(compact, res)
-    torch.cuda.synchronize()
-    flat = real.reshape(-1)
-    assert torch.equal(full[:, flat], want[:, flat])
-    assert torch.equal(full[:, flat], rays[:4, None, :].expand(4, E, P).reshape(4, -1)[:, flat])
-    assert [f.launches - b for f, b in zip(wrappers, before)] == [8, 8, 8]
     with pytest.raises(ValueError):
-        pl.radix_scatter(compact, csum_c, torch.zeros((9, P), device=cuda_device))
+        pl.radix_split(compact, torch.zeros((9, P), device=cuda_device))
     with pytest.raises(ValueError):
-        pl.radix_counts(pl.RadixSplit(keys[:, :-1], cnt, -1, dead))
+        pl.radix_split(pl.RadixSplit(srt.key, srt.length, 0, width=9, hist=srt.hist[0]),
+                       srt.payload)
+    with pytest.raises(ValueError):
+        pl.radix_split(pl.RadixSplit(srt.key, srt.length, 0, width=8), srt.payload)
     with pytest.raises(TypeError):
-        pl.radix_unscatter(compact, csum_c, res.double())
+        pl.radix_unscatter(srt, srt.payload[:4].double())
+
+
+@pytest.mark.parametrize("n_supers", [300, 6144])
+def test_radix_two_passes_on_cuda(cuda_device, n_supers):
+    """Keys up to 2 x 300 and 2 x MAX_SUPERS = 12,288 (bit_length 10 and
+    14: two passes, 8 + 2 and 8 + 6 bits): the compaction split, both
+    passes and the unscatter exactly their plain versions on the card, the
+    sort the stable torch.sort gather. 3 split launches and 1 unscatter."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+
+    rng = np.random.default_rng(n_supers)
+    E, P, count, dead = 6, 30000, 29001, 2 * n_supers
+    keys = rng.integers(0, dead + 1, (E, P)).astype(np.int32)
+    keys[rng.uniform(size=(E, P)) < 0.3] = dead
+    keys = torch.tensor(keys, device=cuda_device)
+    rays = torch.tensor(rng.standard_normal((6, P)).astype(np.float32),
+                        device=cuda_device)
+    cnt = torch.tensor([count], dtype=torch.int32, device=cuda_device)
+    assert len(pl.radix_passes(pl.radix_key_bits(dead))) == 2
+    before = [pl.radix_split.launches, pl.radix_unscatter.launches]
+    radix_sort_on_cuda(pl, keys, rays, cnt, dead)
+    assert [pl.radix_split.launches - before[0],
+            pl.radix_unscatter.launches - before[1]] == [3, 1]
+
+
+def test_radix_empty_stream_on_cuda(cuda_device):
+    """No listed lane, and listed lanes whose keys are all dead: the
+    compaction split gives length 0 and zero histograms (its launch zeroes
+    the scratch, filled with -1 here), and the pass and the unscatter
+    launch over an empty stream without a fault."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+
+    E, P, dead = 6, 5000, 100
+    rays = torch.ones((6, P), device=cuda_device)
+    for count, fill in ((0, 7), (P, dead)):
+        keys = torch.full((E, P), fill, dtype=torch.int32, device=cuda_device)
+        cnt = torch.tensor([count], dtype=torch.int32, device=cuda_device)
+        work = pl.radix_work(E * P, pl.radix_key_bits(dead), cuda_device)
+        work.buf.fill_(-1)  # the compaction split's launch zeroes it
+        stream = pl.radix_split(pl.RadixSplit(keys, cnt, -1, dead), rays, work=work)
+        srt = pl.radix_sort_stream(stream, pl.radix_key_bits(dead), work=work)
+        out = pl.radix_unscatter(srt, torch.zeros((4, E * P), device=cuda_device))
+        torch.cuda.synchronize()
+        assert int(stream.length[0]) == 0 and not stream.hist.any()
+        assert srt.length is stream.length and out.shape == (4, E * P)
 
 
 @pytest.mark.parametrize("E", [6, 2])
@@ -983,8 +1046,9 @@ def test_radix_route_matches_counting_route_on_cuda(cuda_device, big_mesh, E):
     (g,) = pipeline.sorted_geoms(ds)
     sn = ds.super_ranges[g][1]
     pool = _camera_pool(cam, 2, settings)
-    radix = ("radix_counts", "radix_scatter", "radix_unscatter", "window_sweep_stream")
+    radix = ("radix_split", "radix_unscatter", "window_sweep_stream")
     before = [getattr(pipeline, k).launches for k in radix]
+    bits = pipeline.radix_key_bits(2 * sn)
     for depth in range(8):
         o, d, alive = pool[0], pool[1], pool[4]
         cands = pipeline.mesh_candidates_reference(o, d, alive, ds)
@@ -994,9 +1058,7 @@ def test_radix_route_matches_counting_route_on_cuda(cuda_device, big_mesh, E):
         eh = pipeline.window_sweep(pipeline.place_entries(sk, cands.count), sk, ds, g,
                                    tables=tables)
         compact = pipeline.RadixSplit(sk.keys, cands.count, -1, 2 * sn)
-        key, rays, csum = pipeline.radix_split(compact, sk.rays)
-        srt, _ = pipeline.radix_sort_stream(pipeline.RadixStream(key, rays, csum[-1:]),
-                                            (2 * sn).bit_length())
+        srt = pipeline.radix_sort_stream(pipeline.radix_split(compact, sk.rays), bits)
         got = pipeline.entry_hits(pipeline.window_sweep_stream(srt, ds, g, tables=tables))
         want = pipeline.entry_hits(pipeline.window_sweep_stream_reference(srt, ds, g))
         torch.cuda.synchronize()
@@ -1028,11 +1090,13 @@ def test_radix_route_matches_counting_route_on_cuda(cuda_device, big_mesh, E):
         pool = pipeline.bounce_step_mesh_reference(
             pool, cands, pipeline.merge_entries_reference(
                 o, d, cands, hits, sk, eh, ds, g), ds, 2, depth, settings)
-    bits = (2 * sn).bit_length()
+    passes = len(pipeline.radix_passes(bits))
     now = [getattr(pipeline, k).launches for k in radix]
-    # per depth: the split and sort above, the route, the radix chain
-    assert [b - a for a, b in zip(before, now)] == [8 * 3 * (1 + bits)] * 2 + [
-        8 * 2 * (1 + bits), 8 * 3]
+    # per depth: the split and sort above, the route, the radix chain (each
+    # the compaction split and one 8-bit pass; the route and the chain one
+    # unscatter each)
+    assert passes == 1
+    assert [b - a for a, b in zip(before, now)] == [8 * 3 * (1 + passes), 8 * 2, 8 * 3]
 
 
 def c_rule(got, want, m):
@@ -1153,15 +1217,14 @@ def hits_copy(h):
 
 def test_big_mesh_radix_path_launches(cuda_device):
     """mesh_big.txt through the Renderer under SORT_RADIX: #7 -> #8 -> A ->
-    the radix route (1 + 7 splits and unsplits, C in stream order) -> D ->
-    #9 at every depth of step() and step_batch; neither B nor the
-    counting-route C."""
+    the radix route (2 splits: the compaction and one 8-bit pass of 7 bits;
+    C in stream order; 1 unscatter) -> D -> #9 at every depth of step() and
+    step_batch; neither B nor the counting-route C."""
     from project3_cuda_path_tracer_tpu_torch.ops import pipeline
 
     names = ("mesh_candidates", "mesh_sweep", "super_keys", "merge_entries",
-             "bounce_step_mesh", "window_sweep_stream", "radix_counts",
-             "radix_scatter", "radix_unscatter", "place_entries", "window_sweep",
-             "intersect_mesh")
+             "bounce_step_mesh", "window_sweep_stream", "radix_unscatter",
+             "radix_split", "place_entries", "window_sweep", "intersect_mesh")
     r = Renderer(small("mesh_big.txt", (64, 48)),
                  RenderSettings(trace_depth=8, antialias=True), device=cuda_device)
     before = [getattr(pipeline, k).launches for k in names]
@@ -1173,6 +1236,6 @@ def test_big_mesh_radix_path_launches(cuda_device):
         pipeline.SORT_RADIX = old
     torch.cuda.synchronize()
     got = [getattr(pipeline, k).launches - b for k, b in zip(names, before)]
-    assert got == [24] * 6 + [24 * 8] * 3 + [0] * 3
+    assert got == [24] * 7 + [24 * 2] + [0] * 3
     img = r.image()
     assert np.isfinite(img).all() and img.max() > 0
