@@ -4,8 +4,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, in parallel), prints the registers, shared memory and
-stack frames of C, #1, #8, #5, #6 and the radix kernels (`nvcc -Xptxas
--v`), holds each of the seventeen against its plain PyTorch version on
+stack frames of B, C, #1, #7, #8, #5, #6 and the radix kernels (`nvcc
+-Xptxas -v`), holds each of the seventeen against its plain PyTorch version on
 the card (at 64x64 and at the main path's 800x800; #1 on nine configs at 64x64 and 37x23, bit for
 bit against the per-bounce kernels #2 -> #3 and on all but 0.1% of the
 pixels against its plain version; the NEE kernels #5 and #6 on Cornell
@@ -64,7 +64,9 @@ warp-slots against its live lanes per depth, on Cornell and on
 many_materials 1920x1080 RR --nee (from the plain NEE path's masks), the
 two kernels' device times, launches and bounds on the four NEE paths,
 and #8's work per walk on its wide tables beside the binary walk's, with
-the lanes on which the two walks' winners differ. Every path is driven
+the lanes on which the two walks' winners differ. Every path's line also
+gives its device events per iteration and per depth, and on the mesh and
+big-mesh paths #7's device ms at each depth. Every path is driven
 with the launch counts set to 0 just before it and read just after.
 Every phase prints one line; any failure raises and exits non-zero
 before the result lines are printed. Imports nothing of JAX or of the
@@ -1356,8 +1358,8 @@ def event_ms(fn, reps):
 def profile_device(fn, n_iters, by_depth=()):
     """Run fn() (n_iters iterations of a path) under torch.profiler.
     Returns (device busy ms per iteration, {kernel: mean device ms per
-    launch}, {kernel: launches seen}): the kernels' own device time, free
-    of the host gaps between launches. For each kernel named in
+    launch}, {kernel: launches seen}, device events per iteration): the
+    kernels' own device time, free of the host gaps between launches. For each kernel named in
     `by_depth`, launched once per depth, the mean is also given per depth
     (launch k of an iteration is depth k), as `<kernel>@depth`. A
     profile that records no device activity at all (the profiler drops
@@ -1400,7 +1402,8 @@ def profile_device(fn, n_iters, by_depth=()):
         if D and len(times) == D * n_iters:
             mean[f"{k}@depth"] = [sum(times[i::D]) / n_iters / 1e3
                                   for i in range(D)]
-    return (busy / 1e3 / n_iters, mean, {k: len(v) for k, v in per.items()})
+    return (busy / 1e3 / n_iters, mean, {k: len(v) for k, v in per.items()},
+            len(events) / n_iters)
 
 
 def ptxas_verbose(nvcc: str, source: str, out_dir: str):
@@ -1505,10 +1508,12 @@ def main() -> int:
         triton=triton_version, nvcc=nvcc_version, python=sys.version.split()[0])
 
     # ---- 2. build every kernel from this checkout's sources ----
-    # (the registers, shared memory and stack frames of C, #1, #8, #5 and
-    # #6 from ptxas, compiled beside the build)
-    ptxas_of = (("sorted.cu", "window_sweep"), ("full_iteration.cu", "full_iteration"),
-                ("mesh.cu", "mesh_sweep"), ("nee.cu", "nee_kernel"), ("radix.cu", "radix_"))
+    # (the registers, shared memory and stack frames of B, C, #1, #7, #8,
+    # #5, #6 and the radix kernels from ptxas, compiled beside the build)
+    ptxas_of = (("sorted.cu", "window_sweep|place_entries"),
+                ("full_iteration.cu", "full_iteration"),
+                ("mesh.cu", "mesh_sweep|mesh_candidates"), ("nee.cu", "nee_kernel"),
+                ("radix.cu", "radix_"))
     ptxas = {src: ptxas_verbose(nvcc, f"{PKG}/csrc/{src}", tmpdir)
              for src, _ in ptxas_of}
     probe_build = build_raygen_probe(nvcc, tmpdir)
@@ -1794,7 +1799,7 @@ def main() -> int:
     mrays = pixels * settings.trace_depth * n_timed / dt / 1e6
     # one call as the path makes it: #1's ms per launch covers `batch`
     # iterations
-    main_busy, main_kernel_ms, seen = profile_device(lambda: r.step_batch(batch), batch)
+    main_busy, main_kernel_ms, seen, _ = profile_device(lambda: r.step_batch(batch), batch)
     say("profile", path="main", busy_ms_per_iteration=main_busy,
         device_idle_share=max(0.0, 1.0 - main_busy / ms_per_frame),
         kernel_ms=main_kernel_ms,
@@ -1876,6 +1881,8 @@ def main() -> int:
         ("bunny_radix", "bunny.txt", None, {"antialias": True}, "step_batch"),
     ]
     radix_paths = ("big_mesh_radix", "bunny_radix")
+    one_walk_a_depth = ("mesh", "mesh_step", "big_mesh", "big_mesh_step", "bunny",
+                        "big_mesh_radix", "bunny_radix")  # one #7 launch a depth
 
     def expected_launches(settings, route, calls, mesh, n_sorted=0,
                           splits=None):
@@ -1979,11 +1986,14 @@ def main() -> int:
         # launch of #6 of ITERATIONS_PER_LAUNCH iterations
         n_prof = (mk.ITERATIONS_PER_LAUNCH if settings.nee_mis and route == "step_batch"
                   else 10)
-        busy, kernel_ms_of[label], seen = profile_device(
-            lambda: run(n_prof), n_prof,
-            by_depth=SORTED_KERNELS + ("window_sweep_stream", "radix_split@compaction",
-                                       "radix_split@pass", "radix_unscatter")
-            if name in BIG_SCENES else ())
+        # per depth: #7 where it runs once a depth, and the big-mesh routes'
+        # kernels
+        by_depth = ("mesh_candidates",) if label in one_walk_a_depth else ()
+        if name in BIG_SCENES:
+            by_depth += SORTED_KERNELS + ("window_sweep_stream", "radix_split@compaction",
+                                          "radix_split@pass", "radix_unscatter")
+        busy, kernel_ms_of[label], seen, events = profile_device(
+            lambda: run(n_prof), n_prof, by_depth=by_depth)
         frame_ms_of[label], busy_of[label] = ms, busy
         say("path", path=label, scene=name, settings=kw,
             route=f"Renderer.{route}", res=f"{res[0]}x{res[1]}", depth=D,
@@ -1996,7 +2006,9 @@ def main() -> int:
             kernel_device_ms=kernel_ms_of[label],
             # the launches the profiler saw of the 10 iterations' (when
             # it drops one, the busy time and so the idle share are off)
-            profiled_launches={k: n for k, n in seen.items() if n})
+            profiled_launches={k: n for k, n in seen.items() if n},
+            # kernels, memsets and PyTorch's own launches on the device
+            device_events_per_iteration=events, device_events_per_depth=events / D)
 
     # the yardstick (no path of the port): mesh_big 800x800 d8 AA through
     # step_batch with its geom on the dense BVH walk (#7 -> #8 -> #9), the
@@ -2020,7 +2032,7 @@ def main() -> int:
         img = r.image()
         if not np.isfinite(img).all():
             raise RuntimeError("dense-walk yardstick: non-finite image")
-        busy, walk_ms, seen = profile_device(lambda: r.step_batch(10), 10,
+        busy, walk_ms, seen, _ = profile_device(lambda: r.step_batch(10), 10,
                                              by_depth=("mesh_sweep",))
         say("yardstick", path="mesh_big dense BVH walk (not a path of the port)",
             scene="mesh_big.txt", settings={"antialias": True},
@@ -2295,9 +2307,11 @@ def main() -> int:
         "super_keys": bound(
             32 * b_sn + np.mean((36 + 4 * E + 28) * bw["candidates"]),
             np.mean(bw["candidates"] * (OPS_OBJ_RAY + b_sn * OPS_SUPER_TEST))),
-        # every listed lane's E keys read, each real entry's key and id out
+        # every listed lane's E keys and A's histogram read, each key's
+        # cursor read and written, each real entry's key and id and the
+        # total out (no slot past the count is read)
         "place_entries": bound(
-            np.mean(4 * E * bw["candidates"] + 8 * bw["entries"]),
+            np.mean(4 * E * bw["candidates"] + 8 * bw["entries"]) + 24 * b_sn + 4,
             np.mean(OPS_PLACE * bw["entries"])),
         # the geom's triangles (48 B) and chunk boxes once; per entry its
         # key, id and object ray in, (t, triangle, u, v) out

@@ -1,16 +1,25 @@
 // The mesh pipeline for Hopper (sm_90a): four kernels that replace the
 // dense route of the JAX package's ops/pipeline.py.
 //
-//   #7  mesh_candidates_kernel replaces _intersect_phase's K1: one thread
-//       per lane sweeps the analytic geoms (the path_common.cuh box and
-//       sphere tests, in geom order, min-t rule), writes the analytic
-//       winner, and decides mesh candidacy: the ray enters a mesh geom's
-//       object-space root box before the analytic t times the Frobenius
-//       norm of inv's 3x3 (a bound on the object-space distance), or
-//       before FLT_MAX on a miss. Candidate lane ids go to a list through
-//       one atomic counter per warp (a ballot, then one atomicAdd); the
-//       count stays on the device. This takes the place of the TPU's
-//       in-tile compaction network, per-tile counts and cumsum glue.
+//   #7  mesh_candidates_kernel replaces _intersect_phase's K1: for each lane
+//       it sweeps the analytic geoms (the path_common.cuh box and sphere
+//       tests, in geom order, min-t rule), writes the analytic winner, and
+//       decides mesh candidacy: the ray enters a mesh geom's object-space
+//       root box before the analytic t times the Frobenius norm of inv's
+//       3x3 (a bound on the object-space distance), or before FLT_MAX on a
+//       miss. A block owns kCandLanes consecutive lanes (kCandPer a
+//       thread): it packs the ones to sweep (the live lanes below the live
+//       count; every lane under all_lanes) into its first threads, in lane
+//       order, so a thin pool's sweeps run in full warps and a block with
+//       no live lane does no sweep; the sweeps run with no barrier between
+//       a thread's lanes. Candidate lane ids go to the list through one
+//       atomicAdd per block (warp ballots, a prefix over the block's
+//       warps, one reservation): the list holds the candidates of a
+//       block's lanes in ascending order, the blocks' runs in the order
+//       they reserve (an ascending list would need each block to wait on
+//       the runs before its own). The count stays on the device. This
+//       takes the place of the TPU's in-tile compaction network, per-tile
+//       counts and cumsum glue.
 //   #8  mesh_sweep_kernel replaces K2: a group of kWide lanes per list
 //       entry, over a persistent grid (as many blocks as stay resident)
 //       whose groups take entries from an atomic counter until they reach
@@ -52,9 +61,11 @@
 // What bounds them on the H100: #8 is each walk's chain of dependent
 // loads (a wide node's boxes, a leaf's triangles, both through the
 // read-only cache) and the group's reductions, #7 and #9 the same
-// arithmetic as kernel #3's sweep and shading, #10 its bytes. What the
-// designs do about it: #7 compacts the candidates so that #8 works on rays
-// that enter a mesh; #8 puts kWide lanes on each ray, so a walk of
+// arithmetic as kernel #3's sweep and shading (its IEEE divisions
+// included; on a thin pool #7 the latency of a block's sweeps), #10 its
+// bytes. What the designs do about it: #7 sweeps only live lanes, in
+// full warps, and compacts the candidates so that #8 works on rays that
+// enter a mesh; #8 puts kWide lanes on each ray, so a walk of
 // mesh.txt takes about 4.6 inner nodes and 1.5 leaves where the binary
 // walk took 35.7 nodes and 7.3 triangles one after another, keeps every
 // resident warp on list entries and visits children nearest first, so the
@@ -69,6 +80,13 @@ namespace {
 constexpr int kMesh = 2;  // models/scene.py::GeomType.MESH
 constexpr int kWide = 8;  // models/wide_bvh.py::WIDTH: #8's lanes per ray
 constexpr int kGroups = kThreads / kWide;  // #8's rays per block
+constexpr int kCandThreads = 128;  // #7: threads a block
+constexpr int kCandWarps = kCandThreads / 32;
+constexpr int kCandPer = 2;  // #7: lanes a thread owns
+constexpr int kCandLanes = kCandThreads * kCandPer;  // #7: lanes a block owns
+constexpr int kLiveBit = 1 << 30;  // #7: a packed lane's flags, above its index
+constexpr int kCandBit = 1 << 29;
+constexpr int kLaneMask = kCandBit - 1;
 
 // intersect() of path_common.cuh over the analytic geoms alone: the same
 // geom order and strict-< rule, mesh geoms skipped.
@@ -204,45 +222,93 @@ __device__ __forceinline__ TriHit wide_walk(const MeshTables& m, const WideTable
   return best;
 }
 
-// Append lane i to the candidate list when `cand`: one atomicAdd per warp.
-// Every thread of the warp must call this (it holds a full-warp ballot).
-__device__ __forceinline__ void append(bool cand, int i, int* list, int* count) {
-  const unsigned ballot = __ballot_sync(0xffffffffu, cand);
-  if (ballot == 0u) return;
+// The exclusive prefix of `keep` over the block's threads (warp ballots,
+// then the warps' counts in s_warp, kCandWarps ints): each thread's
+// position among the block's kept ones; *kept gets their number. Every
+// thread of the block calls it.
+__device__ __forceinline__ int block_prefix(bool keep, int* s_warp, int* kept) {
   const int lane = threadIdx.x & 31;
-  const int leader = __ffs(ballot) - 1;
-  int base = 0;
-  if (lane == leader) base = atomicAdd(count, __popc(ballot));
-  base = __shfl_sync(0xffffffffu, base, leader);
-  if (cand) list[base + __popc(ballot & ((1u << lane) - 1u))] = i;
+  const int warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  if (lane == 0) s_warp[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kCandWarps; ++w) {
+    before += w < warp ? s_warp[w] : 0;
+    all += s_warp[w];
+  }
+  __syncthreads();  // s_warp is free again
+  *kept = all;
+  return before + __popc(ballot & ((1u << lane) - 1u));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCandThreads)
     mesh_candidates_kernel(const Tables s, const MeshTables m, const RayLanes rays,
                            const int* __restrict__ num_alive, int n, int all_lanes,
                            const HitLanes out, int* __restrict__ list, int* __restrict__ count) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool cand = false;
-  if (i < n && (num_alive == nullptr || i < __ldg(num_alive))) {
-    const bool live = rays.alive == nullptr || rays.alive[i] != 0;
-    if (live || all_lanes) {
-      const V3 o = ray_o(rays, i);
-      const V3 d = ray_d(rays, i);
-      const Hit h = intersect_analytic(s, o, d);
-      out.t[i] = h.t;
-      out.n[0][i] = h.n.x;
-      out.n[1][i] = h.n.y;
-      out.n[2][i] = h.n.z;
-      out.mat[i] = h.mat;
-      out.outside[i] = h.outside ? 1 : 0;
-      for (int k = 0; live && !cand && k < m.n_mesh; ++k) {
-        ObjRay r;
-        cand = mesh_candidate(s, m, k, o, d, h.t, &r);
-      }
-      out.flag[i] = cand ? 1 : 0;
+  __shared__ int s_lanes[kCandLanes];  // the block's lanes to sweep, packed
+  __shared__ int s_warp[kCandWarps];
+  __shared__ int s_base;
+  const int first = blockIdx.x * kCandLanes;
+  const int end = min(n, num_alive == nullptr ? n : __ldg(num_alive));
+  if (first >= end) return;  // the whole block
+  // pack the lanes to sweep, in lane order, each with its live flag
+  int n_lanes = 0;
+#pragma unroll
+  for (int k = 0; k < kCandPer; ++k) {
+    const int i = first + k * kCandThreads + threadIdx.x;
+    const bool live = i < end && (rays.alive == nullptr || rays.alive[i] != 0);
+    const bool sweep = i < end && (live || all_lanes);
+    int kept;
+    const int at = n_lanes + block_prefix(sweep, s_warp, &kept);
+    if (sweep) s_lanes[at] = i | (live ? kLiveBit : 0);
+    n_lanes += kept;
+  }
+  __syncthreads();
+  // sweep them, no barrier between rounds; a candidate's flag joins its
+  // packed entry
+  for (int q = threadIdx.x; q < n_lanes; q += kCandThreads) {
+    const int packed = s_lanes[q];
+    const bool live = (packed & kLiveBit) != 0;
+    const int i = packed & kLaneMask;
+    const V3 o = ray_o(rays, i);
+    const V3 d = ray_d(rays, i);
+    const Hit h = intersect_analytic(s, o, d);
+    out.t[i] = h.t;
+    out.n[0][i] = h.n.x;
+    out.n[1][i] = h.n.y;
+    out.n[2][i] = h.n.z;
+    out.mat[i] = h.mat;
+    out.outside[i] = h.outside ? 1 : 0;
+    bool cand = false;
+    for (int k = 0; live && !cand && k < m.n_mesh; ++k) {
+      ObjRay r;
+      cand = mesh_candidate(s, m, k, o, d, h.t, &r);
+    }
+    out.flag[i] = cand ? 1 : 0;
+    if (cand) s_lanes[q] = packed | kCandBit;
+  }
+  __syncthreads();
+  // the block's candidates in lane order: one atomicAdd reserves their run
+  int n_cands = 0, at[kCandPer];
+#pragma unroll
+  for (int k = 0; k < kCandPer; ++k) {
+    const int q = k * kCandThreads + threadIdx.x;
+    int kept;
+    at[k] = n_cands + block_prefix(q < n_lanes && (s_lanes[q] & kCandBit) != 0, s_warp, &kept);
+    n_cands += kept;
+  }
+  if (n_cands == 0) return;  // the whole block
+  if (threadIdx.x == 0) s_base = atomicAdd(count, n_cands);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kCandPer; ++k) {
+    const int q = k * kCandThreads + threadIdx.x;
+    if (q < n_lanes && (s_lanes[q] & kCandBit) != 0) {
+      list[s_base + at[k]] = s_lanes[q] & kLaneMask;
     }
   }
-  append(cand, i, list, count);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -405,18 +471,19 @@ __global__ void __launch_bounds__(kThreads)
 
 // all_lanes: also give dead lanes their analytic hit (the intersect
 // route); num_alive: a device int32 (live lanes first), or null. count is
-// zeroed on the stream before the launch.
+// zeroed on the stream before the launch. n below 2^29.
 extern "C" int pt_mesh_candidates(void* const* tables, int n_geoms, void* const* mesh, int n_mesh,
                                   void* const* rays, const int* num_alive, int n, int all_lanes,
                                   void* const* analytic, int* list, int* count, int device,
                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > kLaneMask) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(count, 0, sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    mesh_candidates_kernel<<<n_blocks(n), kThreads, 0, st>>>(
+    mesh_candidates_kernel<<<(n + kCandLanes - 1) / kCandLanes, kCandThreads, 0, st>>>(
         make_tables(tables, n_geoms, 0, 0), make_mesh_tables(mesh, n_mesh), make_rays(rays),
         num_alive, n, all_lanes, make_hits(analytic, false), list, count);
   }

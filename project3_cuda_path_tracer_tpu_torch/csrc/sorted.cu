@@ -1,9 +1,9 @@
 // The big-mesh route for Hopper (sm_90a): four kernels that replace the
 // sorted-stream route of the JAX package's ops/pipeline.py
 // (_sorted_mesh_merge), which every mesh geom above SORT_SUPER_MIN_TRIS
-// triangles takes. Per such geom and bounce they run A -> (exclusive
-// scan, torch.cumsum) -> B -> C -> D over #7's candidate list, after #8
-// has swept the small geoms:
+// triangles takes. Per such geom and bounce they run A -> B -> C -> D
+// over #7's candidate list, after #8 has swept the small geoms, with one
+// memset (A's histogram and B's cursors) and no other launch between:
 //
 //   A  super_keys_kernel replaces _super_rank_xla (XLA) and the counting
 //      half of #12 _kc_compact. One thread per listed lane: the ray in the
@@ -20,14 +20,29 @@
 //      atomic per bin.
 //      Bound: operations (per lane the transform and ~25 per super box).
 //   B  place_entries_kernel replaces #12's packing, #13 _ks_stitch and the
-//      global lax.sort by key. The histogram's exclusive scan gives each
-//      key its window; each real (slot, j) entry goes to offset[key] +
-//      atomicAdd(cursor[key], 1), one atomic per run of equal keys in a
-//      warp (__match_any_sync). A counting sort: dead entries are never
-//      written, so compaction and sort are one pass. The order within a
-//      key is what the atomics give; no result depends on it (see C).
-//      Bound: bytes (each key read once, each real entry's key and id
-//      written once).
+//      global lax.sort by key: a counting sort of the real entries into
+//      one stream, in one launch with no glue. A persistent grid (the
+//      blocks that stay resident, no more than the pool's tiles) strides
+//      over tiles of the `count` listed lanes, which it reads on the
+//      device: a tile is kPlaceThreads x (kPlacePer / E) lanes, its E keys
+//      read slot-major, one coalesced row per slot. Each block first scans
+//      A's histogram in shared memory (each key's window start; block 0
+//      writes the total), so no cumsum runs between A and B. Per tile:
+//      each real entry's rank within its key from a shared-memory
+//      histogram of the tile (one shared atomic per run of equal keys in a
+//      warp, __match_any_sync); per key present, one global atomicAdd on
+//      the key's cursor reserves the tile's run inside the key's window;
+//      the entries are staged in shared memory in key order and each
+//      key's run is written with contiguous stores. The cursor lives
+//      right after A's histogram and is zeroed by A's memset; a launch
+//      adds exactly hist[key] to cursor[key], so the place within the
+//      window is the cursor's old value modulo hist[key], and B may run
+//      any number of times on one A output without a memset. The order
+//      within a key is the order in which tiles reserve; no result depends
+//      on it (see C). Stable tile bases would need a look-back over the
+//      tiles before each one, which the radix pass (radix.cu) pays for in waits.
+//      Bound: bytes (the listed lanes' E keys read once, each real
+//      entry's key and id written once).
 //   C  window_sweep_kernel replaces #11 _window_sweep: for each real entry
 //      of B's stream, the least (t, triangle, u, v) over the triangles of
 //      its supers, a window entry its own super, a tail entry every super
@@ -66,17 +81,20 @@
 //      merge into #8's hit lanes at the lane's own index.
 //      Bound: bytes (E slots of 16 B and the lane's 9 hit lanes).
 //
-// Every grid but C's is sized by its upper bound (the pool, or E x the
-// pool), and threads at or past the count that stays on the device
-// return; C's resident warps read that count too, so no host sync sits
-// between the kernels. What the design does about the bounds: C spends a
+// A's and D's grids are sized by their upper bound (the pool), and threads
+// at or past the count that stays on the device return; B's and C's
+// resident blocks read that count too, so no host sync sits between the
+// kernels. What the design does about the bounds: C spends a
 // warp's lanes on one ray's boxes and triangles, never on a chunk that ray
 // does not enter (a thread per entry runs the union of its warp's 32
 // culls), and no block walks every super from a tail's start (blocks that
 // stage each super for their entries spend most of a launch on its few
 // tail entries, PERF.md §5); what holds C above its bound is each warp's
 // chain of dependent loads and reductions. A, B and D are one pass over
-// their lanes.
+// their lanes; B reads no lane past the count and moves each key's run
+// with contiguous stores.
+
+#include <algorithm>
 
 #include "mesh_common.cuh"
 
@@ -88,6 +106,10 @@ constexpr int kSweepWarps = 8;  // C: warps per block, one entry per warp at a t
 constexpr int kSweepThreads = 32 * kSweepWarps;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kInfBits = 0x7f800000u;  // +inf: above every hit's t bits
+constexpr int kPlaceThreads = 256;  // B: threads per block
+constexpr int kPlaceWarps = kPlaceThreads / 32;
+constexpr int kPlacePer = 8;  // B: entries a thread holds per tile, E <= kPlacePer
+constexpr int kPlaceStage = kPlaceThreads * kPlacePer;  // B: a tile's entries at most
 
 inline int blocks_of(long long n, int threads) {
   return static_cast<int>((n + threads - 1) / threads);
@@ -160,28 +182,144 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    place_entries_kernel(const int* __restrict__ keys, const int* __restrict__ count, int n,
-                         int E, int dead, const int* __restrict__ offsets,
-                         int* __restrict__ cursor, int* __restrict__ out_key,
-                         int* __restrict__ out_entry) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int j = static_cast<int>(e % n);
-  int key = dead;
-  if (e < static_cast<long long>(E) * n && j < __ldg(count)) key = keys[e];
-  const bool real = key < dead;
-  // every thread of the warp takes part in the ballot
-  const unsigned active = __ballot_sync(0xffffffffu, real);
-  if (!real) return;
-  const unsigned peers = __match_any_sync(active, key);
+// The exclusive scan of s[0, bins) in place, by B's block: each thread
+// scans a run of consecutive bins and calls at(b, start, count) for each
+// (s[b] is then start). Returns the sum to every thread; s_warp holds
+// kPlaceWarps + 1 ints of scratch. Every thread of the block calls it.
+template <typename At>
+__device__ __forceinline__ int block_scan(int* s, int bins, int* s_warp, At at) {
   const int lane = threadIdx.x & 31;
-  const int leader = __ffs(peers) - 1;
-  int base = 0;
-  if (lane == leader) base = atomicAdd(cursor + key, __popc(peers));
-  base = __shfl_sync(peers, base, leader);
-  const int pos = __ldg(offsets + key) + base + __popc(peers & ((1u << lane) - 1u));
-  out_key[pos] = key;
-  out_entry[pos] = static_cast<int>(e);
+  const int warp = threadIdx.x >> 5;
+  const int per = (bins + kPlaceThreads - 1) / kPlaceThreads;
+  const int lo = min(static_cast<int>(threadIdx.x) * per, bins);
+  const int hi = min(lo + per, bins);
+  int sum = 0;
+  for (int b = lo; b < hi; ++b) sum += s[b];
+  int x = sum;  // inclusive scan of the threads' sums within the warp
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFullMask, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kPlaceWarps ? s_warp[lane] : 0;
+    int v = w;
+#pragma unroll
+    for (int d = 1; d < kPlaceWarps; d <<= 1) {
+      const int y = __shfl_up_sync(kFullMask, v, d);
+      if (lane >= d) v += y;
+    }
+    if (lane < kPlaceWarps) s_warp[lane] = v - w;
+    if (lane == kPlaceWarps - 1) s_warp[kPlaceWarps] = v;
+  }
+  __syncthreads();
+  int run = s_warp[warp] + x - sum;
+  for (int b = lo; b < hi; ++b) {
+    const int c = s[b];
+    s[b] = run;
+    at(b, run, c);
+    run += c;
+  }
+  const int total = s_warp[kPlaceWarps];
+  __syncthreads();
+  return total;
+}
+
+__global__ void __launch_bounds__(kPlaceThreads)
+    place_entries_kernel(const int* __restrict__ keys, const int* __restrict__ count, int n,
+                         int E, int bins, const int* __restrict__ hist, int* __restrict__ cursor,
+                         int* __restrict__ out_key, int* __restrict__ out_entry,
+                         int* __restrict__ total) {
+  extern __shared__ int smem[];
+  int* s_start = smem;           // per key: its window's start in the stream
+  int* s_tile = s_start + bins;  // per key: the tile's entries, then their start in the tile
+  int* s_base = s_tile + bins;   // per key: its run's place in the stream less its tile start
+  int* s_key = s_base + bins;    // the tile's entries in key order
+  int* s_id = s_key + kPlaceStage;
+  __shared__ int s_warp[kPlaceWarps + 1];
+  const int n_listed = min(__ldg(count), n);
+  const int lanes = kPlacePer / E;  // lanes per thread and tile
+  const int tile_lanes = kPlaceThreads * lanes;
+  // a block with no tile leaves at once, but block 0, which writes the total
+  if (blockIdx.x > 0 && static_cast<int>(blockIdx.x) * tile_lanes >= n_listed) return;
+  for (int b = threadIdx.x; b < bins; b += kPlaceThreads) {
+    s_start[b] = __ldg(hist + b);
+    s_tile[b] = 0;
+  }
+  __syncthreads();
+  const int m = block_scan(s_start, bins, s_warp, [](int, int, int) {});
+  if (blockIdx.x == 0 && threadIdx.x == 0) *total = m;
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+  for (int tile = blockIdx.x; tile * tile_lanes < n_listed; tile += gridDim.x) {
+    const int j0 = tile * tile_lanes + threadIdx.x;
+    // entry i of the thread: slot i / lanes, lane j0 + (i % lanes) * kPlaceThreads
+    int key[kPlacePer];
+    int rank[kPlacePer];
+    {
+      int slot = 0, k = 0;
+#pragma unroll
+      for (int i = 0; i < kPlacePer; ++i) {
+        const int j = j0 + k * kPlaceThreads;
+        key[i] = slot < E && j < n_listed ? __ldg(keys + slot * n + j) : bins;
+        if (++k == lanes) {
+          k = 0;
+          ++slot;
+        }
+      }
+    }
+    // each entry's rank within its key in the tile: one shared atomic per
+    // run of equal keys in the warp
+#pragma unroll
+    for (int i = 0; i < kPlacePer; ++i) {
+      const bool real = key[i] < bins;
+      const unsigned active = __ballot_sync(kFullMask, real);
+      rank[i] = 0;
+      if (real) {
+        const unsigned peers = __match_any_sync(active, key[i]);
+        const int leader = __ffs(peers) - 1;
+        int base = 0;
+        if (lane == leader) base = atomicAdd(s_tile + key[i], __popc(peers));
+        rank[i] = __shfl_sync(peers, base, leader) + __popc(peers & lower);
+      }
+    }
+    __syncthreads();
+    // per key: its start in the tile, and one global atomic that reserves
+    // the tile's run in the key's window
+    const int in_tile = block_scan(s_tile, bins, s_warp, [&](int b, int start, int c) {
+      if (c != 0) {
+        s_base[b] = s_start[b] + atomicAdd(cursor + b, c) % __ldg(hist + b) - start;
+      }
+    });
+    // stage the tile in key order
+    {
+      int slot = 0, k = 0;
+#pragma unroll
+      for (int i = 0; i < kPlacePer; ++i) {
+        if (key[i] < bins) {
+          const int p = s_tile[key[i]] + rank[i];
+          s_key[p] = key[i];
+          s_id[p] = slot * n + j0 + k * kPlaceThreads;
+        }
+        if (++k == lanes) {
+          k = 0;
+          ++slot;
+        }
+      }
+    }
+    __syncthreads();
+    // each key's run with contiguous stores
+    for (int p = threadIdx.x; p < in_tile; p += kPlaceThreads) {
+      const int k = s_key[p];
+      const int at = s_base[k] + p;
+      out_key[at] = k;
+      out_entry[at] = s_id[p];
+    }
+    for (int b = threadIdx.x; b < bins; b += kPlaceThreads) s_tile[b] = 0;
+    __syncthreads();
+  }
 }
 
 // The slab interval of row i of a (rows, 8) box table [min xyz, max xyz,
@@ -335,6 +473,29 @@ int sweep_blocks(int device, long long entries) {
   return static_cast<int>(need < blocks ? need : blocks);
 }
 
+// B's grid: as many blocks as stay resident with `smem` bytes of shared
+// memory each; the last query is kept.
+cudaError_t place_blocks(int device, int smem, int* out) {
+  static int last_device = -1, last_smem = -1, last_blocks = 0;
+  if (device != last_device || smem != last_smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        place_entries_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, place_entries_kernel,
+                                                        kPlaceThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (sms * per_sm <= 0) return cudaErrorInvalidConfiguration;
+    last_device = device;
+    last_smem = smem;
+    last_blocks = sms * per_sm;
+  }
+  *out = last_blocks;
+  return cudaSuccess;
+}
+
 __global__ void __launch_bounds__(kThreads)
     merge_entries_kernel(const Tables s, const MeshTables m, const RayLanes rays,
                          const int* __restrict__ list, const int* __restrict__ count, int n,
@@ -384,7 +545,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // t_a: #7's analytic t; t_m: the mesh hit lanes' t so far. Out: keys
 // (E, n) int32, q (6, n) f32 object-space rays, bt0 (n,) f32, hist
-// (2 * n_supers,) int32 (zeroed on the stream here).
+// (4 * n_supers,) int32: the histogram (2 * n_supers,), then B's cursor
+// (2 * n_supers,), both zeroed on the stream here by one memset.
 extern "C" int pt_super_keys(void* const* tables, int n_geoms, void* const* mesh,
                              void* const* rays, const float* t_a, const float* t_m,
                              const int* list, const int* count, int n, int geom, int super_start,
@@ -394,7 +556,7 @@ extern "C" int pt_super_keys(void* const* tables, int n_geoms, void* const* mesh
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t hist_bytes = sizeof(int) * 2 * static_cast<size_t>(n_supers);
-  err = cudaMemsetAsync(hist, 0, hist_bytes, st);
+  err = cudaMemsetAsync(hist, 0, 2 * hist_bytes, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     const Tables s = make_tables(tables, n_geoms, 0, 0);
@@ -406,22 +568,27 @@ extern "C" int pt_super_keys(void* const* tables, int n_geoms, void* const* mesh
   return static_cast<int>(cudaGetLastError());
 }
 
-// offsets: the exclusive scan of A's histogram; cursor (2 * n_supers,)
-// int32 scratch, zeroed on the stream here. Out: the real entries' keys
-// in ascending order and their ids slot * n + j, at [0, total).
+// hist: A's histogram (2 * n_supers,); cursor (2 * n_supers,): zero, or
+// left by earlier launches of B on the same hist (A zeroes it with hist).
+// Out: the real entries' keys in ascending order and their ids
+// slot * n + j at [0, total), and total (1,). One launch, even at n == 0
+// (it writes total); E in [1, kPlacePer].
 extern "C" int pt_place_entries(const int* keys, const int* count, int n, int E, int n_supers,
-                                const int* offsets, int* cursor, int* out_key, int* out_entry,
-                                int device, void* stream) {
+                                const int* hist, int* cursor, int* out_key, int* out_entry,
+                                int* total, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(cursor, 0, sizeof(int) * 2 * static_cast<size_t>(n_supers), st);
+  if (E < 1 || E > kPlacePer) return static_cast<int>(cudaErrorInvalidValue);
+  const int bins = 2 * n_supers;
+  const int smem = static_cast<int>(sizeof(int)) * (3 * bins + 2 * kPlaceStage);
+  int blocks = 0;
+  err = place_blocks(device, smem, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    place_entries_kernel<<<blocks_of(static_cast<long long>(E) * n, kThreads), kThreads, 0,
-                           st>>>(keys, count, n, E, 2 * n_supers, offsets, cursor, out_key,
-                                 out_entry);
-  }
+  const int tile_lanes = kPlaceThreads * (kPlacePer / E);
+  const int tiles = n > 0 ? (n + tile_lanes - 1) / tile_lanes : 1;
+  place_entries_kernel<<<std::min(blocks, tiles), kPlaceThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      keys, count, n, E, bins, hist, cursor, out_key, out_entry, total);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -71,9 +71,9 @@ SIGNATURES = {
     # super_start, n_supers, E, keys, q, bt0, hist, device, stream
     "pt_super_keys": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                       _P, _P, _P, _I, _P],
-    # keys, count, n, E, n_supers, offsets, cursor, out_key, out_entry,
+    # keys, count, n, E, n_supers, hist, cursor, out_key, out_entry, total,
     # device, stream
-    "pt_place_entries": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    "pt_place_entries": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     # mesh, sweep, key, entry, total, q, n, E, super_start, n_supers,
     # chunk_start, n_chunks, tri_start, tri_count, t, tri, u, v, device,
     # stream

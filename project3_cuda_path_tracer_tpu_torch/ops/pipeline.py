@@ -7,7 +7,9 @@ dense mesh route:
 
 - `mesh_candidates` (#7, `_intersect_phase` K1): the analytic winner of
   each lane, and the lanes whose ray enters a mesh geom's object-space
-  root box before that winner (`mesh_candidacy`), listed on the device;
+  root box before that winner (`mesh_candidacy`), listed on the device
+  (each block packs its live lanes into full warps and appends its
+  candidates with one atomic);
 - `mesh_sweep` (#8, `_intersect_phase` K2): the mesh winner of each
   listed lane, by a walk of each candidate geom's wide BVH
   (`pack_wide_tables`, models/wide_bvh.py), a group of eight threads per
@@ -28,7 +30,8 @@ each such geom, in geom order, after #8 has swept the others
   per listed lane (the last one the overflow tail), and a histogram of the
   keys;
 - `place_entries` (B; #12's packing, #13 `_ks_stitch`, the global sort):
-  a counting sort of the real entries by key into one dense stream;
+  a counting sort of the real entries by key into one dense stream, one
+  launch that scans A's histogram itself;
 - `window_sweep` (C; #11 `_window_sweep`): each entry's winner over the
   triangles of its supernode (a tail entry: of every supernode from its
   start on), one warp per entry over C's lane-major tables
@@ -126,6 +129,10 @@ SORT_SUPER_MIN_TRIS = 16384
 SORT_EXPAND = 6
 # A's histogram lives in 48 KB of shared memory: 2 bins per supernode
 MAX_SUPERS = 6144
+# B's tiles (csrc/sorted.cu): PLACE_THREADS threads a block, each holding
+# PLACE_MAX_E entries, E slots of PLACE_MAX_E // E lanes (kPlacePer)
+PLACE_THREADS = 256
+PLACE_MAX_E = 8
 # the radix route in place of B (the JAX package's SORT_RADIX, read from
 # the same environment variable at import, off by default; read again at
 # each call, so a caller may set the module constant)
@@ -368,6 +375,9 @@ class SuperKeys(NamedTuple):
     rays: torch.Tensor  # (6, P) f32 object-space origin and unit direction
     bt0: torch.Tensor  # (P,) f32 object-space pruning bound
     hist: torch.Tensor  # (2 * n_supers,) int32 real entries per key
+    # (2 * n_supers,) int32: B's cursor, zeroed with hist by A's launch (the
+    # kernel's output only; B makes a zeroed one where it is None)
+    cursor: torch.Tensor | None = None
 
 
 class Stream(NamedTuple):
@@ -951,8 +961,8 @@ def mesh_candidates(origins: Vec3, dirs: Vec3, alive, scene: DeviceScene,
     the device; live lanes first) lanes at or past it are skipped; with
     `all_lanes` dead lanes get their analytic hit too (the intersect
     route), else #7 writes nothing for them. CPU: the plain version (which
-    fills every lane); CUDA: one launch, counted in
-    `mesh_candidates.launches`."""
+    fills every lane); CUDA: one launch (and the list count's memset),
+    counted in `mesh_candidates.launches`."""
     device = origins.x.device
     if device.type == "cpu":
         return mesh_candidates_reference(origins, dirs, alive, scene, num_alive)
@@ -964,6 +974,8 @@ def mesh_candidates(origins: Vec3, dirs: Vec3, alive, scene: DeviceScene,
         _check_tensor(alive, "alive", torch.int32, (P,), device)
     if num_alive is not None:
         _check_tensor(num_alive.reshape(1), "num_alive", torch.int32, (1,), device)
+    if P >= 1 << 29:
+        raise ValueError(f"mesh_candidates: {P} lanes; the kernel takes fewer than 2**29")
     t, tptr, mptr = _mesh_tables(scene, tables, device)
     f = torch.empty((4, P), dtype=torch.float32, device=device)
     b = torch.empty((2, P), dtype=torch.bool, device=device)
@@ -1102,8 +1114,9 @@ def super_keys(origins: Vec3, dirs: Vec3, cands: Candidates,
                tables: SceneTables | None = None) -> SuperKeys:
     """A for big geom g over #7's list `cands`, with `hits` the mesh hit
     lanes so far (#8's, merged with earlier big geoms); E defaults to
-    SORT_EXPAND. CPU: the plain version; CUDA: one launch sized by the
-    pool, counted in `super_keys.launches`."""
+    SORT_EXPAND. CPU: the plain version; CUDA: one memset (the histogram
+    and B's cursor, one buffer) and one launch sized by the pool, counted
+    in `super_keys.launches`."""
     E = SORT_EXPAND if E is None else E
     device = origins.x.device
     if device.type == "cpu":
@@ -1121,11 +1134,12 @@ def super_keys(origins: Vec3, dirs: Vec3, cands: Candidates,
     _check_list(cands, P, device)
     _check_tensor(hits.t, "hits.t", torch.float32, (P,), device)
     t, tptr, mptr = _mesh_tables(scene, tables, device)
+    counts = torch.empty(4 * sn, dtype=torch.int32, device=device)  # hist, cursor
     out = SuperKeys(
         keys=torch.empty((E, P), dtype=torch.int32, device=device),
         rays=torch.empty((6, P), dtype=torch.float32, device=device),
         bt0=torch.empty(P, dtype=torch.float32, device=device),
-        hist=torch.empty(2 * sn, dtype=torch.int32, device=device),
+        hist=counts[:2 * sn], cursor=counts[2 * sn:],
     )
     dev_index, stream = _device_args(device)
     _launch(
@@ -1141,33 +1155,33 @@ def super_keys(origins: Vec3, dirs: Vec3, cands: Candidates,
 
 def place_entries(sk: SuperKeys, count: torch.Tensor) -> Stream:
     """B over A's keys of the `count` listed lanes (#7's device-side
-    count): each key's window from the exclusive scan of A's histogram
-    (`torch.cumsum`, on the device), then the real entries placed by key.
-    CPU: the plain version; CUDA: one launch sized by E x the pool,
-    counted in `place_entries.launches`."""
+    count): the real entries placed by key into one stream. CPU: the plain
+    version; CUDA: one launch of the blocks that stay resident, which scan
+    A's histogram themselves and write the total (csrc/sorted.cu), counted
+    in `place_entries.launches`. The cursor is A's (`sk.cursor`, zeroed
+    with the histogram); a SuperKeys without one gets a zeroed one here."""
     device = sk.keys.device
     if device.type == "cpu":
         return place_entries_reference(sk, count)
     _require_cuda(device, "place_entries")
-    E, P = _check_keys(sk, sk.hist.shape[0] // 2, device)
+    bins = sk.hist.shape[0]
+    E, P = _check_keys(sk, bins // 2, device)
     _check_tensor(count, "count", torch.int32, (1,), device)
-    csum = torch.cumsum(sk.hist, 0, dtype=torch.int32)
-    offsets = csum - sk.hist
-    out = Stream(
-        key=torch.empty(E * P, dtype=torch.int32, device=device),
-        entry=torch.empty(E * P, dtype=torch.int32, device=device),
-        total=csum[-1:],
-    )
-    cursor = torch.empty_like(sk.hist)
+    if not 1 <= E <= PLACE_MAX_E:
+        raise ValueError(f"place_entries: E must be in [1, {PLACE_MAX_E}], got {E}")
+    cursor = torch.zeros_like(sk.hist) if sk.cursor is None else sk.cursor
+    _check_tensor(cursor, "cursor", torch.int32, (bins,), device)
+    out = torch.empty(2 * E * P + 1, dtype=torch.int32, device=device)
+    st = Stream(key=out[:E * P], entry=out[E * P:2 * E * P], total=out[2 * E * P:])
     dev_index, stream = _device_args(device)
     _launch(
         "pt_place_entries", "place_entries",
-        sk.keys.data_ptr(), count.data_ptr(), P, E, sk.hist.shape[0] // 2,
-        offsets.data_ptr(), cursor.data_ptr(), out.key.data_ptr(),
-        out.entry.data_ptr(), dev_index, stream,
+        sk.keys.data_ptr(), count.data_ptr(), P, E, bins // 2, sk.hist.data_ptr(),
+        cursor.data_ptr(), st.key.data_ptr(), st.entry.data_ptr(), st.total.data_ptr(),
+        dev_index, stream,
     )
     place_entries.launches += 1
-    return out
+    return st
 
 
 def window_sweep(st: Stream, sk: SuperKeys, scene: DeviceScene, g: int,

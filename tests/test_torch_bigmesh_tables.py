@@ -110,9 +110,12 @@ def test_super_keys_equal_jax(mesh_big, E):
     assert not bool(real[:, torch.tensor(bt) < 0].any())  # dead lanes
 
 
-def test_place_entries_equal_jax_compaction(mesh_big):
-    """B's plain stream against `_kc_compact` -> `_ks_stitch` -> sort by
-    (key, entry) over E = 2 slots of 8,192 lanes (two 64x128 tiles)."""
+@pytest.fixture(scope="module")
+def compaction(mesh_big):
+    """E = 2 slots of 8,192 seeded lanes against mesh_big (two 64x128
+    tiles): (keys, q, the JAX stream's keys, ids and payload row 0 in
+    (key, id) order, its total) from `_kc_compact` -> `_ks_stitch`, Pallas
+    in interpret mode, run once for the tests below."""
     jd, td = mesh_big
     (g,) = td.mesh_geoms
     ss, sn = td.super_ranges[g]
@@ -121,6 +124,26 @@ def test_place_entries_equal_jax_compaction(mesh_big):
     keys = tpipe.super_rank(tuple(torch.tensor(a) for a in q), torch.tensor(bt),
                             td.mesh_super_aabbs[ss:ss + sn], E)
     dead = 2 * sn
+    keyf = jnp.asarray(keys.reshape(-1).numpy().astype(np.float32))
+    qep = tuple(jnp.tile(jnp.asarray(a), E) for a in q)
+    packed8, counts = jpipe._kc_compact(keyf, qep, dead, True)
+    csum = jnp.cumsum(counts)
+    rows = E * P // jpipe.LANE
+    dense8 = jpipe._ks_stitch(packed8, csum - counts, counts, csum, rows, dead,
+                              E * P, True)
+    jkey = np.asarray(dense8[0]).reshape(-1).astype(np.int64)
+    jidx = np.asarray(dense8[1]).reshape(-1).astype(np.int64)
+    m = int(csum[-1])
+    order = np.lexsort((jidx, jkey))[:m]
+    return (keys, q, bt, dead, jkey[order], jidx[order],
+            np.asarray(dense8[2]).reshape(-1)[order], m)
+
+
+def test_place_entries_equal_jax_compaction(compaction):
+    """B's plain stream against `_kc_compact` -> `_ks_stitch` -> sort by
+    (key, entry) over E = 2 slots of 8,192 lanes (two 64x128 tiles)."""
+    keys, q, bt, dead, jkey, jidx, jpay, jm = compaction
+    E, P = keys.shape
     real = keys[keys < dead].long()
     sk = tpipe.SuperKeys(keys, torch.tensor(q), torch.tensor(bt),
                          torch.bincount(real, minlength=dead).int())
@@ -133,23 +156,31 @@ def test_place_entries_equal_jax_compaction(mesh_big):
     assert torch.equal(torch.sort(entry).values,
                        torch.nonzero(keys.reshape(-1) < dead)[:, 0])
     assert torch.equal(keys.reshape(-1)[entry], key)
-
-    keyf = jnp.asarray(keys.reshape(-1).numpy().astype(np.float32))
-    qep = tuple(jnp.tile(jnp.asarray(a), E) for a in q)
-    packed8, counts = jpipe._kc_compact(keyf, qep, dead, True)
-    csum = jnp.cumsum(counts)
-    rows = E * P // jpipe.LANE
-    dense8 = jpipe._ks_stitch(packed8, csum - counts, counts, csum, rows, dead,
-                              E * P, True)
-    jkey = np.asarray(dense8[0]).reshape(-1).astype(np.int64)
-    jidx = np.asarray(dense8[1]).reshape(-1).astype(np.int64)
-    assert int(csum[-1]) == m
-    order = np.lexsort((jidx, jkey))[:m]
-    np.testing.assert_array_equal(jkey[order], key.numpy())
+    assert jm == m
+    np.testing.assert_array_equal(jkey, key.numpy())
     # per key, the same (slot, lane) set: entry = slot * P + lane, in both
     mine = np.lexsort((entry.numpy(), key.numpy()))
-    np.testing.assert_array_equal(jidx[order], entry.numpy()[mine])
+    np.testing.assert_array_equal(jidx, entry.numpy()[mine])
     # the payloads rode along: the entry's lane's rays
-    lanes = jidx[order] % P
-    np.testing.assert_array_equal(np.asarray(dense8[2]).reshape(-1)[order],
-                                  q[0][lanes])
+    np.testing.assert_array_equal(jpay, q[0][jidx % P])
+
+
+def test_place_model_equal_jax_compaction(compaction):
+    """csrc/sorted.cu's B as modelled in tests/test_torch_place_model.py
+    (tiles of listed lanes, reservations in a shuffled order) on the same
+    keys: per key the (slot, lane) set of `_kc_compact` -> `_ks_stitch`,
+    keys ascending, its total exact; and again on the cursors the first
+    run left."""
+    from tests.test_torch_place_model import model_place
+
+    keys, _, _, dead, jkey, jidx, _, jm = compaction
+    k = keys.numpy()
+    hist = np.bincount(k[k < dead], minlength=dead)
+    cursor = np.zeros(dead, np.int64)
+    rng = np.random.default_rng(5)
+    for _ in range(2):
+        key, ids, total = model_place(k, k.shape[1], hist, cursor, rng)
+        assert total == jm
+        np.testing.assert_array_equal(key[:jm], jkey)
+        mine = np.lexsort((ids[:jm], key[:jm]))
+        np.testing.assert_array_equal(ids[:jm][mine], jidx)

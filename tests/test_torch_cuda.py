@@ -552,17 +552,38 @@ def hit_lanes(h):
     return [h.t, *h.normal, h.material_id, h.outside, h.tex_u, h.tex_v, h.has_uv]
 
 
-@pytest.mark.parametrize("settings_kw", MESH)
-def test_mesh_kernels_match_plain_on_cuda(cuda_device, settings_kw):
-    """#7, #8, #9 and #10 on mesh.txt at 64x64, depths 0-3, each from the
-    plain version's own inputs: #7's candidate set within 0.1% of the
-    lanes and its analytic hits, #8's, #9's and #10's lanes under the lane
-    rule, pix exactly."""
+def assert_candidates(got, want, alive, n_alive, P, device):
+    """#7's list exactly its flagged live lanes below the live count, each
+    once; its candidate set within 0.1% of the plain one's; its analytic
+    hits on those lanes by the lane rule."""
+    n = int(got.count[0])
+    lanes = got.lanes[:n].long()
+    assert torch.unique(lanes).shape[0] == n
+    listed = torch.zeros(P, dtype=torch.bool, device=device)
+    listed[lanes] = True
+    live = (alive != 0) & (torch.arange(P, device=device)
+                           < (P if n_alive is None else n_alive))
+    assert torch.equal(listed, got.cand & live)
+    assert float((listed != (want.cand & live)).float().mean()) <= 0.001
+    assert_lane_rule([a[live] for a in (got.t, *got.normal)],
+                     [a[live] for a in (want.t, *want.normal)])
+    assert torch.equal(got.material_id[live] >= 0, got.t[live] > 0)
+
+
+@pytest.mark.parametrize("settings_kw,res", [(kw, (64, 64)) for kw in MESH]
+                         + [({"antialias": True}, (256, 256))])
+def test_mesh_kernels_match_plain_on_cuda(cuda_device, settings_kw, res):
+    """#7, #8, #9 and #10 on mesh.txt at 64x64 (and 256x256: hundreds of
+    blocks' runs in #7's list), depths 0-3, each from the plain version's
+    own inputs: #7's list exactly its flagged lanes, its candidate set
+    within 0.1% of the lanes and its analytic hits, also with a live count
+    cutting the pool and under all_lanes (every lane's analytic hit); #8's,
+    #9's and #10's lanes under the lane rule, pix exactly."""
     from project3_cuda_path_tracer_tpu_torch.ops import pipeline
     from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
 
-    ds, cam, settings = _setup(cuda_device, "mesh.txt", settings_kw)
-    P = 64 * 64
+    ds, cam, settings = _setup(cuda_device, "mesh.txt", settings_kw, res)
+    P = res[0] * res[1]
     pool = _camera_pool(cam, 2, settings)
     counts = [getattr(pipeline, k).launches for k in
               ("mesh_candidates", "mesh_sweep", "bounce_step_mesh",
@@ -574,15 +595,18 @@ def test_mesh_kernels_match_plain_on_cuda(cuda_device, settings_kw):
         want7 = pipeline.mesh_candidates_reference(o, d, alive, ds, n_alive)
         got7 = pipeline.mesh_candidates(o, d, alive, ds, num_alive=n_alive)
         torch.cuda.synchronize()
-        n = int(got7.count[0])
-        listed = torch.zeros(P, dtype=torch.bool, device=cuda_device)
-        listed[got7.lanes[:n].long()] = True
-        live = (alive != 0) & (torch.arange(P, device=cuda_device)
-                               < (P if n_alive is None else n_alive))
-        assert torch.equal(listed, got7.cand & live)
-        assert float((listed != want7.cand).float().mean()) <= 0.001
-        assert_lane_rule([a[live] for a in (got7.t, *got7.normal)],
-                         [a[live] for a in (want7.t, *want7.normal)])
+        assert_candidates(got7, want7, alive, n_alive, P, cuda_device)
+        # a live count that cuts the pool mid-block, and all_lanes
+        cut = torch.tensor(P // 3 + 5, dtype=torch.int32, device=cuda_device)
+        assert_candidates(pipeline.mesh_candidates(o, d, alive, ds, num_alive=cut),
+                          pipeline.mesh_candidates_reference(o, d, alive, ds, cut),
+                          alive, cut, P, cuda_device)
+        every = pipeline.mesh_candidates(o, d, alive, ds, all_lanes=True)
+        everyw = pipeline.mesh_candidates_reference(o, d, alive, ds)
+        torch.cuda.synchronize()
+        assert_candidates(every, everyw, alive, None, P, cuda_device)
+        assert_lane_rule([every.t, *every.normal, every.material_id],
+                         [everyw.t, *everyw.normal, everyw.material_id])
         want8 = pipeline.mesh_sweep_reference(o, d, want7, ds)
         got8 = pipeline.mesh_sweep(o, d, want7, ds)
         torch.cuda.synchronize()
@@ -609,7 +633,7 @@ def test_mesh_kernels_match_plain_on_cuda(cuda_device, settings_kw):
         pool = want9
     now = [getattr(pipeline, k).launches for k in
            ("mesh_candidates", "mesh_sweep", "bounce_step_mesh", "intersect_mesh")]
-    assert [b - a for a, b in zip(counts, now)] == [4, 4, 4, 4]
+    assert [b - a for a, b in zip(counts, now)] == [12, 4, 4, 4]
 
 
 @pytest.mark.parametrize("settings_kw,counts", [
@@ -781,6 +805,62 @@ def entry_pairs(key, entry, total):
     return torch.sort(pairs).values
 
 
+def assert_place_counts(pipeline, keys, n, dead, device):
+    """B over the first c columns of A-like keys (E, P) whose first n are
+    written, for c = 0, 1 and a tile's lanes -1 / 0 / +1 as far as n
+    allows, against the plain version: per key, the total exact. The
+    histogram is the c columns', and B zeroes its own cursor. Returns the
+    launches of B it made."""
+    E, P = keys.shape
+    launches = 0
+    tile = pipeline.PLACE_THREADS * (pipeline.PLACE_MAX_E // E)  # B's tile of lanes
+    for c in (0, 1, tile - 1, tile, tile + 1):
+        if c > n:
+            continue
+        listed = keys[:, :c]
+        hist = torch.bincount(listed[listed < dead].long(), minlength=dead).int()
+        sk = pipeline.SuperKeys(keys, torch.zeros(6, P, device=device),
+                                torch.zeros(P, device=device), hist)
+        count = torch.tensor([c], dtype=torch.int32, device=device)
+        got = pipeline.place_entries(sk, count)
+        launches += 1
+        want = pipeline.place_entries_reference(sk, count)
+        torch.cuda.synchronize()
+        assert int(got.total[0]) == int(want.total[0]) == int(hist.sum()), c
+        assert torch.equal(entry_pairs(*got), entry_pairs(*want)), c
+    return launches
+
+
+@pytest.mark.parametrize("E,seed", [(6, 0), (1, 1), (2, 2)])
+def test_place_entries_counts_on_cuda(cuda_device, E, seed):
+    """B on seeded keys of 2 x 6,144 bins over three tiles of lanes, at
+    counts 0, 1 and a tile's lanes -1 / 0 / +1 and all of them; and twice
+    on one output of A's layout (the cursors the first run left)."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+
+    rng = np.random.default_rng(seed)
+    dead = 2 * pipeline.MAX_SUPERS
+    P = 3 * pipeline.PLACE_THREADS * (pipeline.PLACE_MAX_E // E) + 17
+    keys = rng.integers(0, dead, (E, P))
+    keys[rng.uniform(size=(E, P)) < 0.4] = dead
+    keys = torch.tensor(keys, dtype=torch.int32, device=cuda_device)
+    assert_place_counts(pipeline, keys, P, dead, cuda_device)
+    counts = torch.zeros(2 * dead, dtype=torch.int32, device=cuda_device)
+    counts[:dead] = torch.bincount(keys[keys < dead].long(), minlength=dead)
+    sk = pipeline.SuperKeys(keys, torch.zeros(6, P, device=cuda_device),
+                            torch.zeros(P, device=cuda_device), counts[:dead],
+                            counts[dead:])
+    count = torch.tensor([P], dtype=torch.int32, device=cuda_device)
+    want = pipeline.place_entries_reference(sk, count)
+    for _ in range(2):
+        got = pipeline.place_entries(sk, count)
+        torch.cuda.synchronize()
+        assert int(got.total[0]) == int(want.total[0])
+        assert torch.equal(entry_pairs(*got), entry_pairs(*want))
+        assert bool((got.key[1:int(got.total[0])] >= got.key[:int(got.total[0]) - 1]).all())
+    assert torch.equal(counts[dead:], 2 * counts[:dead])
+
+
 @pytest.mark.parametrize("E", [6, 2, 1])
 def test_sorted_route_matches_plain_on_cuda(cuda_device, big_mesh, E):
     """A-D on mesh_big.txt at 64x64, depths 0-7, each from the plain
@@ -801,6 +881,7 @@ def test_sorted_route_matches_plain_on_cuda(cuda_device, big_mesh, E):
     pool = _camera_pool(cam, 2, settings)
     route = ("super_keys", "place_entries", "window_sweep", "merge_entries")
     before = [getattr(pipeline, k).launches for k in route]
+    extra_b = 0
     for depth in range(8):
         o, d, alive = pool[0], pool[1], pool[4]
         cands = pipeline.mesh_candidates_reference(o, d, alive, ds)
@@ -824,6 +905,14 @@ def test_sorted_route_matches_plain_on_cuda(cuda_device, big_mesh, E):
         torch.cuda.synchronize()
         assert int(st.total[0]) == int(want_st.total[0]) == real.shape[0]
         assert torch.equal(entry_pairs(*st), entry_pairs(*want_st))
+        # B again on the same A output (on the cursors the first run left)
+        again = pipeline.place_entries(sk, cands.count)
+        torch.cuda.synchronize()
+        assert int(again.total[0]) == real.shape[0]
+        assert torch.equal(entry_pairs(*again), entry_pairs(*want_st))
+        extra_b += 1  # B's launches beyond the route's own
+        if depth == 0:  # B over the first 0, 1 and a tile's lanes -1 / 0 / +1
+            extra_b += assert_place_counts(pipeline, sk.keys, n, 2 * sn, cuda_device)
         eh = pipeline.window_sweep(st, sk, ds, g)
         want_eh = pipeline.window_sweep_reference(st, sk, ds, g)
         torch.cuda.synchronize()
@@ -867,7 +956,7 @@ def test_sorted_route_matches_plain_on_cuda(cuda_device, big_mesh, E):
         assert_lane_rule(g9[:13], w9[:13])
         pool = want9
     now = [getattr(pipeline, k).launches for k in route]
-    assert [b - a for a, b in zip(before, now)] == [16] * 4
+    assert [b - a for a, b in zip(before, now)] == [16, 16 + extra_b, 16, 16]
 
 
 def test_big_mesh_path_launches(cuda_device):
