@@ -4,8 +4,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, in parallel), prints the registers, shared memory and
-stack frames of B, C, #1, #7, #8, #5, #6 and the radix kernels (`nvcc
--Xptxas -v`), holds each of the seventeen against its plain PyTorch version on
+stack frames of A, B, C, #1, #3, #7, #8, #5, #6 and the radix kernels
+(`nvcc -Xptxas -v`), holds each of the seventeen against its plain PyTorch version on
 the card (at 64x64 and at the main path's 800x800; #1 on nine configs at 64x64 and 37x23, bit for
 bit against the per-bounce kernels #2 -> #3 and on all but 0.1% of the
 pixels against its plain version; the NEE kernels #5 and #6 on Cornell
@@ -65,8 +65,11 @@ many_materials 1920x1080 RR --nee (from the plain NEE path's masks), the
 two kernels' device times, launches and bounds on the four NEE paths,
 and #8's work per walk on its wide tables beside the binary walk's, with
 the lanes on which the two walks' winners differ. Every path's line also
-gives its device events per iteration and per depth, and on the mesh and
-big-mesh paths #7's device ms at each depth. Every path is driven
+gives its device events per iteration and per depth, on the mesh and
+big-mesh paths #7's device ms at each depth and on the per-bounce paths
+#3's; #3's line per depth sets them beside the live lanes and the warps
+that hold one (`bounce_step_depths`), A's on mesh_big and bunny beside
+its listed lanes (`super_keys_depths`). Every path is driven
 with the launch counts set to 0 just before it and read just after.
 Every phase prints one line; any failure raises and exits non-zero
 before the result lines are printed. Imports nothing of JAX or of the
@@ -1446,6 +1449,23 @@ def sweep_ops(ds) -> int:
                for g in ds.gtypes if g != 2)
 
 
+def listed_per_depth(rb, depth, iteration=2) -> list:
+    """#7's list count at each depth of one iteration of big-mesh Renderer
+    `rb` (its camera, AA), the pool advanced by the kernels' bounce."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.render import RenderSettings, _camera_pool
+
+    settings = RenderSettings(trace_depth=depth, antialias=True)
+    pool = _camera_pool(rb.dev_camera, iteration, settings)
+    listed = []
+    for d in range(depth):
+        cands = pl.mesh_candidates(pool[0], pool[1], pool[4], rb.dev_scene, tables=rb.tables)
+        listed.append(int(cands.count[0]))
+        pool = pl.bounce_step_pipeline(pool, rb.dev_scene, iteration, d, settings,
+                                       tables=rb.tables)
+    return listed
+
+
 def moving_cornell(tmpdir) -> str:
     """scenes/cornell.txt with its sphere moving (VELOCITY 2 0 0)."""
     text = open(os.path.join(HERE, "scenes", "cornell.txt")).read()
@@ -1508,9 +1528,11 @@ def main() -> int:
         triton=triton_version, nvcc=nvcc_version, python=sys.version.split()[0])
 
     # ---- 2. build every kernel from this checkout's sources ----
-    # (the registers, shared memory and stack frames of B, C, #1, #7, #8,
-    # #5, #6 and the radix kernels from ptxas, compiled beside the build)
-    ptxas_of = (("sorted.cu", "window_sweep|place_entries"),
+    # (the registers, shared memory and stack frames of A, B, C, #1, #3,
+    # #7, #8, #5, #6 and the radix kernels from ptxas, compiled beside the
+    # build)
+    ptxas_of = (("sorted.cu", "window_sweep|place_entries|super_keys"),
+                ("bounce.cu", "bounce_step_kernel"),
                 ("full_iteration.cu", "full_iteration"),
                 ("mesh.cu", "mesh_sweep|mesh_candidates"), ("nee.cu", "nee_kernel"),
                 ("radix.cu", "radix_"))
@@ -1881,6 +1903,8 @@ def main() -> int:
         ("bunny_radix", "bunny.txt", None, {"antialias": True}, "step_batch"),
     ]
     radix_paths = ("big_mesh_radix", "bunny_radix")
+    # #3 once a depth: (a)-(e)
+    per_bounce = ("step", "compact", "cache", "motion_blur", "direct_lighting")
     one_walk_a_depth = ("mesh", "mesh_step", "big_mesh", "big_mesh_step", "bunny",
                         "big_mesh_radix", "bunny_radix")  # one #7 launch a depth
 
@@ -1989,6 +2013,8 @@ def main() -> int:
         # per depth: #7 where it runs once a depth, and the big-mesh routes'
         # kernels
         by_depth = ("mesh_candidates",) if label in one_walk_a_depth else ()
+        if label in per_bounce:
+            by_depth += ("bounce_step",)
         if name in BIG_SCENES:
             by_depth += SORTED_KERNELS + ("window_sweep_stream", "radix_split@compaction",
                                           "radix_split@pass", "radix_unscatter")
@@ -2062,8 +2088,14 @@ def main() -> int:
     pool = mk.first_bounce_reference(ds, cam, it, settings)
     bs_plain = 0.0
     length = torch.ones(P, dtype=torch.int64, device=dev)  # depths run, per pixel
+    # #3's live lanes per depth, the warps of 32 lanes and the 32-byte
+    # sectors of a float lane (8 lanes) that hold one
+    bs_live, bs_warps, bs_sectors = [], [], []
     for depth in range(1, D):
         length += (pool[4] != 0).long()
+        bs_live.append(int((pool[4] != 0).sum()))
+        bs_warps.append(int((pool[4] != 0).view(-1, 32).any(1).sum()))
+        bs_sectors.append(int((pool[4] != 0).view(-1, 8).any(1).sum()))
         t0 = time.perf_counter()
         pool = mk.bounce_step_reference(pool, ds, it, depth, settings)
         torch.cuda.synchronize()
@@ -2207,6 +2239,26 @@ def main() -> int:
         plain_generate_rays_aa_ms=raygen_ms,
         mesh_lanes=mesh_counts, mesh_plain_ms=mesh_plain,
         mesh_cache_fill_candidates=fill_n)
+    # #3 per depth on the per-bounce paths beside the pool it meets: (a)'s
+    # live lanes, the warps of 32 lanes that hold one (a thread per lane
+    # runs each such warp whole) and the warps they pack into (the
+    # compacted pool of (b) holds them first), and likewise the 32-byte
+    # sectors of a lane array that hold one (each is read and written
+    # whole, packed or not); A per depth on (n) and (p)
+    # beside its listed lanes (#7's count on a kernels' run of iteration 2)
+    say("bounce_step_depths", kernel="bounce_step", device=smi, res="800x800",
+        depths=list(range(1, D)),
+        ms_per_depth={label: kernel_ms_of[label].get("bounce_step@depth")
+                      for label in per_bounce},
+        lanes_in=bs_live, warps_with_live=bs_warps,
+        packed_warps=[-(-n // 32) for n in bs_live], sectors_with_live=bs_sectors,
+        packed_sectors=[-(-n // 8) for n in bs_live],
+        lanes_from="the plain version's pools of (a), iteration 7")
+    say("super_keys_depths", kernel="super_keys", device=smi, res="800x800",
+        settings={"antialias": True}, depths=list(range(D)), per_path={
+            label: {"ms_per_depth": kernel_ms_of[label].get("super_keys@depth"),
+                    "listed": listed_per_depth(big[name], D)}
+            for label, name in (("big_mesh", "mesh_big.txt"), ("bunny", "bunny.txt"))})
     # the mesh kernels' bounds, per launch averaged over the depths
     n_mesh = len(mds.mesh_geoms)
     mc = {k: np.array(v, np.float64) for k, v in mesh_counts.items()}

@@ -10,22 +10,36 @@
 //
 // The pool is structure-of-arrays, one lane per path: origin, direction,
 // throughput and radiance as 12 float32 lanes, then alive and pix as
-// int32 (path_common.cuh's `Lanes`). One thread per lane, 128 to a block,
-// no shared memory; the bounce arithmetic is csrc/path_common.cuh's
-// (`raygen`, `intersect`, `shade`), the same code kernel #1 runs.
+// int32 (path_common.cuh's `Lanes`). #2 and #4 run one thread per lane,
+// 128 to a block, no shared memory; the bounce arithmetic is
+// csrc/path_common.cuh's (`raygen`, `intersect`, `shade`), the same code
+// kernel #1 runs.
 //
-// Dead lanes: a thread whose lane is dead returns at once (#3) or copies
-// it through (#4). Under stream compaction the live lanes come first, and
-// #3 also takes the live count as a device int32 (`num_alive`): every
-// thread at or past it returns without reading its lane. That is the
-// TPU kernel's dead-tile skip, per lane, with no host sync.
+// Dead lanes: #4 copies a dead lane through. #3 bounces the live lanes
+// below its live count: the pool size, or under stream compaction (live
+// lanes first) a device int32 `num_alive`, read on the device, so no host
+// sync; a lane at or past it is not read, and no dead lane is written.
+// That is the TPU kernel's dead-tile skip, per lane.
 //
 // What bounds them on the H100: the per-lane sweep and shading arithmetic
 // and warp divergence, as for #1; the bytes are the pool lanes (#3 reads
-// 14 and writes 13 per live lane: 108 B; #2 writes 56 B; #4 reads 80 B
-// and writes 52 B), which the card moves in tens of microseconds at
-// 800x800. What the design does about it: nothing yet beyond coalesced
-// SoA lanes and the early return of dead lanes; one thread per path.
+// every lane's alive below the count, then 13 lanes and writes 13 per
+// live lane; #2 writes 56 B; #4 reads 80 B and writes 52 B), which the
+// card moves in tens of microseconds at 800x800. What the designs do
+// about it: coalesced SoA lanes, and in #3 the live lanes packed into
+// full warps. A block of #3 owns kBounceThreads consecutive lanes, a lane
+// a thread: it reads their alive flags below the count once; if one of
+// them is dead, it packs the live ones into its first threads in lane
+// order (`block_prefix`, as #7 packs its lanes), so a warp's cost
+// follows the live lanes and not the pool (a thread per lane runs every
+// warp that holds a live lane: at depth 7 of (a) 16,462 of 20,000 warps
+// for 119,339 live lanes, PERF.md §6); a block whose first lane is at or
+// past the count returns whole, and a block whose lanes are all live (a
+// compacted pool's) skips the packing after one barrier. Which thread
+// bounces a lane moves no result: each lane is read and written by one
+// thread, and the RNG is keyed on the lane's pix. A thin pool's live
+// lanes still sit in most of its 32-byte sectors, so #3 on (a) stays
+// above the same lanes compacted.
 
 #include "path_common.cuh"
 
@@ -57,13 +71,28 @@ __global__ void __launch_bounds__(kThreads)
   out.pix[pix] = pix;
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kBounceThreads = kThreads;  // #3: threads (and lanes) a block
+constexpr int kBounceWarps = kBounceThreads / 32;
+
+__global__ void __launch_bounds__(kBounceThreads)
     bounce_step_kernel(const Tables s, const Lanes pool, const int* __restrict__ num_alive,
                        int n, int iteration, int depth) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (num_alive != nullptr && i >= __ldg(num_alive)) return;
-  if (pool.alive[i] == 0) return;
+  __shared__ int s_lanes[kBounceThreads];  // the block's live lanes, packed
+  __shared__ int s_warp[kBounceWarps];
+  const int first = blockIdx.x * kBounceThreads;
+  const int end = num_alive == nullptr ? n : min(n, __ldg(num_alive));
+  if (first >= end) return;  // the whole block
+  int i = first + threadIdx.x;
+  bool live = i < end && pool.alive[i] != 0;
+  if (__syncthreads_count(live) < kBounceThreads) {  // else every lane is live: no packing
+    int kept;
+    const int at = block_prefix<kBounceWarps>(live, s_warp, &kept);
+    if (live) s_lanes[at] = i;
+    __syncthreads();
+    live = static_cast<int>(threadIdx.x) < kept;
+    if (live) i = s_lanes[threadIdx.x];
+  }
+  if (!live) return;
   Path p = load_path(pool, i);
   const Hit h = intersect(s, p.org, p.dir);
   const bool alive = shade(s, p, h, static_cast<uint32_t>(iteration), depth,
@@ -121,8 +150,9 @@ extern "C" int pt_bounce_step(void* const* tables, int n_geoms, void* const* poo
   if (err != cudaSuccess) return static_cast<int>(err);
   const Tables s = make_tables(tables, n_geoms, flags, rr_start);
   if (n > 0) {
-    bounce_step_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        s, make_lanes(pool), num_alive, n, iteration, depth);
+    bounce_step_kernel<<<(n + kBounceThreads - 1) / kBounceThreads, kBounceThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(s, make_lanes(pool), num_alive, n,
+                                                              iteration, depth);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -222,27 +222,6 @@ __device__ __forceinline__ TriHit wide_walk(const MeshTables& m, const WideTable
   return best;
 }
 
-// The exclusive prefix of `keep` over the block's threads (warp ballots,
-// then the warps' counts in s_warp, kCandWarps ints): each thread's
-// position among the block's kept ones; *kept gets their number. Every
-// thread of the block calls it.
-__device__ __forceinline__ int block_prefix(bool keep, int* s_warp, int* kept) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  if (lane == 0) s_warp[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, all = 0;
-#pragma unroll
-  for (int w = 0; w < kCandWarps; ++w) {
-    before += w < warp ? s_warp[w] : 0;
-    all += s_warp[w];
-  }
-  __syncthreads();  // s_warp is free again
-  *kept = all;
-  return before + __popc(ballot & ((1u << lane) - 1u));
-}
-
 __global__ void __launch_bounds__(kCandThreads)
     mesh_candidates_kernel(const Tables s, const MeshTables m, const RayLanes rays,
                            const int* __restrict__ num_alive, int n, int all_lanes,
@@ -261,7 +240,7 @@ __global__ void __launch_bounds__(kCandThreads)
     const bool live = i < end && (rays.alive == nullptr || rays.alive[i] != 0);
     const bool sweep = i < end && (live || all_lanes);
     int kept;
-    const int at = n_lanes + block_prefix(sweep, s_warp, &kept);
+    const int at = n_lanes + block_prefix<kCandWarps>(sweep, s_warp, &kept);
     if (sweep) s_lanes[at] = i | (live ? kLiveBit : 0);
     n_lanes += kept;
   }
@@ -296,7 +275,8 @@ __global__ void __launch_bounds__(kCandThreads)
   for (int k = 0; k < kCandPer; ++k) {
     const int q = k * kCandThreads + threadIdx.x;
     int kept;
-    at[k] = n_cands + block_prefix(q < n_lanes && (s_lanes[q] & kCandBit) != 0, s_warp, &kept);
+    at[k] = n_cands + block_prefix<kCandWarps>(q < n_lanes && (s_lanes[q] & kCandBit) != 0,
+                                               s_warp, &kept);
     n_cands += kept;
   }
   if (n_cands == 0) return;  // the whole block

@@ -6,19 +6,32 @@
 // memset (A's histogram and B's cursors) and no other launch between:
 //
 //   A  super_keys_kernel replaces _super_rank_xla (XLA) and the counting
-//      half of #12 _kc_compact. One thread per listed lane: the ray in the
-//      geom's object space, its pruning bound bt0 (the smaller of the
-//      analytic and the mesh hit so far, times the Frobenius norm of inv's
-//      3x3), and the slab test of the geom's supernodes in ascending index
-//      (the expression of _super_rank_xla). The first E-1 entered supers
-//      are the lane's window keys; the last slot is the E-th entered super,
-//      or, for a lane that enters more, the overflow tail: key
-//      n_supers + (slot E-2) + 1 (n_supers + slot 0 at E == 1), which
-//      sweeps every super from that start on. Keys are written slot-major
-//      at [slot, j], 2 * n_supers where no super is left; each real key
-//      adds one to a shared-memory histogram, flushed with one global
-//      atomic per bin.
-//      Bound: operations (per lane the transform and ~25 per super box).
+//      half of #12 _kc_compact. For each listed lane: the ray in the geom's
+//      object space, its pruning bound bt0 (the smaller of the analytic
+//      and the mesh hit so far, times the Frobenius norm of inv's 3x3),
+//      and the slab test of the geom's supernodes in ascending index (the
+//      expression of _super_rank_xla, (lo - o) * inv_d, strict te < bt).
+//      The first E-1 entered supers are the lane's window keys; the last
+//      slot is the E-th entered super, or, for a lane that enters more,
+//      the overflow tail: key n_supers + (slot E-2) + 1 (n_supers + slot 0
+//      at E == 1), which sweeps every super from that start on. Keys are
+//      written slot-major at [slot, j], 2 * n_supers where no super is
+//      left. The grid is the blocks that stay resident (no more than the
+//      pool needs); each block takes kKeysThreads of the `count` listed
+//      lanes a round, read on the device, a lane a thread. The supers'
+//      rows are staged in shared memory, kKeysStage at a time (once a
+//      block when they fit), and tested a word of 32 at a time with no
+//      store or atomic in the loop (bit b: the ray enters super w0 + b);
+//      the word's entered supers fill the free slots in ascending order
+//      (__fns) in registers, and a ray stops once it has entered more than
+//      E. Then each slot is one coalesced row, and each real key adds one
+//      to a shared-memory histogram, flushed with one global atomic per
+//      bin and block. E <= kPlacePer (B's limit).
+//      Bound: bytes (per listed lane its ray and hits in, E keys, the
+//      object ray and bt0 out); what holds A above it is each thread's
+//      run of slab tests, one per super, about three quarters of its time
+//      (PERF.md §6): boxes culled by a box over eight supers, or a group of
+//      lanes per ray, measured slower.
 //   B  place_entries_kernel replaces #12's packing, #13 _ks_stitch and the
 //      global lax.sort by key: a counting sort of the real entries into
 //      one stream, in one launch with no glue. A persistent grid (the
@@ -81,18 +94,19 @@
 //      merge into #8's hit lanes at the lane's own index.
 //      Bound: bytes (E slots of 16 B and the lane's 9 hit lanes).
 //
-// A's and D's grids are sized by their upper bound (the pool), and threads
-// at or past the count that stays on the device return; B's and C's
-// resident blocks read that count too, so no host sync sits between the
-// kernels. What the design does about the bounds: C spends a
+// D's grid is sized by its upper bound (the pool), and threads at or past
+// the count that stays on the device return; A's, B's and C's resident
+// blocks read that count too, so no host sync sits between the kernels. What the design does about the bounds: C spends a
 // warp's lanes on one ray's boxes and triangles, never on a chunk that ray
 // does not enter (a thread per entry runs the union of its warp's 32
 // culls), and no block walks every super from a tail's start (blocks that
 // stage each super for their entries spend most of a launch on its few
 // tail entries, PERF.md §5); what holds C above its bound is each warp's
 // chain of dependent loads and reductions. A, B and D are one pass over
-// their lanes; B reads no lane past the count and moves each key's run
-// with contiguous stores.
+// their lanes; A launches no block past the resident ones and keeps the
+// supers' loop free of stores and atomics, its boxes in shared memory; B
+// reads no lane past the count and moves each key's run with contiguous
+// stores.
 
 #include <algorithm>
 
@@ -115,59 +129,107 @@ inline int blocks_of(long long n, int threads) {
   return static_cast<int>((n + threads - 1) / threads);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    super_keys_kernel(const float* __restrict__ inv, const float* __restrict__ boxes,
+constexpr int kKeysThreads = 128;  // A: threads per block
+constexpr int kKeysStage = 256;  // A: supers staged in shared memory at a time
+
+// A's slab test of a box row (a: min xyz, max x; b: max y, max z, -), the
+// expression of _super_rank_xla: entered, ahead of the origin, and its
+// entry max(tmin, 0) strictly before the bound.
+__device__ __forceinline__ bool keys_enter(float4 a, float4 b, const ObjRay& r, float bt) {
+  float tmin, tmax;
+  slab_span(a, make_float4(a.w, b.x, b.y, 0.0f), r, &tmin, &tmax);
+  return tmax >= tmin && tmax > 0.0f && fmaxf(tmin, 0.0f) < bt;
+}
+
+// A. A block takes kKeysThreads listed lanes a round, a lane a thread, up
+// to the count on the device. The supers are staged kKeysStage at a time
+// in shared memory (once a block when they fit, as on every scene of the
+// repo) and tested a word of 32 at a time with no store or atomic, bit b
+// the ray enters super w0 + b; the word's entered supers fill the free
+// slots in ascending order (__fns), in registers; a ray stops once it has
+// entered more than E.
+__global__ void __launch_bounds__(kKeysThreads)
+    super_keys_kernel(const float* __restrict__ inv, const float4* __restrict__ boxes,
                       int n_supers, int E, const RayLanes rays, const float* __restrict__ t_a,
                       const float* __restrict__ t_m, const int* __restrict__ list,
                       const int* __restrict__ count, int n, int* __restrict__ keys,
                       float* __restrict__ q, float* __restrict__ bt0,
                       int* __restrict__ hist) {
   extern __shared__ int s_hist[];  // 2 * n_supers bins
-  const int n_listed = __ldg(count);
-  if (static_cast<int>(blockIdx.x * blockDim.x) >= n_listed) return;  // the whole block
+  __shared__ float4 s_box[2 * kKeysStage];  // the staged supers' rows
+  const int n_listed = min(__ldg(count), n);
+  const int first = blockIdx.x * kKeysThreads;
+  if (first >= n_listed) return;  // the whole block
   const int dead = 2 * n_supers;
-  for (int b = threadIdx.x; b < dead; b += blockDim.x) s_hist[b] = 0;
-  __syncthreads();
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < n && j < n_listed) {
-    const int i = __ldg(list + j);
-    const ObjRay r = object_ray(inv, ray_o(rays, i), ray_d(rays, i));
-    const float ta = t_a[i];
-    const float tm = t_m[i];
-    const float eff = tm > 0.0f ? (ta > 0.0f ? fminf(tm, ta) : tm) : ta;
-    const float bt = eff > 0.0f ? eff * frobenius3(inv) : kFltMax;
-    int cnt = 0;
-    int s_first = dead, s_em2 = dead, s_last = dead;
-    for (int s = 0; s < n_supers; ++s) {
-      const float* b = boxes + 8 * s;  // min xyz, max xyz, 0, 0
-      const float3 lo = make_float3(__ldg(b), __ldg(b + 1), __ldg(b + 2));
-      const float3 hi = make_float3(__ldg(b + 3), __ldg(b + 4), __ldg(b + 5));
-      const float t1x = (lo.x - r.o.x) * r.inv_d.x;
-      const float t2x = (hi.x - r.o.x) * r.inv_d.x;
-      const float t1y = (lo.y - r.o.y) * r.inv_d.y;
-      const float t2y = (hi.y - r.o.y) * r.inv_d.y;
-      const float t1z = (lo.z - r.o.z) * r.inv_d.z;
-      const float t2z = (hi.z - r.o.z) * r.inv_d.z;
-      const float tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-      const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
-      const float te = fmaxf(tmin, 0.0f);
-      if (!(tmax >= tmin && tmax > 0.0f && te < bt)) continue;
-      if (cnt < E - 1) {  // a window slot, final as soon as it is found
-        keys[cnt * n + j] = s;
-        atomicAdd(s_hist + s, 1);
-      } else if (cnt == E - 1) {
-        s_last = s;
-      }
-      if (cnt == 0) s_first = s;
-      if (cnt == E - 2) s_em2 = s;
-      ++cnt;
+  for (int b = threadIdx.x; b < dead; b += kKeysThreads) s_hist[b] = 0;
+  const float fro = frobenius3(inv);
+  for (int j0 = first; j0 < n_listed; j0 += gridDim.x * kKeysThreads) {  // the block's rounds
+    const int j = j0 + threadIdx.x;
+    const bool has = j < n_listed;
+    ObjRay r = {};
+    float bt = 0.0f;
+    if (has) {
+      const int i = __ldg(list + j);
+      r = object_ray(inv, ray_o(rays, i), ray_d(rays, i));
+      const float ta = t_a[i];
+      const float tm = t_m[i];
+      const float eff = tm > 0.0f ? (ta > 0.0f ? fminf(tm, ta) : tm) : ta;
+      bt = eff > 0.0f ? eff * fro : kFltMax;
     }
-    for (int k = cnt; k < E - 1; ++k) keys[k * n + j] = dead;
+    int key[kPlacePer];  // slot e: the e-th entered super
+#pragma unroll
+    for (int e = 0; e < kPlacePer; ++e) key[e] = dead;
+    int cnt = 0;  // supers entered so far; past E only cnt > E matters
+    for (int c0 = 0; c0 < n_supers; c0 += kKeysStage) {
+      const int in_stage = min(kKeysStage, n_supers - c0);
+      if (j0 == first || n_supers > kKeysStage) {
+        __syncthreads();  // the last stage's readers are done
+        for (int b = threadIdx.x; b < 2 * in_stage; b += kKeysThreads) {
+          s_box[b] = __ldg(boxes + 2 * c0 + b);
+        }
+        __syncthreads();
+      }
+      for (int w0 = 0; has && w0 < in_stage && cnt <= E; w0 += 32) {
+        const int in_word = min(32, in_stage - w0);
+        unsigned m = 0;
+        for (int g = 0; g < in_word; g += 8) {
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int s = w0 + g + x;
+            if (g + x < in_word) {
+              m |= static_cast<unsigned>(keys_enter(s_box[2 * s], s_box[2 * s + 1], r, bt))
+                   << (g + x);
+            }
+          }
+        }
+        const int c = __popc(m);
+        if (c != 0 && cnt < E) {
+#pragma unroll
+          for (int e = 0; e < kPlacePer; ++e) {
+            const int rank = e - cnt;  // slot e takes the word's rank-th entered super
+            if (e < E && rank >= 0 && rank < c) key[e] = c0 + w0 + __fns(m, 0, rank + 1);
+          }
+        }
+        cnt += c;
+      }
+    }
+    if (!has) continue;
     // the last slot: the E-th entered super, or the overflow tail
-    int last = s_last;
-    if (cnt > E) last = E == 1 ? n_supers + s_first : n_supers + s_em2 + 1;
-    keys[(E - 1) * n + j] = last;
-    if (last != dead) atomicAdd(s_hist + last, 1);
+    int last = dead, em2 = dead;
+#pragma unroll
+    for (int e = 0; e < kPlacePer; ++e) {
+      if (e == E - 1) last = key[e];
+      if (e == E - 2) em2 = key[e];
+    }
+    if (cnt > E) last = E == 1 ? n_supers + key[0] : n_supers + em2 + 1;
+    // the keys slot-major, one coalesced row a slot, and the histogram
+#pragma unroll
+    for (int e = 0; e < kPlacePer; ++e) {
+      if (e >= E) break;
+      const int v = e == E - 1 ? last : key[e];
+      keys[e * n + j] = v;
+      if (v != dead) atomicAdd(s_hist + v, 1);
+    }
     q[j] = r.o.x;
     q[n + j] = r.o.y;
     q[2 * n + j] = r.o.z;
@@ -177,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
     bt0[j] = bt;
   }
   __syncthreads();
-  for (int b = threadIdx.x; b < dead; b += blockDim.x) {
+  for (int b = threadIdx.x; b < dead; b += kKeysThreads) {
     if (s_hist[b] != 0) atomicAdd(hist + b, s_hist[b]);
   }
 }
@@ -473,28 +535,32 @@ int sweep_blocks(int device, long long entries) {
   return static_cast<int>(need < blocks ? need : blocks);
 }
 
-// B's grid: as many blocks as stay resident with `smem` bytes of shared
-// memory each; the last query is kept.
-cudaError_t place_blocks(int device, int smem, int* out) {
-  static int last_device = -1, last_smem = -1, last_blocks = 0;
-  if (device != last_device || smem != last_smem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        place_entries_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// A's and B's grids: as many blocks of `kernel` (`threads` each) as stay
+// resident with `smem` bytes of dynamic shared memory each; the last query
+// is kept in `cache` ({device, smem, blocks}).
+template <typename Kernel>
+cudaError_t resident_grid(Kernel kernel, int threads, int device, int smem, int* cache,
+                          int* out) {
+  if (device != cache[0] || smem != cache[1]) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, place_entries_kernel,
-                                                        kPlaceThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err != cudaSuccess) return err;
     if (sms * per_sm <= 0) return cudaErrorInvalidConfiguration;
-    last_device = device;
-    last_smem = smem;
-    last_blocks = sms * per_sm;
+    cache[0] = device;
+    cache[1] = smem;
+    cache[2] = sms * per_sm;
   }
-  *out = last_blocks;
+  *out = cache[2];
   return cudaSuccess;
 }
+
+int g_keys_grid[3] = {-1, -1, 0};   // A's last resident_grid query
+int g_place_grid[3] = {-1, -1, 0};  // B's
 
 __global__ void __launch_bounds__(kThreads)
     merge_entries_kernel(const Tables s, const MeshTables m, const RayLanes rays,
@@ -554,16 +620,23 @@ extern "C" int pt_super_keys(void* const* tables, int n_geoms, void* const* mesh
                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (E < 1 || E > kPlacePer) return static_cast<int>(cudaErrorInvalidValue);
+  const float* boxes = static_cast<const float*>(mesh[6]) + 8 * super_start;
+  if (reinterpret_cast<uintptr_t>(boxes) % sizeof(float4) != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t hist_bytes = sizeof(int) * 2 * static_cast<size_t>(n_supers);
-  err = cudaMemsetAsync(hist, 0, 2 * hist_bytes, st);
+  err = cudaMemsetAsync(hist, 0, sizeof(int) * 4 * static_cast<size_t>(n_supers), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
+    const int smem = static_cast<int>(sizeof(int)) * 2 * n_supers;  // the histogram
+    int blocks = 0;
+    err = resident_grid(super_keys_kernel, kKeysThreads, device, smem, g_keys_grid, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const Tables s = make_tables(tables, n_geoms, 0, 0);
-    const float* boxes = static_cast<const float*>(mesh[6]) + 8 * super_start;
-    super_keys_kernel<<<n_blocks(n), kThreads, hist_bytes, st>>>(
-        s.inv + 16 * geom, boxes, n_supers, E, make_rays(rays), t_a, t_m, list, count, n, keys,
-        q, bt0, hist);
+    super_keys_kernel<<<std::min(blocks, blocks_of(n, kKeysThreads)), kKeysThreads, smem, st>>>(
+        s.inv + 16 * geom, reinterpret_cast<const float4*>(boxes), n_supers, E,
+        make_rays(rays), t_a, t_m, list, count, n, keys, q, bt0, hist);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -582,7 +655,7 @@ extern "C" int pt_place_entries(const int* keys, const int* count, int n, int E,
   const int bins = 2 * n_supers;
   const int smem = static_cast<int>(sizeof(int)) * (3 * bins + 2 * kPlaceStage);
   int blocks = 0;
-  err = place_blocks(device, smem, &blocks);
+  err = resident_grid(place_entries_kernel, kPlaceThreads, device, smem, g_place_grid, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tile_lanes = kPlaceThreads * (kPlacePer / E);
   const int tiles = n > 0 ? (n + tile_lanes - 1) / tile_lanes : 1;

@@ -105,6 +105,9 @@ _TABLE_PTRS = 8
 # paths of the last pixels) is paid once per launch, not per iteration;
 # at 800x800 a launch of 32 iterations lasts about 7 ms on an H100
 ITERATIONS_PER_LAUNCH = 32
+# #3's threads, and lanes, a block (csrc/bounce.cu kBounceThreads): a
+# block packs the live ones of its lanes into its first threads
+BOUNCE_THREADS = 128
 
 
 def draw_slots(any_partial_refl: bool, any_refractive: bool,

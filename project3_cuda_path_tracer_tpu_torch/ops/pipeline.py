@@ -130,7 +130,8 @@ SORT_EXPAND = 6
 # A's histogram lives in 48 KB of shared memory: 2 bins per supernode
 MAX_SUPERS = 6144
 # B's tiles (csrc/sorted.cu): PLACE_THREADS threads a block, each holding
-# PLACE_MAX_E entries, E slots of PLACE_MAX_E // E lanes (kPlacePer)
+# PLACE_MAX_E entries, E slots of PLACE_MAX_E // E lanes (kPlacePer); A
+# holds a lane's E keys in registers, E <= PLACE_MAX_E too
 PLACE_THREADS = 256
 PLACE_MAX_E = 8
 # the radix route in place of B (the JAX package's SORT_RADIX, read from
@@ -1115,8 +1116,10 @@ def super_keys(origins: Vec3, dirs: Vec3, cands: Candidates,
     """A for big geom g over #7's list `cands`, with `hits` the mesh hit
     lanes so far (#8's, merged with earlier big geoms); E defaults to
     SORT_EXPAND. CPU: the plain version; CUDA: one memset (the histogram
-    and B's cursor, one buffer) and one launch sized by the pool, counted
-    in `super_keys.launches`."""
+    and B's cursor, one buffer) and one launch of the blocks that stay
+    resident, which read the list's count on the device and hold a lane's
+    keys in registers (E <= PLACE_MAX_E), counted in
+    `super_keys.launches`."""
     E = SORT_EXPAND if E is None else E
     device = origins.x.device
     if device.type == "cpu":
@@ -1125,8 +1128,8 @@ def super_keys(origins: Vec3, dirs: Vec3, cands: Candidates,
     P = cands.lanes.shape[0]
     r = _geom_rows(scene, g)
     sn = r["n_supers"]
-    if E < 1:
-        raise ValueError(f"super_keys: E must be at least 1, got {E}")
+    if not 1 <= E <= PLACE_MAX_E:
+        raise ValueError(f"super_keys: E must be in [1, {PLACE_MAX_E}], got {E}")
     if sn > MAX_SUPERS:
         raise ValueError(f"super_keys: geom {g} has {sn} supernodes, the "
                          f"histogram holds {MAX_SUPERS}")

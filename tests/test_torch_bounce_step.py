@@ -3,7 +3,9 @@ CPU tensors) against the JAX package's `bounce_step_pallas` in interpret
 mode, from the same 32x32 pool: one bounce (atol 1e-4, at most 1% outlier
 lanes) and three bounces on a pool compacted before each bounce and
 passed its live count (atol 3e-4, at most 3%); pix exact. Also the
-wrapper's in-place contract and its skip of lanes past `num_alive`."""
+wrapper's in-place contract and its skip of lanes past `num_alive`, and
+one bounce of a sparse pool (half the lanes killed in scattered runs) by
+the lane rule with every dead lane back unchanged."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -97,3 +99,29 @@ def test_lanes_past_num_alive_are_left_as_they_are():
         torch.testing.assert_close(a[cut:], b[cut:], rtol=0, atol=0)
     # and the lanes before it did bounce
     assert not torch.equal(after[0][:cut], before[0][:cut])
+
+
+def test_sparse_pool_matches_pallas_and_keeps_dead_lanes():
+    """Half of the 32x32 pool's lanes killed in runs of 1-24 (numpy,
+    seeded), as a thin pool reaches #3: one bounce against the Pallas
+    kernel by the lane rule, pix exact, and each lane dead on entry back
+    unchanged, bit for bit."""
+    jd, td, jset, tset, pool = start("cornell.txt", {"antialias": True}, 4)
+    rng = np.random.default_rng(12)
+    P = pool[4].shape[0]
+    kill = np.zeros(P, bool)
+    i, dead_run = 0, bool(rng.integers(0, 2))
+    while i < P:
+        run = int(rng.integers(1, 25))
+        kill[i:i + run] = dead_run
+        i, dead_run = i + run, not dead_run
+    pool[4][torch.from_numpy(kill)] = 0
+    dead = (pool[4] == 0).numpy()
+    assert 0.4 < kill.mean() < 0.6 and dead.any() and not dead.all()
+    before = [a.clone() for a in tmk.pool_lanes(pool)]
+    want = jmk.bounce_step_pallas(to_jax(pool), jd, jnp.int32(4), jnp.int32(1), jset,
+                                  interpret=True)
+    got = tmk.bounce_step(pool, td, 4, 1, tset)
+    assert_state_close(got, want)
+    for a, b in zip(tmk.pool_lanes(got), before):
+        assert torch.equal(a[dead].view(torch.int32), b[dead].view(torch.int32))

@@ -274,6 +274,61 @@ def test_bounce_step_matches_plain_on_cuda(cuda_device, name, settings_kw,
     assert megakernel.bounce_step.launches == before + 3
 
 
+def _alive_pattern(P, share, pattern, seed):
+    """(P,) int32: each lane live with probability `share` ("scattered"),
+    or runs of 1-40 live lanes between dead runs that keep the share
+    ("clustered"); numpy, seeded."""
+    rng = np.random.default_rng(seed)
+    if pattern == "scattered" or share in (0.0, 1.0):
+        return (rng.random(P) < share).astype(np.int32)
+    out = np.zeros(P, np.int32)
+    i = int(rng.integers(0, 100))
+    while i < P:
+        live = int(rng.integers(1, 41))
+        out[i:i + live] = 1
+        i += live + int(live * (1 - share) / share * rng.uniform(0.5, 1.5)) + 1
+    return out
+
+
+@pytest.mark.parametrize("pattern", ["scattered", "clustered"])
+@pytest.mark.parametrize("share", [0.0, 0.03, 0.5, 1.0])
+def test_bounce_step_packs_live_lanes_on_cuda(cuda_device, share, pattern):
+    """#3 on Cornell AA 64x64 (after the plain first bounce) with the live
+    lanes set to a share, scattered or clustered, with no live count and
+    with one that cuts the pool: every lane dead on entry or at or past
+    the count unchanged bit for bit, pix exactly, the rest by the lane
+    rule against the plain version."""
+    ds, cam, settings = _setup(cuda_device, "cornell.txt", {"antialias": True})
+    pool = megakernel.first_bounce_reference(ds, cam, 2, settings)
+    P = pool[5].shape[0]
+    alive = torch.tensor(_alive_pattern(P, share, pattern, int(100 * share)),
+                         device=cuda_device)
+    lanes = [a.clone().contiguous() for a in megakernel.pool_lanes(pool)]
+    lanes[12] = alive
+    start = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+             Vec3(*lanes[9:12]), lanes[12], lanes[13])
+    for cut in (None, 2500):
+        n_alive = None if cut is None else torch.tensor(cut, dtype=torch.int32,
+                                                        device=cuda_device)
+        want = megakernel.bounce_step_reference(start, ds, 2, 1, settings,
+                                                num_alive=n_alive)
+        copy = [a.clone() for a in megakernel.pool_lanes(start)]
+        got = (Vec3(*copy[0:3]), Vec3(*copy[3:6]), Vec3(*copy[6:9]),
+               Vec3(*copy[9:12]), copy[12], copy[13])
+        before = megakernel.bounce_step.launches
+        megakernel.bounce_step(got, ds, 2, 1, settings, num_alive=n_alive)
+        torch.cuda.synchronize()
+        assert megakernel.bounce_step.launches == before + 1
+        still = alive == 0
+        if cut is not None:
+            still[cut:] = True
+        for g, b in zip(megakernel.pool_lanes(got), megakernel.pool_lanes(start)):
+            assert torch.equal(g[still].view(torch.int32), b[still].view(torch.int32))
+        assert_lanes_close(got, want)
+        if share == 0.0:
+            assert not got[4].any()
+
+
 @pytest.mark.parametrize("name,settings_kw", PER_BOUNCE)
 def test_shade_step_matches_plain_on_cuda(cuda_device, name, settings_kw):
     ds, cam, settings = _setup(cuda_device, name, settings_kw)
@@ -980,6 +1035,70 @@ def test_big_mesh_path_launches(cuda_device):
     assert got == [24] * 7 + [0] + [0] * len(others)
     img = r.image()
     assert np.isfinite(img).all() and img.max() > 0
+
+
+@pytest.fixture(scope="module")
+def bunny():
+    """bunny.txt (one 69,120-triangle geom: the sorted route, 68
+    supernodes) at 64x64 on the card, loaded once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the kernels build on first use)")
+    s = small("bunny.txt", (64, 64))
+    dev = torch.device("cuda")
+    return scene_to_device(s, dev), camera_to_device(s.state.camera, dev)
+
+
+@pytest.mark.parametrize("E", [1, 2, 6, 8])
+@pytest.mark.parametrize("scene", ["big_mesh", "bunny"])
+def test_super_keys_equal_super_rank_on_cuda(cuda_device, request, scene, E):
+    """A on mesh_big (50 supernodes) and bunny (68) at 64x64, at every
+    depth of one iteration (the pools advanced by the kernels' bounce):
+    its keys exactly `super_rank`'s over A's own object-space rays and
+    bounds, its histogram exactly theirs and B's cursor zero."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam = request.getfixturevalue(scene)
+    settings = RenderSettings(trace_depth=8, antialias=True)
+    tables = megakernel.pack_scene_tables(ds)
+    (g,) = pipeline.sorted_geoms(ds)
+    ss, sn = ds.super_ranges[g]
+    pool = _camera_pool(cam, 2, settings)
+    listed = 0
+    for depth in range(8):
+        o, d, alive = pool[0], pool[1], pool[4]
+        cands = pipeline.mesh_candidates(o, d, alive, ds, tables=tables)
+        hits = pipeline.mesh_sweep(o, d, cands, ds, tables=tables)
+        before = pipeline.super_keys.launches
+        sk = pipeline.super_keys(o, d, cands, hits, ds, g, E, tables=tables)
+        torch.cuda.synchronize()
+        assert pipeline.super_keys.launches == before + 1
+        n = int(cands.count[0])
+        listed += n
+        keys = pipeline.super_rank(tuple(sk.rays[:, :n]), sk.bt0[:n],
+                                   ds.mesh_super_aabbs[ss:ss + sn], E)
+        assert torch.equal(sk.keys[:, :n], keys), depth
+        real = keys[keys < 2 * sn].long()
+        assert torch.equal(sk.hist, torch.bincount(real, minlength=2 * sn).int()), depth
+        assert not sk.cursor.any()
+        pool = pipeline.bounce_step_pipeline(pool, ds, 2, depth, settings, tables=tables)
+    assert listed > 0
+
+
+def test_super_keys_rejects_e_above_its_registers_on_cuda(cuda_device, big_mesh):
+    """A holds a lane's keys in registers, PLACE_MAX_E of them at most."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam = big_mesh
+    (g,) = pipeline.sorted_geoms(ds)
+    pool = _camera_pool(cam, 2, RenderSettings(trace_depth=8, antialias=True))
+    o, d, alive = pool[0], pool[1], pool[4]
+    cands = pipeline.mesh_candidates(o, d, alive, ds)
+    hits = pipeline.mesh_sweep(o, d, cands, ds)
+    for E in (0, pipeline.PLACE_MAX_E + 1):
+        with pytest.raises(ValueError, match="E must be in"):
+            pipeline.super_keys(o, d, cands, hits, ds, g, E)
 
 
 def radix_exact(pl, got, want, m):

@@ -1,24 +1,42 @@
-"""Time variants of #7 (`mesh_candidates`, csrc/mesh.cu) and B
-(`place_entries`, csrc/sorted.cu) at each depth of their paths on one
-NVIDIA GPU, to find where their time goes.
+"""Time variants of four kernels at each depth of their paths on one
+NVIDIA GPU, to find where their time goes: #3 (`bounce_step`,
+csrc/bounce.cu), A (`super_keys`, csrc/sorted.cu), #7
+(`mesh_candidates`, csrc/mesh.cu) and B (`place_entries`,
+csrc/sorted.cu).
 
-    python tools/torch_mesh_variants.py [--out FILE]
+    python tools/torch_mesh_variants.py [--kernels 3,a,7,b] [--parent DIR]
+                                        [--out FILE]
 
 Each variant is its source with named lines replaced (each replaced line
 must be found, or the tool stops), built with the port's own nvcc flags
-into `_build/variants/`. The inputs are made by the port's kernels from
-the camera pool of iteration 2 and one bounce per depth (800x800, depth
-8, AA): #7's rays and alive lanes at every depth of mesh.txt (path (j)),
-and A's keys at every depth of mesh_big.txt (path (n)). For each variant
-and depth, its kernel runs 10 times under torch.profiler, routed to the
-variant's library, and its mean device ms per launch is printed with
-whether its output is bit for bit the committed kernel's (#7: the
-analytic lanes and flags of the live lanes, the list as a set; B: the
-stream per key and the total). "no_append_7" writes the list at wrong
-places on purpose (its time is what the list's atomics cost) and is not
-compared. Also per depth: #7's live lanes and the warps of 32 lanes that
-hold one, B's listed lanes and entries. Prints one JSON line per variant
-and the card's name and power limit; writes them to FILE when given.
+into `_build/variants/`. With --parent DIR (another checkout or `git
+archive` of the repository, whose wrappers call the same C entry points),
+its #3 and A are built from DIR's own sources as the variants "parent_3"
+and "parent_a", and each such variant is timed twice, before and after
+the others, so parent and committed kernels run in turns. The inputs
+are made by the port's kernels from the camera pool of iteration 2 and
+one bounce per depth (800x800, depth 8): #3's pools at depths 1-7 of
+Cornell AA as `Renderer.step()` leaves them (path (a)) and compacted with
+their live count (path (b), `--compact`); A's inputs at every depth of
+mesh_big.txt and bunny.txt AA (paths (n) and (p)); #7's rays and alive
+lanes at every depth of mesh.txt AA (path (j)); and A's keys at every
+depth of mesh_big.txt for B. For each variant and depth, its kernel runs
+10 times under torch.profiler (#3 on a fresh copy of its pool each
+time: it bounces in place), routed to the variant's library, and its
+mean device ms per launch is printed with whether its output is bit for
+bit the committed kernel's (#3: all 14 lanes; A: keys, rays and bt0 of
+the listed lanes, the histogram and the cursor; #7: the analytic lanes
+and flags of the live lanes, the list as a set; B: the stream per key and
+the total). "no_append_7", "no_hist_a", "one_super_a" and "no_loop_a"
+are wrong on purpose (their time is what the list's atomics, A's
+histogram and all of A but its loop over the supers cost) and are not
+compared; a depth whose profile recorded no launch three times is left
+out of the mean and said so. Also per depth: #3's live lanes below the
+count and the warps of 32 lanes and the 32-byte sectors (8 lanes) that
+hold one, A's listed lanes, #7's live lanes and warps holding one, B's
+listed lanes and entries. Prints one JSON line per
+variant and the card's name and power limit; writes them to FILE when
+given.
 """
 
 from __future__ import annotations
@@ -34,23 +52,247 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 DEPTH = 8
-# name -> (source, [(line in it, its replacement)])
+# name -> (kernel, [(line in its source, its replacement)])
+# #3's kernel from its first line to its bounce (replaced by the variants
+# that change how a block's threads take its lanes), its last line, and its
+# grid
+HEAD_3 = """  __shared__ int s_lanes[kBounceThreads];  // the block's live lanes, packed
+  __shared__ int s_warp[kBounceWarps];
+  const int first = blockIdx.x * kBounceThreads;
+  const int end = num_alive == nullptr ? n : min(n, __ldg(num_alive));
+  if (first >= end) return;  // the whole block
+  int i = first + threadIdx.x;
+  bool live = i < end && pool.alive[i] != 0;
+  if (__syncthreads_count(live) < kBounceThreads) {  // else every lane is live: no packing
+    int kept;
+    const int at = block_prefix<kBounceWarps>(live, s_warp, &kept);
+    if (live) s_lanes[at] = i;
+    __syncthreads();
+    live = static_cast<int>(threadIdx.x) < kept;
+    if (live) i = s_lanes[threadIdx.x];
+  }
+  if (!live) return;
+"""
+TAIL_3 = "  pool.alive[i] = alive ? 1 : 0;\n}\n"
+GRID_3 = "bounce_step_kernel<<<(n + kBounceThreads - 1) / kBounceThreads, kBounceThreads, 0,"
+
+
+def group_a(G: int) -> list:
+    """A with a group of G lanes per ray, the boxes read from global
+    memory: lane k of a group tests supers k, k + G, ... of each word, a
+    ballot joins them, the group's first lane writes the keys."""
+    return [
+        ("  const int first = blockIdx.x * kKeysThreads;",
+         f"  const int first = blockIdx.x * kKeysThreads / {G};"),
+        ("blocks_of(n, kKeysThreads)", f"blocks_of(n, kKeysThreads / {G})"),
+        (A_LOOP, f"""  const float fro = frobenius3(inv);
+  const int lane = threadIdx.x & 31;
+  const int k = lane % {G};
+  const int g0 = lane - k;
+  const unsigned bits = 0xffffffffu >> (32 - {G});
+  for (int j0 = (static_cast<int>(blockIdx.x * kKeysThreads + threadIdx.x) - lane) / {G};
+       j0 < n_listed; j0 += gridDim.x * kKeysThreads / {G}) {{
+    const int j = j0 + lane / {G};
+    const bool has = j < n_listed;
+    ObjRay r = {{}};
+    float bt = 0.0f;
+    if (has) {{
+      const int i = __ldg(list + j);
+      r = object_ray(inv, ray_o(rays, i), ray_d(rays, i));
+      const float ta = t_a[i];
+      const float tm = t_m[i];
+      const float eff = tm > 0.0f ? (ta > 0.0f ? fminf(tm, ta) : tm) : ta;
+      bt = eff > 0.0f ? eff * fro : kFltMax;
+    }}
+    int key[kPlacePer];
+#pragma unroll
+    for (int e = 0; e < kPlacePer; ++e) key[e] = dead;
+    int cnt = 0;
+    for (int w0 = 0; w0 < n_supers; w0 += 32) {{
+      unsigned m = 0;
+      for (int x = 0; x < 32 / {G}; ++x) {{
+        const int s = w0 + x * {G} + k;
+        const int sc = min(s, n_supers - 1);
+        const bool ok = has && s < n_supers &&
+                        keys_enter(__ldg(boxes + 2 * sc), __ldg(boxes + 2 * sc + 1), r, bt);
+        m |= ((__ballot_sync(0xffffffffu, ok) >> g0) & bits) << (x * {G});
+      }}
+      const int c = __popc(m);
+      if (c != 0 && cnt < E) {{
+#pragma unroll
+        for (int e = 0; e < kPlacePer; ++e) {{
+          const int rank = e - cnt;
+          if (e < E && rank >= 0 && rank < c) key[e] = w0 + __fns(m, 0, rank + 1);
+        }}
+      }}
+      cnt += c;
+      if (__all_sync(0xffffffffu, !has || cnt > E)) break;
+    }}
+    int last = dead, em2 = dead;
+#pragma unroll
+    for (int e = 0; e < kPlacePer; ++e) {{
+      if (e == E - 1) last = key[e];
+      if (e == E - 2) em2 = key[e];
+    }}
+    if (cnt > E) last = E == 1 ? n_supers + key[0] : n_supers + em2 + 1;
+    if (!has || k != 0) continue;
+    for (int e = 0; e < E; ++e) {{
+      const int v = e == E - 1 ? last : key[e];
+      keys[e * n + j] = v;
+      if (v != dead) atomicAdd(s_hist + v, 1);
+    }}
+    q[j] = r.o.x;
+    q[n + j] = r.o.y;
+    q[2 * n + j] = r.o.z;
+    q[3 * n + j] = r.d.x;
+    q[4 * n + j] = r.d.y;
+    q[5 * n + j] = r.d.z;
+    bt0[j] = bt;
+  }}
+""")]
+
+
+# A's loop over its listed lanes (replaced whole by the group variants)
+A_LOOP = None  # read from csrc/sorted.cu by `build`
+# name -> (kernel, [(line in its source, its replacement)]), or a function
+# of the source's text giving them
 VARIANTS = {
-    "committed_7": ("mesh.cu", []),
+    "committed_3": ("3", []),
+    # blocks of 256 or 512 threads, a lane a thread (committed: 128)
+    "threads256_3": ("3", [("constexpr int kBounceThreads = kThreads;",
+                            "constexpr int kBounceThreads = 256;")]),
+    "threads512_3": ("3", [("constexpr int kBounceThreads = kThreads;",
+                            "constexpr int kBounceThreads = 512;")]),
+    # every block packs, even when all its lanes are live
+    "always_pack_3": ("3", [("if (__syncthreads_count(live) < kBounceThreads) {",
+                             "if (__syncthreads_count(live) <= kBounceThreads) {")]),
+    # registers capped for 10 resident blocks an SM
+    "min10blocks_3": ("3", [(
+        "__global__ void __launch_bounds__(kBounceThreads)\n    bounce_step_kernel",
+        "__global__ void __launch_bounds__(kBounceThreads, 10)\n    bounce_step_kernel")]),
+    # 128 threads own 256 lanes, packed in two rounds and bounced in a loop
+    "lanes2_3": ("3", [
+        (HEAD_3, """  __shared__ int s_lanes[2 * kBounceThreads];
+  __shared__ int s_warp[kBounceWarps];
+  const int first = blockIdx.x * 2 * kBounceThreads;
+  const int end = num_alive == nullptr ? n : min(n, __ldg(num_alive));
+  if (first >= end) return;
+  int n_live = 0;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int l = first + k * kBounceThreads + threadIdx.x;
+    const bool lv = l < end && pool.alive[l] != 0;
+    int kept;
+    const int at = n_live + block_prefix<kBounceWarps>(lv, s_warp, &kept);
+    if (lv) s_lanes[at] = l;
+    n_live += kept;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < n_live; q += kBounceThreads) {
+    const int i = s_lanes[q];
+"""),
+        (TAIL_3, "  pool.alive[i] = alive ? 1 : 0;\n  }\n}\n"),
+        (GRID_3, "bounce_step_kernel<<<(n + 2 * kBounceThreads - 1) / (2 * kBounceThreads), "
+                 "kBounceThreads, 0,")]),
+    # #5's warp queue on a persistent grid: each warp takes the pool's
+    # 32-lane chunks w, w + warps, ... and queues their live lanes in two
+    # registers a lane, bouncing them 32 at a time
+    "warp_queue_3": ("3", [
+        (HEAD_3, """  const int lane = threadIdx.x & 31;
+  const int end = num_alive == nullptr ? n : min(n, __ldg(num_alive));
+  const int step = gridDim.x * kBounceWarps * 32;
+  int b = (blockIdx.x * kBounceWarps + (threadIdx.x >> 5)) * 32;
+  int queued = 0, q = 0, o = 0;
+  for (;;) {
+    while (queued < 32 && b < end) {
+      const int l = b + lane;
+      const unsigned live = __ballot_sync(0xffffffffu, l < end && pool.alive[l] != 0);
+      const int c = __popc(live);
+      const int r = lane - queued;
+      if (r >= 0 && r < c) q = b + static_cast<int>(__fns(live, 0, r + 1));
+      if (r + 32 < c) o = b + static_cast<int>(__fns(live, 0, r + 33));
+      queued += c;
+      b += step;
+    }
+    if (queued == 0) break;
+    const int i = q;
+    q = o;
+    const bool mine = lane < queued;
+    queued = max(queued - 32, 0);
+    if (!mine) continue;
+"""),
+        (TAIL_3, "  pool.alive[i] = alive ? 1 : 0;\n  }\n}\n"),
+        (GRID_3, """static int cache[64] = {};
+    int resident = 0;
+    err = resident_blocks(bounce_step_kernel, device, cache, &resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bounce_step_kernel<<<resident < n_blocks(n) ? resident : n_blocks(n), kBounceThreads, 0,""")]),
+    "committed_a": ("a", []),
+    # the boxes read through the read-only cache, not staged
+    "no_stage_a": ("a", [
+        ("          s_box[b] = __ldg(boxes + 2 * c0 + b);", "          (void)0;"),
+        ("keys_enter(s_box[2 * s], s_box[2 * s + 1], r, bt)",
+         "keys_enter(__ldg(boxes + 2 * (c0 + s)), __ldg(boxes + 2 * (c0 + s) + 1), r, bt)")]),
+    # 32 supers staged at a time: two or three stages a ray here (the path
+    # of a geom above kKeysStage supers; bit for bit the committed)
+    "stage32_a": ("a", [("constexpr int kKeysStage = 256;", "constexpr int kKeysStage = 32;")]),
+    # each run of 8 supers first tested as one cull box, their min / max
+    # (exact for a finite inv_d); skipped when the ray misses it
+    "cull8_a": ("a", [
+        ("  __shared__ float4 s_box[2 * kKeysStage];  // the staged supers' rows",
+         "  __shared__ float4 s_box[2 * kKeysStage];  // the staged supers' rows\n"
+         "  __shared__ float4 s_cull[2 * kKeysStage / 8];"),
+        ("          s_box[b] = __ldg(boxes + 2 * c0 + b);\n        }\n        __syncthreads();\n",
+         "          s_box[b] = __ldg(boxes + 2 * c0 + b);\n        }\n        __syncthreads();\n"
+         "        for (int c = threadIdx.x; 8 * c < in_stage; c += kKeysThreads) {\n"
+         "          float4 a = s_box[16 * c], b = s_box[16 * c + 1];\n"
+         "          for (int t = 8 * c + 1; t < min(in_stage, 8 * c + 8); ++t) {\n"
+         "            const float4 u = s_box[2 * t], v = s_box[2 * t + 1];\n"
+         "            a = make_float4(fminf(a.x, u.x), fminf(a.y, u.y), fminf(a.z, u.z), "
+         "fmaxf(a.w, u.w));\n"
+         "            b = make_float4(fmaxf(b.x, v.x), fmaxf(b.y, v.y), 0.0f, 0.0f);\n"
+         "          }\n"
+         "          s_cull[2 * c] = a;\n          s_cull[2 * c + 1] = b;\n        }\n"
+         "        __syncthreads();\n"),
+        ("        for (int g = 0; g < in_word; g += 8) {\n",
+         "        for (int g = 0; g < in_word; g += 8) {\n"
+         "          const int c = (w0 + g) / 8;\n"
+         "          if (isfinite(r.inv_d.x) && isfinite(r.inv_d.y) && isfinite(r.inv_d.z) &&\n"
+         "              !keys_enter(s_cull[2 * c], s_cull[2 * c + 1], r, bt)) continue;\n")]),
+    # a group of 8 or 32 lanes per ray (committed: 1)
+    "group8_a": ("a", lambda: group_a(8)),
+    "group32_a": ("a", lambda: group_a(32)),
+    "threads256_a": ("a", [("constexpr int kKeysThreads = 128;",
+                            "constexpr int kKeysThreads = 256;")]),
+    # a grid sized by the pool, as the parent's (committed: the resident blocks)
+    "pool_grid_a": ("a", [("std::min(blocks, blocks_of(n, kKeysThreads))",
+                           "blocks_of(n, kKeysThreads)")]),
+    # no histogram adds at all (wrong on purpose: their cost)
+    "no_hist_a": ("a", [("      if (v != dead) atomicAdd(s_hist + v, 1);",
+                         "      if (v < 0) atomicAdd(s_hist + v, 1);")]),
+    # only super 0 tested, or none (wrong on purpose: the cost of all but
+    # the supers' loop)
+    "one_super_a": ("a", [("      for (int w0 = 0; has && w0 < in_stage && cnt <= E; w0 += 32) {",
+                           "      for (int w0 = 0; has && w0 < 1 && cnt <= E; w0 += 32) {"),
+                          ("        const int in_word = min(32, in_stage - w0);",
+                           "        const int in_word = 1;")]),
+    "no_loop_a": ("a", [("      for (int w0 = 0; has && w0 < in_stage && cnt <= E; w0 += 32) {",
+                         "      for (int w0 = 0; has && w0 < 0 && cnt <= E; w0 += 32) {")]),
+    "committed_7": ("7", []),
     # a thread per lane in place: no packing of the live lanes
-    "unpacked_7": ("mesh.cu", [
+    "unpacked_7": ("7", [
         ("    const bool sweep = i < end && (live || all_lanes);",
          "    const bool sweep = i < end;"),
         ("    const bool live = (packed & kLiveBit) != 0;\n",
          "    const bool live = (packed & kLiveBit) != 0;\n"
          "    if (!live && !all_lanes) continue;\n")]),
-    "pack1_7": ("mesh.cu", [("constexpr int kCandPer = 2;", "constexpr int kCandPer = 1;")]),
-    "pack4_7": ("mesh.cu", [("constexpr int kCandPer = 2;", "constexpr int kCandPer = 4;")]),
-    "pack8_7": ("mesh.cu", [("constexpr int kCandPer = 2;", "constexpr int kCandPer = 8;")]),
-    "no_append_7": ("mesh.cu", [("s_base = atomicAdd(count, n_cands);", "s_base = 0;")]),
+    "pack1_7": ("7", [("constexpr int kCandPer = 2;", "constexpr int kCandPer = 1;")]),
+    "pack4_7": ("7", [("constexpr int kCandPer = 2;", "constexpr int kCandPer = 4;")]),
+    "pack8_7": ("7", [("constexpr int kCandPer = 2;", "constexpr int kCandPer = 8;")]),
+    "no_append_7": ("7", [("s_base = atomicAdd(count, n_cands);", "s_base = 0;")]),
     # the analytic geoms' ids listed once per block in shared memory, so
     # that the sweep loop meets no mesh geom
-    "geom_list_7": ("mesh.cu", [
+    "geom_list_7": ("7", [
         ("__device__ __forceinline__ Hit intersect_analytic(",
          "__shared__ int s_analytic[1024];\n__shared__ int s_n_analytic;\n"
          "__device__ __forceinline__ Hit intersect_analytic("),
@@ -69,26 +311,25 @@ VARIANTS = {
          "    }\n"
          "    if (threadIdx.x == 0) s_n_analytic = listed;\n"
          "  }\n")]),
-    "threads64_7": ("mesh.cu", [("constexpr int kCandThreads = 128;",
-                                 "constexpr int kCandThreads = 64;")]),
-    "threads64_pack4_7": ("mesh.cu", [
+    "threads64_7": ("7", [("constexpr int kCandThreads = 128;",
+                           "constexpr int kCandThreads = 64;")]),
+    "threads64_pack4_7": ("7", [
         ("constexpr int kCandThreads = 128;", "constexpr int kCandThreads = 64;"),
         ("constexpr int kCandPer = 2;", "constexpr int kCandPer = 4;")]),
-    "threads256_pack1_7": ("mesh.cu", [
+    "threads256_pack1_7": ("7", [
         ("constexpr int kCandThreads = 128;", "constexpr int kCandThreads = 256;"),
         ("constexpr int kCandPer = 2;", "constexpr int kCandPer = 1;")]),
-    "committed_b": ("sorted.cu", []),
-    "per6_b": ("sorted.cu", [("constexpr int kPlacePer = 8;", "constexpr int kPlacePer = 6;")]),
-    "per16_b": ("sorted.cu", [("constexpr int kPlacePer = 8;",
-                               "constexpr int kPlacePer = 16;")]),
-    "threads128_b": ("sorted.cu", [("constexpr int kPlaceThreads = 256;",
-                                    "constexpr int kPlaceThreads = 128;")]),
+    "committed_b": ("b", []),
+    "per6_b": ("b", [("constexpr int kPlacePer = 8;", "constexpr int kPlacePer = 6;")]),
+    "per16_b": ("b", [("constexpr int kPlacePer = 8;", "constexpr int kPlacePer = 16;")]),
+    "threads128_b": ("b", [("constexpr int kPlaceThreads = 256;",
+                            "constexpr int kPlaceThreads = 128;")]),
     # registers capped for 4 resident blocks of 256 threads an SM
-    "min4blocks_b": ("sorted.cu", [(
+    "min4blocks_b": ("b", [(
         "__global__ void __launch_bounds__(kPlaceThreads)\n    place_entries_kernel",
         "__global__ void __launch_bounds__(kPlaceThreads, 4)\n    place_entries_kernel")]),
     # each entry stored at its place from its thread, not staged in runs
-    "scatter_b": ("sorted.cu", [
+    "scatter_b": ("b", [
         ("""          s_key[p] = key[i];
           s_id[p] = slot * n + j0 + k * kPlaceThreads;""",
          """          out_key[s_base[key[i]] + p] = key[i];
@@ -96,19 +337,40 @@ VARIANTS = {
         ("    for (int p = threadIdx.x; p < in_tile; p += kPlaceThreads) {",
          "    for (int p = threadIdx.x; p < 0 * in_tile; p += kPlaceThreads) {")]),
 }
-WRONG = ("no_append_7",)
-KERNEL = {"mesh.cu": ("pt_mesh_candidates", "mesh_candidates_kernel"),
-          "sorted.cu": ("pt_place_entries", "place_entries_kernel")}
+WRONG = ("no_append_7", "no_hist_a", "one_super_a", "no_loop_a")
+# kernel -> (source, C entry point, kernel symbol, path)
+KERNEL = {"3": ("bounce.cu", "pt_bounce_step", "bounce_step_kernel", "(a), (b) cornell.txt"),
+          "a": ("sorted.cu", "pt_super_keys", "super_keys_kernel", "(n), (p) mesh_big, bunny"),
+          "7": ("mesh.cu", "pt_mesh_candidates", "mesh_candidates_kernel", "(j) mesh.txt"),
+          "b": ("sorted.cu", "pt_place_entries", "place_entries_kernel", "(n) mesh_big.txt")}
 
 
-def build(out_dir: str) -> dict:
-    """{variant: library path}, all built in parallel."""
+PARENT = {"3": "parent_3", "a": "parent_a"}  # --parent's variants: its own sources
+RESOLVED = {}  # variant -> the replacements `build` made
+
+
+def build(out_dir: str, names, parent=None) -> dict:
+    """{variant: library path} of `names`, all built in parallel."""
+    global A_LOOP
     from project3_cuda_path_tracer_tpu_torch.ops import _native
 
     os.makedirs(out_dir, exist_ok=True)
     procs, libs = [], {}
-    for name, (src, subs) in VARIANTS.items():
-        text = (_native.CSRC / src).read_text()
+    for name in names:
+        if name in PARENT.values():
+            src_dir = os.path.join(parent, "project3_cuda_path_tracer_tpu_torch", "csrc")
+            k = name[-1]
+            subs = []
+        else:
+            src_dir = str(_native.CSRC)
+            k, subs = VARIANTS[name]
+        src = KERNEL[k][0]
+        with open(os.path.join(src_dir, src)) as f:
+            text = f.read()
+        if callable(subs):
+            A_LOOP = a_loop(text)
+            subs = subs()
+        RESOLVED[name] = subs
         for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"variant {name}: {old!r} not in csrc/{src}")
@@ -118,8 +380,8 @@ def build(out_dir: str) -> dict:
             f.write(text)
         libs[name] = os.path.join(out_dir, f"{name}.so")
         procs.append(subprocess.Popen(
-            [_native.find_nvcc(), *_native.NVCC_FLAGS, "-I", str(_native.CSRC), "-o",
-             libs[name], cu], stderr=subprocess.PIPE, text=True))
+            [_native.find_nvcc(), *_native.NVCC_FLAGS, "-I", src_dir, "-o", libs[name], cu],
+            stderr=subprocess.PIPE, text=True))
     for p in procs:
         _, err = p.communicate(timeout=600)
         if p.returncode != 0:
@@ -127,55 +389,105 @@ def build(out_dir: str) -> dict:
     return libs
 
 
-def inputs(dev):
-    """Per depth of iteration 2 (800x800 AA): mesh.txt's (scene, tables,
-    rays, alive) for #7, and mesh_big.txt's (A's keys, #7's count) for B."""
+def a_loop(text: str) -> str:
+    """A's loop over its listed lanes in csrc/sorted.cu, from the bound's
+    norm to the end of the loop (the group variants replace it whole)."""
+    start = text.index("  const float fro = frobenius3(inv);\n  for (int j0 = first;")
+    end = text.index("    bt0[j] = bt;\n  }\n", start) + len("    bt0[j] = bt;\n  }\n")
+    return text[start:end]
+
+
+def clone_pool(pool):
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+
+    lanes = [a.clone() for a in mk.pool_lanes(pool)]
+    return (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]), Vec3(*lanes[9:12]),
+            lanes[12], lanes[13])
+
+
+def inputs(dev, kernels):
+    """Per depth of iteration 2 (800x800): {path label: (scene, tables,
+    settings, [per depth inputs])}: for #3 (a) Cornell AA's pools entering
+    depths 1-7 and (b) the same compacted, with their live count; for A
+    (n) mesh_big's and (p) bunny's (rays, #7's list, #8's hits, geom);
+    for #7 (j) mesh.txt's (rays, alive); for B mesh_big's (A's keys, #7's
+    count)."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.models.scene import load_scene
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
     from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
     from project3_cuda_path_tracer_tpu_torch.render import (
         Renderer,
         RenderSettings,
         _camera_pool,
+        _count_alive,
+        _maybe_compact,
     )
 
-    settings = RenderSettings(trace_depth=DEPTH, antialias=True)
     out = {}
-    for name in ("mesh.txt", "mesh_big.txt"):
+    if "3" in kernels:
+        for label, kw in (("a", {}), ("b", {"compact": True})):
+            settings = RenderSettings(trace_depth=DEPTH, antialias=True, **kw)
+            r = Renderer(load_scene(os.path.join(ROOT, "scenes", "cornell.txt")), settings,
+                         device=dev)
+            pool = mk.first_bounce(r.dev_scene, r.dev_camera, 2, settings, tables=r.tables)
+            rows = []
+            for d in range(1, DEPTH):
+                pool = _maybe_compact(pool, settings)
+                n_alive = _count_alive(pool) if settings.compact else None
+                rows.append((clone_pool(pool), n_alive, d))
+                mk.bounce_step(pool, r.dev_scene, 2, d, settings, num_alive=n_alive,
+                               tables=r.tables)
+            out[label] = (r.dev_scene, r.tables, settings, rows)
+    settings = RenderSettings(trace_depth=DEPTH, antialias=True)
+    scenes = {"j": "mesh.txt"} if "7" in kernels else {}
+    if "a" in kernels or "b" in kernels:
+        scenes["n"] = "mesh_big.txt"
+    if "a" in kernels:
+        scenes["p"] = "bunny.txt"
+    for label, name in scenes.items():
         r = Renderer(load_scene(os.path.join(ROOT, "scenes", name)), settings, device=dev)
         ds, tables = r.dev_scene, r.tables
         pool = _camera_pool(r.dev_camera, 2, settings)
         rows = []
         for d in range(DEPTH):
             o, dirs, alive = pool[0], pool[1], pool[4]
+            # the pool is bounced in place: keep this depth's lanes
+            o, dirs = Vec3(*(c.clone() for c in o)), Vec3(*(c.clone() for c in dirs))
             if name == "mesh.txt":
-                # the pool is bounced in place: keep this depth's lanes
-                rows.append((Vec3(*(c.clone() for c in o)), Vec3(*(c.clone() for c in dirs)),
-                             alive.clone()))
+                rows.append((o, dirs, alive.clone()))
             else:
                 cands = pl.mesh_candidates(o, dirs, alive, ds, tables=tables)
                 hits = pl.mesh_sweep(o, dirs, cands, ds, tables=tables)
                 (g,) = pl.sorted_geoms(ds)
                 sk = pl.super_keys(o, dirs, cands, hits, ds, g, tables=tables)
-                rows.append((sk, cands.count.clone()))
+                rows.append((o, dirs, cands, hits, g, sk))
             pool = pl.bounce_step_pipeline(pool, ds, 2, d, settings, tables=tables)
-        torch.cuda.synchronize()
-        out[name] = (ds, tables, rows)
+        out[label] = (ds, tables, settings, rows)
+    torch.cuda.synchronize()
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default="3,a,7,b",
+                    help="the kernels whose variants to time (of 3, a, 7, b)")
+    ap.add_argument("--parent", help="another checkout: its #3 and A as variants")
     ap.add_argument("--out", help="write the results here as JSON")
     args = ap.parse_args()
+    kernels = [k for k in args.kernels.split(",") if k]
+    if not set(kernels) <= set(KERNEL):
+        ap.error(f"--kernels: of {sorted(KERNEL)}")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
     from project3_cuda_path_tracer_tpu_torch.ops import _native
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
 
     if not torch.cuda.is_available():
@@ -183,48 +495,98 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     smi = chip_smoke.nvidia_smi_line()
-    libs = build(os.path.join(str(_native.BUILD_DIR), "variants"))
-    data = inputs(dev)
-    ds7, tables7, rows7 = data["mesh.txt"]
-    _, _, rows_b = data["mesh_big.txt"]
-    P = rows7[0][2].shape[0]
+    # per kernel: (parent,) committed, the others, committed again (, parent)
+    order = []
+    for k in kernels:
+        mine = [n for n, (kk, _) in VARIANTS.items() if kk == k]
+        turns = [PARENT[k]] if args.parent and k in PARENT else []
+        order += turns + mine + [f"committed_{k}"] + turns
+    libs = build(os.path.join(str(_native.BUILD_DIR), "variants"), sorted(set(order)),
+                 os.path.abspath(args.parent) if args.parent else None)
+    data = inputs(dev, kernels)
+    bits = chip_smoke.bitwise
 
-    def run7(row):
-        o, d, alive = row
-        return pl.mesh_candidates(o, d, alive, ds7, tables=tables7)
+    def run(k, label, row):
+        ds, tables, settings, _ = data[label]
+        if k == "3":
+            pool, n_alive, d = row
+            work = clone_pool(pool)
 
-    def same7(got, want, alive):
-        live = alive != 0
-        lanes = lambda c: set(c.lanes[:int(c.count[0])].tolist())  # noqa: E731
-        return (all(torch.equal(chip_smoke.bitwise(a[live]), chip_smoke.bitwise(b[live]))
-                    for a, b in zip((got.t, *got.normal, got.material_id, got.cand),
-                                    (want.t, *want.normal, want.material_id, want.cand)))
-                and lanes(got) == lanes(want))
+            def bounce():  # on a fresh copy of the pool: #3 bounces in place
+                for a, b in zip(mk.pool_lanes(work), mk.pool_lanes(pool)):
+                    a.copy_(b)
+                return mk.bounce_step(work, ds, 2, d, settings, num_alive=n_alive,
+                                      tables=tables)
+            return bounce
+        if k == "a":
+            o, dirs, cands, hits, g, _ = row
+            return lambda: pl.super_keys(o, dirs, cands, hits, ds, g, tables=tables)
+        if k == "7":
+            o, dirs, alive = row
+            return lambda: pl.mesh_candidates(o, dirs, alive, ds, tables=tables)
+        sk, count = row[5], row[2].count
+        return lambda: pl.place_entries(sk, count)
 
-    def run_b(row):
-        sk, count = row
-        return pl.place_entries(sk, count)
-
-    def same_b(got, want):
+    def same(k, got, want, row):
+        if k == "3":
+            return all(torch.equal(bits(a), bits(b))
+                       for a, b in zip(mk.pool_lanes(got), mk.pool_lanes(want)))
+        if k == "a":
+            n = int(row[2].count[0])
+            return (torch.equal(got.keys[:, :n], want.keys[:, :n])
+                    and torch.equal(bits(got.rays[:, :n]), bits(want.rays[:, :n]))
+                    and torch.equal(bits(got.bt0[:n]), bits(want.bt0[:n]))
+                    and torch.equal(got.hist, want.hist)
+                    and (got.cursor is None or torch.equal(got.cursor, want.cursor)))
+        if k == "7":
+            live = row[2] != 0
+            lanes = lambda c: set(c.lanes[:int(c.count[0])].tolist())  # noqa: E731
+            return (all(torch.equal(bits(a[live]), bits(b[live]))
+                        for a, b in zip((got.t, *got.normal, got.material_id, got.cand),
+                                        (want.t, *want.normal, want.material_id, want.cand)))
+                    and lanes(got) == lanes(want))
         m = int(want.total[0])
         pairs = lambda s: torch.sort(  # noqa: E731
             s.key[:m].long() * (1 << 32) + s.entry[:m].long()).values
         return int(got.total[0]) == m and torch.equal(pairs(got), pairs(want))
 
-    want7 = [run7(row) for row in rows7]
-    want_b = [run_b(row) for row in rows_b]
+    def snapshot(k, out):
+        return clone_pool(out) if k == "3" else out
+
+    paths = {"3": ("a", "b"), "a": ("n", "p"), "7": ("j",), "b": ("n",)}
+    want = {(k, label): [snapshot(k, run(k, label, row)()) for row in data[label][3]]
+            for k in kernels for label in paths[k]}
     torch.cuda.synchronize()
-    work = {
-        "lanes_in": [int((row[2] != 0).sum()) for row in rows7],
-        "warps_with_live": [int((row[2] != 0).view(-1, 32).any(1).sum()) for row in rows7],
-        "listed": [int(row[1][0]) for row in rows_b],
-        "entries": [int(w.total[0]) for w in want_b]}
+    work = {}
+    for k in kernels:
+        for label in paths[k]:
+            rows = data[label][3]
+            if k == "3":
+                ends = [row[0][5].shape[0] if row[1] is None else int(row[1]) for row in rows]
+                live = [(row[0][4][:e] != 0) for row, e in zip(rows, ends)]
+                held = lambda x, w: int(torch.nn.functional.pad(  # noqa: E731
+                    x, (0, -x.shape[0] % w)).view(-1, w).any(1).sum())
+                work[(k, label)] = {
+                    "lanes_in": [int(x.sum()) for x in live],
+                    "warps_with_live": [held(x, 32) for x in live],
+                    # the 32-byte sectors of a float lane that hold a live lane
+                    "sectors_with_live": [held(x, 8) for x in live]}
+            elif k == "7":
+                work[(k, label)] = {
+                    "lanes_in": [int((row[2] != 0).sum()) for row in rows],
+                    "warps_with_live": [int((row[2] != 0).view(-1, 32).any(1).sum())
+                                        for row in rows]}
+            elif k == "a":
+                work[(k, label)] = {"listed": [int(row[2].count[0]) for row in rows]}
+            else:
+                work[(k, label)] = {"listed": [int(row[2].count[0]) for row in rows],
+                                    "entries": [int(w.total[0]) for w in want[(k, label)]]}
     committed = pl._launch
-    rows = []
-    for name, path in libs.items():
-        src, _ = VARIANTS[name]
-        entry, symbol = KERNEL[src]
-        lib = ctypes.CDLL(path)
+    results = []
+    for turn, name in enumerate(order):
+        k = name[-1]
+        src, entry, symbol, what = KERNEL[k]
+        lib = ctypes.CDLL(libs[name])
         getattr(lib, entry).argtypes = _native.SIGNATURES[entry]
         getattr(lib, entry).restype = ctypes.c_int
 
@@ -234,46 +596,51 @@ def main() -> int:
             if getattr(lib, fn)(*a) != 0:
                 raise RuntimeError(f"{what}: launch failed")
 
-        pl._launch = launch
+        pl._launch = mk._launch = launch
         try:
-            if src == "mesh.cu":
-                exact = all(same7(run7(row), w, row[2]) for row, w in zip(rows7, want7))
-                cases = [lambda row=row: run7(row) for row in rows7]
-            else:
-                exact = all(same_b(run_b(row), w) for row, w in zip(rows_b, want_b))
-                cases = [lambda row=row: run_b(row) for row in rows_b]
-            per_depth = []
-            for fn in cases:
-                for _ in range(2):  # a profile that recorded nothing is taken once more
-                    with profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
-                        for _ in range(10):
-                            fn()
-                        torch.cuda.synchronize()
-                    ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA
-                          and symbol in e.name]
-                    if ms:
-                        break
-                else:
-                    raise RuntimeError(f"{name}: the profiler saw no launch, twice")
-                per_depth.append(sum(ms) / len(ms))
+            exact, per_path = True, {}
+            for label in paths[k]:
+                rows = data[label][3]
+                exact &= all(same(k, run(k, label, row)(), w, row)
+                             for row, w in zip(rows, want[(k, label)]))
+                per_depth = []
+                for d, row in enumerate(rows):
+                    fn = run(k, label, row)
+                    for _ in range(3):  # a profile that recorded no launch is taken again
+                        with profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+                            for _ in range(10):
+                                fn()
+                            torch.cuda.synchronize()
+                        seen = [e for e in prof.events()
+                                if e.device_type == torch.autograd.DeviceType.CUDA]
+                        ms = [e.time_range.elapsed_us() / 1e3 for e in seen if symbol in e.name]
+                        if ms:
+                            break
+                    else:  # left out of the mean, and said so
+                        print(f"{name}: path ({label}) depth {d}: the profiler saw no "
+                              f"launch, three times ({len(seen)} device events: "
+                              f"{sorted({e.name[:60] for e in seen})[:4]})", file=sys.stderr)
+                    per_depth.append(sum(ms) / len(ms) if ms else None)
+                done = [x for x in per_depth if x is not None]
+                per_path[label] = {"ms_per_depth": per_depth,
+                                   "ms_mean": sum(done) / len(done) if done else None,
+                                   "work_per_depth": work[(k, label)]}
         finally:
-            pl._launch = committed
-        row = {"variant": name, "source": f"csrc/{src}", "replaced": VARIANTS[name][1],
-               "path": "(j) mesh.txt" if src == "mesh.cu" else "(n) mesh_big.txt",
-               "pool": P, "bit_for_bit": None if name in WRONG else exact,
-               "ms_per_depth": per_depth, "ms_mean": sum(per_depth) / len(per_depth),
-               "work_per_depth": {k: v for k, v in work.items()
-                                  if (k in ("lanes_in", "warps_with_live")) == (src == "mesh.cu")},
+            pl._launch = mk._launch = committed
+        row = {"variant": name, "turn": turn, "kernel": k, "source": f"csrc/{src}",
+               "replaced": ("the --parent checkout's source" if name in PARENT.values()
+                            else RESOLVED[name]),
+               "paths": per_path, "bit_for_bit": None if name in WRONG else exact,
                "device": smi}
-        rows.append(row)
+        results.append(row)
         print(json.dumps(row), flush=True)
     print(smi, flush=True)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(rows, f, indent=1)
-    return 0 if all(r["bit_for_bit"] for r in rows if r["variant"].startswith("committed")) else 1
+            json.dump(results, f, indent=1)
+    return 0 if all(r["bit_for_bit"] for r in results
+                    if r["variant"].startswith(("committed", "parent"))) else 1
 
 
 if __name__ == "__main__":
