@@ -66,10 +66,16 @@ two kernels' device times, launches and bounds on the four NEE paths,
 and #8's work per walk on its wide tables beside the binary walk's, with
 the lanes on which the two walks' winners differ. Every path's line also
 gives its device events per iteration and per depth, on the mesh and
-big-mesh paths #7's device ms at each depth and on the per-bounce paths
-#3's; #3's line per depth sets them beside the live lanes and the warps
-that hold one (`bounce_step_depths`), A's on mesh_big and bunny beside
-its listed lanes (`super_keys_depths`). Every path is driven
+big-mesh paths #7's and #9's device ms at each depth and on the
+per-bounce paths #3's; #3's line per depth sets them beside the live
+lanes and the warps that hold one (`bounce_step_depths`), A's on mesh_big
+and bunny beside its listed lanes (`super_keys_depths`), #9's on
+mesh.txt, mesh_big and bunny beside its live lanes, the warps and
+sectors that hold one and its candidates (`bounce_step_mesh_depths`)
+and D's on mesh_big and bunny beside its listed lanes, real entries and
+hits (`merge_entries_depths`); the last two also hold #9 and D against
+their plain versions at every depth of an iteration driven by the
+kernels. Every path is driven
 with the launch counts set to 0 just before it and read just after.
 Every phase prints one line; any failure raises and exits non-zero
 before the result lines are printed. Imports nothing of JAX or of the
@@ -992,7 +998,7 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2, split=None):
     pool = _camera_pool(cam, iteration, settings)
     worst = {k: (0.0, 0.0) for k in SORTED_KERNELS + ("chain",)}
     names = ("lanes_in", "candidates", "entries", "tail_entries", "chunks",
-             "tris", "mesh_hits")
+             "tris", "under_bound", "mesh_hits")
     work = {k: [] for k in names}
     plain = dict.fromkeys(SORTED_KERNELS, 0.0)
     radix_plain, library, radix_work = {}, {}, {}
@@ -1046,6 +1052,11 @@ def sorted_parity(ds, cam, settings, depths, tables, iteration=2, split=None):
             count["tail_entries"] += int((pst.key[:m] >= sn).sum())
             count["chunks"] += int(probe["chunks"].sum())
             count["tris"] += int(probe["tris"].sum())
+            # D's listed lanes whose least slot t is under their bound: the
+            # lanes whose world ray and epilogue it needs
+            bt = torch.where(psk.keys[:, :n] < psk.hist.shape[0], peh.t[:, :n],
+                             pl.FLT_MAX).amin(0) if n else peh.t[0, :0]
+            count["under_bound"] += int(((bt < pl.FLT_MAX) & (bt < psk.bt0[:n])).sum())
             count["mesh_hits"] += int((phits.t[listed] != before[listed]).sum())
             if check:
                 key_off = float((sk.keys[:, :n] != psk.keys[:, :n]).float().mean())
@@ -1466,6 +1477,82 @@ def listed_per_depth(rb, depth, iteration=2) -> list:
     return listed
 
 
+def mesh_depths(r, depth_n, iteration=2):
+    """One iteration of Renderer `r`'s mesh path (its camera, AA, depth
+    depth_n) driven by the kernels, #7 -> #8 [-> A -> B -> C -> D per big
+    geom] -> #9 at every depth, holding D and #9 at each depth against
+    their plain versions on that depth's own inputs (the lane rule on the
+    listed lanes' hits and the pool, #9's pix exactly), and counting #9's
+    work (its live lanes, the warps of 32 lanes and the 32-byte sectors of
+    a lane array that hold one, the candidates) and D's (its listed lanes,
+    the real entries, the lanes whose mesh hit it replaced). Returns
+    ({kernel: (worst share, max_abs_err)}, {count: [per depth]})."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.render import RenderSettings, _camera_pool
+
+    settings = RenderSettings(trace_depth=depth_n, antialias=True)
+    ds, tables = r.dev_scene, r.tables
+    pool = _camera_pool(r.dev_camera, iteration, settings)
+    worst = {}
+    work = {k: [] for k in ("lanes_in", "warps_with_live", "sectors_with_live",
+                            "candidates", "listed", "entries", "hits")}
+    for depth in range(depth_n):
+        o, d, live = pool[0], pool[1], pool[4] != 0
+        work["lanes_in"].append(int(live.sum()))
+        for k, w in (("warps_with_live", 32), ("sectors_with_live", 8)):
+            pad = torch.nn.functional.pad(live, (0, -live.shape[0] % w))
+            work[k].append(int(pad.view(-1, w).any(1).sum()))
+        cands = pl.mesh_candidates(o, d, pool[4], ds, tables=tables)
+        hits = pl.mesh_sweep(o, d, cands, ds, tables=tables)
+        n = int(cands.count[0])
+        listed = cands.lanes[:n].long()
+        work["candidates"].append(n)
+        entries = merged = 0
+        for g in pl.sorted_geoms(ds):
+            sk = pl.super_keys(o, d, cands, hits, ds, g, tables=tables)
+            st = pl.place_entries(sk, cands.count)
+            eh = pl.window_sweep(st, sk, ds, g, tables=tables)
+            want = pl.merge_entries_reference(o, d, cands, clone_hits(hits), sk, eh, ds, g)
+            before = hits.t.clone()
+            pl.merge_entries(o, d, cands, hits, sk, eh, ds, g, tables=tables)
+            torch.cuda.synchronize()
+            r_d = lane_rule([a[listed] for a in hit_lanes(hits)],
+                            [a[listed] for a in hit_lanes(want)])
+            worst["merge_entries"] = tuple(max(a, b) for a, b in zip(
+                worst.get("merge_entries", (0.0, 0.0)), r_d))
+            entries += int(st.total[0])
+            merged += int((hits.t[listed] != before[listed]).sum())
+        if pl.sorted_geoms(ds):
+            work["listed"].append(n)
+            work["entries"].append(entries)
+            work["hits"].append(merged)
+        # the plain #9 reads every lane's analytic hit, #7 writes the live
+        # lanes' alone: a dead lane's is a miss here
+        plain_cands = cands._replace(
+            t=torch.where(live, cands.t, -1.0),
+            normal=type(o)(*(torch.where(live, c, 0.0) for c in cands.normal)),
+            material_id=torch.where(live, cands.material_id, -1),
+            outside=cands.outside | ~live, cand=cands.cand & live)
+        want9 = pl.bounce_step_mesh_reference(pool, plain_cands, hits, ds, iteration, depth,
+                                              settings)
+        pl.bounce_step_mesh(pool, cands, hits, ds, iteration, depth, settings, tables=tables)
+        torch.cuda.synchronize()
+        g9, w9 = mk.pool_lanes(pool), mk.pool_lanes(want9)
+        if not torch.equal(g9[13], w9[13]):
+            raise RuntimeError(f"bounce_step_mesh: pix differs at depth {depth}")
+        r9 = lane_rule(g9[:13], w9[:13])
+        worst["bounce_step_mesh"] = tuple(max(a, b) for a, b in zip(
+            worst.get("bounce_step_mesh", (0.0, 0.0)), r9))
+    for k, (w, _) in worst.items():
+        if w > LANE_FRAC:
+            raise RuntimeError(f"{k} disagrees with its plain version on {w:.2%} of "
+                               f"lanes at a depth of the kernels' iteration")
+    return worst, {k: v for k, v in work.items() if v}
+
+
 def moving_cornell(tmpdir) -> str:
     """scenes/cornell.txt with its sphere moving (VELOCITY 2 0 0)."""
     text = open(os.path.join(HERE, "scenes", "cornell.txt")).read()
@@ -1528,13 +1615,14 @@ def main() -> int:
         triton=triton_version, nvcc=nvcc_version, python=sys.version.split()[0])
 
     # ---- 2. build every kernel from this checkout's sources ----
-    # (the registers, shared memory and stack frames of A, B, C, #1, #3,
-    # #7, #8, #5, #6 and the radix kernels from ptxas, compiled beside the
-    # build)
-    ptxas_of = (("sorted.cu", "window_sweep|place_entries|super_keys"),
+    # (the registers, shared memory and stack frames of A, B, C, D, #1,
+    # #3, #7, #8, #9, #5, #6 and the radix kernels from ptxas, compiled
+    # beside the build)
+    ptxas_of = (("sorted.cu", "window_sweep|place_entries|super_keys|merge_entries"),
                 ("bounce.cu", "bounce_step_kernel"),
                 ("full_iteration.cu", "full_iteration"),
-                ("mesh.cu", "mesh_sweep|mesh_candidates"), ("nee.cu", "nee_kernel"),
+                ("mesh.cu", "mesh_sweep|mesh_candidates|bounce_step_mesh"),
+                ("nee.cu", "nee_kernel"),
                 ("radix.cu", "radix_"))
     ptxas = {src: ptxas_verbose(nvcc, f"{PKG}/csrc/{src}", tmpdir)
              for src, _ in ptxas_of}
@@ -2010,9 +2098,10 @@ def main() -> int:
         # launch of #6 of ITERATIONS_PER_LAUNCH iterations
         n_prof = (mk.ITERATIONS_PER_LAUNCH if settings.nee_mis and route == "step_batch"
                   else 10)
-        # per depth: #7 where it runs once a depth, and the big-mesh routes'
-        # kernels
-        by_depth = ("mesh_candidates",) if label in one_walk_a_depth else ()
+        # per depth: #7 and #9 where they run once a depth, and the big-mesh
+        # routes' kernels
+        by_depth = (("mesh_candidates", "bounce_step_mesh") if label in one_walk_a_depth
+                    else ())
         if label in per_bounce:
             by_depth += ("bounce_step",)
         if name in BIG_SCENES:
@@ -2259,6 +2348,35 @@ def main() -> int:
             label: {"ms_per_depth": kernel_ms_of[label].get("super_keys@depth"),
                     "listed": listed_per_depth(big[name], D)}
             for label, name in (("big_mesh", "mesh_big.txt"), ("bunny", "bunny.txt"))})
+    # #9 per depth on (j), (n) and (p) beside the pool it meets, D on (n)
+    # and (p) beside its lists, from an iteration driven by the kernels
+    # that also holds both against their plain versions at every depth
+    depth_paths = {"mesh": Renderer(load_scene(os.path.join(HERE, "scenes", "mesh.txt")),
+                                    RenderSettings(trace_depth=D, antialias=True),
+                                    device=dev),
+                   "big_mesh": big_renderer("mesh_big.txt", RenderSettings(trace_depth=D)),
+                   "bunny": big_renderer("bunny.txt", RenderSettings(trace_depth=D))}
+    depth_work, depth_worst = {}, {}
+    for label, rd in depth_paths.items():
+        depth_worst[label], depth_work[label] = mesh_depths(rd, D)
+    rule = f"share(|d|>{LANE_ATOL})<={LANE_FRAC}, pix exact"
+    say("bounce_step_mesh_depths", kernel="bounce_step_mesh", device=smi, res="800x800",
+        settings={"antialias": True}, depths=list(range(D)), per_path={
+            label: {"ms_per_depth": kernel_ms_of[label].get("bounce_step_mesh@depth"),
+                    **{k: depth_work[label][k] for k in (
+                        "lanes_in", "warps_with_live", "sectors_with_live", "candidates")},
+                    "against_plain": dict(zip(("outlier_share", "max_abs_err"),
+                                              depth_worst[label]["bounce_step_mesh"]))}
+            for label in depth_paths}, rule=rule,
+        lanes_from="an iteration (2) driven by the kernels")
+    say("merge_entries_depths", kernel="merge_entries", device=smi, res="800x800",
+        settings={"antialias": True}, depths=list(range(D)), E=pl.SORT_EXPAND, per_path={
+            label: {"ms_per_depth": kernel_ms_of[label].get("merge_entries@depth"),
+                    **{k: depth_work[label][k] for k in ("listed", "entries", "hits")},
+                    "against_plain": dict(zip(("outlier_share", "max_abs_err"),
+                                              depth_worst[label]["merge_entries"]))}
+            for label in ("big_mesh", "bunny")}, rule=rule,
+        lanes_from="an iteration (2) driven by the kernels")
     # the mesh kernels' bounds, per launch averaged over the depths
     n_mesh = len(mds.mesh_geoms)
     mc = {k: np.array(v, np.float64) for k, v in mesh_counts.items()}
@@ -2277,13 +2395,18 @@ def main() -> int:
             np.mean(mc["candidates"] * n_mesh * OPS_CANDIDACY
                     + mc["nodes"] * OPS_NODE + mc["tris"] * OPS_MT
                     + mc["mesh_hits"] * OPS_MESH_HIT)),
-        # #3's pool bytes, the analytic winner (22 B) per live lane and
-        # the mesh winner (21 B) per candidate
+        # #3's pool bytes and, per live lane, its candidacy flag, its
+        # analytic t and the winner's normal, material and side (22 B);
+        # per candidate its mesh t (the other fields are read from the
+        # winner's lanes alone)
         "bounce_step_mesh": bound(
-            np.mean(4 * P + 126 * mc["lanes_in"] + 21 * mc["candidates"]),
+            np.mean(4 * P + 126 * mc["lanes_in"] + 4 * mc["candidates"]),
             np.mean(mc["lanes_in"] * (OPS_MERGE + OPS_SHADE))),
         # the cache fill: every lane's analytic winner in, 9 lanes out; the
-        # mesh winner of each candidate
+        # mesh winner of each candidate. The bytes' time is DRAM's; #10
+        # runs below it (about 0.0098 against 0.0101 ms on an H100)
+        # because #7 and #8 wrote its inputs just before and the 50 MB L2
+        # serves them, so it is no kernel at its bound
         "intersect_mesh": bound(52 * P + 30 * fill_n, P * OPS_MERGE),
     }
     bounds = {
@@ -2370,14 +2493,16 @@ def main() -> int:
         "window_sweep": bound(
             48 * b_tc + 32 * b_cn + np.mean(48 * bw["entries"]),
             np.mean(OPS_CHUNK_TEST * bw["chunks"] + OPS_MT * bw["tris"])),
-        # per listed lane: list entry, E keys, object ray, bt0, world ray
-        # and its hit t; per real entry C's 16 B; per winner its corner
-        # normals and UVs (64 B) in and 9 hit lanes (30 B) out
+        # what D needs: per listed lane its E keys and bt0; per real entry
+        # C's t; per lane under its bound its list entry, object ray (24
+        # B), the winner's triangle, u and v, its world ray and hit t (68
+        # B); per merged hit the corner normals and UVs (64 B) in and 9
+        # hit lanes (30 B) out
         "merge_entries": bound(
-            np.mean((4 + 4 * E + 28 + 24 + 4) * bw["candidates"]
-                    + 16 * bw["entries"] + 94 * bw["mesh_hits"]),
+            np.mean((4 * E + 4) * bw["candidates"] + 4 * bw["entries"]
+                    + 68 * bw["under_bound"] + 94 * bw["mesh_hits"]),
             np.mean(OPS_SLOT * E * bw["candidates"]
-                    + OPS_MESH_HIT * bw["mesh_hits"])),
+                    + OPS_MESH_HIT * bw["under_bound"])),
     })
     for name in SORTED_KERNELS:
         timing[name] = (kernel_ms_of["big_mesh"][name], big_plain[name],

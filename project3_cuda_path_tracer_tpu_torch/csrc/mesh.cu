@@ -50,9 +50,13 @@
 //   #9  bounce_step_mesh_kernel replaces bounce_step_pipeline's K3: one
 //       thread per lane, in place on the pool. The mesh hit wins iff the
 //       lane is a candidate, t_mesh > 0 and (t_a > 0 ? t_a : FLT_MAX) >
-//       t_mesh; then the shared `shade` body exactly as kernel #3 runs it
-//       (the same RNG slots keyed on pix, Russian roulette, the live-count
-//       skip). The BVH walk stays in #8, so #9's body is #3's less the sweep.
+//       t_mesh, decided from those three reads; the winner's other fields
+//       are then read from its lanes alone (merged_hit). Then the shared
+//       `shade` body exactly as kernel #3 runs it (the same RNG slots keyed
+//       on pix, Russian roulette, the live-count skip). The BVH walk stays
+//       in #8, so #9's body is #3's less the sweep. #3's packing of a
+//       block's live lanes was measured here and gains nothing (PERF.md
+//       §6): #9 is held by the 32-byte sectors of its pool, not its warps.
 //   #10 intersect_mesh_kernel replaces intersect_pipeline's K3: the same
 //       merge without shading, written as Intersections lanes (t, normal,
 //       material, outside, tex_u, tex_v, has_uv). Dead lanes keep their
@@ -404,6 +408,28 @@ __device__ __forceinline__ Hit load_hit(const HitLanes& l, int i) {
   return h;
 }
 
+// Lane i's merged hit for #9, field by field: the winner decided from the
+// candidacy flag and the two t alone (mesh_wins's rule), then the normal,
+// material and side each read once, from the winner's lanes, so a lane
+// that the mesh wins reads none of the analytic ones. The lane arrays'
+// pointers are selected, never a struct: a pointer to either kernel
+// parameter would put both in local memory. #10 keeps mesh_wins and
+// load_hit.
+__device__ __forceinline__ Hit merged_hit(const HitLanes& a, const HitLanes& mh, int i) {
+  const float ta = a.t[i];
+  const float tm = a.flag[i] ? mh.t[i] : 0.0f;
+  const bool mesh = tm > 0.0f && (ta > 0.0f ? ta : kFltMax) > tm;
+  const float* nx = mesh ? mh.n[0] : a.n[0];
+  const float* ny = mesh ? mh.n[1] : a.n[1];
+  const float* nz = mesh ? mh.n[2] : a.n[2];
+  Hit h;
+  h.t = mesh ? tm : ta;
+  h.n = {nx[i], ny[i], nz[i]};
+  h.mat = (mesh ? mh.mat : a.mat)[i];
+  h.outside = (mesh ? mh.outside : a.outside)[i] != 0;
+  return h;
+}
+
 __global__ void __launch_bounds__(kThreads)
     bounce_step_mesh_kernel(const Tables s, const Lanes pool, const int* __restrict__ num_alive,
                             int n, const HitLanes a, const HitLanes mh, int iteration, int depth) {
@@ -412,10 +438,7 @@ __global__ void __launch_bounds__(kThreads)
   if (num_alive != nullptr && i >= __ldg(num_alive)) return;
   if (pool.alive[i] == 0) return;
   Path p = load_path(pool, i);
-  // two loads, not one through a selected struct: a pointer to either
-  // kernel parameter would put both in local memory
-  Hit h = load_hit(a, i);
-  if (mesh_wins(a, mh, i)) h = load_hit(mh, i);
+  const Hit h = merged_hit(a, mh, i);
   const bool alive = shade(s, p, h, static_cast<uint32_t>(iteration), depth,
                            static_cast<uint32_t>(pool.pix[i]));
   store_path(pool, i, p);

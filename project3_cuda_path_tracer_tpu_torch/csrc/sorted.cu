@@ -91,8 +91,16 @@
 //      sweep's tie order), the hit rule bt < FLT_MAX and bt < bt0, the
 //      winner's normal (and UVs) interpolated w*n0 + u*n1 + v*n2, the
 //      world-space tail (mesh_common.cuh's epilogue, #8's), and the strict
-//      merge into #8's hit lanes at the lane's own index.
-//      Bound: bytes (E slots of 16 B and the lane's 9 hit lanes).
+//      merge into #8's hit lanes at the lane's own index. E is a template
+//      argument (one instantiation per E up to kPlacePer), so every
+//      slot's key and t load is issued at once with no branch between
+//      them, and only the winner's triangle, u and v are read.
+//      Bound: bytes (per listed lane its E keys and bound, per real entry
+//      its t; per lane under its bound its list entry, object ray,
+//      winner's row, world ray and hit t; per merged hit the triangle's
+//      attributes and the 9 hit lanes); what holds D above it is the hit
+//      lanes' chain of dependent loads (slots -> list entry -> world ray
+//      -> attributes -> merge).
 //
 // D's grid is sized by its upper bound (the pool), and threads at or past
 // the count that stays on the device return; A's, B's and C's resident
@@ -106,7 +114,7 @@
 // their lanes; A launches no block past the resident ones and keeps the
 // supers' loop free of stores and atomics, its boxes in shared memory; B
 // reads no lane past the count and moves each key's run with contiguous
-// stores.
+// stores; D issues its slots' loads together.
 
 #include <algorithm>
 
@@ -562,24 +570,42 @@ cudaError_t resident_grid(Kernel kernel, int threads, int device, int smem, int*
 int g_keys_grid[3] = {-1, -1, 0};   // A's last resident_grid query
 int g_place_grid[3] = {-1, -1, 0};  // B's
 
+// D. E is a template argument, so the slots are unrolled: every slot's
+// key and t are loaded at once (row e is in bounds for every j < n) and
+// no slot's load waits on another's branch. Then the least t over the
+// real slots in slot order (strict <: a tie goes to the lowest slot), the
+// winner's triangle, u and v read once from its row, and for a lane under
+// its bound the world-space tail and the merge.
+template <int E>
 __global__ void __launch_bounds__(kThreads)
     merge_entries_kernel(const Tables s, const MeshTables m, const RayLanes rays,
                          const int* __restrict__ list, const int* __restrict__ count, int n,
-                         int E, int dead, int g, int has_uv, const int* __restrict__ keys,
+                         int dead, int g, int has_uv, const int* __restrict__ keys,
                          const float* __restrict__ sw_t, const int* __restrict__ sw_tri,
                          const float* __restrict__ sw_u, const float* __restrict__ sw_v,
                          const float* __restrict__ q, const float* __restrict__ bt0,
                          const HitLanes out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n || j >= __ldg(count)) return;
-  TriHit th = {kFltMax, 0, 0.0f, 0.0f};
+  int key[E];
+  float ts[E];
+#pragma unroll
   for (int e = 0; e < E; ++e) {
-    const int idx = e * n + j;
-    if (keys[idx] >= dead) continue;
-    const float t = sw_t[idx];
-    if (t < th.t) th = TriHit{t, sw_tri[idx], sw_u[idx], sw_v[idx]};
+    key[e] = __ldg(keys + e * n + j);
+    ts[e] = __ldg(sw_t + e * n + j);
   }
-  if (!(th.t < kFltMax && th.t < bt0[j])) return;
+  float bt = kFltMax;
+  int win = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (key[e] < dead && ts[e] < bt) {
+      bt = ts[e];
+      win = e;
+    }
+  }
+  if (!(bt < kFltMax && bt < bt0[j])) return;
+  const int w = win * n + j;
+  const TriHit th = {bt, sw_tri[w], sw_u[w], sw_v[w]};
   const int i = __ldg(list + j);
   ObjRay r;
   r.o = {q[j], q[n + j], q[2 * n + j]};
@@ -597,6 +623,13 @@ __global__ void __launch_bounds__(kThreads)
   out.u[i] = h.u;
   out.v[i] = h.v;
 }
+
+// D's instantiation for each E in [1, kPlacePer], at E - 1
+const decltype(&merge_entries_kernel<1>) kMerge[] = {
+    merge_entries_kernel<1>, merge_entries_kernel<2>, merge_entries_kernel<3>,
+    merge_entries_kernel<4>, merge_entries_kernel<5>, merge_entries_kernel<6>,
+    merge_entries_kernel<7>, merge_entries_kernel<8>};
+static_assert(sizeof(kMerge) / sizeof(kMerge[0]) == kPlacePer, "one kernel for each E");
 
 }  // namespace
 
@@ -708,6 +741,7 @@ extern "C" int pt_window_sweep_stream(void* const* mesh, void* const* sweep, con
 }
 
 // keys, q, bt0: A's; t/tri/u/v: C's; hits: #8's 9 lanes, merged in place.
+// E in [1, kPlacePer], each its own instantiation.
 extern "C" int pt_merge_entries(void* const* tables, int n_geoms, void* const* mesh,
                                 void* const* rays, const int* list, const int* count, int n,
                                 int E, int n_supers, int geom, int has_uv, const int* keys,
@@ -716,10 +750,12 @@ extern "C" int pt_merge_entries(void* const* tables, int n_geoms, void* const* m
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (E < 1 || E > kPlacePer) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    merge_entries_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const auto kernel = kMerge[E - 1];
+    kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         make_tables(tables, n_geoms, 0, 0), make_mesh_tables(mesh, 0), make_rays(rays), list,
-        count, n, E, 2 * n_supers, geom, has_uv, keys, t, tri, u, v, q, bt0,
+        count, n, 2 * n_supers, geom, has_uv, keys, t, tri, u, v, q, bt0,
         make_hits(hits, true));
   }
   return static_cast<int>(cudaGetLastError());

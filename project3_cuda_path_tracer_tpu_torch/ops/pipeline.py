@@ -131,7 +131,8 @@ SORT_EXPAND = 6
 MAX_SUPERS = 6144
 # B's tiles (csrc/sorted.cu): PLACE_THREADS threads a block, each holding
 # PLACE_MAX_E entries, E slots of PLACE_MAX_E // E lanes (kPlacePer); A
-# holds a lane's E keys in registers, E <= PLACE_MAX_E too
+# holds a lane's E keys in registers and D is instantiated for each E, so
+# E <= PLACE_MAX_E for both too
 PLACE_THREADS = 256
 PLACE_MAX_E = 8
 # the radix route in place of B (the JAX package's SORT_RADIX, read from
@@ -1229,12 +1230,15 @@ def merge_entries(origins: Vec3, dirs: Vec3, cands: Candidates,
                   tables: SceneTables | None = None) -> Intersections:
     """D: big geom g's winner of each listed lane merged IN PLACE into
     `hits` (returned). CPU: the plain version; CUDA: one launch sized by
-    the pool, counted in `merge_entries.launches`."""
+    the pool, of the kernel instantiated for E (E <= PLACE_MAX_E),
+    counted in `merge_entries.launches`."""
     device = origins.x.device
     if device.type == "cpu":
         return merge_entries_reference(origins, dirs, cands, hits, sk, eh, scene, g)
     _require_cuda(device, "merge_entries")
     E, P = _check_keys(sk, _geom_rows(scene, g)["n_supers"], device)
+    if not 1 <= E <= PLACE_MAX_E:
+        raise ValueError(f"merge_entries: E must be in [1, {PLACE_MAX_E}], got {E}")
     for name, a, dtype in zip(("t", "tri", "u", "v"), eh,
                               (torch.float32, torch.int32, torch.float32,
                                torch.float32)):

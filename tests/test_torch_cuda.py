@@ -1447,3 +1447,116 @@ def test_big_mesh_radix_path_launches(cuda_device):
     assert got == [24] * 7 + [24 * 2] + [0] * 3
     img = r.image()
     assert np.isfinite(img).all() and img.max() > 0
+
+
+def pool_copy(pool):
+    lanes = [a.clone() for a in megakernel.pool_lanes(pool)]
+    return (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]), Vec3(*lanes[9:12]),
+            lanes[12], lanes[13])
+
+
+@pytest.mark.parametrize("pattern", ["scattered", "clustered"])
+@pytest.mark.parametrize("share", [0.0, 0.03, 0.5, 1.0])
+def test_bounce_step_mesh_live_lanes_on_cuda(cuda_device, share, pattern):
+    """#9 on mesh.txt AA 64x64 at depth 1 (after the plain depth 0) with
+    the live lanes set to a share, scattered or clustered, #7's and #8's
+    plain hits for them, with no live count and with one that cuts the
+    pool: every lane dead on entry or at or past the count unchanged bit
+    for bit, pix exactly, the rest by the lane rule against the plain
+    version; a second launch on the same inputs equal to the first bit for
+    bit."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam, settings = _setup(cuda_device, "mesh.txt", {"antialias": True})
+    pool = _camera_pool(cam, 2, settings)
+    cands = pipeline.mesh_candidates_reference(pool[0], pool[1], pool[4], ds)
+    hits = pipeline.mesh_sweep_reference(pool[0], pool[1], cands, ds)
+    pool = pipeline.bounce_step_mesh_reference(pool, cands, hits, ds, 2, 0, settings)
+    P = pool[5].shape[0]
+    alive = torch.tensor(_alive_pattern(P, share, pattern, int(100 * share) + 7),
+                         device=cuda_device)
+    start = pool_copy(pool)
+    start[4].copy_(alive)
+    for cut in (None, 2500):
+        n_alive = None if cut is None else torch.tensor(cut, dtype=torch.int32,
+                                                        device=cuda_device)
+        cands = pipeline.mesh_candidates_reference(start[0], start[1], alive, ds, n_alive)
+        hits = pipeline.mesh_sweep_reference(start[0], start[1], cands, ds)
+        want = pipeline.bounce_step_mesh_reference(start, cands, hits, ds, 2, 1, settings,
+                                                   n_alive)
+        runs = []
+        for _ in range(2):
+            got = pool_copy(start)
+            before = pipeline.bounce_step_mesh.launches
+            pipeline.bounce_step_mesh(got, cands, hits, ds, 2, 1, settings, num_alive=n_alive)
+            torch.cuda.synchronize()
+            assert pipeline.bounce_step_mesh.launches == before + 1
+            runs.append(got)
+        got = runs[0]
+        for a, b in zip(megakernel.pool_lanes(runs[0]), megakernel.pool_lanes(runs[1])):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        still = alive == 0
+        if cut is not None:
+            still[cut:] = True
+        for g, b in zip(megakernel.pool_lanes(got), megakernel.pool_lanes(start)):
+            assert torch.equal(g[still].view(torch.int32), b[still].view(torch.int32))
+        g9, w9 = megakernel.pool_lanes(got), megakernel.pool_lanes(want)
+        assert torch.equal(g9[13], w9[13])
+        assert_lane_rule(g9[:13], w9[:13])
+        if share == 0.0:
+            assert not got[4].any()
+
+
+@pytest.mark.parametrize("E", [1, 2, 6, 8])
+def test_merge_entries_slots_on_cuda(cuda_device, big_mesh, E):
+    """D on mesh_big.txt at 64x64, depths 0-2, E = 1, 2, 6 and 8, A, B and
+    C by the kernels from the plain chain's pool: the listed lanes' hits by
+    the lane rule against the plain version and every other lane unchanged
+    bit for bit, on the whole list and on a count that cuts it; a second
+    launch on the same inputs equal to the first bit for bit. E = 9 is
+    refused."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam = big_mesh
+    settings = RenderSettings(trace_depth=8, antialias=True)
+    (g,) = pipeline.sorted_geoms(ds)
+    pool = _camera_pool(cam, 2, settings)
+    launches = 0
+    for depth in range(3):
+        o, d, alive = pool[0], pool[1], pool[4]
+        cands = pipeline.mesh_candidates_reference(o, d, alive, ds)
+        n = int(cands.count[0])
+        hits = pipeline.mesh_sweep_reference(o, d, cands, ds)
+        sk = pipeline.super_keys(o, d, cands, hits, ds, g, E)
+        eh = pipeline.window_sweep(pipeline.place_entries(sk, cands.count), sk, ds, g)
+        for count in (n, n // 2 + 3):
+            part = cands._replace(count=torch.tensor([count], dtype=torch.int32,
+                                                     device=cuda_device))
+            want = pipeline.merge_entries_reference(o, d, part, hits_copy(hits), sk, eh, ds, g)
+            runs = []
+            for _ in range(2):
+                before = pipeline.merge_entries.launches
+                runs.append(pipeline.merge_entries(o, d, part, hits_copy(hits), sk, eh, ds, g))
+                torch.cuda.synchronize()
+                assert pipeline.merge_entries.launches == before + 1
+                launches += 1
+            for a, b in zip(hit_lanes(runs[0]), hit_lanes(runs[1])):
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            got = runs[0]
+            listed = torch.zeros(hits.t.shape[0], dtype=torch.bool, device=cuda_device)
+            listed[cands.lanes[:count].long()] = True
+            assert_lane_rule([a[listed] for a in hit_lanes(got)],
+                             [a[listed] for a in hit_lanes(want)])
+            for a, b in zip(hit_lanes(got), hit_lanes(hits)):
+                assert torch.equal(a[~listed].view(torch.uint8), b[~listed].view(torch.uint8))
+            assert bool((got.t[listed] != hits.t[listed]).any())  # some lane merged
+        plain = pipeline.merge_entries_reference(o, d, cands, hits_copy(hits), sk, eh, ds, g)
+        pool = pipeline.bounce_step_mesh_reference(pool, cands, plain, ds, 2, depth, settings)
+    assert launches == 12
+    if E == 8:  # D holds no instantiation above PLACE_MAX_E
+        wide = sk._replace(keys=torch.cat([sk.keys, sk.keys[:1]]))
+        wide_eh = pipeline.EntryHits(*(torch.cat([a, a[:1]]) for a in eh))
+        with pytest.raises(ValueError, match="E must be in"):
+            pipeline.merge_entries(o, d, cands, hits_copy(hits), wide, wide_eh, ds, g)

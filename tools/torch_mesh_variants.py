@@ -1,42 +1,48 @@
-"""Time variants of four kernels at each depth of their paths on one
+"""Time variants of six kernels at each depth of their paths on one
 NVIDIA GPU, to find where their time goes: #3 (`bounce_step`,
 csrc/bounce.cu), A (`super_keys`, csrc/sorted.cu), #7
-(`mesh_candidates`, csrc/mesh.cu) and B (`place_entries`,
+(`mesh_candidates`, csrc/mesh.cu), B (`place_entries`, csrc/sorted.cu),
+#9 (`bounce_step_mesh`, csrc/mesh.cu) and D (`merge_entries`,
 csrc/sorted.cu).
 
-    python tools/torch_mesh_variants.py [--kernels 3,a,7,b] [--parent DIR]
+    python tools/torch_mesh_variants.py [--kernels 3,a,7,b,9,d] [--parent DIR]
                                         [--out FILE]
 
 Each variant is its source with named lines replaced (each replaced line
 must be found, or the tool stops), built with the port's own nvcc flags
 into `_build/variants/`. With --parent DIR (another checkout or `git
 archive` of the repository, whose wrappers call the same C entry points),
-its #3 and A are built from DIR's own sources as the variants "parent_3"
-and "parent_a", and each such variant is timed twice, before and after
-the others, so parent and committed kernels run in turns. The inputs
-are made by the port's kernels from the camera pool of iteration 2 and
-one bounce per depth (800x800, depth 8): #3's pools at depths 1-7 of
-Cornell AA as `Renderer.step()` leaves them (path (a)) and compacted with
-their live count (path (b), `--compact`); A's inputs at every depth of
-mesh_big.txt and bunny.txt AA (paths (n) and (p)); #7's rays and alive
-lanes at every depth of mesh.txt AA (path (j)); and A's keys at every
-depth of mesh_big.txt for B. For each variant and depth, its kernel runs
-10 times under torch.profiler (#3 on a fresh copy of its pool each
-time: it bounces in place), routed to the variant's library, and its
-mean device ms per launch is printed with whether its output is bit for
-bit the committed kernel's (#3: all 14 lanes; A: keys, rays and bt0 of
-the listed lanes, the histogram and the cursor; #7: the analytic lanes
-and flags of the live lanes, the list as a set; B: the stream per key and
-the total). "no_append_7", "no_hist_a", "one_super_a" and "no_loop_a"
-are wrong on purpose (their time is what the list's atomics, A's
-histogram and all of A but its loop over the supers cost) and are not
-compared; a depth whose profile recorded no launch three times is left
-out of the mean and said so. Also per depth: #3's live lanes below the
-count and the warps of 32 lanes and the 32-byte sectors (8 lanes) that
-hold one, A's listed lanes, #7's live lanes and warps holding one, B's
-listed lanes and entries. Prints one JSON line per
-variant and the card's name and power limit; writes them to FILE when
-given.
+its #3, A, #9 and D are built from DIR's own sources as the variants
+"parent_3", "parent_a", "parent_9" and "parent_d", and each such variant
+is timed twice, before and after the others, so parent and committed
+kernels run in turns. The inputs are made by the port's kernels from the
+camera pool of iteration 2 and one bounce per depth (800x800, depth 8):
+#3's pools at depths 1-7 of Cornell AA as `Renderer.step()` leaves them
+(path (a)) and compacted with their live count (path (b), `--compact`);
+A's inputs at every depth of mesh_big.txt and bunny.txt AA (paths (n)
+and (p)); #7's rays and alive lanes at every depth of mesh.txt AA (path
+(j)); A's keys at every depth of mesh_big.txt for B; #9's pools, #7's
+candidate hits and the merged mesh hits at every depth of (j) and (n);
+A's, B's and C's outputs at every depth of (n) and (p) for D. For each
+variant and depth, its kernel runs 10 times under torch.profiler (#3 and
+#9 on a fresh copy of their pool each time, D on a fresh copy of #8's
+hits: they work in place), routed to the variant's library, and its mean
+device ms per launch is printed with whether its output is bit for bit
+the committed kernel's (#3 and #9: all 14 pool lanes; A: keys, rays and
+bt0 of the listed lanes, the histogram and the cursor; #7: the analytic
+lanes and flags of the live lanes, the list as a set; B: the stream per
+key and the total; D: the 9 hit lanes of every lane). "no_append_7",
+"no_hist_a", "one_super_a", "no_loop_a" and "loads_only_d" are wrong on
+purpose (their time is what the list's atomics, A's histogram, all of A
+but its loop over the supers and D's loads without its epilogue cost)
+and are not compared; a depth whose profile recorded no launch three
+times is left out of the mean and said so. Also per depth: #3's and
+#9's live lanes below the count and the warps of 32 lanes and the
+32-byte sectors (8 lanes) that hold one, #9's candidates, A's listed
+lanes, #7's live lanes and warps holding one, B's listed lanes and
+entries, D's listed lanes, real entries and hits. Prints one JSON line
+per variant and the card's name and power limit; writes them to FILE
+when given.
 """
 
 from __future__ import annotations
@@ -75,6 +81,113 @@ HEAD_3 = """  __shared__ int s_lanes[kBounceThreads];  // the block's live lanes
 """
 TAIL_3 = "  pool.alive[i] = alive ? 1 : 0;\n}\n"
 GRID_3 = "bounce_step_kernel<<<(n + kBounceThreads - 1) / kBounceThreads, kBounceThreads, 0,"
+
+# #9's kernel from its signature's last line to its shading (replaced by
+# the variants that change how a block's threads take its lanes), its
+# launch bounds and its grid
+HEAD_9 = """    int n, const HitLanes a, const HitLanes mh, int iteration, int depth) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (num_alive != nullptr && i >= __ldg(num_alive)) return;
+  if (pool.alive[i] == 0) return;
+"""
+BOUNDS_9 = "__global__ void __launch_bounds__(kThreads)\n    bounce_step_mesh_kernel"
+GRID_9 = "bounce_step_mesh_kernel<<<n_blocks(n), kThreads, 0,"
+
+
+def sized_9(threads: int) -> list:
+    """#9 in blocks of `threads`, a lane a thread."""
+    return [(BOUNDS_9, BOUNDS_9.replace("kThreads", str(threads))),
+            (GRID_9, f"bounce_step_mesh_kernel<<<(n + {threads - 1}) / {threads}, {threads}, 0,")]
+
+
+def packed_9(pack_max: int, threads: int = 128) -> list:
+    """#9 with #3's packing: a block of `threads` lanes with at most
+    `pack_max` live packs them into its first threads in lane order."""
+    return sized_9(threads) + [(HEAD_9, HEAD_9.split("\n")[0] + f"""
+  __shared__ int s_lanes[{threads}];
+  __shared__ int s_warp[{threads // 32}];
+  const int first = blockIdx.x * {threads};
+  const int end = num_alive == nullptr ? n : min(n, __ldg(num_alive));
+  if (first >= end) return;  // the whole block
+  int i = first + threadIdx.x;
+  bool live = i < end && pool.alive[i] != 0;
+  if (__syncthreads_count(live) <= {pack_max}) {{
+    int kept;
+    const int at = block_prefix<{threads // 32}>(live, s_warp, &kept);
+    if (live) s_lanes[at] = i;
+    __syncthreads();
+    live = static_cast<int>(threadIdx.x) < kept;
+    if (live) i = s_lanes[threadIdx.x];
+  }}
+  if (!live) return;
+""")]
+
+
+# D's head (its signature's last line, the lane and the count), its slot
+# loads and merge, the lane's other loads, its epilogue and merge, its
+# launch bounds and its launch
+HEAD_D = """                         const HitLanes out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n || j >= __ldg(count)) return;
+"""
+SLOTS_D = """  int key[E];
+  float ts[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    key[e] = __ldg(keys + e * n + j);
+    ts[e] = __ldg(sw_t + e * n + j);
+  }
+  float bt = kFltMax;
+  int win = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (key[e] < dead && ts[e] < bt) {
+      bt = ts[e];
+      win = e;
+    }
+  }
+  if (!(bt < kFltMax && bt < bt0[j])) return;
+  const int w = win * n + j;
+  const TriHit th = {bt, sw_tri[w], sw_u[w], sw_v[w]};
+"""
+LANE_D = """  const int i = __ldg(list + j);
+  ObjRay r;
+  r.o = {q[j], q[n + j], q[2 * n + j]};
+  r.d = {q[3 * n + j], q[4 * n + j], q[5 * n + j]};
+"""
+EPILOGUE_D = """  const MeshHit h = epilogue(s, m, g, has_uv != 0, r, th, ray_o(rays, i), ray_d(rays, i));
+  const float prev = out.t[i] > 0.0f ? out.t[i] : kFltMax;
+  if (!(h.t > 0.0f && prev > h.t)) return;
+  out.t[i] = h.t;
+  out.n[0][i] = h.n.x;
+  out.n[1][i] = h.n.y;
+  out.n[2][i] = h.n.z;
+  out.mat[i] = __ldg(s.gmat + g);
+  out.outside[i] = h.outside ? 1 : 0;
+  out.flag[i] = has_uv ? 1 : 0;
+  out.u[i] = h.u;
+  out.v[i] = h.v;
+}
+"""
+TAIL_D = "  out.v[i] = h.v;\n}\n"
+BOUNDS_D = "__global__ void __launch_bounds__(kThreads)\n    merge_entries_kernel"
+GRID_D = "kernel<<<n_blocks(n), kThreads, 0,"
+# the lane's list entry, bound and object ray loaded before its slots
+EARLY_D = """  const int i = __ldg(list + j);
+  const float b0 = __ldg(bt0 + j);
+  ObjRay r;
+  r.o = {__ldg(q + j), __ldg(q + n + j), __ldg(q + 2 * n + j)};
+  r.d = {__ldg(q + 3 * n + j), __ldg(q + 4 * n + j), __ldg(q + 5 * n + j)};
+"""
+
+
+def lanes_d(loop: str) -> list:
+    """D's body run for each j of `loop` (its lane, returning early from
+    a lambda in place of the kernel)."""
+    return [(HEAD_D, HEAD_D.split("\n")[0] + "\n" + loop + """ [=] {
+  if (j >= n || j >= __ldg(count)) return;
+"""), (TAIL_D, "  out.v[i] = h.v;\n  }();\n}\n")]
 
 
 def group_a(G: int) -> list:
@@ -320,6 +433,106 @@ VARIANTS = {
         ("constexpr int kCandThreads = 128;", "constexpr int kCandThreads = 256;"),
         ("constexpr int kCandPer = 2;", "constexpr int kCandPer = 1;")]),
     "committed_b": ("b", []),
+    "committed_9": ("9", []),
+    # blocks of 256 or 512 threads, a lane a thread (committed: 128)
+    "threads256_9": ("9", sized_9(256)),
+    "threads512_9": ("9", sized_9(512)),
+    # #3's packing, in a block with at most half its lanes live, with a
+    # dead lane (#3's rule), or always
+    "pack_half_9": ("9", packed_9(64)),
+    "pack_unless_full_9": ("9", packed_9(127)),
+    "always_pack_9": ("9", packed_9(128)),
+    # 128 threads own 256 lanes, packed in two rounds and shaded in a loop
+    # (#7's scheme)
+    "lanes2_9": ("9", [
+        (HEAD_9, HEAD_9.split("\n")[0] + """
+  __shared__ int s_lanes[256];
+  __shared__ int s_warp[4];
+  const int first = blockIdx.x * 256;
+  const int end = num_alive == nullptr ? n : min(n, __ldg(num_alive));
+  if (first >= end) return;
+  int n_live = 0;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int l = first + k * 128 + threadIdx.x;
+    const bool lv = l < end && pool.alive[l] != 0;
+    int kept;
+    const int at = n_live + block_prefix<4>(lv, s_warp, &kept);
+    if (lv) s_lanes[at] = l;
+    n_live += kept;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < n_live; q += 128) {
+    const int i = s_lanes[q];
+"""),
+        (TAIL_3, "  pool.alive[i] = alive ? 1 : 0;\n  }\n}\n"),
+        (GRID_9, "bounce_step_mesh_kernel<<<(n + 255) / 256, kThreads, 0,")]),
+    "committed_d": ("d", []),
+    # the resident blocks striding over the count (committed: the grid
+    # sized by the pool)
+    "resident_d": ("d", lanes_d(
+        "  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n; "
+        "j += gridDim.x * blockDim.x)") + [(GRID_D, """int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    kernel<<<std::min(n_blocks(n), per_sm * sms), kThreads, 0,""")]),
+    "threads256_d": ("d", [(BOUNDS_D, BOUNDS_D.replace("kThreads", "256")),
+                           (GRID_D, "kernel<<<(n + 255) / 256, 256, 0,")]),
+    # two listed lanes a thread, a block's threads apart
+    "lanes2_d": ("d", lanes_d(
+        "#pragma unroll\n  for (int k = 0, j = 2 * blockIdx.x * blockDim.x + threadIdx.x; "
+        "k < 2; ++k, j += blockDim.x)") + [
+            (GRID_D, "kernel<<<(n + 255) / 256, kThreads, 0,")]),
+    # the lane's list entry, bound and object ray loaded before its slots
+    "early_d": ("d", [(HEAD_D, HEAD_D + EARLY_D), (LANE_D, ""),
+                      (SLOTS_D, SLOTS_D.replace("bt0[j]", "b0"))]),
+    # the same early loads with the parent's slot loop (a dead slot
+    # skipped before its t is read, the winner's fields read in the loop)
+    "early_parent_loop_d": ("d", [(HEAD_D, HEAD_D + EARLY_D), (LANE_D, ""),
+                                  (SLOTS_D, """  TriHit th = {kFltMax, 0, 0.0f, 0.0f};
+#pragma unroll 1
+  for (int e = 0; e < E; ++e) {
+    const int idx = e * n + j;
+    if (keys[idx] >= dead) continue;
+    const float t = sw_t[idx];
+    if (t < th.t) th = TriHit{t, sw_tri[idx], sw_u[idx], sw_v[idx]};
+  }
+  if (!(th.t < kFltMax && th.t < b0)) return;
+""")]),
+    # every slot's triangle, u and v loaded with its key and t, the winner's
+    # taken in registers (no load after the merge but the hit's own)
+    "all_rows_d": ("d", [(SLOTS_D, """  int key[E], tri_e[E];
+  float ts[E], us[E], vs[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    key[e] = __ldg(keys + e * n + j);
+    ts[e] = __ldg(sw_t + e * n + j);
+    tri_e[e] = __ldg(sw_tri + e * n + j);
+    us[e] = __ldg(sw_u + e * n + j);
+    vs[e] = __ldg(sw_v + e * n + j);
+  }
+  float bt = kFltMax, wu = 0.0f, wv = 0.0f;
+  int wt = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (key[e] < dead && ts[e] < bt) {
+      bt = ts[e];
+      wt = tri_e[e];
+      wu = us[e];
+      wv = vs[e];
+    }
+  }
+  if (!(bt < kFltMax && bt < bt0[j])) return;
+  const TriHit th = {bt, wt, wu, wv};
+""")]),
+    # every load of the committed D but the epilogue's, no epilogue (wrong
+    # on purpose: the floor of the slot merge)
+    "loads_only_d": ("d", [(EPILOGUE_D, """  const float prev_t = out.t[i];
+  const V3 o = ray_o(rays, i), d = ray_d(rays, i);
+  out.t[i] = prev_t + th.t + th.u + th.v + __int_as_float(th.tri) + o.x + o.y + o.z + d.x +
+             d.y + d.z + r.o.x + r.o.y + r.o.z + r.d.x + r.d.y + r.d.z;
+}
+""")]),
     "per6_b": ("b", [("constexpr int kPlacePer = 8;", "constexpr int kPlacePer = 6;")]),
     "per16_b": ("b", [("constexpr int kPlacePer = 8;", "constexpr int kPlacePer = 16;")]),
     "threads128_b": ("b", [("constexpr int kPlaceThreads = 256;",
@@ -337,15 +550,24 @@ VARIANTS = {
         ("    for (int p = threadIdx.x; p < in_tile; p += kPlaceThreads) {",
          "    for (int p = threadIdx.x; p < 0 * in_tile; p += kPlaceThreads) {")]),
 }
-WRONG = ("no_append_7", "no_hist_a", "one_super_a", "no_loop_a")
+WRONG = ("no_append_7", "no_hist_a", "one_super_a", "no_loop_a", "loads_only_d")
 # kernel -> (source, C entry point, kernel symbol, path)
 KERNEL = {"3": ("bounce.cu", "pt_bounce_step", "bounce_step_kernel", "(a), (b) cornell.txt"),
           "a": ("sorted.cu", "pt_super_keys", "super_keys_kernel", "(n), (p) mesh_big, bunny"),
           "7": ("mesh.cu", "pt_mesh_candidates", "mesh_candidates_kernel", "(j) mesh.txt"),
-          "b": ("sorted.cu", "pt_place_entries", "place_entries_kernel", "(n) mesh_big.txt")}
+          "b": ("sorted.cu", "pt_place_entries", "place_entries_kernel", "(n) mesh_big.txt"),
+          "9": ("mesh.cu", "pt_bounce_step_mesh", "bounce_step_mesh_kernel",
+                "(j), (n) mesh.txt, mesh_big"),
+          "d": ("sorted.cu", "pt_merge_entries", "merge_entries_kernel",
+                "(n), (p) mesh_big, bunny")}
+# kernel -> the paths whose inputs it is timed on; path -> its scene
+PATHS = {"3": ("a", "b"), "a": ("n", "p"), "7": ("j",), "b": ("n",), "9": ("j", "n"),
+         "d": ("n", "p")}
+SCENES = {"j": "mesh.txt", "n": "mesh_big.txt", "p": "bunny.txt"}
 
 
-PARENT = {"3": "parent_3", "a": "parent_a"}  # --parent's variants: its own sources
+# --parent's variants: its own sources
+PARENT = {"3": "parent_3", "a": "parent_a", "9": "parent_9", "d": "parent_d"}
 RESOLVED = {}  # variant -> the replacements `build` made
 
 
@@ -409,10 +631,13 @@ def clone_pool(pool):
 def inputs(dev, kernels):
     """Per depth of iteration 2 (800x800): {path label: (scene, tables,
     settings, [per depth inputs])}: for #3 (a) Cornell AA's pools entering
-    depths 1-7 and (b) the same compacted, with their live count; for A
-    (n) mesh_big's and (p) bunny's (rays, #7's list, #8's hits, geom);
-    for #7 (j) mesh.txt's (rays, alive); for B mesh_big's (A's keys, #7's
-    count)."""
+    depths 1-7 and (b) the same compacted, with their live count; for the
+    mesh kernels a dict a depth, made by the kernels themselves (#7 -> #8
+    [-> A -> B -> C -> D] -> #9) on (j) mesh.txt, (n) mesh_big.txt and (p)
+    bunny.txt AA: the rays and alive lanes ("o", "dirs", "alive": #7's),
+    #7's list and #8's hits ("cands", "hits": A's, with the big geom "g"),
+    A's keys ("sk": B's), C's results ("eh": D's, on a copy of "hits"), the
+    pool entering the depth and the merged hits ("pool", "merged": #9's)."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.models.scene import load_scene
@@ -426,6 +651,7 @@ def inputs(dev, kernels):
         _count_alive,
         _maybe_compact,
     )
+    from chip_smoke import clone_hits
 
     out = {}
     if "3" in kernels:
@@ -443,29 +669,32 @@ def inputs(dev, kernels):
                                tables=r.tables)
             out[label] = (r.dev_scene, r.tables, settings, rows)
     settings = RenderSettings(trace_depth=DEPTH, antialias=True)
-    scenes = {"j": "mesh.txt"} if "7" in kernels else {}
-    if "a" in kernels or "b" in kernels:
-        scenes["n"] = "mesh_big.txt"
-    if "a" in kernels:
-        scenes["p"] = "bunny.txt"
-    for label, name in scenes.items():
-        r = Renderer(load_scene(os.path.join(ROOT, "scenes", name)), settings, device=dev)
+    labels = {label for k in kernels if k != "3" for label in PATHS[k]}
+    for label in sorted(labels):
+        r = Renderer(load_scene(os.path.join(ROOT, "scenes", SCENES[label])), settings,
+                     device=dev)
         ds, tables = r.dev_scene, r.tables
+        big = pl.sorted_geoms(ds)
         pool = _camera_pool(r.dev_camera, 2, settings)
         rows = []
         for d in range(DEPTH):
-            o, dirs, alive = pool[0], pool[1], pool[4]
             # the pool is bounced in place: keep this depth's lanes
-            o, dirs = Vec3(*(c.clone() for c in o)), Vec3(*(c.clone() for c in dirs))
-            if name == "mesh.txt":
-                rows.append((o, dirs, alive.clone()))
-            else:
-                cands = pl.mesh_candidates(o, dirs, alive, ds, tables=tables)
-                hits = pl.mesh_sweep(o, dirs, cands, ds, tables=tables)
-                (g,) = pl.sorted_geoms(ds)
-                sk = pl.super_keys(o, dirs, cands, hits, ds, g, tables=tables)
-                rows.append((o, dirs, cands, hits, g, sk))
-            pool = pl.bounce_step_pipeline(pool, ds, 2, d, settings, tables=tables)
+            row = {"o": Vec3(*(c.clone() for c in pool[0])),
+                   "dirs": Vec3(*(c.clone() for c in pool[1])),
+                   "alive": pool[4].clone(), "pool": clone_pool(pool), "depth": d}
+            cands = pl.mesh_candidates(pool[0], pool[1], pool[4], ds, tables=tables)
+            hits = pl.mesh_sweep(pool[0], pool[1], cands, ds, tables=tables)
+            row.update(cands=cands, hits=clone_hits(hits))
+            if big:
+                (g,) = big
+                sk = pl.super_keys(pool[0], pool[1], cands, hits, ds, g, tables=tables)
+                st = pl.place_entries(sk, cands.count)
+                eh = pl.window_sweep(st, sk, ds, g, tables=tables)
+                pl.merge_entries(pool[0], pool[1], cands, hits, sk, eh, ds, g, tables=tables)
+                row.update(g=g, sk=sk, eh=eh)
+            row["merged"] = hits
+            rows.append(row)
+            pl.bounce_step_mesh(pool, cands, hits, ds, 2, d, settings, tables=tables)
         out[label] = (ds, tables, settings, rows)
     torch.cuda.synchronize()
     return out
@@ -473,9 +702,9 @@ def inputs(dev, kernels):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="3,a,7,b",
-                    help="the kernels whose variants to time (of 3, a, 7, b)")
-    ap.add_argument("--parent", help="another checkout: its #3 and A as variants")
+    ap.add_argument("--kernels", default="3,a,7,b,9,d",
+                    help="the kernels whose variants to time (of 3, a, 7, b, 9, d)")
+    ap.add_argument("--parent", help="another checkout: its #3, A, #9 and D as variants")
     ap.add_argument("--out", help="write the results here as JSON")
     args = ap.parse_args()
     kernels = [k for k in args.kernels.split(",") if k]
@@ -486,6 +715,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
+    from chip_smoke import clone_hits, hit_lanes
     from project3_cuda_path_tracer_tpu_torch.ops import _native
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
@@ -519,27 +749,47 @@ def main() -> int:
                                       tables=tables)
             return bounce
         if k == "a":
-            o, dirs, cands, hits, g, _ = row
-            return lambda: pl.super_keys(o, dirs, cands, hits, ds, g, tables=tables)
+            return lambda: pl.super_keys(row["o"], row["dirs"], row["cands"], row["hits"],
+                                         ds, row["g"], tables=tables)
         if k == "7":
-            o, dirs, alive = row
-            return lambda: pl.mesh_candidates(o, dirs, alive, ds, tables=tables)
-        sk, count = row[5], row[2].count
-        return lambda: pl.place_entries(sk, count)
+            return lambda: pl.mesh_candidates(row["o"], row["dirs"], row["alive"], ds,
+                                              tables=tables)
+        if k == "9":
+            pool, work, d = row["pool"], clone_pool(row["pool"]), row["depth"]
+
+            def shade():  # on a fresh copy of the pool: #9 bounces in place
+                for a, b in zip(mk.pool_lanes(work), mk.pool_lanes(pool)):
+                    a.copy_(b)
+                return pl.bounce_step_mesh(work, row["cands"], row["merged"], ds, 2, d,
+                                           settings, tables=tables)
+            return shade
+        if k == "d":
+            work = clone_hits(row["hits"])
+
+            def merge():  # on a fresh copy of #8's hits: D merges in place
+                for a, b in zip(hit_lanes(work), hit_lanes(row["hits"])):
+                    a.copy_(b)
+                return pl.merge_entries(row["o"], row["dirs"], row["cands"], work, row["sk"],
+                                        row["eh"], ds, row["g"], tables=tables)
+            return merge
+        return lambda: pl.place_entries(row["sk"], row["cands"].count)
 
     def same(k, got, want, row):
-        if k == "3":
+        if k in ("3", "9"):
             return all(torch.equal(bits(a), bits(b))
                        for a, b in zip(mk.pool_lanes(got), mk.pool_lanes(want)))
+        if k == "d":
+            return all(torch.equal(bits(a), bits(b))
+                       for a, b in zip(hit_lanes(got), hit_lanes(want)))
         if k == "a":
-            n = int(row[2].count[0])
+            n = int(row["cands"].count[0])
             return (torch.equal(got.keys[:, :n], want.keys[:, :n])
                     and torch.equal(bits(got.rays[:, :n]), bits(want.rays[:, :n]))
                     and torch.equal(bits(got.bt0[:n]), bits(want.bt0[:n]))
                     and torch.equal(got.hist, want.hist)
                     and (got.cursor is None or torch.equal(got.cursor, want.cursor)))
         if k == "7":
-            live = row[2] != 0
+            live = row["alive"] != 0
             lanes = lambda c: set(c.lanes[:int(c.count[0])].tolist())  # noqa: E731
             return (all(torch.equal(bits(a[live]), bits(b[live]))
                         for a, b in zip((got.t, *got.normal, got.material_id, got.cand),
@@ -551,35 +801,50 @@ def main() -> int:
         return int(got.total[0]) == m and torch.equal(pairs(got), pairs(want))
 
     def snapshot(k, out):
-        return clone_pool(out) if k == "3" else out
+        if k in ("3", "9"):
+            return clone_pool(out)
+        return clone_hits(out) if k == "d" else out
 
-    paths = {"3": ("a", "b"), "a": ("n", "p"), "7": ("j",), "b": ("n",)}
     want = {(k, label): [snapshot(k, run(k, label, row)()) for row in data[label][3]]
-            for k in kernels for label in paths[k]}
+            for k in kernels for label in PATHS[k]}
     torch.cuda.synchronize()
+    held = lambda x, w: int(torch.nn.functional.pad(  # noqa: E731
+        x, (0, -x.shape[0] % w)).view(-1, w).any(1).sum())
     work = {}
     for k in kernels:
-        for label in paths[k]:
+        for label in PATHS[k]:
             rows = data[label][3]
             if k == "3":
                 ends = [row[0][5].shape[0] if row[1] is None else int(row[1]) for row in rows]
                 live = [(row[0][4][:e] != 0) for row, e in zip(rows, ends)]
-                held = lambda x, w: int(torch.nn.functional.pad(  # noqa: E731
-                    x, (0, -x.shape[0] % w)).view(-1, w).any(1).sum())
                 work[(k, label)] = {
                     "lanes_in": [int(x.sum()) for x in live],
                     "warps_with_live": [held(x, 32) for x in live],
                     # the 32-byte sectors of a float lane that hold a live lane
                     "sectors_with_live": [held(x, 8) for x in live]}
+            elif k == "9":
+                live = [row["alive"] != 0 for row in rows]
+                work[(k, label)] = {
+                    "lanes_in": [int(x.sum()) for x in live],
+                    "warps_with_live": [held(x, 32) for x in live],
+                    "sectors_with_live": [held(x, 8) for x in live],
+                    "candidates": [int(row["cands"].count[0]) for row in rows]}
             elif k == "7":
                 work[(k, label)] = {
-                    "lanes_in": [int((row[2] != 0).sum()) for row in rows],
-                    "warps_with_live": [int((row[2] != 0).view(-1, 32).any(1).sum())
-                                        for row in rows]}
+                    "lanes_in": [int((row["alive"] != 0).sum()) for row in rows],
+                    "warps_with_live": [held(row["alive"] != 0, 32) for row in rows]}
             elif k == "a":
-                work[(k, label)] = {"listed": [int(row[2].count[0]) for row in rows]}
+                work[(k, label)] = {"listed": [int(row["cands"].count[0]) for row in rows]}
+            elif k == "d":
+                work[(k, label)] = {
+                    "listed": [int(row["cands"].count[0]) for row in rows],
+                    "entries": [int(row["sk"].hist.sum()) for row in rows],
+                    # the listed lanes whose mesh hit D replaced
+                    "hits": [int((w.t[lanes] != row["hits"].t[lanes]).sum())
+                             for w, row in zip(want[(k, label)], rows)
+                             for lanes in [row["cands"].lanes[:int(row["cands"].count[0])].long()]]}
             else:
-                work[(k, label)] = {"listed": [int(row[2].count[0]) for row in rows],
+                work[(k, label)] = {"listed": [int(row["cands"].count[0]) for row in rows],
                                     "entries": [int(w.total[0]) for w in want[(k, label)]]}
     committed = pl._launch
     results = []
@@ -599,7 +864,7 @@ def main() -> int:
         pl._launch = mk._launch = launch
         try:
             exact, per_path = True, {}
-            for label in paths[k]:
+            for label in PATHS[k]:
                 rows = data[label][3]
                 exact &= all(same(k, run(k, label, row)(), w, row)
                              for row, w in zip(rows, want[(k, label)]))

@@ -23,8 +23,9 @@ under torch.profiler: device busy ms per iteration (the union of the
 device spans), the idle share against the host-timed frame, device
 events per iteration, and per depth the device ms of the radix kernels
 (names holding `radix_`), of scans (names holding `scan`, any case: the
-cumsums of a route that scans on the host's behalf) and of memsets, and
-each radix kernel's device ms per launch. It
+cumsums of a route that scans on the host's behalf) and of memsets, each
+radix kernel's device ms per launch, and D's (`merge_entries`, once a
+depth) device ms at each depth. It
 prints one JSON line per path and the card's name and power limit,
 writes them to FILE when given, and exits non-zero if the images differ.
 """
@@ -60,8 +61,9 @@ def renderer(port, name, dev):
 
 def profile(fn, n_iters):
     """(busy ms per iteration, device events per iteration, {radix, scan,
-    memset: device ms per depth}, {radix kernel: device ms per launch}) of
-    fn() (n_iters iterations) under torch.profiler."""
+    memset: device ms per depth}, {radix kernel: device ms per launch}, [D's
+    device ms at each depth]) of fn() (n_iters iterations) under
+    torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -69,11 +71,13 @@ def profile(fn, n_iters):
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans, parts, kernels = [], {"radix": 0.0, "scan": 0.0, "memset": 0.0}, {}
+    spans, parts, kernels, merge = [], {"radix": 0.0, "scan": 0.0, "memset": 0.0}, {}, []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
+        if "merge_entries_kernel" in e.name:
+            merge.append((e.time_range.start, e.time_range.elapsed_us() / 1e3))
         name = e.name.lower()
         for part in parts:
             if part in name:
@@ -88,9 +92,12 @@ def profile(fn, n_iters):
         if b > end:
             busy += b - max(a, end)
             end = b
+    merge = [ms for _, ms in sorted(merge)]  # launch k of an iteration: depth k
+    per_depth = ([sum(merge[d::DEPTH]) / n_iters for d in range(DEPTH)]
+                 if len(merge) == n_iters * DEPTH else None)
     return (busy / 1e3 / n_iters, len(spans) / n_iters,
             {k: v / (n_iters * DEPTH) for k, v in parts.items()},
-            {k: sum(v) / len(v) for k, v in kernels.items()})
+            {k: sum(v) / len(v) for k, v in kernels.items()}, per_depth)
 
 
 def route_ab(ports, dev, label, name):
@@ -105,7 +112,8 @@ def route_ab(ports, dev, label, name):
     timed = {k: {who: [] for who in ports} for k in (
         "ms_per_frame", "busy_ms_per_iteration", "idle_share",
         "device_events_per_iteration", "radix_kernels_ms_per_depth",
-        "scan_ms_per_depth", "memset_ms_per_depth", "radix_kernel_ms_per_launch")}
+        "scan_ms_per_depth", "memset_ms_per_depth", "radix_kernel_ms_per_launch",
+        "merge_entries_ms_per_depth")}
     for who in ORDER:
         r = sides[who]
         r.step_batch(3)
@@ -114,14 +122,15 @@ def route_ab(ports, dev, label, name):
         r.step_batch(20)
         torch.cuda.synchronize()
         frame = 1e3 * (time.perf_counter() - t0) / 20
-        busy, events, parts, kernels = profile(lambda r=r: r.step_batch(5), 5)
+        busy, events, parts, kernels, merge = profile(lambda r=r: r.step_batch(5), 5)
         for k, v in (("ms_per_frame", frame), ("busy_ms_per_iteration", busy),
                      ("idle_share", max(0.0, 1.0 - busy / frame)),
                      ("device_events_per_iteration", events),
                      ("radix_kernels_ms_per_depth", parts["radix"]),
                      ("scan_ms_per_depth", parts["scan"]),
                      ("memset_ms_per_depth", parts["memset"]),
-                     ("radix_kernel_ms_per_launch", kernels)):
+                     ("radix_kernel_ms_per_launch", kernels),
+                     ("merge_entries_ms_per_depth", merge)):
             timed[k][who].append(v)
     return {"path": label, "scene": name, "settings": {"antialias": True},
             "res": "800x800", "depth": DEPTH, "route": "Renderer.step_batch, SORT_RADIX",
