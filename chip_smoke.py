@@ -4,8 +4,11 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, in parallel), prints the registers, shared memory and
-stack frames of A, B, C, #1, #3, #7, #8, #5, #6 and the radix kernels
-(`nvcc -Xptxas -v`), holds each of the seventeen against its plain PyTorch version on
+stack frames of A, B, C, #1, #2, #3, #7, #8, #5, #6 and the radix kernels
+(`nvcc -Xptxas -v`) and #2's sweep instructions per lane read from its
+SASS beside its bound (`first_bounce_sass`), holds #2's paired division
+bit for bit against IEEE division for every float divisor
+(`div_pair_exhaustive`), holds each of the seventeen against its plain PyTorch version on
 the card (at 64x64 and at the main path's 800x800; #1 on nine configs at 64x64 and 37x23, bit for
 bit against the per-bounce kernels #2 -> #3 and on all but 0.1% of the
 pixels against its plain version; the NEE kernels #5 and #6 on Cornell
@@ -239,6 +242,15 @@ OPS_NORMAL = 130  # the winner's test again, with its normal
 OPS_SHADE = 220  # seed + 2 minstd draws, cosine hemisphere, reflect, tint
 OPS_RAYGEN = 35  # pinhole direction and normalize
 OPS_RAYGEN_AA = 135  # + seed, 4 draws and the jitter
+OPS_DRAW = 12  # one minstd draw and its scale to [0, 1)
+# #2 without depth of field: every lane's ray starts at the camera, so
+# these are once per geom and launch, not per lane
+OPS_ORIGIN = 24  # per analytic geom: the origin's object-space transform
+#                  and the box's six slab numerators or the sphere's
+#                  |ro|^2 - 1/4
+OPS_WINNER_NORMAL = 30  # the winner's normal from the object-space part
+#                         its test kept: the face select, a transform, a
+#                         normalize (OPS_NORMAL tests the winner again)
 # the NEE kernels (shade_nee), each charged only to the lanes that do it
 # in this run's data (nee_work); the emissive hit's MIS weight and the
 # glossy lobe's powf are left out, which only lowers the bound:
@@ -301,6 +313,25 @@ def small_scene(name: str, res, path=None):
         float(c.fov[1]), c.aperture, c.focal_distance,
     )
     return s
+
+
+def many_boxes_scene(path: str, n: int = 300, seed: int = 0) -> str:
+    """Write Cornell with `n` small boxes added inside the room (random
+    places, sizes, rotations and materials 1-4, from `seed`) to `path`:
+    more geoms than #2 stages in one chunk. Returns `path`."""
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(HERE, "scenes", "cornell.txt")) as f:
+        text = f.read().rstrip() + "\n"
+    for k in range(n):
+        x, y, z = rng.uniform((-4.5, 0.2, -4.5), (4.5, 9.5, 4.5))
+        sx, sy, sz = rng.uniform(0.1, 0.6, 3)
+        rx, ry, rz = rng.uniform(0.0, 90.0, 3)
+        text += (f"\nOBJECT {7 + k}\ncube\nmaterial {int(rng.integers(1, 5))}\n"
+                 f"TRANS {x:.4f} {y:.4f} {z:.4f}\nROTAT {rx:.2f} {ry:.2f} {rz:.2f}\n"
+                 f"SCALE {sx:.4f} {sy:.4f} {sz:.4f}\n")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
 
 
 def on_card(dev, name, settings_kw, res, depth=8, path=None, glossy=False):
@@ -399,19 +430,97 @@ extern "C" int raygen_probe(const float* cam, int resx, int resy, int iteration,
 """
 
 
-def build_raygen_probe(nvcc: str, out_dir: str):
-    """Start nvcc on RAYGEN_PROBE with the build's flags; returns (the
-    process, the library it writes)."""
+# #2's paired division (csrc/path_common.cuh `div_pair`) against IEEE
+# division (`/`) for every float divisor, each of the numerators given:
+# per numerator pair and divisor bit pattern, both quotients' bits, and
+# how many took div_pair's own path. A probe of this check, built beside
+# the kernels from this checkout's header, and no kernel of the port.
+DIV_PROBE = r"""
+#include "path_common.cuh"
+__global__ void div_probe_kernel(const float* nums, int n_pairs,
+                                 unsigned long long* counts) {
+  unsigned long long bad = 0, fast = 0;
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (unsigned long long u = blockIdx.x * blockDim.x + threadIdx.x; u < (1ull << 32);
+       u += stride) {
+    const float d = __uint_as_float(static_cast<unsigned>(u));
+    for (int k = 0; k < n_pairs; ++k) {
+      const float lo = nums[2 * k], hi = nums[2 * k + 1];
+      const bool ok = div_operand_ok(lo) && div_operand_ok(hi);
+      float t1, t2;
+      div_pair(lo, hi, d, ok, &t1, &t2);
+      bad += (__float_as_uint(t1) != __float_as_uint(lo / d)) +
+             (__float_as_uint(t2) != __float_as_uint(hi / d));
+      fast += ok && div_operand_ok(d);
+    }
+  }
+  atomicAdd(counts, bad);
+  atomicAdd(counts + 1, fast);
+}
+extern "C" int div_probe(const float* nums, int n_pairs, unsigned long long* counts) {
+  div_probe_kernel<<<132 * 16, 256>>>(nums, n_pairs, counts);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def build_probe(nvcc: str, out_dir: str, name: str, source: str):
+    """Start nvcc on a probe's source with the build's flags; returns
+    (the process, the library it writes)."""
     from project3_cuda_path_tracer_tpu_torch.ops import _native
 
-    src = os.path.join(out_dir, "raygen_probe.cu")
+    src = os.path.join(out_dir, f"{name}.cu")
     with open(src, "w") as f:
-        f.write(RAYGEN_PROBE)
-    lib = os.path.join(out_dir, "raygen_probe.so")
+        f.write(source)
+    lib = os.path.join(out_dir, f"{name}.so")
     proc = subprocess.Popen([nvcc, *_native.NVCC_FLAGS, "-I", os.path.join(HERE, PKG, "csrc"),
                              "-o", lib, src],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, lib
+
+
+def div_probe_numerators(n_pairs: int = 256, seed: int = 0):
+    """Numerator pairs for DIV_PROBE: magnitudes log-uniform over
+    2^-64..2^64 (div_pair's range and past it), random mantissas and signs,
+    and some of each kind a slab numerator takes (+-1/2, 1/2 +- an ulp,
+    zeros, the smallest and largest of the range)."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(1.0, 2.0, 2 * n_pairs) * np.exp2(rng.integers(-64, 65, 2 * n_pairs))
+    nums = (m * rng.choice([-1.0, 1.0], 2 * n_pairs)).astype(np.float32)
+    special = np.array([0.5, -0.5, np.nextafter(np.float32(0.5), np.float32(1)),
+                        np.nextafter(np.float32(-0.5), np.float32(-1)), 0.0, -0.0,
+                        2.0 ** -60, -(2.0 ** 60), 1.5, -1.5, 2.0 ** -61, 2.0 ** 61],
+                       np.float32)
+    nums[:special.size] = special
+    return nums
+
+
+def div_probe_check(dev, probe_build) -> dict:
+    """Run DIV_PROBE over every float divisor; fails on any quotient whose
+    bits differ from `/`'s."""
+    import ctypes
+
+    import torch
+
+    proc, lib = probe_build
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the division probe did not build: {err[-2000:]}")
+    fn = ctypes.CDLL(lib).div_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    nums = torch.from_numpy(div_probe_numerators()).to(dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    t0 = time.time()
+    if fn(nums.data_ptr(), nums.numel() // 2, counts.data_ptr()) != 0:
+        raise RuntimeError("the division probe failed")
+    bad, fast = (int(c) for c in counts.cpu())
+    out = dict(numerators=nums.numel(), divisors=2 ** 32, quotients=2 ** 32 * nums.numel(),
+               pairs_on_div_pair_path=fast, quotients_differing=bad,
+               seconds=time.time() - t0)
+    if bad:
+        raise RuntimeError(f"div_pair differs from IEEE division on {bad} quotients")
+    return out
 
 
 def load_raygen_probe(proc, lib: str):
@@ -1448,6 +1557,123 @@ def ptxas_usage(proc, pattern: str) -> dict:
     return {k: "; ".join(v) for k, v in usage.items()}
 
 
+def sweep_sass(sass: str, kernel: str) -> dict:
+    """#2's sweep in its SASS (`cuobjdump -sass` text), per function whose
+    name holds `kernel`: its static instruction count and the instructions
+    one lane issues per geom test of its sweep loop (the innermost loop
+    with an FCHK, a division's range check), on a miss and on a hit, for
+    the box arm (the one with the FCHKs) and the sphere arm, with the
+    divisions' slow paths (a region holding a CALL) skipped, as a lane
+    with finite, normal inputs skips them. A diagnostic read from the
+    instruction listing, not a measurement."""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(.*?)\s*;", line)
+        if name and m:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for fn, ins in funcs.items():
+        at = {off: i for i, (off, _) in enumerate(ins)}
+
+        def target(text):
+            m = re.search(r"BRA(?:\.\w+)*\s+(?:!?U?P\d,\s*)?`?\(?\.?L?_?x?_?\d*\)?\s*0x([0-9a-f]+)",
+                          text)
+            return int(m.group(1), 16) if m else None
+
+        def has(lo, hi, op):  # an `op` in instructions [lo, hi)
+            return any(op in t for _, t in ins[lo:hi])
+
+        loops = [(at[target(t)], i) for i, (_, t) in enumerate(ins)
+                 if "BRA" in t and target(t) is not None and target(t) <= ins[i][0]
+                 and target(t) in at]
+        loops = [(a, b) for a, b in loops if has(a, b, "FCHK")]
+        if not loops:
+            continue
+        a, b = min(loops, key=lambda lb: lb[1] - lb[0])
+
+        # where the arms join: the furthest forward branch target in the loop
+        join = max((target(t) for _, t in ins[a:b] if "BRA" in t and target(t) is not None
+                    and ins[a][0] < target(t) <= ins[b][0]), default=ins[b][0])
+
+        def walk(start, arm, hit):
+            """Instructions one lane issues from `start` to the loop's
+            back branch: at the first other conditional branch into the
+            loop the arm `arm` (0 falls through, 1 branches); past a slow
+            path (a short region with a CALL); at the first branch to the
+            join (the hit test) past the hit's code unless `hit`; through
+            any other conditional branch (a division's fast path)."""
+            i, n, typed, tested = start, 0, False, False
+            while i <= b and n < 10 * len(ins):
+                off, t = ins[i]
+                n += 1
+                tgt = target(t) if "BRA" in t else None
+                if i == b or tgt is None or tgt not in at or tgt <= off:
+                    i += 1
+                    continue
+                j = at[tgt]
+                if not t.startswith("@"):
+                    i = j
+                elif tgt == join and not tested:
+                    tested = True
+                    i = i + 1 if hit else j
+                elif j <= i + 8 and has(i + 1, j, "CALL"):
+                    i = j
+                elif not typed and tgt != join:
+                    typed = True
+                    i = j if arm else i + 1
+                else:
+                    i += 1
+            return n
+
+        # which arm holds the divisions (the box's): the type branch's
+        # fall-through or its target
+        first = next(i for i in range(a, b) if ins[i][1].startswith("@") and "BRA" in ins[i][1]
+                     and target(ins[i][1]) in at and ins[i][0] < target(ins[i][1]) != join
+                     and not (at[target(ins[i][1])] <= i + 8
+                              and has(i + 1, at[target(ins[i][1])], "CALL")))
+        box_arm = 0 if has(first + 1, at[target(ins[first][1])], "FCHK") else 1
+        counts = {}
+        for arm, what in ((box_arm, "box"), (1 - box_arm, "sphere")):
+            counts[f"{what}_miss"] = walk(a, arm, False)
+            counts[f"{what}_hit"] = walk(a, arm, True)
+        out[fn] = dict(static=len(ins), sweep_loop=b - a + 1,
+                       fchk=sum("FCHK" in t for _, t in ins[a:b + 1]), **counts)
+    return out
+
+
+def sweep_hits(ds, cam, iteration) -> dict:
+    """Per camera ray of `iteration` (AA, pinhole) the analytic geoms of
+    each kind and those its ray hits (t > 0), from the plain tests: what a
+    lane of #2 sweeps."""
+    from project3_cuda_path_tracer_tpu_torch.ops.camera import generate_rays
+    from project3_cuda_path_tracer_tpu_torch.ops.intersect import (
+        box_intersect,
+        sphere_intersect,
+    )
+
+    o, d, _ = generate_rays(cam, iteration, True, False)
+    P = d.x.shape[0]
+    out = {"box": 0, "box_hits": 0.0, "sphere": 0, "sphere_hits": 0.0}
+    for i, g in enumerate(ds.gtypes):
+        if g == 0:
+            t = sphere_intersect(ds.transform[i], ds.inverse_transform[i],
+                                 ds.inv_transpose[i], o, d)[0]
+        elif g == 1:
+            t = box_intersect(ds.transform[i], ds.inverse_transform[i], o, d)[0]
+        else:
+            continue
+        kind = "sphere" if g == 0 else "box"
+        out[kind] += 1
+        out[f"{kind}_hits"] += float((t > 0).sum()) / P
+    return out
+
+
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES
     t_ops = ops / PEAK_OPS
@@ -1619,17 +1845,19 @@ def main() -> int:
     # #3, #7, #8, #9, #5, #6 and the radix kernels from ptxas, compiled
     # beside the build)
     ptxas_of = (("sorted.cu", "window_sweep|place_entries|super_keys|merge_entries"),
-                ("bounce.cu", "bounce_step_kernel"),
+                ("bounce.cu", "bounce_step_kernel|first_bounce_kernel"),
                 ("full_iteration.cu", "full_iteration"),
                 ("mesh.cu", "mesh_sweep|mesh_candidates|bounce_step_mesh"),
                 ("nee.cu", "nee_kernel"),
                 ("radix.cu", "radix_"))
     ptxas = {src: ptxas_verbose(nvcc, f"{PKG}/csrc/{src}", tmpdir)
              for src, _ in ptxas_of}
-    probe_build = build_raygen_probe(nvcc, tmpdir)
+    probe_build = build_probe(nvcc, tmpdir, "raygen_probe", RAYGEN_PROBE)
+    div_build = build_probe(nvcc, tmpdir, "div_probe", DIV_PROBE)
     lib_paths, build_s = _native.build(force=True)
     _native.load()
     usage = "not measured"
+    fb_sass = {}
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if os.path.exists(cuobjdump):
         lines = []
@@ -1639,6 +1867,11 @@ def main() -> int:
             lines += [ln.strip() for ln in res.stdout.splitlines()
                       if "REG" in ln or "Function" in ln]
         usage = " | ".join(lines) or "cuobjdump printed no resource usage"
+        # #2's sweep in its SASS, for the diagnostic beside its bound
+        (bounce_lib,) = (p for p in lib_paths if "bounce" in os.path.basename(str(p)))
+        fb_sass = sweep_sass(subprocess.run([cuobjdump, "-sass", str(bounce_lib)],
+                                            capture_output=True, text=True, timeout=120,
+                                            check=True).stdout, "first_bounce_kernel")
     say("build", nvcc_wall_seconds=build_s,
         libraries=[os.path.relpath(p, HERE) for p in lib_paths],
         resource_usage=usage)
@@ -1678,6 +1911,9 @@ def main() -> int:
                               "settings": {"antialias": True},
                               "res": "800x800"}, *r)
         err800[kernel] = r[2]
+    # #2's paired division: bit for bit IEEE division for every divisor
+    say("div_pair_exhaustive", kernel="first_bounce", source=f"{PKG}/csrc/path_common.cuh",
+        **div_probe_check(dev, div_build))
     # #5 and #6 (NEE + MIS), at 64x64 and 800x800; the error kept for the
     # kernels line is the main NEE path's (Cornell AA, 800x800)
     for res in ((64, 64), (800, 800)):
@@ -2172,6 +2408,8 @@ def main() -> int:
     counts = counts.cpu().tolist()
     lanes_in = [P] + counts[:-1]  # live lanes entering each depth
     per_lane = sweep_ops(ds) + OPS_NORMAL + OPS_SHADE
+    n_an = sum(1 for g in ds.gtypes if g != 2)
+    fb_hits = sweep_hits(ds, cam, it)
 
     fb_plain = event_ms(lambda: mk.first_bounce_reference(ds, cam, it, settings), 3)
     pool = mk.first_bounce_reference(ds, cam, it, settings)
@@ -2413,7 +2651,13 @@ def main() -> int:
         # per launch: the main path's `batch` iterations of one call
         "full_iteration": bound(24 * P * batch,
                                 batch * (P * OPS_RAYGEN_AA + sum(lanes_in) * per_lane)),
-        "first_bounce": bound(56 * P, P * (OPS_RAYGEN_AA + per_lane)),
+        # what a pinhole camera needs (two draws; the origin terms once per
+        # geom; the winner's normal from its test's own values); the
+        # per-lane count P * (OPS_RAYGEN_AA + per_lane) is printed beside
+        # it (first_bounce_sass, fb_per_lane_bound_ms)
+        "first_bounce": bound(56 * P, P * (OPS_RAYGEN_AA - 2 * OPS_DRAW + sweep_ops(ds)
+                                           - n_an * OPS_ORIGIN + OPS_WINNER_NORMAL
+                                           + OPS_SHADE) + n_an * OPS_ORIGIN),
         "bounce_step": bound(
             sum(4 * P + 104 * n for n in lanes_in[1:]) / (D - 1),
             sum(n * per_lane for n in lanes_in[1:]) / (D - 1),
@@ -2427,6 +2671,19 @@ def main() -> int:
         "bounce_step_nee": bound(sum(4 * P + 120 * n for n in nee_in) / D,
                                  sum(nee_ops) / D),
     }
+    # #2's bound with every term per lane, and its sweep's SASS per lane on
+    # this run's camera rays (a diagnostic: instructions read from the
+    # listing, weighted by the plain tests' hits)
+    say("first_bounce_sass", device=smi, bound_ms=bounds["first_bounce"][0],
+        bound_by=bounds["first_bounce"][1],
+        fb_per_lane_bound_ms=bound(56 * P, P * (OPS_RAYGEN_AA + per_lane))[0],
+        geoms_per_lane=fb_hits, sass={
+            fn: dict(c, sweep_per_lane=(
+                fb_hits["box"] * c["box_miss"]
+                + fb_hits["box_hits"] * (c["box_hit"] - c["box_miss"])
+                + fb_hits["sphere"] * c["sphere_miss"]
+                + fb_hits["sphere_hits"] * (c["sphere_hit"] - c["sphere_miss"])))
+            for fn, c in fb_sass.items()})
     # the same on (h) and (i), for PERF.md's ranking
     mm_in = mm_counts["lanes_in"]
     nee_path_bounds = {

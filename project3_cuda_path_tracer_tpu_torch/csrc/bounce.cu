@@ -11,9 +11,22 @@
 // The pool is structure-of-arrays, one lane per path: origin, direction,
 // throughput and radiance as 12 float32 lanes, then alive and pix as
 // int32 (path_common.cuh's `Lanes`). #2 and #4 run one thread per lane,
-// 128 to a block, no shared memory; the bounce arithmetic is
-// csrc/path_common.cuh's (`raygen`, `intersect`, `shade`), the same code
-// kernel #1 runs.
+// 128 to a block; the bounce arithmetic is csrc/path_common.cuh's
+// (`raygen`, the geom tests, `shade`), the same code kernel #1 runs, so
+// #1 equals #2 -> #3 bit for bit.
+//
+// #2 is bound by instruction issue: its lanes run the same sweep over
+// every geom, each box test six IEEE divisions, and the kernel keeps the
+// card's schedulers busy for most of its time (PERF.md §6). Its design
+// cuts the instructions a lane issues, each value computed with the
+// per-lane code so the results keep their bits: a block stages the
+// geoms' rows in shared memory (kStage at a time, in geom order) and,
+// without depth of field, where every ray starts at the camera, the
+// origin's terms once per geom (the object-space origin, a box's slab
+// numerators, a sphere's |ro|^2 - 1/4); a box's two slabs of an axis
+// share one reciprocal (`div_pair`); each hit keeps the object-space part
+// of its normal, so the winner needs no second test; and the camera draws
+// two numbers, not four, when there is no depth of field.
 //
 // Dead lanes: #4 copies a dead lane through. #3 bounces the live lanes
 // below its live count: the pool size, or under stream compaction (live
@@ -54,21 +67,162 @@ struct IsectLanes {
   const int* outside;
 };
 
+// #2: geoms a block stages in shared memory at a time. A scene with more
+// is swept in chunks of kStage, in geom order.
+constexpr int kStage = 32;
+
+// One staged geom of #2: rows 0-2 of its inverse and transform, its type
+// and, for a pinhole camera, the terms of the camera's origin that every
+// lane's sweep would compute alike: the origin in object space (w: the
+// sphere's |ro|^2 - 1/4), the box's slab numerators -1/2 - qo, 1/2 - qo
+// and whether all six pass div_operand_ok.
+struct Staged {
+  float4 inv[3];
+  float4 xf[3];
+  float4 qo;
+  float4 lo;
+  float4 hi;
+  int type;
+  bool nums_ok;
+};
+
+// Geom g's staged row, computed by one thread of the block with the
+// per-lane code (xform_point, the same subtractions and dot), so with the
+// per-lane roundings; pos is the camera's origin, every lane's ray origin
+// without depth of field.
+template <bool kPinhole>
+__device__ __forceinline__ void stage_geom(const Tables& s, int g, V3 pos, Staged* r) {
+  const float* inv = s.inv + 16 * g;
+  const float* xf = s.xf + 16 * g;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r->inv[k] = make_float4(__ldg(inv + 4 * k), __ldg(inv + 4 * k + 1), __ldg(inv + 4 * k + 2),
+                            __ldg(inv + 4 * k + 3));
+    r->xf[k] = make_float4(__ldg(xf + 4 * k), __ldg(xf + 4 * k + 1), __ldg(xf + 4 * k + 2),
+                           __ldg(xf + 4 * k + 3));
+  }
+  r->type = __ldg(s.gtype + g);
+  if constexpr (kPinhole) {
+    const V3 qo = xform_point(inv, pos);
+    r->qo = make_float4(qo.x, qo.y, qo.z, dot(qo, qo) - 0.25f);
+    r->lo = make_float4(-0.5f - qo.x, -0.5f - qo.y, -0.5f - qo.z, 0.0f);
+    r->hi = make_float4(0.5f - qo.x, 0.5f - qo.y, 0.5f - qo.z, 0.0f);
+    r->nums_ok = div_operand_ok(r->lo.x) && div_operand_ok(r->lo.y) &&
+                 div_operand_ok(r->lo.z) && div_operand_ok(r->hi.x) &&
+                 div_operand_ok(r->hi.y) && div_operand_ok(r->hi.z);
+  }
+}
+
+__device__ __forceinline__ float axis(float4 v, int a) { return a == 0 ? v.x : a == 1 ? v.y : v.z; }
+
+// A geom test's view of a staged geom (path_common.cuh's TableGeom reads
+// the tables): with kPinhole the staged origin terms, else the lane's own.
+template <bool kPinhole>
+struct StagedGeom {
+  const Staged* r;
+  __device__ __forceinline__ V3 origin(V3 o) const {
+    if constexpr (kPinhole) {
+      return {r->qo.x, r->qo.y, r->qo.z};
+    } else {
+      return xform_point(Rows3{r->inv[0], r->inv[1], r->inv[2]}, o);
+    }
+  }
+  __device__ __forceinline__ V3 direction(V3 d) const {
+    return xform_dir(Rows3{r->inv[0], r->inv[1], r->inv[2]}, d);
+  }
+  __device__ __forceinline__ void slab_t(float o, float d, int a, float* t1, float* t2) const {
+    if constexpr (kPinhole) {
+      div_pair(axis(r->lo, a), axis(r->hi, a), d, r->nums_ok, t1, t2);
+    } else {
+      *t1 = (-0.5f - o) / d;
+      *t2 = (0.5f - o) / d;
+    }
+  }
+  __device__ __forceinline__ float sphere_c(V3 ro) const {
+    if constexpr (kPinhole) return r->qo.w;
+    return dot(ro, ro) - 0.25f;
+  }
+  __device__ __forceinline__ V3 to_world(V3 p) const {
+    return xform_point(Rows3{r->xf[0], r->xf[1], r->xf[2]}, p);
+  }
+};
+
+// #2's min-t sweep: path_common.cuh's `intersect` over the staged geoms,
+// chunk by chunk, in geom order with the strict-< update. Each hit keeps
+// the object-space part of its normal, so the winner's normal is that
+// part transformed, with no second test. Every thread of the block calls
+// it (it holds the block's barriers); a thread that is not `on` only
+// stages.
+template <bool kPinhole>
+__device__ __forceinline__ Hit intersect_staged(const Tables& s, Staged* stage, V3 pos, V3 org,
+                                                V3 dir, bool on) {
+  float best_t = -1.0f;
+  int best_g = -1;
+  V3 best_v = {0.0f, 0.0f, 0.0f};
+  bool best_out = true;
+  for (int g0 = 0; g0 < s.n_geoms; g0 += kStage) {
+    const int in_stage = min(kStage, s.n_geoms - g0);
+    if (g0 > 0) __syncthreads();  // every thread is done with the last chunk
+    for (int k = threadIdx.x; k < in_stage; k += kThreads) {
+      stage_geom<kPinhole>(s, g0 + k, pos, stage + k);
+    }
+    __syncthreads();
+    if (!on) continue;
+    for (int k = 0; k < in_stage; ++k) {
+      const StagedGeom<kPinhole> gm{stage + k};
+      V3 v = {0.0f, 0.0f, 0.0f};
+      bool out = true;
+      const float t = stage[k].type == kSphere
+                          ? sphere_hit<true>(gm, nullptr, org, dir, true, &v, &out)
+                          : box_hit<true>(gm, org, dir, true, &v, &out);
+      const float prev = best_t > 0.0f ? best_t : kFltMax;
+      if (t > 0.0f && prev > t) {
+        best_t = t;
+        best_g = g0 + k;
+        best_v = v;
+        best_out = out;
+      }
+    }
+  }
+  Hit h;
+  h.t = best_t;
+  h.n = {0.0f, 0.0f, 0.0f};
+  h.mat = -1;
+  h.outside = true;
+  if (best_g >= 0) {
+    // the world normal as box_test and sphere_test compute it
+    if (__ldg(s.gtype + best_g) == kSphere) {
+      h.n = normalize(xform_dir(s.invt + 16 * best_g, best_v)) * (best_out ? 1.0f : -1.0f);
+    } else {
+      h.n = normalize(xform_dir(s.xf + 16 * best_g, best_v));
+    }
+    h.outside = best_out;
+    h.mat = __ldg(s.gmat + best_g);
+  }
+  return h;
+}
+
+// kPinhole: no depth of field, so every lane's ray starts at the camera.
+template <bool kPinhole>
 __global__ void __launch_bounds__(kThreads)
     first_bounce_kernel(const Tables s, const float* __restrict__ cam, const Lanes out,
                         int iteration, int resx, int resy) {
+  __shared__ Staged stage[kStage];
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= resx * resy) return;
+  const bool on = pix < resx * resy;
   Path p;
-  raygen(cam, pix, resx, resy, iteration, s.flags, &p.org, &p.dir);
+  raygen<kPinhole>(cam, pix, resx, resy, iteration, s.flags, &p.org, &p.dir);
   p.thr = {1.0f, 1.0f, 1.0f};
   p.rad = {0.0f, 0.0f, 0.0f};
-  const Hit h = intersect(s, p.org, p.dir);
-  const bool alive = shade(s, p, h, static_cast<uint32_t>(iteration), 0,
-                           static_cast<uint32_t>(pix));
-  store_path(out, pix, p);
-  out.alive[pix] = alive ? 1 : 0;
-  out.pix[pix] = pix;
+  const V3 pos = {__ldg(cam + 0), __ldg(cam + 1), __ldg(cam + 2)};
+  const Hit h = intersect_staged<kPinhole>(s, stage, pos, p.org, p.dir, on);
+  if (on) {
+    const bool alive = shade(s, p, h, static_cast<uint32_t>(iteration), 0,
+                             static_cast<uint32_t>(pix));
+    store_path(out, pix, p);
+    out.alive[pix] = alive ? 1 : 0;
+    out.pix[pix] = pix;
+  }
 }
 
 constexpr int kBounceThreads = kThreads;  // #3: threads (and lanes) a block
@@ -136,7 +290,8 @@ extern "C" int pt_first_bounce(void* const* tables, int n_geoms, const float* ca
   const Tables s = make_tables(tables, n_geoms, flags, rr_start);
   const int n = resx * resy;
   if (n > 0) {
-    first_bounce_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = (flags & kDof) ? first_bounce_kernel<false> : first_bounce_kernel<true>;
+    kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         s, cam, make_lanes(pool), iteration, resx, resy);
   }
   return static_cast<int>(cudaGetLastError());

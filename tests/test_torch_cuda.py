@@ -251,6 +251,45 @@ def test_first_bounce_matches_plain_on_cuda(cuda_device, name, settings_kw):
     assert_lanes_close(got, want)
 
 
+# #2's sweep in chunks of staged geoms, its origin terms once per block
+# without depth of field and per lane with it, its blocks partly off the
+# image; "many_boxes" is Cornell with 300 boxes added
+# (chip_smoke.many_boxes_scene)
+FIRST_BOUNCE_CONFIGS = [
+    ("cornell_dof.txt", {"antialias": True, "depth_of_field": True}, (64, 64)),
+    ("many_materials.txt", {"russian_roulette": True}, (64, 64)),
+    ("env.txt", {}, (64, 64)),
+    ("cornell.txt", {"antialias": True}, (37, 23)),
+    ("cornell.txt", {"antialias": True}, (1, 1)),
+    ("cornell_dof.txt", {"antialias": True, "depth_of_field": True}, (1, 1)),
+    ("many_boxes", {"antialias": True}, (64, 64)),
+    ("many_boxes", {"antialias": True}, (37, 23)),
+]
+
+
+@pytest.mark.parametrize("name,settings_kw,res", FIRST_BOUNCE_CONFIGS)
+def test_first_bounce_configs_on_cuda(cuda_device, tmp_path, name, settings_kw, res):
+    """#2 against its plain version (the lane rule), and #1 bit for bit
+    against #2 -> #3: with depth of field (each lane's own origin), on
+    many_materials' 38 geoms and the 307 of "many_boxes" (more than one
+    staged chunk), on env.txt's 3 geoms and its misses, and at 37x23 and
+    1x1 (a block mostly off the image)."""
+    if name == "many_boxes":
+        from chip_smoke import many_boxes_scene
+
+        name = many_boxes_scene(str(tmp_path / "many_boxes.txt"))
+    ds, cam, settings = _setup(cuda_device, name, settings_kw, res)
+    before = megakernel.first_bounce.launches
+    got = megakernel.first_bounce(ds, cam, 3, settings)
+    torch.cuda.synchronize()
+    assert megakernel.first_bounce.launches == before + 1
+    assert_lanes_close(got, megakernel.first_bounce_reference(ds, cam, 3, settings))
+    accum = Vec3.zeros(res[0] * res[1], cuda_device)
+    megakernel.full_iteration(ds, cam, 3, settings, accum)
+    torch.cuda.synchronize()
+    assert_bit_identical(accum, per_bounce_radiance(ds, cam, settings, 3))
+
+
 @pytest.mark.parametrize("compact", [False, True])
 @pytest.mark.parametrize("name,settings_kw", PER_BOUNCE)
 def test_bounce_step_matches_plain_on_cuda(cuda_device, name, settings_kw,

@@ -1,11 +1,12 @@
 """Time the PyTorch/CUDA port's per-bounce and mesh paths against those
 of another checkout of this repository, in turns on one NVIDIA GPU, and
-hold the renders bit for bit: #3 (`bounce_step`) on the per-bounce paths,
+hold the renders bit for bit: #2 (`first_bounce`) and #3 (`bounce_step`)
+on the per-bounce paths,
 #7 (`mesh_candidates`) and #9 (`bounce_step_mesh`) on every mesh path, A
 (`super_keys`), B (`place_entries`) with its glue and D
 (`merge_entries`) on the big-mesh counting route.
 
-    python tools/torch_mesh_ab.py --other DIR [--paths a,b,c,d,j,k,l,n,p] [--out FILE]
+    python tools/torch_mesh_ab.py --other DIR [--paths a,b,c,d,e,j,k,l,n,p] [--out FILE]
 
 DIR is another checkout (or `git archive`) of the repository. Its port
 package is loaded beside this one under the name `other_port`
@@ -16,8 +17,9 @@ device scene made from this checkout's scene files, 800x800, depth 8:
 - (a) cornell.txt AA through `Renderer.step()` (#2, then #3 at depths
   1-7); (b) AA with --compact, (c) --cache-first-bounce and (d) AA with
   --motion-blur (the sphere moving, as chip_smoke.py makes the scene)
-  through `Renderer.step_batch` (#3 after the compaction glue, after #4,
-  after the re-pack);
+  and (e) AA with --direct-lighting through `Renderer.step_batch` (#2 on
+  all but (c); #3 after the compaction glue, after #4, after the re-pack,
+  and at depths 1-6 before (e)'s plain last bounce);
 - (j) mesh.txt AA through `step_batch` (#7 -> #8 -> #9 at every depth),
   (k) the same through `step()`, (l) with --cache-first-bounce through
   `step_batch` (#4 at depth 0 after the cache fill, #7 -> #8 -> #9 at
@@ -30,7 +32,7 @@ for bit. Then, in turns (other, this, this, other): 3 iterations to warm,
 20 timed on the host clock (ms per frame, closed by a synchronize), and 5
 under torch.profiler: device busy ms per iteration (the union of the
 device spans), the idle share against the host-timed frame, device events
-per iteration and per depth, #3's, #7's, #9's, A's, B's, C's and D's
+per iteration and per depth, #2's, #3's, #7's, #9's, A's, B's, C's and D's
 device ms per launch and at each depth (launch k of an iteration is its
 k-th depth: #3's first is depth 1), and per depth the device ms and
 events of B's glue
@@ -58,6 +60,7 @@ PATHS = {  # label -> (scene, settings, route), each at its own 800x800
     "b": ("cornell.txt", dict(AA, compact=True), "step_batch"),
     "c": ("cornell.txt", {"cache_first_bounce": True}, "step_batch"),
     "d": ("cornell_moving.txt", dict(AA, motion_blur=True), "step_batch"),
+    "e": ("cornell.txt", dict(AA, direct_lighting=True), "step_batch"),
     "j": ("mesh.txt", AA, "step_batch"),
     "k": ("mesh.txt", AA, "step"),
     "l": ("mesh.txt", {"cache_first_bounce": True}, "step_batch"),
@@ -65,7 +68,8 @@ PATHS = {  # label -> (scene, settings, route), each at its own 800x800
     "p": ("bunny.txt", AA, "step_batch"),
 }
 DEPTH = 8
-KERNELS = {"bounce_step": "bounce_step_kernel", "mesh_candidates": "mesh_candidates_kernel",
+KERNELS = {"first_bounce": "first_bounce_kernel", "bounce_step": "bounce_step_kernel",
+           "mesh_candidates": "mesh_candidates_kernel",
            "bounce_step_mesh": "bounce_step_mesh_kernel",
            "place_entries": "place_entries_kernel", "super_keys": "super_keys_kernel",
            "window_sweep": "window_sweep_kernel", "merge_entries": "merge_entries_kernel"}

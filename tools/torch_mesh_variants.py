@@ -1,21 +1,29 @@
-"""Time variants of six kernels at each depth of their paths on one
-NVIDIA GPU, to find where their time goes: #3 (`bounce_step`,
-csrc/bounce.cu), A (`super_keys`, csrc/sorted.cu), #7
-(`mesh_candidates`, csrc/mesh.cu), B (`place_entries`, csrc/sorted.cu),
-#9 (`bounce_step_mesh`, csrc/mesh.cu) and D (`merge_entries`,
-csrc/sorted.cu).
+"""Time variants of seven kernels at each depth of their paths on one
+NVIDIA GPU, to find where their time goes: #2 (`first_bounce`,
+csrc/bounce.cu), #3 (`bounce_step`, csrc/bounce.cu), A (`super_keys`,
+csrc/sorted.cu), #7 (`mesh_candidates`, csrc/mesh.cu), B
+(`place_entries`, csrc/sorted.cu), #9 (`bounce_step_mesh`, csrc/mesh.cu)
+and D (`merge_entries`, csrc/sorted.cu).
 
-    python tools/torch_mesh_variants.py [--kernels 3,a,7,b,9,d] [--parent DIR]
+    python tools/torch_mesh_variants.py [--kernels 2,3,a,7,b,9,d] [--parent DIR]
                                         [--out FILE]
 
 Each variant is its source with named lines replaced (each replaced line
-must be found, or the tool stops), built with the port's own nvcc flags
-into `_build/variants/`. With --parent DIR (another checkout or `git
-archive` of the repository, whose wrappers call the same C entry points),
-its #3, A, #9 and D are built from DIR's own sources as the variants
-"parent_3", "parent_a", "parent_9" and "parent_d", and each such variant
-is timed twice, before and after the others, so parent and committed
-kernels run in turns. The inputs are made by the port's kernels from the
+must be found, or the tool stops; a replacement may also name another
+file under csrc/, such as the shared header, which the variant then
+includes in place of the committed one), built with the port's own nvcc
+flags into `_build/variants/`. With --parent DIR (another checkout or
+`git archive` of the repository, whose wrappers call the same C entry
+points), its #2, #3, A, #9 and D are built from DIR's own sources as the
+variants "parent_2", "parent_3", "parent_a", "parent_9" and "parent_d",
+and each such variant is timed twice, before and after the others, so
+parent and committed kernels run in turns. #2 is timed on the camera of
+iteration 2 of (a) Cornell 800x800 AA and of (h) many_materials
+1920x1080 RR (38 geoms), and every variant's 14 pool lanes are also held
+bit for bit against the committed kernel's, untimed, on the 26 configs of
+`first_bounce_configs` (chip_smoke.py's FULL_PARITY at 64x64 and 37x23,
+its BOUNCE_PARITY, 1x1 with and without depth of field, and Cornell with
+300 boxes added). The other kernels' inputs are made by the port's kernels from the
 camera pool of iteration 2 and one bounce per depth (800x800, depth 8):
 #3's pools at depths 1-7 of Cornell AA as `Renderer.step()` leaves them
 (path (a)) and compacted with their live count (path (b), `--compact`);
@@ -28,15 +36,18 @@ variant and depth, its kernel runs 10 times under torch.profiler (#3 and
 #9 on a fresh copy of their pool each time, D on a fresh copy of #8's
 hits: they work in place), routed to the variant's library, and its mean
 device ms per launch is printed with whether its output is bit for bit
-the committed kernel's (#3 and #9: all 14 pool lanes; A: keys, rays and
-bt0 of the listed lanes, the histogram and the cursor; #7: the analytic
-lanes and flags of the live lanes, the list as a set; B: the stream per
-key and the total; D: the 9 hit lanes of every lane). "no_append_7",
-"no_hist_a", "one_super_a", "no_loop_a" and "loads_only_d" are wrong on
-purpose (their time is what the list's atomics, A's histogram, all of A
-but its loop over the supers and D's loads without its epilogue cost)
-and are not compared; a depth whose profile recorded no launch three
-times is left out of the mean and said so. Also per depth: #3's and
+the committed kernel's (#2, #3 and #9: all 14 pool lanes; A: keys, rays
+and bt0 of the listed lanes, the histogram and the cursor; #7: the
+analytic lanes and flags of the live lanes, the list as a set; B: the
+stream per key and the total; D: the 9 hit lanes of every lane), and with
+the registers of the variant's kernel functions. "no_append_7",
+"no_hist_a", "one_super_a", "no_loop_a", "loads_only_d", "floor_stores_2"
+and "floor_sweep_2" are wrong on purpose (their time is what the list's
+atomics, A's histogram, all of A but its loop over the supers, D's loads
+without its epilogue, #2's raygen and stores alone and #2's raygen and
+sweep without shading or stores cost) and are not compared; a depth
+whose profile recorded no launch three times is left out of the mean and
+said so. Also per depth: #3's and
 #9's live lanes below the count and the warps of 32 lanes and the
 32-byte sectors (8 lanes) that hold one, #9's candidates, A's listed
 lanes, #7's live lanes and warps holding one, B's listed lanes and
@@ -265,11 +276,119 @@ def group_a(G: int) -> list:
 """)]
 
 
+# #2's pixel, its sweep, shading and stores, and its grid (the floors and
+# the tile variant replace them)
+PIX_2 = """  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool on = pix < resx * resy;
+"""
+SWEEP_2 = "  const Hit h = intersect_staged<kPinhole>(s, stage, pos, p.org, p.dir, on);\n"
+SHADE_2 = """  if (on) {
+    const bool alive = shade(s, p, h, static_cast<uint32_t>(iteration), 0,
+                             static_cast<uint32_t>(pix));
+"""
+STORES_2 = """    store_path(out, pix, p);
+    out.alive[pix] = alive ? 1 : 0;
+    out.pix[pix] = pix;
+  }
+"""
+GRID_2 = "    kernel<<<n_blocks(n), kThreads, 0,"
+BOUNDS_2 = "__global__ void __launch_bounds__(kThreads)\n    first_bounce_kernel"
+# a warp on a tile of 8 x 4 pixels, a block's four warps on four tiles in
+# a row of tiles; the pool stays pixel-ordered (slot = pix)
+TILE_2 = [(PIX_2, """  const int tiles_x = (resx + 7) / 8;
+  const int tile = blockIdx.x * 4 + (threadIdx.x >> 5);
+  const int px = (tile % tiles_x) * 8 + (threadIdx.x & 7);
+  const int py = (tile / tiles_x) * 4 + ((threadIdx.x >> 3) & 3);
+  const bool on = px < resx && py < resy;
+  const int pix = on ? py * resx + px : resx * resy;
+"""), (GRID_2, "    kernel<<<(((resx + 7) / 8) * ((resy + 3) / 4) + 3) / 4, kThreads, 0,")]
+# #2 without one element of its design (the others kept):
+# (a) the origin terms computed per lane, from the staged rows
+NO_HOIST_2 = [(f"    if constexpr (kPinhole) {r}", f"    if constexpr (false) {r}") for r in (
+    "{\n      return {r->qo.x", "{\n      div_pair(", "return r->qo.w;")]
+# (b) the rows read from the tables (16-byte loads through the read-only
+# cache) in place of the staged ones
+NO_STAGE_2 = [
+    ("struct StagedGeom {\n  const Staged* r;",
+     "struct StagedGeom {\n  const Staged* r;\n  const float* ginv;\n  const float* gxf;"),
+    ("Rows3{r->inv[0], r->inv[1], r->inv[2]}",
+     "Rows3{__ldg(reinterpret_cast<const float4*>(ginv)), "
+     "__ldg(reinterpret_cast<const float4*>(ginv + 4)), "
+     "__ldg(reinterpret_cast<const float4*>(ginv + 8))}"),
+    ("Rows3{r->xf[0], r->xf[1], r->xf[2]}",
+     "Rows3{__ldg(reinterpret_cast<const float4*>(gxf)), "
+     "__ldg(reinterpret_cast<const float4*>(gxf + 4)), "
+     "__ldg(reinterpret_cast<const float4*>(gxf + 8))}"),
+    ("const StagedGeom<kPinhole> gm{stage + k};",
+     "const StagedGeom<kPinhole> gm{stage + k, s.inv + 16 * (g0 + k), s.xf + 16 * (g0 + k)};"),
+    ("stage[k].type == kSphere", "__ldg(s.gtype + g0 + k) == kSphere")]
+# the slab distances by two IEEE divisions, not one reciprocal
+IEEE_DIV_2 = [("      div_pair(axis(r->lo, a), axis(r->hi, a), d, r->nums_ok, t1, t2);",
+               "      *t1 = axis(r->lo, a) / d;\n      *t2 = axis(r->hi, a) / d;")]
+# (c) the four camera draws whatever the flags
+FOUR_DRAWS_2 = [("raygen<kPinhole>(", "raygen<false>(")]
+# (d) the winner's normal from a second test, as path_common.cuh's
+# `intersect` takes it
+SECOND_TEST_2 = [
+    ("sphere_hit<true>(gm, nullptr, org, dir, true, &v, &out)",
+     "sphere_hit<true>(gm, nullptr, org, dir, false, &v, &out)"),
+    ("box_hit<true>(gm, org, dir, true, &v, &out)",
+     "box_hit<true>(gm, org, dir, false, &v, &out)"),
+    ("""    // the world normal as box_test and sphere_test compute it
+    if (__ldg(s.gtype + best_g) == kSphere) {
+      h.n = normalize(xform_dir(s.invt + 16 * best_g, best_v)) * (best_out ? 1.0f : -1.0f);
+    } else {
+      h.n = normalize(xform_dir(s.xf + 16 * best_g, best_v));
+    }
+    h.outside = best_out;
+""", "    geom_test(s, best_g, org, dir, true, &h.n, &h.outside);\n")]
+
+
 # A's loop over its listed lanes (replaced whole by the group variants)
 A_LOOP = None  # read from csrc/sorted.cu by `build`
 # name -> (kernel, [(line in its source, its replacement)]), or a function
 # of the source's text giving them
 VARIANTS = {
+    "committed_2": ("2", []),
+    # raygen and the stores alone (wrong on purpose)
+    "floor_stores_2": ("2", [(SWEEP_2 + SHADE_2, "  if (on) {\n    const bool alive = true;\n")]),
+    # raygen and the sweep with the winner's normal, no shading and no
+    # stores (wrong on purpose; the impossible store keeps the sweep)
+    "floor_sweep_2": ("2", [(SHADE_2 + STORES_2,
+                             "  if (on && h.t == -2.0f && h.n.x == 3.0f) "
+                             "out.alive[pix] = h.mat + (h.outside ? 1 : 0);\n")]),
+    # each element of the design left out
+    "no_hoist_2": ("2", NO_HOIST_2),
+    "no_stage_2": ("2", NO_STAGE_2),
+    "four_draws_2": ("2", FOUR_DRAWS_2),
+    "ieee_div_2": ("2", IEEE_DIV_2),
+    "second_test_2": ("2", SECOND_TEST_2),
+    # each element alone: the parent's sweep with two draws; (a), (b), (d)
+    # with the other two elements and the four draws left out
+    "draws_alone_2": ("2", [(SWEEP_2,
+                             "  const Hit h = on ? intersect(s, p.org, p.dir) : Hit{};\n")]),
+    "hoist_alone_2": ("2", NO_STAGE_2 + FOUR_DRAWS_2 + SECOND_TEST_2 + IEEE_DIV_2),
+    "stage_alone_2": ("2", NO_HOIST_2 + FOUR_DRAWS_2 + SECOND_TEST_2),
+    "sweep_normal_alone_2": ("2", NO_HOIST_2 + NO_STAGE_2 + FOUR_DRAWS_2),
+    # 64 geoms staged at a time (many_materials' 38 in one chunk)
+    "stage64_2": ("2", [("constexpr int kStage = 32;", "constexpr int kStage = 64;")]),
+    "tile8x4_2": ("2", TILE_2),
+    # the resident blocks (SMs x occupancy), each striding over the pool's
+    # runs of 128 pixels
+    "resident_2": ("2", [
+        (PIX_2, "  for (int base = blockIdx.x * blockDim.x; base < resx * resy;\n"
+                "       base += gridDim.x * blockDim.x) {\n"
+                "  __syncthreads();  // the last run's stage is read\n" + PIX_2.replace(
+                    "blockIdx.x * blockDim.x + threadIdx.x", "base + threadIdx.x")),
+        (STORES_2, STORES_2 + "  }\n"),
+        (GRID_2, """    static int cache[2][64] = {};
+    int resident = 0;
+    err = resident_blocks(kernel, device, cache[(flags & kDof) ? 1 : 0], &resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<resident < n_blocks(n) ? resident : n_blocks(n), kThreads, 0,""")]),
+    # registers capped for 8 or 12 resident blocks an SM
+    "min8blocks_2": ("2", [(BOUNDS_2, BOUNDS_2.replace("(kThreads)", "(kThreads, 8)"))]),
+    "min12blocks_2": ("2", [(BOUNDS_2, BOUNDS_2.replace("(kThreads)", "(kThreads, 12)"))]),
     "committed_3": ("3", []),
     # blocks of 256 or 512 threads, a lane a thread (committed: 128)
     "threads256_3": ("3", [("constexpr int kBounceThreads = kThreads;",
@@ -550,9 +669,12 @@ VARIANTS = {
         ("    for (int p = threadIdx.x; p < in_tile; p += kPlaceThreads) {",
          "    for (int p = threadIdx.x; p < 0 * in_tile; p += kPlaceThreads) {")]),
 }
-WRONG = ("no_append_7", "no_hist_a", "one_super_a", "no_loop_a", "loads_only_d")
+WRONG = ("no_append_7", "no_hist_a", "one_super_a", "no_loop_a", "loads_only_d",
+         "floor_stores_2", "floor_sweep_2")
 # kernel -> (source, C entry point, kernel symbol, path)
-KERNEL = {"3": ("bounce.cu", "pt_bounce_step", "bounce_step_kernel", "(a), (b) cornell.txt"),
+KERNEL = {"2": ("bounce.cu", "pt_first_bounce", "first_bounce_kernel",
+                "(a), (h) cornell.txt, many_materials.txt"),
+          "3": ("bounce.cu", "pt_bounce_step", "bounce_step_kernel", "(a), (b) cornell.txt"),
           "a": ("sorted.cu", "pt_super_keys", "super_keys_kernel", "(n), (p) mesh_big, bunny"),
           "7": ("mesh.cu", "pt_mesh_candidates", "mesh_candidates_kernel", "(j) mesh.txt"),
           "b": ("sorted.cu", "pt_place_entries", "place_entries_kernel", "(n) mesh_big.txt"),
@@ -561,13 +683,33 @@ KERNEL = {"3": ("bounce.cu", "pt_bounce_step", "bounce_step_kernel", "(a), (b) c
           "d": ("sorted.cu", "pt_merge_entries", "merge_entries_kernel",
                 "(n), (p) mesh_big, bunny")}
 # kernel -> the paths whose inputs it is timed on; path -> its scene
-PATHS = {"3": ("a", "b"), "a": ("n", "p"), "7": ("j",), "b": ("n",), "9": ("j", "n"),
+# (#2's "a0" and "h0" are the camera of (a) and (h), "2x" its untimed
+# configs)
+PATHS = {"2": ("a0", "h0", "2x"), "3": ("a", "b"), "a": ("n", "p"), "7": ("j",), "b": ("n",),
+         "9": ("j", "n"),
          "d": ("n", "p")}
 SCENES = {"j": "mesh.txt", "n": "mesh_big.txt", "p": "bunny.txt"}
+UNTIMED = ("2x",)
+
+
+def first_bounce_configs() -> list:
+    """#2's untimed configs, (scene, settings, resolution): chip_smoke's
+    FULL_PARITY at 64x64 and 37x23, its BOUNCE_PARITY at 64x64, Cornell AA
+    and depth of field at 1x1, and "many_boxes" (Cornell with 300 boxes
+    added, chip_smoke.many_boxes_scene) AA at 64x64 and 37x23."""
+    import chip_smoke
+
+    return ([(name, kw, res) for res in ((64, 64), (37, 23))
+             for name, kw in chip_smoke.FULL_PARITY]
+            + [(name, kw, (64, 64)) for name, kw in chip_smoke.BOUNCE_PARITY]
+            + [("cornell.txt", {"antialias": True}, (1, 1)),
+               ("cornell_dof.txt", {"antialias": True, "depth_of_field": True}, (1, 1)),
+               ("many_boxes", {"antialias": True}, (64, 64)),
+               ("many_boxes", {"antialias": True}, (37, 23))])
 
 
 # --parent's variants: its own sources
-PARENT = {"3": "parent_3", "a": "parent_a", "9": "parent_9", "d": "parent_d"}
+PARENT = {"2": "parent_2", "3": "parent_3", "a": "parent_a", "9": "parent_9", "d": "parent_d"}
 RESOLVED = {}  # variant -> the replacements `build` made
 
 
@@ -593,22 +735,49 @@ def build(out_dir: str, names, parent=None) -> dict:
             A_LOOP = a_loop(text)
             subs = subs()
         RESOLVED[name] = subs
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} not in csrc/{src}")
-            text = text.replace(old, new)
-        cu = os.path.join(out_dir, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
+        # each variant in its own directory, beside the other csrc/ files it
+        # replaces lines of: a quoted #include looks there first
+        var_dir = os.path.join(out_dir, name)
+        os.makedirs(var_dir, exist_ok=True)
+        texts = {src: text}
+        for sub in subs:
+            f, old, new = sub if len(sub) == 3 else (src, *sub)
+            if f not in texts:
+                with open(os.path.join(src_dir, f)) as fh:
+                    texts[f] = fh.read()
+            if old not in texts[f]:
+                raise RuntimeError(f"variant {name}: {old!r} not in csrc/{f}")
+            texts[f] = texts[f].replace(old, new)
+        for f, t in texts.items():
+            with open(os.path.join(var_dir, f), "w") as fh:
+                fh.write(t)
         libs[name] = os.path.join(out_dir, f"{name}.so")
         procs.append(subprocess.Popen(
-            [_native.find_nvcc(), *_native.NVCC_FLAGS, "-I", src_dir, "-o", libs[name], cu],
+            [_native.find_nvcc(), *_native.NVCC_FLAGS, "-I", src_dir, "-o", libs[name],
+             os.path.join(var_dir, src)],
             stderr=subprocess.PIPE, text=True))
     for p in procs:
         _, err = p.communicate(timeout=600)
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed: {err[-2000:]}")
     return libs
+
+
+def registers(lib: str, symbol: str) -> dict:
+    """{kernel function whose name holds `symbol`: its registers} of a
+    built library (cuobjdump's resource usage)."""
+    from project3_cuda_path_tracer_tpu_torch.ops import _native
+
+    cuobjdump = os.path.join(os.path.dirname(_native.find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "--dump-resource-usage", lib], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    regs, name = {}, None
+    for line in out.splitlines():
+        if "Function" in line:
+            name = line.split("Function", 1)[1].strip().rstrip(":")
+        elif name and symbol in name and "REG:" in line:
+            regs[name] = int(line.split("REG:", 1)[1].split()[0])
+    return regs
 
 
 def a_loop(text: str) -> str:
@@ -651,9 +820,28 @@ def inputs(dev, kernels):
         _count_alive,
         _maybe_compact,
     )
+    import chip_smoke
     from chip_smoke import clone_hits
+    from project3_cuda_path_tracer_tpu_torch.ops import _native
 
     out = {}
+    if "2" in kernels:
+        for label, name, kw in (("a0", "cornell.txt", {"antialias": True}),
+                                ("h0", "many_materials.txt", {"russian_roulette": True})):
+            settings = RenderSettings(trace_depth=DEPTH, **kw)
+            r = Renderer(load_scene(os.path.join(ROOT, "scenes", name)), settings, device=dev)
+            out[label] = (r.dev_scene, r.tables, settings,
+                          [{"ds": r.dev_scene, "cam": r.dev_camera, "tables": r.tables,
+                            "settings": settings, "config": name}])
+        rows = []
+        boxes = chip_smoke.many_boxes_scene(
+            os.path.join(str(_native.BUILD_DIR), "variants", "many_boxes.txt"))
+        for name, kw, res in first_bounce_configs():
+            ds, cam, settings = chip_smoke.on_card(
+                dev, name, kw, res, path=boxes if name == "many_boxes" else None)
+            rows.append({"ds": ds, "cam": cam, "tables": None, "settings": settings,
+                         "config": f"{name} {kw} {res[0]}x{res[1]}"})
+        out["2x"] = (None, None, None, rows)
     if "3" in kernels:
         for label, kw in (("a", {}), ("b", {"compact": True})):
             settings = RenderSettings(trace_depth=DEPTH, antialias=True, **kw)
@@ -669,7 +857,7 @@ def inputs(dev, kernels):
                                tables=r.tables)
             out[label] = (r.dev_scene, r.tables, settings, rows)
     settings = RenderSettings(trace_depth=DEPTH, antialias=True)
-    labels = {label for k in kernels if k != "3" for label in PATHS[k]}
+    labels = {label for k in kernels if k not in ("2", "3") for label in PATHS[k]}
     for label in sorted(labels):
         r = Renderer(load_scene(os.path.join(ROOT, "scenes", SCENES[label])), settings,
                      device=dev)
@@ -702,9 +890,9 @@ def inputs(dev, kernels):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="3,a,7,b,9,d",
-                    help="the kernels whose variants to time (of 3, a, 7, b, 9, d)")
-    ap.add_argument("--parent", help="another checkout: its #3, A, #9 and D as variants")
+    ap.add_argument("--kernels", default="2,3,a,7,b,9,d",
+                    help="the kernels whose variants to time (of 2, 3, a, 7, b, 9, d)")
+    ap.add_argument("--parent", help="another checkout: its #2, #3, A, #9 and D as variants")
     ap.add_argument("--out", help="write the results here as JSON")
     args = ap.parse_args()
     kernels = [k for k in args.kernels.split(",") if k]
@@ -738,6 +926,9 @@ def main() -> int:
 
     def run(k, label, row):
         ds, tables, settings, _ = data[label]
+        if k == "2":  # a fresh pool each call
+            return lambda: mk.first_bounce(row["ds"], row["cam"], 2, row["settings"],
+                                           tables=row["tables"])
         if k == "3":
             pool, n_alive, d = row
             work = clone_pool(pool)
@@ -775,7 +966,7 @@ def main() -> int:
         return lambda: pl.place_entries(row["sk"], row["cands"].count)
 
     def same(k, got, want, row):
-        if k in ("3", "9"):
+        if k in ("2", "3", "9"):
             return all(torch.equal(bits(a), bits(b))
                        for a, b in zip(mk.pool_lanes(got), mk.pool_lanes(want)))
         if k == "d":
@@ -814,7 +1005,10 @@ def main() -> int:
     for k in kernels:
         for label in PATHS[k]:
             rows = data[label][3]
-            if k == "3":
+            if k == "2":
+                work[(k, label)] = {"lanes": [int(row["cam"].resolution[0])
+                                              * int(row["cam"].resolution[1]) for row in rows]}
+            elif k == "3":
                 ends = [row[0][5].shape[0] if row[1] is None else int(row[1]) for row in rows]
                 live = [(row[0][4][:e] != 0) for row, e in zip(rows, ends)]
                 work[(k, label)] = {
@@ -866,8 +1060,13 @@ def main() -> int:
             exact, per_path = True, {}
             for label in PATHS[k]:
                 rows = data[label][3]
-                exact &= all(same(k, run(k, label, row)(), w, row)
-                             for row, w in zip(rows, want[(k, label)]))
+                differs = [row.get("config", d) if isinstance(row, dict) else d
+                           for d, (row, w) in enumerate(zip(rows, want[(k, label)]))
+                           if not same(k, run(k, label, row)(), w, row)]
+                exact &= not differs
+                if label in UNTIMED:
+                    per_path[label] = {"configs": len(rows), "differs": differs}
+                    continue
                 per_depth = []
                 for d, row in enumerate(rows):
                     fn = run(k, label, row)
@@ -897,7 +1096,7 @@ def main() -> int:
                "replaced": ("the --parent checkout's source" if name in PARENT.values()
                             else RESOLVED[name]),
                "paths": per_path, "bit_for_bit": None if name in WRONG else exact,
-               "device": smi}
+               "registers": registers(libs[name], symbol), "device": smi}
         results.append(row)
         print(json.dumps(row), flush=True)
     print(smi, flush=True)
