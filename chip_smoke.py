@@ -33,12 +33,19 @@ stream against a stable torch.sort gather, the unsort's round trip, and
 the route's entries, lanes and whole bounce against the counting route's,
 bit for bit, with the split's tiles and look-back steps per depth
 (`radix_work`); on mesh_big 800x800 C alone over the window part and the
-tail part of each depth's stream), renders the twelve smoke configs (the two --nee
-ones and mesh.txt included) and the four big-mesh scenes (mesh_big, bunny,
+tail part of each depth's stream; the surface stage's twins of #1-#6 and
+#9 (the `instantiations on TexTables: file textures, bump maps, the lat-long env map,
+SSS) at 64x64 and 800x800 on textured, envmap and cornell_sss (#1 by the
+image rule and bit for bit against #2 -> #3, #2-#4, and #5/#6 by the NEE
+rule on textured and cornell_sss) and on mesh_textured (#7-#10 with the
+quad's OBJ UVs, #4 over its cache)), renders the seventeen smoke configs
+(the three --nee ones, mesh.txt and the five surface-stage ones included)
+and the four big-mesh scenes (mesh_big, bunny,
 mesh_critter, mesh_stream, each loaded once) against the XLA goldens
 (tools/goldens/smoke_128.npz) through `Renderer.step_batch` and through
 `Renderer.step()`, and the four again under the radix route through
-`step_batch` (mesh_big through `step()` too), drives the main path
+`step_batch` (mesh_big through `step()` too): all 21 configs of
+tools/smoke_pallas.py; drives the main path
 (Cornell 800x800, depth 8, AA,
 progressive) through `Renderer.step_batch` and times it, drives and
 times the other paths at their scenes' own size, depth 8 (Cornell AA
@@ -52,7 +59,11 @@ with --direct-lighting (the final step's two intersects through #7 -> #8
 AA through `step_batch` (#7 -> #8 -> A -> B -> C -> D -> #9 at every
 depth); mesh_big.txt and bunny.txt AA through `step_batch` under the
 radix route (#7 -> #8 -> A -> the compaction split and one 8-bit pass
--> C in stream order -> one unscatter -> D -> #9)), times the dense BVH
+-> C in stream order -> one unscatter -> D -> #9); the surface stage's
+cells at 800x800 d8 AA: textured, envmap and cornell_sss through
+`step_batch` (#1's twin), mesh_textured through `step_batch` (#9's), and
+textured through `step()` (#2's and #3's), under the cache (#4's) and
+under --nee through both (#6's and #5's)), times the dense BVH
 walk on mesh_big as a yardstick (the routing threshold raised here only), reads each kernel's
 device time from torch.profiler beside its plain version's time (for
 #1 and #6 over the same run of iterations as the kernel's launch), its
@@ -78,7 +89,12 @@ sectors that hold one and its candidates (`bounce_step_mesh_depths`)
 and D's on mesh_big and bunny beside its listed lanes, real entries and
 hits (`merge_entries_depths`); the last two also hold #9 and D against
 their plain versions at every depth of an iteration driven by the
-kernels. Every path is driven
+kernels. The surface stage's twins
+get their plain versions' times and bounds at those cells' shapes
+(`surface_stage`, `surface_work`) and lines of their own in the kernels
+line (`<wrapper>@surface`). With `--sass-other DIR` (another checkout)
+it also holds every kernel function both trees have to the same SASS
+(tools/torch_sass_diff.py). Every path is driven
 with the launch counts set to 0 just before it and read just after.
 Every phase prints one line; any failure raises and exits non-zero
 before the result lines are printed. Imports nothing of JAX or of the
@@ -139,14 +155,31 @@ SORTED_KERNELS = ("super_keys", "place_entries", "window_sweep",
 RADIX_KERNELS = ("radix_split", "radix_unscatter", "window_sweep_stream")
 MESH_KERNELS = ("mesh_candidates", "mesh_sweep", "bounce_step_mesh",
                 "intersect_mesh") + SORTED_KERNELS + RADIX_KERNELS
-# each kernel's symbol in the profiler's (demangled or mangled) names; C's
-# two instantiations by their template argument
-KERNEL_SYMBOLS = {k: re.compile(re.escape(f"{k}_kernel")) for k in KERNELS}
+# each kernel's symbol in the profiler's (demangled or mangled) names: the
+# kernels of #1-#6 and #9 are templates on their tables, their
+# instantiation on TexTables (the surface stage) counted apart; C's two
+# instantiations by their template argument
+KERNEL_SYMBOLS = {k: re.compile(re.escape(f"{k}_kernel") + "(?!.*TexTables)") for k in KERNELS}
 KERNEL_SYMBOLS["window_sweep"] = re.compile(r"window_sweep_kernel(<false>|ILb0E)")
 KERNEL_SYMBOLS["window_sweep_stream"] = re.compile(r"window_sweep_kernel(<true>|ILb1E)")
 # the split's two instantiations, timed apart beside the wrapper's mean
 KERNEL_SYMBOLS["radix_split@compaction"] = re.compile(r"radix_split_kernel(<true>|ILb1E)")
 KERNEL_SYMBOLS["radix_split@pass"] = re.compile(r"radix_split_kernel(<false>|ILb0E)")
+# the surface stage (file textures, bump maps, the lat-long env map, SSS):
+# the instantiations on TexTables of #1-#6 and #9 in the kernels line, each
+# with its wrapper (whose launches count it on a surface scene) and the
+# path of phase 6 that times it
+SURFACE_KERNELS = {
+    "full_iteration@surface": ("full_iteration", "textured"),
+    "first_bounce@surface": ("first_bounce", "textured_step"),
+    "bounce_step@surface": ("bounce_step", "textured_step"),
+    "shade_step@surface": ("shade_step", "textured_cache"),
+    "full_iteration_nee@surface": ("full_iteration_nee", "textured_nee"),
+    "bounce_step_nee@surface": ("bounce_step_nee", "textured_nee_step"),
+    "bounce_step_mesh@surface": ("bounce_step_mesh", "mesh_textured"),
+}
+KERNEL_SYMBOLS.update({k: re.compile(re.escape(f"{w}_kernel") + ".*TexTables")
+                       for k, (w, _) in SURFACE_KERNELS.items()})
 NO_LAUNCHES = {k: 0 for k in KERNELS}
 # image rule of tests/test_megakernel.py:143-145 (seam-tie outliers only)
 PARITY_BAD = 1e-3
@@ -170,6 +203,12 @@ SMOKE = [  # (scene, settings, golden key)
     ("many_materials.txt", {"nee_mis": True, "russian_roulette": True},
      "many_materials.txt_--nee"),
     ("mesh.txt", {}, "mesh.txt"),
+    # the surface stage's five
+    ("cornell_sss.txt", {}, "cornell_sss.txt"),
+    ("textured.txt", {}, "textured.txt"),
+    ("textured.txt", {"nee_mis": True}, "textured.txt_--nee"),
+    ("envmap.txt", {}, "envmap.txt"),
+    ("mesh_textured.txt", {}, "mesh_textured.txt"),
 ]
 # the scenes of the big-mesh route (one geom above 16,384 triangles each),
 # loaded once (their BVH build is most of their cost) and rendered against
@@ -226,6 +265,21 @@ MESH_PARITY = [
 LANE_ATOL = 1e-4
 LANE_FRAC = 0.01
 CAND_FRAC = 0.001
+# the surface stage's twins against their plain versions, at 64x64 and
+# 800x800: #1 (the image rule, bit for bit against #2 -> #3), #2, #3, #4
+# on the analytic scenes; #5 and #6 (the NEE rule) on the lit ones; #7-#10
+# on mesh_textured (its quad's OBJ UVs), and #4 over its cache
+SURFACE_PARITY = [
+    ("textured.txt", {"antialias": True}),
+    ("envmap.txt", {}),
+    ("cornell_sss.txt", {"russian_roulette": True, "rr_start_depth": 1}),
+]
+SURFACE_NEE = [("textured.txt", {"antialias": True}),
+               ("cornell_sss.txt", {"russian_roulette": True})]
+SURFACE_MESH = [{}, {"antialias": True}]
+# iterations in #1's and #6's profiled launch on the surface paths (the
+# plain versions are timed over the same)
+SURFACE_RUN = 8
 
 # ---- the bound: the least time the card could take for a call ----
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): HBM 3.35 TB/s,
@@ -271,6 +325,11 @@ OPS_NODE = 30  # per node visited: the slab test and the step
 OPS_MT = 64  # per triangle tested: Moller-Trumbore and the min-t update
 OPS_MESH_HIT = 100  # per walk that hits: normal, UVs, world distance
 OPS_MERGE = 4  # per lane: the analytic/mesh merge of #9 and #10
+# the surface stage (csrc/path_common.cuh `surface`, `env_fetch`), each
+# charged only to the lanes that take it in this run's data (surface_ops)
+OPS_FILE_TEX = 40  # a file-textured hit: its UVs, four taps' addresses, the blend
+OPS_BUMP = 50  # a bump-mapped hit: three taps, the differences, the tilted normal
+OPS_ENV_FETCH = 45  # an escape to the env map: atan2f and acosf (20 each), the texel
 # a shadow ray costs one normal-free test (OPS_BOX_TEST / OPS_SPHERE_TEST)
 # per geom up to and including its first occluder (shadow_sweep)
 # the sorted route (csrc/sorted.cu), from its plain versions' counts
@@ -757,12 +816,14 @@ def resident_lanes(regs: int, sms: int) -> int:
     per_warp = -(-regs * 32 // 256) * 256
     return sms * min(16, 65536 // (4 * per_warp)) * 128
 
-def full_parity(dev, name, kw, res, iteration=3):
+def full_parity(dev, name, kw, res, iteration=3, bits_rule=True):
     """#1 against its plain version, one iteration: compare()'s numbers
-    and the share of pixels not bit-identical (fails above
-    FULL_BITS_OFF); and bit for bit against the per-bounce kernels (#2,
-    then #3 at every depth, thread per pixel: the same device code), which
-    fails on any bit."""
+    and the share of pixels not bit-identical (with `bits_rule`, fails
+    above FULL_BITS_OFF: the surface stage's texel blends round an ulp
+    apart from the plain version's on most textured lanes, so its scenes
+    keep the image rule alone); and bit for bit against the per-bounce
+    kernels (#2, then #3 at every depth, thread per pixel: the same device
+    code), which fails on any bit."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
@@ -783,7 +844,7 @@ def full_parity(dev, name, kw, res, iteration=3):
             raise RuntimeError(f"full_iteration is not bit-identical to first_bounce "
                                f"-> bounce_step ({name}, {kw}, {res})")
     bits_off = float(off.float().mean())
-    if bits_off > FULL_BITS_OFF:
+    if bits_rule and bits_off > FULL_BITS_OFF:
         raise RuntimeError(f"full_iteration: {bits_off:.3%} of the pixels are not "
                            f"bit-identical to the plain version ({name}, {kw}, {res})")
     return compare(list(accum), list(plain)) + (bits_off,)
@@ -867,8 +928,8 @@ def hit_lanes(h):
             h.has_uv]
 
 
-def mesh_parity(dev, kw, res, iteration=2):
-    """#7-#10 on mesh.txt at every depth of one iteration, each from the
+def mesh_parity(dev, kw, res, iteration=2, name="mesh.txt"):
+    """#7-#10 on a mesh scene at every depth of one iteration, each from the
     plain version's own inputs (the pool after the plain #9 of the depth
     before): #7's analytic hits on the lanes it processed and its
     candidate set (the listed lanes must be exactly its flagged ones), #8
@@ -886,7 +947,7 @@ def mesh_parity(dev, kw, res, iteration=2):
         _maybe_compact,
     )
 
-    ds, cam, settings = on_card(dev, "mesh.txt", kw, res)
+    ds, cam, settings = on_card(dev, name, kw, res)
     P = res[0] * res[1]
     pool = _camera_pool(cam, iteration, settings)
     worst = {k: (0.0, 0.0) for k in MESH_KERNELS[:4]}
@@ -947,7 +1008,8 @@ def mesh_work(ds, cam, iteration, settings):
     that hit; the same walks over #8's wide tables (the plain wide walk's
     probe: inner wide nodes, leaves, triangles, the deepest stack) and the
     lanes whose winner's t it gives other bits than the binary walk; and
-    timing each plain version (host clock, synchronised).
+    timing each plain version (host clock, synchronised); and the surface
+    stage's operations of #9's lanes (`surface_ops`).
     Returns ({count: [per depth]}, {kernel: plain ms per call})."""
     import torch
 
@@ -958,7 +1020,7 @@ def mesh_work(ds, cam, iteration, settings):
     wide = pl.pack_wide_tables(ds)
     names = ("lanes_in", "candidates", "walks", "nodes", "tris", "mesh_hits",
              "wide_nodes", "wide_leaves", "wide_tris", "wide_stack_max",
-             "slab_ulp_lanes")
+             "slab_ulp_lanes", "surface_ops")
     counts = {k: [] for k in names}
     plain = {k: 0.0 for k in MESH_KERNELS[:3]}
     D = settings.trace_depth
@@ -993,6 +1055,7 @@ def mesh_work(ds, cam, iteration, settings):
             int(wprobe["leaves"].sum()), int(wprobe["tris"].sum()),
             int(wprobe["stack"].max()) if listed.numel() else 0,
             int((bitwise(wide_hits.t[listed]) != bitwise(hits.t[listed])).sum()),
+            surface_ops(ds, pl.merge_hits(cands, hits), d, alive),
         )))
         for k in names:
             counts[k].append(n[k])
@@ -1484,24 +1547,29 @@ def profile_device(fn, n_iters, by_depth=()):
     launch}, {kernel: launches seen}, device events per iteration): the
     kernels' own device time, free of the host gaps between launches. For each kernel named in
     `by_depth`, launched once per depth, the mean is also given per depth
-    (launch k of an iteration is depth k), as `<kernel>@depth`. A
-    profile that records no device activity at all (the profiler drops
-    the whole trace, rarely) is taken once more; a second such one
-    raises."""
+    (launch k of an iteration is depth k), as `<kernel>@depth`. The
+    profiler's window is held open 50 ms before fn() and after its
+    synchronize: late in a long run the profiler dropped every device
+    event of a window of under a millisecond of device time (twice in a
+    row, on the H100), which the padding keeps inside the window; it adds
+    no device span. A profile that records no device activity at all is
+    taken up to twice more; a third such one raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
             fn()
             torch.cuda.synchronize()
+            time.sleep(0.05)
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         if events:
             break
     else:
-        raise RuntimeError("the profiler saw no device activity, twice")
+        raise RuntimeError("the profiler saw no device activity, three times")
     spans = []
     per = {k: [] for k in KERNEL_SYMBOLS}
     starts = {k: [] for k in by_depth}
@@ -1792,9 +1860,163 @@ def moving_cornell(tmpdir) -> str:
     return path
 
 
-def main() -> int:
+def surface_ops(ds, isect, dirs, alive) -> int:
+    """The surface stage's operations in one bounce of a pool over its
+    Intersections: OPS_FILE_TEX per live lane that hits a file-textured
+    material, OPS_BUMP per one that hits a bump-mapped one and, with an
+    env map, OPS_ENV_FETCH per live lane that escapes."""
+    live = alive != 0
+    hit = live & (isect.t > 0)
+    mat = isect.material_id.clamp(min=0).long()
+    n = (int((hit & (ds.mat_tex_kind[mat] == 2)).sum()) * OPS_FILE_TEX
+         + int((hit & (ds.mat_bump_id[mat] >= 0)).sum()) * OPS_BUMP)
+    if ds.has_env_map:
+        n += int((live & ~(isect.t > 0)).sum()) * OPS_ENV_FETCH
+    return n
+
+
+def mesh_cache_parity(dev, res, iteration=2):
+    """#4's twin over the first-bounce cache of mesh_textured: the pinhole
+    camera rays, their Intersections through #7 -> #8 -> #10 (the quad's
+    OBJ UVs), the kernel against its plain version on them. compare()'s
+    numbers and the lanes with UVs."""
     import torch
 
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam, settings = on_card(dev, "mesh_textured.txt", {"cache_first_bounce": True},
+                                res)
+    pool = _camera_pool(cam, iteration, settings)
+    isect = pl.intersect_pipeline(pool[0], pool[1], None, ds)
+    got = mk.shade_step(pool, isect, ds, iteration, 0, settings)
+    want = mk.shade_step_reference(pool, isect, ds, iteration, 0, settings)
+    torch.cuda.synchronize()
+    return compare(mk.pool_lanes(got), mk.pool_lanes(want)) + (int(isect.has_uv.sum()),)
+
+
+def surface_work(dev, it=7, D=8):
+    """The plain versions' times and the bounds of the surface stage's
+    twins at their paths' shapes (phase 6): textured.txt 800x800 d8 AA
+    (#1 over SURFACE_RUN iterations, #2, #3 per depth, #4 under the cache,
+    #6 over SURFACE_RUN iterations and #5 per depth under --nee) and
+    mesh_textured.txt 800x800 d8 AA (#9 per depth). Each bound is the
+    untextured kernel's (the same bytes; the operations of the lanes this
+    run's plain path shades) plus the surface stage's operations of the
+    lanes that take it (`surface_ops`). Returns ({twin: plain ms per
+    launch}, {twin: (bound ms, bound by)}, {count: value})."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.models.device import (
+        camera_to_device,
+        scene_to_device,
+    )
+    from project3_cuda_path_tracer_tpu_torch.models.scene import load_scene
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops.camera import generate_rays
+    from project3_cuda_path_tracer_tpu_torch.ops.sweep import intersect_scene
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+    from project3_cuda_path_tracer_tpu_torch.render import RenderSettings
+
+    scene = load_scene(os.path.join(HERE, "scenes", "textured.txt"))
+    ds = scene_to_device(scene, dev)
+    cam = camera_to_device(scene.state.camera, dev)
+    P = scene.state.camera.pixel_count
+    settings = RenderSettings(trace_depth=D, antialias=True)
+    per_lane = sweep_ops(ds) + OPS_NORMAL + OPS_SHADE
+    n_an = sum(1 for g in ds.gtypes if g != 2)
+    plain, bounds = {}, {}
+    # the plain per-bounce path of one iteration: #2's and #3's lanes, times
+    # and the surface stage's operations at each depth
+    pool = mk.first_bounce_reference(ds, cam, it, settings)
+    o, d, _ = generate_rays(cam, it, True, False)
+    surf = [surface_ops(ds, intersect_scene(o, d, ds), d, torch.ones(P, device=dev))]
+    plain["first_bounce@surface"] = event_ms(
+        lambda: mk.first_bounce_reference(ds, cam, it, settings), 3)
+    lanes_in, bs_plain = [P], 0.0
+    for depth in range(1, D):
+        lanes_in.append(int((pool[4] != 0).sum()))
+        surf.append(surface_ops(ds, intersect_scene(pool[0], pool[1], ds), pool[1], pool[4]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool = mk.bounce_step_reference(pool, ds, it, depth, settings)
+        torch.cuda.synchronize()
+        bs_plain += 1e3 * (time.perf_counter() - t0) / (D - 1)
+    plain["bounce_step@surface"] = bs_plain
+    bounds["first_bounce@surface"] = bound(
+        56 * P, P * (OPS_RAYGEN_AA - 2 * OPS_DRAW + sweep_ops(ds) - n_an * OPS_ORIGIN
+                     + OPS_WINNER_NORMAL + OPS_SHADE) + n_an * OPS_ORIGIN + surf[0])
+    bounds["bounce_step@surface"] = bound(
+        sum(4 * P + 104 * n for n in lanes_in[1:]) / (D - 1),
+        (sum(n * per_lane for n in lanes_in[1:]) + sum(surf[1:])) / (D - 1))
+    # #1 over SURFACE_RUN iterations (its profiled launch), these lanes each
+    plain["full_iteration@surface"] = event_ms(lambda: plain_run(
+        mk.full_iteration_reference, ds, cam, 2, settings, SURFACE_RUN), 1)
+    bounds["full_iteration@surface"] = bound(
+        24 * P * SURFACE_RUN,
+        SURFACE_RUN * (P * OPS_RAYGEN_AA + sum(lanes_in) * per_lane + sum(surf)))
+    # #4 over the pinhole rays' cached depth 0 (80 B in, 12 of them UVs,
+    # 52 B out a lane)
+    cache_settings = RenderSettings(trace_depth=D, cache_first_bounce=True)
+    o, d, pix = generate_rays(cam, it, False, False)
+    pool0 = (Vec3(*(c.contiguous() for c in o)), d, Vec3.ones(P, dev), Vec3.zeros(P, dev),
+             torch.ones(P, dtype=torch.int32, device=dev), pix)
+    isect = intersect_scene(o, d, ds)
+    plain["shade_step@surface"] = event_ms(
+        lambda: mk.shade_step_reference(pool0, isect, ds, it, 0, cache_settings), 3)
+    bounds["shade_step@surface"] = bound(
+        144 * P, P * OPS_SHADE + surface_ops(ds, isect, d, pool0[4]))
+    # #6 and #5 under --nee: the NEE path's lanes (nee_work) and the
+    # surface stage's operations of its live lanes at each depth
+    nee_settings = RenderSettings(trace_depth=D, antialias=True, nee_mis=True)
+    nee_counts, nee_ops, _ = nee_work(ds, cam, it, nee_settings)
+    npool, aux = nee_pool(dev, cam, it, nee_settings)
+    bn_plain = 0.0
+    for depth in range(D):
+        nee_ops[depth] += surface_ops(ds, intersect_scene(npool[0], npool[1], ds),
+                                      npool[1], npool[4])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        npool, aux = mk.bounce_step_nee_reference(npool, aux, ds, it, depth, nee_settings,
+                                                  depth == D - 1)
+        torch.cuda.synchronize()
+        bn_plain += 1e3 * (time.perf_counter() - t0) / D
+    plain["bounce_step_nee@surface"] = bn_plain
+    plain["full_iteration_nee@surface"] = event_ms(lambda: plain_run(
+        mk.full_iteration_nee_reference, ds, cam, it, nee_settings, SURFACE_RUN), 1)
+    bounds["full_iteration_nee@surface"] = bound(
+        24 * P, SURFACE_RUN * (P * OPS_RAYGEN_AA + sum(nee_ops)))
+    bounds["bounce_step_nee@surface"] = bound(
+        sum(4 * P + 120 * n for n in nee_counts["lanes_in"]) / D, sum(nee_ops) / D)
+    # #9 on mesh_textured.txt 800x800 d8 AA (mesh_work's counts)
+    mscene = load_scene(os.path.join(HERE, "scenes", "mesh_textured.txt"))
+    mds = scene_to_device(mscene, dev)
+    mcam = camera_to_device(mscene.state.camera, dev)
+    mcounts, mplain = mesh_work(mds, mcam, it, settings)
+    mc = {k: np.array(v, np.float64) for k, v in mcounts.items()}
+    plain["bounce_step_mesh@surface"] = mplain["bounce_step_mesh"]
+    bounds["bounce_step_mesh@surface"] = bound(
+        np.mean(4 * P + 126 * mc["lanes_in"] + 4 * mc["candidates"]),
+        np.mean(mc["lanes_in"] * (OPS_MERGE + OPS_SHADE) + mc["surface_ops"]))
+    counts = {"textured_lanes_in": lanes_in, "textured_surface_ops": surf,
+              "textured_nee_lanes_in": nee_counts["lanes_in"],
+              "mesh_textured_lanes_in": mcounts["lanes_in"],
+              "mesh_textured_candidates": mcounts["candidates"],
+              "mesh_textured_surface_ops": mcounts["surface_ops"]}
+    return plain, bounds, counts
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sass-other", metavar="DIR",
+                    help="another checkout: hold every kernel function both trees "
+                         "have to the same SASS (tools/torch_sass_diff.py)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1816,6 +2038,7 @@ def main() -> int:
         RenderSettings,
         _nee_final_step,
         trace_paths,
+        whole_kernel,
     )
 
     t_start = time.perf_counter()
@@ -1880,9 +2103,25 @@ def main() -> int:
         ptx.update(ptxas_usage(ptxas[src], kernel))
         say("ptxas", source=f"{PKG}/csrc/{src}", flags="-Xptxas -v",
             **{kernel: {k: v for k, v in ptx.items() if re.search(kernel, k)}})
+    # the kernels' SASS against another checkout's (with --sass-other): every
+    # function both trees have must be the same, the surface stage's twins
+    # may be new
+    if args.sass_other:
+        res = subprocess.run([sys.executable, os.path.join(HERE, "tools", "torch_sass_diff.py"),
+                              "--other", args.sass_other], capture_output=True, text=True,
+                             timeout=900, cwd=HERE)
+        if res.returncode != 0:
+            raise RuntimeError(f"torch_sass_diff: {res.stderr[-3000:]}")
+        diff = json.loads(res.stdout.strip().splitlines()[-1])["sass_vs_other"]
+        say("sass_vs_other", other=args.sass_other, functions=diff)
+        changed = {k: v for k, v in diff.items() if v.startswith("differs")
+                   or v == "only in the other tree"}
+        if changed:
+            raise RuntimeError(f"kernels' SASS changed: {changed}")
     # #6's registers, for the persistent grid of its lane-use model
     (nee_regs,) = (int(re.search(r"Used (\d+) registers", v).group(1))
-                   for k, v in ptx.items() if "full_iteration_nee" in k)
+                   for k, v in ptx.items()
+                   if "full_iteration_nee" in k and "TexTables" not in k)
 
     # ---- 3. every kernel against its plain version on the card ----
     err800 = {}
@@ -1974,6 +2213,68 @@ def main() -> int:
                                        f"on {w:.2%} of lanes: {what}")
                 if res == (800, 800) and kw == {"antialias": True}:
                     err800[k] = e
+
+    # the surface stage's twins (file textures, bump maps, the lat-long env
+    # map, SSS) of #1-#6 and #9 against their plain versions; the errors
+    # kept for the kernels line are textured.txt's at 800x800 (#9's
+    # mesh_textured's, AA)
+    for res in ((64, 64), (800, 800)):
+        r_s = f"{res[0]}x{res[1]}"
+        it = 1 if res == (800, 800) else 3
+        for name, kw in SURFACE_PARITY:
+            what = {"config": name, "settings": kw, "res": r_s, "stage": "surface"}
+            *r, off = full_parity(dev, name, kw, res, it, bits_rule=False)
+            check_parity("full_iteration@surface", dict(
+                what, not_bit_identical=off, per_bounce_kernels="bit-identical"), *r)
+            keep = res == (800, 800) and name == "textured.txt"
+            if keep:
+                err800["full_iteration@surface"] = r[2]
+            for kernel, rr in bounce_parity(dev, name, kw, res, it).items():
+                check_parity(f"{kernel}@surface", what, *rr)
+                if keep:
+                    err800[f"{kernel}@surface"] = rr[2]
+        for name, kw in SURFACE_NEE:
+            what = {"config": name, "settings": dict(kw, nee_mis=True), "res": r_s,
+                    "stage": "surface"}
+            r6 = full_nee_parity(dev, name, kw, res, False, n_iters=2)
+            check_parity("full_iteration_nee@surface", dict(what, iterations=2), *r6,
+                         max_frac=NEE_PARITY_FRAC)
+            *r5, alive_frac = bounce_nee_parity(dev, name, kw, res, False)
+            check_parity("bounce_step_nee@surface",
+                         dict(what, pix="exact", alive_mismatch=alive_frac,
+                              alive_rule=f"<={ALIVE_FRAC}"),
+                         *r5, max_frac=NEE_PARITY_FRAC)
+            if alive_frac > ALIVE_FRAC:
+                raise RuntimeError(f"bounce_step_nee@surface: alive differs on "
+                                   f"{alive_frac:.2%} of lanes: {what}")
+            if res == (800, 800) and name == "textured.txt":
+                err800["full_iteration_nee@surface"] = r6[2]
+                err800["bounce_step_nee@surface"] = r5[2]
+        for kw in SURFACE_MESH:
+            worst, cand_off = mesh_parity(dev, kw, res, name="mesh_textured.txt")
+            what = {"config": "mesh_textured.txt", "settings": kw, "res": r_s,
+                    "stage": "surface (#9)"}
+            say("mesh_parity", **what, candidate_mismatch=cand_off,
+                candidate_rule=f"<={CAND_FRAC}", pix="exact",
+                lanes={k: {"outlier_share": w, "max_abs_err": e}
+                       for k, (w, e) in worst.items()},
+                rule=f"share(|d|>{LANE_ATOL})<={LANE_FRAC}")
+            if cand_off > CAND_FRAC:
+                raise RuntimeError(f"mesh_candidates: candidacy differs on "
+                                   f"{cand_off:.3%} of lanes: {what}")
+            for k, (w, e) in worst.items():
+                if w > LANE_FRAC:
+                    raise RuntimeError(f"{k} disagrees with its plain version "
+                                       f"on {w:.2%} of lanes: {what}")
+            if res == (800, 800) and kw == {"antialias": True}:
+                err800["bounce_step_mesh@surface"] = worst["bounce_step_mesh"][1]
+        *r4, uv_lanes = mesh_cache_parity(dev, res)
+        check_parity("shade_step@surface", {"config": "mesh_textured.txt",
+                                            "settings": {"cache_first_bounce": True},
+                                            "res": r_s, "isect": "#7 -> #8 -> #10",
+                                            "lanes_with_uv": uv_lanes}, *r4)
+        if not uv_lanes:
+            raise RuntimeError("mesh_textured: no cached lane has UVs")
 
     # A-D (the sorted route, #11-#14's counterparts) on the big-mesh scenes,
     # each loaded once: mesh_big at 64x64 and 800x800 at every depth, bunny
@@ -2225,6 +2526,21 @@ def main() -> int:
         ("big_mesh_radix", "mesh_big.txt", None, {"antialias": True},
          "step_batch"),
         ("bunny_radix", "bunny.txt", None, {"antialias": True}, "step_batch"),
+        # the surface stage's twins: #1 on the texture, env-map and SSS
+        # scenes, #9 on mesh_textured, #2 + #3 through step(), #4 under the
+        # cache, #6 and #5 under --nee
+        ("textured", "textured.txt", None, {"antialias": True}, "step_batch"),
+        ("envmap", "envmap.txt", None, {"antialias": True}, "step_batch"),
+        ("sss", "cornell_sss.txt", None, {"antialias": True}, "step_batch"),
+        ("mesh_textured", "mesh_textured.txt", None, {"antialias": True},
+         "step_batch"),
+        ("textured_step", "textured.txt", None, {"antialias": True}, "step"),
+        ("textured_cache", "textured.txt", None, {"cache_first_bounce": True},
+         "step_batch"),
+        ("textured_nee", "textured.txt", None, {"antialias": True, "nee_mis": True},
+         "step_batch"),
+        ("textured_nee_step", "textured.txt", None,
+         {"antialias": True, "nee_mis": True}, "step"),
     ]
     radix_paths = ("big_mesh_radix", "bunny_radix")
     # #3 once a depth: (a)-(e)
@@ -2244,6 +2560,9 @@ def main() -> int:
             if route == "step" or settings.motion_blur:
                 return dict(NO_LAUNCHES, bounce_step_nee=n_it * D)
             return dict(NO_LAUNCHES, full_iteration_nee=sum(
+                -(-n // mk.ITERATIONS_PER_LAUNCH) for n in calls))
+        if route == "step_batch" and not mesh and whole_kernel(settings):
+            return dict(NO_LAUNCHES, full_iteration=sum(
                 -(-n // mk.ITERATIONS_PER_LAUNCH) for n in calls))
         cached = settings.effective_cache()
         bounces = D - 2 if settings.direct_lighting else D - 1
@@ -2331,9 +2650,12 @@ def main() -> int:
         counts = r.last_alive_counts.cpu().tolist()
         ms = 1e3 * dt / n_timed
         # a window of 10 iterations; under --nee through step_batch one
-        # launch of #6 of ITERATIONS_PER_LAUNCH iterations
+        # launch of #6 of ITERATIONS_PER_LAUNCH iterations; on the surface
+        # paths of #1 and #6 one launch of SURFACE_RUN
         n_prof = (mk.ITERATIONS_PER_LAUNCH if settings.nee_mis and route == "step_batch"
                   else 10)
+        if label in ("textured", "textured_nee"):
+            n_prof = SURFACE_RUN
         # per depth: #7 and #9 where they run once a depth, and the big-mesh
         # routes' kernels
         by_depth = (("mesh_candidates", "bounce_step_mesh") if label in one_walk_a_depth
@@ -2796,6 +3118,30 @@ def main() -> int:
     # sweep).
     library = {name: big_library.get(name) for name in KERNELS}
     library["radix_split"] = big_library["sort"]
+    # the surface stage's twins: their plain versions and bounds at their
+    # paths' shapes (surface_work), their device ms per launch and launches
+    # from their paths of phase 6 (no single PyTorch call computes a bounce)
+    surface_plain, surface_bounds, surface_counts = surface_work(dev)
+    bounds.update(surface_bounds)
+    for twin, (wname, label) in SURFACE_KERNELS.items():
+        timing[twin] = (kernel_ms_of[label][twin], surface_plain[twin],
+                        launches_of[label][wname])
+        library[twin] = None
+    untextured = {"full_iteration": main_kernel_ms["full_iteration"] / batch}
+    say("surface_stage", device=smi, res="800x800", depth=D, counts=surface_counts,
+        twins={twin: {"path": label, "ms_per_launch": timing[twin][0],
+                      "launches": timing[twin][2], "plain_ms": timing[twin][1],
+                      "bound_ms": bounds[twin][0], "bound_by": bounds[twin][1]}
+               for twin, (_, label) in SURFACE_KERNELS.items()},
+        full_iteration_ms_per_iteration={
+            "textured": kernel_ms_of["textured"]["full_iteration@surface"] / SURFACE_RUN,
+            "envmap": kernel_ms_of["envmap"]["full_iteration@surface"] / 10,
+            "sss": kernel_ms_of["sss"]["full_iteration@surface"] / 10,
+            "cornell_untextured": untextured["full_iteration"]},
+        cells={label: {"ms_per_frame": frame_ms_of[label],
+                       "device_busy_ms_per_iteration": busy_of[label],
+                       "device_idle_share": max(0.0, 1.0 - busy_of[label] / frame_ms_of[label])}
+               for label in ("textured", "envmap", "sss", "mesh_textured")})
 
     # ---- 8. the CLI: Cornell plain, with --compact and with --nee; mesh.txt;
     # mesh_big.txt (the sorted route) ----
@@ -2824,7 +3170,9 @@ def main() -> int:
     say("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    entries = [(name, *KERNELS[name]) for name in KERNELS]
+    entries += [(twin, *KERNELS[wname]) for twin, (wname, _) in SURFACE_KERNELS.items()]
+    for name, source, replaces in entries:
         ms, p_ms, launches = timing[name]
         b_ms, b_by = bounds[name]
         kernels.append({

@@ -53,6 +53,11 @@
 // thread, and the RNG is keyed on the lane's pix. A thin pool's live
 // lanes still sit in most of its 32-byte sectors, so #3 on (a) stays
 // above the same lanes compacted.
+//
+// Each kernel is a template on its tables: a scene with file textures,
+// bump maps, a lat-long env map or SSS runs its instantiation on
+// TexTables, which compiles path_common.cuh's surface stage (#4's also
+// reads the cached hits' mesh UVs); the one on Tables compiles none of it.
 
 #include "path_common.cuh"
 
@@ -65,6 +70,13 @@ struct IsectLanes {
   const float* nz;
   const int* mat;
   const int* outside;
+};
+
+// The Intersections' mesh UVs, which #4 reads under the surface stage.
+struct UvLanes {
+  const float* u;
+  const float* v;
+  const int* has_uv;
 };
 
 // #2: geoms a block stages in shared memory at a time. A scene with more
@@ -203,9 +215,9 @@ __device__ __forceinline__ Hit intersect_staged(const Tables& s, Staged* stage, 
 }
 
 // kPinhole: no depth of field, so every lane's ray starts at the camera.
-template <bool kPinhole>
+template <bool kPinhole, class T>
 __global__ void __launch_bounds__(kThreads)
-    first_bounce_kernel(const Tables s, const float* __restrict__ cam, const Lanes out,
+    first_bounce_kernel(const T s, const float* __restrict__ cam, const Lanes out,
                         int iteration, int resx, int resy) {
   __shared__ Staged stage[kStage];
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
@@ -228,8 +240,9 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kBounceThreads = kThreads;  // #3: threads (and lanes) a block
 constexpr int kBounceWarps = kBounceThreads / 32;
 
+template <class T>
 __global__ void __launch_bounds__(kBounceThreads)
-    bounce_step_kernel(const Tables s, const Lanes pool, const int* __restrict__ num_alive,
+    bounce_step_kernel(const T s, const Lanes pool, const int* __restrict__ num_alive,
                        int n, int iteration, int depth) {
   __shared__ int s_lanes[kBounceThreads];  // the block's live lanes, packed
   __shared__ int s_warp[kBounceWarps];
@@ -255,19 +268,26 @@ __global__ void __launch_bounds__(kBounceThreads)
   pool.alive[i] = alive ? 1 : 0;
 }
 
+// uv: read by the instantiation on TexTables alone
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    shade_step_kernel(const Tables s, const Lanes in, const IsectLanes is, const Lanes out,
-                      int n, int iteration, int depth) {
+    shade_step_kernel(const T s, const Lanes in, const IsectLanes is, const Lanes out,
+                      int n, int iteration, int depth, const UvLanes uv) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Path p = load_path(in, i);
   bool alive = in.alive[i] != 0;
   if (alive) {
-    Hit h;
+    HitOf<T> h;
     h.t = is.t[i];
     h.n = {is.nx[i], is.ny[i], is.nz[i]};
     h.mat = is.mat[i];
     h.outside = is.outside[i] != 0;
+    if constexpr (T::kTex) {
+      h.u = uv.u[i];
+      h.v = uv.v[i];
+      h.has_uv = uv.has_uv[i] != 0;
+    }
     alive = shade(s, p, h, static_cast<uint32_t>(iteration), depth,
                   static_cast<uint32_t>(in.pix[i]));
   }
@@ -279,20 +299,30 @@ __global__ void __launch_bounds__(kThreads)
 
 // Each entry point launches one kernel on `stream` (a cudaStream_t,
 // PyTorch's current stream) of CUDA device `device` and returns
-// cudaGetLastError() of the launch. tables = {xf, inv, invt, gtype, gmat,
-// mat, env}; a pool is 14 pointers (12 float lanes, alive, pix).
+// cudaGetLastError() of the launch: its instantiation on TexTables when
+// flags has a kSurfaceStage bit. tables = {xf, inv, invt, gtype, gmat,
+// mat, env, lights, surf, tex, bump, envmap}; a pool is 14 pointers (12
+// float lanes, alive, pix).
 
 extern "C" int pt_first_bounce(void* const* tables, int n_geoms, const float* cam,
                                void* const* pool, int iteration, int resx, int resy,
                                int rr_start, int flags, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Tables s = make_tables(tables, n_geoms, flags, rr_start);
   const int n = resx * resy;
   if (n > 0) {
-    auto kernel = (flags & kDof) ? first_bounce_kernel<false> : first_bounce_kernel<true>;
-    kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        s, cam, make_lanes(pool), iteration, resx, resy);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (flags & kSurfaceStage) {
+      auto kernel = (flags & kDof) ? first_bounce_kernel<false, TexTables>
+                                   : first_bounce_kernel<true, TexTables>;
+      kernel<<<n_blocks(n), kThreads, 0, st>>>(make_tex_tables(tables, n_geoms, flags, rr_start),
+                                               cam, make_lanes(pool), iteration, resx, resy);
+    } else {
+      auto kernel = (flags & kDof) ? first_bounce_kernel<false, Tables>
+                                   : first_bounce_kernel<true, Tables>;
+      kernel<<<n_blocks(n), kThreads, 0, st>>>(make_tables(tables, n_geoms, flags, rr_start), cam,
+                                               make_lanes(pool), iteration, resx, resy);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -303,23 +333,30 @@ extern "C" int pt_bounce_step(void* const* tables, int n_geoms, void* const* poo
                               int rr_start, int flags, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Tables s = make_tables(tables, n_geoms, flags, rr_start);
   if (n > 0) {
-    bounce_step_kernel<<<(n + kBounceThreads - 1) / kBounceThreads, kBounceThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(s, make_lanes(pool), num_alive, n,
-                                                              iteration, depth);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int blocks = (n + kBounceThreads - 1) / kBounceThreads;
+    if (flags & kSurfaceStage) {
+      bounce_step_kernel<<<blocks, kBounceThreads, 0, st>>>(
+          make_tex_tables(tables, n_geoms, flags, rr_start), make_lanes(pool), num_alive, n,
+          iteration, depth);
+    } else {
+      bounce_step_kernel<<<blocks, kBounceThreads, 0, st>>>(
+          make_tables(tables, n_geoms, flags, rr_start), make_lanes(pool), num_alive, n,
+          iteration, depth);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// isect = {t, nx, ny, nz, material_id (int32), outside (int32)};
+// isect = {t, nx, ny, nz, material_id (int32), outside (int32), tex_u,
+// tex_v, has_uv (int32)} (the last three read under the surface stage);
 // pool_out's pix pointer is not written (pix passes through).
 extern "C" int pt_shade_step(void* const* tables, int n_geoms, void* const* pool_in,
                              void* const* isect, void* const* pool_out, int n, int iteration,
                              int depth, int rr_start, int flags, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Tables s = make_tables(tables, n_geoms, flags, rr_start);
   IsectLanes is;
   is.t = static_cast<const float*>(isect[0]);
   is.nx = static_cast<const float*>(isect[1]);
@@ -327,9 +364,21 @@ extern "C" int pt_shade_step(void* const* tables, int n_geoms, void* const* pool
   is.nz = static_cast<const float*>(isect[3]);
   is.mat = static_cast<const int*>(isect[4]);
   is.outside = static_cast<const int*>(isect[5]);
+  UvLanes uv;
+  uv.u = static_cast<const float*>(isect[6]);
+  uv.v = static_cast<const float*>(isect[7]);
+  uv.has_uv = static_cast<const int*>(isect[8]);
   if (n > 0) {
-    shade_step_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        s, make_lanes(pool_in), is, make_lanes(pool_out), n, iteration, depth);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (flags & kSurfaceStage) {
+      shade_step_kernel<<<n_blocks(n), kThreads, 0, st>>>(
+          make_tex_tables(tables, n_geoms, flags, rr_start), make_lanes(pool_in), is,
+          make_lanes(pool_out), n, iteration, depth, uv);
+    } else {
+      shade_step_kernel<<<n_blocks(n), kThreads, 0, st>>>(
+          make_tables(tables, n_geoms, flags, rr_start), make_lanes(pool_in), is,
+          make_lanes(pool_out), n, iteration, depth, uv);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,8 +41,11 @@
 // kernel's bit for bit, as are the per-bounce kernels' (#2 -> #3). The
 // bounce itself (`intersect` + `shade`) is csrc/path_common.cuh's, shared
 // with the per-bounce kernels of bounce.cu. The feature flags are uniform
-// branches: a scene without them skips their code in every thread. There
-// is no matrix product here, so no wgmma or TMA.
+// branches: a scene without them skips their code in every thread. A scene
+// with file textures, bump maps, a lat-long env map or SSS runs the
+// kernel's instantiation on TexTables, which compiles path_common.cuh's
+// surface stage; the one on Tables compiles none of it. There is no matrix
+// product here, so no wgmma or TMA.
 
 #include <algorithm>
 
@@ -53,8 +56,9 @@ namespace {
 // 7 blocks of kThreads stay resident on an SM at the kernel's 72
 // registers; naming that minimum lets ptxas schedule for it (faster on the
 // H100 than the same registers without it)
+template <class T>
 __global__ void __launch_bounds__(kThreads, 7)
-    full_iteration_kernel(const Tables s, const float* __restrict__ cam, float* acc_r,
+    full_iteration_kernel(const T s, const float* __restrict__ cam, float* acc_r,
                           float* acc_g, float* acc_b, int iteration0, int n_iters, int resx,
                           int resy, int depth, int* __restrict__ counter) {
   const int n_pixels = resx * resy;
@@ -117,13 +121,16 @@ __global__ void __launch_bounds__(kThreads, 7)
   }
 }
 
-int g_resident[64];  // resident blocks per device, 0 until queried
+int g_resident[64];      // resident blocks per device, 0 until queried
+int g_resident_tex[64];  // the same for the surface stage's instantiation
 
 }  // namespace
 
 // Launches iterations iteration0 .. iteration0 + n_iters - 1 on `stream`
 // (a cudaStream_t, PyTorch's current stream) of CUDA device `device`.
-// tables = {xf, inv, invt, gtype, gmat, mat, env}; acc = {r, g, b};
+// tables = {xf, inv, invt, gtype, gmat, mat, env, lights, surf, tex, bump,
+// envmap} (the last four read when flags has a kSurfaceStage bit: the
+// instantiation on TexTables); acc = {r, g, b};
 // counter: one int32 on the device, zero before the launch and used by no
 // other launch. Returns cudaGetLastError() of the launch, or the occupancy
 // query's error.
@@ -133,15 +140,23 @@ extern "C" int pt_full_iteration(void* const* tables, int n_geoms, const float* 
                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Tables s = make_tables(tables, n_geoms, flags, rr_start);
   const int n_pixels = resx * resy;
   if (n_pixels > 0 && n_iters > 0) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
     int resident = 0;
-    err = resident_blocks(full_iteration_kernel, device, g_resident, &resident);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    full_iteration_kernel<<<std::min(resident, n_blocks(n_pixels)), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        s, cam, acc[0], acc[1], acc[2], iteration0, n_iters, resx, resy, depth, counter);
+    if (flags & kSurfaceStage) {
+      err = resident_blocks(full_iteration_kernel<TexTables>, device, g_resident_tex, &resident);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      full_iteration_kernel<<<std::min(resident, n_blocks(n_pixels)), kThreads, 0, st>>>(
+          make_tex_tables(tables, n_geoms, flags, rr_start), cam, acc[0], acc[1], acc[2],
+          iteration0, n_iters, resx, resy, depth, counter);
+    } else {
+      err = resident_blocks(full_iteration_kernel<Tables>, device, g_resident, &resident);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      full_iteration_kernel<<<std::min(resident, n_blocks(n_pixels)), kThreads, 0, st>>>(
+          make_tables(tables, n_geoms, flags, rr_start), cam, acc[0], acc[1], acc[2],
+          iteration0, n_iters, resx, resy, depth, counter);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,7 +54,11 @@
 //       are then read from its lanes alone (merged_hit). Then the shared
 //       `shade` body exactly as kernel #3 runs it (the same RNG slots keyed
 //       on pix, Russian roulette, the live-count skip). The BVH walk stays
-//       in #8, so #9's body is #3's less the sweep. #3's packing of a
+//       in #8, so #9's body is #3's less the sweep. It is a template on its
+//       tables: a scene with file textures, bump maps, a lat-long env map
+//       or SSS runs its instantiation on TexTables, which compiles
+//       path_common.cuh's surface stage and reads a mesh winner's UVs and
+//       has_uv with its other fields (#8's, or D's on the big-mesh route). #3's packing of a
 //       block's live lanes was measured here and gains nothing (PERF.md
 //       §6): #9 is held by the 32-byte sectors of its pool, not its warps.
 //   #10 intersect_mesh_kernel replaces intersect_pipeline's K3: the same
@@ -414,31 +418,39 @@ __device__ __forceinline__ Hit load_hit(const HitLanes& l, int i) {
 // that the mesh wins reads none of the analytic ones. The lane arrays'
 // pointers are selected, never a struct: a pointer to either kernel
 // parameter would put both in local memory. #10 keeps mesh_wins and
-// load_hit.
-__device__ __forceinline__ Hit merged_hit(const HitLanes& a, const HitLanes& mh, int i) {
+// load_hit. On TexTables also the mesh winner's UVs and has_uv (none for
+// an analytic winner), which the surface stage reads.
+template <class T>
+__device__ __forceinline__ HitOf<T> merged_hit(const HitLanes& a, const HitLanes& mh, int i) {
   const float ta = a.t[i];
   const float tm = a.flag[i] ? mh.t[i] : 0.0f;
   const bool mesh = tm > 0.0f && (ta > 0.0f ? ta : kFltMax) > tm;
   const float* nx = mesh ? mh.n[0] : a.n[0];
   const float* ny = mesh ? mh.n[1] : a.n[1];
   const float* nz = mesh ? mh.n[2] : a.n[2];
-  Hit h;
+  HitOf<T> h;
   h.t = mesh ? tm : ta;
   h.n = {nx[i], ny[i], nz[i]};
   h.mat = (mesh ? mh.mat : a.mat)[i];
   h.outside = (mesh ? mh.outside : a.outside)[i] != 0;
+  if constexpr (T::kTex) {
+    h.has_uv = mesh && mh.flag[i];
+    h.u = h.has_uv ? mh.u[i] : 0.0f;
+    h.v = h.has_uv ? mh.v[i] : 0.0f;
+  }
   return h;
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    bounce_step_mesh_kernel(const Tables s, const Lanes pool, const int* __restrict__ num_alive,
+    bounce_step_mesh_kernel(const T s, const Lanes pool, const int* __restrict__ num_alive,
                             int n, const HitLanes a, const HitLanes mh, int iteration, int depth) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (num_alive != nullptr && i >= __ldg(num_alive)) return;
   if (pool.alive[i] == 0) return;
   Path p = load_path(pool, i);
-  const Hit h = merged_hit(a, mh, i);
+  const HitOf<T> h = merged_hit<T>(a, mh, i);
   const bool alive = shade(s, p, h, static_cast<uint32_t>(iteration), depth,
                            static_cast<uint32_t>(pool.pix[i]));
   store_path(pool, i, p);
@@ -524,7 +536,10 @@ extern "C" int pt_mesh_sweep(void* const* tables, int n_geoms, void* const* mesh
   return static_cast<int>(cudaGetLastError());
 }
 
-// pool: 14 pointers (12 float lanes, alive, pix), updated in place.
+// pool: 14 pointers (12 float lanes, alive, pix), updated in place; the
+// instantiation on TexTables when flags has a kSurfaceStage bit (tables
+// then {xf, inv, invt, gtype, gmat, mat, env, lights, surf, tex, bump,
+// envmap}).
 extern "C" int pt_bounce_step_mesh(void* const* tables, int n_geoms, void* const* pool,
                                    const int* num_alive, int n, void* const* analytic,
                                    void* const* hits, int iteration, int depth, int rr_start,
@@ -532,9 +547,16 @@ extern "C" int pt_bounce_step_mesh(void* const* tables, int n_geoms, void* const
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    bounce_step_mesh_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        make_tables(tables, n_geoms, flags, rr_start), make_lanes(pool), num_alive, n,
-        make_hits(analytic, false), make_hits(hits, true), iteration, depth);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (flags & kSurfaceStage) {
+      bounce_step_mesh_kernel<<<n_blocks(n), kThreads, 0, st>>>(
+          make_tex_tables(tables, n_geoms, flags, rr_start), make_lanes(pool), num_alive, n,
+          make_hits(analytic, false), make_hits(hits, true), iteration, depth);
+    } else {
+      bounce_step_mesh_kernel<<<n_blocks(n), kThreads, 0, st>>>(
+          make_tables(tables, n_geoms, flags, rr_start), make_lanes(pool), num_alive, n,
+          make_hits(analytic, false), make_hits(hits, true), iteration, depth);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

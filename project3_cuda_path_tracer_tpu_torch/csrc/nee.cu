@@ -61,7 +61,12 @@
 // for bit against #5's route on every pixel whose camera ray the plain
 // raygen reproduces (`nee_route_bits`).
 // The NEE code is reached only from these two kernels, so #1-#4 compile
-// as they did. No matrix product here, so no wgmma or TMA.
+// as they did. Each kernel is a template on its tables: a scene with file
+// textures, bump maps, a lat-long env map or SSS runs its instantiation on
+// TexTables, which compiles path_common.cuh's surface stage (the albedo,
+// the shading normal and the environment are the stage's at every term,
+// and a subsurface vertex takes no light sample); the one on Tables
+// compiles none of it. No matrix product here, so no wgmma or TMA.
 
 #include <algorithm>
 
@@ -85,8 +90,9 @@ constexpr int kChunk = 256;  // #5: pool slots per fetch from the counter
 // stay resident on an SM at its 80 registers; naming that minimum (ptxas
 // spills a few bytes) was faster on the H100 than 90 registers at 5
 // blocks.
+template <class T>
 __global__ void __launch_bounds__(kThreads, 6)
-    full_iteration_nee_kernel(const Tables s, const Lights L, const float* __restrict__ cam,
+    full_iteration_nee_kernel(const T s, const Lights L, const float* __restrict__ cam,
                               float* acc_r, float* acc_g, float* acc_b, int iteration0,
                               int n_iters, int resx, int resy, int depth,
                               int* __restrict__ counter) {
@@ -176,18 +182,17 @@ __global__ void __launch_bounds__(kThreads, 6)
         const NeeAux prev = a;
         a = NeeAux{0.0f, 0.0f};
         if (!(h.t > 0.0f)) {
-          if (s.flags & kEnvConst) {
-            p.rad = p.rad + p.thr * V3{__ldg(s.env + 0), __ldg(s.env + 1), __ldg(s.env + 2)};
-          }
+          escape(s, p);
           ends = true;
           vertex = false;
         } else {
           p_hit = p.org + p.dir * (h.t - kRayEps);
-          const Material me = load_material(s, h.mat, p_hit);
+          HitOf<T> he = h;  // the hit as shaded
+          const Material me = surface(s, he, p_hit);
           if (me.emit > 0.0f) {
             float w_bsdf = 1.0f;
             if (prev.nondelta > 0.5f) {
-              const float cos_l = fabsf(dot(h.n, p.dir));
+              const float cos_l = fabsf(dot(he.n, p.dir));
               const float pdf_light = (h.t * h.t) / fmaxf(cos_l * L.aw, 1e-8f);
               const float pp = prev.pdf * prev.pdf;
               w_bsdf = pp / fmaxf(pp + pdf_light * pdf_light, 1e-20f);
@@ -199,11 +204,15 @@ __global__ void __launch_bounds__(kThreads, 6)
         }
       }
       if (vertex) {
-        const Material mt = load_material(s, h.mat, p_hit);
-        const V3 n = h.n;
+        // the vertex as shaded (the surface stage again in its shadow step:
+        // h keeps the hit's own normal)
+        HitOf<T> hs = h;
+        const Material mt = surface(s, hs, p_hit);
+        const V3 n = hs.n;
         const float p_mix = clamp01(mt.refl);
         const bool glossy_lobe = (s.flags & kGlossy) && p_mix > 0.0f && mt.sexp > 0.0f;
-        const bool nee_able = mt.refr <= 0.0f && (p_mix < 1.0f || glossy_lobe);
+        bool nee_able = mt.refr <= 0.0f && (p_mix < 1.0f || glossy_lobe);
+        if constexpr (T::kTex) nee_able = nee_able && !subsurface(s, mt);
         const V3 mirror = p.dir - n * (2.0f * dot(p.dir, n));
         bool go_on = true;  // the vertex continues in this step
         if (shadow) {
@@ -245,7 +254,7 @@ __global__ void __launch_bounds__(kThreads, 6)
           }
         }
         if (go_on) {
-          if (is_last || !scatter(s, p, h, mt, p_hit, it, d, static_cast<uint32_t>(pix))) {
+          if (is_last || !scatter(s, p, hs, mt, p_hit, it, d, static_cast<uint32_t>(pix))) {
             ends = true;
           } else {
             const float m_dot = dot_fma(mirror, p.dir);
@@ -281,7 +290,8 @@ __global__ void __launch_bounds__(kThreads, 6)
 
 // One NEE + MIS bounce of live slot i of the pool, in place: the
 // thread-per-slot kernel's body.
-__device__ __forceinline__ void nee_bounce_slot(const Tables& s, const Lights& L,
+template <class T>
+__device__ __forceinline__ void nee_bounce_slot(const T& s, const Lights& L,
                                                 const Lanes& pool, float* prev_pdf,
                                                 float* prev_nondelta, int i, uint32_t it,
                                                 int depth, bool is_last) {
@@ -298,8 +308,9 @@ __device__ __forceinline__ void nee_bounce_slot(const Tables& s, const Lights& L
 
 // #5. 6 blocks per SM at 80 registers (95 without the bound): 3% faster
 // on many_materials 1080p RR, 7% slower on Cornell 800x800 AA, on the H100.
+template <class T>
 __global__ void __launch_bounds__(kThreads, 6)
-    bounce_step_nee_kernel(const Tables s, const Lights L, const Lanes pool,
+    bounce_step_nee_kernel(const T s, const Lights L, const Lanes pool,
                            float* __restrict__ prev_pdf, float* __restrict__ prev_nondelta,
                            int n, int iteration, int depth, int is_last,
                            int* __restrict__ counter) {
@@ -351,13 +362,17 @@ inline Lights make_lights(void* const* tables, int n_lights, float aw) {
 
 int g_resident_nee[64];     // #6's resident blocks per device, 0 until queried
 int g_resident_bounce[64];  // #5's
+int g_resident_nee_tex[64];     // their instantiations on TexTables'
+int g_resident_bounce_tex[64];
 
 }  // namespace
 
 // Each entry point launches one kernel on `stream` (a cudaStream_t,
 // PyTorch's current stream) of CUDA device `device` and returns
-// cudaGetLastError() of the launch, or the occupancy query's error.
-// tables = {xf, inv, invt, gtype, gmat, mat, env, lights}; aw = the MIS
+// cudaGetLastError() of the launch, or the occupancy query's error: the
+// kernel's instantiation on TexTables when flags has a kSurfaceStage bit.
+// tables = {xf, inv, invt, gtype, gmat, mat, env, lights, surf, tex, bump,
+// envmap}; aw = the MIS
 // light pdf model (mean light area x n_lights); counter: one int32 on the
 // device, zero before the launch and used by no other launch.
 
@@ -368,17 +383,28 @@ extern "C" int pt_bounce_step_nee(void* const* tables, int n_geoms, int n_lights
                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Tables s = make_tables(tables, n_geoms, flags, rr_start);
   if (n > 0) {
-    int resident = 0;
-    err = resident_blocks(bounce_step_nee_kernel, device, g_resident_bounce, &resident);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const Lights L = make_lights(tables, n_lights, aw);
+    float* pdf = static_cast<float*>(pool[14]);
+    float* nondelta = static_cast<float*>(pool[15]);
     // one warp per chunk at most
     const int wanted = n_blocks(((n + kChunk - 1) / kChunk) * 32);
-    bounce_step_nee_kernel<<<std::min(resident, wanted), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        s, make_lights(tables, n_lights, aw), make_lanes(pool), static_cast<float*>(pool[14]),
-        static_cast<float*>(pool[15]), n, iteration, depth, is_last, counter);
+    int resident = 0;
+    if (flags & kSurfaceStage) {
+      err = resident_blocks(bounce_step_nee_kernel<TexTables>, device, g_resident_bounce_tex,
+                            &resident);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      bounce_step_nee_kernel<<<std::min(resident, wanted), kThreads, 0, st>>>(
+          make_tex_tables(tables, n_geoms, flags, rr_start), L, make_lanes(pool), pdf, nondelta,
+          n, iteration, depth, is_last, counter);
+    } else {
+      err = resident_blocks(bounce_step_nee_kernel<Tables>, device, g_resident_bounce, &resident);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      bounce_step_nee_kernel<<<std::min(resident, wanted), kThreads, 0, st>>>(
+          make_tables(tables, n_geoms, flags, rr_start), L, make_lanes(pool), pdf, nondelta, n,
+          iteration, depth, is_last, counter);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -390,16 +416,25 @@ extern "C" int pt_full_iteration_nee(void* const* tables, int n_geoms, int n_lig
                                      int flags, int* counter, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Tables s = make_tables(tables, n_geoms, flags, rr_start);
   const int n_pixels = resx * resy;
   if (n_pixels > 0 && n_iters > 0) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const Lights L = make_lights(tables, n_lights, aw);
     int resident = 0;
-    err = resident_blocks(full_iteration_nee_kernel, device, g_resident_nee, &resident);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    full_iteration_nee_kernel<<<std::min(resident, n_blocks(n_pixels)), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        s, make_lights(tables, n_lights, aw), cam, acc[0], acc[1], acc[2], iteration0, n_iters,
-        resx, resy, depth, counter);
+    if (flags & kSurfaceStage) {
+      err = resident_blocks(full_iteration_nee_kernel<TexTables>, device, g_resident_nee_tex,
+                            &resident);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      full_iteration_nee_kernel<<<std::min(resident, n_blocks(n_pixels)), kThreads, 0, st>>>(
+          make_tex_tables(tables, n_geoms, flags, rr_start), L, cam, acc[0], acc[1], acc[2],
+          iteration0, n_iters, resx, resy, depth, counter);
+    } else {
+      err = resident_blocks(full_iteration_nee_kernel<Tables>, device, g_resident_nee, &resident);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      full_iteration_nee_kernel<<<std::min(resident, n_blocks(n_pixels)), kThreads, 0, st>>>(
+          make_tables(tables, n_geoms, flags, rr_start), L, cam, acc[0], acc[1], acc[2],
+          iteration0, n_iters, resx, resy, depth, counter);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,18 +2,19 @@
 
 The port's subset of the JAX package's `models/device.py`: instance
 matrices and their motion-blur velocities, material columns (with the
-procedural checker's kind and scale), the constant environment colour,
-the triangle soup and the flat BVH of every mesh geom (the JAX names:
-`tri_*`, `bvh_*`, `tri_ranges`, `bvh_roots`, `mesh_has_uv`), the chunk
-and supernode boxes of every mesh geom (`mesh_chunk_aabbs`,
-`mesh_super_aabbs`, `chunk_ranges`, `super_ranges`, `mesh_obj_aabbs`: the
-big-mesh route's hierarchy), plus the static metadata (geom types,
-material-class flags) that selects the shader's RNG draw layout.
-File-texture and env-map tables arrive with their slice (ROADMAP); their
-flags are kept so that a scene that needs them is refused instead of
-rendered wrong. The TPU-only mesh tables (packed 96-lane triangle rows
-and their stream padding, bf16 attribute slabs) have no counterpart: the
-CUDA kernels read the soup itself.
+subsurface sigma and the texture and bump columns), the flattened
+texture, bump and lat-long environment atlases (`tex_r/g/b`, `bump_h`,
+`env_r/g/b`: one (N*R*R,) or (H*W,) column per channel, as there), the
+constant environment colour, the triangle soup and the flat BVH of every
+mesh geom (the JAX names: `tri_*`, `bvh_*`, `tri_ranges`, `bvh_roots`,
+`mesh_has_uv`), the chunk and supernode boxes of every mesh geom
+(`mesh_chunk_aabbs`, `mesh_super_aabbs`, `chunk_ranges`, `super_ranges`,
+`mesh_obj_aabbs`: the big-mesh route's hierarchy), plus the static
+metadata (geom types, material-class and feature flags) that selects the
+shader's RNG draw layout and its stages. The TPU-only tables (packed
+96-lane triangle rows and their stream padding, bf16 attribute slabs)
+have no counterpart: the CUDA kernels read the soup and the f32 atlases
+themselves.
 
 Triangle order: with `use_bvh` (the default, and what `Renderer` always
 builds, because the mesh kernels walk the BVH) the soup is reordered
@@ -58,9 +59,20 @@ ARRAY_FIELDS = (
     "mat_has_refractive",
     "mat_ior",
     "mat_emittance",
+    "mat_sss",
     "mat_tex_kind",
+    "mat_tex_id",
     "mat_tex_scale",
+    "mat_bump_id",
+    "mat_bump_scale",
+    "tex_r",
+    "tex_g",
+    "tex_b",
+    "bump_h",
     "env_color",
+    "env_r",
+    "env_g",
+    "env_b",
     "tri_uv0u",
     "tri_uv0v",
     "tri_uv1u",
@@ -74,8 +86,8 @@ ARRAY_FIELDS = (
     "mesh_chunk_aabbs",
     "mesh_super_aabbs",
 )
-INT_FIELDS = ("geom_material_id", "mat_tex_kind", "bvh_first", "bvh_count",
-              "bvh_skip")
+INT_FIELDS = ("geom_material_id", "mat_tex_kind", "mat_tex_id", "mat_bump_id",
+              "bvh_first", "bvh_count", "bvh_skip")
 BOOL_FIELDS = ("bvh_leaf",)
 VEC3_FIELDS = (
     "mat_color",
@@ -107,6 +119,7 @@ META_FIELDS = (
     "has_env_const",
     "has_env_map",
     "n_file_textures",
+    "n_bump_textures",
 )
 
 
@@ -126,10 +139,23 @@ class DeviceScene:
     mat_has_refractive: torch.Tensor  # (M,)
     mat_ior: torch.Tensor  # (M,)
     mat_emittance: torch.Tensor  # (M,)
+    mat_sss: torch.Tensor  # (M,) subsurface extinction sigma, 0 = none
+    # texture and bump columns, and the flattened atlases (ops/texture.py)
     mat_tex_kind: torch.Tensor  # (M,) int32: 0 none, 1 checker, 2 file
+    mat_tex_id: torch.Tensor  # (M,) int32 file texture of a kind-2 material
     mat_tex_scale: torch.Tensor  # (M,) texture tiling scale
-    # constant environment radiance for escaped rays (ENVLIGHT)
+    mat_bump_id: torch.Tensor  # (M,) int32 bump map, -1 none
+    mat_bump_scale: torch.Tensor  # (M,)
+    tex_r: torch.Tensor  # (N*R*R,) f32, N file textures of R x R texels
+    tex_g: torch.Tensor
+    tex_b: torch.Tensor
+    bump_h: torch.Tensor  # (Nb*R*R,) f32 heights
+    # environment radiance for escaped rays: the constant ENVLIGHT colour,
+    # and the lat-long ENVMAP's channels, (H*W,) each (empty when absent)
     env_color: torch.Tensor  # (3,)
+    env_r: torch.Tensor
+    env_g: torch.Tensor
+    env_b: torch.Tensor
     # --- triangle soup (object space, all meshes concatenated; BVH
     # order, see the module docstring) as Vec3 of (T,) columns ---
     tri_v0: Vec3
@@ -174,13 +200,15 @@ class DeviceScene:
     any_refractive: bool
     any_partial_reflective: bool  # any 0 < REFL < 1 (probabilistic mix)
     any_glossy: bool  # any SPECEX > 0 (Phong imperfect specular)
-    # features of later slices: a scene that sets one is refused
-    any_sss: bool
-    any_textured: bool
-    any_bump: bool
+    # the surface and environment features: they select the kernels'
+    # texture stage (ops/megakernel.py::kernel_flags)
+    any_sss: bool  # any SSS > 0 (subsurface scattering)
+    any_textured: bool  # any TEXTURE (checker or file)
+    any_bump: bool  # any BUMP
     has_env_const: bool  # nonzero constant ENVLIGHT colour
     has_env_map: bool  # lat-long ENVMAP present
     n_file_textures: int  # file textures in the scene's atlas
+    n_bump_textures: int  # bump maps in the scene's atlas
 
     @property
     def device(self) -> torch.device:
@@ -307,9 +335,20 @@ def scene_to_device(scene: Scene, device, use_bvh: bool = True) -> DeviceScene:
         "mat_has_refractive": m.has_refractive,
         "mat_ior": m.index_of_refraction,
         "mat_emittance": m.emittance,
+        "mat_sss": m.subsurface,
         "mat_tex_kind": m.tex_kind,
+        "mat_tex_id": m.tex_id,
         "mat_tex_scale": m.tex_scale,
+        "mat_bump_id": m.bump_id,
+        "mat_bump_scale": m.bump_scale,
+        "tex_r": scene.textures[..., 0].reshape(-1),
+        "tex_g": scene.textures[..., 1].reshape(-1),
+        "tex_b": scene.textures[..., 2].reshape(-1),
+        "bump_h": scene.bumps.reshape(-1),
         "env_color": scene.env_color,
+        "env_r": scene.env_map[..., 0].reshape(-1),
+        "env_g": scene.env_map[..., 1].reshape(-1),
+        "env_b": scene.env_map[..., 2].reshape(-1),
         "tri_v0": t.v0,
         "tri_v1": t.v1,
         "tri_v2": t.v2,
@@ -357,6 +396,7 @@ def scene_to_device(scene: Scene, device, use_bvh: bool = True) -> DeviceScene:
         has_env_const=bool((scene.env_color != 0).any()),
         has_env_map=bool(scene.env_map.size > 0),
         n_file_textures=int(scene.textures.shape[0]),
+        n_bump_textures=int(scene.bumps.shape[0]),
     )
     return device_scene_from_numpy(fields, info, device)
 
@@ -392,7 +432,7 @@ def device_scene_from_numpy(fields: dict, meta: dict, device) -> DeviceScene:
             kw[name] = tuple(tuple(float(x) for x in box) for box in v)
         elif name == "mesh_has_uv":
             kw[name] = tuple(bool(x) for x in v)
-        elif name == "n_file_textures":
+        elif name in ("n_file_textures", "n_bump_textures"):
             kw[name] = int(v)
         else:
             kw[name] = bool(v)

@@ -39,6 +39,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..utils import math3d
+from ..utils.image import read_png
 
 
 class GeomType(enum.IntEnum):
@@ -382,24 +383,26 @@ ENV_H, ENV_W = 256, 512  # lat-long env maps resampled to this
 
 def _load_env_map(path: str) -> np.ndarray:
     """Load a lat-long environment image as (ENV_H, ENV_W, 3) float
-    radiance. HDR formats keep their range; LDR is mapped to [0,1]."""
+    radiance in [0,1]: an 8-bit PNG of exactly ENV_W x ENV_H
+    (`utils.image.read_png`). The JAX package also resamples other sizes
+    (Pillow) and reads HDR formats (imageio); both are refused here
+    (ROADMAP §1 queues them)."""
     ext = os.path.splitext(path)[1].lower()
     if ext in (".hdr", ".exr"):
-        import imageio.v3 as iio
-
-        img = np.asarray(iio.imread(path), np.float32)[..., :3]
-        # nearest-neighbor resample (no PIL float support needed)
-        ys = (np.arange(ENV_H) * img.shape[0] // ENV_H).clip(0, img.shape[0] - 1)
-        xs = (np.arange(ENV_W) * img.shape[1] // ENV_W).clip(0, img.shape[1] - 1)
-        return np.ascontiguousarray(img[np.ix_(ys, xs)])
-    from PIL import Image
-
-    img = Image.open(path).convert("RGB").resize(
-        (ENV_W, ENV_H), Image.BILINEAR
-    )
+        raise ValueError(
+            f"{path}: {ext} environment maps are not ported yet (they need "
+            "imageio): see ROADMAP §1"
+        )
+    img = read_png(path, "RGB")
+    if img.shape[:2] != (ENV_H, ENV_W):
+        raise ValueError(
+            f"{path}: environment map is {img.shape[1]}x{img.shape[0]}, "
+            f"the table is {ENV_W}x{ENV_H}; resampling is not ported yet: "
+            "see ROADMAP §1"
+        )
     # int * float32(1/255) — must match the JAX package's atlas fetch
     # (ops/megakernel.py::_env_fetch) bit-for-bit; see _load_texture.
-    return np.asarray(img, np.float32) * np.float32(1.0 / 255.0)
+    return img.astype(np.float32) * np.float32(1.0 / 255.0)
 
 
 def _parse_material(rd: _LineReader, base_dir: str = ".") -> dict:
@@ -639,17 +642,24 @@ TEX_RES = 256  # all file textures are resampled to this square size
 
 
 def _load_texture(path: str, grayscale: bool = False) -> np.ndarray:
-    from PIL import Image
-
-    img = Image.open(path)
-    img = img.convert("L" if grayscale else "RGB").resize(
-        (TEX_RES, TEX_RES), Image.BILINEAR
-    )
+    """An 8-bit PNG of exactly TEX_RES x TEX_RES as (TEX_RES, TEX_RES, 3)
+    float albedo in [0,1], or (TEX_RES, TEX_RES) heights when `grayscale`
+    (`utils.image.read_png`: Pillow's RGB / L conversion). The JAX package
+    resamples any other size with Pillow; that is refused here (ROADMAP §1
+    queues it). An image at the table's size is the same either way:
+    Pillow's resize to an equal size returns it unchanged."""
+    img = read_png(path, "L" if grayscale else "RGB")
+    if img.shape[:2] != (TEX_RES, TEX_RES):
+        raise ValueError(
+            f"{path}: texture is {img.shape[1]}x{img.shape[0]}, the atlas "
+            f"is {TEX_RES}x{TEX_RES}; resampling is not ported yet: see "
+            "ROADMAP §1"
+        )
     # int * float32(1/255), NOT /255: the JAX package's atlas fetch
     # (ops/megakernel.py::_file_tex_fetch) recovers the exact integer
     # texel and multiplies by float32(1/255) — same formula here makes
     # the XLA gather path and the kernel path bit-identical.
-    return np.asarray(img, np.float32) * np.float32(1.0 / 255.0)
+    return img.astype(np.float32) * np.float32(1.0 / 255.0)
 
 
 def _build_materials_soa(materials: List[dict]):

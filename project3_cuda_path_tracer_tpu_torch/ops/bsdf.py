@@ -1,13 +1,15 @@
 """BSDF sampling and path scattering: the scatterRay contract, plain PyTorch.
 
-The twin of the JAX package's `ops/bsdf.py` without the subsurface
-branch (SSS scenes are refused until their slice, ROADMAP):
+The twin of the JAX package's `ops/bsdf.py`:
 - ideal diffuse via the cosine-weighted hemisphere sampler
   (src/interactions.h:10-42),
 - perfect specular mirror (glm::reflect), Phong glossy when SPECEX > 0,
 - refraction with Snell's law + Schlick Fresnel, TIR reflects,
 - probabilistic mixing with probability-division compensation
   (src/interactions.h:55-62),
+- subsurface scattering (SSS > 0, diffusion-lite): a cosine lobe around
+  the inward normal on entry, Beer-Lambert absorption on exit; it wins
+  over the other lobes and draws no number of its own,
 - emissive surfaces terminate the path (src/pathtrace.cu:247-249).
 
 Every lane evaluates every branch and `torch.where` selects, so the
@@ -106,6 +108,8 @@ def scatter(
     # every material's REFL is 0 or 1
     u_fresnel: torch.Tensor | None = None,  # Fresnel lottery; None when the
     # scene has no refractive material
+    m_sss: torch.Tensor | None = None,  # SSS extinction sigma; None = none
+    t_segment: torch.Tensor | None = None,  # segment length for absorption
 ):
     """One shading step for all lanes.
 
@@ -162,6 +166,22 @@ def scatter(
         new_dir = vwhere(refractive, glass_dir, new_dir)
         tint = vwhere(refractive, glass_tint, tint)
         new_origin = vwhere(refractive, glass_origin, new_origin)
+
+    # ---- subsurface branch (INSTRUCTION.md:121, diffusion-lite) ----
+    # Entry (outside): diffuse transmission, a cosine hemisphere around
+    # the inward normal tinted by the surface colour. Exit (inside): the
+    # oriented normal points back toward the ray, so -normal is outward,
+    # and the same sampling leaves the medium with Beer-Lambert absorption
+    # exp(-sigma * the segment's length inside).
+    if m_sss is not None:
+        sss = m_sss > 0.0
+        sss_dir = cosine_hemisphere(-normal, u_hemi1, u_hemi2)
+        att = torch.exp(-m_sss * t_segment)
+        sss_tint = vwhere(outside, m_color, Vec3(att, att, att))
+        sss_origin = p_hit + sss_dir * (2.0 * RAY_EPS + 1e-3)
+        new_dir = vwhere(sss, sss_dir, new_dir)
+        tint = vwhere(sss, sss_tint, tint)
+        new_origin = vwhere(sss, sss_origin, new_origin)
 
     emitted = m_color * m_emittance
     return new_origin, new_dir.normalize(), tint, emitted, emissive

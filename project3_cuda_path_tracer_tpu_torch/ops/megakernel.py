@@ -39,13 +39,21 @@ is (prev_pdf, prev_nondelta), two float32 (P,) lanes, the flag as 0/1.
 
 The kernels' scene tables (`pack_scene_tables`) keep the JAX kernel's
 (G,16) matrix rows and its material column map through column 12
-(tex_kind, tex_scale), plus the emissive geom indices and the MIS light
-pdf model (ops/lights.py::lights_area_weight) for the NEE kernels, and on
-a mesh scene the triangle and BVH tables of the mesh pipeline
+(tex_kind, tex_scale) in `mat`, its columns 13-16 (tex id, bump id, bump
+scale, SSS sigma) in `surf`, the f32 texture, bump and lat-long env
+atlases, plus the emissive geom indices and the MIS light pdf model
+(ops/lights.py::lights_area_weight) for the NEE kernels, and on a mesh
+scene the triangle and BVH tables of the mesh pipeline
 (`pack_mesh_tables`, read by ops/pipeline.py's kernels #7-#14). These six
 kernels sweep analytic geoms only: a mesh scene takes ops/pipeline.py
-(and #4, which intersects nothing), and their wrappers refuse one. The
-file-texture and env-map tables arrive with their slice (ROADMAP).
+(and #4, which intersects nothing), and their wrappers refuse one.
+
+A scene with file textures, bump maps, a lat-long env map or SSS sets
+the surface-stage flags (FLAG_SURFACE_STAGE), and the kernels' C entry
+points then launch their instantiations on `TexTables` (each kernel is a
+template on its tables), which compile csrc/path_common.cuh's surface
+stage; the instantiations on `Tables` keep the code the kernels had
+before it existed.
 """
 
 from __future__ import annotations
@@ -60,7 +68,10 @@ from .lights import lights_area_weight
 from .vec import Vec3
 
 # material table columns: the JAX kernel's fixed map through column 12
+# (`mat`), then its columns 13-16 (`surf`). The kernels without the surface
+# stage read `mat` alone, at its stride of MAT_COLS.
 MAT_COLS = 13
+SURF_COLS = 4
 
 # settings / scene-class flags, as csrc/path_common.cuh reads them
 FLAG_ANTIALIAS = 1
@@ -73,6 +84,12 @@ FLAG_ENV_CONST = 64
 FLAG_STRATIFIED = 128
 FLAG_SOBOL = 256
 FLAG_CHECKER = 512
+FLAG_FILE_TEX = 1024
+FLAG_BUMP = 2048
+FLAG_ENV_MAP = 4096
+FLAG_SSS = 8192
+# the flags whose stages only the kernels' instantiations on TexTables compile
+FLAG_SURFACE_STAGE = FLAG_FILE_TEX | FLAG_BUMP | FLAG_ENV_MAP | FLAG_SSS
 
 class SceneTables(NamedTuple):
     xf: torch.Tensor  # (G,16) f32 transforms, row-major
@@ -85,6 +102,10 @@ class SceneTables(NamedTuple):
     #                    tex_scale
     env: torch.Tensor  # (3,) f32 constant environment radiance
     lights: torch.Tensor  # (L,) int32 emissive geom indices (NEE kernels)
+    surf: torch.Tensor  # (M,SURF_COLS) f32: tex id, bump id, bump scale, SSS
+    tex: torch.Tensor  # (N*R*R,4) f32 file texels r, g, b, 0
+    bump: torch.Tensor  # (Nb*R*R,) f32 bump heights
+    envmap: torch.Tensor  # (ENV_H*ENV_W,4) f32 env texels r, g, b, 0 (or (0,4))
     aw: float | None  # mean light area x L as a float32 value (the NEE
     #                   kernels' MIS); None when packed without `nee`
     # the mesh pipeline's tables (pack_mesh_tables); None without meshes
@@ -98,7 +119,7 @@ class SceneTables(NamedTuple):
 
 
 # the tables the kernels read, as a C array of pointers in this order
-_TABLE_PTRS = 8
+_TABLE_PTRS = 12
 
 # #1's iterations per launch: a lane renders its pixel's paths of all of
 # them before it takes the next pixel, so the launch's tail (the last
@@ -140,30 +161,27 @@ def checker_only(scene) -> bool:
     )
 
 
-def _refuse(what: str, slice_no: int):
+def _refuse(what: str, module: int):
     raise NotImplementedError(
-        f"{what} is not ported yet: see ROADMAP, port slice {slice_no}"
+        f"{what} is not ported yet: see ROADMAP §1, module {module}"
     )
 
 
 def check_supported(scene: DeviceScene, settings) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for a scene or
-    setting that the port does not render yet. The check is the same on
-    every device: the CPU path never renders what the card cannot."""
+    """Raise NotImplementedError, naming the module of ROADMAP §1 that
+    queues it, for a scene or setting that the port does not render yet:
+    --nee on a mesh scene, material sort and triangle sharding. The check
+    is the same on every device: the CPU path never renders what the card
+    cannot."""
     refusals = [
         (settings.nee_mis and scene.mesh_geoms,
-         "NEE + MIS (--nee) on a mesh scene", 5),
-        (scene.any_sss, "subsurface scattering (SSS)", 6),
-        (scene.any_textured and not checker_only(scene),
-         "file textures (TEXTURE <file>)", 6),
-        (scene.any_bump, "bump maps (BUMP)", 6),
-        (scene.has_env_map, "lat-long environment maps (ENVMAP)", 6),
-        (settings.sort_by_material, "material sort", 6),
-        (settings.tri_axis is not None, "triangle sharding", 6),
+         "NEE + MIS (--nee) on a mesh scene", 2),
+        (settings.sort_by_material, "material sort", 3),
+        (settings.tri_axis is not None, "triangle sharding", 4),
     ]
-    for needed, what, slice_no in refusals:
+    for needed, what, module in refusals:
         if needed:
-            _refuse(what, slice_no)
+            _refuse(what, module)
 
 
 def _require_analytic(scene: DeviceScene, what: str) -> None:
@@ -185,6 +203,10 @@ def kernel_flags(scene: DeviceScene, settings) -> int:
         | FLAG_STRATIFIED * bool(settings.stratified)
         | FLAG_SOBOL * bool(settings.sobol)
         | FLAG_CHECKER * checker_only(scene)
+        | FLAG_FILE_TEX * (scene.n_file_textures > 0)
+        | FLAG_BUMP * scene.any_bump
+        | FLAG_ENV_MAP * scene.has_env_map
+        | FLAG_SSS * scene.any_sss
     )
 
 
@@ -261,6 +283,15 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
         ],
         dim=1,
     ).contiguous()
+    surf = torch.stack(
+        [scene.mat_tex_id.to(torch.float32), scene.mat_bump_id.to(torch.float32),
+         scene.mat_bump_scale, scene.mat_sss],
+        dim=1,
+    ).contiguous()
+
+    def rgb0(r, g, b):  # texels as rows r, g, b, 0: one 16-byte load each
+        return torch.stack([r, g, b, torch.zeros_like(r)], dim=1).contiguous()
+
     xf, inv = pack_geom_tables(scene)
     return SceneTables(
         xf=xf,
@@ -272,6 +303,10 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
         env=scene.env_color.contiguous(),
         lights=torch.tensor(scene.emissive_geoms, dtype=torch.int32,
                             device=dev).reshape(-1),
+        surf=surf,
+        tex=rgb0(scene.tex_r, scene.tex_g, scene.tex_b),
+        bump=scene.bump_h.contiguous(),
+        envmap=rgb0(scene.env_r, scene.env_g, scene.env_b),
         aw=float(lights_area_weight(scene)) if nee else None,
         mesh=pack_mesh_tables(scene) if scene.mesh_geoms else None,
         sweep=pack_sweep_tables(scene) if scene.mesh_geoms else None,
@@ -461,8 +496,11 @@ def _require_cuda(device, what: str) -> None:
 
 
 def _check_tables(t: SceneTables, scene: DeviceScene, device) -> None:
+    from .texture import ENV_H, ENV_W, TEX_RES
+
     G = len(scene.gtypes)
     M = t.mat.shape[0]
+    texels = TEX_RES * TEX_RES
     for name, a, dtype, shape in (
         ("xf", t.xf, torch.float32, (G, 16)),
         ("inv", t.inv, torch.float32, (G, 16)),
@@ -472,6 +510,11 @@ def _check_tables(t: SceneTables, scene: DeviceScene, device) -> None:
         ("mat", t.mat, torch.float32, (M, MAT_COLS)),
         ("env", t.env, torch.float32, (3,)),
         ("lights", t.lights, torch.int32, (len(scene.emissive_geoms),)),
+        ("surf", t.surf, torch.float32, (M, SURF_COLS)),
+        ("tex", t.tex, torch.float32, (scene.n_file_textures * texels, 4)),
+        ("bump", t.bump, torch.float32, (scene.n_bump_textures * texels,)),
+        ("envmap", t.envmap, torch.float32,
+         (ENV_H * ENV_W if scene.has_env_map else 0, 4)),
     ):
         _check_tensor(a, name, dtype, shape, device)
 
@@ -664,11 +707,14 @@ def shade_step(state, isect, scene: DeviceScene, iteration: int, depth: int,
     P = state[5].shape[0]
     lanes = _check_pool(state, P, device)
     is_lanes = [isect.t, *isect.normal, isect.material_id,
-                isect.outside.to(torch.int32)]
+                isect.outside.to(torch.int32), isect.tex_u, isect.tex_v,
+                isect.has_uv.to(torch.int32)]
     for name, a, dtype in zip(
         ("isect.t", "isect.normal.x", "isect.normal.y", "isect.normal.z",
-         "isect.material_id", "isect.outside"),
-        is_lanes, [torch.float32] * 4 + [torch.int32] * 2,
+         "isect.material_id", "isect.outside", "isect.tex_u", "isect.tex_v",
+         "isect.has_uv"),
+        is_lanes, [torch.float32] * 4 + [torch.int32] * 2 + [torch.float32] * 2
+        + [torch.int32],
     ):
         _check_tensor(a, name, dtype, (P,), device)
     t, tptr = _tables_for(scene, tables, device)

@@ -37,6 +37,9 @@ class Vec3(NamedTuple):
 
     __rmul__ = __mul__
 
+    def __neg__(self):
+        return Vec3(-self.x, -self.y, -self.z)
+
     # -- geometry -----------------------------------------------------------
     def dot(self, o: "Vec3") -> torch.Tensor:
         return self.x * o.x + self.y * o.y + self.z * o.z

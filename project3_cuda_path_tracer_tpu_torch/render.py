@@ -85,7 +85,7 @@ from .ops.megakernel import (
 )
 from .ops.pipeline import bounce_step_pipeline, intersect_pipeline
 from .ops.sweep import intersect_scene
-from .ops.texture import apply_textures
+from .ops.texture import apply_textures, env_radiance
 from .ops.vec import Vec3, take as vtake, where as vwhere
 from .utils import image as image_io
 
@@ -147,6 +147,7 @@ def _gather_materials(scene: DeviceScene, mat_id: torch.Tensor):
         scene.mat_ior[safe],
         scene.mat_emittance[safe],
         scene.mat_specular_exponent[safe] if scene.any_glossy else None,
+        scene.mat_sss[safe] if scene.any_sss else None,
     )
 
 
@@ -155,7 +156,9 @@ def _shade_step(state, isect: Intersections, scene: DeviceScene,
                 add_emission: bool = True,
                 textured_color: Vec3 | None = None):
     """One masked shading step over the whole pool; the JAX package's
-    `_shade_step` for analytic materials and the constant environment.
+    `_shade_step`: textures and bump maps (`apply_textures`, with the
+    Intersections' mesh UVs), the environment (constant or lat-long map)
+    and subsurface scattering included.
 
     state = (origins, dirs, throughput, radiance, alive, pix). RNG draws
     follow the scene-specialised slot layout (megakernel.draw_slots),
@@ -164,14 +167,15 @@ def _shade_step(state, isect: Intersections, scene: DeviceScene,
     add_emission=False (the NEE + MIS continuation, `_nee_mis_bounce`):
     emissive hits still end their lane but add nothing, and escaped lanes
     collect no environment; the caller has added both. textured_color:
-    the albedo the caller already textured, used as it is."""
+    the albedo the caller already textured, used as it is; isect.normal is
+    then trusted as it is (the caller's bump-perturbed normal)."""
     origins, dirs, throughput, radiance, alive, pix = state
     hit = isect.t > 0.0
     zeros = Vec3.zeros(pix.shape[0], pix.device)
 
-    if scene.has_env_const and add_emission:
+    if (scene.has_env_const or scene.has_env_map) and add_emission:
         # escaped rays collect the environment radiance, then die
-        env = Vec3.broadcast(scene.env_color, pix.shape[0])
+        env = env_radiance(scene, dirs)
         radiance = radiance + vwhere(alive & ~hit, throughput * env, zeros)
 
     n_draws, slot_branch, slot_fresnel, slot_rr = draw_slots(
@@ -188,22 +192,29 @@ def _shade_step(state, isect: Intersections, scene: DeviceScene,
         u = pair(iteration, pix, 0) + u[2:]
 
     mats = _gather_materials(scene, isect.material_id)
+    normal = isect.normal
     if textured_color is not None:
         mats = (textured_color,) + mats[1:]
-    elif scene.any_textured:
+    elif scene.any_textured or scene.any_bump:
         p_hit = origins + dirs * (isect.t - 1e-4)
-        mats = (apply_textures(scene, p_hit, isect.material_id, mats[0]),) + mats[1:]
+        color, normal = apply_textures(
+            scene, p_hit, normal, isect.material_id, mats[0],
+            tex_u=isect.tex_u, tex_v=isect.tex_v, has_uv=isect.has_uv,
+        )
+        mats = (color,) + mats[1:]
     new_origin, new_dir, tint, emitted, at_light = scatter(
         origins,
         dirs,
         isect.t,
-        isect.normal,
+        normal,
         isect.outside,
-        *mats,
+        *mats[:7],
         u_hemi1=u[0],
         u_hemi2=u[1],
         u_branch=None if slot_branch is None else u[slot_branch],
         u_fresnel=None if slot_fresnel is None else u[slot_fresnel],
+        m_sss=mats[7],
+        t_segment=isect.t,
     )
 
     live_hit = alive & hit
@@ -255,8 +266,8 @@ def _nee_final_step(state, scene: DeviceScene, iteration: int,
     `_nee_final_step`): escaped lanes collect the environment, emissive
     hits add their emission, and each live DIFFUSE lane trades its last
     hemisphere sample for one shadow ray to a light point (RNG stream
-    NEE_STREAM). Albedo and emission are untextured, as there. Every
-    lane ends here. Plain PyTorch on every device (the JAX package runs
+    NEE_STREAM). Albedo, emission and normal are untextured, as there.
+    Every lane ends here. Plain PyTorch on every device (the JAX package runs
     this step in XLA, outside any Pallas kernel), but both intersect
     calls go through `intersect_scene_any`, as there."""
     origins, dirs, throughput, radiance, alive, pix = state
@@ -265,12 +276,11 @@ def _nee_final_step(state, scene: DeviceScene, iteration: int,
     isect = intersect_scene_any(origins, dirs, scene, settings, alive=alive,
                                 tables=tables)
     hit = isect.t > 0.0
-    m_color, _spec, m_refl, m_refr, _ior, m_emit, _sexp = _gather_materials(
-        scene, isect.material_id
-    )
+    m_color, _spec, m_refl, m_refr, _ior, m_emit, _sexp, _sss = (
+        _gather_materials(scene, isect.material_id))
 
-    if scene.has_env_const:
-        env = Vec3.broadcast(scene.env_color, P)
+    if scene.has_env_const or scene.has_env_map:
+        env = env_radiance(scene, dirs)
         radiance = radiance + vwhere(alive & ~hit, throughput * env, zeros)
 
     live_hit = alive & hit
@@ -341,16 +351,20 @@ def _nee_mis_bounce(state, aux, scene: DeviceScene, iteration: int,
     isect = intersect_scene(origins, dirs, scene)
     hit = isect.t > 0.0
     live_hit = alive & hit
-    m_color, m_spec, m_refl, m_refr, _ior, m_emit, m_sexp = _gather_materials(
-        scene, isect.material_id
-    )
+    m_color, m_spec, m_refl, m_refr, _ior, m_emit, m_sexp, m_sss = (
+        _gather_materials(scene, isect.material_id))
     normal = isect.normal
-    if scene.any_textured:
+    if scene.any_textured or scene.any_bump:
+        # textures and bump once: the light sample and the continuation
+        # both shade with this albedo and normal
         p_tex = origins + dirs * (isect.t - 1e-4)
-        m_color = apply_textures(scene, p_tex, isect.material_id, m_color)
+        m_color, normal = apply_textures(
+            scene, p_tex, normal, isect.material_id, m_color,
+            tex_u=isect.tex_u, tex_v=isect.tex_v, has_uv=isect.has_uv,
+        )
 
-    if scene.has_env_const:
-        env = Vec3.broadcast(scene.env_color, P)
+    if scene.has_env_const or scene.has_env_map:
+        env = env_radiance(scene, dirs)
         radiance = radiance + vwhere(alive & ~hit, throughput * env, zeros)
 
     # --- emissive hit: MIS-weighted by the previous vertex's strategy ---
@@ -374,6 +388,9 @@ def _nee_mis_bounce(state, aux, scene: DeviceScene, iteration: int,
     p_mix = torch.clamp(m_refl, 0.0, 1.0)
     glossy_ok = m_sexp is not None
     nee_able = live_hit & (m_emit <= 0.0) & (m_refr <= 0.0)
+    if m_sss is not None:
+        # subsurface transport is no surface BRDF: no light sample
+        nee_able = nee_able & (m_sss <= 0.0)
     has_diffuse_lobe = p_mix < 1.0
     if glossy_ok:
         has_glossy_lobe = (p_mix > 0.0) & (m_sexp > 0.0)
@@ -430,7 +447,13 @@ def _nee_mis_bounce(state, aux, scene: DeviceScene, iteration: int,
         return ((origins, dirs, throughput, radiance, dead, pix),
                 (torch.zeros_like(prev_pdf), dead))
 
-    # --- the BSDF continuation (the ordinary scatter step) ---
+    # --- the BSDF continuation (the ordinary scatter step), with the
+    # textured albedo and the bump-perturbed normal ---
+    isect = Intersections(
+        t=isect.t, normal=normal, material_id=isect.material_id,
+        outside=isect.outside, tex_u=isect.tex_u, tex_v=isect.tex_v,
+        has_uv=isect.has_uv,
+    )
     new_state = _shade_step(
         (origins, dirs, throughput, radiance, alive, pix), isect, scene,
         iteration, depth, settings, add_emission=False,

@@ -1599,3 +1599,174 @@ def test_merge_entries_slots_on_cuda(cuda_device, big_mesh, E):
         wide_eh = pipeline.EntryHits(*(torch.cat([a, a[:1]]) for a in eh))
         with pytest.raises(ValueError, match="E must be in"):
             pipeline.merge_entries(o, d, cands, hits_copy(hits), wide, wide_eh, ds, g)
+
+
+# ---- the surface stage: the kernels instantiated on TexTables ----
+
+# the scenes that need it, with settings that take their branches; their
+# kernels run path_common.cuh's surface stage (file textures, bump maps,
+# the lat-long env map, SSS)
+SURFACE = [
+    ("textured.txt", {"antialias": True}),
+    ("envmap.txt", {}),
+    ("cornell_sss.txt", {"russian_roulette": True, "rr_start_depth": 1}),
+]
+
+
+def assert_image_rule(got, want, frac=0.02):
+    """tests/test_megakernel.py's image rule over Vec3 lanes (3% for the
+    NEE kernels, as tests/test_nee_megakernel.py)."""
+    for g, w in zip(got, want):
+        diff = np.abs(g.cpu().numpy() - w.cpu().numpy())
+        assert (diff > 1e-3).mean() < frac
+        assert np.median(diff) < 1e-5
+
+
+@pytest.mark.parametrize("name,settings_kw", SURFACE)
+def test_surface_stage_whole_and_per_bounce_kernels_on_cuda(cuda_device, name,
+                                                             settings_kw):
+    """#1 against its plain version (the image rule) and bit for bit
+    against #2 -> #3; #2 and three bounces of #3 against their plain
+    versions (lanes), at 64x64."""
+    ds, cam, settings = _setup(cuda_device, name, settings_kw)
+    assert megakernel.kernel_flags(ds, settings) & megakernel.FLAG_SURFACE_STAGE
+    accum = Vec3.zeros(64 * 64, cuda_device)
+    megakernel.full_iteration(ds, cam, 3, settings, accum)
+    torch.cuda.synchronize()
+    assert_image_rule(accum, megakernel.full_iteration_reference(ds, cam, 3, settings))
+    assert_bit_identical(accum, per_bounce_radiance(ds, cam, settings, 3))
+    got = megakernel.first_bounce(ds, cam, 3, settings)
+    torch.cuda.synchronize()
+    assert_lanes_close(got, megakernel.first_bounce_reference(ds, cam, 3, settings))
+    pool = megakernel.first_bounce_reference(ds, cam, 3, settings)
+    for depth in (1, 2, 3):
+        want = megakernel.bounce_step_reference(pool, ds, 3, depth, settings)
+        lanes = [a.clone() for a in megakernel.pool_lanes(pool)]
+        start = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                 Vec3(*lanes[9:12]), lanes[12], lanes[13])
+        got = megakernel.bounce_step(start, ds, 3, depth, settings)
+        torch.cuda.synchronize()
+        assert_lanes_close(got, want)
+        pool = want
+
+
+@pytest.mark.parametrize("name,settings_kw", SURFACE + [("mesh_textured.txt", {})])
+def test_surface_stage_shade_step_on_cuda(cuda_device, name, settings_kw):
+    """#4 at depths 0 and 1 over the pool's Intersections: plain
+    `intersect_scene` on the analytic scenes, #7 -> #8 -> #10 (with the
+    quad's OBJ UVs) on mesh_textured, as the first-bounce cache fills."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam, settings = _setup(cuda_device, name, settings_kw)
+    pool = _camera_pool(cam, 4, settings)
+    for depth in (0, 1):
+        if ds.mesh_geoms:
+            isect = pipeline.intersect_pipeline(pool[0], pool[1], None, ds)
+            assert isect.has_uv.any()
+        else:
+            isect = intersect_scene(pool[0], pool[1], ds)
+        before = megakernel.shade_step.launches
+        got = megakernel.shade_step(pool, isect, ds, 4, depth, settings)
+        torch.cuda.synchronize()
+        assert megakernel.shade_step.launches == before + 1
+        want = megakernel.shade_step_reference(pool, isect, ds, 4, depth, settings)
+        assert_lanes_close(got, want)
+        pool = want
+
+
+@pytest.mark.parametrize("name,settings_kw", [
+    ("textured.txt", {"antialias": True}),
+    ("cornell_sss.txt", {"russian_roulette": True, "rr_start_depth": 2}),
+])
+def test_surface_stage_nee_kernels_on_cuda(cuda_device, name, settings_kw):
+    """#6 against its plain version over two iterations and #5 at depths
+    0-2 and 3 (is_last), with the NEE rule: a bump-mapped, file-textured
+    scene and a subsurface one (whose sphere takes no light sample)."""
+    ds, cam, settings = _setup(cuda_device, name, dict(settings_kw, nee_mis=True))
+    P = 64 * 64
+    accum = Vec3.zeros(P, cuda_device)
+    megakernel.full_iteration_nee(ds, cam, 5, settings, accum, n_iters=2)
+    torch.cuda.synchronize()
+    want = Vec3.zeros(P, cuda_device)
+    for it in (5, 6):
+        for a, w in zip(want, megakernel.full_iteration_nee_reference(ds, cam, it, settings)):
+            a.add_(w)
+    assert_image_rule(accum, want, frac=0.03)
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    pool = _camera_pool(cam, 2, settings)
+    aux = (torch.zeros(P, device=cuda_device), torch.zeros(P, device=cuda_device))
+    for depth, is_last in ((0, False), (1, False), (2, False), (3, True)):
+        want, want_aux = megakernel.bounce_step_nee_reference(
+            pool, aux, ds, 2, depth, settings, is_last)
+        lanes = [a.clone() for a in megakernel.pool_lanes(pool)]
+        start = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                 Vec3(*lanes[9:12]), lanes[12], lanes[13])
+        got, got_aux = megakernel.bounce_step_nee(start, tuple(a.clone() for a in aux),
+                                                  ds, 2, depth, settings, is_last)
+        torch.cuda.synchronize()
+        assert_nee_lanes_close(got, got_aux, want, want_aux)
+        pool, aux = want, want_aux
+
+
+@pytest.mark.parametrize("settings_kw", [{}, {"antialias": True, "compact": True}])
+def test_surface_stage_mesh_bounce_on_cuda(cuda_device, settings_kw):
+    """#9 on mesh_textured at depths 0-3 from the plain version's own
+    candidates and mesh hits (the quad's OBJ UVs): the lane rule, pix
+    exactly."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam, settings = _setup(cuda_device, "mesh_textured.txt", settings_kw)
+    pool = _camera_pool(cam, 2, settings)
+    uv_lanes = 0
+    for depth in range(4):
+        pool = _maybe_compact(pool, settings)
+        n_alive = _count_alive(pool) if settings.compact else None
+        o, d, alive = pool[0], pool[1], pool[4]
+        cands = pipeline.mesh_candidates_reference(o, d, alive, ds, n_alive)
+        hits = pipeline.mesh_sweep_reference(o, d, cands, ds)
+        uv_lanes += int((pipeline.merge_hits(cands, hits).has_uv & (alive != 0)).sum())
+        want = pipeline.bounce_step_mesh_reference(pool, cands, hits, ds, 2, depth,
+                                                   settings, n_alive)
+        lanes = [a.clone() for a in megakernel.pool_lanes(pool)]
+        start = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                 Vec3(*lanes[9:12]), lanes[12], lanes[13])
+        got = pipeline.bounce_step_mesh(start, cands, hits, ds, 2, depth, settings,
+                                        num_alive=n_alive)
+        torch.cuda.synchronize()
+        g, w = megakernel.pool_lanes(got), megakernel.pool_lanes(want)
+        assert torch.equal(g[13], w[13])
+        assert_lane_rule(g[:13], w[:13])
+        pool = want
+    assert uv_lanes > 0
+
+
+@pytest.mark.parametrize("name,settings_kw", [
+    ("textured.txt", {}), ("envmap.txt", {}), ("cornell_sss.txt", {}),
+    ("textured.txt", {"nee_mis": True}), ("mesh_textured.txt", {}),
+])
+def test_surface_stage_renderer_on_cuda(cuda_device, name, settings_kw):
+    """The Renderer through step_batch and step() on each surface scene
+    at 64x48: finite, lit images; the kernels of the path launched."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+
+    r = Renderer(small(name, (64, 48)), RenderSettings(trace_depth=8, **settings_kw),
+                 device=cuda_device)
+    wrappers = (megakernel.full_iteration, megakernel.full_iteration_nee,
+                megakernel.first_bounce, megakernel.bounce_step_nee,
+                pipeline.bounce_step_mesh)
+    before = [f.launches for f in wrappers]
+    r.step_batch(2)
+    r.step()
+    torch.cuda.synchronize()
+    got = [f.launches - b for f, b in zip(wrappers, before)]
+    if name == "mesh_textured.txt":
+        assert got == [0, 0, 0, 0, 24]
+    elif settings_kw:
+        assert got == [0, 1, 0, 8, 0]
+    else:
+        assert got == [1, 0, 1, 0, 0]
+    img = r.image()
+    assert np.isfinite(img).all() and img.max() > 0

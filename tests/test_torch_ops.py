@@ -186,7 +186,7 @@ def test_scatter(name, glossy_mat):
     r = np.random.default_rng(3)
     u = r.random((4, o.shape[0]), dtype=np.float32)
     jm = jrender._gather_materials(jd, ji.material_id)[:7]
-    tm = trender._gather_materials(td, ti.material_id)
+    tm = trender._gather_materials(td, ti.material_id)[:7]
     ja = jbsdf.scatter(
         jv(o), jv(d), ji.t, ji.normal, ji.outside, *jm,
         u_hemi1=jnp.asarray(u[0]), u_hemi2=jnp.asarray(u[1]),

@@ -157,8 +157,9 @@ def test_mesh_scene_raises():
      ("envmap.txt", "has_env_map"), ("checker.txt", "any_textured")],
 )
 def test_feature_flags_of_later_slices(name, flag):
-    """Texture, SSS and env-map scenes still parse (numpy/PIL only); their
-    flags match the JAX package's, so the renderer can refuse them."""
+    """Texture, SSS and env-map scenes parse (numpy and zlib only); their
+    flags match the JAX package's: they select the kernels' surface
+    stage."""
     path = os.path.join(SCENES, name)
     td = tdevice.scene_to_device(tscene.load_scene(path), "cpu")
     jd = jdevice.scene_to_device(jscene.load_scene(path), use_bvh=False)

@@ -7,10 +7,16 @@ DIR is another checkout (or `git archive`) of the repository. Each
 csrc/*.cu of both trees is compiled to a cubin with the port's own nvcc
 flags (ops/_native.py, its own csrc/ on the include path), `cuobjdump
 -sass` lists each function's instructions, and the two listings of each
-kernel are compared as text. Prints one JSON line: per kernel (demangled
-where `cu++filt` is found) "same", "differs" (with both instruction
-counts) or the tree it is missing from; writes it to FILE when given.
-Needs nvcc and cuobjdump (the CUDA toolkit), not a GPU.
+kernel are compared as text. Functions are matched by name (demangled
+where `cu++filt` is found), without their return type and parameters and
+without a last template argument naming the plain tables type `Tables`:
+the kernels that take the surface stage are templates on their tables,
+so `full_iteration_kernel<Tables>` is compared with a tree's plain
+`full_iteration_kernel`, and the instantiations on `TexTables` are
+entries of their own. Prints one JSON line: per kernel "same", "differs"
+(with both instruction counts) or the tree it is missing from; writes it
+to FILE when given. Needs nvcc and cuobjdump (the CUDA toolkit), not a
+GPU.
 """
 
 from __future__ import annotations
@@ -65,6 +71,22 @@ def sass(tree: str, out_dir: str) -> dict:
     return out
 
 
+_TABLES_ARG = re.compile(r"(<|, )(?:<unnamed>|\(anonymous namespace\))::Tables>$")
+
+
+def kernel_key(name: str) -> str:
+    """A demangled function name without its return type, its parameters
+    and a last template argument `Tables` (see the module docstring)."""
+    name = re.sub(r"^void ", "", name)
+    depth = 0
+    for k, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            name = name[:k]
+            break
+    return _TABLES_ARG.sub(lambda m: "" if m.group(1) == "<" else ">", name)
+
+
 def demangle(names) -> dict:
     filt = shutil.which("cu++filt") or shutil.which("c++filt")
     if not filt or not names:
@@ -89,7 +111,7 @@ def main() -> int:
     for src in sorted(set(this) | set(other)):
         # by demangled name: an anonymous namespace's mangled name carries a
         # hash of the file's path, which differs between the trees
-        a, b = ({names[fn]: v for fn, v in tree.get(src, {}).items()}
+        a, b = ({kernel_key(names[fn]): v for fn, v in tree.get(src, {}).items()}
                 for tree, names in ((this, demangle([f for t in this.values() for f in t])),
                                     (other, demangle([f for t in other.values() for f in t]))))
         for fn in sorted(set(a) | set(b)):
