@@ -38,7 +38,17 @@ tail part of each depth's stream; the surface stage's twins of #1-#6 and
 SSS) at 64x64 and 800x800 on textured, envmap and cornell_sss (#1 by the
 image rule and bit for bit against #2 -> #3, #2-#4, and #5/#6 by the NEE
 rule on textured and cornell_sss) and on mesh_textured (#7-#10 with the
-quad's OBJ UVs, #4 over its cache)), renders the seventeen smoke configs
+quad's OBJ UVs, #4 over its cache)); the NEE kernels' mesh
+instantiations (`@mesh` on MeshOf<Tables>, `@mesh_surface` on
+MeshOf<TexTables>: the binary BVH walks for the hit and the shadow ray)
+by the NEE rule on mesh.txt at 64x64 and 800x800 AA, mesh_textured at
+64x64, mesh_big at 64x64 (depth 4) and 800x800 (one iteration) and
+mesh_stream at 128x128 (depth 4), #5's pix exactly and its alive per lane, and #6 bit for bit
+against the #5 route on mesh.txt (`nee_route_bits`); renders mesh.txt and
+mesh_big.txt --nee at 128x128 through `step_batch` and `step()`, and
+mesh.txt with its icosphere moving under --nee --motion-blur through
+`step_batch` (#5 on the re-packed tables), against the plain path's
+iteration by the golden rule (`mesh_nee_render`), renders the seventeen smoke configs
 (the three --nee ones, mesh.txt and the five surface-stage ones included)
 and the four big-mesh scenes (mesh_big, bunny,
 mesh_critter, mesh_stream, each loaded once) against the XLA goldens
@@ -63,13 +73,19 @@ radix route (#7 -> #8 -> A -> the compaction split and one 8-bit pass
 cells at 800x800 d8 AA: textured, envmap and cornell_sss through
 `step_batch` (#1's twin), mesh_textured through `step_batch` (#9's), and
 textured through `step()` (#2's and #3's), under the cache (#4's) and
-under --nee through both (#6's and #5's)), times the dense BVH
+under --nee through both (#6's and #5's); --nee on mesh scenes: (aa)
+mesh.txt through `step_batch` (#6 on MeshOf), (ab) through `step()` (#5),
+(ac) mesh_big.txt through `step_batch`, and mesh_textured through both,
+with the instantiations' plain times, bounds (the plain path's masks and
+the nodes and triangles of the kernels' own walks, `mesh_walk_work`) and
+ptxas usage on the
+`mesh_nee` line), times the dense BVH
 walk on mesh_big as a yardstick (the routing threshold raised here only), reads each kernel's
 device time from torch.profiler beside its plain version's time (for
 #1 and #6 over the same run of iterations as the kernel's launch), its
 bound and, where one PyTorch call computes the same function, that
 call's time (and the --direct-lighting final step's own time), and
-renders through the CLI (Cornell plain, --compact, --nee; mesh.txt;
+renders through the CLI (Cornell plain, --compact, --nee; mesh.txt, also --nee;
 mesh_big.txt, and again with PT_TPU_SORT_RADIX=1). It also times #1 at
 1x, 2x and 4x the main path's pixels, prints #1's lane use with one
 thread per pixel (from the plain path lengths), #6's lane use with one
@@ -159,7 +175,8 @@ MESH_KERNELS = ("mesh_candidates", "mesh_sweep", "bounce_step_mesh",
 # kernels of #1-#6 and #9 are templates on their tables, their
 # instantiation on TexTables (the surface stage) counted apart; C's two
 # instantiations by their template argument
-KERNEL_SYMBOLS = {k: re.compile(re.escape(f"{k}_kernel") + "(?!.*TexTables)") for k in KERNELS}
+KERNEL_SYMBOLS = {k: re.compile(re.escape(f"{k}_kernel") + "(?!.*(TexTables|MeshOf))")
+                  for k in KERNELS}
 KERNEL_SYMBOLS["window_sweep"] = re.compile(r"window_sweep_kernel(<false>|ILb0E)")
 KERNEL_SYMBOLS["window_sweep_stream"] = re.compile(r"window_sweep_kernel(<true>|ILb1E)")
 # the split's two instantiations, timed apart beside the wrapper's mean
@@ -178,8 +195,22 @@ SURFACE_KERNELS = {
     "bounce_step_nee@surface": ("bounce_step_nee", "textured_nee_step"),
     "bounce_step_mesh@surface": ("bounce_step_mesh", "mesh_textured"),
 }
-KERNEL_SYMBOLS.update({k: re.compile(re.escape(f"{w}_kernel") + ".*TexTables")
+KERNEL_SYMBOLS.update({k: re.compile(re.escape(f"{w}_kernel") + "(?!.*MeshOf).*TexTables")
                        for k, (w, _) in SURFACE_KERNELS.items()})
+# --nee on mesh scenes: #5's and #6's instantiations on MeshOf<Tables>
+# (`@mesh`) and MeshOf<TexTables> (`@mesh_surface`), which walk each mesh
+# geom's binary BVH for the hit and the shadow ray, each with its wrapper
+# and the path of phase 6 that times it
+MESH_NEE_KERNELS = {
+    "full_iteration_nee@mesh": ("full_iteration_nee", "mesh_nee"),
+    "bounce_step_nee@mesh": ("bounce_step_nee", "mesh_nee_step"),
+    "full_iteration_nee@mesh_surface": ("full_iteration_nee", "mesh_textured_nee"),
+    "bounce_step_nee@mesh_surface": ("bounce_step_nee", "mesh_textured_nee_step"),
+}
+KERNEL_SYMBOLS.update({
+    k: re.compile(re.escape(f"{w}_kernel") + (r".*MeshOf.*TexTables" if "surface" in k
+                                               else r".*MeshOf(?!.*TexTables)"))
+    for k, (w, _) in MESH_NEE_KERNELS.items()})
 NO_LAUNCHES = {k: 0 for k in KERNELS}
 # image rule of tests/test_megakernel.py:143-145 (seam-tie outliers only)
 PARITY_BAD = 1e-3
@@ -277,6 +308,17 @@ SURFACE_PARITY = [
 SURFACE_NEE = [("textured.txt", {"antialias": True}),
                ("cornell_sss.txt", {"russian_roulette": True})]
 SURFACE_MESH = [{}, {"antialias": True}]
+# the NEE kernels' mesh instantiations against their plain versions (the
+# NEE rule; #6 over one iteration): (scene, resolution, depth), AA; the
+# big meshes' small configs at depth 4 (their plain BVH walks take nearly
+# as many lock-step node steps a depth at 64x64 as at 800x800)
+MESH_NEE_PARITY = [("mesh.txt", (64, 64), 8), ("mesh.txt", (800, 800), 8),
+                   ("mesh_textured.txt", (64, 64), 8), ("mesh_big.txt", (64, 64), 4),
+                   ("mesh_big.txt", (800, 800), 8), ("mesh_stream.txt", (128, 128), 4)]
+# iterations of #6's profiled launch on the mesh --nee paths (its plain
+# version, whose BVH walks take one launch sequence per node step, is
+# timed over the same)
+MESH_NEE_RUN = 2
 # iterations in #1's and #6's profiled launch on the surface paths (the
 # plain versions are timed over the same)
 SURFACE_RUN = 8
@@ -325,6 +367,8 @@ OPS_NODE = 30  # per node visited: the slab test and the step
 OPS_MT = 64  # per triangle tested: Moller-Trumbore and the min-t update
 OPS_MESH_HIT = 100  # per walk that hits: normal, UVs, world distance
 OPS_MERGE = 4  # per lane: the analytic/mesh merge of #9 and #10
+OPS_WORLD_DIST = 36  # #5's and #6's shadow walks, per triangle hit below the
+#                      bound: the object point, a transform, the distance
 # the surface stage (csrc/path_common.cuh `surface`, `env_fetch`), each
 # charged only to the lanes that take it in this run's data (surface_ops)
 OPS_FILE_TEX = 40  # a file-textured hit: its UVs, four taps' addresses, the blend
@@ -430,21 +474,23 @@ def check_parity(kernel, what, frac, med, err, max_frac=PARITY_FRAC):
         raise RuntimeError(f"{kernel} disagrees with its plain version: {what}")
 
 
-def full_nee_parity(dev, name, kw, res, glossy, iteration=3, n_iters=1):
+def full_nee_parity(dev, name, kw, res, glossy, iteration=3, n_iters=1, setup=None):
     """#6 against its plain version over `n_iters` iterations from
     `iteration`: one wrapper call (one launch per ITERATIONS_PER_LAUNCH
     iterations, each lane summing its pixel's iterations in a register)
     against the plain iterations summed in order; compare()'s numbers on
-    the mean image (the sums over n_iters)."""
+    the mean image (the sums over n_iters). `setup`: a (DeviceScene,
+    DeviceCamera, RenderSettings) to use instead of loading `name`."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
 
-    ds, cam, settings = on_card(dev, name, dict(kw, nee_mis=True), res,
-                                glossy=glossy)
+    ds, cam, settings = setup or on_card(dev, name, dict(kw, nee_mis=True), res,
+                                         glossy=glossy)
     accum = Vec3.zeros(res[0] * res[1], dev)
-    mk.full_iteration_nee(ds, cam, iteration, settings, accum, n_iters=n_iters)
+    mk.full_iteration_nee(ds, cam, iteration, settings, accum, n_iters=n_iters,
+                          tables=mk.pack_scene_tables(ds, nee=True))
     plain = plain_run(mk.full_iteration_nee_reference, ds, cam, iteration,
                       settings, n_iters)
     torch.cuda.synchronize()
@@ -595,7 +641,7 @@ def load_raygen_probe(proc, lib: str):
     return fn
 
 
-def nee_route_bits(dev, name, kw, res, glossy, probe, iteration=3):
+def nee_route_bits(dev, name, kw, res, glossy, probe, iteration=3, setup=None):
     """#6 (one iteration) bit for bit against the #5 route (plain
     generate_rays, then #5 at every depth: `Renderer.step()`'s trace) on
     every pixel whose camera ray generate_rays gives with the same bits as
@@ -612,7 +658,8 @@ def nee_route_bits(dev, name, kw, res, glossy, probe, iteration=3):
     from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
     from project3_cuda_path_tracer_tpu_torch.render import _trace_nee
 
-    ds, cam, settings = on_card(dev, name, dict(kw, nee_mis=True), res, glossy=glossy)
+    ds, cam, settings = setup or on_card(dev, name, dict(kw, nee_mis=True), res,
+                                         glossy=glossy)
     P = res[0] * res[1]
     rays = torch.empty(6, P, device=dev)
     cam_vec = mk.pack_camera(cam)
@@ -624,8 +671,9 @@ def nee_route_bits(dev, name, kw, res, glossy, probe, iteration=3):
                                      settings.depth_of_field)
     ray_off = (bitwise(rays) != bitwise(torch.stack([*origins, *dirs]))).any(0)
     acc = Vec3.zeros(P, dev)
-    mk.full_iteration_nee(ds, cam, iteration, settings, acc)
-    radiance = _trace_nee(ds, cam, iteration, settings, None, False)[0]
+    tables = mk.pack_scene_tables(ds, nee=True)
+    mk.full_iteration_nee(ds, cam, iteration, settings, acc, tables=tables)
+    radiance = _trace_nee(ds, cam, iteration, settings, tables, False)[0]
     torch.cuda.synchronize()
     off = torch.zeros(P, dtype=torch.bool, device=dev)
     for g, c in zip(acc, radiance):
@@ -653,7 +701,7 @@ def nee_pool(dev, cam, iteration, settings):
     return pool, (torch.zeros(P, device=dev), torch.zeros(P, device=dev))
 
 
-def bounce_nee_parity(dev, name, kw, res, glossy, iteration=2):
+def bounce_nee_parity(dev, name, kw, res, glossy, iteration=2, setup=None):
     """#5 at every depth from the plain version's own pool, is_last at the
     last depth (and at depth 1 too): pix exactly and alive per lane on
     every lane, radiance on every lane, the other lanes and the MIS aux on
@@ -665,10 +713,11 @@ def bounce_nee_parity(dev, name, kw, res, glossy, iteration=2):
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
 
-    ds, cam, settings = on_card(dev, name, dict(kw, nee_mis=True), res,
-                                glossy=glossy)
+    ds, cam, settings = setup or on_card(dev, name, dict(kw, nee_mis=True), res,
+                                         glossy=glossy)
     D = settings.trace_depth
     pool, aux = nee_pool(dev, cam, iteration, settings)
+    tables = mk.pack_scene_tables(ds, nee=True)
     worst = (0.0, 0.0, 0.0, 0.0)
     for depth in range(D):
         last = depth == D - 1
@@ -680,7 +729,7 @@ def bounce_nee_parity(dev, name, kw, res, glossy, iteration=2):
                    Vec3(*lanes[9:12]), lanes[12], lanes[13])
             got_aux = tuple(a.clone() for a in aux)
             mk.bounce_step_nee(got, got_aux, ds, iteration, depth, settings,
-                               is_last)
+                               is_last, tables=tables)
             torch.cuda.synchronize()
             g, w = mk.pool_lanes(got), mk.pool_lanes(want)
             if not torch.equal(g[13], w[13]):
@@ -698,10 +747,11 @@ def bounce_nee_parity(dev, name, kw, res, glossy, iteration=2):
 
 
 def shadow_sweep(ds, o, d, r, cast):
-    """(operations, geom tests) of the NEE kernels' any-hit shadow loop
-    (`unoccluded` in csrc/path_common.cuh) over the lanes `cast`: geoms
-    in index order, each lane stopping at its first geom with
-    0 < t < r - 1e-2."""
+    """(operations, geom tests, lanes no analytic geom occludes) of the
+    NEE kernels' any-hit shadow loop (`unoccluded` in
+    csrc/path_common.cuh) over the lanes `cast`: analytic geoms in index
+    order, each lane stopping at its first geom with 0 < t < r - 1e-2
+    (the mesh geoms' walks follow on the lanes left)."""
     from project3_cuda_path_tracer_tpu_torch.ops.intersect import (
         box_intersect,
         sphere_intersect,
@@ -713,6 +763,8 @@ def shadow_sweep(ds, o, d, r, cast):
         n = int(going.sum())
         if n == 0:
             break
+        if gt == 2:  # a mesh geom: walked after the loop
+            continue
         tests += n
         if gt == 0:
             ops += n * OPS_SPHERE_TEST
@@ -722,7 +774,129 @@ def shadow_sweep(ds, o, d, r, cast):
             ops += n * OPS_BOX_TEST
             t = box_intersect(ds.transform[g], ds.inverse_transform[g], o, d)[0]
         going = going & ~((t > 0) & (t < r - 1e-2))
-    return ops, tests
+    return ops, tests, going
+
+
+def analytic_best_t(ds, o, d):
+    """The nearest analytic hit's world t of each ray (FLT_MAX on a
+    miss): the sweep of #5's and #6's mesh instantiations, which skips
+    the mesh geoms."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops.intersect import (
+        FLT_MAX,
+        box_intersect,
+        sphere_intersect,
+    )
+
+    best = torch.full_like(o.x, FLT_MAX)
+    for g, gt in enumerate(ds.gtypes):
+        if gt == 2:
+            continue
+        if gt == 0:
+            t = sphere_intersect(ds.transform[g], ds.inverse_transform[g],
+                                 ds.inv_transpose[g], o, d)[0]
+        else:
+            t = box_intersect(ds.transform[g], ds.inverse_transform[g], o, d)[0]
+        best = torch.where((t > 0) & (t < best), t, best)
+    return best
+
+
+def mesh_walk_work(ds, o, d, lanes, shadow_r=None):
+    """(object rays, binary nodes, triangles, path walks that hit, shadow
+    world distances) of #5's and #6's mesh walks (csrc/nee.cu `mesh_walks`)
+    over the rays `lanes` selects, counted by the same walk in plain
+    PyTorch (ops/bvh_traverse.py's cursor over the node table), lanes in
+    lock-step. A path ray (shadow_r None) walks each mesh geom below the
+    object-space image (x frobenius3(inv)) of its nearest hit so far, the
+    analytic sweep's at the first mesh geom; a walk that hits counts once
+    (its world-space tail, OPS_MESH_HIT). A shadow ray of length shadow_r walks below the
+    image of r - 1e-2, counts the world distance of each triangle it hits
+    below it, and stops at the first whose world distance lies in
+    (0, r - 1e-2), skipping the mesh geoms after it."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.models.bvh import LEAF_SIZE
+    from project3_cuda_path_tracer_tpu_torch.ops.bvh_traverse import _aabb_hit, _object_ray
+    from project3_cuda_path_tracer_tpu_torch.ops.intersect import (
+        FLT_MAX,
+        RAY_EPS,
+        transform_point,
+        triangle_intersect,
+    )
+    from project3_cuda_path_tracer_tpu_torch.ops.pipeline import _frobenius3
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3, take as vtake
+
+    if not ds.mesh_geoms or not bool(lanes.any()):
+        return 0, 0, 0, 0, 0
+    o, d = (Vec3(*(c[lanes] for c in v)) for v in (o, d))
+    shadow = shadow_r is not None
+    n = o.x.shape[0]
+    # the counts stay on the card until the end: the walk syncs with the
+    # host only for its loop flag
+    counts = torch.zeros(5, dtype=torch.int64, device=o.x.device)
+    going = torch.ones(n, dtype=torch.bool, device=o.x.device)
+    if shadow:
+        bound = shadow_r[lanes] - 1e-2
+    else:
+        best = analytic_best_t(ds, o, d)
+    T = ds.tri_v0.x.shape[0]
+    for g in ds.mesh_geoms:
+        start, n_nodes = ds.bvh_roots[g]
+        end = start + n_nodes
+        ro, rd, inv_d = _object_ray(ds, g, o, d)
+        lim = bound if shadow else best
+        bt = torch.where(lim < FLT_MAX, lim * _frobenius3(ds.inverse_transform[g]), FLT_MAX)
+        cur = torch.where(going, start, end).to(torch.int64)
+        counts[0] += going.sum()
+        hit_any = torch.zeros_like(going)
+
+        def world_distance(t, g=g, ro=ro, rd=rd):
+            p_obj = ro + rd * (t - RAY_EPS)
+            diff = o - transform_point(ds.transform[g], p_obj)
+            return torch.sqrt(diff.x * diff.x + diff.y * diff.y + diff.z * diff.z)
+
+        step = 0
+        while True:
+            active = cur < end
+            # the host reads the flag every 16 steps (a finished lane's
+            # cursor stays past the range, so the steps between change
+            # nothing)
+            if step % 16 == 0 and not bool(active.any()):
+                break
+            step += 1
+            safe = torch.clamp(cur, start, end - 1)
+            enter = _aabb_hit(vtake(ds.bvh_min, safe), vtake(ds.bvh_max, safe),
+                              ro, inv_d, bt) & active
+            leaf = ds.bvh_leaf[safe]
+            first = ds.bvh_first[safe].to(torch.int64)
+            count = ds.bvh_count[safe]
+            counts[1] += active.sum()
+            live = enter & leaf
+            for k in range(LEAF_SIZE):
+                tri = torch.clamp(first + k, 0, max(T - 1, 0))
+                valid = live & (k < count)
+                counts[2] += valid.sum()
+                t, _, _, ok = triangle_intersect(vtake(ds.tri_v0, tri), vtake(ds.tri_v1, tri),
+                                                 vtake(ds.tri_v2, tri), ro, rd)
+                better = valid & ok & (t < bt)
+                if shadow:
+                    counts[4] += better.sum()
+                    dist = world_distance(t)
+                    occluded = better & (dist > 0) & (dist < bound)
+                    live = live & ~occluded
+                    going = going & ~occluded
+                    cur = torch.where(occluded, end, cur)
+                else:
+                    bt = torch.where(better, t, bt)
+                    hit_any = hit_any | better
+            nxt = torch.where(enter & ~leaf, cur + 1, ds.bvh_skip[safe].to(torch.int64))
+            cur = torch.where(cur < end, nxt, cur)
+        if not shadow:
+            counts[3] += hit_any.sum()
+            t_world = world_distance(bt)
+            best = torch.where(hit_any & (t_world > 0) & (t_world < best), t_world, best)
+    return tuple(int(c) for c in counts.tolist())
 
 
 def nee_work(ds, cam, iteration, settings):
@@ -734,8 +908,11 @@ def nee_work(ds, cam, iteration, settings):
     ray (the sample faces both ways) and its geom tests, the unoccluded
     ones (the MIS contribution) and, below the last depth, those that
     scatter; and the warps of 32 consecutive slots that hold a live lane
-    (the pool is never permuted, so slot = pixel). Returns ({count: [per
-    depth]}, [operations per depth], the depths each pixel's path ran)."""
+    (the pool is never permuted, so slot = pixel). On a mesh scene also
+    the mesh walks' work as the kernels walk (`mesh_walk_work`): that of
+    the live lanes' walks and of the walks of the shadow rays that no
+    analytic geom occludes. Returns ({count: [per depth]}, [operations per
+    depth], the depths each pixel's path ran)."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.render import _nee_mis_bounce
@@ -744,7 +921,9 @@ def nee_work(ds, cam, iteration, settings):
     state = pool[:4] + (pool[4] != 0, pool[5])
     aux = (aux[0], aux[1] > 0.5)
     names = ("lanes_in", "warps_with_live", "nee_able", "shadow_rays",
-             "shadow_tests", "unoccluded", "scattered")
+             "shadow_tests", "unoccluded", "scattered", "mesh_rays", "mesh_nodes",
+             "mesh_tris", "mesh_hits", "shadow_mesh_rays", "shadow_mesh_nodes",
+             "shadow_mesh_tris", "shadow_mesh_distances")
     counts = {k: [] for k in names}
     ops = []
     D = settings.trace_depth
@@ -755,15 +934,19 @@ def nee_work(ds, cam, iteration, settings):
         length += state[4].long()
         warps_with_live = int(state[4].view(-1, 32).any(1).sum())
         probe = {}
+        walks = mesh_walk_work(ds, state[0], state[1], state[4])
         state, aux = _nee_mis_bounce(state, aux, ds, iteration, depth,
                                      settings, is_last, probe=probe)
-        shadow_ops, tests = shadow_sweep(ds, probe["p_hit"], probe["wi"],
-                                         probe["r"], probe["shadow"])
+        shadow_ops, tests, going = shadow_sweep(ds, probe["p_hit"], probe["wi"],
+                                                probe["r"], probe["shadow"])
+        shadow_walks = mesh_walk_work(ds, probe["p_hit"], probe["wi"], going,
+                                      shadow_r=probe["r"])
         n = dict(zip(names, (
             lanes_in, warps_with_live, int(probe["nee_able"].sum()),
             int(probe["shadow"].sum()), tests,
             int((probe["shadow"] & probe["visible"]).sum()),
             0 if is_last else int((probe["live_hit"] & ~probe["lit"]).sum()),
+            *walks[:4], *shadow_walks[:3], shadow_walks[4],
         )))
         for k in names:
             counts[k].append(n[k])
@@ -772,6 +955,15 @@ def nee_work(ds, cam, iteration, settings):
             + n["nee_able"] * (OPS_LIGHT + OPS_TO_LIGHT) + shadow_ops
             + n["unoccluded"] * (OPS_MIS + (0 if is_last else OPS_W_LIGHT))
             + n["scattered"] * (OPS_SHADE + OPS_NEXT_PDF)
+            # the mesh walks: per ray and mesh geom walked its object-space
+            # ray and bound, per node its slab test, per triangle
+            # Moller-Trumbore, per path walk that hits the world-space
+            # tail, per shadow hit below the bound its world distance
+            + (n["mesh_rays"] + n["shadow_mesh_rays"]) * OPS_OBJ_RAY
+            + (n["mesh_nodes"] + n["shadow_mesh_nodes"]) * OPS_NODE
+            + (n["mesh_tris"] + n["shadow_mesh_tris"]) * OPS_MT
+            + n["mesh_hits"] * OPS_MESH_HIT
+            + n["shadow_mesh_distances"] * OPS_WORLD_DIST
         )
     return counts, ops, length
 
@@ -2023,10 +2215,11 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     from project3_cuda_path_tracer_tpu_torch.models.device import (
+        advance_time,
         camera_to_device,
         scene_to_device,
     )
-    from project3_cuda_path_tracer_tpu_torch.models.scene import load_scene
+    from project3_cuda_path_tracer_tpu_torch.models.scene import GeomType, load_scene
     from project3_cuda_path_tracer_tpu_torch.ops import _native
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
     from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
@@ -2037,6 +2230,7 @@ def main(argv=None) -> int:
         Renderer,
         RenderSettings,
         _nee_final_step,
+        shutter_time,
         trace_paths,
         whole_kernel,
     )
@@ -2121,7 +2315,7 @@ def main(argv=None) -> int:
     # #6's registers, for the persistent grid of its lane-use model
     (nee_regs,) = (int(re.search(r"Used (\d+) registers", v).group(1))
                    for k, v in ptx.items()
-                   if "full_iteration_nee" in k and "TexTables" not in k)
+                   if "full_iteration_nee" in k and "TexTables" not in k and "MeshOf" not in k)
 
     # ---- 3. every kernel against its plain version on the card ----
     err800 = {}
@@ -2284,7 +2478,11 @@ def main(argv=None) -> int:
     for name in BIG_SCENES:
         t0 = time.perf_counter()
         scene = small_scene(name, (128, 128))
-        big[name] = Renderer(scene, RenderSettings(trace_depth=8), device=dev)
+        # built under --nee, so its tables also hold the light pdf model
+        # that the NEE paths read; it renders without --nee until a phase
+        # sets other settings
+        big[name] = Renderer(scene, RenderSettings(trace_depth=8, nee_mis=True), device=dev)
+        big[name].settings = RenderSettings(trace_depth=8)
         ds_big = big[name].dev_scene
         say("load", scene=name, seconds=time.perf_counter() - t0,
             triangles=int(scene.triangles.count),
@@ -2358,6 +2556,53 @@ def main(argv=None) -> int:
                 chunks_per_entry=(np.array(work["chunks"]) / ent).tolist(),
                 plain_ms=plain)
 
+    # #5 and #6 on mesh scenes (their instantiations on MeshOf, which walk
+    # each mesh geom's binary BVH for the hit and the shadow ray) against
+    # their plain versions, by the NEE rule, #6 over one iteration; the
+    # big-mesh scenes' device scenes from `big`; the errors kept for the
+    # kernels line are mesh.txt's at 800x800 (MeshOf<Tables>) and
+    # mesh_textured's at 64x64 (MeshOf<TexTables>); then #6 bit for bit
+    # against the #5 route on mesh.txt
+    mesh_nee_kw = {"antialias": True, "nee_mis": True}
+
+    def mesh_nee_setup(name, res, depth=8):
+        if name in big:
+            ds_m = big[name].dev_scene
+            cam_m = camera_to_device(camera_at(big[name].scene.state.camera, res), dev)
+            return ds_m, cam_m, RenderSettings(trace_depth=depth, **mesh_nee_kw)
+        return on_card(dev, name, mesh_nee_kw, res, depth=depth)
+
+    for name, res, depth in MESH_NEE_PARITY:
+        t0 = time.perf_counter()
+        setup = mesh_nee_setup(name, res, depth)
+        what = {"config": name, "settings": mesh_nee_kw, "res": f"{res[0]}x{res[1]}",
+                "depth": depth,
+                "mesh_geoms": len(setup[0].mesh_geoms),
+                "triangles": int(setup[0].tri_v0.x.shape[0])}
+        suffix = "@mesh_surface" if name == "mesh_textured.txt" else "@mesh"
+        r6 = full_nee_parity(dev, name, {}, res, False, setup=setup)
+        check_parity(f"full_iteration_nee{suffix}", dict(what, iterations=1), *r6,
+                     max_frac=NEE_PARITY_FRAC)
+        *r5, alive_frac = bounce_nee_parity(dev, name, {}, res, False, setup=setup)
+        check_parity(f"bounce_step_nee{suffix}",
+                     dict(what, pix="exact", alive_mismatch=alive_frac,
+                          alive_rule=f"<={ALIVE_FRAC}",
+                          seconds=time.perf_counter() - t0),
+                     *r5, max_frac=NEE_PARITY_FRAC)
+        if alive_frac > ALIVE_FRAC:
+            raise RuntimeError(f"bounce_step_nee{suffix}: alive differs on "
+                               f"{alive_frac:.2%} of lanes: {what}")
+        if (name, res) in (("mesh.txt", (800, 800)), ("mesh_textured.txt", (64, 64))):
+            err800[f"full_iteration_nee{suffix}"] = r6[2]
+            err800[f"bounce_step_nee{suffix}"] = r5[2]
+    for res in ((64, 64), (800, 800)):
+        rays_off, pixels_off = nee_route_bits(dev, "mesh.txt", {}, res, False, probe,
+                                              setup=mesh_nee_setup("mesh.txt", res))
+        say("nee_route_bits", kernels=["full_iteration_nee@mesh", "bounce_step_nee@mesh"],
+            config="mesh.txt", settings=mesh_nee_kw, res=f"{res[0]}x{res[1]}",
+            camera_rays_differing=rays_off, pixels_differing=pixels_off,
+            rule="bit-identical on every pixel whose camera ray is; rays differ on <=50%")
+
     # ---- 4. the smoke configs against the XLA goldens, both paths ----
     goldens = np.load(os.path.join(HERE, "tools", "goldens", "smoke_128.npz"))
     for name, kw, key in SMOKE:
@@ -2414,6 +2659,57 @@ def main(argv=None) -> int:
         if badfrac > GOLDEN_FRAC:
             raise RuntimeError(f"{name} via {route} (radix {radix}): badfrac "
                                f"{badfrac} > {GOLDEN_FRAC}")
+
+    # mesh.txt and mesh_big.txt under --nee at 128x128 (no golden has them):
+    # step_batch (#6) and step() (#5) against the plain path's iteration
+    # (the plain #6), by the golden rule; and mesh.txt with the icosphere
+    # moving under --motion-blur, whose step_batch runs #5 at every depth
+    # on the tables re-packed at the shutter time, against the plain #6 on
+    # the geoms moved there
+    for name in ("mesh.txt", "mesh_big.txt", "moving_mesh"):
+        settings = RenderSettings(trace_depth=8, nee_mis=True,
+                                  motion_blur=name == "moving_mesh")
+        if name in big:  # the loaded Renderer (its tables hold the light pdf model)
+            r = big[name]
+            r.settings = settings
+            r.set_camera(camera_at(r.camera, (128, 128)))
+        elif name == "moving_mesh":
+            moving = small_scene("mesh.txt", (128, 128))
+            moving.geoms.velocity[moving.geoms.gtype == GeomType.MESH] = (2.0, 0.0, 0.0)
+            r = Renderer(moving, settings, device=dev)
+        else:
+            r = Renderer(small_scene(name, (128, 128)), settings, device=dev)
+        plain_scene = r.dev_scene
+        if settings.motion_blur:
+            plain_scene = advance_time(r.dev_scene, shutter_time(1))
+        plain = plain_run(mk.full_iteration_nee_reference, plain_scene, r.dev_camera, 1,
+                          settings, 1)
+        want = np.stack([a.cpu().numpy() for a in plain], -1).reshape(128, 128, 3)
+        for route in ("step_batch",) if settings.motion_blur else ("step_batch", "step"):
+            r.set_camera(r.camera)
+            reset_launches()
+            if route == "step":
+                r.step()
+            else:
+                r.step_batch(1)
+            torch.cuda.synchronize()
+            got_l = read_launches()
+            per_depth = route == "step" or settings.motion_blur
+            kernel = "bounce_step_nee" if per_depth else "full_iteration_nee"
+            if got_l != dict(NO_LAUNCHES, **{kernel: 8 if per_depth else 1}):
+                raise RuntimeError(f"{name} --nee via {route}: launches {got_l}")
+            img = r.image()
+            if not (np.isfinite(img).all() and img.max() > 0):
+                raise RuntimeError(f"{name} --nee: non-finite or black render")
+            diff = np.abs(np.clip(img, 0.0, 1.0) - np.clip(want, 0.0, 1.0))
+            badfrac = float((diff > GOLDEN_BAD).mean())
+            say("mesh_nee_render", config=name,
+                settings={"nee_mis": True, "motion_blur": settings.motion_blur}, route=route,
+                res="128x128", against="the plain path (plain #6), 1 iteration",
+                badfrac=badfrac, mad=float(diff.mean()), launches={kernel: got_l[kernel]},
+                rule=f"badfrac<={GOLDEN_FRAC}")
+            if badfrac > GOLDEN_FRAC:
+                raise RuntimeError(f"{name} --nee via {route}: badfrac {badfrac} > {GOLDEN_FRAC}")
 
     # ---- 5. the main path at full size: Cornell 800x800 d8 AA, step_batch ----
     scene = load_scene(os.path.join(HERE, "scenes", "cornell.txt"))
@@ -2541,7 +2837,22 @@ def main(argv=None) -> int:
          "step_batch"),
         ("textured_nee_step", "textured.txt", None,
          {"antialias": True, "nee_mis": True}, "step"),
+        # --nee on mesh scenes: #6's and #5's instantiations on MeshOf
+        # (the binary BVH walks), (aa) mesh.txt through step_batch, (ab)
+        # through step(), (ac) mesh_big.txt through step_batch; and on
+        # mesh_textured (MeshOf<TexTables>) through both
+        ("mesh_nee", "mesh.txt", None, {"antialias": True, "nee_mis": True},
+         "step_batch"),
+        ("mesh_nee_step", "mesh.txt", None, {"antialias": True, "nee_mis": True},
+         "step"),
+        ("big_mesh_nee", "mesh_big.txt", None, {"antialias": True, "nee_mis": True},
+         "step_batch"),
+        ("mesh_textured_nee", "mesh_textured.txt", None,
+         {"antialias": True, "nee_mis": True}, "step_batch"),
+        ("mesh_textured_nee_step", "mesh_textured.txt", None,
+         {"antialias": True, "nee_mis": True}, "step"),
     ]
+    mesh_nee_paths = ("mesh_nee", "big_mesh_nee", "mesh_textured_nee")
     radix_paths = ("big_mesh_radix", "bunny_radix")
     # #3 once a depth: (a)-(e)
     per_bounce = ("step", "compact", "cache", "motion_blur", "direct_lighting")
@@ -2593,7 +2904,8 @@ def main(argv=None) -> int:
     busy_of = {}
     def big_renderer(name, settings):
         """The loaded Renderer of a big-mesh scene, at the scene file's own
-        resolution with `settings` (its tables do not depend on them)."""
+        resolution with `settings` (its tables, packed under --nee, serve
+        every settings)."""
         rb = big[name]
         rb.settings = settings
         rb.set_camera(camera_at(rb.camera, load_res[name]))
@@ -2656,6 +2968,8 @@ def main(argv=None) -> int:
                   else 10)
         if label in ("textured", "textured_nee"):
             n_prof = SURFACE_RUN
+        if label in mesh_nee_paths:
+            n_prof = MESH_NEE_RUN
         # per depth: #7 and #9 where they run once a depth, and the big-mesh
         # routes' kernels
         by_depth = (("mesh_candidates", "bounce_step_mesh") if label in one_walk_a_depth
@@ -3143,10 +3457,69 @@ def main(argv=None) -> int:
                        "device_idle_share": max(0.0, 1.0 - busy_of[label] / frame_ms_of[label])}
                for label in ("textured", "envmap", "sss", "mesh_textured")})
 
-    # ---- 8. the CLI: Cornell plain, with --compact and with --nee; mesh.txt;
-    # mesh_big.txt (the sorted route) ----
+    # --nee on mesh scenes: the plain versions of #6's and #5's
+    # instantiations on MeshOf at their cells' shapes (mesh.txt for
+    # MeshOf<Tables>, mesh_textured.txt for MeshOf<TexTables>; 800x800 d8
+    # AA), #6's over its profiled launch's MESH_NEE_RUN iterations; their
+    # bounds from the plain path's masks and BVH walks (nee_work); beside
+    # them the cells (aa)-(ac) and the instantiations' registers and spills
+    mesh_nee_lanes = {}
+    for suffix, name in (("@mesh", "mesh.txt"), ("@mesh_surface", "mesh_textured.txt")):
+        n_scene = load_scene(os.path.join(HERE, "scenes", name))
+        n_ds = scene_to_device(n_scene, dev)
+        n_cam = camera_to_device(n_scene.state.camera, dev)
+        n_set = RenderSettings(trace_depth=D, antialias=True, nee_mis=True)
+        n_P = n_scene.state.camera.pixel_count
+        n_counts, n_ops, _ = nee_work(n_ds, n_cam, it, n_set)
+        mesh_nee_lanes[name] = dict(n_counts, ops_per_depth=n_ops)
+        run_ms = event_ms(lambda: plain_run(  # noqa: B023
+            mk.full_iteration_nee_reference, n_ds, n_cam, it, n_set, MESH_NEE_RUN), 1)
+        pool, aux = nee_pool(dev, n_cam, it, n_set)
+        step_ms = 0.0
+        for depth in range(D):
+            t0 = time.perf_counter()
+            pool, aux = mk.bounce_step_nee_reference(pool, aux, n_ds, it, depth, n_set,
+                                                     depth == D - 1)
+            torch.cuda.synchronize()
+            step_ms += 1e3 * (time.perf_counter() - t0) / D
+        # as #6's and #5's bounds above, with the walks' work in the ops
+        bounds[f"full_iteration_nee{suffix}"] = bound(
+            24 * n_P, MESH_NEE_RUN * (n_P * OPS_RAYGEN_AA + sum(n_ops)))
+        bounds[f"bounce_step_nee{suffix}"] = bound(
+            sum(4 * n_P + 120 * n for n in n_counts["lanes_in"]) / D, sum(n_ops) / D)
+        for kname, p_ms in ((f"full_iteration_nee{suffix}", run_ms),
+                            (f"bounce_step_nee{suffix}", step_ms)):
+            wname, label = MESH_NEE_KERNELS[kname]
+            timing[kname] = (kernel_ms_of[label][kname], p_ms, launches_of[label][wname])
+            library[kname] = None
+    say("mesh_nee", device=smi, res="800x800", depth=D, settings={"antialias": True},
+        lanes=mesh_nee_lanes,
+        instantiations={k: {"path": label, "ms_per_launch": timing[k][0],
+                            "iterations_per_launch": (MESH_NEE_RUN if w == "full_iteration_nee"
+                                                      else 1),
+                            "launches": timing[k][2], "plain_ms": timing[k][1],
+                            "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                            "ptxas": [v for f, v in ptx.items() if w in f and "MeshOf" in f
+                                      and ("TexTables" in f) == ("surface" in k)]}
+                        for k, (w, label) in MESH_NEE_KERNELS.items()},
+        cells={label: {"scene": scene_name, "route": route,
+                       "ms_per_frame": frame_ms_of[label],
+                       "device_busy_ms_per_iteration": busy_of[label],
+                       "device_idle_share": max(0.0, 1.0 - busy_of[label] / frame_ms_of[label]),
+                       "kernel_device_ms": kernel_ms_of[label],
+                       "launches": launches_of[label]}
+               for label, scene_name, route in (
+                   ("mesh_nee", "mesh.txt", "step_batch"),
+                   ("mesh_nee_step", "mesh.txt", "step"),
+                   ("big_mesh_nee", "mesh_big.txt", "step_batch"),
+                   ("mesh_textured_nee", "mesh_textured.txt", "step_batch"),
+                   ("mesh_textured_nee_step", "mesh_textured.txt", "step"))})
+
+    # ---- 8. the CLI: Cornell plain, with --compact and with --nee; mesh.txt,
+    # also with --nee; mesh_big.txt (the sorted route) ----
     for name, extra, env in (("cornell.txt", [], {}), ("cornell.txt", ["--compact"], {}),
                              ("cornell.txt", ["--nee"], {}), ("mesh.txt", [], {}),
+                             ("mesh.txt", ["--nee"], {}),
                              ("mesh_big.txt", [], {}),
                              ("mesh_big.txt", [], {"PT_TPU_SORT_RADIX": "1"})):
         out_dir = tempfile.mkdtemp(prefix="cli_", dir=tmpdir)
@@ -3172,6 +3545,7 @@ def main(argv=None) -> int:
     kernels = []
     entries = [(name, *KERNELS[name]) for name in KERNELS]
     entries += [(twin, *KERNELS[wname]) for twin, (wname, _) in SURFACE_KERNELS.items()]
+    entries += [(k, *KERNELS[wname]) for k, (wname, _) in MESH_NEE_KERNELS.items()]
     for name, source, replaces in entries:
         ms, p_ms, launches = timing[name]
         b_ms, b_by = bounds[name]

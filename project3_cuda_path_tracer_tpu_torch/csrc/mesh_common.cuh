@@ -1,9 +1,9 @@
-// Device code shared by the two mesh sources (sm_90a): mesh.cu (kernels
-// #7-#10, the dense route) and sorted.cu (the big-mesh route). The mesh
-// tables, the ray and hit lanes, the object-space ray, the slab test,
-// Moller-Trumbore and the world-space tail of a mesh hit, so that both
-// routes test a triangle and finish a hit with the same float operations
-// in the same order.
+// Device code shared by the mesh sources (sm_90a): mesh.cu (kernels
+// #7-#10, the dense route), sorted.cu (the big-mesh route) and nee.cu
+// (#5 and #6 on a mesh scene). The mesh tables, the ray and hit lanes,
+// the object-space ray, the slab test, Moller-Trumbore and the
+// world-space tail of a mesh hit, so that every route tests a triangle
+// and finishes a hit with the same float operations in the same order.
 
 #pragma once
 
@@ -12,9 +12,9 @@
 namespace {
 
 // The mesh tables, as ops/megakernel.py::pack_mesh_tables lays them out
-// (four of its seven: no kernel walks the binary nodes since #8 walks its
-// wide tables, and the big-mesh route reads the chunk and supernode boxes
-// itself).
+// (four of its seven: #8 walks its wide tables, the NEE kernels read the
+// binary nodes themselves (nee.cu `MeshOf`), and the big-mesh route reads
+// the chunk and supernode boxes itself).
 struct MeshTables {
   const float4* tri;  // (T,3) float4: v0.xyz v1.x | v1.yz v2.xy | v2.z - - -
   const float* attr;  // (T,16): n0 n1 n2 (xyz each), uv0 uv1 uv2 (uv each), -

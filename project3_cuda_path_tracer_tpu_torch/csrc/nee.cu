@@ -67,15 +67,209 @@
 // the shading normal and the environment are the stage's at every term,
 // and a subsurface vertex takes no light sample); the one on Tables
 // compiles none of it. No matrix product here, so no wgmma or TMA.
+//
+// A scene with mesh geoms runs the instantiations on MeshOf<Tables> or
+// MeshOf<TexTables>: the same tables and the mesh tables of
+// ops/megakernel.py (the triangles, the binary BVH's boxes and `node`
+// rows, and each mesh geom's root). The analytic sweep skips the mesh
+// geoms; then each mesh geom's binary BVH is walked for the same ray, as
+// the plain ops/bvh_traverse.py::mesh_intersect_bvh walks it: one int
+// cursor over the geom's preorder nodes, hit ? (leaf ? test its <= 4
+// triangles, go skip : i + 1) : skip, so no stack and no local memory.
+// Nearest hit: the walk's object-space bound is the best world t so far
+// times the Frobenius norm of inv's 3x3 (a bound on the object-space
+// distance, as #7's candidacy), the least (t, triangle) in walk order
+// wins the geom, its world distance is taken as mesh_common.cuh's
+// `epilogue` takes it, and it wins the lane only when strictly nearer
+// (an exact tie goes to the analytic geom, as in the mesh pipeline);
+// `epilogue` then runs once, on the winner, for the normal, the side and
+// the UVs. Shadow ray: a triangle occludes when its world distance, taken
+// the same way, lies in (0, r - 1e-2): the plain version's rule on the
+// nearest hit's world t, tested per triangle (the walk prunes by the
+// bound's object-space image and stops at the first occluder). The 80k
+// triangle cap of the TPU kernels (a VMEM budget) has no counterpart: the
+// walk covers every mesh geom, the big-mesh route's included. A wide walk
+// (#8's tables) would visit fewer nodes (about 4.6 inner nodes and 1.5
+// leaves against 35.7 nodes and 7.3 triangles on mesh.txt); this one is
+// the simple, right first version.
 
 #include <algorithm>
 
-#include "path_common.cuh"
+#include "mesh_common.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kChunk = 256;  // #5: pool slots per fetch from the counter
+constexpr int kMeshGeom = 2;  // models/scene.py::GeomType.MESH
+
+// ---- the mesh instantiations' tables and walks ----
+
+// The tables of a mesh scene: T's, the mesh tables and the binary BVH.
+template <class T>
+struct MeshOf : T {
+  MeshTables m;
+  const int4* node;   // (B,) first triangle, count, skip, is_leaf
+  const int2* roots;  // (M,) each mesh geom's first node and node count
+};
+
+template <class T>
+struct IsMesh : std::false_type {};
+template <class T>
+struct IsMesh<MeshOf<T>> : std::true_type {};
+
+// mesh[] = {tri, attr, box, node, geoms, chunk, super, roots}: the mesh
+// tables of ops/megakernel.py::pack_mesh_tables and pack_mesh_roots
+template <class T>
+inline MeshOf<T> with_mesh(const T& base, void* const* mesh, int n_mesh) {
+  MeshOf<T> s;
+  static_cast<T&>(s) = base;
+  s.m = make_mesh_tables(mesh, n_mesh);
+  s.node = static_cast<const int4*>(mesh[3]);
+  s.roots = static_cast<const int2*>(mesh[7]);
+  return s;
+}
+
+// The world distance of the object-space hit at t on ray r from world
+// origin o, as `epilogue` computes it.
+__device__ __forceinline__ float world_distance(const Tables& s, int g, const ObjRay& r,
+                                                float t, V3 o) {
+  const V3 p_obj = r.o + r.d * (t - kRayEps);
+  const V3 diff = o - xform_point(s.xf + 16 * g, p_obj);
+  return sqrtf(dot(diff, diff));
+}
+
+// A ray's mesh winner: its world t (FLT_MAX for none), its mesh (-1 for
+// none) and the walk's object-space winner there.
+struct MeshWin {
+  float t;
+  int k;
+  TriHit th;
+};
+
+// The walks of every mesh geom's binary BVH for the world ray (o, d), in
+// mesh order. Nearest hit (!shadow): w->t enters as the analytic winner's
+// world t (FLT_MAX on a miss); each geom's walk keeps the least (t,
+// triangle) below the object-space image of w->t in walk order, and its
+// world distance replaces w's when strictly less. Shadow ray: returns true
+// at the first triangle whose world distance lies in (0, bound); w is not
+// read. One loop for both, so #6's lanes of either kind walk together.
+template <class T>
+__device__ __forceinline__ bool mesh_walks(const MeshOf<T>& s, V3 o, V3 d, bool shadow,
+                                           float bound, MeshWin* w) {
+  for (int k = 0; k < s.m.n_mesh; ++k) {
+    const int g = __ldg(s.m.geoms + k).x;
+    const float* inv = s.inv + 16 * g;
+    const ObjRay r = object_ray(inv, o, d);
+    const float lim = shadow ? bound : w->t;
+    TriHit th = {lim < kFltMax ? lim * frobenius3(inv) : kFltMax, -1, 0.0f, 0.0f};
+    const int2 root = __ldg(s.roots + k);
+    const int end = root.x + root.y;
+    for (int i = root.x; i < end;) {
+      const int4 nd = __ldg(s.node + i);
+      if (!slab_enter(__ldg(s.m.box + 2 * i), __ldg(s.m.box + 2 * i + 1), r, th.t)) {
+        i = nd.z;
+      } else if (nd.w == 0) {
+        ++i;
+      } else {
+        for (int j = 0; j < nd.y; ++j) {
+          float t, u, v;
+          if (tri_test(s.m, nd.x + j, r, &t, &u, &v) && t < th.t) {
+            if (!shadow) {
+              th = {t, nd.x + j, u, v};
+            } else {
+              const float dist = world_distance(s, g, r, t, o);
+              if (dist > 0.0f && dist < bound) return true;
+            }
+          }
+        }
+        i = nd.z;
+      }
+    }
+    if (!shadow && th.tri >= 0) {
+      const float t = world_distance(s, g, r, th.t, o);
+      if (t > 0.0f && t < w->t) *w = {t, k, th};
+    }
+  }
+  return false;
+}
+
+// The lane's hit from the analytic winner (best_t, best_g) and the mesh
+// winner w: `epilogue` on w's triangle when it has one (the world t, the
+// oriented normal, the UVs), else the analytic winner's normal.
+template <class T>
+__device__ __forceinline__ HitOf<T> mesh_hit(const MeshOf<T>& s, V3 o, V3 d, float best_t,
+                                             int best_g, const MeshWin& w) {
+  HitOf<T> h;
+  h.t = best_t;
+  h.n = {0.0f, 0.0f, 0.0f};
+  h.mat = -1;
+  h.outside = true;
+  if constexpr (T::kTex) {
+    h.u = 0.0f;
+    h.v = 0.0f;
+    h.has_uv = false;
+  }
+  if (w.k >= 0) {
+    const int4 mg = __ldg(s.m.geoms + w.k);
+    const MeshHit mh =
+        epilogue(s, s.m, mg.x, mg.w != 0, object_ray(s.inv + 16 * mg.x, o, d), w.th, o, d);
+    h.t = mh.t;
+    h.n = mh.n;
+    h.outside = mh.outside;
+    h.mat = __ldg(s.gmat + mg.x);
+    if constexpr (T::kTex) {
+      h.u = mh.u;
+      h.v = mh.v;
+      h.has_uv = mg.w != 0;
+    }
+  } else if (best_g >= 0) {
+    geom_test(s, best_g, o, d, true, &h.n, &h.outside);
+    h.mat = __ldg(s.gmat + best_g);
+  }
+  return h;
+}
+
+// A ray's MeshWin before the walks: the analytic winner's world t.
+__device__ __forceinline__ MeshWin no_mesh_win(float best_t) {
+  return {best_t > 0.0f ? best_t : kFltMax, -1, {kFltMax, -1, 0.0f, 0.0f}};
+}
+
+// path_common.cuh's `intersect` on a mesh scene (#5): the analytic sweep
+// over the other geoms (the same order and strict-< rule), then the mesh
+// walks.
+template <class T>
+__device__ __forceinline__ HitOf<T> intersect(const MeshOf<T>& s, V3 org, V3 dir) {
+  float best_t = -1.0f;
+  int best_g = -1;
+  for (int g = 0; g < s.n_geoms; ++g) {
+    if (__ldg(s.gtype + g) == kMeshGeom) continue;
+    const float t = geom_test(s, g, org, dir, false, nullptr, nullptr);
+    const float prev = best_t > 0.0f ? best_t : kFltMax;
+    if (t > 0.0f && prev > t) {
+      best_t = t;
+      best_g = g;
+    }
+  }
+  MeshWin w = no_mesh_win(best_t);
+  mesh_walks(s, org, dir, false, 0.0f, &w);
+  return mesh_hit(s, org, dir, best_t, best_g, w);
+}
+
+// path_common.cuh's `unoccluded` on a mesh scene (#5's `shade_nee` finds
+// it by argument-dependent lookup): the analytic any-hit loop over the
+// other geoms, then the mesh walks.
+template <class T>
+__device__ __forceinline__ bool unoccluded(const MeshOf<T>& s, V3 o, V3 d, float r) {
+  const float bound = r - 1e-2f;
+  for (int g = 0; g < s.n_geoms; ++g) {
+    if (__ldg(s.gtype + g) == kMeshGeom) continue;
+    const float t = geom_test(s, g, o, d, false, nullptr, nullptr);
+    if (t > 0.0f && t < bound) return false;
+  }
+  MeshWin w = no_mesh_win(-1.0f);
+  return !mesh_walks(s, o, d, true, bound, &w);
+}
 
 // #6. A lane's step is one sweep: its path's nearest-hit sweep, or its
 // vertex's shadow ray. The bounce is `shade_nee` (path_common.cuh) split
@@ -89,7 +283,14 @@ constexpr int kChunk = 256;  // #5: pool slots per fetch from the counter
 // bit for bit against `shade_nee` as #5 runs it.) 6 blocks of kThreads
 // stay resident on an SM at its 80 registers; naming that minimum (ptxas
 // spills a few bytes) was faster on the H100 than 90 registers at 5
-// blocks.
+// blocks. On a mesh scene (MeshOf) the step's sweep skips the mesh geoms
+// and then walks them (`mesh_walks`, for the path's nearest hit or the
+// shadow ray, as #5's `intersect` and `unoccluded` do); the hit keeps a
+// mesh winner's UVs over the vertex's shadow step (HitOf<T>). The mesh
+// instantiations keep the bound, spilling 272-332 B: on the H100 they
+// ran 3% and 12% slower on mesh.txt 800x800 AA at 5 and 4 blocks (96
+// and 116-119 registers, spilling 92-120 B and none), 10% and 28% on
+// mesh_big.
 template <class T>
 __global__ void __launch_bounds__(kThreads, 6)
     full_iteration_nee_kernel(const T s, const Lights L, const float* __restrict__ cam,
@@ -107,7 +308,9 @@ __global__ void __launch_bounds__(kThreads, 6)
   V3 sum = {0.0f, 0.0f, 0.0f};  // acc[pix] plus the pixel's paths so far
   Path p;
   NeeAux a;
-  Hit h;                  // the vertex, kept over its shadow step
+  // the vertex, kept over its shadow step (with a mesh winner's UVs on a
+  // mesh scene's TexTables)
+  typename std::conditional<IsMesh<T>::value, HitOf<T>, Hit>::type h;
   V3 p_hit, wi, contrib;  // its point, the shadow ray's direction, and
   float scale = 0.0f;     // the light term contrib * scale
   float bound = 0.0f;     // the shadow ray's length less 1e-2
@@ -154,6 +357,9 @@ __global__ void __launch_bounds__(kThreads, 6)
       int best_g = -1;
       bool blocked = false;
       for (int g = 0; g < s.n_geoms; ++g) {
+        if constexpr (IsMesh<T>::value) {
+          if (__ldg(s.gtype + g) == kMeshGeom) continue;
+        }
         const float t = geom_test(s, g, ro, rd, false, nullptr, nullptr);
         if (shadow) {
           if (t > 0.0f && t < bound) {
@@ -168,16 +374,25 @@ __global__ void __launch_bounds__(kThreads, 6)
           }
         }
       }
+      if constexpr (IsMesh<T>::value) {
+        // the mesh walks of the step's ray: the shadow lanes' and the
+        // path lanes' in one loop
+        MeshWin w = no_mesh_win(best_t);
+        if (!blocked && mesh_walks(s, ro, rd, shadow, bound, &w)) blocked = true;
+        if (!shadow) h = mesh_hit(s, p.org, p.dir, best_t, best_g, w);
+      }
       const bool is_last = d == depth - 1;
       bool vertex = true;  // a non-emissive hit to shade in this step
       if (!shadow) {
-        h.t = best_t;
-        h.n = {0.0f, 0.0f, 0.0f};
-        h.mat = -1;
-        h.outside = true;
-        if (best_g >= 0) {
-          geom_test(s, best_g, p.org, p.dir, true, &h.n, &h.outside);
-          h.mat = __ldg(s.gmat + best_g);
+        if constexpr (!IsMesh<T>::value) {
+          h.t = best_t;
+          h.n = {0.0f, 0.0f, 0.0f};
+          h.mat = -1;
+          h.outside = true;
+          if (best_g >= 0) {
+            geom_test(s, best_g, p.org, p.dir, true, &h.n, &h.outside);
+            h.mat = __ldg(s.gmat + best_g);
+          }
         }
         const NeeAux prev = a;
         a = NeeAux{0.0f, 0.0f};
@@ -297,7 +512,8 @@ __device__ __forceinline__ void nee_bounce_slot(const T& s, const Lights& L,
                                                 int depth, bool is_last) {
   Path p = load_path(pool, i);
   NeeAux a = {prev_pdf[i], prev_nondelta[i]};
-  const Hit h = intersect(s, p.org, p.dir);
+  // a Hit; on a mesh scene's tables the mesh-aware `intersect` above
+  const auto h = intersect(s, p.org, p.dir);
   const bool alive =
       shade_nee(s, L, p, a, h, it, depth, static_cast<uint32_t>(pool.pix[i]), is_last);
   store_path(pool, i, p);
@@ -308,6 +524,10 @@ __device__ __forceinline__ void nee_bounce_slot(const T& s, const Lights& L,
 
 // #5. 6 blocks per SM at 80 registers (95 without the bound): 3% faster
 // on many_materials 1080p RR, 7% slower on Cornell 800x800 AA, on the H100.
+// On a mesh scene (MeshOf) its slots intersect and cast their shadow rays
+// through the mesh-aware `intersect` and `unoccluded` above, under the
+// same bound (spilling 100-120 B; 5 and 4 blocks ran 2% and 4% faster on
+// mesh.txt 800x800 AA, a path bound by the host).
 template <class T>
 __global__ void __launch_bounds__(kThreads, 6)
     bounce_step_nee_kernel(const T s, const Lights L, const Lanes pool,
@@ -360,81 +580,103 @@ inline Lights make_lights(void* const* tables, int n_lights, float aw) {
   return L;
 }
 
-int g_resident_nee[64];     // #6's resident blocks per device, 0 until queried
-int g_resident_bounce[64];  // #5's
-int g_resident_nee_tex[64];     // their instantiations on TexTables'
-int g_resident_bounce_tex[64];
+// Each kernel's resident blocks per device, 0 until queried: its
+// instantiations on Tables, TexTables, MeshOf<Tables>, MeshOf<TexTables>.
+int g_resident_nee[4][64];
+int g_resident_bounce[4][64];
+
+// #5 on tables s: one warp per chunk at most.
+template <class S>
+cudaError_t launch_bounce_nee(const S& s, int* resident_cache, const Lights& L,
+                              void* const* pool, int n, int iteration, int depth, int is_last,
+                              int* counter, int device, cudaStream_t st) {
+  int resident = 0;
+  const cudaError_t err =
+      resident_blocks(bounce_step_nee_kernel<S>, device, resident_cache, &resident);
+  if (err != cudaSuccess) return err;
+  const int wanted = n_blocks(((n + kChunk - 1) / kChunk) * 32);
+  bounce_step_nee_kernel<<<std::min(resident, wanted), kThreads, 0, st>>>(
+      s, L, make_lanes(pool), static_cast<float*>(pool[14]), static_cast<float*>(pool[15]), n,
+      iteration, depth, is_last, counter);
+  return cudaSuccess;
+}
+
+// #6 on tables s.
+template <class S>
+cudaError_t launch_full_nee(const S& s, int* resident_cache, const Lights& L, const float* cam,
+                            float* const* acc, int iteration0, int n_iters, int resx, int resy,
+                            int depth, int* counter, int device, cudaStream_t st) {
+  int resident = 0;
+  const cudaError_t err =
+      resident_blocks(full_iteration_nee_kernel<S>, device, resident_cache, &resident);
+  if (err != cudaSuccess) return err;
+  full_iteration_nee_kernel<<<std::min(resident, n_blocks(resx * resy)), kThreads, 0, st>>>(
+      s, L, cam, acc[0], acc[1], acc[2], iteration0, n_iters, resx, resy, depth, counter);
+  return cudaSuccess;
+}
+
+// Run f on the tables of this launch: Tables or TexTables (the surface
+// stage's flags), wrapped in MeshOf when the scene has mesh geoms; f gets
+// the tables and the index of their instantiation (0-3).
+template <class F>
+cudaError_t with_tables(void* const* tables, int n_geoms, int flags, int rr_start,
+                        void* const* mesh, int n_mesh, F f) {
+  if (flags & kSurfaceStage) {
+    const TexTables t = make_tex_tables(tables, n_geoms, flags, rr_start);
+    return n_mesh > 0 ? f(with_mesh(t, mesh, n_mesh), 3) : f(t, 1);
+  }
+  const Tables t = make_tables(tables, n_geoms, flags, rr_start);
+  return n_mesh > 0 ? f(with_mesh(t, mesh, n_mesh), 2) : f(t, 0);
+}
 
 }  // namespace
 
 // Each entry point launches one kernel on `stream` (a cudaStream_t,
 // PyTorch's current stream) of CUDA device `device` and returns
 // cudaGetLastError() of the launch, or the occupancy query's error: the
-// kernel's instantiation on TexTables when flags has a kSurfaceStage bit.
+// kernel's instantiation on TexTables when flags has a kSurfaceStage bit,
+// on MeshOf<...> when n_mesh > 0.
 // tables = {xf, inv, invt, gtype, gmat, mat, env, lights, surf, tex, bump,
-// envmap}; aw = the MIS
-// light pdf model (mean light area x n_lights); counter: one int32 on the
+// envmap}; aw = the MIS light pdf model (mean light area x n_lights);
+// mesh = {tri, attr, box, node, geoms, chunk, super, roots} for the
+// n_mesh mesh geoms (null when n_mesh is 0); counter: one int32 on the
 // device, zero before the launch and used by no other launch.
 
 // pool = 16 pointers: the 12 float lanes, alive, pix, prev_pdf, prev_nondelta.
 extern "C" int pt_bounce_step_nee(void* const* tables, int n_geoms, int n_lights, float aw,
-                                  void* const* pool, int n, int iteration, int depth,
-                                  int is_last, int rr_start, int flags, int* counter,
-                                  int device, void* stream) {
+                                  void* const* mesh, int n_mesh, void* const* pool, int n,
+                                  int iteration, int depth, int is_last, int rr_start,
+                                  int flags, int* counter, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Lights L = make_lights(tables, n_lights, aw);
-    float* pdf = static_cast<float*>(pool[14]);
-    float* nondelta = static_cast<float*>(pool[15]);
-    // one warp per chunk at most
-    const int wanted = n_blocks(((n + kChunk - 1) / kChunk) * 32);
-    int resident = 0;
-    if (flags & kSurfaceStage) {
-      err = resident_blocks(bounce_step_nee_kernel<TexTables>, device, g_resident_bounce_tex,
-                            &resident);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      bounce_step_nee_kernel<<<std::min(resident, wanted), kThreads, 0, st>>>(
-          make_tex_tables(tables, n_geoms, flags, rr_start), L, make_lanes(pool), pdf, nondelta,
-          n, iteration, depth, is_last, counter);
-    } else {
-      err = resident_blocks(bounce_step_nee_kernel<Tables>, device, g_resident_bounce, &resident);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      bounce_step_nee_kernel<<<std::min(resident, wanted), kThreads, 0, st>>>(
-          make_tables(tables, n_geoms, flags, rr_start), L, make_lanes(pool), pdf, nondelta, n,
-          iteration, depth, is_last, counter);
-    }
+    err = with_tables(tables, n_geoms, flags, rr_start, mesh, n_mesh, [&](const auto& s, int v) {
+      return launch_bounce_nee(s, g_resident_bounce[v], L, pool, n, iteration, depth, is_last,
+                               counter, device, st);
+    });
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Iterations iteration0 .. iteration0 + n_iters - 1; acc = {r, g, b}.
 extern "C" int pt_full_iteration_nee(void* const* tables, int n_geoms, int n_lights, float aw,
-                                     const float* cam, float* const* acc, int iteration0,
-                                     int n_iters, int resx, int resy, int depth, int rr_start,
-                                     int flags, int* counter, int device, void* stream) {
+                                     void* const* mesh, int n_mesh, const float* cam,
+                                     float* const* acc, int iteration0, int n_iters, int resx,
+                                     int resy, int depth, int rr_start, int flags, int* counter,
+                                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_pixels = resx * resy;
-  if (n_pixels > 0 && n_iters > 0) {
+  if (resx * resy > 0 && n_iters > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Lights L = make_lights(tables, n_lights, aw);
-    int resident = 0;
-    if (flags & kSurfaceStage) {
-      err = resident_blocks(full_iteration_nee_kernel<TexTables>, device, g_resident_nee_tex,
-                            &resident);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      full_iteration_nee_kernel<<<std::min(resident, n_blocks(n_pixels)), kThreads, 0, st>>>(
-          make_tex_tables(tables, n_geoms, flags, rr_start), L, cam, acc[0], acc[1], acc[2],
-          iteration0, n_iters, resx, resy, depth, counter);
-    } else {
-      err = resident_blocks(full_iteration_nee_kernel<Tables>, device, g_resident_nee, &resident);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      full_iteration_nee_kernel<<<std::min(resident, n_blocks(n_pixels)), kThreads, 0, st>>>(
-          make_tables(tables, n_geoms, flags, rr_start), L, cam, acc[0], acc[1], acc[2],
-          iteration0, n_iters, resx, resy, depth, counter);
-    }
+    err = with_tables(tables, n_geoms, flags, rr_start, mesh, n_mesh, [&](const auto& s, int v) {
+      return launch_full_nee(s, g_resident_nee[v], L, cam, acc, iteration0, n_iters, resx, resy,
+                             depth, counter, device, st);
+    });
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,11 @@ is one int32 cursor,
                                : descend to i+1)
                       : jump to skip[i]
 and the whole pool advances in lock-step, one node per step, until every
-lane has left the geom's node range. On a CUDA tensor each step reads a
-`while any(active)` flag back to the host.
+lane has left the geom's node range. The loop reads its `any(active)`
+flag back to the host at every step on the CPU and every
+`_FLAG_EVERY_CUDA` steps on a CUDA tensor, where a read waits for the
+card (a finished lane's cursor stays past the range, so the steps in
+between change nothing).
 
 `mesh_intersect_wide` walks the wide BVH of models/wide_bvh.py in the
 order kernel #8 (csrc/mesh.cu, `mesh_sweep`) walks it, a stack per lane,
@@ -33,6 +36,8 @@ from .intersect import (
     triangle_intersect,
 )
 from .vec import Vec3, take as vtake
+
+_FLAG_EVERY_CUDA = 16
 
 
 def _slab(lo: Vec3, hi: Vec3, o: Vec3, inv_d: Vec3):
@@ -84,10 +89,13 @@ def mesh_intersect_bvh(scene: DeviceScene, geom_index: int, origins: Vec3,
     nodes = torch.zeros(P, dtype=torch.int64, device=device)
     tris = torch.zeros(P, dtype=torch.int64, device=device)
 
+    every = _FLAG_EVERY_CUDA if device.type == "cuda" else 1
+    step = 0
     while True:
         active = cur < node_end
-        if not bool(active.any()):
+        if step % every == 0 and not bool(active.any()):
             break
+        step += 1
         safe = torch.clamp(cur, node_start, node_end - 1)
         hit = _aabb_hit(vtake(scene.bvh_min, safe), vtake(scene.bvh_max, safe),
                         ro, inv_d, bt) & active

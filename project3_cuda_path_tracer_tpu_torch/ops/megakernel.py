@@ -44,9 +44,13 @@ scale, SSS sigma) in `surf`, the f32 texture, bump and lat-long env
 atlases, plus the emissive geom indices and the MIS light pdf model
 (ops/lights.py::lights_area_weight) for the NEE kernels, and on a mesh
 scene the triangle and BVH tables of the mesh pipeline
-(`pack_mesh_tables`, read by ops/pipeline.py's kernels #7-#14). These six
-kernels sweep analytic geoms only: a mesh scene takes ops/pipeline.py
-(and #4, which intersects nothing), and their wrappers refuse one.
+(`pack_mesh_tables`, read by ops/pipeline.py's kernels #7-#14) and each
+mesh geom's BVH root (`pack_mesh_roots`). #1-#3 sweep analytic geoms only:
+a mesh scene takes ops/pipeline.py (and #4, which intersects nothing),
+and their wrappers refuse one. The NEE kernels #5 and #6 render a mesh
+scene themselves: their instantiations on the mesh tables walk each mesh
+geom's binary BVH (the `node` table) for the nearest hit and for the
+shadow ray, the big-mesh route's geoms included.
 
 A scene with file textures, bump maps, a lat-long env map or SSS sets
 the surface-stage flags (FLAG_SURFACE_STAGE), and the kernels' C entry
@@ -116,6 +120,9 @@ class SceneTables(NamedTuple):
     # #8's wide BVH (ops/pipeline.py::pack_wide_tables); None without
     # meshes
     wide: tuple | None = None
+    # (M,2) i32 each mesh geom's first BVH node and node count
+    # (pack_mesh_roots, read by #5 and #6); None without meshes
+    roots: torch.Tensor | None = None
 
 
 # the tables the kernels read, as a C array of pointers in this order
@@ -170,12 +177,9 @@ def _refuse(what: str, module: int):
 def check_supported(scene: DeviceScene, settings) -> None:
     """Raise NotImplementedError, naming the module of ROADMAP §1 that
     queues it, for a scene or setting that the port does not render yet:
-    --nee on a mesh scene, material sort and triangle sharding. The check
-    is the same on every device: the CPU path never renders what the card
-    cannot."""
+    material sort and triangle sharding. The check is the same on every
+    device: the CPU path never renders what the card cannot."""
     refusals = [
-        (settings.nee_mis and scene.mesh_geoms,
-         "NEE + MIS (--nee) on a mesh scene", 2),
         (settings.sort_by_material, "material sort", 3),
         (settings.tri_axis is not None, "triangle sharding", 4),
     ]
@@ -185,7 +189,7 @@ def check_supported(scene: DeviceScene, settings) -> None:
 
 
 def _require_analytic(scene: DeviceScene, what: str) -> None:
-    """The six kernels of this module sweep analytic geoms only."""
+    """#1-#3 sweep analytic geoms only."""
     if scene.mesh_geoms:
         raise ValueError(f"{what}: a mesh scene takes the mesh pipeline "
                          "(ops/pipeline.py), not this kernel")
@@ -230,7 +234,8 @@ def pack_mesh_tables(scene: DeviceScene) -> tuple:
     and the big-mesh route's chunk (C,8) and supernode (S,8) boxes [min,
     max, 0, 0]. #7 reads each geom's root box; #8 walks the wide BVH
     collapsed from these binary nodes (ops/pipeline.py::pack_wide_tables),
-    which gives a geom of the sorted route no root. The tables live in
+    which gives a geom of the sorted route no root; #5 and #6 walk the
+    binary nodes themselves, from `pack_mesh_roots`. The tables live in
     object space, so motion blur never re-packs them."""
     from .pipeline import sorted_geoms
 
@@ -262,11 +267,22 @@ def pack_mesh_tables(scene: DeviceScene) -> tuple:
             scene.mesh_super_aabbs.contiguous())
 
 
+def pack_mesh_roots(scene: DeviceScene) -> torch.Tensor:
+    """(M,2) i32 [first node, node count] of each mesh geom's binary BVH
+    (`scene.bvh_roots`), every mesh geom's: the root at which #5 and #6
+    start their walks of `node` (pack_mesh_tables' `geoms` gives a geom
+    of the sorted route no node count, which #7 and #8 rely on)."""
+    mesh = scene.mesh_geoms
+    return torch.tensor([scene.bvh_roots[g] for g in mesh], dtype=torch.int32,
+                        device=scene.device).reshape(len(mesh), 2)
+
+
 def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
     """The kernels' tables; with `nee` also the MIS light pdf model, read
     back to the host once here, so no NEE launch waits on the device for
     it (motion blur only translates, so it never changes the value); on a
-    mesh scene also the mesh pipeline's tables, C's and #8's wide BVH."""
+    mesh scene also the mesh pipeline's tables, C's, #8's wide BVH and
+    the mesh geoms' BVH roots of #5 and #6."""
     from .pipeline import pack_sweep_tables, pack_wide_tables
 
     G = scene.transform.shape[0]
@@ -311,6 +327,7 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
         mesh=pack_mesh_tables(scene) if scene.mesh_geoms else None,
         sweep=pack_sweep_tables(scene) if scene.mesh_geoms else None,
         wide=pack_wide_tables(scene) if scene.mesh_geoms else None,
+        roots=pack_mesh_roots(scene) if scene.mesh_geoms else None,
     )
 
 
@@ -553,6 +570,23 @@ def _require_lights(scene: DeviceScene, what: str) -> None:
         raise ValueError(f"{what}: NEE needs an emissive geom")
 
 
+def _nee_mesh_args(t: SceneTables, scene: DeviceScene, device) -> tuple:
+    """The NEE kernels' mesh arguments: the pointers of the mesh tables
+    and the roots, and the mesh geoms' count; (NULL, 0) without meshes
+    (the analytic instantiations)."""
+    if not scene.mesh_geoms:
+        return None, 0
+    from .pipeline import check_mesh_tables
+
+    check_mesh_tables(t, scene, device)
+    M = len(scene.mesh_geoms)
+    if t.roots is None:
+        raise ValueError("the NEE kernels need the mesh geoms' BVH roots "
+                         "(pack_scene_tables)")
+    _check_tensor(t.roots, "roots", torch.int32, (M, 2), device)
+    return _ptrs(list(t.mesh) + [t.roots]), M
+
+
 # ---- the wrappers ----------------------------------------------------------
 
 def full_iteration(
@@ -588,9 +622,10 @@ def _whole_iterations(wrapper, reference, nee: bool, scene: DeviceScene,
     launch shares a count with another and the host never reads one."""
     what = wrapper.__name__
     check_supported(scene, settings)
-    _require_analytic(scene, what)
     if nee:
         _require_lights(scene, what)
+    else:
+        _require_analytic(scene, what)
     device = accum.x.device
     if int(iteration0) < 1:
         raise ValueError(f"iterations are 1-based, got {iteration0}")
@@ -607,7 +642,8 @@ def _whole_iterations(wrapper, reference, nee: bool, scene: DeviceScene,
     for name, a in zip(("accum.x", "accum.y", "accum.z"), accum):
         _check_tensor(a, name, torch.float32, (P,), device)
     t, tptr = _tables_for(scene, tables, device, nee)
-    lights = (len(scene.emissive_geoms), t.aw) if nee else ()
+    lights = ((len(scene.emissive_geoms), t.aw, *_nee_mesh_args(t, scene, device))
+              if nee else ())
     cam_vec = pack_camera(cam)
     _check_tensor(cam_vec, "camera", torch.float32, (16,), device)
     acc = _ptrs(list(accum))
@@ -747,7 +783,6 @@ def bounce_step_nee(state, aux, scene: DeviceScene, iteration: int,
     int32 zero on the device that no other launch uses (`_trace_nee`
     zeroes one per depth together); allocated here when None."""
     check_supported(scene, settings)
-    _require_analytic(scene, "bounce_step_nee")
     _require_lights(scene, "bounce_step_nee")
     device = state[5].device
     if device.type == "cpu":
@@ -765,13 +800,14 @@ def bounce_step_nee(state, aux, scene: DeviceScene, iteration: int,
     for name, a in zip(("prev_pdf", "prev_nondelta"), aux):
         _check_tensor(a, name, torch.float32, (P,), device)
     t, tptr = _tables_for(scene, tables, device, nee=True)
+    mesh = _nee_mesh_args(t, scene, device)
     if counter is None:
         counter = torch.zeros((), dtype=torch.int32, device=device)
     _check_tensor(counter, "counter", torch.int32, (), device)
     dev_index, stream = _device_args(device)
     _launch(
         "pt_bounce_step_nee", "bounce_step_nee",
-        tptr, len(scene.gtypes), len(scene.emissive_geoms), t.aw,
+        tptr, len(scene.gtypes), len(scene.emissive_geoms), t.aw, *mesh,
         _ptrs(lanes + list(aux)), P, int(iteration), int(depth),
         int(bool(is_last)), int(settings.rr_start_depth),
         kernel_flags(scene, settings), counter.data_ptr(), dev_index, stream,

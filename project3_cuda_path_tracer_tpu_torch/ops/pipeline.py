@@ -808,6 +808,13 @@ def radix_unsplit_reference(stream: RadixStream, results: torch.Tensor) -> torch
 def _mesh_tables(scene: DeviceScene, tables, device):
     """(tables, table pointers, mesh pointers) for the mesh kernels."""
     t, tptr = _tables_for(scene, tables, device)
+    check_mesh_tables(t, scene, device)
+    return t, tptr, _ptrs(list(t.mesh))
+
+
+def check_mesh_tables(t: SceneTables, scene: DeviceScene, device) -> None:
+    """Raise unless `t` holds the mesh tables of `scene` (pack_mesh_tables)
+    on `device`: the mesh kernels' and the NEE kernels' check."""
     if t.mesh is None or len(t.mesh) != 7:
         raise ValueError("the mesh kernels need tables packed from a mesh "
                          "scene (pack_scene_tables)")
@@ -821,7 +828,6 @@ def _mesh_tables(scene: DeviceScene, tables, device):
          tuple(scene.mesh_chunk_aabbs.shape), tuple(scene.mesh_super_aabbs.shape)),
     ):
         _check_tensor(a, name, dtype, shape, device)
-    return t, tptr, _ptrs(list(t.mesh))
 
 
 def pack_sweep_tables(scene: DeviceScene) -> tuple:

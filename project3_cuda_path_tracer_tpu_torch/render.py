@@ -20,8 +20,8 @@ has these tiers here, as in the JAX package:
   candidates -> #8 BVH sweep -> the sorted route #11-#14 for each geom
   above 16,384 triangles -> #9 merge + shade) at every depth, with
   the same compaction, cache (#4 over `intersect_scene_any`'s depth 0),
-  motion blur, RR and QMC as the analytic path; `render_batch` always
-  takes it on a mesh scene (#1 and #6 sweep analytic geoms only);
+  motion blur, RR and QMC as the analytic path; `render_batch` takes it
+  on a mesh scene but under --nee (#1 sweeps analytic geoms only);
 - --direct-lighting (final-bounce NEE): the per-bounce path for depths
   0..D-2, then `_nee_final_step` at depth D-1 (one shadow ray to a
   sampled light point from each diffuse lane, RNG stream 254). That step
@@ -36,9 +36,12 @@ has these tiers here, as in the JAX package:
   `Renderer.step()`, and under `render_batch` with --motion-blur, the
   per-bounce NEE kernel (megakernel.bounce_step_nee, #5) once per depth
   0..D-1 from plain `generate_rays`, the MIS aux state (previous pdf,
-  previous non-delta flag) riding as two pool lanes. --nee takes
-  precedence over --direct-lighting and refuses compaction and the
-  first-bounce cache (ValueError), as the JAX package does.
+  previous non-delta flag) riding as two pool lanes. On a mesh scene
+  both kernels run their mesh instantiations, which walk each mesh geom's
+  binary BVH for the nearest hit and for the shadow ray (every mesh geom,
+  the big-mesh route's included: no mesh pipeline launch on this path).
+  --nee takes precedence over --direct-lighting and refuses compaction
+  and the first-bounce cache (ValueError), as the JAX package does.
 Between the kernels runs only the glue the JAX package runs in XLA: the
 compaction permutation, the alive sums, the radiance scatter
 (`index_add_`), and the per-iteration re-pack of the moved transforms.
@@ -348,7 +351,9 @@ def _nee_mis_bounce(state, aux, scene: DeviceScene, iteration: int,
     P = pix.shape[0]
     zeros = Vec3.zeros(P, pix.device)
 
-    isect = intersect_scene(origins, dirs, scene)
+    # the JAX package's intersect_scene_any on its XLA path: the BVH or,
+    # under --no-bvh, the naive sweep; plain PyTorch, no kernel launch
+    isect = intersect_scene(origins, dirs, scene, use_bvh=settings.use_bvh)
     hit = isect.t > 0.0
     live_hit = alive & hit
     m_color, m_spec, m_refl, m_refr, _ior, m_emit, m_sexp, m_sss = (
@@ -407,7 +412,7 @@ def _nee_mis_bounce(state, aux, scene: DeviceScene, iteration: int,
     wi = to_l * (1.0 / r)
     cos_s = torch.clamp(normal.dot(wi), min=0.0)
     cos_l = torch.clamp(-ln.dot(wi), min=0.0)
-    shadow = intersect_scene(p_hit, wi, scene)
+    shadow = intersect_scene(p_hit, wi, scene, use_bvh=settings.use_bvh)
     visible = (shadow.t < 0.0) | (shadow.t >= r - 1e-2)
 
     # Phong lobe pdf of the light direction (glossy lanes)
@@ -752,14 +757,13 @@ def whole_kernel(settings: RenderSettings,
     )
 
 
-def nee_kernel(settings: RenderSettings,
-               scene: DeviceScene | None = None) -> bool:
+def nee_kernel(settings: RenderSettings) -> bool:
     """Whether render_batch runs the whole-iteration NEE kernel #6 (the
-    JAX package's kernel_plan.nee_kernel, again without its body limit,
-    so many_materials --nee takes it too): --nee without motion blur, on
-    an analytic scene (--nee on a mesh scene is refused)."""
-    return (settings.nee_mis and not settings.motion_blur
-            and not (scene is not None and scene.mesh_geoms))
+    JAX package's kernel_plan.nee_kernel, without its body limit, so
+    many_materials --nee takes it too, and without its 80k-triangle cap,
+    a VMEM budget of the TPU: every mesh scene takes it): --nee without
+    motion blur."""
+    return settings.nee_mis and not settings.motion_blur
 
 
 def render_batch(scene: DeviceScene, cam: DeviceCamera, accum: Vec3,
@@ -768,17 +772,17 @@ def render_batch(scene: DeviceScene, cam: DeviceCamera, accum: Vec3,
                  tables: SceneTables | None = None) -> Vec3:
     """n_iters full samples added into accum (in place), starting at the
     1-based iteration id `iteration0`: the whole-iteration kernel when
-    `whole_kernel(settings, scene)`, the whole-iteration NEE kernel when
-    `nee_kernel(settings, scene)`, else the per-bounce path (the mesh
-    path on a mesh scene), with the first-bounce cache computed once per
-    batch from iteration0's pinhole rays. CPU tensors take the plain
-    versions throughout."""
+    `whole_kernel(settings, scene)`, the whole-iteration NEE kernel #6
+    when `nee_kernel(settings)` (on analytic and mesh scenes
+    alike), else the per-bounce path (the mesh path on a mesh scene), with
+    the first-bounce cache computed once per batch from iteration0's
+    pinhole rays. CPU tensors take the plain versions throughout."""
     _check_lighting(scene, settings)
     if whole_kernel(settings, scene):
         full_iteration(scene, cam, iteration0, settings, accum,
                        n_iters=n_iters, tables=tables)
         return accum
-    if nee_kernel(settings, scene):
+    if nee_kernel(settings):
         full_iteration_nee(scene, cam, iteration0, settings, accum,
                            n_iters=n_iters, tables=tables)
         return accum

@@ -20,7 +20,11 @@ from project3_cuda_path_tracer_tpu_torch.models.device import (
     camera_to_device,
     scene_to_device,
 )
-from project3_cuda_path_tracer_tpu_torch.models.scene import derive_camera, load_scene
+from project3_cuda_path_tracer_tpu_torch.models.scene import (
+    GeomType,
+    derive_camera,
+    load_scene,
+)
 from project3_cuda_path_tracer_tpu_torch.ops import megakernel
 from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
 from project3_cuda_path_tracer_tpu_torch.ops.sweep import intersect_scene
@@ -1768,5 +1772,177 @@ def test_surface_stage_renderer_on_cuda(cuda_device, name, settings_kw):
         assert got == [0, 1, 0, 8, 0]
     else:
         assert got == [1, 0, 1, 0, 0]
+    img = r.image()
+    assert np.isfinite(img).all() and img.max() > 0
+
+
+# ---- kernels #5 and #6 on mesh scenes: the BVH walks for the hit and the
+# shadow ray ----
+
+MESH_NEE = [
+    ("mesh.txt", {"antialias": True}),
+    ("mesh.txt", {"russian_roulette": True, "rr_start_depth": 1}),
+    ("mesh_textured.txt", {"antialias": True}),  # the quad's OBJ UVs
+    ("mesh_big.txt", {"antialias": True}),  # a geom of the big-mesh route
+    ("two_meshes", {"antialias": True}),  # two mesh geoms: the walks' loop
+]
+
+
+def _mesh_nee_scene(tmp_path, name):
+    """A scene of MESH_NEE at its file's resolution; "moving_mesh" is
+    mesh.txt with the icosphere moving (VELOCITY 2 0 0)."""
+    if name == "two_meshes":
+        return two_meshes(tmp_path)
+    scene = load_scene(os.path.join(SCENES, "mesh.txt" if name == "moving_mesh" else name))
+    if name == "moving_mesh":
+        scene.geoms.velocity[scene.geoms.gtype == GeomType.MESH] = (2.0, 0.0, 0.0)
+    return scene
+
+
+def _mesh_nee_setup(cuda_device, tmp_path, name, settings_kw):
+    scene = _mesh_nee_scene(tmp_path, name)
+    c = scene.state.camera
+    scene.state.camera = derive_camera(
+        (64, 64), c.position, c.look_at, np.array([0, 1, 0], np.float32),
+        float(c.fov[1]), c.aperture, c.focal_distance)
+    settings = RenderSettings(trace_depth=8, nee_mis=True, **settings_kw)
+    return (scene_to_device(scene, cuda_device),
+            camera_to_device(scene.state.camera, cuda_device), settings)
+
+
+@pytest.mark.parametrize("name,settings_kw", MESH_NEE)
+def test_nee_kernels_on_mesh_match_plain_on_cuda(cuda_device, tmp_path, name,
+                                                 settings_kw):
+    """The mesh instantiations of #6 (two iterations in one call against
+    two plain iterations summed in order, the NEE image rule) and of #5 (at
+    depths 0-2 and 3 with is_last, each from the plain version's own pool:
+    pix exactly, alive on at most 1% of lanes, the NEE lanes), at 64x64."""
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam, settings = _mesh_nee_setup(cuda_device, tmp_path, name, settings_kw)
+    assert ds.mesh_geoms
+    P = 64 * 64
+    accum = Vec3.zeros(P, cuda_device)
+    before = megakernel.full_iteration_nee.launches
+    megakernel.full_iteration_nee(ds, cam, 5, settings, accum, n_iters=2)
+    torch.cuda.synchronize()
+    assert megakernel.full_iteration_nee.launches == before + 1
+    want = Vec3.zeros(P, cuda_device)
+    for it in (5, 6):
+        for a, w in zip(want, megakernel.full_iteration_nee_reference(ds, cam, it, settings)):
+            a.add_(w)
+    assert_image_rule(accum, want, frac=0.03)
+    assert float(accum.x.max()) > 0
+    pool = _camera_pool(cam, 2, settings)
+    aux = (torch.zeros(P, device=cuda_device), torch.zeros(P, device=cuda_device))
+    before = megakernel.bounce_step_nee.launches
+    for depth, is_last in ((0, False), (1, False), (2, False), (3, True)):
+        want, want_aux = megakernel.bounce_step_nee_reference(
+            pool, aux, ds, 2, depth, settings, is_last)
+        lanes = [a.clone() for a in megakernel.pool_lanes(pool)]
+        start = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                 Vec3(*lanes[9:12]), lanes[12], lanes[13])
+        got, got_aux = megakernel.bounce_step_nee(start, tuple(a.clone() for a in aux),
+                                                  ds, 2, depth, settings, is_last)
+        torch.cuda.synchronize()
+        assert_nee_lanes_close(got, got_aux, want, want_aux)
+        pool, aux = want, want_aux
+    assert megakernel.bounce_step_nee.launches == before + 4
+
+
+def test_nee_step_on_moving_mesh_matches_plain_on_cuda(cuda_device, tmp_path):
+    """--nee --motion-blur on mesh.txt with the icosphere moving: #5's
+    mesh instantiation on the tables as `_trace_paths` re-packs them at
+    the iteration's shutter time (xf and inv only: the walks' object ray,
+    bound and world distance) against its plain version on the moved
+    geoms, at depths 0-2 and 3 with is_last (the lane rule above); then
+    Renderer.step_batch launches #5 once per depth and nothing else."""
+    from project3_cuda_path_tracer_tpu_torch.models.device import advance_time
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool, shutter_time
+
+    settings_kw = {"antialias": True, "motion_blur": True}
+    ds, cam, settings = _mesh_nee_setup(cuda_device, tmp_path, "moving_mesh", settings_kw)
+    it = 3
+    moved = advance_time(ds, shutter_time(it))
+    (g,) = ds.mesh_geoms
+    assert float(moved.transform[g][0, 3] - ds.transform[g][0, 3]) > 0.1
+    xf, inv = megakernel.pack_geom_tables(moved)
+    tables = megakernel.pack_scene_tables(ds, nee=True)._replace(xf=xf, inv=inv)
+    P = 64 * 64
+    pool = _camera_pool(cam, it, settings)
+    aux = (torch.zeros(P, device=cuda_device), torch.zeros(P, device=cuda_device))
+    before = megakernel.bounce_step_nee.launches
+    for depth, is_last in ((0, False), (1, False), (2, False), (3, True)):
+        want, want_aux = megakernel.bounce_step_nee_reference(
+            pool, aux, moved, it, depth, settings, is_last)
+        lanes = [a.clone() for a in megakernel.pool_lanes(pool)]
+        start = (Vec3(*lanes[0:3]), Vec3(*lanes[3:6]), Vec3(*lanes[6:9]),
+                 Vec3(*lanes[9:12]), lanes[12], lanes[13])
+        got, got_aux = megakernel.bounce_step_nee(start, tuple(a.clone() for a in aux),
+                                                  moved, it, depth, settings, is_last,
+                                                  tables=tables)
+        torch.cuda.synchronize()
+        assert_nee_lanes_close(got, got_aux, want, want_aux)
+        pool, aux = want, want_aux
+    assert megakernel.bounce_step_nee.launches == before + 4
+    others = (megakernel.full_iteration_nee, pipeline.mesh_candidates,
+              pipeline.mesh_sweep, pipeline.bounce_step_mesh)
+    r = Renderer(_mesh_nee_scene(tmp_path, "moving_mesh"), settings, device=cuda_device)
+    before = [f.launches for f in (megakernel.bounce_step_nee,) + others]
+    r.step_batch(2)
+    torch.cuda.synchronize()
+    got = [f.launches - b for f, b in zip((megakernel.bounce_step_nee,) + others, before)]
+    assert got == [2 * settings.trace_depth] + [0] * len(others)
+    img = r.image()
+    assert np.isfinite(img).all() and img.max() > 0
+
+
+def test_nee_route_bits_on_mesh_on_cuda(cuda_device, tmp_path):
+    """#6 and the #5 route (Renderer.step()'s trace) on mesh.txt from the
+    same camera rays: on the pixels whose camera ray the plain raygen
+    gives with the kernels' bits the radiance may differ only where a
+    float op of the two copies of the estimator rounds apart; held here
+    to the NEE image rule, and bit for bit on at least 95% of pixels."""
+    from project3_cuda_path_tracer_tpu_torch.render import _trace_nee
+
+    ds, cam, settings = _mesh_nee_setup(cuda_device, tmp_path, "mesh.txt",
+                                        {"antialias": True})
+    acc = Vec3.zeros(64 * 64, cuda_device)
+    megakernel.full_iteration_nee(ds, cam, 3, settings, acc)
+    radiance = _trace_nee(ds, cam, 3, settings, None, False)[0]
+    torch.cuda.synchronize()
+    assert_image_rule(acc, radiance, frac=0.03)
+    off = torch.zeros(64 * 64, dtype=torch.bool, device=cuda_device)
+    for g, c in zip(acc, radiance):
+        off |= g.view(torch.int32) != c.view(torch.int32)
+    assert float(off.float().mean()) <= 0.05
+
+
+@pytest.mark.parametrize("name", ["mesh.txt", "mesh_big.txt"])
+def test_mesh_nee_launches(cuda_device, name):
+    """--nee on a mesh scene: step_batch runs #6 once per run of up to
+    ITERATIONS_PER_LAUNCH iterations, step() #5 once per depth, and no
+    mesh pipeline kernel (#7-#10, A-D) runs."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+
+    wrappers = (megakernel.bounce_step_nee, megakernel.full_iteration_nee)
+    others = (megakernel.full_iteration, megakernel.first_bounce,
+              megakernel.bounce_step, megakernel.shade_step,
+              pipeline.mesh_candidates, pipeline.mesh_sweep,
+              pipeline.bounce_step_mesh, pipeline.intersect_mesh,
+              pipeline.super_keys, pipeline.place_entries, pipeline.window_sweep,
+              pipeline.merge_entries)
+    r = Renderer(small(name, (64, 48)),
+                 RenderSettings(trace_depth=8, nee_mis=True, antialias=True),
+                 device=cuda_device)
+    before = [f.launches for f in wrappers + others]
+    for _ in range(3):
+        r.step()
+    r.step_batch(3)
+    torch.cuda.synchronize()
+    got = [f.launches - b for f, b in zip(wrappers + others, before)]
+    assert got == [24, 1] + [0] * len(others)
+    assert int(r.last_alive_counts[-1]) == 0
     img = r.image()
     assert np.isfinite(img).all() and img.max() > 0

@@ -175,16 +175,16 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
     "name,settings_kw,what",
     [("textured.txt", {"tri_axis": "tri"}, "triangle sharding"),
      ("cornell_sss.txt", {"sort_by_material": True}, "material sort"),
-     ("mesh_textured.txt", {"nee_mis": True}, "mesh"),
+     ("mesh_textured.txt", {"sort_by_material": True}, "material sort"),
      ("cornell.txt", {"tri_axis": "tri"}, "triangle sharding"),
      ("cornell.txt", {"sort_by_material": True}, "material sort"),
-     ("mesh.txt", {"nee_mis": True}, "mesh")],
+     ("mesh.txt", {"tri_axis": "tri"}, "triangle sharding")],
 )
 def test_unported_features_raise(name, settings_kw, what):
     """A setting the port does not render yet (triangle sharding,
-    material sort, --nee on a mesh scene: the mesh tables of #5 and #6) is
-    refused with its ROADMAP item, by the renderer and by the kernel
-    wrapper itself, on the surface-stage scenes as on the others."""
+    material sort) is refused with its ROADMAP item, by the renderer and
+    by the kernel wrapper itself, on the surface-stage and mesh scenes as
+    on the others."""
     scene = small(tscene, name, (8, 8))
     settings = trender.RenderSettings(**settings_kw)
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):

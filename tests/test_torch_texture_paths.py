@@ -90,7 +90,7 @@ def test_whole_iteration_kernels_match_jax_xla(name, kw):
     versions on CPU tensors, over two iterations."""
     jd, td, jc, tc = both_surface_scenes(name)
     tset, jset = settings_pair(kw)
-    assert trender.whole_kernel(tset, td) or trender.nee_kernel(tset, td)
+    assert trender.whole_kernel(tset, td) or trender.nee_kernel(tset)
     accum = TVec3.zeros(P, "cpu")
     trender.render_batch(td, tc, accum, 4, 2, tset)
     want = sum(jax_trace(jd, jc, it, jset)[0] for it in (4, 5))

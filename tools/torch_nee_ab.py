@@ -21,7 +21,12 @@ counters):
 - (g), (i): the same two scenes, #5 at every depth of one iteration from
   the camera pool (plain `generate_rays`, aux at zeros), each depth's
   input given to both wrappers: every value of the 16 lanes (pool and
-  aux) compared, and each side's slots dead on entry against the input.
+  aux) compared, and each side's slots dead on entry against the input;
+- on mesh scenes (the mesh instantiations, which walk the binary BVH):
+  (aa) mesh.txt 800x800 depth 8 AA --nee, #6 over 25 iterations; (ab)
+  the same scene, #5 as on (g); (ac) mesh_big.txt 800x800 AA, #6 over 25
+  iterations. `--paths` picks some (all by default; a checkout from
+  before the mesh instantiations refuses the mesh paths).
 
 Then it times both in turns (other, this, this, other) under
 torch.profiler: the device time of the kernels whose names hold the
@@ -49,6 +54,9 @@ PATHS = {  # label -> (scene, settings, kernel, iterations)
     "h": ("many_materials.txt", {"russian_roulette": True}, "full_iteration_nee", 40),
     "g": ("cornell.txt", {"antialias": True}, "bounce_step_nee", 1),
     "i": ("many_materials.txt", {"russian_roulette": True}, "bounce_step_nee", 1),
+    "aa": ("mesh.txt", {"antialias": True}, "full_iteration_nee", 25),
+    "ab": ("mesh.txt", {"antialias": True}, "bounce_step_nee", 1),
+    "ac": ("mesh_big.txt", {"antialias": True}, "full_iteration_nee", 25),
 }
 ORDER = ("other", "this", "this", "other")
 
@@ -190,7 +198,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, help="another checkout of the repository")
     ap.add_argument("--out", help="write the results here as JSON")
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="comma-separated labels of the paths to run (default: all)")
     args = ap.parse_args()
+    labels = args.paths.split(",")
+    if not set(labels) <= set(PATHS):
+        ap.error(f"--paths: known labels are {', '.join(PATHS)}")
 
     import torch
 
@@ -204,7 +217,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     results = []
-    for label, (name, kw, kernel, n) in PATHS.items():
+    for label in labels:
+        name, kw, kernel, n = PATHS[label]
         if kernel == "full_iteration_nee":
             row = full_iteration_ab(ports, dev, label, name, kw, n)
         else:
