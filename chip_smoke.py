@@ -55,7 +55,15 @@ mesh_critter, mesh_stream, each loaded once) against the XLA goldens
 (tools/goldens/smoke_128.npz) through `Renderer.step_batch` and through
 `Renderer.step()`, and the four again under the radix route through
 `step_batch` (mesh_big through `step()` too): all 21 configs of
-tools/smoke_pallas.py; drives the main path
+tools/smoke_pallas.py; holds the material sort (--sort-materials) at
+every depth of an iteration on Cornell, many_materials, mesh.txt and
+mesh_big at 64x64 and 800x800 (`material_sort_check`: per depth one #7,
+one #10, #8 and A-D on the meshes, one radix_split digit pass and one
+#4; the sorted pool and hits exactly those of a stable torch.sort of the
+keys; #7 -> #10 on the analytic scenes against plain intersect_scene; #4
+on the sorted pool bit for bit the sorted #4 output) and renders the 18
+configs without --nee under it against their goldens through
+`step_batch` and `step()`; drives the main path
 (Cornell 800x800, depth 8, AA,
 progressive) through `Renderer.step_batch` and times it, drives and
 times the other paths at their scenes' own size, depth 8 (Cornell AA
@@ -79,14 +87,21 @@ mesh.txt through `step_batch` (#6 on MeshOf), (ab) through `step()` (#5),
 with the instantiations' plain times, bounds (the plain path's masks and
 the nodes and triangles of the kernels' own walks, `mesh_walk_work`) and
 ptxas usage on the
-`mesh_nee` line), times the dense BVH
+`mesh_nee` line), the sorted cells (af) Cornell, (ag) many_materials
+1920x1080 RR, (ah) mesh.txt, (ai) mesh_big and (aj) Cornell --compact
+under --sort-materials through `step_batch`, with the sort's own device
+ms a depth beside one stable torch.sort of the same keys and the
+gathers' (`material_sort_cells`), times the dense BVH
 walk on mesh_big as a yardstick (the routing threshold raised here only), reads each kernel's
 device time from torch.profiler beside its plain version's time (for
 #1 and #6 over the same run of iterations as the kernel's launch), its
 bound and, where one PyTorch call computes the same function, that
 call's time (and the --direct-lighting final step's own time), and
-renders through the CLI (Cornell plain, --compact, --nee; mesh.txt, also --nee;
-mesh_big.txt, and again with PT_TPU_SORT_RADIX=1). It also times #1 at
+renders through the CLI (Cornell plain, --compact, --nee,
+--sort-materials and --stats --profile DIR, whose stages and Chrome trace
+it checks; mesh.txt, also --nee and --sort-materials; mesh_big.txt, and
+again with PT_TPU_SORT_RADIX=1; the ten processes at once). Each phase
+line ends with its seconds since the start (`at_s`). It also times #1 at
 1x, 2x and 4x the main path's pixels, prints #1's lane use with one
 thread per pixel (from the plain path lengths), #6's lane use with one
 thread per pixel against its persistent warps' model and #5's
@@ -211,6 +226,11 @@ KERNEL_SYMBOLS.update({
     k: re.compile(re.escape(f"{w}_kernel") + (r".*MeshOf.*TexTables" if "surface" in k
                                                else r".*MeshOf(?!.*TexTables)"))
     for k, (w, _) in MESH_NEE_KERNELS.items()})
+# the material sort (--sort-materials): radix_split's digit pass by
+# material over the slot iota, timed on (af), its library call a stable
+# torch.sort of the same keys
+SORT_KERNELS = {"radix_split@material": ("radix_split", "sort_cornell")}
+KERNEL_SYMBOLS["radix_split@material"] = KERNEL_SYMBOLS["radix_split@pass"]
 NO_LAUNCHES = {k: 0 for k in KERNELS}
 # image rule of tests/test_megakernel.py:143-145 (seam-tie outliers only)
 PARITY_BAD = 1e-3
@@ -252,6 +272,9 @@ NEE_PARITY_FRAC = 0.03
 # ITERATIONS_PER_LAUNCH is held at 64x64, and at the main NEE path's
 # 800x800 where its plain time is taken)
 NEE_RUN_800 = 4
+# the depth of that run at 64x64 on every NEE config but the first (its
+# plain iterations, summed in order, set the cost)
+NEE_RUN_DEPTH = 4
 # lane rule of tests/test_megakernel.py:57-76 for alive: at most 1% of
 # lanes may differ (seam ties, RR draws at p_survive); pix exactly
 ALIVE_FRAC = 0.01
@@ -293,8 +316,12 @@ MESH_PARITY = [
     {"russian_roulette": True, "stratified": True},
     {"compact": True},
 ]
+# their depths at 800x800 (the plain walks, one launch sequence per node
+# step of the slowest lane, set the phase's time; all 8 at 64x64)
+MESH_PARITY_DEPTH_800 = 4
 LANE_ATOL = 1e-4
 LANE_FRAC = 0.01
+ISECT_NORMAL_ATOL = 1e-3
 CAND_FRAC = 0.001
 # the surface stage's twins against their plain versions, at 64x64 and
 # 800x800: #1 (the image rule, bit for bit against #2 -> #3), #2, #3, #4
@@ -310,11 +337,11 @@ SURFACE_NEE = [("textured.txt", {"antialias": True}),
 SURFACE_MESH = [{}, {"antialias": True}]
 # the NEE kernels' mesh instantiations against their plain versions (the
 # NEE rule; #6 over one iteration): (scene, resolution, depth), AA; the
-# big meshes' small configs at depth 4 (their plain BVH walks take nearly
-# as many lock-step node steps a depth at 64x64 as at 800x800)
+# big meshes at depth 4 (their plain BVH walks take nearly as many
+# lock-step node steps a depth at 64x64 as at 800x800)
 MESH_NEE_PARITY = [("mesh.txt", (64, 64), 8), ("mesh.txt", (800, 800), 8),
                    ("mesh_textured.txt", (64, 64), 8), ("mesh_big.txt", (64, 64), 4),
-                   ("mesh_big.txt", (800, 800), 8), ("mesh_stream.txt", (128, 128), 4)]
+                   ("mesh_big.txt", (800, 800), 4), ("mesh_stream.txt", (128, 128), 4)]
 # iterations of #6's profiled launch on the mesh --nee paths (its plain
 # version, whose BVH walks take one launch sequence per node step, is
 # timed over the same)
@@ -391,8 +418,13 @@ OPS_RADIX = 12  # per element of a split: the digit, the warp match and
 OPS_UNSCATTER = 2  # per entry of the unscatter: the id and the address
 
 
+T0 = time.perf_counter()
+
+
 def say(phase: str, **kv) -> None:
-    print(f"[{phase}] " + json.dumps(kv), flush=True)
+    """One phase's line, with the seconds since the script started."""
+    print(f"[{phase}] " + json.dumps(dict(kv, at_s=round(time.perf_counter() - T0, 1))),
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1120,14 +1152,14 @@ def hit_lanes(h):
             h.has_uv]
 
 
-def mesh_parity(dev, kw, res, iteration=2, name="mesh.txt"):
+def mesh_parity(dev, kw, res, iteration=2, name="mesh.txt", depth=8):
     """#7-#10 on a mesh scene at every depth of one iteration, each from the
     plain version's own inputs (the pool after the plain #9 of the depth
     before): #7's analytic hits on the lanes it processed and its
     candidate set (the listed lanes must be exactly its flagged ones), #8
     on the candidates, #9 on the pool (pix exactly), #10 on every lane of
-    the intersect route. Returns ({kernel: (worst lane share, max_abs_err)},
-    the share of lanes whose candidacy differs)."""
+    the intersect route; depths 0..depth-1. Returns ({kernel: (worst lane
+    share, max_abs_err)}, the share of lanes whose candidacy differs)."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
@@ -1139,7 +1171,7 @@ def mesh_parity(dev, kw, res, iteration=2, name="mesh.txt"):
         _maybe_compact,
     )
 
-    ds, cam, settings = on_card(dev, name, kw, res)
+    ds, cam, settings = on_card(dev, name, kw, res, depth=depth)
     P = res[0] * res[1]
     pool = _camera_pool(cam, iteration, settings)
     worst = {k: (0.0, 0.0) for k in MESH_KERNELS[:4]}
@@ -2088,6 +2120,177 @@ def mesh_cache_parity(dev, res, iteration=2):
     return compare(mk.pool_lanes(got), mk.pool_lanes(want)) + (int(isect.has_uv.sum()),)
 
 
+def material_sort_check(dev, ds, cam, tables, iteration=2, D=8):
+    """The material sort on the card at every depth of one iteration driven
+    by the kernels (`_sorted_bounce`'s steps, AA): the depth's launches
+    (one #7 and one #10, #8 and A-D on a mesh scene, one radix_split digit
+    pass per 8 key bits, one #4, and nothing else); the sorted pool and
+    Intersections exactly those permuted by a stable torch.sort of the
+    keys; on an analytic scene #7 -> #10 against plain `intersect_scene`
+    by the lane rule; #4 on the sorted pool bit for bit the sorted #4
+    output of the unsorted pool. Returns ((worst lane share, max_abs_err)
+    of #7 -> #10, or None on a mesh scene; the launches of one depth)."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.ops.sweep import intersect_scene
+    from project3_cuda_path_tracer_tpu_torch.render import (
+        RenderSettings,
+        _camera_pool,
+        _maybe_sort_by_material,
+        _permute_isect,
+        _permute_state,
+        intersect_scene_any,
+        material_key_bits,
+        material_keys,
+    )
+
+    settings = RenderSettings(trace_depth=D, antialias=True, sort_by_material=True)
+    bits = material_key_bits(ds)
+    n_sorted = len(pl.sorted_geoms(ds))
+    want_l = dict(NO_LAUNCHES, mesh_candidates=1, intersect_mesh=1, shade_step=1,
+                  radix_split=len(pl.radix_passes(bits)))
+    if ds.mesh_geoms:
+        want_l.update(mesh_sweep=1, **dict.fromkeys(SORTED_KERNELS, n_sorted))
+        if pl.SORT_RADIX:
+            raise RuntimeError("material_sort_check runs the counting route")
+    pool = _camera_pool(cam, iteration, settings)
+    worst = (0.0, 0.0)
+    for depth in range(D):
+        reset_launches()
+        isect = intersect_scene_any(pool[0], pool[1], ds, settings, alive=pool[4],
+                                    tables=tables)
+        state, sisect = _maybe_sort_by_material(pool, isect, ds, settings)
+        got = mk.shade_step(state, sisect, ds, iteration, depth, settings, tables=tables)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != want_l:
+            raise RuntimeError(f"sorted depth {depth}: launches {launches}, expected {want_l}")
+        perm = torch.sort(material_keys(pool, isect, bits), stable=True).indices
+        for g, w in zip(mk.pool_lanes(state) + hit_lanes(sisect),
+                        mk.pool_lanes(_permute_state(pool, perm))
+                        + hit_lanes(_permute_isect(isect, perm))):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"material sort at depth {depth}: the permuted "
+                                   "pool differs from a stable torch.sort's")
+        if not ds.mesh_geoms:
+            r = isect_rule(isect, intersect_scene(pool[0], pool[1], ds))
+            worst = tuple(max(a, b) for a, b in zip(worst, r))
+        base = mk.shade_step(pool, isect, ds, iteration, depth, settings, tables=tables)
+        for g, w in zip(mk.pool_lanes(got), mk.pool_lanes(_permute_state(base, perm))):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"shade_step on the sorted pool at depth {depth} "
+                                   "differs from the sorted shade_step output")
+        pool = got
+    return (None if ds.mesh_geoms else worst), {k: v for k, v in want_l.items() if v}
+
+
+def isect_rule(got, want):
+    """(worst share of lanes off, max_abs_err) of two Intersections by the
+    rule for hit distances of tests/test_torch_ops.py: t within 1e-5 +
+    1e-5 |t| (world distances reach ~30), the normal within 1e-3 (a t an
+    ulp-scale apart moves a sphere hit's point and so its normal by more
+    than 1e-4 near grazing), material, side and UVs exactly; each share
+    held to LANE_FRAC by the caller."""
+    shares, err = [], 0.0
+    for g, w, tol in zip(hit_lanes(got), hit_lanes(want),
+                         [None] + [ISECT_NORMAL_ATOL] * 3 + [0.0] * 5):
+        d = (g.double() - w.double()).abs()
+        if tol is None:
+            tol = 1e-5 + 1e-5 * w.double().abs()
+        shares.append(float((d > tol).float().mean()))
+        err = max(err, float(d.max()))
+    return max(shares), err
+
+
+def device_ms_by_name(fn, n, top=6) -> dict:
+    """The device ms per call of fn() (n calls under torch.profiler) of
+    its `top` costliest device events, by name (cut to 60 characters)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    agg = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            agg[e.name[:60]] = agg.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / n / 1e3
+    return dict(sorted(agg.items(), key=lambda kv: -kv[1])[:top])
+
+
+def sort_costs(r, it=7, n=20) -> dict:
+    """On a sorted cell's Renderer, the pool entering depth 1 of iteration
+    `it` (after the kernels' depth 0) and its Intersections: device ms per
+    call (the profiler's busy time over n calls) of the material sort (the
+    keys, the digit counts and the radix_split pass), of one stable
+    torch.sort of the same keys (the library call) and of the 23 gathers
+    of the pool and its hits; the sort's costliest device events by name;
+    the plain split's ms; the split's bound."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.render import (
+        _camera_pool,
+        _permute_isect,
+        _permute_state,
+        _sorted_bounce,
+        intersect_scene_any,
+        material_key_bits,
+        material_keys,
+    )
+
+    ds, settings, tables = r.dev_scene, r.settings, r.tables
+    pool = _sorted_bounce(_camera_pool(r.dev_camera, it, settings), ds, it, 0, settings,
+                          tables=tables)
+    isect = intersect_scene_any(pool[0], pool[1], ds, settings, alive=pool[4], tables=tables)
+    bits = material_key_bits(ds)
+    key = material_keys(pool, isect, bits)
+    perm = pl.sort_permutation(key, bits).long()
+    P = key.shape[0]
+
+    def sorts():
+        for _ in range(n):
+            pl.sort_permutation(material_keys(pool, isect, bits), bits)
+
+    def library():
+        for _ in range(n):
+            torch.sort(key, stable=True)
+
+    def gathers():
+        for _ in range(n):
+            _permute_state(pool, perm)
+            _permute_isect(isect, perm)
+
+    sort_busy, sort_kernels, _, sort_events = profile_device(sorts, n)
+    by_name = device_ms_by_name(sorts, n)
+    lib_busy = profile_device(library, n)[0]
+    gather_busy = profile_device(gathers, n)[0]
+    count = torch.full((1,), P, dtype=torch.int32, device=key.device)
+    iota = torch.arange(P, dtype=torch.int32, device=key.device).view(1, P)
+
+    def plain_sort():
+        k, payload = key, iota
+        for shift, width in pl.radix_passes(bits):
+            st = pl.radix_split_reference(pl.RadixSplit(k, count, shift, width=width),
+                                          payload)
+            k, payload = st.key, st.payload
+
+    plain = event_ms(plain_sort, 3)
+    passes = len(pl.radix_passes(bits))
+    return {"sort_ms": sort_busy, "split_ms": sort_kernels.get("radix_split@pass"),
+            "sort_device_events": sort_events, "sort_ms_by_event": by_name,
+            "torch_sort_ms": lib_busy,
+            "gathers_ms": gather_busy, "plain_split_ms": plain, "key_bits": bits,
+            "passes": passes, "live_lanes": int((key != (1 << bits) - 1).sum()),
+            # per pass: each key and payload word read once, written once
+            "bound": bound(16 * P * passes, OPS_RADIX * P * passes)}
+
+
 def surface_work(dev, it=7, D=8):
     """The plain versions' times and the bounds of the surface stage's
     twins at their paths' shapes (phase 6): textured.txt 800x800 d8 AA
@@ -2357,9 +2560,15 @@ def main(argv=None) -> int:
             # launch of ITERATIONS_PER_LAUNCH at 64x64)
             r6 = (0.0, 0.0, 0.0)
             for n in (1, mk.ITERATIONS_PER_LAUNCH if res == (64, 64) else NEE_RUN_800):
-                r = full_nee_parity(dev, name, kw, res, glossy, n_iters=n)
-                check_parity("full_iteration_nee", dict(what, iterations=n), *r,
-                             max_frac=NEE_PARITY_FRAC)
+                # the run of ITERATIONS_PER_LAUNCH at depth NEE_RUN_DEPTH but
+                # on the first config (its plain iterations set the cost)
+                depth = (NEE_RUN_DEPTH if n == mk.ITERATIONS_PER_LAUNCH
+                         and (name, kw, glossy) != NEE_PARITY[0] else 8)
+                setup = on_card(dev, name, dict(kw, nee_mis=True), res, depth=depth,
+                                glossy=glossy)
+                r = full_nee_parity(dev, name, kw, res, glossy, n_iters=n, setup=setup)
+                check_parity("full_iteration_nee", dict(what, iterations=n, depth=depth),
+                             *r, max_frac=NEE_PARITY_FRAC)
                 r6 = tuple(max(a, b) for a, b in zip(r6, r))
             *r5, alive_frac = bounce_nee_parity(dev, name, kw, res, glossy)
             check_parity("bounce_step_nee",
@@ -2390,9 +2599,10 @@ def main(argv=None) -> int:
     # kernels line is the mesh path's (AA, 800x800)
     for res in ((64, 64), (800, 800)):
         for kw in MESH_PARITY:
-            worst, cand_off = mesh_parity(dev, kw, res)
+            depth = 8 if res == (64, 64) else MESH_PARITY_DEPTH_800
+            worst, cand_off = mesh_parity(dev, kw, res, depth=depth)
             what = {"config": "mesh.txt", "settings": kw,
-                    "res": f"{res[0]}x{res[1]}"}
+                    "res": f"{res[0]}x{res[1]}", "depths": depth}
             say("mesh_parity", **what, candidate_mismatch=cand_off,
                 candidate_rule=f"<={CAND_FRAC}", pix="exact",
                 lanes={k: {"outlier_share": w, "max_abs_err": e}
@@ -2711,6 +2921,79 @@ def main(argv=None) -> int:
             if badfrac > GOLDEN_FRAC:
                 raise RuntimeError(f"{name} --nee via {route}: badfrac {badfrac} > {GOLDEN_FRAC}")
 
+    # ---- 4b. the material sort (--sort-materials): per depth #7 [-> #8 ->
+    # A-D] -> #10, a radix_split digit pass by material, #4 over the
+    # sorted pool ----
+    # the pieces at every depth of an iteration driven by the kernels, at
+    # 64x64 and 800x800 (the big-mesh scene from `big`)
+    for name in ("cornell.txt", "many_materials.txt", "mesh.txt", "mesh_big.txt"):
+        for res in ((64, 64), (800, 800)):
+            t0 = time.perf_counter()
+            if name in big:
+                ds_s, tables_s = big[name].dev_scene, big[name].tables
+                cam_s = camera_to_device(camera_at(big[name].scene.state.camera, res), dev)
+            else:
+                ds_s, cam_s, _ = on_card(dev, name, {}, res)
+                tables_s = mk.pack_scene_tables(ds_s)
+            isect_r, per_depth = material_sort_check(dev, ds_s, cam_s, tables_s)
+            say("material_sort_check", config=name, res=f"{res[0]}x{res[1]}",
+                settings={"antialias": True, "sort_by_material": True}, depths=8,
+                launches_per_depth=per_depth,
+                permutation="exactly a stable torch.sort of the keys (pool and hits)",
+                shade_step_on_sorted_pool="bit-identical to the sorted unsorted output",
+                analytic_intersect=None if isect_r is None else {
+                    "kernels": "mesh_candidates -> intersect_mesh (no mesh geom)",
+                    "against": "plain intersect_scene", "outlier_share": isect_r[0],
+                    "max_abs_err": isect_r[1],
+                    "rule": (f"share(t: |d|>1e-5+1e-5|t|; normal: |d|>{ISECT_NORMAL_ATOL}; "
+                             f"material, side, UVs: d!=0)<={LANE_FRAC}")},
+                seconds=time.perf_counter() - t0)
+            if isect_r is not None and isect_r[0] > LANE_FRAC:
+                raise RuntimeError(f"#7 -> #10 on {name} off plain intersect_scene on "
+                                   f"{isect_r[0]:.2%} of lanes")
+    # the smoke configs without --nee (and the four big-mesh scenes) under
+    # --sort-materials against their goldens, through step_batch and step():
+    # no whole-iteration, first-bounce, bounce or mesh-bounce kernel runs
+    not_sorted = ("full_iteration", "first_bounce", "bounce_step", "bounce_step_mesh",
+                  "full_iteration_nee", "bounce_step_nee")
+    sort_runs = [(name, kw, key) for name, kw, key in SMOKE if not kw.get("nee_mis")]
+    sort_runs += [(name, {}, name) for name in BIG_SCENES]
+    for name, kw, key in sort_runs:
+        for route in ("step_batch", "step"):
+            if name in big:
+                r = big[name]
+                r.settings = settings = RenderSettings(trace_depth=8, sort_by_material=True)
+                r.set_camera(r.camera)
+            else:
+                scene = small_scene(name, (128, 128))
+                settings = RenderSettings(trace_depth=min(scene.state.trace_depth or 8, 8),
+                                          sort_by_material=True, **kw)
+                r = Renderer(scene, settings, device=dev)
+            reset_launches()
+            if route == "step":
+                r.step()
+                r.step()
+            else:
+                r.step_batch(2)
+            torch.cuda.synchronize()
+            got_l = read_launches()
+            per_depth = 2 * settings.trace_depth
+            if any(got_l[k] for k in not_sorted) or got_l["shade_step"] != per_depth \
+                    or got_l["radix_split"] != per_depth:
+                raise RuntimeError(f"{key} sorted via {route}: launches {got_l}")
+            img = r.image()
+            if not (np.isfinite(img).all() and img.max() > 0):
+                raise RuntimeError(f"{name} sorted: non-finite or black render")
+            diff = np.abs(np.clip(img / 2, 0.0, 1.0) - goldens[key].astype(np.float32))
+            badfrac = float((diff > GOLDEN_BAD).mean())
+            say("golden", config=key, settings=dict(kw, sort_by_material=True), route=route,
+                badfrac=badfrac, mad=float(diff.mean()), rule=f"badfrac<={GOLDEN_FRAC}")
+            if badfrac > GOLDEN_FRAC:
+                raise RuntimeError(f"{key} sorted via {route}: badfrac {badfrac} > "
+                                   f"{GOLDEN_FRAC}")
+    for name in BIG_SCENES:
+        big[name].settings = RenderSettings(trace_depth=8)
+
     # ---- 5. the main path at full size: Cornell 800x800 d8 AA, step_batch ----
     scene = load_scene(os.path.join(HERE, "scenes", "cornell.txt"))
     pixels = scene.state.camera.pixel_count
@@ -2851,7 +3134,24 @@ def main(argv=None) -> int:
          {"antialias": True, "nee_mis": True}, "step_batch"),
         ("mesh_textured_nee_step", "mesh_textured.txt", None,
          {"antialias": True, "nee_mis": True}, "step"),
+        # --sort-materials: per depth #7 [-> #8 -> A-D] -> #10, the
+        # material sort's radix_split digit pass, #4 over the sorted pool;
+        # (af) Cornell, (ag) many_materials 1920x1080 RR (32 materials),
+        # (ah) mesh.txt, (ai) mesh_big (the counting route), (aj) Cornell
+        # with --compact
+        ("sort_cornell", "cornell.txt", None,
+         {"antialias": True, "sort_by_material": True}, "step_batch"),
+        ("sort_many_materials", "many_materials.txt", None,
+         {"russian_roulette": True, "sort_by_material": True}, "step_batch"),
+        ("sort_mesh", "mesh.txt", None, {"antialias": True, "sort_by_material": True},
+         "step_batch"),
+        ("sort_big_mesh", "mesh_big.txt", None,
+         {"antialias": True, "sort_by_material": True}, "step_batch"),
+        ("sort_compact", "cornell.txt", None,
+         {"antialias": True, "sort_by_material": True, "compact": True}, "step_batch"),
     ]
+    sort_paths = ("sort_cornell", "sort_many_materials", "sort_mesh", "sort_big_mesh",
+                  "sort_compact")
     mesh_nee_paths = ("mesh_nee", "big_mesh_nee", "mesh_textured_nee")
     radix_paths = ("big_mesh_radix", "bunny_radix")
     # #3 once a depth: (a)-(e)
@@ -2877,16 +3177,27 @@ def main(argv=None) -> int:
                 -(-n // mk.ITERATIONS_PER_LAUNCH) for n in calls))
         cached = settings.effective_cache()
         bounces = D - 2 if settings.direct_lighting else D - 1
-        if not mesh:
-            return dict(NO_LAUNCHES, first_bounce=0 if cached else n_it,
-                        bounce_step=n_it * bounces,
-                        shade_step=n_it if cached else 0)
-        # depth 0 through the pipeline too, or #4 over the cache, filled
-        # through #7 -> #8 -> #10 once per batch (once in all by step());
-        # --direct-lighting's final step intersects twice the same way
+        # the cache filled through #7 [-> #8 -> A-D] -> #10 once per batch
+        # (once in all by step()); --direct-lighting's final step
+        # intersects twice the same way (#7 -> #10 on an analytic scene)
         fills = (n_calls if route == "step_batch" else 1) if cached else 0
         isects = fills + (2 * n_it if settings.direct_lighting else 0)
         shaded = n_it * (bounces + (0 if cached else 1))
+        if settings.sort_by_material:
+            # every depth but a cached depth 0 intersects; every depth
+            # sorts (one digit pass up to 255 materials) and runs #4
+            walks = isects + shaded
+            out = dict(NO_LAUNCHES, mesh_candidates=walks, intersect_mesh=walks,
+                       shade_step=n_it * (bounces + 1), radix_split=n_it * (bounces + 1))
+            if mesh:
+                out.update(mesh_sweep=walks, **dict.fromkeys(SORTED_KERNELS, n_sorted * walks))
+            return out
+        if not mesh:
+            return dict(NO_LAUNCHES, first_bounce=0 if cached else n_it,
+                        bounce_step=n_it * bounces,
+                        shade_step=n_it if cached else 0,
+                        mesh_candidates=isects, intersect_mesh=isects)
+        # depth 0 through the pipeline too, or #4 over the cache
         walks = isects + shaded
         out = dict(NO_LAUNCHES, mesh_candidates=walks, mesh_sweep=walks,
                    bounce_step_mesh=shaded, intersect_mesh=isects,
@@ -2979,6 +3290,11 @@ def main(argv=None) -> int:
         if name in BIG_SCENES:
             by_depth += SORTED_KERNELS + ("window_sweep_stream", "radix_split@compaction",
                                           "radix_split@pass", "radix_unscatter")
+        if label in sort_paths:
+            by_depth = ("mesh_candidates", "intersect_mesh", "shade_step") + tuple(
+                k for k in by_depth if k not in ("mesh_candidates", "bounce_step_mesh"))
+            if name not in BIG_SCENES:
+                by_depth += ("radix_split@pass",)
         busy, kernel_ms_of[label], seen, events = profile_device(
             lambda: run(n_prof), n_prof, by_depth=by_depth)
         frame_ms_of[label], busy_of[label] = ms, busy
@@ -3035,6 +3351,35 @@ def main(argv=None) -> int:
     finally:
         pl.SORT_SUPER_MIN_TRIS = threshold
         r.tables = mk.pack_scene_tables(r.dev_scene)
+
+    # the sorted cells (af)-(aj): each beside its unsorted counterpart
+    # ((c)'s #4, (j)'s #7), and the sort's own device ms a depth (keys,
+    # digit counts, the split) beside one stable torch.sort of the same
+    # keys and the gathers', on the pool entering depth 1
+    sort_cells = {}
+    for label, name, _, kw, route in paths:
+        if label not in sort_paths:
+            continue
+        settings = RenderSettings(trace_depth=D, **kw)
+        rs = (big_renderer(name, settings) if name in big else
+              Renderer(load_scene(os.path.join(HERE, "scenes", name)), settings, device=dev))
+        costs = sort_costs(rs)
+        kms = kernel_ms_of[label]
+        sort_cells[label] = dict(
+            scene=name, settings=kw, res="x".join(map(str, rs.camera.resolution)),
+            ms_per_frame=frame_ms_of[label], device_busy_ms_per_iteration=busy_of[label],
+            device_idle_share=max(0.0, 1.0 - busy_of[label] / frame_ms_of[label]),
+            launches=launches_of[label],
+            shade_step_ms=kms.get("shade_step"), intersect_mesh_ms=kms.get("intersect_mesh"),
+            mesh_candidates_ms=kms.get("mesh_candidates"), mesh_sweep_ms=kms.get("mesh_sweep"),
+            split_ms_per_depth=kms.get("radix_split@pass@depth"), **costs)
+    say("material_sort_cells", device=smi, depth=D, cells=sort_cells,
+        unsorted={"cache_shade_step_ms": kernel_ms_of["cache"].get("shade_step"),
+                  "mesh_mesh_candidates_ms": kernel_ms_of["mesh"].get("mesh_candidates"),
+                  "cornell_step_batch_busy_ms": main_busy,
+                  "step_busy_ms": busy_of["step"], "mesh_busy_ms": busy_of["mesh"],
+                  "big_mesh_busy_ms": busy_of["big_mesh"]},
+        bound_by="16 B and OPS_RADIX operations per key and pass")
 
     # ---- 7. the plain versions and the bounds at the main path's shapes ----
     settings = RenderSettings(trace_depth=D, antialias=True)
@@ -3432,6 +3777,11 @@ def main(argv=None) -> int:
     # sweep).
     library = {name: big_library.get(name) for name in KERNELS}
     library["radix_split"] = big_library["sort"]
+    # the material sort's digit pass on (af): held exactly (material_sort_check)
+    for k, (wname, label) in SORT_KERNELS.items():
+        c = sort_cells[label]
+        timing[k] = (kernel_ms_of[label][k], c["plain_split_ms"], launches_of[label][wname])
+        bounds[k], library[k], err800[k] = c["bound"], c["torch_sort_ms"], 0.0
     # the surface stage's twins: their plain versions and bounds at their
     # paths' shapes (surface_work), their device ms per launch and launches
     # from their paths of phase 6 (no single PyTorch call computes a bounce)
@@ -3515,29 +3865,54 @@ def main(argv=None) -> int:
                    ("mesh_textured_nee", "mesh_textured.txt", "step_batch"),
                    ("mesh_textured_nee_step", "mesh_textured.txt", "step"))})
 
-    # ---- 8. the CLI: Cornell plain, with --compact and with --nee; mesh.txt,
-    # also with --nee; mesh_big.txt (the sorted route) ----
-    for name, extra, env in (("cornell.txt", [], {}), ("cornell.txt", ["--compact"], {}),
-                             ("cornell.txt", ["--nee"], {}), ("mesh.txt", [], {}),
-                             ("mesh.txt", ["--nee"], {}),
-                             ("mesh_big.txt", [], {}),
-                             ("mesh_big.txt", [], {"PT_TPU_SORT_RADIX": "1"})):
+    # ---- 8. the CLI: Cornell plain, with --compact, --nee, --sort-materials
+    # and --stats --profile; mesh.txt, also with --nee and --sort-materials;
+    # mesh_big.txt (the sorted route), also with PT_TPU_SORT_RADIX=1. The
+    # processes run at once (the kernels are built), each checked alone ----
+    prof_dir = os.path.join(tmpdir, "cli_profile")
+    runs = [("cornell.txt", [], {}), ("cornell.txt", ["--compact"], {}),
+            ("cornell.txt", ["--nee"], {}), ("cornell.txt", ["--sort-materials"], {}),
+            ("cornell.txt", ["--stats", "--profile", prof_dir], {}),
+            ("mesh.txt", [], {}), ("mesh.txt", ["--nee"], {}),
+            ("mesh.txt", ["--sort-materials"], {}), ("mesh_big.txt", [], {}),
+            ("mesh_big.txt", [], {"PT_TPU_SORT_RADIX": "1"})]
+    t0 = time.perf_counter()
+    procs = []
+    for name, extra, env in runs:
         out_dir = tempfile.mkdtemp(prefix="cli_", dir=tmpdir)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        procs.append((out_dir, subprocess.Popen(
             [sys.executable, "-m", PKG, os.path.join(HERE, "scenes", name),
              "--iterations", "50", "--out-dir", out_dir, *extra],
-            cwd=HERE, capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, **env),
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"CLI {extra} exited {proc.returncode}: "
-                               f"{proc.stderr[-3000:]}")
-        pngs = [f for f in os.listdir(out_dir) if f.endswith(".50samp.png")]
-        if len(pngs) != 1:
-            raise RuntimeError(f"CLI {extra} wrote {os.listdir(out_dir)}")
-        say("cli", scene=name, flags=extra, env=env, rc=proc.returncode, png=pngs[0],
-            seconds=time.perf_counter() - t0)
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, **env))))
+    try:
+        for (name, extra, env), (out_dir, proc) in zip(runs, procs):
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"CLI {name} {extra} exited {proc.returncode}: {err[-3000:]}")
+            pngs = [f for f in os.listdir(out_dir) if f.endswith(".50samp.png")]
+            if len(pngs) != 1:
+                raise RuntimeError(f"CLI {extra} wrote {os.listdir(out_dir)}")
+            extra_kv = {}
+            if "--stats" in extra:
+                stages = re.findall(r"stage (\w+) +([\d.]+) ms", err)
+                alive = re.search(r"alive rays per bounce \(iter 1\): (\[.*\])", err)
+                traces = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+                if [k for k, _ in stages] != ["raygen", "intersect_sweep", "shade",
+                                              "full_iteration", "bounce_kernel"] \
+                        or alive is None or len(traces) != 1:
+                    raise RuntimeError(f"CLI --stats/--profile: stages {stages}, "
+                                       f"alive {alive}, traces {traces}: {err[-3000:]}")
+                extra_kv = {"alive_per_bounce": json.loads(alive.group(1)),
+                            "stage_ms": {k: float(v) for k, v in stages},
+                            "trace_mb": os.path.getsize(os.path.join(prof_dir, traces[0])) / 2**20}
+            say("cli", scene=name, flags=extra, env=env, rc=proc.returncode, png=pngs[0],
+                seconds_all_at_once=time.perf_counter() - t0, **extra_kv)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     shutil.rmtree(tmpdir, ignore_errors=True)
 
     say("total", seconds=time.perf_counter() - t_start)
@@ -3546,6 +3921,7 @@ def main(argv=None) -> int:
     entries = [(name, *KERNELS[name]) for name in KERNELS]
     entries += [(twin, *KERNELS[wname]) for twin, (wname, _) in SURFACE_KERNELS.items()]
     entries += [(k, *KERNELS[wname]) for k, (wname, _) in MESH_NEE_KERNELS.items()]
+    entries += [(k, *KERNELS[wname]) for k, (wname, _) in SORT_KERNELS.items()]
     for name, source, replaces in entries:
         ms, p_ms, launches = timing[name]
         b_ms, b_by = bounds[name]

@@ -3,7 +3,10 @@
 The same argument surface as the JAX package's CLI, plus `--device`
 (default `cuda`; the CPU renders with the plain PyTorch path only when
 asked with `--device cpu`). A flag whose feature is not ported yet fails
-with a message naming its ROADMAP item, as does a scene that needs one.
+with a message naming its module of ROADMAP §1, as does a scene that
+needs one. `--stats` logs the alive curve and the stage breakdown
+(utils/profiling.py) before the render; `--profile DIR` writes a
+torch.profiler Chrome trace of the render into DIR.
 """
 
 from __future__ import annotations
@@ -15,22 +18,20 @@ import time
 
 from .models.scene import load_scene, scene_summary
 from .render import Renderer, RenderSettings
+from .utils import profiling
 
 log = logging.getLogger("pathtracer")
 
-# flag (argparse dest) -> (flag, ROADMAP item that ports it)
+# flag (argparse dest) -> (flag, the module of ROADMAP §1 that ports it)
 UNPORTED_FLAGS = {
-    "sort_materials": ("--sort-materials", "port slice 6 (material sort)"),
-    "shard": ("--shard", "port slice 6 (sharding)"),
-    "preview": ("--preview", "port slice 6 (viewer)"),
-    "stats": ("--stats", "port slice 6 (profiling)"),
-    "profile": ("--profile", "port slice 6 (profiling)"),
-    "debug": ("--debug", "port slice 6 (CLI remainder)"),
-    "debug_nans": ("--debug-nans", "port slice 6 (CLI remainder)"),
+    "shard": ("--shard", "§1 module 4 (sharding)"),
+    "preview": ("--preview", "§1 module 5 (the viewer)"),
+    "debug": ("--debug", "§1 module 5 (the CLI remainder)"),
+    "debug_nans": ("--debug-nans", "§1 module 5 (the CLI remainder)"),
     "no_pallas": (
         "--no-pallas",
         "the device picks the path (use --device cpu for the plain "
-        "PyTorch path); port slice 6 (CLI remainder)",
+        "PyTorch path); §1 module 5 (the CLI remainder)",
     ),
 }
 
@@ -78,10 +79,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None, help="resume from / save to .npz")
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--preview", action="store_true")
-    p.add_argument("--profile", default=None)
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the render into DIR")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--debug-nans", action="store_true")
-    p.add_argument("--stats", action="store_true")
+    p.add_argument("--stats", action="store_true",
+                   help="log the alive rays per bounce and the stage times first")
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("-v", "--verbose", action="store_true")
     return p
@@ -102,6 +105,7 @@ def settings_from_args(args, scene) -> RenderSettings:
         depth_of_field=args.dof,
         russian_roulette=args.russian_roulette,
         rr_start_depth=args.rr_start_depth,
+        sort_by_material=args.sort_materials,
         compact=args.compact,
         cache_first_bounce=args.cache_first_bounce,
         direct_lighting=args.direct_lighting,
@@ -136,14 +140,8 @@ def main(argv=None) -> int:
         return 1
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        import torch
-
-        torch.cuda.synchronize(device)
-
-
 def _run(args) -> int:
+    import contextlib
     import os
 
     refuse_unported(args)
@@ -164,6 +162,53 @@ def _run(args) -> int:
 
     target = args.iterations if args.iterations is not None else scene.state.iterations
 
+    with contextlib.ExitStack() as stack:
+        prof = _start_profile(args.profile, renderer.device, stack)
+        if args.stats:
+            _log_stats(renderer)
+        _render(args, renderer, settings, target)
+    if prof is not None:
+        path = os.path.join(args.profile, f"trace.{renderer.start_time_string}.json")
+        prof.export_chrome_trace(path)
+        log.info("profile written to %s", path)
+
+    path = renderer.save(out_dir=args.out_dir)
+    log.info("saved %s", path)
+    if args.hdr:
+        log.info("saved %s", renderer.save(out_dir=args.out_dir, hdr=True))
+    if args.checkpoint:
+        renderer.save_checkpoint(args.checkpoint)
+    return 0
+
+
+def _start_profile(out_dir, device, stack):
+    """A torch.profiler session over the rest of the render (the JAX
+    package's jax.profiler.start_trace), entered on `stack`; None without
+    --profile."""
+    if not out_dir:
+        return None
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return stack.enter_context(profile(activities=activities))
+
+
+def _log_stats(renderer) -> None:
+    """--stats: one step() and its live rays after each depth, then each
+    stage's time (the JAX package's cli.py:266-279)."""
+    log.info("alive rays per bounce (iter %d): %s", renderer.iteration + 1,
+             profiling.alive_curve(renderer).tolist())
+    for stage, secs in profiling.stage_breakdown(renderer, reps=3).items():
+        log.info("stage %-16s %8.3f ms", stage, 1e3 * secs)
+
+
+def _render(args, renderer, settings, target) -> None:
+    """Step in batches to `target`, logging Mrays/s and checkpointing."""
     t0 = time.perf_counter()
     last_t, last_iter = t0, renderer.iteration
     last_ckpt_iter = renderer.iteration
@@ -175,7 +220,7 @@ def _run(args) -> int:
         renderer.step_batch(n)
         it = renderer.iteration
         if args.log_every and (it % args.log_every == 0 or it >= target):
-            _sync(renderer.device)
+            profiling.sync(renderer.device)
             now = time.perf_counter()
             dt = now - last_t
             n_done = it - last_iter
@@ -195,17 +240,9 @@ def _run(args) -> int:
             renderer.save_checkpoint(args.checkpoint)
             last_ckpt_iter = it
 
-    _sync(renderer.device)
+    profiling.sync(renderer.device)
     total = time.perf_counter() - t0
     log.info("rendered %d spp in %.2fs", renderer.iteration, total)
-
-    path = renderer.save(out_dir=args.out_dir)
-    log.info("saved %s", path)
-    if args.hdr:
-        log.info("saved %s", renderer.save(out_dir=args.out_dir, hdr=True))
-    if args.checkpoint:
-        renderer.save_checkpoint(args.checkpoint)
-    return 0
 
 
 if __name__ == "__main__":

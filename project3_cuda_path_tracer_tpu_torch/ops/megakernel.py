@@ -177,10 +177,9 @@ def _refuse(what: str, module: int):
 def check_supported(scene: DeviceScene, settings) -> None:
     """Raise NotImplementedError, naming the module of ROADMAP §1 that
     queues it, for a scene or setting that the port does not render yet:
-    material sort and triangle sharding. The check is the same on every
-    device: the CPU path never renders what the card cannot."""
+    triangle sharding. The check is the same on every device: the CPU path
+    never renders what the card cannot."""
     refusals = [
-        (settings.sort_by_material, "material sort", 3),
         (settings.tri_axis is not None, "triangle sharding", 4),
     ]
     for needed, what, module in refusals:
@@ -732,8 +731,10 @@ def shade_step(state, isect, scene: DeviceScene, iteration: int, depth: int,
                settings, tables: SceneTables | None = None):
     """The shading half of a bounce over `isect` (ops.intersect.
     Intersections in pool order), returned as a new pool; pix passes
-    through. CPU: the plain version; CUDA: one launch, counted in
-    `shade_step.launches`."""
+    through, and each lane draws its numbers by its own pix, so a pool
+    permuted together with its Intersections (the material sort) shades
+    to the same permutation of the same lanes. CPU: the plain version;
+    CUDA: one launch, counted in `shade_step.launches`."""
     check_supported(scene, settings)
     device = state[5].device
     if device.type == "cpu":

@@ -60,8 +60,15 @@ and one unscatter of C's results to [slot, j] before D.
 
 The chains: `bounce_step_pipeline` is #7 -> #8 [-> A -> B -> C -> D per
 big geom] -> #9 (one bounce of the mesh path), `intersect_pipeline` #7 ->
-#8 [-> A-D] -> #10 (the first-bounce cache fill and --direct-lighting's
-two intersect calls).
+#8 [-> A-D] -> #10 (`render.intersect_scene_any`: the first-bounce cache
+fill, --direct-lighting's two intersect calls and every depth under
+--sort-materials). On a scene without mesh geoms `intersect_pipeline` is
+#7 -> #10: #7 sweeps the analytic geoms over empty mesh tables (no lane
+is a candidate) and #8 and the big-mesh route have no work.
+
+The material sort (`sort_permutation`) is a new use of `radix_split`:
+one stable digit pass per 8 bits of the key (one pass up to 255
+materials) over the slot iota, its digit counts from `digit_counts`.
 
 On CUDA tensors a wrapper launches its hand-written kernel
 (csrc/mesh.cu, sorted.cu or radix.cu, built by ops/_native.py) or raises; on CPU tensors, and
@@ -744,9 +751,18 @@ def radix_digit_counts(key: torch.Tensor, length: torch.Tensor, shift: int,
     """A digit pass's `hist`, plain: how many of the stream's keys at [0,
     length) hold each value of the digit (key >> shift) & (2**width - 1),
     (RADIX_DIGITS,) int32 (zeros past 2**width)."""
-    k = key[:int(length[0])].to(torch.int64)
-    return torch.bincount((k >> shift) & ((1 << width) - 1),
-                          minlength=RADIX_DIGITS).to(torch.int32)
+    return digit_counts(key[:int(length[0])], shift, width)
+
+
+def digit_counts(key: torch.Tensor, shift: int, width: int) -> torch.Tensor:
+    """A digit pass's `hist` over the whole of a non-negative key (L,):
+    how many keys hold each value of the digit (key >> shift) & (2**width
+    - 1), (RADIX_DIGITS,) int32, zeros past 2**width. `radix_digit_counts`
+    without its length, so no host sync: a histogram of unit bins (exact
+    for any count below 2**24)."""
+    digit = (key >> shift) & ((1 << width) - 1)
+    return torch.histc(digit.to(torch.float32), bins=RADIX_DIGITS, min=0,
+                       max=RADIX_DIGITS).to(torch.int32)
 
 
 def radix_split_reference(sp: RadixSplit, payload: torch.Tensor,
@@ -806,8 +822,12 @@ def radix_unsplit_reference(stream: RadixStream, results: torch.Tensor) -> torch
 # ---- launch plumbing -------------------------------------------------------
 
 def _mesh_tables(scene: DeviceScene, tables, device):
-    """(tables, table pointers, mesh pointers) for the mesh kernels."""
+    """(tables, table pointers, mesh pointers) for the mesh kernels; on a
+    scene without mesh geoms the mesh pointers are NULL (empty mesh
+    tables: the kernels read them for none of their n_mesh = 0 geoms)."""
     t, tptr = _tables_for(scene, tables, device)
+    if not scene.mesh_geoms:
+        return t, tptr, _ptrs([None] * 7)
     check_mesh_tables(t, scene, device)
     return t, tptr, _ptrs(list(t.mesh))
 
@@ -1451,6 +1471,28 @@ def radix_sort_stream(stream: RadixStream, bits: int,
     return stream
 
 
+def sort_permutation(key: torch.Tensor, bits: int) -> torch.Tensor:
+    """The stable sort of a non-negative int32 key (P,) below 2**bits, as
+    the permutation that gathers it: perm (P,) int32 with key[perm]
+    ascending and equal keys in slot order, i.e. `torch.sort(key,
+    stable=True).indices` element for element. One `radix_split` digit
+    pass per `radix_passes(bits)` (LSB first; one up to 8 bits), its
+    payload the slot iota, its counts `digit_counts`. CPU: the plain
+    splits; CUDA: one launch per pass (each with its own zeroed scratch),
+    no host sync."""
+    P = key.shape[0]
+    device = key.device
+    count = torch.full((1,), P, dtype=torch.int32, device=device)
+    payload = torch.arange(P, dtype=torch.int32, device=device).view(1, P)
+    key = key.to(torch.int32).contiguous()
+    for shift, width in radix_passes(bits):
+        sp = RadixSplit(key, count, shift, width=width,
+                        hist=digit_counts(key, shift, width))
+        st = radix_split(sp, payload)
+        key, payload = st.key, st.payload
+    return payload[0]
+
+
 def radix_window_sweep(sk: SuperKeys, count: torch.Tensor, scene: DeviceScene,
                        g: int, tables: SceneTables | None = None) -> EntryHits:
     """C's results at [slot, j] by the radix route (the JAX package's
@@ -1517,10 +1559,12 @@ def bounce_step_pipeline(state, scene: DeviceScene, iteration: int,
 def intersect_pipeline(origins: Vec3, dirs: Vec3, alive, scene: DeviceScene,
                        tables: SceneTables | None = None,
                        use_bvh: bool = True) -> Intersections:
-    """`intersect_scene` for a mesh scene through #7 -> #8 -> the sorted
-    route -> #10 (the JAX package's `intersect_pipeline`): the same
-    Intersections contract, dead lanes (`alive`, None for all alive) with
-    their analytic hit."""
+    """`intersect_scene` through #7 -> #8 -> the sorted route -> #10 (the
+    JAX package's `intersect_pipeline`): the same Intersections contract,
+    dead lanes (`alive`, None for all alive) with their analytic hit. On a
+    scene without mesh geoms #7 -> #10 alone: no lane is a candidate, so
+    #10 takes every lane's analytic hit (no UVs) and never reads the mesh
+    hit lanes, which are left unwritten on CUDA."""
     if tables is None and scene.device.type == "cuda":
         tables = pack_scene_tables(scene)
     # contiguous once here, not once in each of #7 and #8
@@ -1528,6 +1572,11 @@ def intersect_pipeline(origins: Vec3, dirs: Vec3, alive, scene: DeviceScene,
     dirs = Vec3(*(a.contiguous() for a in dirs))
     cands = mesh_candidates(origins, dirs, alive, scene, all_lanes=True,
                             tables=tables)
+    P = origins.x.shape[0]
+    if not scene.mesh_geoms:
+        hits = (_miss(P, scene.device) if scene.device.type == "cpu"
+                else _new_hits(P, scene.device))
+        return intersect_mesh(cands, hits)
     hits = mesh_sweep(origins, dirs, cands, scene, tables=tables,
                       use_bvh=use_bvh)
     sorted_mesh_merge(origins, dirs, cands, hits, scene, tables=tables)

@@ -22,6 +22,14 @@ has these tiers here, as in the JAX package:
   the same compaction, cache (#4 over `intersect_scene_any`'s depth 0),
   motion blur, RR and QMC as the analytic path; `render_batch` takes it
   on a mesh scene but under --nee (#1 sweeps analytic geoms only);
+- --sort-materials (the JAX package's `_maybe_sort_by_material`): at every
+  depth `intersect_scene_any` (#7 -> [#8 -> A-D ->] #10), a stable sort of
+  the pool and its Intersections by material (`_maybe_sort_by_material`:
+  a `radix_split` digit pass, #15 + #16, over the slot iota; dead lanes
+  last), then shade_step (#4) over the sorted pool; from plain
+  `generate_rays` at depth 0, or from the first-bounce cache, which stays
+  in pixel order (the sort permutes a copy). It never reaches #1, #2, #3,
+  #6 or #9; --nee refuses it (ValueError), as the JAX package does;
 - --direct-lighting (final-bounce NEE): the per-bounce path for depths
   0..D-2, then `_nee_final_step` at depth D-1 (one shadow ray to a
   sampled light point from each diffuse lane, RNG stream 254). That step
@@ -43,8 +51,9 @@ has these tiers here, as in the JAX package:
   --nee takes precedence over --direct-lighting and refuses compaction
   and the first-bounce cache (ValueError), as the JAX package does.
 Between the kernels runs only the glue the JAX package runs in XLA: the
-compaction permutation, the alive sums, the radiance scatter
-(`index_add_`), and the per-iteration re-pack of the moved transforms.
+compaction permutation, the material sort's keys, digit counts and
+gathers, the alive sums, the radiance scatter (`index_add_`), and the
+per-iteration re-pack of the moved transforms.
 
 Every wrapper launches its hand-written kernel on CUDA tensors and runs
 its plain PyTorch version on CPU tensors, so the same functions render
@@ -86,7 +95,7 @@ from .ops.megakernel import (
     pack_scene_tables,
     shade_step,
 )
-from .ops.pipeline import bounce_step_pipeline, intersect_pipeline
+from .ops.pipeline import bounce_step_pipeline, intersect_pipeline, sort_permutation
 from .ops.sweep import intersect_scene
 from .ops.texture import apply_textures, env_radiance
 from .ops.vec import Vec3, take as vtake, where as vwhere
@@ -98,7 +107,7 @@ class RenderSettings:
     """Runtime toggles; the same fields and defaults as the JAX
     package's RenderSettings. Fields of later slices are kept so that a
     setting the port does not render yet is refused by name
-    (megakernel.check_supported). `use_bvh` selects the plain path's
+    (megakernel.check_supported: `tri_axis`). `use_bvh` selects the plain path's
     mesh traversal (the BVH walk, or the naive sweep over every
     triangle); the mesh kernel always walks the BVH, as the JAX package's
     Pallas pipeline ignores the flag. `use_pallas` selects nothing: the
@@ -250,16 +259,16 @@ _HALF_INV_PI = 0.5 / math.pi
 def intersect_scene_any(origins: Vec3, dirs: Vec3, scene: DeviceScene,
                         settings: RenderSettings, alive=None,
                         tables: SceneTables | None = None) -> Intersections:
-    """`intersect_scene`, through the mesh pipeline (#7 -> #8 [-> the
-    sorted route A-D] -> #10, ops/pipeline.py::intersect_pipeline) on a
-    mesh scene on CUDA, as the JAX package's `intersect_scene_any` swaps
-    in its Pallas pipeline; everywhere else (analytic scenes, the CPU) plain `intersect_scene`
-    with `settings.use_bvh`. `alive` (None: all alive) marks the lanes the
-    pipeline tests for meshes; dead lanes keep their analytic hit."""
-    if scene.mesh_geoms and scene.device.type == "cuda":
-        return intersect_pipeline(origins, dirs, alive, scene, tables=tables,
-                                  use_bvh=settings.use_bvh)
-    return intersect_scene(origins, dirs, scene, use_bvh=settings.use_bvh)
+    """`intersect_scene` through the mesh pipeline (#7 -> #8 [-> the
+    sorted route A-D] -> #10, ops/pipeline.py::intersect_pipeline), as the
+    JAX package's `intersect_scene_any` swaps in its Pallas pipeline; on an
+    analytic scene #7 -> #10 (no candidate). On the CPU the same chain's
+    plain versions (#8's walk with `settings.use_bvh`), which on an
+    analytic scene equal plain `intersect_scene` exactly. `alive` (None:
+    all alive) marks the lanes the pipeline tests for meshes; dead lanes
+    keep their analytic hit."""
+    return intersect_pipeline(origins, dirs, alive, scene, tables=tables,
+                              use_bvh=settings.use_bvh)
 
 
 def _nee_final_step(state, scene: DeviceScene, iteration: int,
@@ -498,6 +507,63 @@ def _permute_state(state, perm: torch.Tensor):
     )
 
 
+def _permute_isect(isect: Intersections, perm: torch.Tensor) -> Intersections:
+    return Intersections(
+        t=isect.t[perm],
+        normal=vtake(isect.normal, perm),
+        material_id=isect.material_id[perm],
+        outside=isect.outside[perm],
+        tex_u=isect.tex_u[perm],
+        tex_v=isect.tex_v[perm],
+        has_uv=isect.has_uv[perm],
+    )
+
+
+def material_key_bits(scene: DeviceScene) -> int:
+    """The bits of the material sort's key: bit_length(n_materials), so
+    that the dead key 2**bits - 1 lies above every material id (6 bits for
+    many_materials' 32)."""
+    return max(1, scene.mat_color.x.shape[0].bit_length())
+
+
+def material_keys(state, isect: Intersections, bits: int) -> torch.Tensor:
+    """The sort key of each lane: its material id where it is alive and
+    hit something, else the dead key 2**bits - 1 (the JAX package's
+    INT32_MAX, in as few bits), (P,) int32."""
+    live = (state[4] != 0) & (isect.t > 0)
+    return torch.where(live, isect.material_id, (1 << bits) - 1).to(torch.int32)
+
+
+def _maybe_sort_by_material(state, isect: Intersections, scene: DeviceScene,
+                            settings: RenderSettings):
+    """Permute the pool and its Intersections so that lanes of one
+    material are contiguous, dead lanes last (INSTRUCTION.md:80-86; the JAX
+    package's `_maybe_sort_by_material`). The permutation is its stable
+    argsort element for element: `sort_permutation` (a `radix_split` digit
+    pass, #15 + #16, over the slot iota on CUDA; the plain split on the
+    CPU). The 23 gathers are PyTorch glue. No host sync."""
+    if not settings.sort_by_material:
+        return state, isect
+    bits = material_key_bits(scene)
+    perm = sort_permutation(material_keys(state, isect, bits), bits).to(torch.int64)
+    return _permute_state(state, perm), _permute_isect(isect, perm)
+
+
+def _sorted_bounce(state, scene: DeviceScene, iteration: int, depth: int,
+                   settings: RenderSettings, num_alive=None,
+                   tables: SceneTables | None = None):
+    """One bounce under --sort-materials (the JAX package's `one_bounce`
+    with sort): intersect the pool (`intersect_scene_any`), sort it with
+    its Intersections by material, shade it (#4). Returns the new pool in
+    the sorted order. `num_alive` is not used: the whole pool is shaded,
+    as there."""
+    isect = intersect_scene_any(state[0], state[1], scene, settings,
+                                alive=state[4], tables=tables)
+    state, isect = _maybe_sort_by_material(state, isect, scene, settings)
+    return shade_step(state, isect, scene, iteration, depth, settings,
+                      tables=tables)
+
+
 def _maybe_compact(state, settings: RenderSettings):
     """Stream compaction: live lanes packed to the front (stable), so
     bounce_step can skip every lane at or past the live count - the
@@ -634,7 +700,10 @@ def trace_paths(
     first-bounce cache, then bounce_step (#3) for depths 1..D-1, with
     compaction between bounces. On a mesh scene every bounce is the mesh
     pipeline (#7 -> #8 [-> A-D] -> #9), depth 0 from plain
-    `generate_rays`, and the cache fill runs `intersect_scene_any`. Under --direct-lighting the
+    `generate_rays`, and the cache fill runs `intersect_scene_any`. Under
+    --sort-materials every bounce is `_sorted_bounce` (intersect, sort,
+    #4), depth 0 from plain `generate_rays` or the cache (sorted as a
+    copy). Under --direct-lighting the
     last depth is `_nee_final_step` instead; under --nee every depth is
     bounce_step_nee (#5), from plain `generate_rays` (`_trace_nee`).
 
@@ -644,7 +713,7 @@ def trace_paths(
     their transforms are re-packed). Returns (radiance Vec3, pix (P,),
     depth-0 Intersections, alive_counts (D,) int32 on the device, or
     None when neither `count_alive` nor compaction needs them). pix
-    tracks the pool permutation of compaction."""
+    tracks the pool permutation of compaction and of the material sort."""
     _check_lighting(scene, settings)
     if settings.motion_blur:
         # one shutter-time sample per iteration: move the geoms, re-pack
@@ -659,7 +728,9 @@ def trace_paths(
         return _trace_nee(scene, cam, iteration, settings, tables, count_alive)
     device = scene.device
     mesh = bool(scene.mesh_geoms)
-    bounce = bounce_step_pipeline if mesh else bounce_step
+    sort = settings.sort_by_material
+    bounce = (_sorted_bounce if sort
+              else bounce_step_pipeline if mesh else bounce_step)
 
     if settings.effective_cache():
         # depth 0 from the cached (or freshly computed) intersections of
@@ -668,11 +739,12 @@ def trace_paths(
         isect0 = cache if use_cache else intersect_scene_any(
             state[0], state[1], scene, settings, tables=tables)
         cache_out = isect0
+        state, isect0 = _maybe_sort_by_material(state, isect0, scene, settings)
         state = shade_step(state, isect0, scene, iteration, 0, settings,
                            tables=tables)
-    elif mesh:
-        # the JAX package's mesh route: plain camera rays, then the mesh
-        # pipeline from depth 0
+    elif mesh or sort:
+        # the JAX package's mesh route (and its sorted route): plain camera
+        # rays, then the pipeline (or intersect, sort, #4) from depth 0
         state = bounce(_camera_pool(cam, iteration, settings), scene,
                        iteration, 0, settings, tables=tables)
         cache_out = _empty_cache(state[5].shape[0], device)
@@ -733,7 +805,7 @@ def render_iteration(
         scene, cam, iteration, cache, settings, use_cache, tables=tables,
         count_alive=count_alive,
     )
-    if settings.compact:
+    if settings.sort_by_material or settings.compact:
         _scatter_add(accum, pix, radiance)
     else:
         for a, r in zip(accum, radiance):  # pool slot == pixel
@@ -749,6 +821,7 @@ def whole_kernel(settings: RenderSettings,
     mesh `scene`."""
     return not (
         (scene is not None and scene.mesh_geoms)
+        or settings.sort_by_material
         or settings.compact
         or settings.effective_cache()
         or settings.motion_blur

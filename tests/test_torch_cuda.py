@@ -1946,3 +1946,198 @@ def test_mesh_nee_launches(cuda_device, name):
     assert int(r.last_alive_counts[-1]) == 0
     img = r.image()
     assert np.isfinite(img).all() and img.max() > 0
+
+
+# ---- the material sort (--sort-materials): #7 -> [#8 -> A-D ->] #10, a
+# radix_split digit pass, #4 over the sorted pool ----
+
+def test_analytic_intersect_kernels_match_plain_on_cuda(cuda_device):
+    """#7 -> #10 on scenes without mesh geoms (empty mesh tables, no
+    candidate, #8 skipped) against plain `intersect_scene`, by the rule
+    for hit distances (on 99% of lanes: t relative, the normal within
+    1e-3, material and side exactly): Cornell, many_materials and env at 64x64 and 800x800, every lane
+    and a third dead (dead lanes keep their analytic hit)."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    for name, res in (("cornell.txt", (64, 64)), ("many_materials.txt", (64, 64)),
+                      ("env.txt", (64, 64)), ("cornell.txt", (800, 800))):
+        ds, cam, settings = _setup(cuda_device, name, {"antialias": True}, res)
+        pool = _camera_pool(cam, 2, settings)
+        want = intersect_scene(pool[0], pool[1], ds)
+        alive = (torch.arange(res[0] * res[1], device=cuda_device) % 3 != 0).to(torch.int32)
+        for a in (None, alive):
+            before = [pipeline.mesh_candidates.launches, pipeline.mesh_sweep.launches,
+                      pipeline.intersect_mesh.launches]
+            got = pipeline.intersect_pipeline(pool[0], pool[1], a, ds)
+            torch.cuda.synchronize()
+            assert [pipeline.mesh_candidates.launches, pipeline.mesh_sweep.launches,
+                    pipeline.intersect_mesh.launches] == [before[0] + 1, before[1],
+                                                          before[2] + 1]
+            # tests/test_torch_ops.py's rule for hit distances on 99% of
+            # lanes: t within 1e-5 + 1e-5 |t| (world distances reach ~30);
+            # the normal within 1e-3 (a t an ulp-scale apart moves a
+            # sphere hit's point, so its normal, by more than 1e-4 near
+            # grazing); material and side exactly
+            close = (got.t - want.t).abs() <= 1e-5 + 1e-5 * want.t.abs()
+            assert float(close.float().mean()) >= 0.99
+            assert_lane_rule(list(got.normal), list(want.normal), atol=1e-3)
+            assert_lane_rule([got.material_id, got.outside], [want.material_id, want.outside],
+                             atol=0.0)
+            assert float(((got.t > 0) != (want.t > 0)).float().mean()) <= 0.001
+            assert not got.has_uv.any() and not got.tex_u.any()
+            assert torch.equal(got.material_id >= 0, got.t > 0)
+
+
+@pytest.mark.parametrize("bits", [3, 6, 9])
+@pytest.mark.parametrize("n", [64 * 64, 800 * 800, 1920 * 1080])
+def test_material_permutation_is_stable_sort_on_cuda(cuda_device, bits, n):
+    """`sort_permutation` (one radix_split digit pass per 8 key bits over
+    the slot iota) equals a stable torch.sort's indices element for
+    element, dead keys (all ones) on a third of the lanes, with no host
+    sync."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+
+    rng = np.random.default_rng(bits + n)
+    dead = (1 << bits) - 1
+    key = rng.integers(0, dead, n).astype(np.int32)
+    key[rng.random(n) < 0.33] = dead
+    key = torch.tensor(key, device=cuda_device)
+    before = pipeline.radix_split.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        perm = pipeline.sort_permutation(key, bits)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert pipeline.radix_split.launches - before == len(pipeline.radix_passes(bits))
+    assert torch.equal(perm.long(), torch.sort(key, stable=True).indices)
+
+
+@pytest.mark.parametrize("name", ["cornell_glass.txt", "many_materials.txt"])
+def test_shade_step_on_permuted_pool_on_cuda(cuda_device, name):
+    """#4 on a permuted pool with its permuted Intersections is bit for
+    bit the same permutation of #4 on the unpermuted pool (RNG keyed on
+    pix), the sort's own permutation and a random one."""
+    from project3_cuda_path_tracer_tpu_torch.render import (
+        _camera_pool,
+        _maybe_sort_by_material,
+        _permute_isect,
+        _permute_state,
+        intersect_scene_any,
+    )
+
+    ds, cam, settings = _setup(cuda_device, name, {"russian_roulette": True,
+                                                  "rr_start_depth": 0,
+                                                  "antialias": True})
+    sort = RenderSettings(trace_depth=8, russian_roulette=True, rr_start_depth=0,
+                          antialias=True, sort_by_material=True)
+    pool = megakernel.shade_step(_camera_pool(cam, 3, settings),
+                                 intersect_scene_any(*_camera_pool(cam, 3, settings)[:2],
+                                                     ds, settings), ds, 3, 0, settings)
+    isect = intersect_scene_any(pool[0], pool[1], ds, settings, alive=pool[4])
+    base = megakernel.shade_step(pool, isect, ds, 3, 1, settings)
+    _, sorted_isect = _maybe_sort_by_material(pool, isect, ds, sort)
+    key = torch.where((pool[4] != 0) & (isect.t > 0), isect.material_id, 2**31 - 1)
+    for perm in (torch.sort(key, stable=True).indices,
+                 torch.randperm(pool[5].shape[0], device=cuda_device)):
+        got = megakernel.shade_step(_permute_state(pool, perm), _permute_isect(isect, perm),
+                                    ds, 3, 1, settings)
+        want = _permute_state(base, perm)
+        torch.cuda.synchronize()
+        for g, w in zip(megakernel.pool_lanes(got), megakernel.pool_lanes(want)):
+            assert torch.equal(g, w)
+    assert torch.equal(sorted_isect.material_id, isect.material_id[
+        torch.sort(key, stable=True).indices])
+
+
+@pytest.mark.parametrize("name,settings_kw,counts", [
+    # (#7, #8, #10, #4, radix_split) over 2 step() + step_batch(2), depth 8
+    ("cornell.txt", {"antialias": True}, [32, 0, 32, 32, 32]),
+    ("cornell.txt", {"compact": True}, [32, 0, 32, 32, 32]),
+    # the cache: depth 0 from it, filled by the first step() and once per batch
+    ("cornell.txt", {"cache_first_bounce": True}, [30, 0, 30, 32, 32]),
+    # direct lighting: 7 sorted bounces, then the final step's two intersects
+    ("cornell.txt", {"direct_lighting": True}, [36, 0, 36, 28, 28]),
+    ("many_materials.txt", {"russian_roulette": True}, [32, 0, 32, 32, 32]),
+    ("mesh.txt", {"antialias": True}, [32, 32, 32, 32, 32]),
+])
+def test_sorted_path_launches_on_cuda(cuda_device, name, settings_kw, counts):
+    """Under --sort-materials every depth is #7 [-> #8] -> #10, one
+    radix_split digit pass and #4; no #1, #2, #3, #5, #6 or #9; a sorted
+    bounce makes no host sync; the image is the unsorted path's by the
+    image rule."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool, _sorted_bounce
+
+    wrappers = (pipeline.mesh_candidates, pipeline.mesh_sweep, pipeline.intersect_mesh,
+                megakernel.shade_step, pipeline.radix_split)
+    others = (megakernel.full_iteration, megakernel.first_bounce,
+              megakernel.bounce_step, megakernel.bounce_step_nee,
+              megakernel.full_iteration_nee, pipeline.bounce_step_mesh)
+    scene = small(name, (64, 48))
+    imgs = []
+    for sort in (True, False):
+        r = Renderer(scene, RenderSettings(trace_depth=8, sort_by_material=sort,
+                                           **settings_kw), device=cuda_device)
+        before = [f.launches for f in wrappers + others]
+        r.step()
+        r.step()
+        r.step_batch(2)
+        torch.cuda.synchronize()
+        if sort:
+            got = [f.launches - b for f, b in zip(wrappers + others, before)]
+            assert got == counts + [0] * len(others)
+            pool = _camera_pool(r.dev_camera, 5, r.settings)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _sorted_bounce(pool, r.dev_scene, 5, 0, r.settings, tables=r.tables)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        imgs.append(r.image())
+    assert np.isfinite(imgs[0]).all() and imgs[0].max() > 0
+    assert_image_rule([torch.tensor(imgs[0][..., c]) for c in range(3)],
+                      [torch.tensor(imgs[1][..., c]) for c in range(3)])
+
+
+def test_sorted_big_mesh_launches_on_cuda(cuda_device):
+    """mesh_big under --sort-materials through both big-mesh routes: per
+    depth #7 -> #8 -> A -> B -> C -> D (or A -> the radix route -> D) ->
+    #10, the material digit pass and #4; the route's splits and the
+    material sort's each with their own scratch."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+
+    keys = ("mesh_candidates", "mesh_sweep", "super_keys", "place_entries",
+            "window_sweep", "merge_entries", "intersect_mesh", "radix_split",
+            "radix_unscatter", "window_sweep_stream", "bounce_step_mesh")
+    r = Renderer(small("mesh_big.txt", (64, 48)),
+                 RenderSettings(trace_depth=8, antialias=True, sort_by_material=True),
+                 device=cuda_device)
+    for radix in (False, True):
+        r.set_camera(r.camera)
+        flag, pipeline.SORT_RADIX = pipeline.SORT_RADIX, radix
+        try:
+            before = {k: getattr(pipeline, k).launches for k in keys}
+            before["shade_step"] = megakernel.shade_step.launches
+            r.step()
+            r.step_batch(1)
+            torch.cuda.synchronize()
+        finally:
+            pipeline.SORT_RADIX = flag
+        got = {k: getattr(pipeline, k).launches - before[k] for k in keys}
+        got["shade_step"] = megakernel.shade_step.launches - before["shade_step"]
+        (g,) = pipeline.sorted_geoms(r.dev_scene)
+        passes = len(pipeline.radix_passes(pipeline.radix_key_bits(
+            2 * r.dev_scene.super_ranges[g][1])))
+        route = ({"radix_split": 16 * (2 + passes), "radix_unscatter": 16,
+                  "window_sweep_stream": 16, "place_entries": 0, "window_sweep": 0}
+                 if radix else {"radix_split": 16, "radix_unscatter": 0,
+                                "window_sweep_stream": 0, "place_entries": 16,
+                                "window_sweep": 16})
+        assert got == dict(mesh_candidates=16, mesh_sweep=16, super_keys=16,
+                           merge_entries=16, intersect_mesh=16, bounce_step_mesh=0,
+                           shade_step=16, **route), (radix, got)
+        img = r.image()
+        assert np.isfinite(img).all() and img.max() > 0

@@ -174,17 +174,14 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize(
     "name,settings_kw,what",
     [("textured.txt", {"tri_axis": "tri"}, "triangle sharding"),
-     ("cornell_sss.txt", {"sort_by_material": True}, "material sort"),
-     ("mesh_textured.txt", {"sort_by_material": True}, "material sort"),
      ("cornell.txt", {"tri_axis": "tri"}, "triangle sharding"),
-     ("cornell.txt", {"sort_by_material": True}, "material sort"),
      ("mesh.txt", {"tri_axis": "tri"}, "triangle sharding")],
 )
 def test_unported_features_raise(name, settings_kw, what):
-    """A setting the port does not render yet (triangle sharding,
-    material sort) is refused with its ROADMAP item, by the renderer and
-    by the kernel wrapper itself, on the surface-stage and mesh scenes as
-    on the others."""
+    """A setting the port does not render yet (triangle sharding) is
+    refused with its ROADMAP item, by the renderer and by the kernel
+    wrapper itself, on the surface-stage and mesh scenes as on the
+    others."""
     scene = small(tscene, name, (8, 8))
     settings = trender.RenderSettings(**settings_kw)
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
@@ -195,14 +192,49 @@ def test_unported_features_raise(name, settings_kw, what):
         tmk.full_iteration(ds, cam, 1, settings, TVec3.zeros(64, "cpu"))
 
 
-@pytest.mark.parametrize("flag", ["--stats", "--sort-materials", "--shard",
-                                  "--preview", "--no-pallas"])
+@pytest.mark.parametrize(
+    "name,settings_kw",
+    [("cornell_sss.txt", {"sort_by_material": True}),
+     ("mesh_textured.txt", {"sort_by_material": True}),
+     ("cornell.txt", {"sort_by_material": True})],
+)
+def test_sort_renders_like_unsorted(name, settings_kw):
+    """Material sort renders on the CPU, on the surface-stage and mesh
+    scenes as on the others, and the sorted image is the unsorted one
+    (the RNG keys on the pixel, not the slot)."""
+    scene = small(tscene, name, (8, 8))
+    imgs = []
+    for kw in ({}, settings_kw):
+        r = trender.Renderer(scene, trender.RenderSettings(trace_depth=3, **kw),
+                             device="cpu")
+        r.step_batch(2)
+        imgs.append(r.image())
+    assert imgs[0].max() > 0
+    np.testing.assert_allclose(imgs[1], imgs[0], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("flag", ["--shard", "--preview", "--no-pallas"])
 def test_cli_unported_flags_fail(flag, caplog):
     argv = [os.path.join(SCENES, "cornell.txt"), "--device", "cpu", flag]
     if flag == "--shard":
         argv.append("spp=2")
     assert tmain(argv) == 1
     assert "ROADMAP" in caplog.text
+
+
+@pytest.mark.parametrize("flag", ["--stats", "--sort-materials"])
+def test_cli_ported_flags_render(flag, tmp_path, caplog):
+    """--stats and --sort-materials render through the CLI on the CPU."""
+    text = open(os.path.join(SCENES, "cornell.txt")).read()
+    scene = tmp_path / "cornell8.txt"
+    scene.write_text(text.replace("RES         800 800", "RES         8 8"))
+    caplog.set_level("INFO")
+    rc = tmain([str(scene), "--device", "cpu", "--iterations", "2", "--depth", "2",
+                flag, "--out-dir", str(tmp_path)])
+    assert rc == 0
+    assert len(list(tmp_path.glob("cornell.*.2samp.png"))) == 1
+    if flag == "--stats":
+        assert "alive rays per bounce" in caplog.text and "full_iteration" in caplog.text
 
 
 @pytest.mark.parametrize("flag", ["--nee", "--direct-lighting"])

@@ -155,11 +155,22 @@ def test_cli_accepts_slice_flags(flag, tmp_path):
         tmk.full_iteration, tmk.first_bounce, tmk.bounce_step, tmk.shade_step)]
 
 
-def test_cli_still_refuses_sort(caplog):
-    argv = [os.path.join(SCENES, "cornell.txt"), "--device", "cpu",
-            "--sort-materials"]
+def test_cli_sorts_and_refusals_name_their_module(tmp_path, caplog):
+    """--sort-materials renders through the CLI; each flag still refused
+    names its module of ROADMAP §1 (4: sharding, 5: the CLI remainder)."""
+    text = open(os.path.join(SCENES, "cornell.txt")).read()
+    scene = tmp_path / "cornell8.txt"
+    scene.write_text(text.replace("RES         800 800", "RES         8 8"))
+    assert tmain([str(scene), "--device", "cpu", "--iterations", "1", "--depth", "2",
+                  "--sort-materials", "--compact", "--out-dir", str(tmp_path)]) == 0
+    from project3_cuda_path_tracer_tpu_torch.cli import UNPORTED_FLAGS
+
+    assert set(UNPORTED_FLAGS) == {"shard", "preview", "debug", "debug_nans", "no_pallas"}
+    for dest, (flag, item) in UNPORTED_FLAGS.items():
+        assert "module 4" in item or "module 5" in item, (flag, item)
+    argv = [str(scene), "--device", "cpu", "--debug"]
     assert tmain(argv) == 1
-    assert "material sort" in caplog.text and "slice 6" in caplog.text
+    assert "--debug" in caplog.text and "module 5" in caplog.text
 
 
 def _imported_modules(path):
