@@ -87,7 +87,21 @@ mesh.txt through `step_batch` (#6 on MeshOf), (ab) through `step()` (#5),
 with the instantiations' plain times, bounds (the plain path's masks and
 the nodes and triangles of the kernels' own walks, `mesh_walk_work`) and
 ptxas usage on the
-`mesh_nee` line), the sorted cells (af) Cornell, (ag) many_materials
+`mesh_nee` line), holds sharding (`parallel/shard.py`, both shards on
+the one card: `shard_phase`, in a process of its own) -- Cornell 800x800 d8 AA under spp=2 (#2 ->
+#3 per shard, against Renderer.step() at the same samples, rtol 1e-6)
+and px=2 (#3 from each slice's camera rays, exactly the whole frame
+through the same route), the tri-shard tier on mesh.txt and mesh_big
+800x800 AA at every depth of one iteration and mesh_textured at two
+(each shard's #7 -> #8 [-> A-D] -> #10 and one #4 a depth, nothing else;
+the merged hits against the plain merge of the plain per-slice chains
+and against the unsharded kernels, the lanes that differ in any bit
+counted; #4 on the merged pool against its plain version; the merge's
+device ms), the goldens of Cornell spp=2 and px=2 and mesh.txt and
+mesh_big tri=2 at 128x128, and times the cells (ak) spp=2, (al) px=2,
+(am) mesh.txt tri=2 and (an) mesh_big tri=2 through `step_batch`
+(`shard_cell` lines; `<wrapper>@tri` in the kernels line: each shard's
+#7, #8, #10 and #4 on the merged pool on (am)), the sorted cells (af) Cornell, (ag) many_materials
 1920x1080 RR, (ah) mesh.txt, (ai) mesh_big and (aj) Cornell --compact
 under --sort-materials through `step_batch`, with the sort's own device
 ms a depth beside one stable torch.sort of the same keys and the
@@ -145,6 +159,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -2402,6 +2417,391 @@ def surface_work(dev, it=7, D=8):
     return plain, bounds, counts
 
 
+# sharding (parallel/shard.py): the depth of the spp/px checks, and the
+# depths of one iteration that the tri check holds on each scene
+D_SHARD = 8
+TRI_CHECK_DEPTHS = {"mesh.txt": 8, "mesh_big.txt": 8, "mesh_textured.txt": 2}
+TRI_KERNELS = {  # the tri-shard tier's entries of the kernels line: wrapper, cell
+    "mesh_candidates@tri": ("mesh_candidates", "tri_mesh"),
+    "mesh_sweep@tri": ("mesh_sweep", "tri_mesh"),
+    "intersect_mesh@tri": ("intersect_mesh", "tri_mesh"),
+    "shade_step@tri": ("shade_step", "tri_mesh"),
+}
+
+
+def tri_shard_check(dev, sr, whole, iteration=2, depths=8):
+    """The tri-shard tier at each depth of one iteration driven by the
+    kernels, with the T shards of `sr` (a ShardedRenderer, tri=T, spp = px
+    = 1) on one card: the depth's launches (each shard's #7 -> #8 [-> A-D]
+    -> #10 and one #4, nothing else); the merged hits against the plain
+    merge of the plain per-slice chains (`intersect_pipeline_reference`)
+    and against the unsharded kernels on `whole` (a Renderer of the whole
+    scene, the same camera) by the lane rule, with the lanes that differ
+    from the unsharded hits in any bit counted; #4 on the merged pool
+    against its plain version (lane rule, pix exactly); the merge's device
+    ms a call (each depth's hits of the shards' kernels merged 5 times, in
+    one profiler session); per shard the plain chain's work
+    (live lanes, candidates, BVH nodes and triangles, mesh hits) and the
+    plain versions' ms. Returns a dict of these per depth and the worst."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.render import (
+        _camera_pool,
+        intersect_scene_any,
+        merge_isect_shards,
+    )
+
+    group = sr.groups[0][0]
+    ds0, tables0 = group[0]
+    settings = sr.settings
+    n_sorted = len(pl.sorted_geoms(ds0))
+    want_l = dict(NO_LAUNCHES, mesh_candidates=len(group), mesh_sweep=len(group),
+                  intersect_mesh=len(group), shade_step=1,
+                  **dict.fromkeys(SORTED_KERNELS, n_sorted * len(group)))
+    pool = _camera_pool(sr.cameras[0][0], iteration, settings)
+    P = pool[5].shape[0]
+    out = {k: [] for k in ("lanes_in", "candidates", "nodes", "tris", "mesh_hits",
+                           "lanes_differ_from_unsharded", "uv_lanes")}
+    merge_inputs = []
+    worst = {k: (0.0, 0.0) for k in ("vs_plain_chains", "vs_unsharded", "shade_step")}
+    plain_ms = dict.fromkeys(("mesh_candidates", "mesh_sweep", "intersect_mesh",
+                              "shade_step"), 0.0)
+
+    def timed(k, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        plain_ms[k] += 1e3 * (time.perf_counter() - t0) / (depths * (1 if k == "shade_step"
+                                                                     else len(group)))
+        return res
+
+    for depth in range(depths):
+        o, d, alive = pool[0], pool[1], pool[4]
+        reset_launches()
+        got = intersect_scene_any(o, d, None, settings, alive=alive, shards=group)
+        nxt = mk.shade_step(pool, got, ds0, iteration, depth, settings, tables=tables0)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != want_l:
+            raise RuntimeError(f"tri depth {depth}: launches {launches}, expected {want_l}")
+        plain_hits, n = [], dict.fromkeys(("candidates", "nodes", "tris", "mesh_hits"), 0)
+        for sh in group:
+            c = timed("mesh_candidates",
+                      lambda: pl.mesh_candidates_reference(o, d, alive, sh.scene))  # noqa: B023
+            probe = {}
+            h = timed("mesh_sweep", lambda: pl.mesh_sweep_reference(  # noqa: B023
+                o, d, c, sh.scene, probe=probe))  # noqa: B023
+            for g in pl.sorted_geoms(sh.scene):
+                sk = pl.super_keys_reference(o, d, c, h, sh.scene, g, pl.SORT_EXPAND)
+                st = pl.place_entries_reference(sk, c.count)
+                eh = pl.window_sweep_reference(st, sk, sh.scene, g)
+                pl.merge_entries_reference(o, d, c, h, sk, eh, sh.scene, g)
+            plain_hits.append(timed("intersect_mesh", lambda: pl.merge_hits(c, h)))  # noqa: B023
+            n["candidates"] += int(c.count[0])
+            n["nodes"] += int(probe["nodes"].sum()) if "nodes" in probe else 0
+            n["tris"] += int(probe["tris"].sum()) if "tris" in probe else 0
+            n["mesh_hits"] += int((h.t > 0).sum())
+        plain = merge_isect_shards(plain_hits)
+        unsharded = intersect_scene_any(o, d, whole.dev_scene, whole.settings, alive=alive,
+                                        tables=whole.tables)
+        for k, want in (("vs_plain_chains", plain), ("vs_unsharded", unsharded)):
+            r = lane_rule(hit_lanes(got), hit_lanes(want))
+            worst[k] = tuple(max(a, b) for a, b in zip(worst[k], r))
+        differ = torch.zeros(P, dtype=torch.bool, device=dev)
+        for g, w in zip(hit_lanes(got), hit_lanes(unsharded)):
+            differ |= g != w
+        want4 = timed("shade_step", lambda: mk.shade_step_reference(  # noqa: B023
+            pool, got, ds0, iteration, depth, settings))  # noqa: B023
+        if not torch.equal(nxt[5], want4[5]):
+            raise RuntimeError(f"shade_step@tri: pix differs at depth {depth}")
+        r = lane_rule(mk.pool_lanes(nxt)[:13], mk.pool_lanes(want4)[:13])
+        worst["shade_step"] = tuple(max(a, b) for a, b in zip(worst["shade_step"], r))
+        # for the merge alone: this depth's hits of each shard's kernels
+        merge_inputs.append([pl.intersect_pipeline(o, d, alive, sh.scene, tables=sh.tables)
+                             for sh in group])
+        for k, v in (("lanes_in", int((alive != 0).sum())),
+                     ("lanes_differ_from_unsharded", int(differ.sum())),
+                     ("uv_lanes", int(got.has_uv.sum())), *n.items()):
+            out[k].append(v)
+        pool = nxt
+    reps = 5
+    merge_ms = profile_device(lambda: [merge_isect_shards(h) for h in merge_inputs
+                                       for _ in range(reps)], reps * depths)[0]
+    for k, (share, _) in worst.items():
+        if share > LANE_FRAC:
+            raise RuntimeError(f"tri shards: {k} off on {share:.2%} of lanes")
+    return dict(per_depth=out, worst=worst, plain_ms=plain_ms, merge_ms=merge_ms,
+                launches_per_depth={k: v for k, v in want_l.items() if v}, P=P)
+
+
+def shard_cell(sr, n_calls=10, by_depth=()):
+    """Time a ShardedRenderer through step_batch: 2 calls of warm-up, then
+    `n_calls` calls timed by the host clock (synchronised); the launches of
+    all; the device busy ms per iteration, each kernel's device ms per
+    launch and the device events per iteration (the profiler over 4
+    calls). Returns the cell's numbers."""
+    import torch
+
+    reset_launches()
+    spp = sr.spp
+    sr.step_batch(2 * spp)
+    sr.synchronize()
+    t0 = time.perf_counter()
+    sr.step_batch(n_calls * spp)
+    sr.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items() if v}
+    img = sr.image()
+    mean = float(img.mean() / sr.iteration)
+    if not (np.isfinite(img).all() and 0.05 < mean < 2.0):
+        raise RuntimeError(f"shard cell: bad image (mean {mean})")
+    n_it = n_calls * spp
+    ms = 1e3 * dt / n_it
+    busy, kms, seen, events = profile_device(lambda: sr.step_batch(4 * spp), 4 * spp,
+                                             by_depth=by_depth)
+    torch.cuda.synchronize()
+    return dict(ms_per_frame=ms, iterations_timed=n_it, launches=launches,
+                iterations=sr.iteration, device_busy_ms_per_iteration=busy,
+                device_idle_share=max(0.0, 1.0 - busy / ms), kernel_device_ms=kms,
+                profiled_launches={k: v for k, v in seen.items() if v},
+                device_events_per_iteration=events,
+                device_events_per_depth=events / sr.settings.trace_depth,
+                mean_radiance=mean)
+
+
+def shard_phase(dev, big, goldens, smi):
+    """Sharding (parallel/shard.py) with every shard on the one card `dev`:
+    spp=2 and px=2 on Cornell 800x800 d8 AA (their launches; spp against
+    Renderer.step() at the same samples, rtol 1e-6; px exactly the whole
+    frame through the same route, and by the image rule against step()),
+    tri=2 at every depth of one iteration on mesh.txt and mesh_big 800x800
+    AA and at two depths on mesh_textured (`tri_shard_check`), the goldens
+    at 128x128 of Cornell spp=2 and px=2 and mesh.txt and mesh_big tri=2,
+    and the cells (ak)-(an) (`shard_cell`). `big`: the loaded big-mesh
+    Renderers. Returns ({scene: tri ShardedRenderer}, {scene: its check},
+    {cell: its numbers})."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.models.scene import load_scene
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3
+    from project3_cuda_path_tracer_tpu_torch.parallel.shard import ShardedRenderer
+    from project3_cuda_path_tracer_tpu_torch.render import (
+        Renderer,
+        RenderSettings,
+        trace_paths,
+    )
+
+    t_shard = time.perf_counter()
+    pair = [dev, dev]
+    c_scene = load_scene(os.path.join(HERE, "scenes", "cornell.txt"))
+    c_set = RenderSettings(trace_depth=D_SHARD, antialias=True)
+    rc = Renderer(c_scene, c_set, device=dev)
+    rc.step()
+    rc.step()
+    c_want = rc.image()
+    shard_r = {"spp": ShardedRenderer(c_scene, c_set, spp=2, devices=pair),
+               "px": ShardedRenderer(c_scene, c_set, px=2, devices=pair)}
+    whole = Vec3.zeros(c_scene.state.camera.pixel_count, dev)
+    for it in (1, 2):
+        rad, _, _, _ = trace_paths(rc.dev_scene, rc.dev_camera, it, None, c_set, False,
+                                   tables=rc.tables, pix=torch.arange(
+                                       whole.x.shape[0], dtype=torch.int32, device=dev))
+        for a, c in zip(whole, rad):
+            a.add_(c)
+    whole = np.stack([c.cpu().numpy().reshape(800, 800) for c in whole], -1)
+    for axis, sr in shard_r.items():
+        reset_launches()
+        sr.step_batch(2)
+        torch.cuda.synchronize()
+        got_l = {k: v for k, v in read_launches().items() if v}
+        want_l = ({"first_bounce": 2, "bounce_step": 2 * (D_SHARD - 1)} if axis == "spp"
+                  else {"bounce_step": 2 * 2 * D_SHARD})
+        if got_l != want_l:
+            raise RuntimeError(f"--shard {axis}=2: launches {got_l}, expected {want_l}")
+        img = sr.image()
+        if axis == "spp":
+            rel = float(np.max(np.abs(img - c_want) / np.maximum(np.abs(c_want), 1e-6)))
+            if not np.allclose(img, c_want, rtol=1e-6, atol=1e-6):
+                raise RuntimeError(f"--shard spp=2 off Renderer.step(): max rel {rel}")
+            rule = {"against": "Renderer.step() x 2 (#2 -> #3)", "max_rel_err": rel,
+                    "rule": "rtol 1e-6, atol 1e-6"}
+        else:
+            if not np.array_equal(img, whole):
+                raise RuntimeError("--shard px=2 differs from the whole frame")
+            diff = np.abs(img - c_want)
+            rule = {"against": "the whole frame through the same route (camera rays, #3)",
+                    "equal": True, "rule": "exact",
+                    "against_step": {"share_off_1e-3": float((diff > 1e-3).mean()),
+                                     "median": float(np.median(diff)),
+                                     "rule": f"share<{PARITY_FRAC}, median<{PARITY_MEDIAN}"}}
+            if (diff > PARITY_BAD).mean() >= PARITY_FRAC or np.median(diff) >= PARITY_MEDIAN:
+                raise RuntimeError(f"--shard px=2 off Renderer.step(): {rule}")
+        say("shard_check", axis=f"{axis}=2", scene="cornell.txt", res="800x800",
+            depth=D_SHARD, settings={"antialias": True}, devices=[str(d) for d in pair],
+            launches=got_l, **rule)
+    # tri=2: every depth of one iteration on mesh.txt and mesh_big at
+    # 800x800 AA (and mesh_textured, for the UVs through the merge)
+    tri_r, tri_checks = {}, {}
+    for name in ("mesh.txt", "mesh_big.txt", "mesh_textured.txt"):
+        t0 = time.perf_counter()
+        scene = load_scene(os.path.join(HERE, "scenes", name))
+        t_set = RenderSettings(trace_depth=D_SHARD, antialias=True)
+        sr = ShardedRenderer(scene, t_set, tri=2, devices=pair)
+        t_load = time.perf_counter() - t0
+        if name in big:
+            w = big[name]
+            w.set_camera(camera_at(w.camera, scene.state.camera.resolution))
+        else:
+            w = Renderer(scene, t_set, device=dev)
+        chk = tri_shard_check(dev, sr, w, depths=TRI_CHECK_DEPTHS[name])
+        tri_r[name], tri_checks[name] = sr, chk
+        if name == "mesh_textured.txt" and not any(chk["per_depth"]["uv_lanes"]):
+            raise RuntimeError("mesh_textured tri=2: no merged lane has UVs")
+        say("tri_shard_check", scene=name, res="800x800", settings={"antialias": True},
+            tri=2, devices=[str(d) for d in pair], depths=TRI_CHECK_DEPTHS[name],
+            slices_triangles=[sh.scene.tri_ranges for sh in sr.groups[0][0]],
+            sorted_geoms=[list(pl.sorted_geoms(sh.scene)) for sh in sr.groups[0][0]],
+            launches_per_depth=chk["launches_per_depth"],
+            worst={k: {"outlier_share": v[0], "max_abs_err": v[1]}
+                   for k, v in chk["worst"].items()},
+            rule=f"lane rule: share(|d|>{LANE_ATOL})<={LANE_FRAC}; shade_step pix exact",
+            per_depth=chk["per_depth"], plain_ms=chk["plain_ms"],
+            merge_device_ms_per_call=chk["merge_ms"], load_seconds=t_load,
+            seconds=time.perf_counter() - t0)
+    # the goldens at 128x128: Cornell spp=2 and px=2, mesh.txt and mesh_big
+    # tri=2 (the ShardedRenderers above, at 128x128)
+    g_scene = small_scene("cornell.txt", (128, 128))
+    g_set = RenderSettings(trace_depth=8)
+    g_runs = [("cornell.txt", "spp=2", ShardedRenderer(g_scene, g_set, spp=2, devices=pair)),
+              ("cornell.txt", "px=2", ShardedRenderer(g_scene, g_set, px=2, devices=pair))]
+    for name in ("mesh.txt", "mesh_big.txt"):
+        sr = tri_r[name]
+        sr.settings = replace(sr.settings, trace_depth=8, antialias=False)
+        sr.set_camera(camera_at(sr.camera, (128, 128)))
+        g_runs.append((name, "tri=2", sr))
+    for name, axis, sr in g_runs:
+        sr.step_batch(2)
+        img = sr.image()
+        if sr.iteration != 2 or not (np.isfinite(img).all() and img.max() > 0):
+            raise RuntimeError(f"{name} --shard {axis}: bad render")
+        diff = np.abs(np.clip(img / 2, 0.0, 1.0) - goldens[name].astype(np.float32))
+        badfrac = float((diff > GOLDEN_BAD).mean())
+        say("golden", config=name, settings={}, route=f"ShardedRenderer({axis}).step_batch",
+            badfrac=badfrac, mad=float(diff.mean()), rule=f"badfrac<={GOLDEN_FRAC}")
+        if badfrac > GOLDEN_FRAC:
+            raise RuntimeError(f"{name} --shard {axis}: badfrac {badfrac} > {GOLDEN_FRAC}")
+    # the cells, 800x800 d8 AA through step_batch, both shards on this card:
+    # (ak) Cornell spp=2, (al) px=2, (am) mesh.txt tri=2, (an) mesh_big tri=2
+    shard_cells = {}
+    cell_runs = [("shard_spp", "cornell.txt", shard_r["spp"], ("bounce_step",)),
+                 ("shard_px", "cornell.txt", shard_r["px"], ("bounce_step",)),
+                 ("tri_mesh", "mesh.txt", tri_r["mesh.txt"], ("shade_step",)),
+                 ("tri_big_mesh", "mesh_big.txt", tri_r["mesh_big.txt"], ("shade_step",))]
+    for label, name, sr, by_depth in cell_runs:
+        sr.settings = replace(sr.settings, trace_depth=8, antialias=True)
+        sr.set_camera(camera_at(sr.camera, (800, 800)))
+        cell = shard_cell(sr, by_depth=by_depth)
+        if name in tri_checks:
+            cell["merge_ms_per_depth"] = tri_checks[name]["merge_ms"]
+        shard_cells[label] = cell
+        say("shard_cell", path=label, scene=name, res="800x800", depth=8,
+            settings={"antialias": True}, shards={"spp": sr.spp, "px": sr.px, "tri": sr.tri},
+            devices=[str(d) for d in sr.devices], device=smi, **cell)
+    say("shard_phase", seconds=time.perf_counter() - t_shard)
+    return tri_r, tri_checks, shard_cells
+
+
+def tri_kernel_entries(tri_r, tri_checks, shard_cells, smi) -> dict:
+    """The kernels line's `<wrapper>@tri` entries from cell (am), mesh.txt
+    tri=2: each shard's #7, #8 and #10 and #4 on the merged pool, their
+    device ms per launch and launches from the cell's run, their plain
+    versions' ms and their bounds per launch averaged over the checked
+    depths and the shards, from the plain chains' counts
+    (`tri_shard_check`); #7, #8 and #10 are held as one chain (the merged
+    hits against the plain merge of the plain chains)."""
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+
+    tc = tri_checks["mesh.txt"]
+    T = len(tri_r["mesh.txt"].groups[0][0])
+    t_ds = tri_r["mesh.txt"].groups[0][0][0].scene
+    t_P, t_mesh = tc["P"], len(t_ds.mesh_geoms)
+    pd = {k: np.array(v, np.float64) for k, v in tc["per_depth"].items()}
+    t_table_bytes = sum(a.numel() * a.element_size() for a in mk.pack_mesh_tables(t_ds))
+    tri_bounds = {
+        # the intersect route: every lane's analytic winner (6 ray lanes in,
+        # 22 B out) and alive; per candidate its list entry
+        "mesh_candidates@tri": bound(
+            np.mean(50 * t_P + 4 * pd["candidates"] / T),
+            np.mean(t_P * (sweep_ops(t_ds) + OPS_NORMAL)
+                    + pd["lanes_in"] * t_mesh * OPS_CANDIDACY
+                    + pd["candidates"] / T * OPS_APPEND)),
+        # the tables once; per candidate its list entry, ray, t_a in and
+        # 9 lanes (30 B) out
+        "mesh_sweep@tri": bound(
+            np.mean(t_table_bytes + 62 * pd["candidates"] / T),
+            np.mean((pd["candidates"] * t_mesh * OPS_CANDIDACY + pd["nodes"] * OPS_NODE
+                     + pd["tris"] * OPS_MT + pd["mesh_hits"] * OPS_MESH_HIT) / T)),
+        # every lane's analytic winner in, 9 lanes out; each mesh winner
+        "intersect_mesh@tri": bound(np.mean(52 * t_P + 30 * pd["mesh_hits"] / T),
+                                    t_P * OPS_MERGE),
+        "shade_step@tri": bound(132 * t_P, t_P * OPS_SHADE),
+    }
+    tcell = shard_cells["tri_mesh"]
+    out = {}
+    for k, (wname, _) in TRI_KERNELS.items():
+        out[k] = {"ms_per_launch": tcell["kernel_device_ms"][wname],
+                  "launches": tcell["launches"][wname],
+                  "plain_ms": tc["plain_ms"][wname],
+                  "bound_ms": tri_bounds[k][0], "bound_by": tri_bounds[k][1],
+                  "max_abs_err": tc["worst"]["shade_step" if wname == "shade_step"
+                                             else "vs_plain_chains"][1]}
+    say("tri_kernels", device=smi, cell="tri_mesh", res="800x800", depth=8, kernels=out,
+        err_of_the_chain="#7, #8 and #10 are held as one chain (merged hits against "
+                         "the plain merge of the plain chains)")
+    return out
+
+
+def shard_phase_main() -> int:
+    """`--shard-phase`: the shard phase alone, in a process of its own
+    (the kernels built by the caller): its lines, then one JSON object
+    {"shard_phase": {"tri_kernels": ..., "cells": ...}} as the last line.
+    In the script's own process the profiler saw no device activity for
+    the rest of the run after this phase (three tries, twice), though no
+    part of the phase did that alone; here no profile follows it."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import _native
+    from project3_cuda_path_tracer_tpu_torch.render import Renderer, RenderSettings
+
+    _native.load()
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+    goldens = np.load(os.path.join(HERE, "tools", "goldens", "smoke_128.npz"))
+    big = {"mesh_big.txt": Renderer(small_scene("mesh_big.txt", (128, 128)),
+                                    RenderSettings(trace_depth=8), device=dev)}
+    tri_r, tri_checks, cells = shard_phase(dev, big, goldens, smi)
+    entries = tri_kernel_entries(tri_r, tri_checks, cells, smi)
+    print(json.dumps({"shard_phase": {"tri_kernels": entries, "cells": cells}}), flush=True)
+    return 0
+
+
+def run_shard_phase() -> dict:
+    """`shard_phase_main` in a process of its own: its lines relayed, its
+    result returned; a failure there raises here."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--shard-phase"],
+                         cwd=HERE, capture_output=True, text=True, timeout=900)
+    lines = res.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        print(ln, flush=True)
+    if res.returncode != 0 or not lines:
+        raise RuntimeError(f"the shard phase exited {res.returncode}: {res.stderr[-3000:]}")
+    return json.loads(lines[-1])["shard_phase"]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2411,11 +2811,15 @@ def main(argv=None) -> int:
     ap.add_argument("--sass-other", metavar="DIR",
                     help="another checkout: hold every kernel function both trees "
                          "have to the same SASS (tools/torch_sass_diff.py)")
+    ap.add_argument("--shard-phase", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.shard_phase:
+        sys.path.insert(0, HERE)
+        return shard_phase_main()
     sys.path.insert(0, HERE)
     from project3_cuda_path_tracer_tpu_torch.models.device import (
         advance_time,
@@ -2993,6 +3397,12 @@ def main(argv=None) -> int:
                                    f"{GOLDEN_FRAC}")
     for name in BIG_SCENES:
         big[name].settings = RenderSettings(trace_depth=8)
+
+    # ---- 4c. sharding (parallel/shard.py), every shard on this one card
+    # (a check of the path, not a scale-out): spp=2 and px=2 on Cornell,
+    # tri=2 on mesh.txt, mesh_big and mesh_textured; their goldens; cells
+    # (ak)-(an) ----
+    shard_out = run_shard_phase()
 
     # ---- 5. the main path at full size: Cornell 800x800 d8 AA, step_batch ----
     scene = load_scene(os.path.join(HERE, "scenes", "cornell.txt"))
@@ -3915,6 +4325,12 @@ def main(argv=None) -> int:
                 proc.wait()
     shutil.rmtree(tmpdir, ignore_errors=True)
 
+    # the tri-shard tier's entries, from the shard phase's own process
+    for k, e in shard_out["tri_kernels"].items():
+        timing[k] = (e["ms_per_launch"], e["plain_ms"], e["launches"])
+        bounds[k] = (e["bound_ms"], e["bound_by"])
+        err800[k], library[k] = e["max_abs_err"], None
+
     say("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     kernels = []
@@ -3922,6 +4338,7 @@ def main(argv=None) -> int:
     entries += [(twin, *KERNELS[wname]) for twin, (wname, _) in SURFACE_KERNELS.items()]
     entries += [(k, *KERNELS[wname]) for k, (wname, _) in MESH_NEE_KERNELS.items()]
     entries += [(k, *KERNELS[wname]) for k, (wname, _) in SORT_KERNELS.items()]
+    entries += [(k, *KERNELS[wname]) for k, (wname, _) in TRI_KERNELS.items()]
     for name, source, replaces in entries:
         ms, p_ms, launches = timing[name]
         b_ms, b_by = bounds[name]

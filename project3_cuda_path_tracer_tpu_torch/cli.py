@@ -6,7 +6,10 @@ asked with `--device cpu`). A flag whose feature is not ported yet fails
 with a message naming its module of ROADMAP §1, as does a scene that
 needs one. `--stats` logs the alive curve and the stage breakdown
 (utils/profiling.py) before the render; `--profile DIR` writes a
-torch.profiler Chrome trace of the render into DIR.
+torch.profiler Chrome trace of the render into DIR. `--shard spp=S,px=N,
+tri=T` renders through parallel/shard.py::ShardedRenderer, one shard on
+each visible card (`--device cuda`) or every shard on the CPU; it drops
+`--preview` and `--stats` with a warning, as the JAX package's CLI does.
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ log = logging.getLogger("pathtracer")
 
 # flag (argparse dest) -> (flag, the module of ROADMAP §1 that ports it)
 UNPORTED_FLAGS = {
-    "shard": ("--shard", "§1 module 4 (sharding)"),
     "preview": ("--preview", "§1 module 5 (the viewer)"),
     "debug": ("--debug", "§1 module 5 (the CLI remainder)"),
     "debug_nans": ("--debug-nans", "§1 module 5 (the CLI remainder)"),
@@ -67,7 +69,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
         default=3,
         help="first bounce at which Russian roulette may kill paths",
     )
-    p.add_argument("--shard", default=None, metavar="SPEC")
+    p.add_argument(
+        "--shard",
+        default=None,
+        metavar="SPEC",
+        help="sharded rendering: 'spp=S' sample batches, 'px=N' pixel "
+        "slices, 'tri=T' triangle slices, composable ('px=2,tri=2'); one "
+        "shard a card under --device cuda, all on the CPU under --device cpu",
+    )
     p.add_argument("--no-bvh", action="store_true",
                    help="the plain path sweeps every triangle instead of "
                         "walking the BVH (the CUDA mesh kernel always walks it)")
@@ -144,12 +153,26 @@ def _run(args) -> int:
     import contextlib
     import os
 
+    if args.shard and (args.preview or args.stats):
+        log.warning("--shard does not support --preview/--stats; ignoring them")
+        args.preview = False
+        args.stats = False
     refuse_unported(args)
     scene = load_scene(args.scene)
     log.info(scene_summary(scene))
     settings = settings_from_args(args, scene)
-    renderer = Renderer(scene, settings, device=args.device)
-    log.info("device %s", renderer.device)
+    if args.shard:
+        from .parallel.shard import ShardedRenderer, parse_shard_spec
+
+        spp, px, tri = parse_shard_spec(args.shard)
+        renderer = ShardedRenderer(scene, settings, spp=spp, px=px, tri=tri,
+                                   device=args.device)
+        log.info("sharded rendering: spp=%d px=%d tri=%d, %d shard(s) on %s",
+                 spp, px, tri, len(renderer.devices),
+                 ", ".join(str(d) for d in renderer.devices))
+    else:
+        renderer = Renderer(scene, settings, device=args.device)
+        log.info("device %s", renderer.device)
 
     if args.checkpoint:
         # np.savez_compressed appends .npz; normalize once so the resume
@@ -207,6 +230,14 @@ def _log_stats(renderer) -> None:
         log.info("stage %-16s %8.3f ms", stage, 1e3 * secs)
 
 
+def _sync(renderer) -> None:
+    """Wait for the renderer's cards (every card of a sharded grid)."""
+    if hasattr(renderer, "synchronize"):
+        renderer.synchronize()
+    else:
+        profiling.sync(renderer.device)
+
+
 def _render(args, renderer, settings, target) -> None:
     """Step in batches to `target`, logging Mrays/s and checkpointing."""
     t0 = time.perf_counter()
@@ -220,7 +251,7 @@ def _render(args, renderer, settings, target) -> None:
         renderer.step_batch(n)
         it = renderer.iteration
         if args.log_every and (it % args.log_every == 0 or it >= target):
-            profiling.sync(renderer.device)
+            _sync(renderer)
             now = time.perf_counter()
             dt = now - last_t
             n_done = it - last_iter
@@ -240,7 +271,7 @@ def _render(args, renderer, settings, target) -> None:
             renderer.save_checkpoint(args.checkpoint)
             last_ckpt_iter = it
 
-    profiling.sync(renderer.device)
+    _sync(renderer)
     total = time.perf_counter() - t0
     log.info("rendered %d spp in %.2fs", renderer.iteration, total)
 

@@ -42,15 +42,21 @@ def generate_rays(
     iteration: int,
     antialias: bool,
     depth_of_field: bool,
+    pix: torch.Tensor | None = None,
 ):
-    """Primary rays for every pixel of the frame, slot i == pixel i.
+    """Primary rays for the given global pixel ids `pix` ((P,) int32 on
+    the camera's device), by default every pixel of the frame, slot i ==
+    pixel i; a sharded caller passes its slice of the frame. The draws are
+    keyed on (iteration, pixel index), so a pixel gets the same ray in any
+    slice.
 
     `iteration` is 1-based, as in the render loop. Returns
     (origins Vec3, dirs Vec3, pixel_index (P,) int32) on the camera's
     device."""
     resx, resy = cam.resolution
     device = cam.position.device
-    pix = torch.arange(resx * resy, dtype=torch.int32, device=device)
+    if pix is None:
+        pix = torch.arange(resx * resy, dtype=torch.int32, device=device)
     x = (pix % resx).to(torch.float32)
     y = torch.div(pix, resx, rounding_mode="floor").to(torch.float32)
 

@@ -168,23 +168,21 @@ def checker_only(scene) -> bool:
     )
 
 
-def _refuse(what: str, module: int):
-    raise NotImplementedError(
-        f"{what} is not ported yet: see ROADMAP §1, module {module}"
-    )
-
-
 def check_supported(scene: DeviceScene, settings) -> None:
-    """Raise NotImplementedError, naming the module of ROADMAP §1 that
-    queues it, for a scene or setting that the port does not render yet:
-    triangle sharding. The check is the same on every device: the CPU path
-    never renders what the card cannot."""
-    refusals = [
-        (settings.tri_axis is not None, "triangle sharding", 4),
-    ]
-    for needed, what, module in refusals:
-        if needed:
-            _refuse(what, module)
+    """Raise ValueError when a kernel that intersects inside itself (#1,
+    #2, #3, #5, #6, #9) is asked to render under triangle sharding
+    (`settings.tri_axis`): it would see its own slice's triangles only.
+    The tri-shard tier intersects through render.intersect_scene_any,
+    which merges every slice's hits, and shades with #4, as the JAX
+    package's kernel_plan turns its fused tiers off under tri_axis. The
+    check is the same on every device."""
+    if settings.tri_axis is not None:
+        raise ValueError(
+            "triangle sharding (tri_axis) needs the merged intersect: this "
+            "kernel intersects inside itself; render.trace_paths runs the "
+            "tri-shard tier (intersect_scene_any over the shards, then "
+            "shade_step)"
+        )
 
 
 def _require_analytic(scene: DeviceScene, what: str) -> None:
@@ -733,9 +731,9 @@ def shade_step(state, isect, scene: DeviceScene, iteration: int, depth: int,
     Intersections in pool order), returned as a new pool; pix passes
     through, and each lane draws its numbers by its own pix, so a pool
     permuted together with its Intersections (the material sort) shades
-    to the same permutation of the same lanes. CPU: the plain version;
+    to the same permutation of the same lanes; under --shard tri the merged
+    pool of every slice (render.trace_paths). CPU: the plain version;
     CUDA: one launch, counted in `shade_step.launches`."""
-    check_supported(scene, settings)
     device = state[5].device
     if device.type == "cpu":
         return shade_step_reference(state, isect, scene, iteration, depth,

@@ -1583,6 +1583,22 @@ def intersect_pipeline(origins: Vec3, dirs: Vec3, alive, scene: DeviceScene,
     return intersect_mesh(cands, hits)
 
 
+def intersect_pipeline_reference(origins: Vec3, dirs: Vec3, alive,
+                                 scene: DeviceScene,
+                                 use_bvh: bool = True) -> Intersections:
+    """`intersect_pipeline`'s plain versions on any device, no kernel
+    launched: #7, #8 (`use_bvh`), A -> B -> C -> D for each geom of the
+    sorted route, #10. On the CPU `intersect_pipeline` runs exactly this."""
+    cands = mesh_candidates_reference(origins, dirs, alive, scene)
+    hits = mesh_sweep_reference(origins, dirs, cands, scene, use_bvh=use_bvh)
+    for g in sorted_geoms(scene):
+        sk = super_keys_reference(origins, dirs, cands, hits, scene, g, SORT_EXPAND)
+        st = place_entries_reference(sk, cands.count)
+        eh = window_sweep_reference(st, sk, scene, g)
+        merge_entries_reference(origins, dirs, cands, hits, sk, eh, scene, g)
+    return merge_hits(cands, hits)
+
+
 mesh_candidates.launches = 0
 mesh_sweep.launches = 0
 bounce_step_mesh.launches = 0

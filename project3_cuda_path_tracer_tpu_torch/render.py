@@ -49,22 +49,38 @@ has these tiers here, as in the JAX package:
   binary BVH for the nearest hit and for the shadow ray (every mesh geom,
   the big-mesh route's included: no mesh pipeline launch on this path).
   --nee takes precedence over --direct-lighting and refuses compaction
-  and the first-bounce cache (ValueError), as the JAX package does.
+  and the first-bounce cache (ValueError), as the JAX package does;
+- the tri-shard tier (--shard tri=N, `settings.tri_axis`; the JAX
+  package's `kernel_plan.shard_shade`): `trace_paths` with a group of
+  `TriShard`s, each a triangle slice of the scene
+  (parallel/shard.py::tri_sharded_device_scenes). Every depth is
+  `intersect_scene_any` over the group (each shard's #7 -> #8 [-> A-D] ->
+  #10 on its own tables, then `merge_isect_shards`, the min-t merge), the
+  optional material sort, and #4 over the merged pool with shard 0's
+  tables (materials, analytic geoms and lights are in every slice). #1,
+  #2, #3, #5, #6 and #9 intersect inside themselves and never run there
+  (megakernel.check_supported refuses them); --nee runs the plain
+  `_nee_mis_bounce`, whose intersects are the merged kernels' chain.
 Between the kernels runs only the glue the JAX package runs in XLA: the
 compaction permutation, the material sort's keys, digit counts and
-gathers, the alive sums, the radiance scatter (`index_add_`), and the
-per-iteration re-pack of the moved transforms.
+gathers, the alive sums, the radiance scatter (`index_add_`), the
+per-iteration re-pack of the moved transforms, and the tri tier's merge.
+
+`trace_paths` also takes a slice of the frame's pixels (`pix`, the
+sharded renderer's px and spp shards): depth 0 then starts from the
+slice's camera rays (`generate_rays(pix)`) and a bounce, as the JAX
+package's non-fused first bounce; #2 renders only the whole frame.
 
 Every wrapper launches its hand-written kernel on CUDA tensors and runs
 its plain PyTorch version on CPU tensors, so the same functions render
-on both devices. What the port does not render yet is refused on every
-device by megakernel.check_supported.
+on both devices.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -86,7 +102,6 @@ from .ops.megakernel import (
     SceneTables,
     bounce_step,
     bounce_step_nee,
-    check_supported,
     draw_slots,
     first_bounce,
     full_iteration,
@@ -105,9 +120,10 @@ from .utils import image as image_io
 @dataclass(frozen=True)
 class RenderSettings:
     """Runtime toggles; the same fields and defaults as the JAX
-    package's RenderSettings. Fields of later slices are kept so that a
-    setting the port does not render yet is refused by name
-    (megakernel.check_supported: `tri_axis`). `use_bvh` selects the plain path's
+    package's RenderSettings. `tri_axis` is set by
+    parallel/shard.py::ShardedRenderer alone, as in the JAX package: the
+    tri-shard tier (intersect, merge, #4 at every depth; a Renderer with it
+    set renders one shard of the whole scene that way). `use_bvh` selects the plain path's
     mesh traversal (the BVH walk, or the naive sweep over every
     triangle); the mesh kernel always walks the BVH, as the JAX package's
     Pallas pipeline ignores the flag. `use_pallas` selects nothing: the
@@ -256,9 +272,73 @@ _INV_PI = 1.0 / math.pi
 _HALF_INV_PI = 0.5 / math.pi
 
 
+class TriShard(NamedTuple):
+    """One shard of a --shard tri group: the DeviceScene of one triangle
+    slice (parallel/shard.py::tri_sharded_device_scenes), on its device,
+    and its kernels' tables (None: packed when needed on CUDA, unused on
+    the CPU)."""
+
+    scene: DeviceScene
+    tables: SceneTables | None = None
+
+
+# the merge's key of a miss (t <= 0): the JAX package's 3.4e38
+_MERGE_MISS = 3.4e38
+
+
+def _isect_to(isect: Intersections, device) -> Intersections:
+    if isect.t.device == device:
+        return isect
+    return Intersections(
+        t=isect.t.to(device), normal=Vec3(*(c.to(device) for c in isect.normal)),
+        material_id=isect.material_id.to(device), outside=isect.outside.to(device),
+        tex_u=isect.tex_u.to(device), tex_v=isect.tex_v.to(device),
+        has_uv=isect.has_uv.to(device),
+    )
+
+
+def merge_isect_shards(isects, device=None) -> Intersections:
+    """The min-t merge of the Intersections of N triangle slices of one
+    pool (the JAX package's `_merge_isect_axis` over its tri mesh axis):
+    each lane takes the hit of the shard with the least key, the key t
+    where t > 0 and 3.4e38 else; ties go to the lowest shard, as there
+    (the argmin's first index), and all seven fields come from the winner.
+    A lane every shard misses keeps shard 0's miss. Plain PyTorch glue on
+    every device, as the JAX package merges in XLA: a strict-< running
+    minimum over the shards in order, which is the argmin with its ties
+    to the first. Shards on other devices are copied to `device` (by
+    default the first shard's) first."""
+    if device is None:
+        device = isects[0].t.device
+    isects = [_isect_to(h, device) for h in isects]
+    out = isects[0]
+    if len(isects) == 1:
+        return out
+    best = torch.where(out.t > 0, out.t, _MERGE_MISS)
+    t, nx, ny, nz = out.t, *out.normal
+    mat, side, tu, tv, uv = (out.material_id, out.outside, out.tex_u,
+                             out.tex_v, out.has_uv)
+    for h in isects[1:]:
+        key = torch.where(h.t > 0, h.t, _MERGE_MISS)
+        win = key < best
+        best = torch.where(win, key, best)
+        t = torch.where(win, h.t, t)
+        nx = torch.where(win, h.normal.x, nx)
+        ny = torch.where(win, h.normal.y, ny)
+        nz = torch.where(win, h.normal.z, nz)
+        mat = torch.where(win, h.material_id, mat)
+        side = torch.where(win, h.outside, side)
+        tu = torch.where(win, h.tex_u, tu)
+        tv = torch.where(win, h.tex_v, tv)
+        uv = torch.where(win, h.has_uv, uv)
+    return Intersections(t=t, normal=Vec3(nx, ny, nz), material_id=mat,
+                         outside=side, tex_u=tu, tex_v=tv, has_uv=uv)
+
+
 def intersect_scene_any(origins: Vec3, dirs: Vec3, scene: DeviceScene,
                         settings: RenderSettings, alive=None,
-                        tables: SceneTables | None = None) -> Intersections:
+                        tables: SceneTables | None = None,
+                        shards=None) -> Intersections:
     """`intersect_scene` through the mesh pipeline (#7 -> #8 [-> the
     sorted route A-D] -> #10, ops/pipeline.py::intersect_pipeline), as the
     JAX package's `intersect_scene_any` swaps in its Pallas pipeline; on an
@@ -266,14 +346,34 @@ def intersect_scene_any(origins: Vec3, dirs: Vec3, scene: DeviceScene,
     plain versions (#8's walk with `settings.use_bvh`), which on an
     analytic scene equal plain `intersect_scene` exactly. `alive` (None:
     all alive) marks the lanes the pipeline tests for meshes; dead lanes
-    keep their analytic hit."""
-    return intersect_pipeline(origins, dirs, alive, scene, tables=tables,
-                              use_bvh=settings.use_bvh)
+    keep their analytic hit.
+
+    `shards` (a sequence of TriShard, --shard tri): the chain runs on each
+    shard's scene and tables instead (`scene` and `tables` unused), the
+    rays copied to a shard on another device, and `merge_isect_shards`
+    merges the hits on the rays' device: the one choke point of the tri
+    tier, as the JAX package's merge is (every bounce, the cache fill,
+    --direct-lighting's and --nee's intersects)."""
+    if shards is None:
+        return intersect_pipeline(origins, dirs, alive, scene, tables=tables,
+                                  use_bvh=settings.use_bvh)
+    device = origins.x.device
+    hits = []
+    for sh in shards:
+        d = sh.scene.device
+        o, di, a = origins, dirs, alive
+        if d != device:
+            o = Vec3(*(c.to(d) for c in origins))
+            di = Vec3(*(c.to(d) for c in dirs))
+            a = None if alive is None else alive.to(d)
+        hits.append(intersect_pipeline(o, di, a, sh.scene, tables=sh.tables,
+                                       use_bvh=settings.use_bvh))
+    return merge_isect_shards(hits, device)
 
 
 def _nee_final_step(state, scene: DeviceScene, iteration: int,
                     settings: RenderSettings,
-                    tables: SceneTables | None = None):
+                    tables: SceneTables | None = None, shards=None):
     """The last bounce of --direct-lighting (the JAX package's
     `_nee_final_step`): escaped lanes collect the environment, emissive
     hits add their emission, and each live DIFFUSE lane trades its last
@@ -281,12 +381,13 @@ def _nee_final_step(state, scene: DeviceScene, iteration: int,
     NEE_STREAM). Albedo, emission and normal are untextured, as there.
     Every lane ends here. Plain PyTorch on every device (the JAX package runs
     this step in XLA, outside any Pallas kernel), but both intersect
-    calls go through `intersect_scene_any`, as there."""
+    calls go through `intersect_scene_any` (merged over `shards` under
+    --shard tri), as there."""
     origins, dirs, throughput, radiance, alive, pix = state
     P = pix.shape[0]
     zeros = Vec3.zeros(P, pix.device)
     isect = intersect_scene_any(origins, dirs, scene, settings, alive=alive,
-                                tables=tables)
+                                tables=tables, shards=shards)
     hit = isect.t > 0.0
     m_color, _spec, m_refl, m_refr, _ior, m_emit, _sexp, _sss = (
         _gather_materials(scene, isect.material_id))
@@ -313,7 +414,7 @@ def _nee_final_step(state, scene: DeviceScene, iteration: int,
     cos_l = torch.clamp(-ln.dot(wi), min=0.0)
 
     shadow = intersect_scene_any(p_hit, wi, scene, settings, alive=alive,
-                                 tables=tables)
+                                 tables=tables, shards=shards)
     visible = (shadow.t < 0.0) | (shadow.t >= r - 1e-2)
 
     g = cos_s * cos_l / r2 * weight * _INV_PI
@@ -325,9 +426,24 @@ def _nee_final_step(state, scene: DeviceScene, iteration: int,
     return (origins, dirs, throughput, radiance, dead, pix)
 
 
+def _nee_intersect(origins: Vec3, dirs: Vec3, scene: DeviceScene,
+                   settings: RenderSettings, shards) -> Intersections:
+    """The intersect of `_nee_mis_bounce`: the JAX package calls its
+    `intersect_scene_any` there, which on its XLA path is plain
+    `intersect_scene` (the BVH or, under --no-bvh, the naive sweep). So
+    does the port, no kernel launched, which keeps the estimator the plain
+    version #5 and #6 are held to on every device; under --shard tri
+    (`shards`) it is `intersect_scene_any` over the group, the kernels'
+    chain of every shard merged, so that no shard's triangles are
+    missed."""
+    if shards is None:
+        return intersect_scene(origins, dirs, scene, use_bvh=settings.use_bvh)
+    return intersect_scene_any(origins, dirs, scene, settings, shards=shards)
+
+
 def _nee_mis_bounce(state, aux, scene: DeviceScene, iteration: int,
                     depth: int, settings: RenderSettings, is_last: bool,
-                    probe: dict | None = None):
+                    probe: dict | None = None, shards=None):
     """One bounce of the NEE + MIS estimator (the JAX package's
     `_nee_mis_bounce`, op for op): at every vertex with a non-delta lobe
     one area-sampled shadow ray adds
@@ -354,15 +470,14 @@ def _nee_mis_bounce(state, aux, scene: DeviceScene, iteration: int,
     non-emissive hit with a non-delta lobe), `shadow` (the NEE-able
     lanes whose light sample faces both ways, the ones that cast a shadow
     ray) and `visible`; and the shadow rays themselves as `p_hit`, `wi`
-    and the light distance `r`."""
+    and the light distance `r`. `shards`: the tri group whose merged hits
+    both intersects take (`_nee_intersect`)."""
     origins, dirs, throughput, radiance, alive, pix = state
     prev_pdf, prev_nondelta = aux
     P = pix.shape[0]
     zeros = Vec3.zeros(P, pix.device)
 
-    # the JAX package's intersect_scene_any on its XLA path: the BVH or,
-    # under --no-bvh, the naive sweep; plain PyTorch, no kernel launch
-    isect = intersect_scene(origins, dirs, scene, use_bvh=settings.use_bvh)
+    isect = _nee_intersect(origins, dirs, scene, settings, shards)
     hit = isect.t > 0.0
     live_hit = alive & hit
     m_color, m_spec, m_refl, m_refr, _ior, m_emit, m_sexp, m_sss = (
@@ -421,7 +536,7 @@ def _nee_mis_bounce(state, aux, scene: DeviceScene, iteration: int,
     wi = to_l * (1.0 / r)
     cos_s = torch.clamp(normal.dot(wi), min=0.0)
     cos_l = torch.clamp(-ln.dot(wi), min=0.0)
-    shadow = intersect_scene(p_hit, wi, scene, use_bvh=settings.use_bvh)
+    shadow = _nee_intersect(p_hit, wi, scene, settings, shards)
     visible = (shadow.t < 0.0) | (shadow.t >= r - 1e-2)
 
     # Phong lobe pdf of the light direction (glossy lanes)
@@ -551,14 +666,16 @@ def _maybe_sort_by_material(state, isect: Intersections, scene: DeviceScene,
 
 def _sorted_bounce(state, scene: DeviceScene, iteration: int, depth: int,
                    settings: RenderSettings, num_alive=None,
-                   tables: SceneTables | None = None):
+                   tables: SceneTables | None = None, shards=None):
     """One bounce under --sort-materials (the JAX package's `one_bounce`
-    with sort): intersect the pool (`intersect_scene_any`), sort it with
-    its Intersections by material, shade it (#4). Returns the new pool in
-    the sorted order. `num_alive` is not used: the whole pool is shaded,
-    as there."""
+    with sort) and of the tri-shard tier (its `one_bounce` under
+    `shard_shade`, the sort optional): intersect the pool
+    (`intersect_scene_any`, merged over `shards`), sort it with its
+    Intersections by material under --sort-materials, shade it (#4, with
+    `tables`: shard 0's under tri). Returns the new pool (in the sorted
+    order). `num_alive` is not used: the whole pool is shaded, as there."""
     isect = intersect_scene_any(state[0], state[1], scene, settings,
-                                alive=state[4], tables=tables)
+                                alive=state[4], tables=tables, shards=shards)
     state, isect = _maybe_sort_by_material(state, isect, scene, settings)
     return shade_step(state, isect, scene, iteration, depth, settings,
                       tables=tables)
@@ -642,11 +759,13 @@ def _check_lighting(scene: DeviceScene, settings: RenderSettings) -> None:
         )
 
 
-def _camera_pool(cam: DeviceCamera, iteration: int, settings: RenderSettings):
+def _camera_pool(cam: DeviceCamera, iteration: int, settings: RenderSettings,
+                 pix: torch.Tensor | None = None):
     """The camera rays of an iteration (plain `generate_rays`) as a fresh
-    pool: every lane alive, unit throughput, no radiance, pix = slot."""
+    pool: every lane alive, unit throughput, no radiance, pix = slot, or
+    the given global pixel ids `pix` (a slice of the frame)."""
     origins, dirs, pix = generate_rays(
-        cam, iteration, settings.antialias, settings.depth_of_field
+        cam, iteration, settings.antialias, settings.depth_of_field, pix
     )
     P = pix.shape[0]
     device = pix.device
@@ -659,17 +778,33 @@ def _camera_pool(cam: DeviceCamera, iteration: int, settings: RenderSettings):
 
 def _trace_nee(scene: DeviceScene, cam: DeviceCamera, iteration: int,
                settings: RenderSettings, tables: SceneTables | None,
-               count_alive: bool):
+               count_alive: bool, pix: torch.Tensor | None = None,
+               shards=None):
     """The per-bounce NEE + MIS route: plain `generate_rays` for the
-    depth-0 rays, then bounce_step_nee (#5) at every depth 0..D-1, the
-    last at is_last, with the MIS aux starting at zeros. Returns what
-    `trace_paths` returns; the pool is never permuted."""
+    depth-0 rays (of the pixels `pix`, by default the frame), then
+    bounce_step_nee (#5) at every depth 0..D-1, the last at is_last, with
+    the MIS aux starting at zeros; under --shard tri (`shards`) the plain
+    `_nee_mis_bounce` at every depth instead, its intersects merged over
+    the group, as the JAX package runs its XLA estimator there. Returns
+    what `trace_paths` returns; the pool is never permuted."""
     device = scene.device
-    state = _camera_pool(cam, iteration, settings)
+    state = _camera_pool(cam, iteration, settings, pix)
     P = state[5].shape[0]
+    D = settings.trace_depth
+    if shards is not None:
+        state = state[:4] + (state[4] != 0, state[5])
+        aux = (torch.zeros(P, dtype=torch.float32, device=device),
+               torch.zeros(P, dtype=torch.bool, device=device))
+        counts = []
+        for depth in range(D):
+            state, aux = _nee_mis_bounce(state, aux, scene, iteration, depth,
+                                         settings, depth == D - 1, shards=shards)
+            if count_alive:
+                counts.append(_count_alive(state))
+        alive_counts = torch.stack(counts) if count_alive else None
+        return state[3], state[5], _empty_cache(P, device), alive_counts
     aux = (torch.zeros(P, dtype=torch.float32, device=device),
            torch.zeros(P, dtype=torch.float32, device=device))
-    D = settings.trace_depth
     # #5's slot counters, one word per depth, zeroed together (unused on
     # the CPU)
     counters = torch.zeros(D, dtype=torch.int32, device=device)
@@ -694,6 +829,8 @@ def trace_paths(
     use_cache: bool,
     tables: SceneTables | None = None,
     count_alive: bool = True,
+    pix: torch.Tensor | None = None,
+    shards=None,
 ):
     """One full sample per pixel through the per-bounce path: first_bounce
     (#2), or shade_step (#4) over the depth-0 intersections under the
@@ -707,6 +844,20 @@ def trace_paths(
     last depth is `_nee_final_step` instead; under --nee every depth is
     bounce_step_nee (#5), from plain `generate_rays` (`_trace_nee`).
 
+    `pix` ((P,) int32 global pixel ids on the scene's device, None: the
+    whole frame) traces a slice of the frame (the sharded renderer): depth
+    0 is then the slice's camera rays and a bounce (#3 on an analytic
+    scene, the JAX package's non-fused first bounce), never #2.
+
+    Under --shard tri (`settings.tri_axis`) every depth is `_sorted_bounce`
+    over the group `shards` (a sequence of TriShard, shard 0 on the pool's
+    device; None: the one shard (`scene`, `tables`)): each shard's #7 ->
+    #8 [-> A-D] -> #10, the merge, [the material sort,] #4 with shard 0's
+    tables; the cache fill and --direct-lighting's intersects merge the
+    same way, and --nee runs the plain estimator (`_trace_nee`). `scene`
+    and `tables` are then shard 0's. Motion blur moves every shard's scene
+    and re-packs its transforms.
+
     `iteration` is 1-based. `cache` holds the depth-0 Intersections in
     pixel order and is read only when `use_cache`. `tables` are the
     kernels' packed tables (packed here when None; with motion blur only
@@ -715,37 +866,56 @@ def trace_paths(
     None when neither `count_alive` nor compaction needs them). pix
     tracks the pool permutation of compaction and of the material sort."""
     _check_lighting(scene, settings)
+    if settings.tri_axis is None and shards is not None:
+        raise ValueError("a tri-shard group needs settings.tri_axis")
+    if settings.tri_axis is not None and shards is None:
+        shards = (TriShard(scene, tables),)
     if settings.motion_blur:
         # one shutter-time sample per iteration: move the geoms, re-pack
         # only the two (G,16) tables that change
-        scene = advance_time(scene, shutter_time(iteration))
-        if tables is not None:
-            xf, inv = pack_geom_tables(scene)
-            tables = tables._replace(xf=xf, inv=inv)
-    if tables is None:
+        t_shutter = shutter_time(iteration)
+        if shards is not None:
+            shards = tuple(_advance_shard(sh, t_shutter) for sh in shards)
+        else:
+            scene, tables = _advance_shard(TriShard(scene, tables), t_shutter)
+    if shards is not None:
+        shards = tuple(sh if sh.tables is not None
+                       else TriShard(sh.scene, _device_tables(sh.scene, settings))
+                       for sh in shards)
+        scene, tables = shards[0]
+    elif tables is None:
         tables = _device_tables(scene, settings)
     if settings.nee_mis:
-        return _trace_nee(scene, cam, iteration, settings, tables, count_alive)
+        return _trace_nee(scene, cam, iteration, settings, tables, count_alive,
+                          pix, shards)
     device = scene.device
     mesh = bool(scene.mesh_geoms)
-    sort = settings.sort_by_material
-    bounce = (_sorted_bounce if sort
-              else bounce_step_pipeline if mesh else bounce_step)
+    split = settings.sort_by_material or shards is not None
+
+    def bounce(state, scene, iteration, depth, settings, num_alive=None,
+               tables=None):
+        if split:
+            return _sorted_bounce(state, scene, iteration, depth, settings,
+                                  tables=tables, shards=shards)
+        step = bounce_step_pipeline if mesh else bounce_step
+        return step(state, scene, iteration, depth, settings,
+                    num_alive=num_alive, tables=tables)
 
     if settings.effective_cache():
         # depth 0 from the cached (or freshly computed) intersections of
         # the pinhole camera rays; the cache is pixel-ordered
-        state = _camera_pool(cam, iteration, settings)
+        state = _camera_pool(cam, iteration, settings, pix)
         isect0 = cache if use_cache else intersect_scene_any(
-            state[0], state[1], scene, settings, tables=tables)
+            state[0], state[1], scene, settings, tables=tables, shards=shards)
         cache_out = isect0
         state, isect0 = _maybe_sort_by_material(state, isect0, scene, settings)
         state = shade_step(state, isect0, scene, iteration, 0, settings,
                            tables=tables)
-    elif mesh or sort:
-        # the JAX package's mesh route (and its sorted route): plain camera
-        # rays, then the pipeline (or intersect, sort, #4) from depth 0
-        state = bounce(_camera_pool(cam, iteration, settings), scene,
+    elif mesh or split or pix is not None:
+        # the JAX package's mesh route (and its sorted and tri routes, and
+        # its non-fused first bounce of a slice): plain camera rays, then
+        # the pipeline (or intersect, [sort,] #4, or #3) from depth 0
+        state = bounce(_camera_pool(cam, iteration, settings, pix), scene,
                        iteration, 0, settings, tables=tables)
         cache_out = _empty_cache(state[5].shape[0], device)
     else:
@@ -770,12 +940,25 @@ def trace_paths(
             counts.append(_count_alive(state))
     if settings.direct_lighting and D > 1:
         state = _nee_final_step(state[:4] + (state[4] != 0, state[5]), scene,
-                                iteration, settings, tables=tables)
+                                iteration, settings, tables=tables,
+                                shards=shards)
         if counts is not None:
             counts.append(_count_alive(state))
 
     alive_counts = torch.stack(counts) if counts is not None else None
     return state[3], state[5], cache_out, alive_counts
+
+
+def _advance_shard(shard: TriShard, t: float) -> TriShard:
+    """A scene (and its tables, when packed) at shutter time `t`: the
+    geoms moved (`advance_time`), only the two (G,16) transform tables
+    re-packed."""
+    scene = advance_time(shard.scene, t)
+    tables = shard.tables
+    if tables is not None:
+        xf, inv = pack_geom_tables(scene)
+        tables = tables._replace(xf=xf, inv=inv)
+    return TriShard(scene, tables)
 
 
 def _scatter_add(accum: Vec3, pix: torch.Tensor, radiance: Vec3) -> None:
@@ -818,9 +1001,10 @@ def whole_kernel(settings: RenderSettings,
     """Whether render_batch runs the whole-iteration kernel #1: the JAX
     package's kernel_plan.whole_kernel for what the port renders, without
     its geoms x materials limit (a TPU compile-time trade-off); never on a
-    mesh `scene`."""
+    mesh `scene`, nor under --shard tri."""
     return not (
         (scene is not None and scene.mesh_geoms)
+        or settings.tri_axis is not None
         or settings.sort_by_material
         or settings.compact
         or settings.effective_cache()
@@ -835,8 +1019,9 @@ def nee_kernel(settings: RenderSettings) -> bool:
     JAX package's kernel_plan.nee_kernel, without its body limit, so
     many_materials --nee takes it too, and without its 80k-triangle cap,
     a VMEM budget of the TPU: every mesh scene takes it): --nee without
-    motion blur."""
-    return settings.nee_mis and not settings.motion_blur
+    motion blur, outside the tri-shard tier."""
+    return (settings.nee_mis and not settings.motion_blur
+            and settings.tri_axis is None)
 
 
 def render_batch(scene: DeviceScene, cam: DeviceCamera, accum: Vec3,
@@ -919,7 +1104,6 @@ class Renderer:
             self.settings = replace(self.settings, trace_depth=8)
         # always with the BVH, which the mesh kernels walk (models/device.py)
         self.dev_scene = scene_to_device(scene, self.device)
-        check_supported(self.dev_scene, self.settings)
         self.tables = _device_tables(self.dev_scene, self.settings)
         self.camera = scene.state.camera
         self.dev_camera = camera_to_device(self.camera, self.device)

@@ -2141,3 +2141,160 @@ def test_sorted_big_mesh_launches_on_cuda(cuda_device):
                            shade_step=16, **route), (radix, got)
         img = r.image()
         assert np.isfinite(img).all() and img.max() > 0
+
+
+# ---- sharding (parallel/shard.py): the shards co-located on one card ----
+
+SHARD_KERNELS = ("mesh_candidates", "mesh_sweep", "super_keys", "place_entries",
+                 "window_sweep", "merge_entries", "intersect_mesh", "bounce_step_mesh",
+                 "radix_split", "radix_unscatter", "window_sweep_stream")
+FUSED = ("full_iteration", "first_bounce", "bounce_step", "shade_step",
+         "full_iteration_nee", "bounce_step_nee")
+
+
+def shard_launches():
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+
+    got = {k: getattr(pipeline, k).launches for k in SHARD_KERNELS}
+    got.update({k: getattr(megakernel, k).launches for k in FUSED})
+    return got
+
+
+def launches_since(before):
+    return {k: v - before[k] for k, v in shard_launches().items() if v != before[k]}
+
+
+def test_sharded_spp_px_on_cuda(cuda_device):
+    """spp=2 and px=2 with both shards on one card (Cornell 64x64 d8 AA):
+    spp runs #2 -> #3 per shard and equals Renderer.step() at the same
+    samples (rtol 1e-6: only the sum rounds otherwise); px runs the
+    slice's camera rays and #3 from depth 0, exactly the whole frame traced
+    the same way, and within the image rule of step() (#2 computes its
+    own camera rays)."""
+    from project3_cuda_path_tracer_tpu_torch.parallel.shard import ShardedRenderer
+    from project3_cuda_path_tracer_tpu_torch.render import trace_paths
+
+    scene = small("cornell.txt", (64, 64))
+    settings = RenderSettings(trace_depth=8, antialias=True)
+    r = Renderer(scene, settings, device=cuda_device)
+    r.step()
+    r.step()
+    want = r.image()
+    devs = [cuda_device] * 2
+    sr = ShardedRenderer(scene, settings, spp=2, devices=devs)
+    before = shard_launches()
+    sr.step_batch(2)
+    torch.cuda.synchronize()
+    assert launches_since(before) == {"first_bounce": 2, "bounce_step": 14}
+    np.testing.assert_allclose(sr.image(), want, rtol=1e-6, atol=1e-6)
+    px = ShardedRenderer(scene, settings, px=2, devices=devs)
+    before = shard_launches()
+    px.step_batch(2)
+    torch.cuda.synchronize()
+    assert launches_since(before) == {"bounce_step": 2 * 2 * 8}
+    P = 64 * 64
+    whole = Vec3.zeros(P, cuda_device)
+    for it in (1, 2):
+        rad, pix, _, _ = trace_paths(r.dev_scene, r.dev_camera, it, None, settings, False,
+                                     tables=r.tables,
+                                     pix=torch.arange(P, dtype=torch.int32, device=cuda_device))
+        for a, c in zip(whole, rad):
+            a.add_(c)
+    got = px.image()
+    np.testing.assert_array_equal(
+        got, np.stack([c.cpu().numpy().reshape(64, 64) for c in whole], -1))
+    assert_image_rule([torch.tensor(got[..., c]) for c in range(3)],
+                      [torch.tensor(want[..., c]) for c in range(3)])
+
+
+@pytest.mark.parametrize("name,settings_kw", [
+    ("mesh.txt", {"antialias": True}),
+    ("mesh_textured.txt", {"antialias": True}),
+    ("mesh.txt", {"antialias": True, "sort_by_material": True, "compact": True}),
+    ("mesh.txt", {"direct_lighting": True}),
+])
+def test_tri_shards_on_cuda(cuda_device, name, settings_kw):
+    """tri=2 with both shards on one card (64x48 d8): at every depth of one
+    iteration driven by the kernels, each shard's #7 -> #8 -> #10 and one #4
+    and nothing else; the merged hits against the plain merge of the plain
+    per-slice chains and against the unsharded kernels (lane rule); #4 on
+    the merged pool against its plain version (lane rule, pix exactly);
+    through step_batch the launches of the tier and the image within the
+    image rule of the unsharded Renderer."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.parallel.shard import ShardedRenderer
+    from project3_cuda_path_tracer_tpu_torch.render import (
+        _camera_pool,
+        intersect_scene_any,
+        merge_isect_shards,
+    )
+
+    scene = small(name, (64, 48))
+    settings = RenderSettings(trace_depth=8, **settings_kw)
+    sr = ShardedRenderer(scene, settings, tri=2, devices=[cuda_device] * 2)
+    r = Renderer(scene, settings, device=cuda_device)
+    group = sr.groups[0][0]
+    ds0, tables0 = group[0]
+    pool = _camera_pool(r.dev_camera, 2, settings)
+    for depth in range(8):
+        before = shard_launches()
+        got = intersect_scene_any(pool[0], pool[1], None, sr.settings, alive=pool[4],
+                                  shards=group)
+        out = megakernel.shade_step(pool, got, ds0, 2, depth, sr.settings, tables=tables0)
+        torch.cuda.synchronize()
+        assert launches_since(before) == {"mesh_candidates": 2, "mesh_sweep": 2,
+                                          "intersect_mesh": 2, "shade_step": 1}
+        plain = merge_isect_shards([pipeline.intersect_pipeline_reference(
+            pool[0], pool[1], pool[4], sh.scene) for sh in group])
+        whole = intersect_scene_any(pool[0], pool[1], r.dev_scene, settings,
+                                    alive=pool[4], tables=r.tables)
+        assert_lane_rule(hit_lanes(got), hit_lanes(plain))
+        assert_lane_rule(hit_lanes(got), hit_lanes(whole))
+        want = megakernel.shade_step_reference(pool, got, ds0, 2, depth, sr.settings)
+        assert torch.equal(out[5], want[5])
+        assert_lane_rule(megakernel.pool_lanes(out)[:13], megakernel.pool_lanes(want)[:13])
+        pool = out
+    before = shard_launches()
+    sr.step_batch(2)
+    torch.cuda.synchronize()
+    got_l = launches_since(before)
+    assert set(got_l) <= {"mesh_candidates", "mesh_sweep", "intersect_mesh", "shade_step",
+                          "radix_split"}, got_l
+    assert got_l["shade_step"] == 2 * (7 if settings.direct_lighting else 8)
+    r.step_batch(2)
+    assert_image_rule([torch.tensor(sr.image()[..., c]) for c in range(3)],
+                      [torch.tensor(r.image()[..., c]) for c in range(3)])
+
+
+def test_tri_shards_big_mesh_on_cuda(cuda_device, big_mesh):
+    """mesh_big under tri=2 on one card: each slice of 25,600 triangles
+    keeps the sorted route (A-D after #8) at every depth; the merged hits
+    against the plain merge of the plain per-slice chains (lane rule)."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.parallel.shard import ShardedRenderer
+    from project3_cuda_path_tracer_tpu_torch.render import (
+        _camera_pool,
+        intersect_scene_any,
+        merge_isect_shards,
+    )
+
+    scene = small("mesh_big.txt", (64, 64))
+    settings = RenderSettings(trace_depth=8, antialias=True)
+    sr = ShardedRenderer(scene, settings, tri=2, devices=[cuda_device] * 2)
+    group = sr.groups[0][0]
+    assert all(len(pipeline.sorted_geoms(sh.scene)) == 1 for sh in group)
+    ds, cam = big_mesh
+    pool = _camera_pool(cam, 2, settings)
+    for depth in range(3):
+        before = shard_launches()
+        got = intersect_scene_any(pool[0], pool[1], None, sr.settings, alive=pool[4],
+                                  shards=group)
+        torch.cuda.synchronize()
+        assert launches_since(before) == dict.fromkeys(
+            ("mesh_candidates", "mesh_sweep", "super_keys", "place_entries",
+             "window_sweep", "merge_entries", "intersect_mesh"), 2)
+        plain = merge_isect_shards([pipeline.intersect_pipeline_reference(
+            pool[0], pool[1], pool[4], sh.scene) for sh in group])
+        assert_lane_rule(hit_lanes(got), hit_lanes(plain))
+        pool = megakernel.shade_step(pool, got, group[0].scene, 2, depth, sr.settings,
+                                     tables=group[0].tables)

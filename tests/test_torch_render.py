@@ -178,17 +178,22 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
      ("mesh.txt", {"tri_axis": "tri"}, "triangle sharding")],
 )
 def test_unported_features_raise(name, settings_kw, what):
-    """A setting the port does not render yet (triangle sharding) is
-    refused with its ROADMAP item, by the renderer and by the kernel
-    wrapper itself, on the surface-stage and mesh scenes as on the
-    others."""
+    """Triangle sharding renders since the tri-shard tier landed: a
+    Renderer with `tri_axis` set renders its one shard through it
+    (intersect, merge, #4's plain version), on the surface-stage and mesh
+    scenes as on the others, the image the untiered one's; a kernel that
+    intersects inside itself refuses the setting, naming it."""
     scene = small(tscene, name, (8, 8))
-    settings = trender.RenderSettings(**settings_kw)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-        trender.Renderer(scene, settings, device="cpu")
+    settings = trender.RenderSettings(trace_depth=3, **settings_kw)
+    r = trender.Renderer(scene, settings, device="cpu")
+    r.step_batch(1)
+    plain = trender.Renderer(scene, trender.RenderSettings(trace_depth=3), device="cpu")
+    plain.step_batch(1)
+    assert r.image().max() > 0
+    assert_image_close(r.image().reshape(-1, 3), plain.image().reshape(-1, 3))
     ds = tdevice.scene_to_device(scene, "cpu")
     cam = tdevice.camera_to_device(scene.state.camera, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=f"{what} \\(tri_axis\\)"):
         tmk.full_iteration(ds, cam, 1, settings, TVec3.zeros(64, "cpu"))
 
 
@@ -215,11 +220,14 @@ def test_sort_renders_like_unsorted(name, settings_kw):
 
 @pytest.mark.parametrize("flag", ["--shard", "--preview", "--no-pallas"])
 def test_cli_unported_flags_fail(flag, caplog):
+    """The flags still unported fail naming their ROADMAP item; --shard
+    renders since it was ported (tests/test_torch_shard.py), so here only
+    a shard factor below 1 fails, before any render."""
     argv = [os.path.join(SCENES, "cornell.txt"), "--device", "cpu", flag]
     if flag == "--shard":
-        argv.append("spp=2")
+        argv.append("spp=0")
     assert tmain(argv) == 1
-    assert "ROADMAP" in caplog.text
+    assert ("shard factors must be >= 1" if flag == "--shard" else "ROADMAP") in caplog.text
 
 
 @pytest.mark.parametrize("flag", ["--stats", "--sort-materials"])

@@ -157,7 +157,8 @@ def test_cli_accepts_slice_flags(flag, tmp_path):
 
 def test_cli_sorts_and_refusals_name_their_module(tmp_path, caplog):
     """--sort-materials renders through the CLI; each flag still refused
-    names its module of ROADMAP §1 (4: sharding, 5: the CLI remainder)."""
+    names its module of ROADMAP §1 (5: the CLI remainder; sharding, module
+    4, is ported)."""
     text = open(os.path.join(SCENES, "cornell.txt")).read()
     scene = tmp_path / "cornell8.txt"
     scene.write_text(text.replace("RES         800 800", "RES         8 8"))
@@ -165,9 +166,9 @@ def test_cli_sorts_and_refusals_name_their_module(tmp_path, caplog):
                   "--sort-materials", "--compact", "--out-dir", str(tmp_path)]) == 0
     from project3_cuda_path_tracer_tpu_torch.cli import UNPORTED_FLAGS
 
-    assert set(UNPORTED_FLAGS) == {"shard", "preview", "debug", "debug_nans", "no_pallas"}
+    assert set(UNPORTED_FLAGS) == {"preview", "debug", "debug_nans", "no_pallas"}
     for dest, (flag, item) in UNPORTED_FLAGS.items():
-        assert "module 4" in item or "module 5" in item, (flag, item)
+        assert "module 5" in item, (flag, item)
     argv = [str(scene), "--device", "cpu", "--debug"]
     assert tmain(argv) == 1
     assert "--debug" in caplog.text and "module 5" in caplog.text
