@@ -141,6 +141,16 @@ line (`<wrapper>@surface`). With `--sass-other DIR` (another checkout)
 it also holds every kernel function both trees have to the same SASS
 (tools/torch_sass_diff.py). Every path is driven
 with the launch counts set to 0 just before it and read just after.
+Last (`last_modules_phase`), the modules ported last: --no-pallas
+(the plain versions on the card, no launch counted) on cornell, mesh.txt,
+textured and cornell --nee at 128x128 against the goldens and the kernel
+path; `validate_tables` on the 21 configs; --debug and --debug-nans (each
+launch checked, each stage's outputs scanned for NaN) on runs that
+launch every wrapper, clean, and a planted NaN named with its kernel; a
+texture resampled from 300x200 and a .hdr env map through #1 on
+TexTables against its plain version at 64x64 and 800x800; the viewer's
+frame loop; the CLI's --debug, --debug-nans, --no-pallas and --preview
+(Agg); and the modes' cost on the main cell and on (a) (`modes_cost`).
 Every phase prints one line; any failure raises and exits non-zero
 before the result lines are printed. Imports nothing of JAX or of the
 JAX package.
@@ -2765,6 +2775,312 @@ def tri_kernel_entries(tri_r, tri_checks, shard_cells, smi) -> dict:
     return out
 
 
+def loader_scenes(out_dir: str) -> dict:
+    """Two scenes that need the loaders' remainder, written into `out_dir`
+    with the port's writers: textured.txt with its stripes replaced by a
+    300x200 PNG (resampled to the 256x256 atlas), and envmap.txt with its
+    sky replaced by a 300x150 Radiance .hdr (its range kept, resampled to
+    the 512x256 table by nearest neighbour). {name: scene path}."""
+    from project3_cuda_path_tracer_tpu_torch.utils.image import save_hdr, save_png
+
+    y, x = np.mgrid[0:200, 0:300]
+    tex = np.stack([(x * 255) // 299, (y * 255) // 199, ((x // 20 + y // 20) % 2) * 255],
+                   -1).astype(np.uint8)
+    tex_path = save_png(os.path.join(out_dir, "stripes_300x200"), tex)
+    y, x = np.mgrid[0:150, 0:300]
+    sky = np.stack([0.2 + 3.0 * (y < 40) * (np.abs(x - 150) < 30), 0.3 + 0.5 * y / 149,
+                    0.9 - 0.6 * y / 149], -1).astype(np.float32)
+    hdr_path = save_hdr(os.path.join(out_dir, "sky_300x150"), sky)
+    assets = os.path.join(HERE, "scenes", "assets") + os.sep
+    out = {}
+    for name, old, new in (("textured.txt", "assets/stripes.png", tex_path),
+                           ("envmap.txt", "assets/sky.png", hdr_path)):
+        text = open(os.path.join(HERE, "scenes", name)).read()
+        if old not in text:
+            raise RuntimeError(f"{name}: no {old} to replace")
+        text = text.replace(old, new).replace("assets/", assets)
+        path = os.path.join(out_dir, name.replace(".txt", "_loaders.txt"))
+        with open(path, "w") as f:
+            f.write(text)
+        out[name] = path
+    return out
+
+
+def frame_ms(r, n: int, batch: int) -> float:
+    """ms per iteration of `r.step_batch(batch)` called n times after one
+    warm-up call, closed by a synchronize."""
+    import torch
+
+    r.step_batch(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        r.step_batch(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (n * batch)
+
+
+def step_ms(r, n: int) -> float:
+    """ms per `r.step()`, n timed after one warm-up."""
+    import torch
+
+    r.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        r.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def last_modules_phase(dev, big, goldens, smi) -> dict:
+    """The last modules (ROADMAP §1 modules 5 and 1) on the card:
+    --no-pallas (RenderSettings.plain) on cornell, mesh.txt, textured and
+    cornell --nee at 128x128, no launch counted, against the goldens and
+    the kernel path by the image rule; `validate_tables` on the 21 smoke
+    configs; --debug and --debug-nans (every launch checked, every
+    stage's output scanned for NaN) on runs that launch every wrapper,
+    clean, and a planted NaN named with its kernel; a texture resampled
+    from 300x200 and a .hdr env map through the TexTables kernels against
+    their plain versions; the viewer's frame loop for 3 frames; the CLI's
+    --debug, --debug-nans, --no-pallas and --preview (under Agg, if
+    matplotlib imports); the cost of each mode on the main cell and on
+    (a). Returns the timing line's numbers."""
+    import logging
+
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch import viewer
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.parallel.shard import ShardedRenderer
+    from project3_cuda_path_tracer_tpu_torch.render import (
+        Renderer,
+        RenderSettings,
+        _device_tables,
+    )
+    from project3_cuda_path_tracer_tpu_torch.utils import debug
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_modules_")
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.text = []
+
+        def emit(self, record):
+            self.text.append(record.getMessage())
+
+    lines = Lines()
+    logging.getLogger("pathtracer").addHandler(lines)
+    logging.getLogger("pathtracer").setLevel(logging.INFO)
+
+    # --no-pallas on the card
+    for name, kw, key in (("cornell.txt", {}, "cornell.txt"), ("mesh.txt", {}, "mesh.txt"),
+                          ("textured.txt", {}, "textured.txt"),
+                          ("cornell.txt", {"nee_mis": True}, "cornell.txt_--nee")):
+        scene = small_scene(name, (128, 128))
+        imgs, counts = {}, {}
+        for plain in (False, True):
+            lines.text.clear()
+            r = Renderer(scene, RenderSettings(trace_depth=min(scene.state.trace_depth or 8, 8),
+                                               plain=plain, **kw), device=dev)
+            reset_launches()
+            r.step_batch(2)
+            counts[plain] = sum(read_launches().values())
+            imgs[plain] = r.image()
+            said = any("no kernel is launched" in t for t in lines.text)
+            if said != plain:
+                raise RuntimeError(f"--no-pallas {name}: log {lines.text}")
+        if counts[True] != 0 or counts[False] == 0:
+            raise RuntimeError(f"--no-pallas {name} {kw}: launches {counts}")
+        diff = np.abs(np.clip(imgs[True] / 2, 0.0, 1.0) - goldens[key].astype(np.float32))
+        badfrac = float((diff > GOLDEN_BAD).mean())
+        frac, med, err = compare([torch.from_numpy(imgs[True])], [torch.from_numpy(imgs[False])])
+        rule = NEE_PARITY_FRAC if kw.get("nee_mis") else PARITY_FRAC
+        say("no_pallas", config=key, res="128x128", launches_plain=counts[True],
+            launches_kernels=counts[False], golden_badfrac=badfrac,
+            vs_kernels={"badfrac": frac, "median": med, "max_abs_err": err},
+            rule=f"golden<={GOLDEN_FRAC}; frac(|d|>{PARITY_BAD})<{rule}, median<{PARITY_MEDIAN}")
+        if badfrac > GOLDEN_FRAC or not (frac < rule and med < PARITY_MEDIAN):
+            raise RuntimeError(f"--no-pallas {key}: golden {badfrac}, vs kernels {frac} {med}")
+
+    # validate_tables on the 21 smoke configs (the tables the kernels read)
+    t0 = time.perf_counter()
+    checked = []
+    for name in dict.fromkeys(n for n, _, _ in SMOKE):
+        r = Renderer(small_scene(name, (64, 64)), RenderSettings(nee_mis=name in (
+            "cornell.txt", "many_materials.txt", "textured.txt")), device=dev)
+        debug.validate_tables(r.dev_scene, r.tables)
+        checked.append(name)
+    for name in BIG_SCENES:
+        debug.validate_tables(big[name].dev_scene, big[name].tables)
+        checked.append(name)
+    say("validate_tables", configs=len(SMOKE) + len(BIG_SCENES), scenes=checked,
+        seconds=time.perf_counter() - t0, result="clean")
+
+    # --debug and --debug-nans over runs that launch every wrapper
+    launched = set()
+    debug_runs = [("cornell.txt", {"antialias": True}, None), ("cornell.txt", {"nee_mis": True}, None),
+                  ("mesh.txt", {"cache_first_bounce": True}, None), ("mesh.txt", {"nee_mis": True}, None),
+                  ("textured.txt", {}, None), ("mesh_big.txt", {"antialias": True}, "counting"),
+                  ("mesh_big.txt", {"antialias": True}, "radix"),
+                  ("cornell.txt", {"sort_by_material": True}, None), ("mesh.txt", {}, "tri=2")]
+    for name, kw, how in debug_runs:
+        t0 = time.perf_counter()
+        if name in big:
+            r = big[name]
+            r.settings = RenderSettings(trace_depth=8, **kw)
+            r.set_camera(camera_at(r.camera, (64, 64)))
+        elif how == "tri=2":
+            r = ShardedRenderer(small_scene(name, (64, 64)), RenderSettings(trace_depth=8, **kw),
+                                tri=2, devices=[dev, dev])
+        else:
+            r = Renderer(small_scene(name, (64, 64)), RenderSettings(trace_depth=8, **kw),
+                         device=dev)
+        pl.SORT_RADIX, flag = how == "radix", pl.SORT_RADIX
+        reset_launches()
+        try:
+            with debug.checks(launches=True, nans=True):
+                debug.bounds_sweep(r)
+                r.step_batch(2)
+                if how != "tri=2":
+                    r.step()
+        finally:
+            pl.SORT_RADIX = flag
+        counts = {k: v for k, v in read_launches().items() if v}
+        launched |= set(counts)
+        say("debug_checks", config=name, settings=kw, route=how, modes="--debug --debug-nans",
+            res="64x64", launches=counts, result="clean", seconds=time.perf_counter() - t0)
+    missing = set(KERNELS) - launched
+    if missing:
+        raise RuntimeError(f"the debug runs launched no {sorted(missing)}")
+    if "mesh_big.txt" in big:  # back to its own settings and size
+        big["mesh_big.txt"].settings = RenderSettings(trace_depth=8)
+        big["mesh_big.txt"].set_camera(camera_at(big["mesh_big.txt"].camera, (128, 128)))
+    # a NaN planted in a material colour: the first kernel to shade it names it
+    planted = {}
+    for route in ("step", "step_batch"):
+        r = Renderer(small_scene("cornell.txt", (64, 64)), RenderSettings(trace_depth=8),
+                     device=dev)
+        r.dev_scene.mat_color.x[1] = float("nan")
+        r.tables = _device_tables(r.dev_scene, r.settings)
+        try:
+            with debug.checks(nans=True):
+                r.step() if route == "step" else r.step_batch(1)
+            raise RuntimeError(f"the planted NaN ({route}) was not caught")
+        except FloatingPointError as e:
+            planted[route] = str(e)
+    want = {"step": "stage first_bounce (kernel)", "step_batch": "stage full_iteration (kernel)"}
+    for route, msg in planted.items():
+        if want[route] not in msg or "aten." not in msg:
+            raise RuntimeError(f"the planted NaN ({route}): {msg}")
+    say("debug_nans_planted", config="cornell.txt", res="64x64", messages=planted)
+
+    # the loaders on the card: a resampled texture, a .hdr env map
+    paths = loader_scenes(tmp)
+    try:
+        from PIL import Image
+
+        from project3_cuda_path_tracer_tpu_torch.utils.image import read_png
+        from project3_cuda_path_tracer_tpu_torch.utils.resample import resize_bilinear
+
+        png = read_png(os.path.join(tmp, "stripes_300x200.png"))
+        pillow = bool(np.array_equal(
+            resize_bilinear(png, 256, 256),
+            np.asarray(Image.fromarray(png, "RGB").resize((256, 256), Image.BILINEAR))))
+    except ImportError as e:
+        pillow = f"Pillow not importable ({e})"
+    for name, path in paths.items():
+        for res in ((64, 64), (800, 800)):
+            imgs, counts = {}, {}
+            for plain in (False, True):
+                r = Renderer(small_scene(name, res, path), RenderSettings(trace_depth=8, plain=plain),
+                             device=dev)
+                reset_launches()
+                r.step_batch(2)
+                counts[plain] = {k: v for k, v in read_launches().items() if v}
+                imgs[plain] = torch.from_numpy(r.image())
+            frac, med, err = compare([imgs[False]], [imgs[True]])
+            if counts[True] or counts[False] != {"full_iteration": 1}:
+                raise RuntimeError(f"{name} loaders: launches {counts}")
+            check_parity("full_iteration@surface", {
+                "config": os.path.basename(path), "res": f"{res[0]}x{res[1]}",
+                "asset": "texture 300x200 resampled" if "textured" in name
+                else ".hdr env map 300x150", "launches": counts[False],
+                "resample_equals_pillow": pillow}, frac, med, err)
+
+    # the viewer's frame loop without a display
+    r = Renderer(small_scene("cornell.txt", (128, 128)), RenderSettings(trace_depth=8), device=dev)
+    reset_launches()
+    frames = [viewer.next_frame(r, 2) for _ in range(3)]
+    if r.iteration != 6 or read_launches()["full_iteration"] != 3 or any(
+            f.shape != (128, 128, 3) or f.dtype != np.uint8 or f.max() == 0 for f in frames):
+        raise RuntimeError("viewer frame loop")
+    say("viewer", frames=3, batch=2, iteration=r.iteration, launches=read_launches()["full_iteration"])
+
+    # the CLI: the four flags at 64x64, the processes at once
+    scene_path = os.path.join(tmp, "cornell64.txt")
+    with open(scene_path, "w") as f:
+        f.write(open(os.path.join(HERE, "scenes", "cornell.txt")).read()
+                .replace("RES         800 800", "RES         64 64"))
+    try:
+        import matplotlib  # noqa: F401
+
+        mpl = True
+    except ImportError:
+        mpl = False
+    runs = [["--debug"], ["--debug-nans"], ["--no-pallas"]] + ([["--preview"]] if mpl else [])
+    procs = []
+    for extra in runs:
+        out_dir = tempfile.mkdtemp(prefix="cli_", dir=tmp)
+        procs.append((extra, out_dir, subprocess.Popen(
+            [sys.executable, "-m", PKG, scene_path, "--iterations", "16", "--out-dir", out_dir,
+             *extra], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, MPLBACKEND="Agg"))))
+    want = {"--debug": "bounds sweep clean", "--debug-nans": "checked for NaN",
+            "--no-pallas": "no kernel is launched", "--preview": "render complete"}
+    try:
+        for extra, out_dir, proc in procs:
+            _, err = proc.communicate(timeout=300)
+            pngs = [f for f in os.listdir(out_dir) if f.endswith(".16samp.png")]
+            if proc.returncode != 0 or len(pngs) != 1 or want[extra[0]] not in err:
+                raise RuntimeError(f"CLI {extra} exited {proc.returncode}, wrote "
+                                   f"{os.listdir(out_dir)}: {err[-3000:]}")
+            say("cli", scene="cornell.txt", res="64x64", flags=extra, rc=proc.returncode,
+                png=pngs[0])
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    say("cli_preview", matplotlib_imports=mpl, ran=mpl)
+
+    # the cost of each mode: the main cell and (a), in turns with the flags off
+    main = Renderer(small_scene("cornell.txt", (800, 800)),
+                    RenderSettings(trace_depth=8, antialias=True), device=dev)
+    per = Renderer(small_scene("cornell.txt", (800, 800)),
+                   RenderSettings(trace_depth=8, antialias=True), device=dev)
+    timing = {"main_ms_per_frame": {}, "a_step_ms": {}}
+    for mode in ("off", "debug", "debug_nans", "off_again"):
+        with debug.checks(launches=mode == "debug", nans=mode == "debug_nans"):
+            timing["main_ms_per_frame"][mode] = frame_ms(main, 8, 25)
+            timing["a_step_ms"][mode] = step_ms(per, 10)
+    plain = Renderer(small_scene("cornell.txt", (800, 800)),
+                     RenderSettings(trace_depth=8, antialias=True, plain=True), device=dev)
+    reset_launches()
+    timing["main_ms_per_frame"]["no_pallas"] = frame_ms(plain, 2, 2)
+    timing["no_pallas_launches"] = sum(read_launches().values())
+    if timing["no_pallas_launches"]:
+        raise RuntimeError(f"--no-pallas launched kernels: {read_launches()}")
+    say("modes_cost", device=smi, cell="cornell-800-d8-aa", depth=8, settings={"antialias": True},
+        main_route="step_batch(25)", a_route="step()", **timing)
+    logging.getLogger("pathtracer").removeHandler(lines)
+    shutil.rmtree(tmp, ignore_errors=True)
+    say("last_modules_phase", seconds=time.perf_counter() - t_phase)
+    return timing
+
+
 def shard_phase_main() -> int:
     """`--shard-phase`: the shard phase alone, in a process of its own
     (the kernels built by the caller): its lines, then one JSON object
@@ -4324,6 +4640,10 @@ def main(argv=None) -> int:
                 proc.kill()
                 proc.wait()
     shutil.rmtree(tmpdir, ignore_errors=True)
+
+    # ---- 9. the last modules: --no-pallas, --debug, --debug-nans, the
+    # loaders' remainder, the viewer, the four flags through the CLI ----
+    last_modules_phase(dev, big, goldens, smi)
 
     # the tri-shard tier's entries, from the shard phase's own process
     for k, e in shard_out["tri_kernels"].items():

@@ -10,7 +10,8 @@ scene the mesh pipeline (ops/pipeline.py: candidates, BVH sweep, the
 big-mesh route's sorted supernode sweep, sorted by a counting sort or,
 under PT_TPU_SORT_RADIX=1, by the radix kernels, merge + shade or
 merge); on the CPU, and only when asked for, their plain PyTorch
-versions.
+versions, which also run on the card under --no-pallas
+(`RenderSettings.plain`).
 """
 
 __version__ = "0.1.0"

@@ -2,14 +2,20 @@
 
 The same argument surface as the JAX package's CLI, plus `--device`
 (default `cuda`; the CPU renders with the plain PyTorch path only when
-asked with `--device cpu`). A flag whose feature is not ported yet fails
-with a message naming its module of ROADMAP §1, as does a scene that
-needs one. `--stats` logs the alive curve and the stage breakdown
+asked with `--device cpu`). `--no-pallas` runs the plain PyTorch versions
+on the card as well (the JAX package's XLA pipeline; on the CPU the same
+render as without it); `--pallas` is accepted and changes nothing.
+`--stats` logs the alive curve and the stage breakdown
 (utils/profiling.py) before the render; `--profile DIR` writes a
-torch.profiler Chrome trace of the render into DIR. `--shard spp=S,px=N,
-tri=T` renders through parallel/shard.py::ShardedRenderer, one shard on
-each visible card (`--device cuda`) or every shard on the CPU; it drops
-`--preview` and `--stats` with a warning, as the JAX package's CLI does.
+torch.profiler Chrome trace of the render into DIR. `--debug` runs the
+bounds sweep at startup, checks every kernel launch and the
+accumulator's finiteness after each chunk; `--debug-nans` checks every
+stage's outputs for NaN and names the aten op that made it
+(utils/debug.py). `--preview` opens the viewer (viewer.py, matplotlib).
+`--shard spp=S,px=N,tri=T` renders through
+parallel/shard.py::ShardedRenderer, one shard on each visible card
+(`--device cuda`) or every shard on the CPU; it drops `--preview` and
+`--stats` with a warning, as the JAX package's CLI does.
 """
 
 from __future__ import annotations
@@ -21,22 +27,9 @@ import time
 
 from .models.scene import load_scene, scene_summary
 from .render import Renderer, RenderSettings
-from .utils import profiling
+from .utils import debug, profiling
 
 log = logging.getLogger("pathtracer")
-
-# flag (argparse dest) -> (flag, the module of ROADMAP §1 that ports it)
-UNPORTED_FLAGS = {
-    "preview": ("--preview", "§1 module 5 (the viewer)"),
-    "debug": ("--debug", "§1 module 5 (the CLI remainder)"),
-    "debug_nans": ("--debug-nans", "§1 module 5 (the CLI remainder)"),
-    "no_pallas": (
-        "--no-pallas",
-        "the device picks the path (use --device cpu for the plain "
-        "PyTorch path); §1 module 5 (the CLI remainder)",
-    ),
-}
-
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -81,30 +74,29 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="the plain path sweeps every triangle instead of "
                         "walking the BVH (the CUDA mesh kernel always walks it)")
     p.add_argument("--pallas", action="store_true",
-                   help="accepted; CUDA always runs the hand-written kernels")
-    p.add_argument("--no-pallas", action="store_true")
+                   help="accepted; CUDA runs the hand-written kernels by default")
+    p.add_argument("--no-pallas", action="store_true",
+                   help="the plain PyTorch versions on the card too (the JAX "
+                        "package's XLA pipeline); no kernel is launched")
     p.add_argument("--hdr", action="store_true", help="also save Radiance HDR")
     p.add_argument("--out-dir", default=".")
     p.add_argument("--checkpoint", default=None, help="resume from / save to .npz")
     p.add_argument("--checkpoint-every", type=int, default=0)
-    p.add_argument("--preview", action="store_true")
+    p.add_argument("--preview", action="store_true",
+                   help="interactive viewer (matplotlib)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the render into DIR")
-    p.add_argument("--debug", action="store_true")
-    p.add_argument("--debug-nans", action="store_true")
+    p.add_argument("--debug", action="store_true",
+                   help="bounds sweep at startup, every kernel launch checked, "
+                        "finite-accumulator assertions per chunk (utils/debug.py)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="every stage's outputs checked for NaN; a NaN names its "
+                        "stage and the aten op that made it")
     p.add_argument("--stats", action="store_true",
                    help="log the alive rays per bounce and the stage times first")
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("-v", "--verbose", action="store_true")
     return p
-
-
-def refuse_unported(args) -> None:
-    for dest, (flag, item) in UNPORTED_FLAGS.items():
-        if getattr(args, dest):
-            raise NotImplementedError(
-                f"{flag} is not ported yet: see ROADMAP, {item}"
-            )
 
 
 def settings_from_args(args, scene) -> RenderSettings:
@@ -123,6 +115,7 @@ def settings_from_args(args, scene) -> RenderSettings:
         stratified=args.stratified,
         sobol=args.sobol,
         use_bvh=not args.no_bvh,
+        plain=args.no_pallas,
     )
 
 
@@ -150,14 +143,20 @@ def main(argv=None) -> int:
 
 
 def _run(args) -> int:
-    import contextlib
-    import os
-
     if args.shard and (args.preview or args.stats):
         log.warning("--shard does not support --preview/--stats; ignoring them")
         args.preview = False
         args.stats = False
-    refuse_unported(args)
+    with debug.checks(launches=args.debug, nans=args.debug_nans):
+        if args.debug_nans:
+            log.info("debug: every stage's outputs checked for NaN")
+        return _run_checked(args)
+
+
+def _run_checked(args) -> int:
+    import contextlib
+    import os
+
     scene = load_scene(args.scene)
     log.info(scene_summary(scene))
     settings = settings_from_args(args, scene)
@@ -174,6 +173,11 @@ def _run(args) -> int:
         renderer = Renderer(scene, settings, device=args.device)
         log.info("device %s", renderer.device)
 
+    if args.debug:
+        log.info("debug: running the bounds sweep (one iteration)...")
+        debug.bounds_sweep(renderer)
+        log.info("debug: bounds sweep clean")
+
     if args.checkpoint:
         # np.savez_compressed appends .npz; normalize once so the resume
         # existence check and the save target agree on the filename.
@@ -184,6 +188,12 @@ def _run(args) -> int:
             log.info("resumed from %s at iteration %d", args.checkpoint, renderer.iteration)
 
     target = args.iterations if args.iterations is not None else scene.state.iterations
+
+    if args.preview:
+        from .viewer import run_viewer
+
+        run_viewer(renderer, target, out_dir=args.out_dir)
+        return 0
 
     with contextlib.ExitStack() as stack:
         prof = _start_profile(args.profile, renderer.device, stack)
@@ -250,6 +260,10 @@ def _render(args, renderer, settings, target) -> None:
         n = min(chunk, target - renderer.iteration)
         renderer.step_batch(n)
         it = renderer.iteration
+        if args.debug:
+            accums = renderer.accums if hasattr(renderer, "accums") else [renderer.accum]
+            for accum in accums:
+                debug.assert_finite(accum, it)
         if args.log_every and (it % args.log_every == 0 or it >= target):
             _sync(renderer)
             now = time.perf_counter()

@@ -39,7 +39,8 @@ from typing import List, Optional
 import numpy as np
 
 from ..utils import math3d
-from ..utils.image import read_png
+from ..utils.image import read_hdr, read_png
+from ..utils.resample import resize_bilinear
 
 
 class GeomType(enum.IntEnum):
@@ -383,23 +384,27 @@ ENV_H, ENV_W = 256, 512  # lat-long env maps resampled to this
 
 def _load_env_map(path: str) -> np.ndarray:
     """Load a lat-long environment image as (ENV_H, ENV_W, 3) float
-    radiance in [0,1]: an 8-bit PNG of exactly ENV_W x ENV_H
-    (`utils.image.read_png`). The JAX package also resamples other sizes
-    (Pillow) and reads HDR formats (imageio); both are refused here
-    (ROADMAP §1 queues them)."""
+    radiance, as the JAX package loads it. HDR formats keep their range: a
+    Radiance `.hdr` (`utils.image.read_hdr`) resampled by nearest
+    neighbour, the JAX package's index formula; LDR is mapped to [0,1]: an
+    8-bit PNG (`utils.image.read_png`) resized bilinearly to the table,
+    bit for bit Pillow's BILINEAR (`utils.resample`). `.exr` raises
+    ValueError: no EXR decoder is installed (the JAX package reads it
+    through imageio's plugins, which need one)."""
     ext = os.path.splitext(path)[1].lower()
-    if ext in (".hdr", ".exr"):
+    if ext == ".exr":
         raise ValueError(
-            f"{path}: {ext} environment maps are not ported yet (they need "
-            "imageio): see ROADMAP §1"
+            f"{path}: .exr environment maps need an EXR decoder, and none is "
+            "installed (the JAX package reads them through imageio, which "
+            "finds no backend for them either); convert the map to .hdr"
         )
-    img = read_png(path, "RGB")
-    if img.shape[:2] != (ENV_H, ENV_W):
-        raise ValueError(
-            f"{path}: environment map is {img.shape[1]}x{img.shape[0]}, "
-            f"the table is {ENV_W}x{ENV_H}; resampling is not ported yet: "
-            "see ROADMAP §1"
-        )
+    if ext == ".hdr":
+        img = read_hdr(path)
+        # nearest-neighbor resample (the JAX package's formula)
+        ys = (np.arange(ENV_H) * img.shape[0] // ENV_H).clip(0, img.shape[0] - 1)
+        xs = (np.arange(ENV_W) * img.shape[1] // ENV_W).clip(0, img.shape[1] - 1)
+        return np.ascontiguousarray(img[np.ix_(ys, xs)])
+    img = resize_bilinear(read_png(path, "RGB"), ENV_W, ENV_H)
     # int * float32(1/255) — must match the JAX package's atlas fetch
     # (ops/megakernel.py::_env_fetch) bit-for-bit; see _load_texture.
     return img.astype(np.float32) * np.float32(1.0 / 255.0)
@@ -642,19 +647,12 @@ TEX_RES = 256  # all file textures are resampled to this square size
 
 
 def _load_texture(path: str, grayscale: bool = False) -> np.ndarray:
-    """An 8-bit PNG of exactly TEX_RES x TEX_RES as (TEX_RES, TEX_RES, 3)
-    float albedo in [0,1], or (TEX_RES, TEX_RES) heights when `grayscale`
-    (`utils.image.read_png`: Pillow's RGB / L conversion). The JAX package
-    resamples any other size with Pillow; that is refused here (ROADMAP §1
-    queues it). An image at the table's size is the same either way:
-    Pillow's resize to an equal size returns it unchanged."""
-    img = read_png(path, "L" if grayscale else "RGB")
-    if img.shape[:2] != (TEX_RES, TEX_RES):
-        raise ValueError(
-            f"{path}: texture is {img.shape[1]}x{img.shape[0]}, the atlas "
-            f"is {TEX_RES}x{TEX_RES}; resampling is not ported yet: see "
-            "ROADMAP §1"
-        )
+    """An 8-bit PNG as (TEX_RES, TEX_RES, 3) float albedo in [0,1], or
+    (TEX_RES, TEX_RES) heights when `grayscale` (`utils.image.read_png`:
+    Pillow's RGB / L conversion), resized bilinearly to the atlas,
+    bit for bit the JAX package's Pillow BILINEAR (`utils.resample`)."""
+    img = resize_bilinear(read_png(path, "L" if grayscale else "RGB"),
+                          TEX_RES, TEX_RES)
     # int * float32(1/255), NOT /255: the JAX package's atlas fetch
     # (ops/megakernel.py::_file_tex_fetch) recovers the exact integer
     # texel and multiplies by float32(1/255) — same formula here makes

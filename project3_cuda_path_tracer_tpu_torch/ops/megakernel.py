@@ -27,10 +27,15 @@ Six wrappers, each replacing one Pallas kernel of the JAX package's
   (csrc/nee.cu).
 
 On CUDA tensors a wrapper launches its hand-written kernel (built by
-ops/_native.py) or raises; on CPU tensors, and only there, it runs its
-plain PyTorch version (`*_reference`: generate_rays / intersect_scene /
-render._shade_step / render._nee_mis_bounce, the JAX package's XLA path
-op for op). Each wrapper counts its launches in `<wrapper>.launches`.
+ops/_native.py) or raises; on CPU tensors, and on CUDA tensors under
+`RenderSettings.plain` (--no-pallas), it runs its plain PyTorch version
+(`*_reference`: generate_rays / intersect_scene / render._shade_step /
+render._nee_mis_bounce, the JAX package's XLA path op for op): one
+predicate, `runs_plain`, decides for every wrapper. Each wrapper counts
+its launches in `<wrapper>.launches`. Each is wrapped by
+utils/debug.py's `stage` (--debug-nans: its outputs checked for NaN),
+and `_launch`, the one choke point of every launch, checks the card's
+error after each launch under --debug.
 
 The pool is the JAX package's state tuple (origins, dirs, throughput,
 radiance, alive, pix) with Vec3 lanes, `alive` as int32 (0/1) and `pix`
@@ -68,6 +73,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.device import DeviceCamera, DeviceScene
+from ..utils import debug
 from .lights import lights_area_weight
 from .vec import Vec3
 
@@ -504,6 +510,14 @@ def _check_pool(state, P: int, device) -> list:
     return lanes
 
 
+def runs_plain(device: torch.device, plain: bool = False) -> bool:
+    """The one choice between a kernel and its plain PyTorch version,
+    made by every wrapper here and in ops/pipeline.py: the plain version on
+    CPU tensors, and on CUDA tensors when `plain` is asked for
+    (`RenderSettings.plain`, the CLI's --no-pallas); else the kernel."""
+    return device.type == "cpu" or bool(plain)
+
+
 def _require_cuda(device, what: str) -> None:
     if device.type != "cuda":
         raise RuntimeError(f"{what}: no kernel for device {device}")
@@ -546,6 +560,8 @@ def _launch(name: str, what: str, *args) -> None:
     rc = load().fn(name)(*args)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    if debug.STATE.launches:  # --debug: checkCUDAError after the launch
+        debug.check_launch(what, name)
 
 
 def _device_args(device):
@@ -586,6 +602,7 @@ def _nee_mesh_args(t: SceneTables, scene: DeviceScene, device) -> tuple:
 
 # ---- the wrappers ----------------------------------------------------------
 
+@debug.stage
 def full_iteration(
     scene: DeviceScene,
     cam: DeviceCamera,
@@ -626,7 +643,7 @@ def _whole_iterations(wrapper, reference, nee: bool, scene: DeviceScene,
     device = accum.x.device
     if int(iteration0) < 1:
         raise ValueError(f"iterations are 1-based, got {iteration0}")
-    if device.type == "cpu":
+    if runs_plain(device, settings.plain):
         for k in range(n_iters):
             rad = reference(scene, cam, iteration0 + k, settings)
             for a, r in zip(accum, rad):
@@ -661,6 +678,7 @@ def _whole_iterations(wrapper, reference, nee: bool, scene: DeviceScene,
         wrapper.launches += 1
 
 
+@debug.stage
 def first_bounce(scene: DeviceScene, cam: DeviceCamera, iteration: int,
                  settings, tables: SceneTables | None = None):
     """Raygen + the depth-0 bounce of iteration `iteration` (1-based),
@@ -669,7 +687,7 @@ def first_bounce(scene: DeviceScene, cam: DeviceCamera, iteration: int,
     check_supported(scene, settings)
     _require_analytic(scene, "first_bounce")
     device = cam.position.device
-    if device.type == "cpu":
+    if runs_plain(device, settings.plain):
         return first_bounce_reference(scene, cam, iteration, settings)
     _require_cuda(device, "first_bounce")
     resx, resy = cam.resolution
@@ -688,6 +706,7 @@ def first_bounce(scene: DeviceScene, cam: DeviceCamera, iteration: int,
     return out
 
 
+@debug.stage
 def bounce_step(state, scene: DeviceScene, iteration: int, depth: int,
                 settings, num_alive: torch.Tensor | None = None,
                 tables: SceneTables | None = None):
@@ -701,7 +720,7 @@ def bounce_step(state, scene: DeviceScene, iteration: int, depth: int,
     check_supported(scene, settings)
     _require_analytic(scene, "bounce_step")
     device = state[5].device
-    if device.type == "cpu":
+    if runs_plain(device, settings.plain):
         new = bounce_step_reference(state, scene, iteration, depth, settings,
                                     num_alive)
         for dst, src in zip(pool_lanes(state), pool_lanes(new)):
@@ -725,6 +744,7 @@ def bounce_step(state, scene: DeviceScene, iteration: int, depth: int,
     return state
 
 
+@debug.stage
 def shade_step(state, isect, scene: DeviceScene, iteration: int, depth: int,
                settings, tables: SceneTables | None = None):
     """The shading half of a bounce over `isect` (ops.intersect.
@@ -735,7 +755,7 @@ def shade_step(state, isect, scene: DeviceScene, iteration: int, depth: int,
     pool of every slice (render.trace_paths). CPU: the plain version;
     CUDA: one launch, counted in `shade_step.launches`."""
     device = state[5].device
-    if device.type == "cpu":
+    if runs_plain(device, settings.plain):
         return shade_step_reference(state, isect, scene, iteration, depth,
                                     settings)
     _require_cuda(device, "shade_step")
@@ -766,6 +786,7 @@ def shade_step(state, isect, scene: DeviceScene, iteration: int, depth: int,
     return out
 
 
+@debug.stage
 def bounce_step_nee(state, aux, scene: DeviceScene, iteration: int,
                     depth: int, settings, is_last: bool,
                     tables: SceneTables | None = None,
@@ -784,7 +805,7 @@ def bounce_step_nee(state, aux, scene: DeviceScene, iteration: int,
     check_supported(scene, settings)
     _require_lights(scene, "bounce_step_nee")
     device = state[5].device
-    if device.type == "cpu":
+    if runs_plain(device, settings.plain):
         live = state[4] != 0
         new, new_aux = bounce_step_nee_reference(
             state, aux, scene, iteration, depth, settings, is_last
@@ -815,6 +836,7 @@ def bounce_step_nee(state, aux, scene: DeviceScene, iteration: int,
     return state, aux
 
 
+@debug.stage
 def full_iteration_nee(
     scene: DeviceScene,
     cam: DeviceCamera,

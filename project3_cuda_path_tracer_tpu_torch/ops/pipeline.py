@@ -71,8 +71,11 @@ one stable digit pass per 8 bits of the key (one pass up to 255
 materials) over the slot iota, its digit counts from `digit_counts`.
 
 On CUDA tensors a wrapper launches its hand-written kernel
-(csrc/mesh.cu, sorted.cu or radix.cu, built by ops/_native.py) or raises; on CPU tensors, and
-only there, it runs its plain PyTorch version (`*_reference`): #7 the
+(csrc/mesh.cu, sorted.cu or radix.cu, built by ops/_native.py) or raises;
+on CPU tensors, and with `plain` (the chains pass
+`RenderSettings.plain`, --no-pallas) on CUDA tensors too
+(`megakernel.runs_plain`), it runs its plain PyTorch version
+(`*_reference`): #7 the
 analytic `intersect_scene` plus the candidacy mask plus `torch.nonzero`,
 #8 `mesh_intersect_bvh` on the candidate rays (the naive sweep when
 `use_bvh` is off, as `RenderSettings.use_bvh` selects for the plain
@@ -98,6 +101,7 @@ import torch
 
 from ..models.device import MESH_CHUNK, MESH_SUPER, DeviceScene
 from ..models.wide_bvh import WIDTH, collapse, stack_bound
+from ..utils import debug
 from .bvh_traverse import _aabb_hit, mesh_intersect_bvh, mesh_intersect_wide
 from .intersect import (
     FLT_MAX,
@@ -123,6 +127,7 @@ from .megakernel import (
     kernel_flags,
     pack_scene_tables,
     pool_lanes,
+    runs_plain,
 )
 from .sweep import _mesh_intersect_naive, intersect_scene
 from .vec import Vec3, take as vtake, where as vwhere
@@ -980,10 +985,12 @@ def _new_hits(P: int, device) -> Intersections:
 
 # ---- the wrappers ----------------------------------------------------------
 
+@debug.stage
 def mesh_candidates(origins: Vec3, dirs: Vec3, alive, scene: DeviceScene,
                     num_alive: torch.Tensor | None = None,
                     all_lanes: bool = False,
-                    tables: SceneTables | None = None) -> Candidates:
+                    tables: SceneTables | None = None,
+                    plain: bool = False) -> Candidates:
     """#7 over the rays (origins, dirs) with `alive` (int32 or bool (P,),
     or None for all alive). With `num_alive` (an int32 scalar tensor on
     the device; live lanes first) lanes at or past it are skipped; with
@@ -992,7 +999,7 @@ def mesh_candidates(origins: Vec3, dirs: Vec3, alive, scene: DeviceScene,
     fills every lane); CUDA: one launch (and the list count's memset),
     counted in `mesh_candidates.launches`."""
     device = origins.x.device
-    if device.type == "cpu":
+    if runs_plain(device, plain):
         return mesh_candidates_reference(origins, dirs, alive, scene, num_alive)
     _require_cuda(device, "mesh_candidates")
     P = origins.x.shape[0]
@@ -1027,9 +1034,10 @@ def mesh_candidates(origins: Vec3, dirs: Vec3, alive, scene: DeviceScene,
     return out
 
 
+@debug.stage
 def mesh_sweep(origins: Vec3, dirs: Vec3, cands: Candidates,
                scene: DeviceScene, tables: SceneTables | None = None,
-               use_bvh: bool = True) -> Intersections:
+               use_bvh: bool = True, plain: bool = False) -> Intersections:
     """#8: the mesh winner of each candidate lane of `cands` (#7's
     output), as Intersections lanes written at the lane's own index; the
     other lanes are not written (the kernel) or hold no hit (the plain
@@ -1038,7 +1046,7 @@ def mesh_sweep(origins: Vec3, dirs: Vec3, cands: Candidates,
     candidate. CPU: the plain version; CUDA: one launch of as many blocks
     as stay resident, whatever the pool, counted in `mesh_sweep.launches`."""
     device = origins.x.device
-    if device.type == "cpu":
+    if runs_plain(device, plain):
         return mesh_sweep_reference(origins, dirs, cands, scene, use_bvh)
     _require_cuda(device, "mesh_sweep")
     P = origins.x.shape[0]
@@ -1062,6 +1070,7 @@ def mesh_sweep(origins: Vec3, dirs: Vec3, cands: Candidates,
     return out
 
 
+@debug.stage
 def bounce_step_mesh(state, cands: Candidates, hits: Intersections,
                      scene: DeviceScene, iteration: int, depth: int, settings,
                      num_alive: torch.Tensor | None = None,
@@ -1072,7 +1081,7 @@ def bounce_step_mesh(state, cands: Candidates, hits: Intersections,
     CUDA: one launch, counted in `bounce_step_mesh.launches`."""
     check_supported(scene, settings)
     device = state[5].device
-    if device.type == "cpu":
+    if runs_plain(device, settings.plain):
         new = bounce_step_mesh_reference(state, cands, hits, scene, iteration,
                                          depth, settings, num_alive)
         for dst, src in zip(pool_lanes(state), pool_lanes(new)):
@@ -1097,12 +1106,14 @@ def bounce_step_mesh(state, cands: Candidates, hits: Intersections,
     return state
 
 
-def intersect_mesh(cands: Candidates, hits: Intersections) -> Intersections:
+@debug.stage
+def intersect_mesh(cands: Candidates, hits: Intersections,
+                   plain: bool = False) -> Intersections:
     """#10: the merged Intersections of every lane (dead lanes keep their
     analytic hit). CPU: the plain version (`merge_hits`); CUDA: one
     launch, counted in `intersect_mesh.launches`."""
     device = cands.t.device
-    if device.type == "cpu":
+    if runs_plain(device, plain):
         return merge_hits(cands, hits)
     _require_cuda(device, "intersect_mesh")
     P = cands.t.shape[0]
@@ -1136,10 +1147,12 @@ def _check_keys(sk: SuperKeys, n_supers: int, device) -> tuple:
     return E, P
 
 
+@debug.stage
 def super_keys(origins: Vec3, dirs: Vec3, cands: Candidates,
                hits: Intersections, scene: DeviceScene, g: int,
                E: int | None = None,
-               tables: SceneTables | None = None) -> SuperKeys:
+               tables: SceneTables | None = None,
+               plain: bool = False) -> SuperKeys:
     """A for big geom g over #7's list `cands`, with `hits` the mesh hit
     lanes so far (#8's, merged with earlier big geoms); E defaults to
     SORT_EXPAND. CPU: the plain version; CUDA: one memset (the histogram
@@ -1149,7 +1162,7 @@ def super_keys(origins: Vec3, dirs: Vec3, cands: Candidates,
     `super_keys.launches`."""
     E = SORT_EXPAND if E is None else E
     device = origins.x.device
-    if device.type == "cpu":
+    if runs_plain(device, plain):
         return super_keys_reference(origins, dirs, cands, hits, scene, g, E)
     _require_cuda(device, "super_keys")
     P = cands.lanes.shape[0]
@@ -1183,7 +1196,9 @@ def super_keys(origins: Vec3, dirs: Vec3, cands: Candidates,
     return out
 
 
-def place_entries(sk: SuperKeys, count: torch.Tensor) -> Stream:
+@debug.stage
+def place_entries(sk: SuperKeys, count: torch.Tensor,
+                  plain: bool = False) -> Stream:
     """B over A's keys of the `count` listed lanes (#7's device-side
     count): the real entries placed by key into one stream. CPU: the plain
     version; CUDA: one launch of the blocks that stay resident, which scan
@@ -1191,7 +1206,7 @@ def place_entries(sk: SuperKeys, count: torch.Tensor) -> Stream:
     in `place_entries.launches`. The cursor is A's (`sk.cursor`, zeroed
     with the histogram); a SuperKeys without one gets a zeroed one here."""
     device = sk.keys.device
-    if device.type == "cpu":
+    if runs_plain(device, plain):
         return place_entries_reference(sk, count)
     _require_cuda(device, "place_entries")
     bins = sk.hist.shape[0]
@@ -1214,15 +1229,17 @@ def place_entries(sk: SuperKeys, count: torch.Tensor) -> Stream:
     return st
 
 
+@debug.stage
 def window_sweep(st: Stream, sk: SuperKeys, scene: DeviceScene, g: int,
-                 tables: SceneTables | None = None) -> EntryHits:
+                 tables: SceneTables | None = None,
+                 plain: bool = False) -> EntryHits:
     """C over B's stream, for big geom g. CPU: the plain version; CUDA:
     one launch of the blocks that stay resident, one warp per entry at a
     time (csrc/sorted.cu), over C's lane-major tables
     (`pack_sweep_tables`, packed with the scene's tables), counted in
     `window_sweep.launches`."""
     device = sk.keys.device
-    if device.type == "cpu":
+    if runs_plain(device, plain):
         return window_sweep_reference(st, sk, scene, g)
     _require_cuda(device, "window_sweep")
     r = _geom_rows(scene, g)
@@ -1250,16 +1267,18 @@ def window_sweep(st: Stream, sk: SuperKeys, scene: DeviceScene, g: int,
     return out
 
 
+@debug.stage
 def merge_entries(origins: Vec3, dirs: Vec3, cands: Candidates,
                   hits: Intersections, sk: SuperKeys, eh: EntryHits,
                   scene: DeviceScene, g: int,
-                  tables: SceneTables | None = None) -> Intersections:
+                  tables: SceneTables | None = None,
+                  plain: bool = False) -> Intersections:
     """D: big geom g's winner of each listed lane merged IN PLACE into
     `hits` (returned). CPU: the plain version; CUDA: one launch sized by
     the pool, of the kernel instantiated for E (E <= PLACE_MAX_E),
     counted in `merge_entries.launches`."""
     device = origins.x.device
-    if device.type == "cpu":
+    if runs_plain(device, plain):
         return merge_entries_reference(origins, dirs, cands, hits, sk, eh, scene, g)
     _require_cuda(device, "merge_entries")
     E, P = _check_keys(sk, _geom_rows(scene, g)["n_supers"], device)
@@ -1312,9 +1331,11 @@ def radix_work(capacity: int, bits: int, device) -> RadixWork:
                      buf[head - 1:head], buf[head:head + 1 + len(passes)], tuple(status))
 
 
+@debug.stage
 def radix_split(sp: RadixSplit, payload: torch.Tensor, entry: torch.Tensor | None = None,
                 work: RadixWork | None = None,
-                probe: torch.Tensor | None = None) -> RadixStream:
+                probe: torch.Tensor | None = None,
+                plain: bool = False) -> RadixStream:
     """One stable split (`RadixSplit`, #15 + #16) carried out: the key, the
     payload (k, capacity) of 32-bit words ((k, P) for the compaction split,
     read by column) and the entry ids (`entry`, (capacity,) int32, carried
@@ -1330,7 +1351,7 @@ def radix_split(sp: RadixSplit, payload: torch.Tensor, entry: torch.Tensor | Non
     on a persistent grid (after one memset where it zeroes the scratch), no
     host sync, counted in `radix_split.launches`."""
     device = sp.key.device
-    if device.type == "cpu":
+    if runs_plain(device, plain):
         return radix_split_reference(sp, payload, entry)
     _require_cuda(device, "radix_split")
     _check_tensor(sp.count, "split.count", torch.int32, (1,), device)
@@ -1396,7 +1417,9 @@ def radix_split(sp: RadixSplit, payload: torch.Tensor, entry: torch.Tensor | Non
     return RadixStream(key, out, sp.count, ent)
 
 
-def radix_unscatter(stream: RadixStream, results: torch.Tensor) -> torch.Tensor:
+@debug.stage
+def radix_unscatter(stream: RadixStream, results: torch.Tensor,
+                    plain: bool = False) -> torch.Tensor:
     """The whole unsort (#17; the JAX package's `_radix_unsort_stream`, the
     inverse of the sort's permutation) in one launch: each entry's result
     words back at its id, out[:, entry[i]] = results[:, i] for i below the
@@ -1406,7 +1429,7 @@ def radix_unscatter(stream: RadixStream, results: torch.Tensor) -> torch.Tensor:
     there); CUDA: one launch on a persistent grid, counted in
     `radix_unscatter.launches`."""
     device = stream.key.device
-    if device.type == "cpu":
+    if runs_plain(device, plain):
         return radix_unsplit_reference(stream, results)
     _require_cuda(device, "radix_unscatter")
     (cap,) = stream.key.shape
@@ -1424,8 +1447,10 @@ def radix_unscatter(stream: RadixStream, results: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@debug.stage
 def window_sweep_stream(stream: RadixStream, scene: DeviceScene, g: int,
-                        tables: SceneTables | None = None) -> torch.Tensor:
+                        tables: SceneTables | None = None,
+                        plain: bool = False) -> torch.Tensor:
     """C in stream order over the radix route's sorted stream (its payload
     the six object-space ray lanes), for big geom g: a (4, L) float32
     buffer of each entry's (t, triangle bits, u, v) at its place
@@ -1433,7 +1458,7 @@ def window_sweep_stream(stream: RadixStream, scene: DeviceScene, g: int,
     stream-order instantiation, one warp per entry as `window_sweep`,
     counted in `window_sweep_stream.launches`."""
     device = stream.key.device
-    if device.type == "cpu":
+    if runs_plain(device, plain):
         return window_sweep_stream_reference(stream, scene, g)
     _require_cuda(device, "window_sweep_stream")
     r = _geom_rows(scene, g)
@@ -1456,7 +1481,8 @@ def window_sweep_stream(stream: RadixStream, scene: DeviceScene, g: int,
 
 
 def radix_sort_stream(stream: RadixStream, bits: int,
-                      work: RadixWork | None = None) -> RadixStream:
+                      work: RadixWork | None = None,
+                      plain: bool = False) -> RadixStream:
     """The JAX package's `_radix_sort_stream`: a stable LSB radix sort of
     the stream by its `bits`-bit key, one `radix_split` per digit of
     `radix_passes(bits)` (one up to 8 bits), each from the stream's digit
@@ -1466,12 +1492,13 @@ def radix_sort_stream(stream: RadixStream, bits: int,
     for p, (shift, width) in enumerate(radix_passes(bits)):
         hist = None if stream.hist is None else stream.hist[p]
         sp = RadixSplit(stream.key, stream.length, shift, width=width, hist=hist)
-        stream = radix_split(sp, stream.payload, stream.entry,
-                             work=work)._replace(hist=stream.hist)
+        stream = radix_split(sp, stream.payload, stream.entry, work=work,
+                             plain=plain)._replace(hist=stream.hist)
     return stream
 
 
-def sort_permutation(key: torch.Tensor, bits: int) -> torch.Tensor:
+def sort_permutation(key: torch.Tensor, bits: int,
+                     plain: bool = False) -> torch.Tensor:
     """The stable sort of a non-negative int32 key (P,) below 2**bits, as
     the permutation that gathers it: perm (P,) int32 with key[perm]
     ascending and equal keys in slot order, i.e. `torch.sort(key,
@@ -1488,13 +1515,14 @@ def sort_permutation(key: torch.Tensor, bits: int) -> torch.Tensor:
     for shift, width in radix_passes(bits):
         sp = RadixSplit(key, count, shift, width=width,
                         hist=digit_counts(key, shift, width))
-        st = radix_split(sp, payload)
+        st = radix_split(sp, payload, plain=plain)
         key, payload = st.key, st.payload
     return payload[0]
 
 
 def radix_window_sweep(sk: SuperKeys, count: torch.Tensor, scene: DeviceScene,
-                       g: int, tables: SceneTables | None = None) -> EntryHits:
+                       g: int, tables: SceneTables | None = None,
+                       plain: bool = False) -> EntryHits:
     """C's results at [slot, j] by the radix route (the JAX package's
     SORT_RADIX branch of `_sorted_mesh_merge`, in place of B and C): the
     compaction split of A's keys with their rays (entry ids and digit
@@ -1507,28 +1535,33 @@ def radix_window_sweep(sk: SuperKeys, count: torch.Tensor, scene: DeviceScene,
     dead = sk.hist.shape[0]
     bits = radix_key_bits(dead)
     device = sk.keys.device
-    work = radix_work(E * P, bits, device) if device.type == "cuda" else None
-    stream = radix_split(RadixSplit(sk.keys, count, -1, dead), sk.rays, work=work)
-    srt = radix_sort_stream(stream, bits, work=work)
-    res = window_sweep_stream(srt, scene, g, tables=tables)
-    return entry_hits(radix_unscatter(srt, res).view(4, E, P))
+    work = None if runs_plain(device, plain) else radix_work(E * P, bits, device)
+    stream = radix_split(RadixSplit(sk.keys, count, -1, dead), sk.rays, work=work,
+                         plain=plain)
+    srt = radix_sort_stream(stream, bits, work=work, plain=plain)
+    res = window_sweep_stream(srt, scene, g, tables=tables, plain=plain)
+    return entry_hits(radix_unscatter(srt, res, plain=plain).view(4, E, P))
 
 
 def sorted_mesh_merge(origins: Vec3, dirs: Vec3, cands: Candidates,
                       hits: Intersections, scene: DeviceScene,
-                      tables: SceneTables | None = None) -> Intersections:
+                      tables: SceneTables | None = None,
+                      plain: bool = False) -> Intersections:
     """The JAX package's `_sorted_mesh_merge`: for each geom of the sorted
     route, in geom order, A -> B -> C -> D (under SORT_RADIX A -> the radix
     route -> D), merging its winner of each candidate lane into `hits`
     (#8's output) IN PLACE. Returns `hits`."""
     for g in sorted_geoms(scene):
-        sk = super_keys(origins, dirs, cands, hits, scene, g, tables=tables)
+        sk = super_keys(origins, dirs, cands, hits, scene, g, tables=tables,
+                        plain=plain)
         if SORT_RADIX:
-            eh = radix_window_sweep(sk, cands.count, scene, g, tables=tables)
+            eh = radix_window_sweep(sk, cands.count, scene, g, tables=tables,
+                                    plain=plain)
         else:
-            st = place_entries(sk, cands.count)
-            eh = window_sweep(st, sk, scene, g, tables=tables)
-        merge_entries(origins, dirs, cands, hits, sk, eh, scene, g, tables=tables)
+            st = place_entries(sk, cands.count, plain=plain)
+            eh = window_sweep(st, sk, scene, g, tables=tables, plain=plain)
+        merge_entries(origins, dirs, cands, hits, sk, eh, scene, g, tables=tables,
+                      plain=plain)
     return hits
 
 
@@ -1544,43 +1577,44 @@ def bounce_step_pipeline(state, scene: DeviceScene, iteration: int,
     K3). No host sync on CUDA. The tables are packed once here unless
     given."""
     check_supported(scene, settings)
-    if tables is None and scene.device.type == "cuda":
+    plain = settings.plain
+    if tables is None and not runs_plain(scene.device, plain):
         tables = pack_scene_tables(scene)
     origins, dirs = state[0], state[1]
     cands = mesh_candidates(origins, dirs, state[4], scene, num_alive=num_alive,
-                            tables=tables)
+                            tables=tables, plain=plain)
     hits = mesh_sweep(origins, dirs, cands, scene, tables=tables,
-                      use_bvh=settings.use_bvh)
-    sorted_mesh_merge(origins, dirs, cands, hits, scene, tables=tables)
+                      use_bvh=settings.use_bvh, plain=plain)
+    sorted_mesh_merge(origins, dirs, cands, hits, scene, tables=tables, plain=plain)
     return bounce_step_mesh(state, cands, hits, scene, iteration, depth,
                             settings, num_alive=num_alive, tables=tables)
 
 
 def intersect_pipeline(origins: Vec3, dirs: Vec3, alive, scene: DeviceScene,
                        tables: SceneTables | None = None,
-                       use_bvh: bool = True) -> Intersections:
+                       use_bvh: bool = True, plain: bool = False) -> Intersections:
     """`intersect_scene` through #7 -> #8 -> the sorted route -> #10 (the
     JAX package's `intersect_pipeline`): the same Intersections contract,
     dead lanes (`alive`, None for all alive) with their analytic hit. On a
     scene without mesh geoms #7 -> #10 alone: no lane is a candidate, so
     #10 takes every lane's analytic hit (no UVs) and never reads the mesh
     hit lanes, which are left unwritten on CUDA."""
-    if tables is None and scene.device.type == "cuda":
+    if tables is None and not runs_plain(scene.device, plain):
         tables = pack_scene_tables(scene)
     # contiguous once here, not once in each of #7 and #8
     origins = Vec3(*(a.contiguous() for a in origins))
     dirs = Vec3(*(a.contiguous() for a in dirs))
     cands = mesh_candidates(origins, dirs, alive, scene, all_lanes=True,
-                            tables=tables)
+                            tables=tables, plain=plain)
     P = origins.x.shape[0]
     if not scene.mesh_geoms:
-        hits = (_miss(P, scene.device) if scene.device.type == "cpu"
+        hits = (_miss(P, scene.device) if runs_plain(scene.device, plain)
                 else _new_hits(P, scene.device))
-        return intersect_mesh(cands, hits)
+        return intersect_mesh(cands, hits, plain=plain)
     hits = mesh_sweep(origins, dirs, cands, scene, tables=tables,
-                      use_bvh=use_bvh)
-    sorted_mesh_merge(origins, dirs, cands, hits, scene, tables=tables)
-    return intersect_mesh(cands, hits)
+                      use_bvh=use_bvh, plain=plain)
+    sorted_mesh_merge(origins, dirs, cands, hits, scene, tables=tables, plain=plain)
+    return intersect_mesh(cands, hits, plain=plain)
 
 
 def intersect_pipeline_reference(origins: Vec3, dirs: Vec3, alive,

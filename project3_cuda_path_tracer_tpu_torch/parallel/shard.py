@@ -50,6 +50,7 @@ from ..render import (
     TriShard,
     _device_tables,
     _scatter_add,
+    log_plain,
     resolve_device,
     trace_paths,
 )
@@ -274,6 +275,7 @@ class ShardedRenderer:
         self.spp, self.px, self.tri = spp, px, tri
         self.devices = devs[:need]
         self.device = self.devices[0]
+        log_plain(settings, self.devices)
         self.scene = scene
 
         def dev_of(s, p, t):

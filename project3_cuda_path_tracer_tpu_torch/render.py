@@ -73,11 +73,14 @@ package's non-fused first bounce; #2 renders only the whole frame.
 
 Every wrapper launches its hand-written kernel on CUDA tensors and runs
 its plain PyTorch version on CPU tensors, so the same functions render
-on both devices.
+on both devices; under `RenderSettings.plain` (--no-pallas, the JAX
+package's XLA pipeline) the plain versions run on the card too, and the
+Renderer says so in the log.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from dataclasses import dataclass, replace
 from typing import NamedTuple
@@ -108,13 +111,17 @@ from .ops.megakernel import (
     full_iteration_nee,
     pack_geom_tables,
     pack_scene_tables,
+    runs_plain,
     shade_step,
 )
 from .ops.pipeline import bounce_step_pipeline, intersect_pipeline, sort_permutation
 from .ops.sweep import intersect_scene
 from .ops.texture import apply_textures, env_radiance
 from .ops.vec import Vec3, take as vtake, where as vwhere
+from .utils import debug
 from .utils import image as image_io
+
+log = logging.getLogger("pathtracer")
 
 
 @dataclass(frozen=True)
@@ -126,9 +133,12 @@ class RenderSettings:
     set renders one shard of the whole scene that way). `use_bvh` selects the plain path's
     mesh traversal (the BVH walk, or the naive sweep over every
     triangle); the mesh kernel always walks the BVH, as the JAX package's
-    Pallas pipeline ignores the flag. `use_pallas` selects nothing: the
-    device alone decides the path (the kernels on CUDA, their plain
-    versions on the CPU).
+    Pallas pipeline ignores the flag. `use_pallas` selects nothing: it
+    keeps the JAX field and default. `plain` (the CLI's --no-pallas, the
+    counterpart of the JAX package's XLA pipeline) runs every wrapper's
+    plain PyTorch version on the card too; by default CUDA tensors launch
+    the kernels and CPU tensors take the plain versions
+    (ops/megakernel.py::runs_plain).
 
     The two light-sampling tiers: `direct_lighting` replaces the last
     bounce's hemisphere sample of diffuse lanes with one shadow ray to a
@@ -156,6 +166,7 @@ class RenderSettings:
     motion_blur: bool = False
     use_bvh: bool = True
     use_pallas: bool = False
+    plain: bool = False
 
     def effective_cache(self) -> bool:
         # AA and DoF jitter the camera rays, which invalidates a
@@ -356,7 +367,7 @@ def intersect_scene_any(origins: Vec3, dirs: Vec3, scene: DeviceScene,
     --direct-lighting's and --nee's intersects)."""
     if shards is None:
         return intersect_pipeline(origins, dirs, alive, scene, tables=tables,
-                                  use_bvh=settings.use_bvh)
+                                  use_bvh=settings.use_bvh, plain=settings.plain)
     device = origins.x.device
     hits = []
     for sh in shards:
@@ -367,10 +378,12 @@ def intersect_scene_any(origins: Vec3, dirs: Vec3, scene: DeviceScene,
             di = Vec3(*(c.to(d) for c in dirs))
             a = None if alive is None else alive.to(d)
         hits.append(intersect_pipeline(o, di, a, sh.scene, tables=sh.tables,
-                                       use_bvh=settings.use_bvh))
+                                       use_bvh=settings.use_bvh,
+                                       plain=settings.plain))
     return merge_isect_shards(hits, device)
 
 
+@debug.stage
 def _nee_final_step(state, scene: DeviceScene, iteration: int,
                     settings: RenderSettings,
                     tables: SceneTables | None = None, shards=None):
@@ -660,7 +673,8 @@ def _maybe_sort_by_material(state, isect: Intersections, scene: DeviceScene,
     if not settings.sort_by_material:
         return state, isect
     bits = material_key_bits(scene)
-    perm = sort_permutation(material_keys(state, isect, bits), bits).to(torch.int64)
+    perm = sort_permutation(material_keys(state, isect, bits), bits,
+                            plain=settings.plain).to(torch.int64)
     return _permute_state(state, perm), _permute_isect(isect, perm)
 
 
@@ -730,9 +744,9 @@ def shutter_time(iteration: int) -> float:
 def _device_tables(scene: DeviceScene,
                    settings: RenderSettings) -> SceneTables | None:
     """The kernels' packed tables on CUDA (with the light pdf model under
-    --nee); None on the CPU (the plain versions read the DeviceScene
-    itself)."""
-    if scene.device.type != "cuda":
+    --nee); None where the plain versions run (`runs_plain`: the CPU, or
+    `settings.plain`), which read the DeviceScene itself."""
+    if runs_plain(scene.device, settings.plain):
         return None
     return pack_scene_tables(scene, nee=settings.nee_mis)
 
@@ -1071,6 +1085,15 @@ def tonemap(accum: Vec3, iteration: int, resolution) -> torch.Tensor:
     return img.reshape(resy, resx, 3)
 
 
+def log_plain(settings: RenderSettings, devices) -> None:
+    """Say in the log when `settings.plain` keeps the kernels off the
+    card: the plain PyTorch versions render there (--no-pallas)."""
+    cards = sorted({str(d) for d in devices if d.type == "cuda"})
+    if settings.plain and cards:
+        log.info("--no-pallas: the plain PyTorch versions render on %s; no "
+                 "kernel is launched", ", ".join(cards))
+
+
 def resolve_device(device) -> torch.device:
     """The device a Renderer runs on. CUDA must be present when asked
     for: nothing drifts to the CPU."""
@@ -1105,6 +1128,7 @@ class Renderer:
         # always with the BVH, which the mesh kernels walk (models/device.py)
         self.dev_scene = scene_to_device(scene, self.device)
         self.tables = _device_tables(self.dev_scene, self.settings)
+        log_plain(self.settings, [self.device])
         self.camera = scene.state.camera
         self.dev_camera = camera_to_device(self.camera, self.device)
         self.start_time_string = image_io.current_time_string()

@@ -11,7 +11,9 @@ reference's src/main.cpp:78-99 and src/image.cpp:22-45):
   gmtime).
 
 `read_png` decodes the textures and env maps with zlib and numpy alone,
-so that loading a scene needs no imaging package.
+so that loading a scene needs no imaging package; `read_hdr` decodes a
+Radiance `.hdr` env map the same way. `save_png` and `save_hdr` write the
+renders with zlib, struct and numpy: no Pillow, no imageio.
 """
 
 from __future__ import annotations
@@ -136,23 +138,174 @@ def apply_save_transform(accum: np.ndarray, samples: float) -> np.ndarray:
     return img[:, ::-1, :]
 
 
-def save_png(path: str, data_u8: np.ndarray) -> str:
-    from PIL import Image
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
+
+def save_png(path: str, data_u8: np.ndarray) -> str:
+    """An (H, W, 3) uint8 image as an 8-bit RGB PNG, every row with filter
+    0 (None), the rows deflated by zlib."""
     if not path.endswith(".png"):
         path = path + ".png"
-    Image.fromarray(data_u8, mode="RGB").save(path)
+    img = np.ascontiguousarray(data_u8, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"save_png takes (H, W, 3) uint8, got {img.shape}")
+    h, w, _ = img.shape
+    rows = np.zeros((h, 1 + 3 * w), np.uint8)  # each row: filter byte 0
+    rows[:, 1:] = img.reshape(h, 3 * w)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE)
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
     return path
+
+
+# a new-style run-length scanline: 2, 2, then the width in 15 bits
+_RLE_MIN_W, _RLE_MAX_W = 8, 0x7FFF
+
+
+def float_to_rgbe(rgb: np.ndarray) -> np.ndarray:
+    """(..., 3) float radiance -> (..., 4) uint8 RGBE by Radiance's
+    `float2rgbe` (as OpenCV's rgbe.cpp has it): v = the largest component;
+    below 1e-32 all four bytes 0; else (m, e) = frexp(v), the scale
+    m * 256 / v in double rounded to float, each component times it
+    truncated to a byte, and e + 128."""
+    rgb = np.asarray(rgb, np.float32)
+    v = rgb.max(axis=-1)
+    m, e = np.frexp(v)
+    small = ~(v >= 1e-32)  # NaN too
+    with np.errstate(divide="ignore", invalid="ignore"):
+        scale = (m.astype(np.float64) * 256.0 / v.astype(np.float64)).astype(np.float32)
+    scale[small] = 0.0
+    # float -> int truncation, then the low byte (the C cast to unsigned char)
+    out = np.empty(rgb.shape[:-1] + (4,), np.uint8)
+    out[..., :3] = ((rgb * scale[..., None]).astype(np.int64) & 0xFF).astype(np.uint8)
+    out[..., 3] = ((e + 128) & 0xFF).astype(np.uint8)
+    out[small] = 0
+    return out
+
+
+def rgbe_to_float(rgbe: np.ndarray) -> np.ndarray:
+    """(..., 4) uint8 RGBE -> (..., 3) float32: each byte times
+    2**(e - 136), zero where e is 0 (OpenCV's rgbe2float, exact in
+    float32)."""
+    rgbe = np.asarray(rgbe, np.uint8)
+    e = rgbe[..., 3].astype(np.int32)
+    f = np.ldexp(np.float32(1.0), e - 136).astype(np.float32)
+    out = rgbe[..., :3].astype(np.float32) * f[..., None]
+    out[e == 0] = 0.0
+    return out
 
 
 def save_hdr(path: str, data_f32: np.ndarray) -> str:
-    """Radiance .hdr writer (saveHDR analog, src/image.cpp:41-45)."""
-    import imageio.v3 as iio
-
+    """Radiance .hdr writer (saveHDR analog, src/image.cpp:41-45): an
+    (H, W, 3) float image as 32-bit_rle_rgbe, `-Y H +X W` (rows top to
+    bottom), the pixels by `float_to_rgbe`. Scanlines of 8 to 32767 pixels
+    are new-style run-length lines of literal dumps of at most 128 bytes
+    per channel; other widths are flat."""
     if not path.endswith(".hdr"):
         path = path + ".hdr"
-    iio.imwrite(path, data_f32.astype(np.float32))
+    img = np.asarray(data_f32, np.float32)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"save_hdr takes (H, W, 3) floats, got {img.shape}")
+    h, w, _ = img.shape
+    rgbe = float_to_rgbe(img)
+    if _RLE_MIN_W <= w <= _RLE_MAX_W:
+        # per row: 2, 2, w >> 8, w & 255, then per channel the row's bytes
+        # in dumps of up to 128, each after its length
+        starts = np.arange(0, w, 128)
+        lens = np.minimum(128, w - starts)
+        planes = rgbe.transpose(0, 2, 1)  # (h, 4, w)
+        body = np.insert(planes, starts, lens.astype(np.uint8), axis=2)
+        head = np.broadcast_to(np.array([2, 2, w >> 8, w & 0xFF], np.uint8), (h, 4))
+        data = np.concatenate([head, body.reshape(h, -1)], axis=1).tobytes()
+    else:
+        data = rgbe.tobytes()
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(data)
     return path
+
+
+def _hdr_scanline(data: bytes, pos: int, w: int, path: str):
+    """One scanline of w RGBE pixels at `pos`: new-style run-length when it
+    starts 2, 2 with its width (8 <= w <= 32767), else flat. Returns
+    ((w, 4) uint8, the position after it)."""
+    if (_RLE_MIN_W <= w <= _RLE_MAX_W and pos + 4 <= len(data)
+            and data[pos] == 2 and data[pos + 1] == 2 and not data[pos + 2] & 0x80):
+        if (data[pos + 2] << 8 | data[pos + 3]) != w:
+            raise ValueError(f"{path}: a run-length scanline of the wrong width")
+        pos += 4
+        line = np.empty((4, w), np.uint8)
+        for c in range(4):
+            x = 0
+            while x < w:
+                if pos >= len(data):
+                    raise ValueError(f"{path}: truncated scanline")
+                n = data[pos]
+                if n > 128:  # a run: n - 128 copies of the next byte
+                    n -= 128
+                    if x + n > w or pos + 1 >= len(data):
+                        raise ValueError(f"{path}: bad run-length data")
+                    line[c, x:x + n] = data[pos + 1]
+                    pos += 2
+                else:  # a dump of n literal bytes
+                    if n == 0 or x + n > w or pos + 1 + n > len(data):
+                        raise ValueError(f"{path}: bad run-length data")
+                    line[c, x:x + n] = np.frombuffer(data, np.uint8, n, pos + 1)
+                    pos += 1 + n
+                x += n
+        return line.T, pos
+    if pos + 4 * w > len(data):
+        raise ValueError(f"{path}: truncated pixel data")
+    return np.frombuffer(data, np.uint8, 4 * w, pos).reshape(w, 4), pos + 4 * w
+
+
+def read_hdr(path: str) -> np.ndarray:
+    """A Radiance .hdr (32-bit_rle_rgbe, flat or new-style run-length
+    scanlines) as (H, W, 3) float32 radiance by `rgbe_to_float`, row 0 at
+    the top, column 0 at the left, under each of the row-major
+    resolution strings (`-Y H +X W` the usual one, `+Y` bottom-up rows,
+    `-X` right-to-left columns). Keeps the file's range (no exposure
+    applied). Raises ValueError for anything else (XYZE, column-major
+    scanlines, old-style run lengths)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not (data.startswith(b"#?RADIANCE") or data.startswith(b"#?RGBE")):
+        raise ValueError(f"{path}: not a Radiance file")
+    pos = 0
+    while True:  # the header: lines up to an empty one
+        end = data.find(b"\n", pos)
+        if end < 0:
+            raise ValueError(f"{path}: no end of header")
+        line = data[pos:end].strip()
+        pos = end + 1
+        if not line:
+            break
+        if line.startswith(b"FORMAT=") and line != b"FORMAT=32-bit_rle_rgbe":
+            raise ValueError(f"{path}: {line.decode(errors='replace')}: only "
+                             "32-bit_rle_rgbe is read")
+    end = data.find(b"\n", pos)
+    fields = data[pos:end if end >= 0 else len(data)].split()
+    pos = end + 1
+    if (len(fields) != 4 or (fields[0][1:], fields[2][1:]) != (b"Y", b"X")
+            or any(f[:1] not in (b"-", b"+") for f in fields[::2])):
+        raise ValueError(f"{path}: resolution string {b' '.join(fields)!r}: only "
+                         "row-major ones (-Y/+Y H -X/+X W) are read")
+    n_lines, n_per = int(fields[1]), int(fields[3])
+    lines = []
+    for _ in range(n_lines):
+        line, pos = _hdr_scanline(data, pos, n_per, path)
+        lines.append(line)
+    img = rgbe_to_float(np.stack(lines)) if lines else np.zeros((0, n_per, 3), np.float32)
+    if fields[0][:1] == b"+":  # rows stored bottom-up
+        img = img[::-1]
+    if fields[2][:1] == b"-":  # columns stored right to left
+        img = img[:, ::-1]
+    return np.ascontiguousarray(img)
 
 
 def save_render(

@@ -71,11 +71,12 @@ def stage_breakdown(renderer, reps: int = 5) -> Dict[str, float]:
     stage dominates. Stages: `raygen` (plain `generate_rays`),
     `intersect_sweep` (`intersect_scene_any` of the camera rays),
     `shade` (shade_step over them at depth 0), `full_iteration`
-    (`trace_paths`); on the card and an analytic scene also
+    (`trace_paths`); on the card (not under `settings.plain`) and an
+    analytic scene also
     `bounce_kernel` (#3 at depth 1 over the same pool, re-filled before
     each call: it bounces in place)."""
     from ..ops.camera import generate_rays
-    from ..ops.megakernel import bounce_step, pool_lanes, shade_step
+    from ..ops.megakernel import bounce_step, pool_lanes, runs_plain, shade_step
     from ..ops.vec import Vec3
     from ..render import intersect_scene_any, trace_paths
 
@@ -109,7 +110,7 @@ def stage_breakdown(renderer, reps: int = 5) -> Dict[str, float]:
             scene, cam, it, None, settings, False, tables=tables,
             count_alive=False), device, reps),
     }
-    if device.type == "cuda" and not scene.mesh_geoms:
+    if not runs_plain(device, settings.plain) and not scene.mesh_geoms:
         pool = tuple(Vec3(*(c.clone() for c in v)) if isinstance(v, Vec3)
                      else v.clone() for v in state)
 

@@ -2298,3 +2298,165 @@ def test_tri_shards_big_mesh_on_cuda(cuda_device, big_mesh):
         assert_lane_rule(hit_lanes(got), hit_lanes(plain))
         pool = megakernel.shade_step(pool, got, group[0].scene, 2, depth, sr.settings,
                                      tables=group[0].tables)
+
+
+# ---- the last modules: --no-pallas, --debug, --debug-nans, the loaders'
+# remainder, the viewer (ROADMAP §1 modules 5 and 1) ----
+
+def _all_wrappers():
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+
+    return [getattr(megakernel, n) for n in (
+        "full_iteration", "first_bounce", "bounce_step", "shade_step", "bounce_step_nee",
+        "full_iteration_nee")] + [getattr(pipeline, n) for n in (
+        "mesh_candidates", "mesh_sweep", "bounce_step_mesh", "intersect_mesh", "super_keys",
+        "place_entries", "window_sweep", "merge_entries", "radix_split", "radix_unscatter",
+        "window_sweep_stream")]
+
+
+def _launch_total():
+    return sum(w.launches for w in _all_wrappers())
+
+
+def _image_rule(got, want, frac=0.02):
+    diff = np.abs(got - want)
+    assert (diff > 1e-3).mean() < frac, (diff > 1e-3).mean()
+    assert np.median(diff) < 1e-5
+
+
+@pytest.mark.parametrize("name,settings_kw", [
+    ("cornell.txt", {}), ("mesh.txt", {}), ("textured.txt", {}), ("cornell.txt", {"nee_mis": True}),
+])
+def test_no_pallas_on_cuda(cuda_device, name, settings_kw, caplog):
+    """--no-pallas (RenderSettings.plain): the plain versions render on the
+    card, no launch counted, and the log says so; the kernels' image by
+    the image rule; without it the kernels launch."""
+    import logging
+
+    scene = small(name, (64, 64))
+    imgs, counts = {}, {}
+    caplog.set_level(logging.INFO)
+    for plain in (False, True):
+        caplog.clear()
+        r = Renderer(scene, RenderSettings(trace_depth=8, plain=plain, **settings_kw),
+                     device=cuda_device)
+        before = _launch_total()
+        r.step_batch(2)
+        r.step()
+        counts[plain] = _launch_total() - before
+        imgs[plain] = r.image()
+        assert ("no kernel is launched" in caplog.text) == plain
+    assert counts[True] == 0 and counts[False] > 0
+    _image_rule(imgs[True], imgs[False], 0.03 if settings_kw.get("nee_mis") else 0.02)
+
+
+@pytest.mark.parametrize("name,settings_kw,radix", [
+    ("cornell.txt", {"antialias": True}, False), ("cornell.txt", {"nee_mis": True}, False),
+    ("mesh.txt", {"cache_first_bounce": True}, False), ("mesh_big.txt", {}, False),
+    ("mesh_big.txt", {}, True), ("cornell.txt", {"sort_by_material": True}, False),
+])
+def test_debug_checks_clean_on_cuda(cuda_device, name, settings_kw, radix):
+    """--debug and --debug-nans on the kernels: the bounds sweep, every
+    launch checked and every stage's output scanned, all clean."""
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline
+    from project3_cuda_path_tracer_tpu_torch.utils import debug
+
+    r = Renderer(small(name, (32, 32)), RenderSettings(trace_depth=8, **settings_kw),
+                 device=cuda_device)
+    flag = pipeline.SORT_RADIX
+    pipeline.SORT_RADIX = radix
+    try:
+        before = _launch_total()
+        with debug.checks(launches=True, nans=True):
+            debug.bounds_sweep(r)
+            r.step_batch(2)
+            r.step()
+        assert _launch_total() > before
+    finally:
+        pipeline.SORT_RADIX = flag
+    assert np.isfinite(r.image()).all()
+
+
+def test_debug_launch_check_after_every_launch(cuda_device, monkeypatch):
+    """--debug's per-launch check sits in `_launch`: one call per launch,
+    naming its kernel; none with the flags off."""
+    from project3_cuda_path_tracer_tpu_torch.utils import debug
+
+    seen = []
+    monkeypatch.setattr(debug, "check_launch", lambda what, name: seen.append(what))
+    r = Renderer(small("cornell.txt", (32, 32)), RenderSettings(trace_depth=4),
+                 device=cuda_device)
+    r.step()
+    assert seen == []
+    with debug.checks(launches=True):
+        r.step()
+    assert seen == ["first_bounce", "bounce_step", "bounce_step", "bounce_step"]
+
+
+@pytest.mark.parametrize("route,stage", [("step", "first_bounce"),
+                                         ("step_batch", "full_iteration")])
+def test_debug_nans_names_kernel_on_cuda(cuda_device, route, stage):
+    from project3_cuda_path_tracer_tpu_torch.render import _device_tables
+    from project3_cuda_path_tracer_tpu_torch.utils import debug
+
+    r = Renderer(small("cornell.txt", (32, 32)), RenderSettings(trace_depth=4),
+                 device=cuda_device)
+    r.dev_scene.mat_color.x[1] = float("nan")
+    r.tables = _device_tables(r.dev_scene, r.settings)
+    with debug.checks(nans=True), pytest.raises(FloatingPointError) as e:
+        r.step() if route == "step" else r.step_batch(1)
+    assert f"stage {stage} (kernel)" in str(e.value)
+    assert "aten." in str(e.value)
+
+
+@pytest.mark.parametrize("name", ["textured.txt", "envmap.txt"])
+def test_loaders_on_cuda(cuda_device, tmp_path, name):
+    """A texture resampled from 300x200 and a .hdr env map (300x150)
+    through #1 on TexTables against its plain version."""
+    from chip_smoke import loader_scenes
+
+    path = loader_scenes(str(tmp_path))[name]
+    scene = load_scene(path)
+    c = scene.state.camera
+    scene.state.camera = derive_camera((64, 64), c.position, c.look_at,
+                                       np.array([0, 1, 0], np.float32), float(c.fov[1]),
+                                       c.aperture, c.focal_distance)
+    imgs = {}
+    for plain in (False, True):
+        r = Renderer(scene, RenderSettings(trace_depth=8, plain=plain), device=cuda_device)
+        before = megakernel.full_iteration.launches
+        r.step_batch(2)
+        assert megakernel.full_iteration.launches - before == (0 if plain else 1)
+        imgs[plain] = r.image()
+    _image_rule(imgs[False], imgs[True])
+
+
+def test_viewer_frames_on_cuda(cuda_device):
+    from project3_cuda_path_tracer_tpu_torch import viewer
+
+    r = Renderer(small("cornell.txt", (64, 64)), RenderSettings(trace_depth=8),
+                 device=cuda_device)
+    before = megakernel.full_iteration.launches
+    frames = [viewer.next_frame(r, 2) for _ in range(3)]
+    assert r.iteration == 6 and megakernel.full_iteration.launches - before == 3
+    assert all(f.shape == (64, 64, 3) and f.dtype == np.uint8 for f in frames)
+
+
+@pytest.mark.parametrize("flags,says", [(["--debug"], "bounds sweep clean"),
+                                        (["--debug-nans"], "checked for NaN"),
+                                        (["--no-pallas"], "no kernel is launched")])
+def test_cli_last_flags_on_cuda(cuda_device, tmp_path, flags, says):
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(SCENES)
+    scene = tmp_path / "cornell64.txt"
+    scene.write_text(open(os.path.join(SCENES, "cornell.txt")).read()
+                     .replace("RES         800 800", "RES         64 64"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "project3_cuda_path_tracer_tpu_torch", str(scene),
+         "--iterations", "4", "--out-dir", str(tmp_path), *flags],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert says in proc.stderr
+    assert len(list(tmp_path.glob("cornell.*.4samp.png"))) == 1

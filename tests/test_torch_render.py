@@ -219,15 +219,27 @@ def test_sort_renders_like_unsorted(name, settings_kw):
 
 
 @pytest.mark.parametrize("flag", ["--shard", "--preview", "--no-pallas"])
-def test_cli_unported_flags_fail(flag, caplog):
-    """The flags still unported fail naming their ROADMAP item; --shard
-    renders since it was ported (tests/test_torch_shard.py), so here only
-    a shard factor below 1 fails, before any render."""
-    argv = [os.path.join(SCENES, "cornell.txt"), "--device", "cpu", flag]
+def test_cli_unported_flags_fail(flag, caplog, tmp_path, monkeypatch):
+    """No flag is unported any more: --preview (the viewer, here under
+    matplotlib's Agg backend) and --no-pallas render on the CPU; --shard
+    renders too (tests/test_torch_shard.py), so here only a shard factor
+    below 1 fails, before any render."""
+    text = open(os.path.join(SCENES, "cornell.txt")).read()
+    scene = tmp_path / "cornell8.txt"
+    scene.write_text(text.replace("RES         800 800", "RES         8 8"))
+    monkeypatch.setenv("MPLBACKEND", "Agg")
+    argv = [str(scene), "--device", "cpu", "--iterations", "2", "--depth", "2",
+            "--out-dir", str(tmp_path), flag]
     if flag == "--shard":
         argv.append("spp=0")
-    assert tmain(argv) == 1
-    assert ("shard factors must be >= 1" if flag == "--shard" else "ROADMAP") in caplog.text
+        assert tmain(argv) == 1
+        assert "shard factors must be >= 1" in caplog.text
+        return
+    caplog.set_level("INFO")
+    assert tmain(argv) == 0
+    assert "ROADMAP" not in caplog.text
+    # the viewer steps in batches of 8 and saves at completion
+    assert len(list(tmp_path.glob("cornell.*samp.png"))) == 1
 
 
 @pytest.mark.parametrize("flag", ["--stats", "--sort-materials"])

@@ -156,22 +156,23 @@ def test_cli_accepts_slice_flags(flag, tmp_path):
 
 
 def test_cli_sorts_and_refusals_name_their_module(tmp_path, caplog):
-    """--sort-materials renders through the CLI; each flag still refused
-    names its module of ROADMAP §1 (5: the CLI remainder; sharding, module
-    4, is ported)."""
+    """--sort-materials renders through the CLI; no flag is refused any
+    more (`UNPORTED_FLAGS` is gone with ROADMAP §1 module 5), and --debug
+    renders after a clean bounds sweep."""
     text = open(os.path.join(SCENES, "cornell.txt")).read()
     scene = tmp_path / "cornell8.txt"
     scene.write_text(text.replace("RES         800 800", "RES         8 8"))
     assert tmain([str(scene), "--device", "cpu", "--iterations", "1", "--depth", "2",
                   "--sort-materials", "--compact", "--out-dir", str(tmp_path)]) == 0
-    from project3_cuda_path_tracer_tpu_torch.cli import UNPORTED_FLAGS
+    from project3_cuda_path_tracer_tpu_torch import cli
 
-    assert set(UNPORTED_FLAGS) == {"preview", "debug", "debug_nans", "no_pallas"}
-    for dest, (flag, item) in UNPORTED_FLAGS.items():
-        assert "module 5" in item, (flag, item)
-    argv = [str(scene), "--device", "cpu", "--debug"]
-    assert tmain(argv) == 1
-    assert "--debug" in caplog.text and "module 5" in caplog.text
+    assert not hasattr(cli, "UNPORTED_FLAGS")
+    assert not hasattr(cli, "refuse_unported")
+    caplog.set_level("INFO")
+    argv = [str(scene), "--device", "cpu", "--debug", "--iterations", "1",
+            "--depth", "2", "--out-dir", str(tmp_path)]
+    assert tmain(argv) == 0
+    assert "bounds sweep clean" in caplog.text
 
 
 def _imported_modules(path):

@@ -108,17 +108,25 @@ def test_png_reader_equals_pillow_on_colour_types(pil_mode, tmp_path):
 
 
 def test_texture_of_another_size_and_hdr_env_maps_refused(tmp_path):
-    """Resampling and HDR env maps are not ported: a texture off the
-    atlas's size, an env map off its table's size and an .hdr env map
-    raise ValueError naming what they are."""
+    """Resampling and .hdr env maps are ported: a texture off the atlas's
+    size and an env map off its table's size load exactly as the JAX
+    loaders load them (Pillow's BILINEAR), and an .hdr env map loads; only
+    an .exr env map is still refused, with a ValueError naming the missing
+    decoder (tests/test_torch_image_io.py holds the rest)."""
     small = tmp_path / "small.png"
-    Image.fromarray(np.zeros((8, 12, 3), np.uint8)).save(small)
-    with pytest.raises(ValueError, match="12x8"):
-        tscene._load_texture(str(small))
-    with pytest.raises(ValueError, match="12x8"):
-        tscene._load_env_map(str(small))
-    with pytest.raises(ValueError, match="hdr"):
-        tscene._load_env_map(str(tmp_path / "sky.hdr"))
+    img = np.random.default_rng(0).integers(0, 256, (8, 12, 3), dtype=np.uint8)
+    Image.fromarray(img).save(small)
+    for grey in (False, True):
+        np.testing.assert_array_equal(tscene._load_texture(str(small), grey),
+                                      jscene._load_texture(str(small), grey))
+    np.testing.assert_array_equal(tscene._load_env_map(str(small)),
+                                  jscene._load_env_map(str(small)))
+    from project3_cuda_path_tracer_tpu_torch.utils.image import save_hdr
+
+    sky = save_hdr(str(tmp_path / "sky.hdr"), img.astype(np.float32) / 7.0)
+    assert tscene._load_env_map(sky).shape == (tscene.ENV_H, tscene.ENV_W, 3)
+    with pytest.raises(ValueError, match="exr.*decoder"):
+        tscene._load_env_map(str(tmp_path / "sky.exr"))
 
 
 # ---- the tables ---------------------------------------------------------
