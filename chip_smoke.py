@@ -40,10 +40,13 @@ image rule and bit for bit against #2 -> #3, #2-#4, and #5/#6 by the NEE
 rule on textured and cornell_sss) and on mesh_textured (#7-#10 with the
 quad's OBJ UVs, #4 over its cache)); the NEE kernels' mesh
 instantiations (`@mesh` on MeshOf<Tables>, `@mesh_surface` on
-MeshOf<TexTables>: the binary BVH walks for the hit and the shadow ray)
+MeshOf<TexTables>: per-thread walks of every mesh geom's 8-wide BVH for
+the hit and the shadow ray, the stack in shared memory)
 by the NEE rule on mesh.txt at 64x64 and 800x800 AA, mesh_textured at
-64x64, mesh_big at 64x64 (depth 4) and 800x800 (one iteration) and
-mesh_stream at 128x128 (depth 4), #5's pix exactly and its alive per lane, and #6 bit for bit
+64x64 and 800x800 (depth 4), mesh_big at 64x64 and 800x800 (depth 4),
+mesh_stream at 128x128 (depth 4), mesh_critter, the deepest tree, at
+128x128 (depth 2) and mesh.txt over a chain BVH of wide depth 22
+(`chain_bvh`) at 64x64 (depth 2), #6 over one iteration, #5's pix exactly and its alive per lane, and #6 bit for bit
 against the #5 route on mesh.txt (`nee_route_bits`); renders mesh.txt and
 mesh_big.txt --nee at 128x128 through `step_batch` and `step()`, and
 mesh.txt with its icosphere moving under --nee --motion-blur through
@@ -85,8 +88,10 @@ under --nee through both (#6's and #5's); --nee on mesh scenes: (aa)
 mesh.txt through `step_batch` (#6 on MeshOf), (ab) through `step()` (#5),
 (ac) mesh_big.txt through `step_batch`, and mesh_textured through both,
 with the instantiations' plain times, bounds (the plain path's masks and
-the nodes and triangles of the kernels' own walks, `mesh_walk_work`) and
-ptxas usage on the
+the lesser of two counts of the mesh walks' work: the wide nodes, leaves
+and triangles of the kernels' own walks, `mesh_walk_work`, and the
+binary walks', `binary_walk_work`, which find the same hits with fewer
+slab tests; both bounds kept on the line) and ptxas usage on the
 `mesh_nee` line), holds sharding (`parallel/shard.py`, both shards on
 the one card: `shard_phase`, in a process of its own) -- Cornell 800x800 d8 AA under spp=2 (#2 ->
 #3 per shard, against Renderer.step() at the same samples, rtol 1e-6)
@@ -239,7 +244,7 @@ KERNEL_SYMBOLS.update({k: re.compile(re.escape(f"{w}_kernel") + "(?!.*MeshOf).*T
                        for k, (w, _) in SURFACE_KERNELS.items()})
 # --nee on mesh scenes: #5's and #6's instantiations on MeshOf<Tables>
 # (`@mesh`) and MeshOf<TexTables> (`@mesh_surface`), which walk each mesh
-# geom's binary BVH for the hit and the shadow ray, each with its wrapper
+# geom's 8-wide BVH for the hit and the shadow ray, each with its wrapper
 # and the path of phase 6 that times it
 MESH_NEE_KERNELS = {
     "full_iteration_nee@mesh": ("full_iteration_nee", "mesh_nee"),
@@ -363,10 +368,19 @@ SURFACE_MESH = [{}, {"antialias": True}]
 # the NEE kernels' mesh instantiations against their plain versions (the
 # NEE rule; #6 over one iteration): (scene, resolution, depth), AA; the
 # big meshes at depth 4 (their plain BVH walks take nearly as many
-# lock-step node steps a depth at 64x64 as at 800x800)
-MESH_NEE_PARITY = [("mesh.txt", (64, 64), 8), ("mesh.txt", (800, 800), 8),
-                   ("mesh_textured.txt", (64, 64), 8), ("mesh_big.txt", (64, 64), 4),
-                   ("mesh_big.txt", (800, 800), 4), ("mesh_stream.txt", (128, 128), 4)]
+# lock-step node steps a depth at 64x64 as at 800x800); mesh_critter's
+# tree is the repo's deepest (wide depth 7: a stack of 49 entries);
+# "mesh.txt#chain" is mesh.txt with its icosphere's BVH a chain over
+# MESH_CHAIN_TRIS triangles (`chain_bvh`: wide depth 22, a stack of 154
+# entries, 77 KB a block, past the 48 KB a launch takes without opting in;
+# at depth 2: its plain walks step through the chain in lock-step, and
+# depth 4 took 24 s on the H100)
+MESH_CHAIN_TRIS = 600
+MESH_NEE_PARITY = [("mesh.txt", (64, 64), 8), ("mesh.txt#chain", (64, 64), 2),
+                   ("mesh.txt", (800, 800), 8),
+                   ("mesh_textured.txt", (64, 64), 8), ("mesh_textured.txt", (800, 800), 4),
+                   ("mesh_big.txt", (64, 64), 4), ("mesh_big.txt", (800, 800), 4),
+                   ("mesh_stream.txt", (128, 128), 4), ("mesh_critter.txt", (128, 128), 2)]
 # iterations of #6's profiled launch on the mesh --nee paths (its plain
 # version, whose BVH walks take one launch sequence per node step, is
 # timed over the same)
@@ -421,6 +435,9 @@ OPS_MESH_HIT = 100  # per walk that hits: normal, UVs, world distance
 OPS_MERGE = 4  # per lane: the analytic/mesh merge of #9 and #10
 OPS_WORLD_DIST = 36  # #5's and #6's shadow walks, per triangle hit below the
 #                      bound: the object point, a transform, the distance
+OPS_WIDE_NODE = 8 * OPS_NODE  # #5's and #6's mesh walks, per inner wide
+#   node expanded: eight children's slab tests, each with its enter test,
+#   the nearest's update and its push
 # the surface stage (csrc/path_common.cuh `surface`, `env_fetch`), each
 # charged only to the lanes that take it in this run's data (surface_ops)
 OPS_FILE_TEX = 40  # a file-textured hit: its UVs, four taps' addresses, the blend
@@ -758,6 +775,82 @@ def nee_pool(dev, cam, iteration, settings):
     return pool, (torch.zeros(P, device=dev), torch.zeros(P, device=dev))
 
 
+def chain_bvh(ds, g, count=None):
+    """ds (a DeviceScene) with mesh geom g's binary BVH replaced by a
+    chain over its first `count` triangles (all by default; the others in
+    no leaf): each inner node's left child a leaf of 4 triangles, its
+    right child the rest (preorder, escape pointers, exact boxes): the
+    deepest tree the triangles can make, on ds's device."""
+    import torch
+
+    start, n_tris = ds.tri_ranges[g]
+    count = n_tris if count is None else count
+    corners = torch.stack([torch.stack(list(v), 1) for v in
+                           (ds.tri_v0, ds.tri_v1, ds.tri_v2)], 1)[start:start + count]
+    lo_t, hi_t = corners.min(1).values, corners.max(1).values
+    n_leaves = -(-count // 4)
+    rows = []  # (min, max, first, count, is_leaf)
+    for i in range(n_leaves):
+        a = 4 * i
+        if i < n_leaves - 1:
+            rows.append((lo_t[a:].min(0).values, hi_t[a:].max(0).values, 0, 0, False))
+        b = min(a + 4, count)
+        rows.append((lo_t[a:b].min(0).values, hi_t[a:b].max(0).values,
+                     start + a, b - a, True))
+    B = len(rows)
+    skip = np.full(B, B, np.int32)
+    for j in range(0, B - 1, 2):  # inner j: left leaf j + 1, right j + 2
+        skip[j + 1] = j + 2
+    nmin, nmax = torch.stack([r[0] for r in rows]), torch.stack([r[1] for r in rows])
+    roots = tuple((0, B) if k == g else (0, 0) for k in range(len(ds.tri_ranges)))
+    dev = ds.device
+    return replace(
+        ds,
+        bvh_min=type(ds.bvh_min)(*nmin.T.contiguous()),
+        bvh_max=type(ds.bvh_max)(*nmax.T.contiguous()),
+        bvh_first=torch.tensor([r[2] for r in rows], dtype=torch.int32, device=dev),
+        bvh_count=torch.tensor([r[3] for r in rows], dtype=torch.int32, device=dev),
+        bvh_skip=torch.from_numpy(skip).to(dev),
+        bvh_leaf=torch.tensor([r[4] for r in rows], device=dev),
+        bvh_roots=roots,
+    )
+
+
+def wide_tables_kept(dev, res=(800, 800), iteration=2):
+    """#8 beside the NEE kernels' tables on mesh.txt: its wide tables
+    packed with `nee` equal those packed without, bit for bit, and #7 ->
+    #8 over the camera rays writes the same bits on every listed lane from
+    either. Returns (listed lanes, the NEE tables' depth and the stack
+    entries a thread of #5 and #6 takes on them)."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
+    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
+    ds, cam, settings = on_card(dev, "mesh.txt", {"antialias": True}, res)
+    plain_t, nee_t = mk.pack_scene_tables(ds), mk.pack_scene_tables(ds, nee=True)
+    for a, b in zip(plain_t.wide[:3], nee_t.wide[:3]):
+        if not torch.equal(bitwise(a), bitwise(b)):
+            raise RuntimeError("#8's wide tables changed when packed with nee")
+    pool = _camera_pool(cam, iteration, settings)
+    out = []
+    for t in (plain_t, nee_t):
+        c = pl.mesh_candidates(pool[0], pool[1], pool[4], ds, tables=t)
+        out.append((c, pl.mesh_sweep(pool[0], pool[1], c, ds, tables=t)))
+    torch.cuda.synchronize()
+    lanes = [torch.sort(c.lanes[:int(c.count[0])].long())[0] for c, _ in out]
+    if not torch.equal(lanes[0], lanes[1]):
+        raise RuntimeError("#7 listed other lanes on the nee tables")
+    (_, a), (_, b) = out
+    for x, y in zip((a.t, *a.normal, a.material_id, a.outside, a.tex_u, a.tex_v, a.has_uv),
+                    (b.t, *b.normal, b.material_id, b.outside, b.tex_u, b.tex_v, b.has_uv)):
+        if not torch.equal(bitwise(x[lanes[0]]), bitwise(y[lanes[0]])):
+            raise RuntimeError("#8's outputs changed on the tables packed with nee")
+    w = nee_t.nee_wide
+    return int(lanes[0].shape[0]), w.depth, mk.nee_stack(w)
+
+
 def bounce_nee_parity(dev, name, kw, res, glossy, iteration=2, setup=None):
     """#5 at every depth from the plain version's own pool, is_last at the
     last depth (and at depth 1 too): pix exactly and alive per lane on
@@ -859,12 +952,93 @@ def analytic_best_t(ds, o, d):
     return best
 
 
-def mesh_walk_work(ds, o, d, lanes, shadow_r=None):
+def mesh_walk_work(ds, wide, o, d, lanes, shadow_r=None):
+    """(object rays, inner wide nodes, leaves, triangles, tmin recomputes,
+    deepest stack, path walks that hit, shadow world distances) of #5's
+    and #6's mesh walks (csrc/nee.cu `mesh_walks`) over the rays `lanes`
+    selects, counted by the same walk in plain PyTorch over their tables
+    `wide` (ops/bvh_traverse.py's mesh_intersect_wide and
+    mesh_occluded_wide, lanes in lock-step). A path ray (shadow_r None)
+    walks each mesh geom below the object-space image (x frobenius3(inv))
+    of its nearest hit so far, the analytic sweep's at the first mesh
+    geom; a walk that hits counts once (its world-space tail,
+    OPS_MESH_HIT). A shadow ray of length shadow_r walks below the image
+    of r - 1e-2, counts the world distance of each triangle it hits below
+    it, and stops at its first leaf holding a triangle whose world
+    distance lies in (0, r - 1e-2) (the kernels stop at the triangle: a
+    leaf counts whole), skipping the mesh geoms after it. Each ray tests
+    the geom's box (its binary root's) first and walks only when it
+    enters below the bound, as the kernels do. The deepest stack is the
+    kernels', one entry below the plain walk's (the nearest child stays in
+    registers)."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops.bvh_traverse import (
+        _aabb_hit,
+        _frobenius3,
+        _object_ray,
+        mesh_intersect_wide,
+        mesh_occluded_wide,
+    )
+    from project3_cuda_path_tracer_tpu_torch.ops.intersect import FLT_MAX
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3, take as vtake
+
+    if not ds.mesh_geoms or not bool(lanes.any()):
+        return (0,) * 8
+    o, d = (Vec3(*(c[lanes] for c in v)) for v in (o, d))
+    shadow = shadow_r is not None
+    n = o.x.shape[0]
+    # the counts stay on the card until the end: the walks sync with the
+    # host only for their loop flags
+    counts = torch.zeros(8, dtype=torch.int64, device=o.x.device)
+    if shadow:
+        bound = shadow_r[lanes] - 1e-2
+        going = torch.ones(n, dtype=torch.bool, device=o.x.device)
+    else:
+        best = analytic_best_t(ds, o, d)
+    for k, g in enumerate(ds.mesh_geoms):
+        root = int(wide.root[k])
+        first = ds.bvh_roots[g][0]
+        frob = _frobenius3(ds.inverse_transform[g])
+        lim = bound if shadow else best
+        t_max = torch.where(lim < FLT_MAX, lim * frob, FLT_MAX)
+        _, _, inv_d = _object_ray(ds, g, o, d)
+        ro = _object_ray(ds, g, o, d)[0]
+        walk = _aabb_hit(Vec3(*(c[first] for c in ds.bvh_min)),
+                         Vec3(*(c[first] for c in ds.bvh_max)), ro, inv_d, t_max)
+        if shadow:
+            counts[0] += going.sum()
+            walk = walk & going
+        else:
+            counts[0] += n
+        sel = torch.nonzero(walk)[:, 0]
+        os_, ds_ = vtake(o, sel), vtake(d, sel)
+        probe = {}
+        if shadow:
+            occ = mesh_occluded_wide(ds, wide, g, root, os_, ds_, bound[sel], probe=probe)
+            going[sel[occ]] = False
+            counts[7] += probe["dists"].sum()
+        else:
+            t = mesh_intersect_wide(ds, wide, g, root, os_, ds_, probe=probe,
+                                    t_max=t_max[sel], nee=True)[0]
+            hit = probe["tri"] >= 0
+            counts[6] += hit.sum()
+            take = hit & (t > 0) & (t < best[sel])
+            best[sel[take]] = t[take]
+        for j, key in ((1, "nodes"), (2, "leaves"), (3, "tris"), (4, "recomputes")):
+            counts[j] += probe[key].sum()
+        if probe["stack"].numel():
+            counts[5] = torch.maximum(counts[5], probe["stack"].max() - 1)
+    return tuple(int(c) for c in counts.tolist())
+
+
+def binary_walk_work(ds, o, d, lanes, shadow_r=None):
     """(object rays, binary nodes, triangles, path walks that hit, shadow
-    world distances) of #5's and #6's mesh walks (csrc/nee.cu `mesh_walks`)
-    over the rays `lanes` selects, counted by the same walk in plain
-    PyTorch (ops/bvh_traverse.py's cursor over the node table), lanes in
-    lock-step. A path ray (shadow_r None) walks each mesh geom below the
+    world distances) of the binary BVH walks that #5's and #6's mesh
+    instantiations ran before their wide walk, for the old
+    bound beside the new: over the rays `lanes` selects, counted by that
+    walk in plain PyTorch (ops/bvh_traverse.py's cursor over the binary
+    BVH's nodes), lanes in lock-step. A path ray (shadow_r None) walks each mesh geom below the
     object-space image (x frobenius3(inv)) of its nearest hit so far, the
     analytic sweep's at the first mesh geom; a walk that hits counts once
     (its world-space tail, OPS_MESH_HIT). A shadow ray of length shadow_r walks below the
@@ -979,10 +1153,19 @@ def nee_work(ds, cam, iteration, settings):
     aux = (aux[0], aux[1] > 0.5)
     names = ("lanes_in", "warps_with_live", "nee_able", "shadow_rays",
              "shadow_tests", "unoccluded", "scattered", "mesh_rays", "mesh_nodes",
-             "mesh_tris", "mesh_hits", "shadow_mesh_rays", "shadow_mesh_nodes",
-             "shadow_mesh_tris", "shadow_mesh_distances")
+             "mesh_leaves", "mesh_tris", "mesh_recomputes", "mesh_stack_max",
+             "mesh_hits", "shadow_mesh_rays", "shadow_mesh_nodes", "shadow_mesh_leaves",
+             "shadow_mesh_tris", "shadow_mesh_stack_max", "shadow_mesh_distances",
+             "binary_mesh_nodes", "binary_mesh_tris", "binary_shadow_mesh_nodes",
+             "binary_shadow_mesh_tris", "binary_shadow_mesh_distances")
     counts = {k: [] for k in names}
+    counts["binary_walk_ops"] = []  # ops per depth with the binary walks' work
     ops = []
+    wide = None
+    if ds.mesh_geoms:
+        from project3_cuda_path_tracer_tpu_torch.ops.megakernel import pack_nee_wide_tables
+
+        wide = pack_nee_wide_tables(ds)
     D = settings.trace_depth
     length = torch.zeros(state[5].shape[0], dtype=torch.int64, device=ds.device)
     for depth in range(D):
@@ -991,36 +1174,53 @@ def nee_work(ds, cam, iteration, settings):
         length += state[4].long()
         warps_with_live = int(state[4].view(-1, 32).any(1).sum())
         probe = {}
-        walks = mesh_walk_work(ds, state[0], state[1], state[4])
+        walks = mesh_walk_work(ds, wide, state[0], state[1], state[4])
+        binary = binary_walk_work(ds, state[0], state[1], state[4])
         state, aux = _nee_mis_bounce(state, aux, ds, iteration, depth,
                                      settings, is_last, probe=probe)
         shadow_ops, tests, going = shadow_sweep(ds, probe["p_hit"], probe["wi"],
                                                 probe["r"], probe["shadow"])
-        shadow_walks = mesh_walk_work(ds, probe["p_hit"], probe["wi"], going,
+        shadow_walks = mesh_walk_work(ds, wide, probe["p_hit"], probe["wi"], going,
                                       shadow_r=probe["r"])
+        shadow_binary = binary_walk_work(ds, probe["p_hit"], probe["wi"], going,
+                                         shadow_r=probe["r"])
         n = dict(zip(names, (
             lanes_in, warps_with_live, int(probe["nee_able"].sum()),
             int(probe["shadow"].sum()), tests,
             int((probe["shadow"] & probe["visible"]).sum()),
             0 if is_last else int((probe["live_hit"] & ~probe["lit"]).sum()),
-            *walks[:4], *shadow_walks[:3], shadow_walks[4],
+            *walks[:7], *shadow_walks[:4], shadow_walks[5], shadow_walks[7],
+            *binary[1:3], *shadow_binary[1:3], shadow_binary[4],
         )))
         for k in names:
             counts[k].append(n[k])
-        ops.append(
+        # per ray and mesh geom walked its object-space ray and bound, per
+        # path walk that hits the world-space tail
+        rays = n["mesh_rays"] + n["shadow_mesh_rays"]
+        base = (
             n["lanes_in"] * (sweep_ops(ds) + OPS_NORMAL)
             + n["nee_able"] * (OPS_LIGHT + OPS_TO_LIGHT) + shadow_ops
             + n["unoccluded"] * (OPS_MIS + (0 if is_last else OPS_W_LIGHT))
             + n["scattered"] * (OPS_SHADE + OPS_NEXT_PDF)
-            # the mesh walks: per ray and mesh geom walked its object-space
-            # ray and bound, per node its slab test, per triangle
-            # Moller-Trumbore, per path walk that hits the world-space
-            # tail, per shadow hit below the bound its world distance
-            + (n["mesh_rays"] + n["shadow_mesh_rays"]) * OPS_OBJ_RAY
-            + (n["mesh_nodes"] + n["shadow_mesh_nodes"]) * OPS_NODE
+            + rays * OPS_OBJ_RAY + n["mesh_hits"] * OPS_MESH_HIT
+        )
+        # the wide walks: per ray and geom the geom box's slab test, per
+        # inner node its children's slab tests, per popped entry whose tmin
+        # is recomputed a slab test, per triangle Moller-Trumbore, per
+        # shadow hit below the bound its world distance
+        ops.append(
+            base + rays * OPS_NODE
+            + (n["mesh_nodes"] + n["shadow_mesh_nodes"]) * OPS_WIDE_NODE
+            + n["mesh_recomputes"] * OPS_NODE
             + (n["mesh_tris"] + n["shadow_mesh_tris"]) * OPS_MT
-            + n["mesh_hits"] * OPS_MESH_HIT
             + n["shadow_mesh_distances"] * OPS_WORLD_DIST
+        )
+        # the binary walks they replace: per node its slab test
+        counts["binary_walk_ops"].append(
+            base
+            + (n["binary_mesh_nodes"] + n["binary_shadow_mesh_nodes"]) * OPS_NODE
+            + (n["binary_mesh_tris"] + n["binary_shadow_mesh_tris"]) * OPS_MT
+            + n["binary_shadow_mesh_distances"] * OPS_WORLD_DIST
         )
     return counts, ops, length
 
@@ -3127,6 +3327,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sass-other", metavar="DIR",
                     help="another checkout: hold every kernel function both trees "
                          "have to the same SASS (tools/torch_sass_diff.py)")
+    ap.add_argument("--sass-allow", metavar="REGEX",
+                    help="with --sass-other: the functions (source:symbol, as "
+                         "tools/torch_sass_diff.py names them) whose SASS may "
+                         "differ, those a change redesigns")
     ap.add_argument("--shard-phase", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3221,8 +3425,9 @@ def main(argv=None) -> int:
         say("ptxas", source=f"{PKG}/csrc/{src}", flags="-Xptxas -v",
             **{kernel: {k: v for k, v in ptx.items() if re.search(kernel, k)}})
     # the kernels' SASS against another checkout's (with --sass-other): every
-    # function both trees have must be the same, the surface stage's twins
-    # may be new
+    # function both trees have must be the same, but those --sass-allow
+    # names; the surface stage's twins may be new
+    allow = re.compile(args.sass_allow) if args.sass_allow else None
     if args.sass_other:
         res = subprocess.run([sys.executable, os.path.join(HERE, "tools", "torch_sass_diff.py"),
                               "--other", args.sass_other], capture_output=True, text=True,
@@ -3230,9 +3435,9 @@ def main(argv=None) -> int:
         if res.returncode != 0:
             raise RuntimeError(f"torch_sass_diff: {res.stderr[-3000:]}")
         diff = json.loads(res.stdout.strip().splitlines()[-1])["sass_vs_other"]
-        say("sass_vs_other", other=args.sass_other, functions=diff)
-        changed = {k: v for k, v in diff.items() if v.startswith("differs")
-                   or v == "only in the other tree"}
+        say("sass_vs_other", other=args.sass_other, allowed=args.sass_allow, functions=diff)
+        changed = {k: v for k, v in diff.items() if (v.startswith("differs")
+                   and not (allow and allow.search(k))) or v == "only in the other tree"}
         if changed:
             raise RuntimeError(f"kernels' SASS changed: {changed}")
     # #6's registers, for the persistent grid of its lane-use model
@@ -3487,11 +3692,12 @@ def main(argv=None) -> int:
                 plain_ms=plain)
 
     # #5 and #6 on mesh scenes (their instantiations on MeshOf, which walk
-    # each mesh geom's binary BVH for the hit and the shadow ray) against
+    # each mesh geom's 8-wide BVH for the hit and the shadow ray) against
     # their plain versions, by the NEE rule, #6 over one iteration; the
     # big-mesh scenes' device scenes from `big`; the errors kept for the
-    # kernels line are mesh.txt's at 800x800 (MeshOf<Tables>) and
-    # mesh_textured's at 64x64 (MeshOf<TexTables>); then #6 bit for bit
+    # kernels line are mesh.txt's (MeshOf<Tables>) and mesh_textured's
+    # (MeshOf<TexTables>) at 800x800; then #8's tables and outputs beside
+    # the NEE tables, and #6 bit for bit
     # against the #5 route on mesh.txt
     mesh_nee_kw = {"antialias": True, "nee_mis": True}
 
@@ -3500,6 +3706,10 @@ def main(argv=None) -> int:
             ds_m = big[name].dev_scene
             cam_m = camera_to_device(camera_at(big[name].scene.state.camera, res), dev)
             return ds_m, cam_m, RenderSettings(trace_depth=depth, **mesh_nee_kw)
+        if name.endswith("#chain"):
+            ds_m, cam_m, set_m = on_card(dev, name[:-len("#chain")], mesh_nee_kw, res,
+                                         depth=depth)
+            return chain_bvh(ds_m, ds_m.mesh_geoms[0], MESH_CHAIN_TRIS), cam_m, set_m
         return on_card(dev, name, mesh_nee_kw, res, depth=depth)
 
     for name, res, depth in MESH_NEE_PARITY:
@@ -3509,6 +3719,10 @@ def main(argv=None) -> int:
                 "depth": depth,
                 "mesh_geoms": len(setup[0].mesh_geoms),
                 "triangles": int(setup[0].tri_v0.x.shape[0])}
+        if name.endswith("#chain"):
+            chain = mk.pack_nee_wide_tables(setup[0])
+            what.update(chain_triangles=MESH_CHAIN_TRIS, nee_wide_depth=chain.depth,
+                        nee_stack=mk.nee_stack(chain))
         suffix = "@mesh_surface" if name == "mesh_textured.txt" else "@mesh"
         r6 = full_nee_parity(dev, name, {}, res, False, setup=setup)
         check_parity(f"full_iteration_nee{suffix}", dict(what, iterations=1), *r6,
@@ -3522,9 +3736,15 @@ def main(argv=None) -> int:
         if alive_frac > ALIVE_FRAC:
             raise RuntimeError(f"bounce_step_nee{suffix}: alive differs on "
                                f"{alive_frac:.2%} of lanes: {what}")
-        if (name, res) in (("mesh.txt", (800, 800)), ("mesh_textured.txt", (64, 64))):
+        if res == (800, 800) and name in ("mesh.txt", "mesh_textured.txt"):
             err800[f"full_iteration_nee{suffix}"] = r6[2]
             err800[f"bounce_step_nee{suffix}"] = r5[2]
+    listed, nee_depth, nee_need = wide_tables_kept(dev)
+    say("wide_tables_kept", kernel="mesh_sweep", config="mesh.txt", res="800x800",
+        listed_lanes=listed, nee_wide_depth=nee_depth, nee_stack=nee_need,
+        nee_stack_max=mk.NEE_STACK_MAX,
+        rule="#8's tables and its outputs on every listed lane bit for bit the same "
+             "whether the tables were packed with nee or not")
     for res in ((64, 64), (800, 800)):
         rays_off, pixels_off = nee_route_bits(dev, "mesh.txt", {}, res, False, probe,
                                               setup=mesh_nee_setup("mesh.txt", res))
@@ -3847,7 +4067,7 @@ def main(argv=None) -> int:
         ("textured_nee_step", "textured.txt", None,
          {"antialias": True, "nee_mis": True}, "step"),
         # --nee on mesh scenes: #6's and #5's instantiations on MeshOf
-        # (the binary BVH walks), (aa) mesh.txt through step_batch, (ab)
+        # (the wide BVH walks), (aa) mesh.txt through step_batch, (ab)
         # through step(), (ac) mesh_big.txt through step_batch; and on
         # mesh_textured (MeshOf<TexTables>) through both
         ("mesh_nee", "mesh.txt", None, {"antialias": True, "nee_mis": True},
@@ -4540,6 +4760,7 @@ def main(argv=None) -> int:
     # bounds from the plain path's masks and BVH walks (nee_work); beside
     # them the cells (aa)-(ac) and the instantiations' registers and spills
     mesh_nee_lanes = {}
+    wide_bounds, binary_bounds = {}, {}
     for suffix, name in (("@mesh", "mesh.txt"), ("@mesh_surface", "mesh_textured.txt")):
         n_scene = load_scene(os.path.join(HERE, "scenes", name))
         n_ds = scene_to_device(n_scene, dev)
@@ -4558,11 +4779,18 @@ def main(argv=None) -> int:
                                                      depth == D - 1)
             torch.cuda.synchronize()
             step_ms += 1e3 * (time.perf_counter() - t0) / D
-        # as #6's and #5's bounds above, with the walks' work in the ops
-        bounds[f"full_iteration_nee{suffix}"] = bound(
-            24 * n_P, MESH_NEE_RUN * (n_P * OPS_RAYGEN_AA + sum(n_ops)))
-        bounds[f"bounce_step_nee{suffix}"] = bound(
-            sum(4 * n_P + 120 * n for n in n_counts["lanes_in"]) / D, sum(n_ops) / D)
+        # as #6's and #5's bounds above, with the mesh walks' work in the
+        # ops: the wide walks' (the kernels' own) and the binary walks'
+        # (which find the same hits with fewer slab tests); the bound is
+        # the lesser, the least work the job is known to need
+        step_bytes = sum(4 * n_P + 120 * n for n in n_counts["lanes_in"]) / D
+        for table, walk_ops in ((wide_bounds, n_ops),
+                                (binary_bounds, n_counts["binary_walk_ops"])):
+            table[f"full_iteration_nee{suffix}"] = bound(
+                24 * n_P, MESH_NEE_RUN * (n_P * OPS_RAYGEN_AA + sum(walk_ops)))
+            table[f"bounce_step_nee{suffix}"] = bound(step_bytes, sum(walk_ops) / D)
+        for k in (f"full_iteration_nee{suffix}", f"bounce_step_nee{suffix}"):
+            bounds[k] = min(wide_bounds[k], binary_bounds[k], key=lambda b: b[0])
         for kname, p_ms in ((f"full_iteration_nee{suffix}", run_ms),
                             (f"bounce_step_nee{suffix}", step_ms)):
             wname, label = MESH_NEE_KERNELS[kname]
@@ -4575,6 +4803,9 @@ def main(argv=None) -> int:
                                                       else 1),
                             "launches": timing[k][2], "plain_ms": timing[k][1],
                             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                            "x_bound": timing[k][0] / bounds[k][0],
+                            "wide_walk_bound_ms": wide_bounds[k][0],
+                            "binary_walk_bound_ms": binary_bounds[k][0],
                             "ptxas": [v for f, v in ptx.items() if w in f and "MeshOf" in f
                                       and ("TexTables" in f) == ("surface" in k)]}
                         for k, (w, label) in MESH_NEE_KERNELS.items()},

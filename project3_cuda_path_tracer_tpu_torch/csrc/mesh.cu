@@ -480,7 +480,7 @@ __global__ void __launch_bounds__(kThreads)
 // Each entry point launches one kernel on `stream` (a cudaStream_t,
 // PyTorch's current stream) of CUDA device `device` and returns
 // cudaGetLastError() of the launch. tables = {xf, inv, invt, gtype, gmat,
-// mat, env}; mesh = {tri, attr, box, node, geoms, chunk, super}; rays = {ox, oy, oz,
+// mat, env}; mesh = {tri, attr, box, geoms, chunk, super}; rays = {ox, oy, oz,
 // dx, dy, dz, alive (int32, or null: all alive)}; hit lanes = {t, nx, ny,
 // nz, mat (int32), outside (uint8), flag (uint8)[, u, v]}.
 

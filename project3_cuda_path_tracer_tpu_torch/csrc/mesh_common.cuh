@@ -12,9 +12,8 @@
 namespace {
 
 // The mesh tables, as ops/megakernel.py::pack_mesh_tables lays them out
-// (four of its seven: #8 walks its wide tables, the NEE kernels read the
-// binary nodes themselves (nee.cu `MeshOf`), and the big-mesh route reads
-// the chunk and supernode boxes itself).
+// (four of its six: the big-mesh route reads the chunk and supernode
+// boxes itself).
 struct MeshTables {
   const float4* tri;  // (T,3) float4: v0.xyz v1.x | v1.yz v2.xy | v2.z - - -
   const float* attr;  // (T,16): n0 n1 n2 (xyz each), uv0 uv1 uv2 (uv each), -
@@ -23,13 +22,13 @@ struct MeshTables {
   int n_mesh;
 };
 
-// mesh[] = {tri, attr, box, node, geoms, chunk, super}, in that order
+// mesh[] = {tri, attr, box, geoms, chunk, super}, in that order
 inline MeshTables make_mesh_tables(void* const* t, int n_mesh) {
   MeshTables m;
   m.tri = static_cast<const float4*>(t[0]);
   m.attr = static_cast<const float*>(t[1]);
   m.box = static_cast<const float4*>(t[2]);
-  m.geoms = static_cast<const int4*>(t[4]);
+  m.geoms = static_cast<const int4*>(t[3]);
   m.n_mesh = n_mesh;
   return m;
 }

@@ -636,7 +636,7 @@ static_assert(sizeof(kMerge) / sizeof(kMerge[0]) == kPlacePer, "one kernel for e
 // Each entry point launches one kernel on `stream` (a cudaStream_t,
 // PyTorch's current stream) of CUDA device `device` and returns
 // cudaGetLastError() of the launch. tables = {xf, inv, invt, gtype, gmat,
-// mat, env}; mesh = {tri, attr, box, node, geoms, chunk, super}; rays =
+// mat, env}; mesh = {tri, attr, box, geoms, chunk, super}; rays =
 // {ox, oy, oz, dx, dy, dz, alive}; list/count: #7's candidate list; n: the
 // pool size, the stride of every [slot, j] array; the big geom `geom` owns
 // supers [super_start, +n_supers), chunks [chunk_start, +n_chunks) and soup
@@ -654,7 +654,7 @@ extern "C" int pt_super_keys(void* const* tables, int n_geoms, void* const* mesh
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (E < 1 || E > kPlacePer) return static_cast<int>(cudaErrorInvalidValue);
-  const float* boxes = static_cast<const float*>(mesh[6]) + 8 * super_start;
+  const float* boxes = static_cast<const float*>(mesh[5]) + 8 * super_start;
   if (reinterpret_cast<uintptr_t>(boxes) % sizeof(float4) != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
@@ -713,7 +713,7 @@ extern "C" int pt_window_sweep(void* const* mesh, void* const* sweep, const int*
                                  kSweepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(sweep[0]) + 9 * kChunk * chunk_start,
         static_cast<const float*>(sweep[1]) + 8 * kSuper * super_start,
-        static_cast<const float*>(mesh[6]) + 8 * super_start, key, entry, total, q, n,
+        static_cast<const float*>(mesh[5]) + 8 * super_start, key, entry, total, q, n,
         n_supers, n_chunks, tri_start, tri_count, out_t, out_tri, out_u, out_v);
   }
   return static_cast<int>(cudaGetLastError());
@@ -734,7 +734,7 @@ extern "C" int pt_window_sweep_stream(void* const* mesh, void* const* sweep, con
                                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(sweep[0]) + 9 * kChunk * chunk_start,
         static_cast<const float*>(sweep[1]) + 8 * kSuper * super_start,
-        static_cast<const float*>(mesh[6]) + 8 * super_start, key, nullptr, total, q, n,
+        static_cast<const float*>(mesh[5]) + 8 * super_start, key, nullptr, total, q, n,
         n_supers, n_chunks, tri_start, tri_count, out_t, out_tri, out_u, out_v);
   }
   return static_cast<int>(cudaGetLastError());

@@ -49,13 +49,15 @@ scale, SSS sigma) in `surf`, the f32 texture, bump and lat-long env
 atlases, plus the emissive geom indices and the MIS light pdf model
 (ops/lights.py::lights_area_weight) for the NEE kernels, and on a mesh
 scene the triangle and BVH tables of the mesh pipeline
-(`pack_mesh_tables`, read by ops/pipeline.py's kernels #7-#14) and each
-mesh geom's BVH root (`pack_mesh_roots`). #1-#3 sweep analytic geoms only:
-a mesh scene takes ops/pipeline.py (and #4, which intersects nothing),
-and their wrappers refuse one. The NEE kernels #5 and #6 render a mesh
-scene themselves: their instantiations on the mesh tables walk each mesh
-geom's binary BVH (the `node` table) for the nearest hit and for the
-shadow ray, the big-mesh route's geoms included.
+(`pack_mesh_tables`, read by ops/pipeline.py's kernels #7-#14) and,
+under NEE, every mesh geom's wide BVH (`pack_nee_wide_tables`). #1-#3
+sweep analytic geoms only: a mesh scene takes ops/pipeline.py (and #4,
+which intersects nothing), and their wrappers refuse one. The NEE kernels
+#5 and #6 render a mesh scene themselves: their instantiations on the
+mesh tables walk each mesh geom's 8-wide BVH (models/wide_bvh.py), a
+thread per ray with its stack in shared memory sized at launch from the
+deepest tree, for the nearest hit and for the shadow ray, the big-mesh
+route's geoms included.
 
 A scene with file textures, bump maps, a lat-long env map or SSS sets
 the surface-stage flags (FLAG_SURFACE_STAGE), and the kernels' C entry
@@ -126,9 +128,9 @@ class SceneTables(NamedTuple):
     # #8's wide BVH (ops/pipeline.py::pack_wide_tables); None without
     # meshes
     wide: tuple | None = None
-    # (M,2) i32 each mesh geom's first BVH node and node count
-    # (pack_mesh_roots, read by #5 and #6); None without meshes
-    roots: torch.Tensor | None = None
+    # #5's and #6's wide BVH, every mesh geom's (pack_nee_wide_tables);
+    # None without meshes or when packed without `nee`
+    nee_wide: tuple | None = None
 
 
 # the tables the kernels read, as a C array of pointers in this order
@@ -231,15 +233,15 @@ def pack_mesh_tables(scene: DeviceScene) -> tuple:
     """The mesh pipeline's tables (csrc/mesh_common.cuh's MeshTables), on
     the scene's device: tri (T,12) f32 [v0, v1, v2, 3 pad], attr (T,16)
     f32 [n0, n1, n2, uv0, uv1, uv2, pad], box (B,8) f32 [min, pad, max,
-    pad], node (B,4) i32 [first, count, skip, is_leaf], geoms (M,4) i32
-    [geom index, first node, node count (0 for a geom of the sorted
-    route, ops/pipeline.py::sorted_geoms), has_uv] for the M mesh geoms,
-    and the big-mesh route's chunk (C,8) and supernode (S,8) boxes [min,
-    max, 0, 0]. #7 reads each geom's root box; #8 walks the wide BVH
-    collapsed from these binary nodes (ops/pipeline.py::pack_wide_tables),
-    which gives a geom of the sorted route no root; #5 and #6 walk the
-    binary nodes themselves, from `pack_mesh_roots`. The tables live in
-    object space, so motion blur never re-packs them."""
+    pad] of the binary BVH's nodes, geoms (M,4) i32 [geom index, first
+    node, node count (0 for a geom of the sorted route,
+    ops/pipeline.py::sorted_geoms), has_uv] for the M mesh geoms, and the
+    big-mesh route's chunk (C,8) and supernode (S,8) boxes [min, max, 0,
+    0]. #7 and #5/#6 read each geom's root box; #8 walks the wide BVH
+    collapsed from the binary nodes (ops/pipeline.py::pack_wide_tables),
+    which gives a geom of the sorted route no root; #5 and #6 walk their
+    own collapse of every geom (`pack_nee_wide_tables`). The tables live
+    in object space, so motion blur never re-packs them."""
     from .pipeline import sorted_geoms
 
     mesh = scene.mesh_geoms
@@ -259,33 +261,59 @@ def pack_mesh_tables(scene: DeviceScene) -> tuple:
          scene.tri_uv0u, scene.tri_uv0v, scene.tri_uv1u, scene.tri_uv1v,
          scene.tri_uv2u, scene.tri_uv2v, zt], dim=1).contiguous()
     box = torch.stack([*scene.bvh_min, zb, *scene.bvh_max, zb], dim=1).contiguous()
-    node = torch.stack([scene.bvh_first, scene.bvh_count, scene.bvh_skip,
-                        scene.bvh_leaf.to(torch.int32)], dim=1).contiguous()
     geoms = torch.tensor(
         [[g, scene.bvh_roots[g][0], 0 if g in big else scene.bvh_roots[g][1],
           int(scene.mesh_has_uv[g])] for g in mesh],
         dtype=torch.int32, device=dev,
     ).reshape(len(mesh), 4)
-    return (tri, attr, box, node, geoms, scene.mesh_chunk_aabbs.contiguous(),
+    return (tri, attr, box, geoms, scene.mesh_chunk_aabbs.contiguous(),
             scene.mesh_super_aabbs.contiguous())
 
 
-def pack_mesh_roots(scene: DeviceScene) -> torch.Tensor:
-    """(M,2) i32 [first node, node count] of each mesh geom's binary BVH
-    (`scene.bvh_roots`), every mesh geom's: the root at which #5 and #6
-    start their walks of `node` (pack_mesh_tables' `geoms` gives a geom
-    of the sorted route no node count, which #7 and #8 rely on)."""
-    mesh = scene.mesh_geoms
-    return torch.tensor([scene.bvh_roots[g] for g in mesh], dtype=torch.int32,
-                        device=scene.device).reshape(len(mesh), 2)
+# The most stack entries a walk of #5 and #6 may take (csrc/nee.cu
+# `walk_stack`): the launch gives each thread a slice of its block's
+# dynamic shared memory, 4 bytes an entry, and an H100 block holds at
+# most 227 KB (232,448 bytes) of it: 454 entries at 128 threads.
+NEE_STACK_MAX = 232448 // (4 * 128)
+
+
+def nee_stack(wide) -> int:
+    """The stack entries a thread of #5 and #6 takes on the wide tables
+    `wide` (pack_nee_wide_tables): the walk keeps the nearest entered
+    child in registers, so an inner node adds at most WIDTH - 1 entries
+    and a tree of wide depth d needs (WIDTH - 1) x d."""
+    from ..models.wide_bvh import WIDTH
+
+    return (WIDTH - 1) * max(wide.depth, 1)
+
+
+def pack_nee_wide_tables(scene: DeviceScene, wide=None):
+    """#5's and #6's wide BVH (ops/pipeline.py::WideTables): every mesh
+    geom's binary BVH collapsed by models/wide_bvh.py, in object space, so
+    motion blur never re-packs it. `wide`, #8's tables, is the same
+    collapse when no geom takes the sorted route, and is then returned as
+    it is. Raises ValueError for a tree deeper than a block's shared
+    memory holds the kernels' stack for (NEE_STACK_MAX: wide depth 64)."""
+    from .pipeline import pack_wide_tables, sorted_geoms
+
+    if wide is None or sorted_geoms(scene):
+        wide = pack_wide_tables(scene, every=True)
+    need = nee_stack(wide)
+    if need > NEE_STACK_MAX:
+        raise ValueError(
+            f"a mesh geom's wide BVH has depth {wide.depth}: the NEE kernels' "
+            f"walk needs {need} stack entries a thread and a block's shared "
+            f"memory holds {NEE_STACK_MAX}")
+    return wide
 
 
 def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
     """The kernels' tables; with `nee` also the MIS light pdf model, read
     back to the host once here, so no NEE launch waits on the device for
     it (motion blur only translates, so it never changes the value); on a
-    mesh scene also the mesh pipeline's tables, C's, #8's wide BVH and
-    the mesh geoms' BVH roots of #5 and #6."""
+    mesh scene also the mesh pipeline's tables, C's, #8's wide BVH and,
+    with `nee`, #5's and #6's (`pack_nee_wide_tables`, which raises for a
+    tree deeper than a block's shared memory holds their stack for)."""
     from .pipeline import pack_sweep_tables, pack_wide_tables
 
     G = scene.transform.shape[0]
@@ -312,6 +340,7 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
         return torch.stack([r, g, b, torch.zeros_like(r)], dim=1).contiguous()
 
     xf, inv = pack_geom_tables(scene)
+    wide = pack_wide_tables(scene) if scene.mesh_geoms else None
     return SceneTables(
         xf=xf,
         inv=inv,
@@ -329,8 +358,8 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
         aw=float(lights_area_weight(scene)) if nee else None,
         mesh=pack_mesh_tables(scene) if scene.mesh_geoms else None,
         sweep=pack_sweep_tables(scene) if scene.mesh_geoms else None,
-        wide=pack_wide_tables(scene) if scene.mesh_geoms else None,
-        roots=pack_mesh_roots(scene) if scene.mesh_geoms else None,
+        wide=wide,
+        nee_wide=pack_nee_wide_tables(scene, wide) if nee and scene.mesh_geoms else None,
     )
 
 
@@ -585,19 +614,29 @@ def _require_lights(scene: DeviceScene, what: str) -> None:
 
 def _nee_mesh_args(t: SceneTables, scene: DeviceScene, device) -> tuple:
     """The NEE kernels' mesh arguments: the pointers of the mesh tables
-    and the roots, and the mesh geoms' count; (NULL, 0) without meshes
-    (the analytic instantiations)."""
+    and of their wide BVH (box, ref, root), the mesh geoms' count and the
+    walk's stack entries a thread (`nee_stack`); (NULL, 0, 0) without
+    meshes (the analytic instantiations)."""
     if not scene.mesh_geoms:
-        return None, 0
+        return None, 0, 0
+    from ..models.wide_bvh import WIDTH
     from .pipeline import check_mesh_tables
 
     check_mesh_tables(t, scene, device)
     M = len(scene.mesh_geoms)
-    if t.roots is None:
-        raise ValueError("the NEE kernels need the mesh geoms' BVH roots "
-                         "(pack_scene_tables)")
-    _check_tensor(t.roots, "roots", torch.int32, (M, 2), device)
-    return _ptrs(list(t.mesh) + [t.roots]), M
+    w = t.nee_wide
+    if w is None:
+        raise ValueError("the NEE kernels need every mesh geom's wide BVH "
+                         "(pack_scene_tables(scene, nee=True))")
+    N = w.box.shape[0]
+    _check_tensor(w.box, "nee_wide.box", torch.float32, (N, 6, WIDTH), device)
+    _check_tensor(w.ref, "nee_wide.ref", torch.int32, (N, 2, WIDTH), device)
+    _check_tensor(w.root, "nee_wide.root", torch.int32, (M,), device)
+    if w.walked != M or nee_stack(w) > NEE_STACK_MAX:
+        raise ValueError("the NEE kernels need every mesh geom's wide BVH "
+                         f"within their stack of {NEE_STACK_MAX} entries "
+                         "(pack_nee_wide_tables)")
+    return _ptrs(list(t.mesh) + [w.box, w.ref, w.root]), M, nee_stack(w)
 
 
 # ---- the wrappers ----------------------------------------------------------

@@ -46,7 +46,7 @@ has these tiers here, as in the JAX package:
   0..D-1 from plain `generate_rays`, the MIS aux state (previous pdf,
   previous non-delta flag) riding as two pool lanes. On a mesh scene
   both kernels run their mesh instantiations, which walk each mesh geom's
-  binary BVH for the nearest hit and for the shadow ray (every mesh geom,
+  8-wide BVH for the nearest hit and for the shadow ray (every mesh geom,
   the big-mesh route's included: no mesh pipeline launch on this path).
   --nee takes precedence over --direct-lighting and refuses compaction
   and the first-bounce cache (ValueError), as the JAX package does;
@@ -743,12 +743,14 @@ def shutter_time(iteration: int) -> float:
 
 def _device_tables(scene: DeviceScene,
                    settings: RenderSettings) -> SceneTables | None:
-    """The kernels' packed tables on CUDA (with the light pdf model under
-    --nee); None where the plain versions run (`runs_plain`: the CPU, or
-    `settings.plain`), which read the DeviceScene itself."""
+    """The kernels' packed tables on CUDA (with the light pdf model and
+    the NEE kernels' wide BVH under --nee, but for a slice of the
+    tri-shard tier, whose --nee runs the plain estimator); None where the
+    plain versions run (`runs_plain`: the CPU, or `settings.plain`),
+    which read the DeviceScene itself."""
     if runs_plain(scene.device, settings.plain):
         return None
-    return pack_scene_tables(scene, nee=settings.nee_mis)
+    return pack_scene_tables(scene, nee=settings.nee_mis and settings.tri_axis is None)
 
 
 def _check_lighting(scene: DeviceScene, settings: RenderSettings) -> None:

@@ -61,7 +61,7 @@ def test_hierarchy_tables_equal_jax_mesh_big(mesh_big):
     (g,) = td.mesh_geoms
     assert td.tri_ranges[g][1] == 51_200 and td.super_ranges[g][1] == 50
     assert tpipe.sorted_geoms(td) == (g,) and tpipe.dense_geoms(td) == ()
-    tri, attr, box, node, geoms, chunk, sup = pack_scene_tables(td).mesh
+    tri, attr, box, geoms, chunk, sup = pack_scene_tables(td).mesh
     assert geoms.tolist() == [[g, td.bvh_roots[g][0], 0, 0]]
     assert torch.equal(chunk, td.mesh_chunk_aabbs)
     assert torch.equal(sup, td.mesh_super_aabbs)

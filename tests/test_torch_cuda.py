@@ -1817,10 +1817,14 @@ def test_nee_kernels_on_mesh_match_plain_on_cuda(cuda_device, tmp_path, name,
     two plain iterations summed in order, the NEE image rule) and of #5 (at
     depths 0-2 and 3 with is_last, each from the plain version's own pool:
     pix exactly, alive on at most 1% of lanes, the NEE lanes), at 64x64."""
-    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
-
     ds, cam, settings = _mesh_nee_setup(cuda_device, tmp_path, name, settings_kw)
     assert ds.mesh_geoms
+    _nee_kernels_match_plain(cuda_device, ds, cam, settings)
+
+
+def _nee_kernels_match_plain(cuda_device, ds, cam, settings):
+    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
+
     P = 64 * 64
     accum = Vec3.zeros(P, cuda_device)
     before = megakernel.full_iteration_nee.launches
@@ -1848,6 +1852,23 @@ def test_nee_kernels_on_mesh_match_plain_on_cuda(cuda_device, tmp_path, name,
         assert_nee_lanes_close(got, got_aux, want, want_aux)
         pool, aux = want, want_aux
     assert megakernel.bounce_step_nee.launches == before + 4
+
+
+def test_deep_tree_renders_nee_on_cuda(cuda_device, tmp_path):
+    """--nee on mesh.txt with its icosphere's BVH replaced by a chain over
+    600 of its triangles (chip_smoke.chain_bvh: wide depth past 14, twice
+    the scenes' deepest, its stack past the 48 KB a block takes without
+    opting in): #6 and #5 against their plain versions walking the same
+    chain, by the rules of test_nee_kernels_on_mesh_match_plain_on_cuda."""
+    from chip_smoke import chain_bvh
+
+    ds, cam, settings = _mesh_nee_setup(cuda_device, tmp_path, "mesh.txt",
+                                        {"antialias": True})
+    (g,) = ds.mesh_geoms
+    ds = chain_bvh(ds, g, count=600)
+    wide = megakernel.pack_scene_tables(ds, nee=True).nee_wide
+    assert wide.depth >= 14 and megakernel.nee_stack(wide) * 4 * 128 > 48 * 1024
+    _nee_kernels_match_plain(cuda_device, ds, cam, settings)
 
 
 def test_nee_step_on_moving_mesh_matches_plain_on_cuda(cuda_device, tmp_path):
@@ -1946,6 +1967,34 @@ def test_mesh_nee_launches(cuda_device, name):
     assert int(r.last_alive_counts[-1]) == 0
     img = r.image()
     assert np.isfinite(img).all() and img.max() > 0
+
+
+@pytest.mark.parametrize("name", ["bunny.txt", "mesh_critter.txt", "mesh_stream.txt"])
+def test_big_meshes_render_nee_on_cuda(cuda_device, name):
+    """--nee on big-mesh scenes (every geom on the sorted route, which only
+    the NEE kernels' own wide tables cover; mesh_critter's tree the
+    deepest, wide depth 7: a stack of 49 entries a thread): #6 through
+    step_batch and #5 through step() against the plain versions
+    (RenderSettings.plain) by the NEE image rule, at 32x32."""
+    scene = small(name, (32, 32))
+    wrappers = (megakernel.full_iteration_nee, megakernel.bounce_step_nee)
+    imgs = {}
+    for plain in (False, True):
+        r = Renderer(scene, RenderSettings(trace_depth=8, nee_mis=True, antialias=True,
+                                           plain=plain), device=cuda_device)
+        if not plain:
+            wide = megakernel.pack_scene_tables(r.dev_scene, nee=True).nee_wide
+            assert wide.walked == len(r.dev_scene.mesh_geoms)
+            assert megakernel.nee_stack(wide) <= megakernel.NEE_STACK_MAX
+        before = [w.launches for w in wrappers]
+        r.step_batch(1)
+        r.step()
+        torch.cuda.synchronize()
+        got = [w.launches - b for w, b in zip(wrappers, before)]
+        assert got == ([0, 0] if plain else [1, 8])
+        imgs[plain] = r.image()
+    assert np.isfinite(imgs[False]).all() and imgs[False].max() > 0
+    _image_rule(imgs[False], imgs[True], 0.03)
 
 
 # ---- the material sort (--sort-materials): #7 -> [#8 -> A-D ->] #10, a

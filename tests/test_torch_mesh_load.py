@@ -140,20 +140,18 @@ def test_pack_mesh_tables():
     """The mesh kernels' packed tables carry the DeviceScene's numbers."""
     td = tdevice.scene_to_device(tscene.load_scene(
         os.path.join(SCENES, "mesh.txt")), "cpu")
-    tri, attr, box, node, geoms, chunk, sup = pack_scene_tables(td).mesh
+    tri, attr, box, geoms, chunk, sup = pack_scene_tables(td).mesh
     assert torch.equal(chunk, td.mesh_chunk_aabbs) and chunk.shape == (160, 8)
     assert torch.equal(sup, td.mesh_super_aabbs) and sup.shape == (5, 8)
     T, B = td.tri_v0.x.shape[0], td.bvh_first.shape[0]
     assert (T, B) == (5120, td.bvh_roots[6][1])
     assert tri.shape == (T, 12) and attr.shape == (T, 16)
-    assert box.shape == (B, 8) and node.shape == (B, 4)
+    assert box.shape == (B, 8)
     for k, v in enumerate((td.tri_v0, td.tri_v1, td.tri_v2)):
         for c in range(3):
             assert torch.equal(tri[:, 3 * k + c], v[c])
     assert torch.equal(attr[:, 11], td.tri_uv1u)
     assert torch.equal(box[:, 4], td.bvh_max.x)
-    assert torch.equal(node[:, 2], td.bvh_skip)
-    assert torch.equal(node[:, 3] != 0, td.bvh_leaf)
     assert geoms.tolist() == [[6, 0, B, 0]]
     assert pack_scene_tables(tdevice.scene_to_device(tscene.load_scene(
         os.path.join(SCENES, "cornell.txt")), "cpu")).mesh is None

@@ -22,11 +22,24 @@ counters):
   the camera pool (plain `generate_rays`, aux at zeros), each depth's
   input given to both wrappers: every value of the 16 lanes (pool and
   aux) compared, and each side's slots dead on entry against the input;
-- on mesh scenes (the mesh instantiations, which walk the binary BVH):
-  (aa) mesh.txt 800x800 depth 8 AA --nee, #6 over 25 iterations; (ab)
-  the same scene, #5 as on (g); (ac) mesh_big.txt 800x800 AA, #6 over 25
-  iterations. `--paths` picks some (all by default; a checkout from
-  before the mesh instantiations refuses the mesh paths).
+- on mesh scenes (the mesh instantiations on MeshOf<Tables> and
+  MeshOf<TexTables>): (aa) mesh.txt 800x800 depth 8 AA --nee, #6 over 25
+  iterations; (ab) the same scene, #5 as on (g); (ac) mesh_big.txt
+  800x800 AA, #6 over 25 iterations; (ad) mesh_textured.txt 800x800 AA,
+  #6 over 25 iterations; (ae) the same scene, #5 as on (g). `--paths`
+  picks some (all by default; a checkout from before the mesh
+  instantiations refuses the mesh paths).
+
+The analytic paths (f)-(i) must agree bit for bit. On the mesh paths
+two walks of one BVH may pick other triangles where a triangle's t lies
+an ulp inside a box's slab entry (a binary and a wide walk, say), so
+there the tool counts the values and lanes (pixels for #6, pool slots for
+#5) that differ in any bit and holds them to a rule instead: #6's
+accumulators to the NEE image rule (at most 3% of values off by more
+than 1e-3, the median difference under 1e-5), #5's 16 lanes at each
+depth to the lane rule of tests/test_megakernel.py:57-76 (each lane at
+most 1% of slots off by more than 1e-4, pix exactly, alive on at most
+1%), and each side's dead slots unchanged.
 
 Then it times both in turns (other, this, this, other) under
 torch.profiler: the device time of the kernels whose names hold the
@@ -34,7 +47,7 @@ wrapper's name, per iteration for #6 (summed over the call's launches)
 and per launch for #5 (each depth's launch repeated on fresh copies of
 its input). It prints one JSON line per path and the card's name and
 power limit, writes them all to FILE when given, and exits non-zero if
-any bit differs.
+a path breaks its rule.
 """
 
 from __future__ import annotations
@@ -57,7 +70,10 @@ PATHS = {  # label -> (scene, settings, kernel, iterations)
     "aa": ("mesh.txt", {"antialias": True}, "full_iteration_nee", 25),
     "ab": ("mesh.txt", {"antialias": True}, "bounce_step_nee", 1),
     "ac": ("mesh_big.txt", {"antialias": True}, "full_iteration_nee", 25),
+    "ad": ("mesh_textured.txt", {"antialias": True}, "full_iteration_nee", 25),
+    "ae": ("mesh_textured.txt", {"antialias": True}, "bounce_step_nee", 1),
 }
+MESH_PATHS = ("aa", "ab", "ac", "ad", "ae")  # held to a rule, not bit for bit
 ORDER = ("other", "this", "this", "other")
 
 
@@ -93,21 +109,39 @@ def bits_differ(a, b) -> int:
     return int((a.view(torch.int32) != b.view(torch.int32)).sum())
 
 
-def kernel_ms(fn, kernel: str) -> tuple[float, int]:
+def lanes_differ(xs, ys):
+    """(lanes where any of the lanes' arrays differ in a bit, lanes)."""
+    import torch
+
+    off = torch.zeros_like(xs[0], dtype=torch.bool)
+    for a, b in zip(xs, ys):
+        off |= a.view(torch.int32) != b.view(torch.int32)
+    return int(off.sum()), off.numel()
+
+
+def off_frac(a, b, atol) -> float:
+    """The share of values of a and b further apart than atol."""
+    return float(((a.double() - b.double()).abs() > atol).double().mean())
+
+
+def kernel_ms(fn, kernel: str, tries: int = 3) -> tuple[float, int]:
     """(device ms summed over the kernels whose names hold `kernel`,
-    their launches) of fn() under torch.profiler."""
+    their launches) of fn() under torch.profiler. A profile that saw no
+    such kernel (the profiler can miss a whole window of device activity
+    in a long process) is taken again, up to `tries` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    if not us:
-        raise RuntimeError(f"the profiler saw no {kernel} kernel")
-    return sum(us) / 1e3, len(us)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if us:
+            return sum(us) / 1e3, len(us)
+    raise RuntimeError(f"the profiler saw no {kernel} kernel in {tries} tries")
 
 
 def full_iteration_ab(ports, dev, label, name, kw, n):
@@ -129,6 +163,11 @@ def full_iteration_ab(ports, dev, label, name, kw, n):
     accs = {who: run(who) for who in ports}
     torch.cuda.synchronize()
     differ = sum(bits_differ(a, b) for a, b in zip(accs["other"], accs["this"]))
+    pixels_off, _ = lanes_differ(accs["other"], accs["this"])
+    diff = torch.cat([(a - b).abs() for a, b in zip(accs["other"], accs["this"])])
+    image_rule = {"frac_off_1e-3": float((diff > 1e-3).double().mean()),
+                  "median": float(diff.median()), "rule": "frac<0.03, median<1e-5"}
+    image_rule["held"] = image_rule["frac_off_1e-3"] < 0.03 and image_rule["median"] < 1e-5
     ms = {who: [] for who in ports}
     launches = {}
     for who in ORDER:
@@ -137,6 +176,7 @@ def full_iteration_ab(ports, dev, label, name, kw, n):
     return {"path": label, "kernel": "full_iteration_nee", "scene": name,
             "settings": kw, "res": f"{resx}x{resy}", "iterations": n,
             "values_differing": differ, "values": 3 * P,
+            "pixels_differing": pixels_off, "image_rule": image_rule,
             "ms_per_iteration": ms, "launches": launches}
 
 
@@ -170,9 +210,16 @@ def bounce_step_ab(ports, dev, label, name, kw, reps=3):
         torch.cuda.synchronize()
         dead = lanes[12] == 0
         by_lane = [bits_differ(a, b) for a, b in zip(out["other"], out["this"])]
+        slots_off, _ = lanes_differ(out["other"], out["this"])
+        fracs = [off_frac(a, b, 1e-4) for a, b in zip(out["other"], out["this"])]
         row = {
             "depth": depth, "live_in": int((~dead).sum()),
             "values_differing": sum(by_lane), "values_differing_by_lane": by_lane,
+            "slots_differing": slots_off,
+            "lane_rule": {"worst_frac_off_1e-4": max(fracs[:12] + fracs[14:]),
+                          "alive_frac": fracs[12], "pix_differing": by_lane[13],
+                          "held": (max(fracs[:12] + fracs[14:]) <= 0.01
+                                   and fracs[12] <= 0.01 and by_lane[13] == 0)},
             "dead_values_changed": {who: sum(bits_differ(a[dead], b[dead])
                                              for a, b in zip(out[who], lanes))
                                     for who in ports},
@@ -188,6 +235,8 @@ def bounce_step_ab(ports, dev, label, name, kw, reps=3):
             "settings": kw, "res": "x".join(map(str, sides["this"][1].resolution)),
             "per_depth": rows,
             "values_differing": sum(r["values_differing"] for r in rows),
+            "slots_differing": sum(r["slots_differing"] for r in rows),
+            "lane_rule_held": all(r["lane_rule"]["held"] for r in rows),
             "dead_values_changed": sum(sum(r["dead_values_changed"].values())
                                        for r in rows),
             "ms_per_launch": {who: [sum(r["ms"][who][j] for r in rows) / D
@@ -230,10 +279,12 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
-    bad = [r["path"] for r in results
-           if r["values_differing"] or r.get("dead_values_changed")]
+    bad = [r["path"] for r in results if r.get("dead_values_changed") or (
+        not (r["image_rule"]["held"] if "image_rule" in r else r["lane_rule_held"])
+        if r["path"] in MESH_PATHS else r["values_differing"])]
     if bad:
-        print(f"torch_nee_ab: bits differ on paths {bad}", file=sys.stderr)
+        print(f"torch_nee_ab: paths {bad} break their rule (bits on (f)-(i), "
+              "the image or lane rule on the mesh paths)", file=sys.stderr)
         return 1
     return 0
 
