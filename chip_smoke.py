@@ -40,13 +40,13 @@ image rule and bit for bit against #2 -> #3, #2-#4, and #5/#6 by the NEE
 rule on textured and cornell_sss) and on mesh_textured (#7-#10 with the
 quad's OBJ UVs, #4 over its cache)); the NEE kernels' mesh
 instantiations (`@mesh` on MeshOf<Tables>, `@mesh_surface` on
-MeshOf<TexTables>: per-thread walks of every mesh geom's 8-wide BVH for
-the hit and the shadow ray, the stack in shared memory)
+MeshOf<TexTables>: each lane's stackless walks of every mesh geom's
+binary BVH for the hit and the shadow ray)
 by the NEE rule on mesh.txt at 64x64 and 800x800 AA, mesh_textured at
 64x64 and 800x800 (depth 4), mesh_big at 64x64 and 800x800 (depth 4),
-mesh_stream at 128x128 (depth 4), mesh_critter, the deepest tree, at
-128x128 (depth 2) and mesh.txt over a chain BVH of wide depth 22
-(`chain_bvh`) at 64x64 (depth 2), #6 over one iteration, #5's pix exactly and its alive per lane, and #6 bit for bit
+mesh_stream at 128x128 (depth 4), mesh_critter at 128x128 (depth 2) and
+mesh.txt over a chain BVH deeper than wide depth 64 (`chain_bvh`) at
+64x64 (depth 2), #6 over one iteration, #5's pix exactly and its alive per lane, and #6 bit for bit
 against the #5 route on mesh.txt (`nee_route_bits`); renders mesh.txt and
 mesh_big.txt --nee at 128x128 through `step_batch` and `step()`, and
 mesh.txt with its icosphere moving under --nee --motion-blur through
@@ -88,11 +88,8 @@ under --nee through both (#6's and #5's); --nee on mesh scenes: (aa)
 mesh.txt through `step_batch` (#6 on MeshOf), (ab) through `step()` (#5),
 (ac) mesh_big.txt through `step_batch`, and mesh_textured through both,
 with the instantiations' plain times, bounds (the plain path's masks and
-the lesser of two counts of the mesh walks' work: the wide nodes, leaves
-and triangles of the kernels' own walks, `mesh_walk_work`, and the
-binary walks', `binary_walk_work`, which find the same hits with fewer
-slab tests; both bounds kept on the line) and ptxas usage on the
-`mesh_nee` line), holds sharding (`parallel/shard.py`, both shards on
+the nodes and triangles of the kernels' own walks, `binary_walk_work`;
+(ac)'s too) and ptxas usage on the `mesh_nee` line), holds sharding (`parallel/shard.py`, both shards on
 the one card: `shard_phase`, in a process of its own) -- Cornell 800x800 d8 AA under spp=2 (#2 ->
 #3 per shard, against Renderer.step() at the same samples, rtol 1e-6)
 and px=2 (#3 from each slice's camera rays, exactly the whole frame
@@ -244,7 +241,7 @@ KERNEL_SYMBOLS.update({k: re.compile(re.escape(f"{w}_kernel") + "(?!.*MeshOf).*T
                        for k, (w, _) in SURFACE_KERNELS.items()})
 # --nee on mesh scenes: #5's and #6's instantiations on MeshOf<Tables>
 # (`@mesh`) and MeshOf<TexTables> (`@mesh_surface`), which walk each mesh
-# geom's 8-wide BVH for the hit and the shadow ray, each with its wrapper
+# geom's binary BVH for the hit and the shadow ray, each with its wrapper
 # and the path of phase 6 that times it
 MESH_NEE_KERNELS = {
     "full_iteration_nee@mesh": ("full_iteration_nee", "mesh_nee"),
@@ -369,13 +366,12 @@ SURFACE_MESH = [{}, {"antialias": True}]
 # NEE rule; #6 over one iteration): (scene, resolution, depth), AA; the
 # big meshes at depth 4 (their plain BVH walks take nearly as many
 # lock-step node steps a depth at 64x64 as at 800x800); mesh_critter's
-# tree is the repo's deepest (wide depth 7: a stack of 49 entries);
-# "mesh.txt#chain" is mesh.txt with its icosphere's BVH a chain over
-# MESH_CHAIN_TRIS triangles (`chain_bvh`: wide depth 22, a stack of 154
-# entries, 77 KB a block, past the 48 KB a launch takes without opting in;
-# at depth 2: its plain walks step through the chain in lock-step, and
-# depth 4 took 24 s on the H100)
-MESH_CHAIN_TRIS = 600
+# tree is the repo's deepest scene tree; "mesh.txt#chain" is mesh.txt with
+# its icosphere's BVH a chain over MESH_CHAIN_TRIS triangles (`chain_bvh`:
+# 909 binary nodes, wide depth 65, past the depth 64 that a walk with a
+# stack in a block's shared memory could hold; at depth 2: its plain walks
+# step through the chain in lock-step)
+MESH_CHAIN_TRIS = 1820
 MESH_NEE_PARITY = [("mesh.txt", (64, 64), 8), ("mesh.txt#chain", (64, 64), 2),
                    ("mesh.txt", (800, 800), 8),
                    ("mesh_textured.txt", (64, 64), 8), ("mesh_textured.txt", (800, 800), 4),
@@ -435,9 +431,6 @@ OPS_MESH_HIT = 100  # per walk that hits: normal, UVs, world distance
 OPS_MERGE = 4  # per lane: the analytic/mesh merge of #9 and #10
 OPS_WORLD_DIST = 36  # #5's and #6's shadow walks, per triangle hit below the
 #                      bound: the object point, a transform, the distance
-OPS_WIDE_NODE = 8 * OPS_NODE  # #5's and #6's mesh walks, per inner wide
-#   node expanded: eight children's slab tests, each with its enter test,
-#   the nearest's update and its push
 # the surface stage (csrc/path_common.cuh `surface`, `env_fetch`), each
 # charged only to the lanes that take it in this run's data (surface_ops)
 OPS_FILE_TEX = 40  # a file-textured hit: its UVs, four taps' addresses, the blend
@@ -816,39 +809,16 @@ def chain_bvh(ds, g, count=None):
     )
 
 
-def wide_tables_kept(dev, res=(800, 800), iteration=2):
-    """#8 beside the NEE kernels' tables on mesh.txt: its wide tables
-    packed with `nee` equal those packed without, bit for bit, and #7 ->
-    #8 over the camera rays writes the same bits on every listed lane from
-    either. Returns (listed lanes, the NEE tables' depth and the stack
-    entries a thread of #5 and #6 takes on them)."""
-    import torch
+def wide_depth(ds) -> int:
+    """The most inner nodes on a root-to-leaf path of the 8-wide collapse
+    (models/wide_bvh.py) of ds's mesh geoms' binary BVHs."""
+    from project3_cuda_path_tracer_tpu_torch.models.wide_bvh import collapse
 
-    from project3_cuda_path_tracer_tpu_torch.ops import megakernel as mk
-    from project3_cuda_path_tracer_tpu_torch.ops import pipeline as pl
-    from project3_cuda_path_tracer_tpu_torch.render import _camera_pool
-
-    ds, cam, settings = on_card(dev, "mesh.txt", {"antialias": True}, res)
-    plain_t, nee_t = mk.pack_scene_tables(ds), mk.pack_scene_tables(ds, nee=True)
-    for a, b in zip(plain_t.wide[:3], nee_t.wide[:3]):
-        if not torch.equal(bitwise(a), bitwise(b)):
-            raise RuntimeError("#8's wide tables changed when packed with nee")
-    pool = _camera_pool(cam, iteration, settings)
-    out = []
-    for t in (plain_t, nee_t):
-        c = pl.mesh_candidates(pool[0], pool[1], pool[4], ds, tables=t)
-        out.append((c, pl.mesh_sweep(pool[0], pool[1], c, ds, tables=t)))
-    torch.cuda.synchronize()
-    lanes = [torch.sort(c.lanes[:int(c.count[0])].long())[0] for c, _ in out]
-    if not torch.equal(lanes[0], lanes[1]):
-        raise RuntimeError("#7 listed other lanes on the nee tables")
-    (_, a), (_, b) = out
-    for x, y in zip((a.t, *a.normal, a.material_id, a.outside, a.tex_u, a.tex_v, a.has_uv),
-                    (b.t, *b.normal, b.material_id, b.outside, b.tex_u, b.tex_v, b.has_uv)):
-        if not torch.equal(bitwise(x[lanes[0]]), bitwise(y[lanes[0]])):
-            raise RuntimeError("#8's outputs changed on the tables packed with nee")
-    w = nee_t.nee_wide
-    return int(lanes[0].shape[0]), w.depth, mk.nee_stack(w)
+    host = lambda a: a.detach().cpu().numpy()  # noqa: E731
+    return collapse(np.stack([host(c) for c in ds.bvh_min], 1),
+                    np.stack([host(c) for c in ds.bvh_max], 1), host(ds.bvh_first),
+                    host(ds.bvh_count), host(ds.bvh_skip), host(ds.bvh_leaf),
+                    [ds.bvh_roots[g] for g in ds.mesh_geoms]).depth
 
 
 def bounce_nee_parity(dev, name, kw, res, glossy, iteration=2, setup=None):
@@ -952,109 +922,120 @@ def analytic_best_t(ds, o, d):
     return best
 
 
-def mesh_walk_work(ds, wide, o, d, lanes, shadow_r=None):
-    """(object rays, inner wide nodes, leaves, triangles, tmin recomputes,
-    deepest stack, path walks that hit, shadow world distances) of #5's
-    and #6's mesh walks (csrc/nee.cu `mesh_walks`) over the rays `lanes`
-    selects, counted by the same walk in plain PyTorch over their tables
-    `wide` (ops/bvh_traverse.py's mesh_intersect_wide and
-    mesh_occluded_wide, lanes in lock-step). A path ray (shadow_r None)
-    walks each mesh geom below the object-space image (x frobenius3(inv))
-    of its nearest hit so far, the analytic sweep's at the first mesh
-    geom; a walk that hits counts once (its world-space tail,
-    OPS_MESH_HIT). A shadow ray of length shadow_r walks below the image
-    of r - 1e-2, counts the world distance of each triangle it hits below
-    it, and stops at its first leaf holding a triangle whose world
-    distance lies in (0, r - 1e-2) (the kernels stop at the triangle: a
-    leaf counts whole), skipping the mesh geoms after it. Each ray tests
-    the geom's box (its binary root's) first and walks only when it
-    enters below the bound, as the kernels do. The deepest stack is the
-    kernels', one entry below the plain walk's (the nearest child stays in
-    registers)."""
-    import torch
-
-    from project3_cuda_path_tracer_tpu_torch.ops.bvh_traverse import (
-        _aabb_hit,
-        _frobenius3,
-        _object_ray,
-        mesh_intersect_wide,
-        mesh_occluded_wide,
-    )
-    from project3_cuda_path_tracer_tpu_torch.ops.intersect import FLT_MAX
-    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3, take as vtake
-
-    if not ds.mesh_geoms or not bool(lanes.any()):
-        return (0,) * 8
-    o, d = (Vec3(*(c[lanes] for c in v)) for v in (o, d))
-    shadow = shadow_r is not None
-    n = o.x.shape[0]
-    # the counts stay on the card until the end: the walks sync with the
-    # host only for their loop flags
-    counts = torch.zeros(8, dtype=torch.int64, device=o.x.device)
-    if shadow:
-        bound = shadow_r[lanes] - 1e-2
-        going = torch.ones(n, dtype=torch.bool, device=o.x.device)
-    else:
-        best = analytic_best_t(ds, o, d)
-    for k, g in enumerate(ds.mesh_geoms):
-        root = int(wide.root[k])
-        first = ds.bvh_roots[g][0]
-        frob = _frobenius3(ds.inverse_transform[g])
-        lim = bound if shadow else best
-        t_max = torch.where(lim < FLT_MAX, lim * frob, FLT_MAX)
-        _, _, inv_d = _object_ray(ds, g, o, d)
-        ro = _object_ray(ds, g, o, d)[0]
-        walk = _aabb_hit(Vec3(*(c[first] for c in ds.bvh_min)),
-                         Vec3(*(c[first] for c in ds.bvh_max)), ro, inv_d, t_max)
-        if shadow:
-            counts[0] += going.sum()
-            walk = walk & going
-        else:
-            counts[0] += n
-        sel = torch.nonzero(walk)[:, 0]
-        os_, ds_ = vtake(o, sel), vtake(d, sel)
-        probe = {}
-        if shadow:
-            occ = mesh_occluded_wide(ds, wide, g, root, os_, ds_, bound[sel], probe=probe)
-            going[sel[occ]] = False
-            counts[7] += probe["dists"].sum()
-        else:
-            t = mesh_intersect_wide(ds, wide, g, root, os_, ds_, probe=probe,
-                                    t_max=t_max[sel], nee=True)[0]
-            hit = probe["tri"] >= 0
-            counts[6] += hit.sum()
-            take = hit & (t > 0) & (t < best[sel])
-            best[sel[take]] = t[take]
-        for j, key in ((1, "nodes"), (2, "leaves"), (3, "tris"), (4, "recomputes")):
-            counts[j] += probe[key].sum()
-        if probe["stack"].numel():
-            counts[5] = torch.maximum(counts[5], probe["stack"].max() - 1)
-    return tuple(int(c) for c in counts.tolist())
-
-
-def binary_walk_work(ds, o, d, lanes, shadow_r=None):
-    """(object rays, binary nodes, triangles, path walks that hit, shadow
-    world distances) of the binary BVH walks that #5's and #6's mesh
-    instantiations ran before their wide walk, for the old
-    bound beside the new: over the rays `lanes` selects, counted by that
-    walk in plain PyTorch (ops/bvh_traverse.py's cursor over the binary
-    BVH's nodes), lanes in lock-step. A path ray (shadow_r None) walks each mesh geom below the
-    object-space image (x frobenius3(inv)) of its nearest hit so far, the
-    analytic sweep's at the first mesh geom; a walk that hits counts once
-    (its world-space tail, OPS_MESH_HIT). A shadow ray of length shadow_r walks below the
-    image of r - 1e-2, counts the world distance of each triangle it hits
-    below it, and stops at the first whose world distance lies in
-    (0, r - 1e-2), skipping the mesh geoms after it."""
+def skip_walk(ds, g, o, d, bt, shadow=None, work=None):
+    """The walk of #5's and #6's mesh instantiations (csrc/nee.cu
+    `mesh_walks`) over mesh geom g's binary BVH for the world rays (o, d),
+    in plain PyTorch with the lanes in lock-step: one cursor a lane over
+    the geom's preorder nodes, hit ? (leaf ? test its triangles, go skip :
+    i + 1) : skip, a node hit when the ray enters its box before the
+    bound. bt: (P,) each lane's object-space bound (FLT_MAX for none; the
+    kernels' image of the nearest hit so far or of the shadow ray's
+    length): a triangle counts only strictly below it. Nearest hit
+    (shadow None): returns (t, triangle (-1 for none), u, v) of the least
+    (t, triangle) below bt in walk order. Shadow ray (shadow: (P,) world
+    bounds): a lane stops at its first triangle below bt whose world
+    distance (`world_distance`) lies in (0, shadow); returns the occluded
+    lanes. work: a dict whose int64 counts the walk adds to: `nodes`
+    (boxes tested), `tris` (triangles tested) and `dists` (world
+    distances the shadow walk takes). A leaf's triangles are tested at
+    once, in one op over the leaf's slots (the kernels' order kept)."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.models.bvh import LEAF_SIZE
     from project3_cuda_path_tracer_tpu_torch.ops.bvh_traverse import _aabb_hit, _object_ray
-    from project3_cuda_path_tracer_tpu_torch.ops.intersect import (
-        FLT_MAX,
-        RAY_EPS,
-        transform_point,
-        triangle_intersect,
-    )
+    from project3_cuda_path_tracer_tpu_torch.ops.intersect import triangle_intersect
+    from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3, take as vtake
+
+    start, n_nodes = ds.bvh_roots[g]
+    end = start + n_nodes
+    ro, rd, inv_d = _object_ray(ds, g, o, d)
+    n = ro.x.shape[0]
+    dev = ro.x.device
+    T = ds.tri_v0.x.shape[0]
+    col = lambda v: Vec3(v.x[:, None], v.y[:, None], v.z[:, None])  # noqa: E731
+    slot = torch.arange(LEAF_SIZE, device=dev)
+    rows = torch.arange(n, device=dev)
+    work = {} if work is None else work
+    for k in ("nodes", "tris", "dists"):
+        work.setdefault(k, torch.zeros((), dtype=torch.int64, device=dev))
+    bt = bt.clone()
+    btri = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    bu = torch.zeros(n, device=dev)
+    bv = torch.zeros(n, device=dev)
+    occluded = torch.zeros(n, dtype=torch.bool, device=dev)
+    cur = torch.full((n,), start, dtype=torch.int64, device=dev)
+    step = 0
+    while True:
+        active = cur < end
+        # the host reads the flag every 16 steps (a finished lane's cursor
+        # stays past the range, so the steps between change nothing)
+        if step % 16 == 0 and not bool(active.any()):
+            break
+        step += 1
+        safe = torch.clamp(cur, start, end - 1)
+        enter = _aabb_hit(vtake(ds.bvh_min, safe), vtake(ds.bvh_max, safe),
+                          ro, inv_d, bt) & active
+        leaf = ds.bvh_leaf[safe]
+        work["nodes"] += active.sum()
+        tri = ds.bvh_first[safe].to(torch.int64)[:, None] + slot
+        valid = (enter & leaf)[:, None] & (slot < ds.bvh_count[safe][:, None])
+        safe_tri = torch.clamp(tri, 0, max(T - 1, 0))
+        t, u, v, ok = triangle_intersect(vtake(ds.tri_v0, safe_tri), vtake(ds.tri_v1, safe_tri),
+                                         vtake(ds.tri_v2, safe_tri), col(ro), col(rd))
+        below = valid & ok & (t < bt[:, None])
+        stop = torch.zeros_like(active)
+        if shadow is None:
+            # the least t below the bound, the first slot on a tie: what
+            # the kernels' strict < over the slots in order keeps
+            work["tris"] += valid.sum()
+            mt = torch.where(below, t, float("inf")).min(1).values
+            k = torch.where(below & (t == mt[:, None]), slot, LEAF_SIZE).min(1).values
+            k = torch.clamp(k, max=LEAF_SIZE - 1)
+            better = below.any(1)
+            bt = torch.where(better, mt, bt)
+            btri = torch.where(better, tri[rows, k], btri)
+            bu = torch.where(better, u[rows, k], bu)
+            bv = torch.where(better, v[rows, k], bv)
+        else:
+            dist = world_distance(ds, g, col(ro), col(rd), t, col(o))
+            blocks = below & (dist > 0) & (dist < shadow[:, None])
+            first = torch.where(blocks, slot, LEAF_SIZE).min(1).values
+            upto = slot <= first[:, None]  # the kernels return at the occluder
+            work["tris"] += (valid & upto).sum()
+            work["dists"] += (below & upto).sum()
+            stop = first < LEAF_SIZE
+            occluded |= stop
+        nxt = torch.where(enter & ~leaf, cur + 1, ds.bvh_skip[safe].to(torch.int64))
+        cur = torch.where(stop, end, torch.where(active, nxt, cur))
+    if shadow is not None:
+        return occluded
+    return bt, btri, bu, bv
+
+
+def world_distance(ds, g, ro, rd, t, o):
+    """The world distance from o of the object-space hit at t on the ray
+    (ro, rd) of mesh geom g, as the kernels take it (csrc/nee.cu
+    `world_distance`)."""
+    from project3_cuda_path_tracer_tpu_torch.ops.intersect import RAY_EPS, transform_point
+
+    return (o - transform_point(ds.transform[g], ro + rd * (t - RAY_EPS))).length()
+
+
+def binary_walk_work(ds, o, d, lanes, shadow_r=None):
+    """(object rays, binary nodes, triangles, path walks that hit, shadow
+    world distances) of #5's and #6's mesh walks over the rays `lanes`
+    selects, counted by the same walk in plain PyTorch (`skip_walk`). A
+    path ray (shadow_r None) walks each mesh geom below the object-space
+    image (x frobenius3(inv)) of its nearest hit so far, the analytic
+    sweep's at the first mesh geom; a walk that hits counts once (its
+    world-space tail, OPS_MESH_HIT). A shadow ray of length shadow_r walks
+    below the image of r - 1e-2, counts the world distance of each
+    triangle it hits below it, and stops at the first whose world distance
+    lies in (0, r - 1e-2), skipping the mesh geoms after it."""
+    import torch
+
+    from project3_cuda_path_tracer_tpu_torch.ops.bvh_traverse import _object_ray
+    from project3_cuda_path_tracer_tpu_torch.ops.intersect import FLT_MAX
     from project3_cuda_path_tracer_tpu_torch.ops.pipeline import _frobenius3
     from project3_cuda_path_tracer_tpu_torch.ops.vec import Vec3, take as vtake
 
@@ -1063,71 +1044,34 @@ def binary_walk_work(ds, o, d, lanes, shadow_r=None):
     o, d = (Vec3(*(c[lanes] for c in v)) for v in (o, d))
     shadow = shadow_r is not None
     n = o.x.shape[0]
-    # the counts stay on the card until the end: the walk syncs with the
-    # host only for its loop flag
-    counts = torch.zeros(5, dtype=torch.int64, device=o.x.device)
+    # the counts stay on the card until the end: the walks sync with the
+    # host only for their loop flags
+    work = {}
+    rays = torch.zeros((), dtype=torch.int64, device=o.x.device)
+    hits = torch.zeros((), dtype=torch.int64, device=o.x.device)
     going = torch.ones(n, dtype=torch.bool, device=o.x.device)
     if shadow:
         bound = shadow_r[lanes] - 1e-2
     else:
         best = analytic_best_t(ds, o, d)
-    T = ds.tri_v0.x.shape[0]
     for g in ds.mesh_geoms:
-        start, n_nodes = ds.bvh_roots[g]
-        end = start + n_nodes
-        ro, rd, inv_d = _object_ray(ds, g, o, d)
         lim = bound if shadow else best
         bt = torch.where(lim < FLT_MAX, lim * _frobenius3(ds.inverse_transform[g]), FLT_MAX)
-        cur = torch.where(going, start, end).to(torch.int64)
-        counts[0] += going.sum()
-        hit_any = torch.zeros_like(going)
-
-        def world_distance(t, g=g, ro=ro, rd=rd):
-            p_obj = ro + rd * (t - RAY_EPS)
-            diff = o - transform_point(ds.transform[g], p_obj)
-            return torch.sqrt(diff.x * diff.x + diff.y * diff.y + diff.z * diff.z)
-
-        step = 0
-        while True:
-            active = cur < end
-            # the host reads the flag every 16 steps (a finished lane's
-            # cursor stays past the range, so the steps between change
-            # nothing)
-            if step % 16 == 0 and not bool(active.any()):
-                break
-            step += 1
-            safe = torch.clamp(cur, start, end - 1)
-            enter = _aabb_hit(vtake(ds.bvh_min, safe), vtake(ds.bvh_max, safe),
-                              ro, inv_d, bt) & active
-            leaf = ds.bvh_leaf[safe]
-            first = ds.bvh_first[safe].to(torch.int64)
-            count = ds.bvh_count[safe]
-            counts[1] += active.sum()
-            live = enter & leaf
-            for k in range(LEAF_SIZE):
-                tri = torch.clamp(first + k, 0, max(T - 1, 0))
-                valid = live & (k < count)
-                counts[2] += valid.sum()
-                t, _, _, ok = triangle_intersect(vtake(ds.tri_v0, tri), vtake(ds.tri_v1, tri),
-                                                 vtake(ds.tri_v2, tri), ro, rd)
-                better = valid & ok & (t < bt)
-                if shadow:
-                    counts[4] += better.sum()
-                    dist = world_distance(t)
-                    occluded = better & (dist > 0) & (dist < bound)
-                    live = live & ~occluded
-                    going = going & ~occluded
-                    cur = torch.where(occluded, end, cur)
-                else:
-                    bt = torch.where(better, t, bt)
-                    hit_any = hit_any | better
-            nxt = torch.where(enter & ~leaf, cur + 1, ds.bvh_skip[safe].to(torch.int64))
-            cur = torch.where(cur < end, nxt, cur)
-        if not shadow:
-            counts[3] += hit_any.sum()
-            t_world = world_distance(bt)
-            best = torch.where(hit_any & (t_world > 0) & (t_world < best), t_world, best)
-    return tuple(int(c) for c in counts.tolist())
+        if shadow:
+            sel = torch.nonzero(going)[:, 0]
+            rays += sel.numel()
+            occ = skip_walk(ds, g, vtake(o, sel), vtake(d, sel), bt[sel], shadow=bound[sel],
+                            work=work)
+            going[sel[occ]] = False
+            continue
+        rays += n
+        t, tri, _, _ = skip_walk(ds, g, o, d, bt, work=work)
+        ro, rd, _ = _object_ray(ds, g, o, d)
+        hit = tri >= 0
+        hits += hit.sum()
+        t_world = world_distance(ds, g, ro, rd, t, o)
+        best = torch.where(hit & (t_world > 0) & (t_world < best), t_world, best)
+    return tuple(int(c) for c in (rays, work["nodes"], work["tris"], hits, work["dists"]))
 
 
 def nee_work(ds, cam, iteration, settings):
@@ -1140,10 +1084,11 @@ def nee_work(ds, cam, iteration, settings):
     ones (the MIS contribution) and, below the last depth, those that
     scatter; and the warps of 32 consecutive slots that hold a live lane
     (the pool is never permuted, so slot = pixel). On a mesh scene also
-    the mesh walks' work as the kernels walk (`mesh_walk_work`): that of
+    the mesh walks' work as the kernels walk (`binary_walk_work`): that of
     the live lanes' walks and of the walks of the shadow rays that no
-    analytic geom occludes. Returns ({count: [per depth]}, [operations per
-    depth], the depths each pixel's path ran)."""
+    analytic geom occludes; and the plain bounce's ms at each depth.
+    Returns ({count: [per depth]}, [operations per depth], the depths each
+    pixel's path ran)."""
     import torch
 
     from project3_cuda_path_tracer_tpu_torch.render import _nee_mis_bounce
@@ -1153,19 +1098,11 @@ def nee_work(ds, cam, iteration, settings):
     aux = (aux[0], aux[1] > 0.5)
     names = ("lanes_in", "warps_with_live", "nee_able", "shadow_rays",
              "shadow_tests", "unoccluded", "scattered", "mesh_rays", "mesh_nodes",
-             "mesh_leaves", "mesh_tris", "mesh_recomputes", "mesh_stack_max",
-             "mesh_hits", "shadow_mesh_rays", "shadow_mesh_nodes", "shadow_mesh_leaves",
-             "shadow_mesh_tris", "shadow_mesh_stack_max", "shadow_mesh_distances",
-             "binary_mesh_nodes", "binary_mesh_tris", "binary_shadow_mesh_nodes",
-             "binary_shadow_mesh_tris", "binary_shadow_mesh_distances")
+             "mesh_tris", "mesh_hits", "shadow_mesh_rays", "shadow_mesh_nodes",
+             "shadow_mesh_tris", "shadow_mesh_distances")
     counts = {k: [] for k in names}
-    counts["binary_walk_ops"] = []  # ops per depth with the binary walks' work
+    counts["plain_bounce_ms"] = []  # the plain estimator's bounce, timed
     ops = []
-    wide = None
-    if ds.mesh_geoms:
-        from project3_cuda_path_tracer_tpu_torch.ops.megakernel import pack_nee_wide_tables
-
-        wide = pack_nee_wide_tables(ds)
     D = settings.trace_depth
     length = torch.zeros(state[5].shape[0], dtype=torch.int64, device=ds.device)
     for depth in range(D):
@@ -1174,53 +1111,40 @@ def nee_work(ds, cam, iteration, settings):
         length += state[4].long()
         warps_with_live = int(state[4].view(-1, 32).any(1).sum())
         probe = {}
-        walks = mesh_walk_work(ds, wide, state[0], state[1], state[4])
-        binary = binary_walk_work(ds, state[0], state[1], state[4])
+        walks = binary_walk_work(ds, state[0], state[1], state[4])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         state, aux = _nee_mis_bounce(state, aux, ds, iteration, depth,
                                      settings, is_last, probe=probe)
+        torch.cuda.synchronize()
+        counts["plain_bounce_ms"].append(1e3 * (time.perf_counter() - t0))
         shadow_ops, tests, going = shadow_sweep(ds, probe["p_hit"], probe["wi"],
                                                 probe["r"], probe["shadow"])
-        shadow_walks = mesh_walk_work(ds, wide, probe["p_hit"], probe["wi"], going,
-                                      shadow_r=probe["r"])
-        shadow_binary = binary_walk_work(ds, probe["p_hit"], probe["wi"], going,
-                                         shadow_r=probe["r"])
+        shadow_walks = binary_walk_work(ds, probe["p_hit"], probe["wi"], going,
+                                        shadow_r=probe["r"])
         n = dict(zip(names, (
             lanes_in, warps_with_live, int(probe["nee_able"].sum()),
             int(probe["shadow"].sum()), tests,
             int((probe["shadow"] & probe["visible"]).sum()),
             0 if is_last else int((probe["live_hit"] & ~probe["lit"]).sum()),
-            *walks[:7], *shadow_walks[:4], shadow_walks[5], shadow_walks[7],
-            *binary[1:3], *shadow_binary[1:3], shadow_binary[4],
+            *walks[:4], *shadow_walks[:3], shadow_walks[4],
         )))
         for k in names:
             counts[k].append(n[k])
-        # per ray and mesh geom walked its object-space ray and bound, per
-        # path walk that hits the world-space tail
-        rays = n["mesh_rays"] + n["shadow_mesh_rays"]
-        base = (
+        ops.append(
             n["lanes_in"] * (sweep_ops(ds) + OPS_NORMAL)
             + n["nee_able"] * (OPS_LIGHT + OPS_TO_LIGHT) + shadow_ops
             + n["unoccluded"] * (OPS_MIS + (0 if is_last else OPS_W_LIGHT))
             + n["scattered"] * (OPS_SHADE + OPS_NEXT_PDF)
-            + rays * OPS_OBJ_RAY + n["mesh_hits"] * OPS_MESH_HIT
-        )
-        # the wide walks: per ray and geom the geom box's slab test, per
-        # inner node its children's slab tests, per popped entry whose tmin
-        # is recomputed a slab test, per triangle Moller-Trumbore, per
-        # shadow hit below the bound its world distance
-        ops.append(
-            base + rays * OPS_NODE
-            + (n["mesh_nodes"] + n["shadow_mesh_nodes"]) * OPS_WIDE_NODE
-            + n["mesh_recomputes"] * OPS_NODE
+            # the mesh walks: per ray and mesh geom walked its object-space
+            # ray and bound, per node its slab test, per triangle
+            # Moller-Trumbore, per path walk that hits the world-space
+            # tail, per shadow hit below the bound its world distance
+            + (n["mesh_rays"] + n["shadow_mesh_rays"]) * OPS_OBJ_RAY
+            + (n["mesh_nodes"] + n["shadow_mesh_nodes"]) * OPS_NODE
             + (n["mesh_tris"] + n["shadow_mesh_tris"]) * OPS_MT
+            + n["mesh_hits"] * OPS_MESH_HIT
             + n["shadow_mesh_distances"] * OPS_WORLD_DIST
-        )
-        # the binary walks they replace: per node its slab test
-        counts["binary_walk_ops"].append(
-            base
-            + (n["binary_mesh_nodes"] + n["binary_shadow_mesh_nodes"]) * OPS_NODE
-            + (n["binary_mesh_tris"] + n["binary_shadow_mesh_tris"]) * OPS_MT
-            + n["binary_shadow_mesh_distances"] * OPS_WORLD_DIST
         )
     return counts, ops, length
 
@@ -3692,13 +3616,12 @@ def main(argv=None) -> int:
                 plain_ms=plain)
 
     # #5 and #6 on mesh scenes (their instantiations on MeshOf, which walk
-    # each mesh geom's 8-wide BVH for the hit and the shadow ray) against
+    # each mesh geom's binary BVH for the hit and the shadow ray) against
     # their plain versions, by the NEE rule, #6 over one iteration; the
     # big-mesh scenes' device scenes from `big`; the errors kept for the
     # kernels line are mesh.txt's (MeshOf<Tables>) and mesh_textured's
-    # (MeshOf<TexTables>) at 800x800; then #8's tables and outputs beside
-    # the NEE tables, and #6 bit for bit
-    # against the #5 route on mesh.txt
+    # (MeshOf<TexTables>) at 800x800; then #6 bit for bit against the #5
+    # route on mesh.txt
     mesh_nee_kw = {"antialias": True, "nee_mis": True}
 
     def mesh_nee_setup(name, res, depth=8):
@@ -3720,9 +3643,9 @@ def main(argv=None) -> int:
                 "mesh_geoms": len(setup[0].mesh_geoms),
                 "triangles": int(setup[0].tri_v0.x.shape[0])}
         if name.endswith("#chain"):
-            chain = mk.pack_nee_wide_tables(setup[0])
-            what.update(chain_triangles=MESH_CHAIN_TRIS, nee_wide_depth=chain.depth,
-                        nee_stack=mk.nee_stack(chain))
+            what.update(chain_triangles=MESH_CHAIN_TRIS,
+                        binary_nodes=int(setup[0].bvh_first.shape[0]),
+                        wide_depth=wide_depth(setup[0]))
         suffix = "@mesh_surface" if name == "mesh_textured.txt" else "@mesh"
         r6 = full_nee_parity(dev, name, {}, res, False, setup=setup)
         check_parity(f"full_iteration_nee{suffix}", dict(what, iterations=1), *r6,
@@ -3739,12 +3662,6 @@ def main(argv=None) -> int:
         if res == (800, 800) and name in ("mesh.txt", "mesh_textured.txt"):
             err800[f"full_iteration_nee{suffix}"] = r6[2]
             err800[f"bounce_step_nee{suffix}"] = r5[2]
-    listed, nee_depth, nee_need = wide_tables_kept(dev)
-    say("wide_tables_kept", kernel="mesh_sweep", config="mesh.txt", res="800x800",
-        listed_lanes=listed, nee_wide_depth=nee_depth, nee_stack=nee_need,
-        nee_stack_max=mk.NEE_STACK_MAX,
-        rule="#8's tables and its outputs on every listed lane bit for bit the same "
-             "whether the tables were packed with nee or not")
     for res in ((64, 64), (800, 800)):
         rays_off, pixels_off = nee_route_bits(dev, "mesh.txt", {}, res, False, probe,
                                               setup=mesh_nee_setup("mesh.txt", res))
@@ -4067,7 +3984,7 @@ def main(argv=None) -> int:
         ("textured_nee_step", "textured.txt", None,
          {"antialias": True, "nee_mis": True}, "step"),
         # --nee on mesh scenes: #6's and #5's instantiations on MeshOf
-        # (the wide BVH walks), (aa) mesh.txt through step_batch, (ab)
+        # (the binary BVH walks), (aa) mesh.txt through step_batch, (ab)
         # through step(), (ac) mesh_big.txt through step_batch; and on
         # mesh_textured (MeshOf<TexTables>) through both
         ("mesh_nee", "mesh.txt", None, {"antialias": True, "nee_mis": True},
@@ -4760,7 +4677,6 @@ def main(argv=None) -> int:
     # bounds from the plain path's masks and BVH walks (nee_work); beside
     # them the cells (aa)-(ac) and the instantiations' registers and spills
     mesh_nee_lanes = {}
-    wide_bounds, binary_bounds = {}, {}
     for suffix, name in (("@mesh", "mesh.txt"), ("@mesh_surface", "mesh_textured.txt")):
         n_scene = load_scene(os.path.join(HERE, "scenes", name))
         n_ds = scene_to_device(n_scene, dev)
@@ -4779,33 +4695,42 @@ def main(argv=None) -> int:
                                                      depth == D - 1)
             torch.cuda.synchronize()
             step_ms += 1e3 * (time.perf_counter() - t0) / D
-        # as #6's and #5's bounds above, with the mesh walks' work in the
-        # ops: the wide walks' (the kernels' own) and the binary walks'
-        # (which find the same hits with fewer slab tests); the bound is
-        # the lesser, the least work the job is known to need
-        step_bytes = sum(4 * n_P + 120 * n for n in n_counts["lanes_in"]) / D
-        for table, walk_ops in ((wide_bounds, n_ops),
-                                (binary_bounds, n_counts["binary_walk_ops"])):
-            table[f"full_iteration_nee{suffix}"] = bound(
-                24 * n_P, MESH_NEE_RUN * (n_P * OPS_RAYGEN_AA + sum(walk_ops)))
-            table[f"bounce_step_nee{suffix}"] = bound(step_bytes, sum(walk_ops) / D)
-        for k in (f"full_iteration_nee{suffix}", f"bounce_step_nee{suffix}"):
-            bounds[k] = min(wide_bounds[k], binary_bounds[k], key=lambda b: b[0])
+        # as #6's and #5's bounds above, with the walks' work in the ops
+        bounds[f"full_iteration_nee{suffix}"] = bound(
+            24 * n_P, MESH_NEE_RUN * (n_P * OPS_RAYGEN_AA + sum(n_ops)))
+        bounds[f"bounce_step_nee{suffix}"] = bound(
+            sum(4 * n_P + 120 * n for n in n_counts["lanes_in"]) / D, sum(n_ops) / D)
         for kname, p_ms in ((f"full_iteration_nee{suffix}", run_ms),
                             (f"bounce_step_nee{suffix}", step_ms)):
             wname, label = MESH_NEE_KERNELS[kname]
             timing[kname] = (kernel_ms_of[label][kname], p_ms, launches_of[label][wname])
             library[kname] = None
+    # (ac): #6 on mesh_big through step_batch, its bound counted the same
+    # way on the loaded scene at its own 800x800 (the plain estimator and
+    # the walks once over one iteration, about 35 s); its plain time the
+    # plain estimator's bounces in that count, per iteration
+    b_r = big["mesh_big.txt"]
+    b_cam = camera_to_device(camera_at(b_r.scene.state.camera, load_res["mesh_big.txt"]), dev)
+    b_P = b_cam.resolution[0] * b_cam.resolution[1]
+    b_counts, b_ops, _ = nee_work(b_r.dev_scene, b_cam, it,
+                                  RenderSettings(trace_depth=D, antialias=True, nee_mis=True))
+    b_bound = bound(24 * b_P, MESH_NEE_RUN * (b_P * OPS_RAYGEN_AA + sum(b_ops)))
+    b_ms = kernel_ms_of["big_mesh_nee"]["full_iteration_nee@mesh"]
+    big_mesh_nee = {"path": "big_mesh_nee", "kernel": "full_iteration_nee@mesh",
+                    "ms_per_launch": b_ms, "iterations_per_launch": MESH_NEE_RUN,
+                    "launches": launches_of["big_mesh_nee"]["full_iteration_nee"],
+                    "bound_ms": b_bound[0], "bound_by": b_bound[1],
+                    "x_bound": b_ms / b_bound[0],
+                    "plain_ms_per_iteration": sum(b_counts["plain_bounce_ms"]),
+                    "lanes": dict(b_counts, ops_per_depth=b_ops)}
     say("mesh_nee", device=smi, res="800x800", depth=D, settings={"antialias": True},
-        lanes=mesh_nee_lanes,
+        lanes=mesh_nee_lanes, big_mesh_nee=big_mesh_nee,
         instantiations={k: {"path": label, "ms_per_launch": timing[k][0],
                             "iterations_per_launch": (MESH_NEE_RUN if w == "full_iteration_nee"
                                                       else 1),
                             "launches": timing[k][2], "plain_ms": timing[k][1],
                             "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                             "x_bound": timing[k][0] / bounds[k][0],
-                            "wide_walk_bound_ms": wide_bounds[k][0],
-                            "binary_walk_bound_ms": binary_bounds[k][0],
                             "ptxas": [v for f, v in ptx.items() if w in f and "MeshOf" in f
                                       and ("TexTables" in f) == ("surface" in k)]}
                         for k, (w, label) in MESH_NEE_KERNELS.items()},

@@ -70,58 +70,32 @@
 //
 // A scene with mesh geoms runs the instantiations on MeshOf<Tables> or
 // MeshOf<TexTables>: the same tables, the mesh tables of
-// ops/megakernel.py (the triangles) and every mesh geom's 8-wide BVH
-// (models/wide_bvh.py, packed by megakernel.py::pack_nee_wide_tables: the
-// big-mesh route's geoms included). The analytic sweep skips the mesh
-// geoms; then each mesh geom's wide BVH is walked for the same ray, in
-// object space, by the lane itself (the thread-per-path design stays):
-// past the geom's box (its binary root's, the one slab test a ray that
-// misses the mesh pays, as in a binary walk), the lane expands inner
-// nodes until it holds a leaf, so that a warp's lanes test their leaves
-// together: at an inner node it slab-tests the children (each of the
-// node's six box rows and its count row is 32 B, two 16-byte loads; the
-// ray's near and far rows picked once by its direction's signs), a child
-// entering when its box is entered ahead of the origin at tmin <= t
-// (#8's rule); the nearest entered child (the lower on equal tmin) is
-// next, the others go on the stack in child order, the lowest on top. At
-// a leaf it runs Moller-Trumbore on the leaf's triangles (`tri_test`, #8's
-// rounding); then it pops, skipping an entry whose tmin lies past the
-// best t. Nearest hit: the walk's object-space bound starts at the best
-// world t so far times the Frobenius norm of inv's 3x3 (a bound on the
-// object-space distance, as #7's candidacy), the least (t, triangle) the
-// walk tests wins the geom (the binary walk's winner, ops/bvh_traverse.py
-// ::mesh_intersect_bvh, but on lanes whose t lies an ulp inside a box's
-// slab entry, as in #8; ops/bvh_traverse.py::mesh_intersect_wide(nee=True)
-// walks in this order), its world distance is taken as mesh_common.cuh's
-// `epilogue` takes it, and it wins the lane only when strictly nearer (an
-// exact tie goes to the analytic geom, as in the mesh pipeline);
+// ops/megakernel.py (the triangles and the binary BVH's boxes) and, packed
+// for these two kernels only, the BVH's `node` rows and each mesh geom's
+// root (pack_nee_bvh). The analytic sweep skips the mesh
+// geoms; then each mesh geom's binary BVH is walked for the same ray, as
+// the plain ops/bvh_traverse.py::mesh_intersect_bvh walks it: one int
+// cursor over the geom's preorder nodes, hit ? (leaf ? test its <= 4
+// triangles, go skip : i + 1) : skip, so no stack and no local memory.
+// Nearest hit: the walk's object-space bound is the best world t so far
+// times the Frobenius norm of inv's 3x3 (a bound on the object-space
+// distance, as #7's candidacy), the least (t, triangle) in walk order
+// wins the geom, its world distance is taken as mesh_common.cuh's
+// `epilogue` takes it, and it wins the lane only when strictly nearer
+// (an exact tie goes to the analytic geom, as in the mesh pipeline);
 // `epilogue` then runs once, on the winner, for the normal, the side and
 // the UVs. Shadow ray: a triangle occludes when its world distance, taken
 // the same way, lies in (0, r - 1e-2): the plain version's rule on the
-// nearest hit's world t, tested per triangle; the walk prunes by the
-// bound's object-space image and stops at the first occluder
-// (mesh_occluded_wide). The 80k triangle cap of the TPU kernels (a VMEM
-// budget) has no counterpart. The stack lives in dynamic shared memory,
-// sized at launch from the scene's deepest tree: (kWide - 1) x its wide
-// depth 4-byte entries per thread (the nearest child stays in registers,
-// so an inner node adds at most seven), word i of thread x at i *
-// kThreads + x (a warp at one depth reads 32 consecutive words: no bank
-// conflict); mesh.txt's depth 4 takes 14 KB a block, mesh_critter's 7
-// takes 25 KB. An entry is a child's parent node and slot, (node << 3) |
-// slot: its reference and count are read again when it is popped, and its
-// tmin recomputed from its box's near rows (the same arithmetic, so the
-// same bits) once the walk has a hit; 8-byte entries holding tmin would
-// halve the depth a block's shared memory holds. A tree deeper than the
-// H100's 227 KB a block holds (wide depth 64) is refused when the tables
-// are packed (ops/megakernel.py::NEE_STACK_MAX).
-// What bounds the walk on the H100 is issued instructions, not the chain
-// of dependent loads: a wide node costs its eight children's slab tests
-// where the binary walk, with ~9 times the nodes, tested one box each,
-// so the work is alike and the latency the wide tree saves was hidden
-// before. Measured in turns (PERF.md): ranking the entered children
-// cost 20%, the octant rows and leaves tested together saved 3-8%; a
-// smaller stack (more L1) changed nothing, a stack in local memory saved
-// 3-6%. The walk is slower than the binary walk it replaced.
+// nearest hit's world t, tested per triangle (the walk prunes by the
+// bound's object-space image and stops at the first occluder). The 80k
+// triangle cap of the TPU kernels (a VMEM budget) has no counterpart: the
+// walk covers every mesh geom, the big-mesh route's included, and any
+// depth of tree. A per-thread walk of the 8-wide BVH (#8's tables, a stack
+// in shared memory) visits fewer nodes (about 4.6 inner nodes and 1.5
+// leaves against 35.7 nodes and 7.3 triangles on mesh.txt) but ran 6-35%
+// slower on the H100: this walk is bound by issued instructions, not by
+// its chain of dependent loads, and a wide node's eight slab tests cost
+// what the binary walk's nodes did (PERF.md).
 
 #include <algorithm>
 
@@ -132,18 +106,15 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kChunk = 256;  // #5: pool slots per fetch from the counter
 constexpr int kMeshGeom = 2;  // models/scene.py::GeomType.MESH
-constexpr int kWide = 8;      // models/wide_bvh.py::WIDTH
 
 // ---- the mesh instantiations' tables and walks ----
 
-// The tables of a mesh scene: T's, the mesh tables and every mesh geom's
-// wide BVH.
+// The tables of a mesh scene: T's, the mesh tables and the binary BVH.
 template <class T>
 struct MeshOf : T {
   MeshTables m;
-  const float* wbox;  // (N, 6, kWide): child min x, y, z, max x, y, z
-  const int* wref;    // (N, 2, kWide): child reference, count (0 inner, -1 none)
-  const int* wroot;   // (M,): each mesh geom's root node
+  const int4* node;   // (B,) first triangle, count, skip, is_leaf
+  const int2* roots;  // (M,) each mesh geom's first node and node count
 };
 
 template <class T>
@@ -151,17 +122,15 @@ struct IsMesh : std::false_type {};
 template <class T>
 struct IsMesh<MeshOf<T>> : std::true_type {};
 
-// mesh[] = {tri, attr, box, geoms, chunk, super, wbox, wref, wroot}:
-// the mesh tables of ops/megakernel.py::pack_mesh_tables and the wide BVH
-// of pack_nee_wide_tables
+// mesh[] = {tri, attr, box, geoms, chunk, super, node, roots}: the mesh
+// tables of ops/megakernel.py::pack_mesh_tables and pack_nee_bvh
 template <class T>
 inline MeshOf<T> with_mesh(const T& base, void* const* mesh, int n_mesh) {
   MeshOf<T> s;
   static_cast<T&>(s) = base;
   s.m = make_mesh_tables(mesh, n_mesh);
-  s.wbox = static_cast<const float*>(mesh[6]);
-  s.wref = static_cast<const int*>(mesh[7]);
-  s.wroot = static_cast<const int*>(mesh[8]);
+  s.node = static_cast<const int4*>(mesh[6]);
+  s.roots = static_cast<const int2*>(mesh[7]);
   return s;
 }
 
@@ -182,149 +151,44 @@ struct MeshWin {
   TriHit th;
 };
 
-// This thread's walk stack in its block's dynamic shared memory (the
-// launch sizes it): entry i at [i * kThreads].
-__device__ __forceinline__ unsigned* walk_stack() {
-  extern __shared__ unsigned nee_stack[];
-  return nee_stack + threadIdx.x;
-}
-
-// The box rows at which ray r enters each axis's slab: the min row (0,
-// 1, 2) where its direction is positive, the max row (3, 4, 5) where it
-// is negative; it leaves at the other one (3 - x, 5 - y, 7 - z). With
-// them a box's entry and exit are a max and a min of three products, the
-// bits of slab_span's on every ray not parallel to an axis (on one that
-// is, a box whose plane holds the origin is entered here, missed there).
-__device__ __forceinline__ int3 near_rows(const ObjRay& r) {
-  return {r.inv_d.x < 0.0f ? 3 : 0, r.inv_d.y < 0.0f ? 4 : 1, r.inv_d.z < 0.0f ? 5 : 2};
-}
-
-// The children of wide node `node`: the mask of those entered (an
-// existing child whose box the ray enters ahead of its origin at tmin <=
-// t) and, in *nearest, the entered one of least tmin (the lowest on equal
-// tmin; -1 for none). Each row is two 16-byte loads; a node's children
-// fill its first slots, so a node of at most four skips its other half.
-__device__ __forceinline__ unsigned wide_children(const float* wbox, const int* wref, int node,
-                                                  const ObjRay& r, int3 nr, float t,
-                                                  int* nearest) {
-  const float4* b = reinterpret_cast<const float4*>(wbox) + static_cast<size_t>(node) * 12;
-  const int4* c = reinterpret_cast<const int4*>(wref) + static_cast<size_t>(node) * 4 + 2;
-  unsigned entered = 0;
-  float near_t = 0.0f;
-  *nearest = -1;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int4 n = __ldg(c + h);
-    if (h == 1 && n.x < 0) break;
-    const float4 xn = __ldg(b + 2 * nr.x + h), yn = __ldg(b + 2 * nr.y + h);
-    const float4 zn = __ldg(b + 2 * nr.z + h), xf = __ldg(b + 2 * (3 - nr.x) + h);
-    const float4 yf = __ldg(b + 2 * (5 - nr.y) + h), zf = __ldg(b + 2 * (7 - nr.z) + h);
-    const float nx[4] = {xn.x, xn.y, xn.z, xn.w}, ny[4] = {yn.x, yn.y, yn.z, yn.w};
-    const float nz[4] = {zn.x, zn.y, zn.z, zn.w}, fx[4] = {xf.x, xf.y, xf.z, xf.w};
-    const float fy[4] = {yf.x, yf.y, yf.z, yf.w}, fz[4] = {zf.x, zf.y, zf.z, zf.w};
-    const int cnt[4] = {n.x, n.y, n.z, n.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float tn = fmaxf(fmaxf((nx[j] - r.o.x) * r.inv_d.x, (ny[j] - r.o.y) * r.inv_d.y),
-                             (nz[j] - r.o.z) * r.inv_d.z);
-      const float tf = fminf(fminf((fx[j] - r.o.x) * r.inv_d.x, (fy[j] - r.o.y) * r.inv_d.y),
-                             (fz[j] - r.o.z) * r.inv_d.z);
-      if (cnt[j] >= 0 && tf >= tn && tf > 0.0f && tn <= t) {
-        entered |= 1u << (4 * h + j);
-        if (*nearest < 0 || tn < near_t) {
-          *nearest = 4 * h + j;
-          near_t = tn;
-        }
-      }
-    }
-  }
-  return entered;
-}
-
-// The slab entry of child k of wide node `node`, as wide_children takes it.
-__device__ __forceinline__ float child_tmin(const float* wbox, int node, int k, const ObjRay& r,
-                                            int3 nr) {
-  const float* b = wbox + static_cast<size_t>(node) * 6 * kWide + k;
-  return fmaxf(fmaxf((__ldg(b + nr.x * kWide) - r.o.x) * r.inv_d.x,
-                     (__ldg(b + nr.y * kWide) - r.o.y) * r.inv_d.y),
-               (__ldg(b + nr.z * kWide) - r.o.z) * r.inv_d.z);
-}
-
-// The walks of every mesh geom's wide BVH for the world ray (o, d), in
+// The walks of every mesh geom's binary BVH for the world ray (o, d), in
 // mesh order. Nearest hit (!shadow): w->t enters as the analytic winner's
 // world t (FLT_MAX on a miss); each geom's walk keeps the least (t,
-// triangle) below the object-space image of w->t, and its world distance
-// replaces w's when strictly less. Shadow ray: returns true at the first
-// triangle whose world distance lies in (0, bound); w is not read. One
-// loop for both, so #6's lanes of either kind walk together.
+// triangle) below the object-space image of w->t in walk order, and its
+// world distance replaces w's when strictly less. Shadow ray: returns true
+// at the first triangle whose world distance lies in (0, bound); w is not
+// read. One loop for both, so #6's lanes of either kind walk together.
 template <class T>
 __device__ __forceinline__ bool mesh_walks(const MeshOf<T>& s, V3 o, V3 d, bool shadow,
                                            float bound, MeshWin* w) {
-  unsigned* stack = walk_stack();
   for (int k = 0; k < s.m.n_mesh; ++k) {
-    const int4 mg = __ldg(s.m.geoms + k);
-    const int g = mg.x;
+    const int g = __ldg(s.m.geoms + k).x;
     const float* inv = s.inv + 16 * g;
     const ObjRay r = object_ray(inv, o, d);
     const float lim = shadow ? bound : w->t;
     TriHit th = {lim < kFltMax ? lim * frobenius3(inv) : kFltMax, -1, 0.0f, 0.0f};
-    // the geom's box first (its binary root's, as #7 tests it): most rays
-    // miss it, and one slab test is all they pay
-    if (!slab_enter(__ldg(s.m.box + 2 * mg.y), __ldg(s.m.box + 2 * mg.y + 1), r, th.t)) continue;
-    // the entry to visit next: an inner node (count 0), a leaf's first
-    // triangle and count, or none (count -1)
-    int ref = __ldg(s.wroot + k), count = 0;
-    int sp = 0;
-    const int3 nr = near_rows(r);
-    // the next entry that the bound does not cut: its tmin, recomputed,
-    // can lie past t only once the walk has a hit (t shrank since the push)
-    const auto pop = [&]() {
-      count = -1;
-      while (sp > 0) {
-        const unsigned e = stack[--sp * kThreads];
-        const int node = static_cast<int>(e >> 3), c = static_cast<int>(e & 7u);
-        if (th.tri >= 0 && !(child_tmin(s.wbox, node, c, r, nr) <= th.t)) continue;
-        ref = __ldg(s.wref + node * 2 * kWide + c);
-        count = __ldg(s.wref + (node * 2 + 1) * kWide + c);
-        break;
-      }
-    };
-    for (;;) {
-      // inner nodes until the lane holds a leaf (so a warp's lanes test
-      // their leaves together) or has nothing left
-      while (count == 0) {
-        const int node = ref;
-        // the nearest entered child (the lower on equal tmin) is next; the
-        // others go on the stack, the lowest on top
-        int nearest;
-        const unsigned entered = wide_children(s.wbox, s.wref, node, r, nr, th.t, &nearest);
-#pragma unroll
-        for (int c = kWide - 1; c >= 0; --c) {
-          if (((entered >> c) & 1u) && c != nearest) {
-            stack[sp++ * kThreads] = (static_cast<unsigned>(node) << 3) | c;
+    const int2 root = __ldg(s.roots + k);
+    const int end = root.x + root.y;
+    for (int i = root.x; i < end;) {
+      const int4 nd = __ldg(s.node + i);
+      if (!slab_enter(__ldg(s.m.box + 2 * i), __ldg(s.m.box + 2 * i + 1), r, th.t)) {
+        i = nd.z;
+      } else if (nd.w == 0) {
+        ++i;
+      } else {
+        for (int j = 0; j < nd.y; ++j) {
+          float t, u, v;
+          if (tri_test(s.m, nd.x + j, r, &t, &u, &v) && t < th.t) {
+            if (!shadow) {
+              th = {t, nd.x + j, u, v};
+            } else {
+              const float dist = world_distance(s, g, r, t, o);
+              if (dist > 0.0f && dist < bound) return true;
+            }
           }
         }
-        if (nearest >= 0) {
-          ref = __ldg(s.wref + node * 2 * kWide + nearest);
-          count = __ldg(s.wref + (node * 2 + 1) * kWide + nearest);
-        } else {
-          pop();
-        }
+        i = nd.z;
       }
-      if (count < 0) break;
-      for (int j = 0; j < count; ++j) {
-        float t, u, v;
-        if (tri_test(s.m, ref + j, r, &t, &u, &v)) {
-          if (!shadow) {
-            if (t < th.t || (t == th.t && ref + j < th.tri)) th = {t, ref + j, u, v};
-          } else if (t < th.t) {
-            const float dist = world_distance(s, g, r, t, o);
-            if (dist > 0.0f && dist < bound) return true;
-          }
-        }
-      }
-      pop();
-      if (count < 0) break;
     }
     if (!shadow && th.tri >= 0) {
       const float t = world_distance(s, g, r, th.t, o);
@@ -427,13 +291,12 @@ __device__ __forceinline__ bool unoccluded(const MeshOf<T>& s, V3 o, V3 d, float
 // and then walks them (`mesh_walks`, for the path's nearest hit or the
 // shadow ray, as #5's `intersect` and `unoccluded` do); the hit keeps a
 // mesh winner's UVs over the vertex's shadow step (HitOf<T>). The mesh
-// instantiations name 5 blocks (96 registers, 304-344 B of spills): with
-// the wide walk, on the H100 at 800x800 AA, 5 ran 1% and 6% faster than 6
-// (80 registers, about 550 B) on mesh.txt and mesh_textured and 2% slower
-// on mesh_big, and 4% and 7% faster than 4 (128, none) on mesh.txt and
-// mesh_big, 3% slower on mesh_textured.
+// instantiations keep the bound, spilling 272-332 B: on the H100 they
+// ran 3% and 12% slower on mesh.txt 800x800 AA at 5 and 4 blocks (96
+// and 116-119 registers, spilling 92-120 B and none), 10% and 28% on
+// mesh_big.
 template <class T>
-__global__ void __launch_bounds__(kThreads, IsMesh<T>::value ? 5 : 6)
+__global__ void __launch_bounds__(kThreads, 6)
     full_iteration_nee_kernel(const T s, const Lights L, const float* __restrict__ cam,
                               float* acc_r, float* acc_g, float* acc_b, int iteration0,
                               int n_iters, int resx, int resy, int depth,
@@ -666,12 +529,11 @@ __device__ __forceinline__ void nee_bounce_slot(const T& s, const Lights& L,
 // #5. 6 blocks per SM at 80 registers (95 without the bound): 3% faster
 // on many_materials 1080p RR, 7% slower on Cornell 800x800 AA, on the H100.
 // On a mesh scene (MeshOf) its slots intersect and cast their shadow rays
-// through the mesh-aware `intersect` and `unoccluded` above; those
-// instantiations name 4 blocks (128 registers, no spill): with the wide
-// walk, on the H100 at 800x800 AA, 4 ran 5% and 11% faster than 5 on
-// mesh.txt and mesh_textured, and 5 3% and 10% faster than 6.
+// through the mesh-aware `intersect` and `unoccluded` above, under the
+// same bound (spilling 100-120 B; 5 and 4 blocks ran 2% and 4% faster on
+// mesh.txt 800x800 AA, a path bound by the host).
 template <class T>
-__global__ void __launch_bounds__(kThreads, IsMesh<T>::value ? 4 : 6)
+__global__ void __launch_bounds__(kThreads, 6)
     bounce_step_nee_kernel(const T s, const Lights L, const Lanes pool,
                            float* __restrict__ prev_pdf, float* __restrict__ prev_nondelta,
                            int n, int iteration, int depth, int is_last,
@@ -722,64 +584,22 @@ inline Lights make_lights(void* const* tables, int n_lights, float aw) {
   return L;
 }
 
-// A kernel's resident blocks on a device at `smem` bytes of dynamic
-// shared memory a block, 0 until queried.
-struct Resident {
-  int blocks;
-  int smem;
-};
-
-// Each kernel's resident blocks per device, for the smem of its last
-// launch there: its instantiations on Tables, TexTables, MeshOf<Tables>,
-// MeshOf<TexTables>.
-Resident g_resident_nee[4][64];
-Resident g_resident_bounce[4][64];
-
-// The dynamic shared memory of a launch on tables s: the mesh walk's
-// stack of `stack` entries a thread on MeshOf, none on the others.
-template <class S>
-int stack_bytes(int stack) {
-  return IsMesh<S>::value ? stack * kThreads * static_cast<int>(sizeof(unsigned)) : 0;
-}
-
-// The resident blocks of `kernel` on `device` (every SM's) at `smem`
-// bytes of dynamic shared memory a block, into *out; past the default 48
-// KB the kernel is first allowed that much (the opt-in limit refuses a
-// deeper stack with cudaErrorInvalidValue).
-template <class Kernel>
-cudaError_t resident_at(Kernel kernel, int device, int smem, Resident* cache, int* out) {
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  Resident& r = cache[device];
-  if (r.blocks == 0 || r.smem != smem) {
-    cudaError_t err;
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-    }
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (sms * per_sm <= 0) return cudaErrorInvalidConfiguration;
-    r = {sms * per_sm, smem};
-  }
-  *out = r.blocks;
-  return cudaSuccess;
-}
+// Each kernel's resident blocks per device, 0 until queried: its
+// instantiations on Tables, TexTables, MeshOf<Tables>, MeshOf<TexTables>.
+int g_resident_nee[4][64];
+int g_resident_bounce[4][64];
 
 // #5 on tables s: one warp per chunk at most.
 template <class S>
-cudaError_t launch_bounce_nee(const S& s, int stack, Resident* resident_cache, const Lights& L,
+cudaError_t launch_bounce_nee(const S& s, int* resident_cache, const Lights& L,
                               void* const* pool, int n, int iteration, int depth, int is_last,
                               int* counter, int device, cudaStream_t st) {
-  const int smem = stack_bytes<S>(stack);
   int resident = 0;
   const cudaError_t err =
-      resident_at(bounce_step_nee_kernel<S>, device, smem, resident_cache, &resident);
+      resident_blocks(bounce_step_nee_kernel<S>, device, resident_cache, &resident);
   if (err != cudaSuccess) return err;
   const int wanted = n_blocks(((n + kChunk - 1) / kChunk) * 32);
-  bounce_step_nee_kernel<<<std::min(resident, wanted), kThreads, smem, st>>>(
+  bounce_step_nee_kernel<<<std::min(resident, wanted), kThreads, 0, st>>>(
       s, L, make_lanes(pool), static_cast<float*>(pool[14]), static_cast<float*>(pool[15]), n,
       iteration, depth, is_last, counter);
   return cudaSuccess;
@@ -787,16 +607,14 @@ cudaError_t launch_bounce_nee(const S& s, int stack, Resident* resident_cache, c
 
 // #6 on tables s.
 template <class S>
-cudaError_t launch_full_nee(const S& s, int stack, Resident* resident_cache, const Lights& L,
-                            const float* cam, float* const* acc, int iteration0, int n_iters,
-                            int resx, int resy, int depth, int* counter, int device,
-                            cudaStream_t st) {
-  const int smem = stack_bytes<S>(stack);
+cudaError_t launch_full_nee(const S& s, int* resident_cache, const Lights& L, const float* cam,
+                            float* const* acc, int iteration0, int n_iters, int resx, int resy,
+                            int depth, int* counter, int device, cudaStream_t st) {
   int resident = 0;
   const cudaError_t err =
-      resident_at(full_iteration_nee_kernel<S>, device, smem, resident_cache, &resident);
+      resident_blocks(full_iteration_nee_kernel<S>, device, resident_cache, &resident);
   if (err != cudaSuccess) return err;
-  full_iteration_nee_kernel<<<std::min(resident, n_blocks(resx * resy)), kThreads, smem, st>>>(
+  full_iteration_nee_kernel<<<std::min(resident, n_blocks(resx * resy)), kThreads, 0, st>>>(
       s, L, cam, acc[0], acc[1], acc[2], iteration0, n_iters, resx, resy, depth, counter);
   return cudaSuccess;
 }
@@ -819,22 +637,18 @@ cudaError_t with_tables(void* const* tables, int n_geoms, int flags, int rr_star
 
 // Each entry point launches one kernel on `stream` (a cudaStream_t,
 // PyTorch's current stream) of CUDA device `device` and returns
-// cudaGetLastError() of the launch, or the occupancy query's (or the
-// shared memory opt-in's) error: the
+// cudaGetLastError() of the launch, or the occupancy query's error: the
 // kernel's instantiation on TexTables when flags has a kSurfaceStage bit,
 // on MeshOf<...> when n_mesh > 0.
 // tables = {xf, inv, invt, gtype, gmat, mat, env, lights, surf, tex, bump,
 // envmap}; aw = the MIS light pdf model (mean light area x n_lights);
-// mesh = {tri, attr, box, geoms, chunk, super, wbox, wref, wroot} for the
-// n_mesh mesh geoms (null when n_mesh is 0), and stack the mesh walk's
-// stack entries a thread ((kWide - 1) x the deepest wide tree; 0 without
-// meshes); counter: one int32 on the device, zero before the launch and
-// used by no other launch.
+// mesh = {tri, attr, box, geoms, chunk, super, node, roots} for the
+// n_mesh mesh geoms (null when n_mesh is 0); counter: one int32 on the
+// device, zero before the launch and used by no other launch.
 
 // pool = 16 pointers: the 12 float lanes, alive, pix, prev_pdf, prev_nondelta.
 extern "C" int pt_bounce_step_nee(void* const* tables, int n_geoms, int n_lights, float aw,
-                                  void* const* mesh, int n_mesh, int stack, void* const* pool,
-                                  int n,
+                                  void* const* mesh, int n_mesh, void* const* pool, int n,
                                   int iteration, int depth, int is_last, int rr_start,
                                   int flags, int* counter, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -843,8 +657,8 @@ extern "C" int pt_bounce_step_nee(void* const* tables, int n_geoms, int n_lights
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Lights L = make_lights(tables, n_lights, aw);
     err = with_tables(tables, n_geoms, flags, rr_start, mesh, n_mesh, [&](const auto& s, int v) {
-      return launch_bounce_nee(s, stack, g_resident_bounce[v], L, pool, n, iteration, depth,
-                               is_last, counter, device, st);
+      return launch_bounce_nee(s, g_resident_bounce[v], L, pool, n, iteration, depth, is_last,
+                               counter, device, st);
     });
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -853,8 +667,7 @@ extern "C" int pt_bounce_step_nee(void* const* tables, int n_geoms, int n_lights
 
 // Iterations iteration0 .. iteration0 + n_iters - 1; acc = {r, g, b}.
 extern "C" int pt_full_iteration_nee(void* const* tables, int n_geoms, int n_lights, float aw,
-                                     void* const* mesh, int n_mesh, int stack,
-                                     const float* cam,
+                                     void* const* mesh, int n_mesh, const float* cam,
                                      float* const* acc, int iteration0, int n_iters, int resx,
                                      int resy, int depth, int rr_start, int flags, int* counter,
                                      int device, void* stream) {
@@ -864,8 +677,8 @@ extern "C" int pt_full_iteration_nee(void* const* tables, int n_geoms, int n_lig
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Lights L = make_lights(tables, n_lights, aw);
     err = with_tables(tables, n_geoms, flags, rr_start, mesh, n_mesh, [&](const auto& s, int v) {
-      return launch_full_nee(s, stack, g_resident_nee[v], L, cam, acc, iteration0, n_iters,
-                             resx, resy, depth, counter, device, st);
+      return launch_full_nee(s, g_resident_nee[v], L, cam, acc, iteration0, n_iters, resx, resy,
+                             depth, counter, device, st);
     });
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -47,16 +47,15 @@ SIGNATURES = {
     # tables, n_geoms, pool_in, isect, pool_out, n, iteration, depth,
     # rr_start, flags, device, stream
     "pt_shade_step": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # tables, n_geoms, n_lights, aw, mesh, n_mesh, stack, pool (14 lanes +
-    # 2 aux), n, iteration, depth, is_last, rr_start, flags, counter,
-    # device, stream
-    "pt_bounce_step_nee": [_P, _I, _I, _F, _P, _I, _I, _P, _I, _I, _I, _I, _I,
-                           _I, _P, _I, _P],
-    # tables, n_geoms, n_lights, aw, mesh, n_mesh, stack, cam, acc,
-    # iteration0, n_iters, resx, resy, depth, rr_start, flags, counter,
-    # device, stream
-    "pt_full_iteration_nee": [_P, _I, _I, _F, _P, _I, _I, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _P, _I, _P],
+    # tables, n_geoms, n_lights, aw, mesh, n_mesh, pool (14 lanes + 2
+    # aux), n, iteration, depth, is_last, rr_start, flags, counter, device,
+    # stream
+    "pt_bounce_step_nee": [_P, _I, _I, _F, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                           _P, _I, _P],
+    # tables, n_geoms, n_lights, aw, mesh, n_mesh, cam, acc, iteration0,
+    # n_iters, resx, resy, depth, rr_start, flags, counter, device, stream
+    "pt_full_iteration_nee": [_P, _I, _I, _F, _P, _I, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _P, _I, _P],
     # tables, n_geoms, mesh, n_mesh, rays, num_alive, n, all_lanes,
     # analytic, list, count, device, stream
     "pt_mesh_candidates": [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P],

@@ -1,6 +1,5 @@
 """BVH traversal over the path pool (plain PyTorch): the binary walk and
-the wide walk, the plain references of kernel #8 and of the mesh walks
-of #5 and #6.
+the wide walk, the plain references of kernel #8.
 
 `mesh_intersect_bvh` is the twin of the JAX package's
 `ops/bvh_traverse.py::mesh_intersect_bvh`: over the flat preorder +
@@ -17,11 +16,9 @@ card (a finished lane's cursor stays past the range, so the steps in
 between change nothing).
 
 `mesh_intersect_wide` walks the wide BVH of models/wide_bvh.py in the
-order kernel #8 (csrc/mesh.cu, `mesh_sweep`) walks it, or the mesh walks
-of #5 and #6 (csrc/nee.cu), a stack per lane, nearest child first, and
-`mesh_occluded_wide` is the NEE kernels' shadow walk of the same tree;
-the tests use them to check the wide tables and the kernels' walks on the
-CPU, and chip_smoke.py to count the walks' work.
+order kernel #8 (csrc/mesh.cu, `mesh_sweep`) walks it, a stack per lane,
+nearest child first; the tests use it to check the wide tables and the
+kernel's walk on the CPU.
 """
 
 from __future__ import annotations
@@ -76,7 +73,7 @@ def mesh_intersect_bvh(scene: DeviceScene, geom_index: int, origins: Vec3,
     probe: a dict that, when given, receives per lane the walk's work, for
     counting kernel #8's operations (chip_smoke.py's bounds): `nodes`, the
     nodes whose box the lane tested, and `tris`, the triangles it tested
-    (both (P,) int64), and `tri`, the winning triangle (-1 for none)."""
+    (both (P,) int64)."""
     node_start, node_count = scene.bvh_roots[geom_index]
     node_end = node_start + node_count
     ro, rd, inv_d = _object_ray(scene, geom_index, origins, dirs)
@@ -128,17 +125,8 @@ def mesh_intersect_bvh(scene: DeviceScene, geom_index: int, origins: Vec3,
         cur = torch.where(active, nxt, cur)
 
     if probe is not None:
-        probe.update(nodes=nodes, tris=tris, tri=torch.where(bt < FLT_MAX, btri, -1))
+        probe.update(nodes=nodes, tris=tris)
     return _mesh_hit(scene, geom_index, origins, dirs, ro, rd, bt, btri, bu, bv)
-
-
-def _frobenius3(inv: torch.Tensor) -> torch.Tensor:
-    """The Frobenius norm of inv's 3x3 block, summed row by row."""
-    return torch.sqrt(
-        inv[0, 0] * inv[0, 0] + inv[0, 1] * inv[0, 1] + inv[0, 2] * inv[0, 2]
-        + inv[1, 0] * inv[1, 0] + inv[1, 1] * inv[1, 1] + inv[1, 2] * inv[1, 2]
-        + inv[2, 0] * inv[2, 0] + inv[2, 1] * inv[2, 1] + inv[2, 2] * inv[2, 2]
-    )
 
 
 def _object_ray(scene: DeviceScene, geom_index: int, origins: Vec3, dirs: Vec3):
@@ -179,13 +167,11 @@ def _mesh_hit(scene: DeviceScene, geom_index: int, origins: Vec3, dirs: Vec3,
 
 
 def mesh_intersect_wide(scene: DeviceScene, wide, geom_index: int, root: int,
-                        origins: Vec3, dirs: Vec3, probe: dict | None = None,
-                        t_max=None, nee: bool = False):
+                        origins: Vec3, dirs: Vec3, probe: dict | None = None):
     """One mesh instance's hits by a walk of its wide BVH
     (models/wide_bvh.py; `wide` holds the `box` and `ref` tables on the
     scene's device and `stack`, the entries a walk's stack may need), in
-    the order kernel #8 (csrc/mesh.cu, `mesh_sweep`) walks it (with `nee`,
-    the order of #5's and #6's, csrc/nee.cu `mesh_walks`): a stack of
+    the order kernel #8 (csrc/mesh.cu, `mesh_sweep`) walks it: a stack of
     (reference, count, tmin); pop the top, skip it when its tmin is past
     the best t; at an inner node slab-test every child against the best t
     (tmin <= t enters), push the entered ones nearest first (the lowest
@@ -196,53 +182,10 @@ def mesh_intersect_wide(scene: DeviceScene, wide, geom_index: int, root: int,
     the binary walk's, but where a triangle's t lies an ulp inside its
     box's slab entry. Returns what mesh_intersect_bvh returns.
 
-    t_max: per lane, the object-space t the walk starts from (FLT_MAX by
-    default; #5's and #6's image of the nearest hit so far): only a
-    triangle strictly nearer can win.
-
-    nee: push in #5's and #6's order instead: the nearest entered child
-    on top (the lowest on equal tmin), the others below it in child order,
-    the lowest nearest the top. The winner is the same but on slab-ulp
-    lanes; the work differs.
-
     probe: a dict that, when given, receives per lane `nodes` (inner
     wide nodes expanded), `leaves` (leaves tested), `tris` (triangles
-    tested), `stack` (the deepest its stack went) and `recomputes` (the
-    entries popped after the walk has a hit, other than an expanded
-    node's nearest child: those whose tmin #5 and #6 recompute), each
-    (P,) int64, and `tri`, the winning triangle (-1 for none)."""
+    tested) and `stack` (the deepest its stack went), each (P,) int64."""
     ro, rd, inv_d = _object_ray(scene, geom_index, origins, dirs)
-    bt, btri, bu, bv, _ = _wide_walk(scene, wide, geom_index, root, origins,
-                                     ro, rd, inv_d, t_max, None, probe, nee)
-    hit = btri >= 0
-    return _mesh_hit(scene, geom_index, origins, dirs, ro, rd,
-                     torch.where(hit, bt, FLT_MAX), torch.where(hit, btri, 0), bu, bv)
-
-
-def mesh_occluded_wide(scene: DeviceScene, wide, geom_index: int, root: int,
-                       origins: Vec3, dirs: Vec3, bound, probe: dict | None = None):
-    """The shadow walk of #5 and #6 (csrc/nee.cu `mesh_walks`) over one
-    mesh instance's wide BVH: (P,) bool, whether a triangle whose world
-    distance (taken as the hit's world t is) lies in (0, bound) blocks the
-    ray. The walk runs as mesh_intersect_wide's, below the object-space
-    image of `bound` (x the Frobenius norm of inv's 3x3) in the kernels'
-    order (`nee`), and a lane stops at its first leaf with such a
-    triangle; the kernels stop at the triangle itself. probe: as
-    mesh_intersect_wide's, with `dists`, the triangles hit below the image
-    of `bound`, whose world distance the walk takes."""
-    ro, rd, inv_d = _object_ray(scene, geom_index, origins, dirs)
-    frob = _frobenius3(scene.inverse_transform[geom_index])
-    t0 = torch.where(bound < FLT_MAX, bound * frob, FLT_MAX)
-    return _wide_walk(scene, wide, geom_index, root, origins, ro, rd, inv_d, t0,
-                      bound, probe, True)[4]
-
-
-def _wide_walk(scene: DeviceScene, wide, geom_index: int, root: int, origins: Vec3,
-               ro: Vec3, rd: Vec3, inv_d: Vec3, t_max, shadow, probe, nee):
-    """The walk of mesh_intersect_wide (shadow None) or of
-    mesh_occluded_wide (shadow: each lane's world bound), in #8's order
-    or, with `nee`, #5's and #6's: (t, triangle, u, v) of the winner
-    (triangle -1 for none) and the occluded lanes."""
     P = ro.x.shape[0]
     device = ro.x.device
     T = scene.tri_v0.x.shape[0]
@@ -257,16 +200,11 @@ def _wide_walk(scene: DeviceScene, wide, geom_index: int, root: int, origins: Ve
     s_tmin[:, 0] = -float("inf")
     sp = torch.ones(P, dtype=torch.int64, device=device)
     bt = torch.full((P,), FLT_MAX, dtype=torch.float32, device=device)
-    if t_max is not None:
-        bt = t_max.clone()
-    btri = torch.full((P,), -1, dtype=torch.int64, device=device)
+    btri = torch.full((P,), T, dtype=torch.int64, device=device)
     bu = torch.zeros(P, dtype=torch.float32, device=device)
     bv = torch.zeros(P, dtype=torch.float32, device=device)
-    occluded = torch.zeros(P, dtype=torch.bool, device=device)
-    kept = torch.zeros(P, dtype=torch.bool, device=device)  # the top is a nearest child
     work = {k: torch.zeros(P, dtype=torch.int64, device=device)
-            for k in ("nodes", "leaves", "tris", "recomputes")
-            + (("dists",) if shadow is not None else ())}
+            for k in ("nodes", "leaves", "tris")}
     work["stack"] = sp.clone()
     col = lambda a: a[:, None]  # noqa: E731
     ro_w, rd_w, inv_w = (Vec3(col(v.x), col(v.y), col(v.z)) for v in (ro, rd, inv_d))
@@ -278,7 +216,6 @@ def _wide_walk(scene: DeviceScene, wide, geom_index: int, root: int, origins: Ve
         top = torch.clamp(sp - 1, min=0)
         ref, cnt, tm = s_ref[rows, top], s_cnt[rows, top], s_tmin[rows, top]
         sp = sp - active.long()
-        work["recomputes"] += active & ~kept & (btri >= 0)
         keep = active & (tm <= bt)
         inner = keep & (cnt == 0)
         leaf = keep & (cnt > 0)
@@ -293,10 +230,6 @@ def _wide_walk(scene: DeviceScene, wide, geom_index: int, root: int, origins: Ve
         before = (tmin[:, None, :] < tmin[:, :, None]) | (
             (tmin[:, None, :] == tmin[:, :, None]) & (kids[None, :] < kids[:, None]))
         rank = (before & enter[:, None, :]).sum(2)
-        if nee:  # the nearest on top, then the others in child order
-            first = enter & (rank == 0)
-            lower = (kids[None, :] < kids[:, None]) & (enter & ~first)[:, None, :]
-            rank = torch.where(first, 0, 1 + lower.sum(2))
         n_enter = enter.sum(1)
         pos = col(sp + n_enter - 1) - rank
         p_i, k_i = torch.nonzero(enter, as_tuple=True)
@@ -305,7 +238,6 @@ def _wide_walk(scene: DeviceScene, wide, geom_index: int, root: int, origins: Ve
         s_cnt[p_i, at] = kref[p_i, 1, k_i]
         s_tmin[p_i, at] = tmin[p_i, k_i]
         sp = sp + n_enter
-        kept = n_enter > 0
 
         # a leaf: its triangles, the least (t, triangle) against the best
         tri = col(ref) + kids[None, :]
@@ -315,25 +247,15 @@ def _wide_walk(scene: DeviceScene, wide, geom_index: int, root: int, origins: Ve
             vtake(scene.tri_v0, safe), vtake(scene.tri_v1, safe),
             vtake(scene.tri_v2, safe), ro_w, rd_w)
         hit = valid & ok
-        if shadow is None:
-            tt = torch.where(hit, t, float("inf"))
-            mt = tt.min(1).values
-            wk = (hit & (tt == col(mt))).to(torch.int8).argmax(1)
-            wtri = tri[rows, wk]
-            better = hit.any(1) & ((mt < bt) | ((mt == bt) & (wtri < btri)))
-            bt = torch.where(better, mt, bt)
-            btri = torch.where(better, wtri, btri)
-            bu = torch.where(better, u[rows, wk], bu)
-            bv = torch.where(better, v[rows, wk], bv)
-        else:
-            below = hit & (t < col(bt))
-            p_obj = ro_w + rd_w * (t - RAY_EPS)
-            dist = (Vec3(col(origins.x), col(origins.y), col(origins.z))
-                    - transform_point(scene.transform[geom_index], p_obj)).length()
-            blocks = (below & (dist > 0) & (dist < col(shadow))).any(1)
-            work["dists"] += below.sum(1)
-            occluded = occluded | blocks
-            sp = torch.where(blocks, 0, sp)
+        tt = torch.where(hit, t, float("inf"))
+        mt = tt.min(1).values
+        wk = (hit & (tt == col(mt))).to(torch.int8).argmax(1)
+        wtri = tri[rows, wk]
+        better = hit.any(1) & ((mt < bt) | ((mt == bt) & (wtri < btri)))
+        bt = torch.where(better, mt, bt)
+        btri = torch.where(better, wtri, btri)
+        bu = torch.where(better, u[rows, wk], bu)
+        bv = torch.where(better, v[rows, wk], bv)
 
         work["nodes"] += inner
         work["leaves"] += leaf
@@ -341,5 +263,7 @@ def _wide_walk(scene: DeviceScene, wide, geom_index: int, root: int, origins: Ve
         work["stack"] = torch.maximum(work["stack"], sp)
 
     if probe is not None:
-        probe.update(work, tri=btri)
-    return bt, btri, bu, bv, occluded
+        probe.update(work)
+    # no hit: triangle 0's tail, as the binary walk gives it
+    return _mesh_hit(scene, geom_index, origins, dirs, ro, rd, bt,
+                     torch.where(bt < FLT_MAX, btri, 0), bu, bv)

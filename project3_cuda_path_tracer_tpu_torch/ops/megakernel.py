@@ -50,14 +50,13 @@ atlases, plus the emissive geom indices and the MIS light pdf model
 (ops/lights.py::lights_area_weight) for the NEE kernels, and on a mesh
 scene the triangle and BVH tables of the mesh pipeline
 (`pack_mesh_tables`, read by ops/pipeline.py's kernels #7-#14) and,
-under NEE, every mesh geom's wide BVH (`pack_nee_wide_tables`). #1-#3
-sweep analytic geoms only: a mesh scene takes ops/pipeline.py (and #4,
-which intersects nothing), and their wrappers refuse one. The NEE kernels
-#5 and #6 render a mesh scene themselves: their instantiations on the
-mesh tables walk each mesh geom's 8-wide BVH (models/wide_bvh.py), a
-thread per ray with its stack in shared memory sized at launch from the
-deepest tree, for the nearest hit and for the shadow ray, the big-mesh
-route's geoms included.
+under NEE, the binary BVH's `node` rows and each mesh geom's root
+(`pack_nee_bvh`). #1-#3 sweep analytic geoms only: a mesh scene takes
+ops/pipeline.py (and #4, which intersects nothing), and their wrappers
+refuse one. The NEE kernels #5 and #6 render a mesh scene themselves:
+their instantiations on the mesh tables walk each mesh geom's binary BVH
+with one int cursor (hit ? i + 1 : skip, no stack, any depth) for the
+nearest hit and for the shadow ray, the big-mesh route's geoms included.
 
 A scene with file textures, bump maps, a lat-long env map or SSS sets
 the surface-stage flags (FLAG_SURFACE_STAGE), and the kernels' C entry
@@ -128,9 +127,11 @@ class SceneTables(NamedTuple):
     # #8's wide BVH (ops/pipeline.py::pack_wide_tables); None without
     # meshes
     wide: tuple | None = None
-    # #5's and #6's wide BVH, every mesh geom's (pack_nee_wide_tables);
-    # None without meshes or when packed without `nee`
-    nee_wide: tuple | None = None
+    # #5's and #6's binary BVH (pack_nee_bvh): (B,4) i32 node rows and
+    # (M,2) i32 each mesh geom's root; None without meshes or when packed
+    # without `nee`
+    node: torch.Tensor | None = None
+    roots: torch.Tensor | None = None
 
 
 # the tables the kernels read, as a C array of pointers in this order
@@ -237,11 +238,11 @@ def pack_mesh_tables(scene: DeviceScene) -> tuple:
     node, node count (0 for a geom of the sorted route,
     ops/pipeline.py::sorted_geoms), has_uv] for the M mesh geoms, and the
     big-mesh route's chunk (C,8) and supernode (S,8) boxes [min, max, 0,
-    0]. #7 and #5/#6 read each geom's root box; #8 walks the wide BVH
-    collapsed from the binary nodes (ops/pipeline.py::pack_wide_tables),
-    which gives a geom of the sorted route no root; #5 and #6 walk their
-    own collapse of every geom (`pack_nee_wide_tables`). The tables live
-    in object space, so motion blur never re-packs them."""
+    0]. #7 reads each geom's root box; #8 walks the wide BVH collapsed
+    from the binary nodes (ops/pipeline.py::pack_wide_tables), which gives
+    a geom of the sorted route no root; #5 and #6 walk the binary nodes
+    themselves (`pack_nee_bvh`). The tables live in object space, so
+    motion blur never re-packs them."""
     from .pipeline import sorted_geoms
 
     mesh = scene.mesh_geoms
@@ -270,41 +271,19 @@ def pack_mesh_tables(scene: DeviceScene) -> tuple:
             scene.mesh_super_aabbs.contiguous())
 
 
-# The most stack entries a walk of #5 and #6 may take (csrc/nee.cu
-# `walk_stack`): the launch gives each thread a slice of its block's
-# dynamic shared memory, 4 bytes an entry, and an H100 block holds at
-# most 227 KB (232,448 bytes) of it: 454 entries at 128 threads.
-NEE_STACK_MAX = 232448 // (4 * 128)
-
-
-def nee_stack(wide) -> int:
-    """The stack entries a thread of #5 and #6 takes on the wide tables
-    `wide` (pack_nee_wide_tables): the walk keeps the nearest entered
-    child in registers, so an inner node adds at most WIDTH - 1 entries
-    and a tree of wide depth d needs (WIDTH - 1) x d."""
-    from ..models.wide_bvh import WIDTH
-
-    return (WIDTH - 1) * max(wide.depth, 1)
-
-
-def pack_nee_wide_tables(scene: DeviceScene, wide=None):
-    """#5's and #6's wide BVH (ops/pipeline.py::WideTables): every mesh
-    geom's binary BVH collapsed by models/wide_bvh.py, in object space, so
-    motion blur never re-packs it. `wide`, #8's tables, is the same
-    collapse when no geom takes the sorted route, and is then returned as
-    it is. Raises ValueError for a tree deeper than a block's shared
-    memory holds the kernels' stack for (NEE_STACK_MAX: wide depth 64)."""
-    from .pipeline import pack_wide_tables, sorted_geoms
-
-    if wide is None or sorted_geoms(scene):
-        wide = pack_wide_tables(scene, every=True)
-    need = nee_stack(wide)
-    if need > NEE_STACK_MAX:
-        raise ValueError(
-            f"a mesh geom's wide BVH has depth {wide.depth}: the NEE kernels' "
-            f"walk needs {need} stack entries a thread and a block's shared "
-            f"memory holds {NEE_STACK_MAX}")
-    return wide
+def pack_nee_bvh(scene: DeviceScene) -> tuple:
+    """#5's and #6's walk tables: node (B,4) i32 [first triangle, count,
+    skip, is_leaf] of the binary BVH, and roots (M,2) i32 [first node,
+    node count] of every mesh geom (`scene.bvh_roots`), the sorted route's
+    included (pack_mesh_tables' `geoms` gives such a geom no node count,
+    which #7 and #8 rely on). Object space, so motion blur never re-packs
+    them."""
+    mesh = scene.mesh_geoms
+    node = torch.stack([scene.bvh_first, scene.bvh_count, scene.bvh_skip,
+                        scene.bvh_leaf.to(torch.int32)], dim=1).contiguous()
+    roots = torch.tensor([scene.bvh_roots[g] for g in mesh], dtype=torch.int32,
+                         device=scene.device).reshape(len(mesh), 2)
+    return node, roots
 
 
 def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
@@ -312,8 +291,8 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
     back to the host once here, so no NEE launch waits on the device for
     it (motion blur only translates, so it never changes the value); on a
     mesh scene also the mesh pipeline's tables, C's, #8's wide BVH and,
-    with `nee`, #5's and #6's (`pack_nee_wide_tables`, which raises for a
-    tree deeper than a block's shared memory holds their stack for)."""
+    with `nee`, the binary BVH's nodes and roots that #5 and #6 walk
+    (`pack_nee_bvh`)."""
     from .pipeline import pack_sweep_tables, pack_wide_tables
 
     G = scene.transform.shape[0]
@@ -340,7 +319,7 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
         return torch.stack([r, g, b, torch.zeros_like(r)], dim=1).contiguous()
 
     xf, inv = pack_geom_tables(scene)
-    wide = pack_wide_tables(scene) if scene.mesh_geoms else None
+    node, roots = pack_nee_bvh(scene) if nee and scene.mesh_geoms else (None, None)
     return SceneTables(
         xf=xf,
         inv=inv,
@@ -358,8 +337,9 @@ def pack_scene_tables(scene: DeviceScene, nee: bool = False) -> SceneTables:
         aw=float(lights_area_weight(scene)) if nee else None,
         mesh=pack_mesh_tables(scene) if scene.mesh_geoms else None,
         sweep=pack_sweep_tables(scene) if scene.mesh_geoms else None,
-        wide=wide,
-        nee_wide=pack_nee_wide_tables(scene, wide) if nee and scene.mesh_geoms else None,
+        wide=pack_wide_tables(scene) if scene.mesh_geoms else None,
+        node=node,
+        roots=roots,
     )
 
 
@@ -614,29 +594,19 @@ def _require_lights(scene: DeviceScene, what: str) -> None:
 
 def _nee_mesh_args(t: SceneTables, scene: DeviceScene, device) -> tuple:
     """The NEE kernels' mesh arguments: the pointers of the mesh tables
-    and of their wide BVH (box, ref, root), the mesh geoms' count and the
-    walk's stack entries a thread (`nee_stack`); (NULL, 0, 0) without
-    meshes (the analytic instantiations)."""
+    and of the binary BVH's nodes and roots, and the mesh geoms' count;
+    (NULL, 0) without meshes (the analytic instantiations)."""
     if not scene.mesh_geoms:
-        return None, 0, 0
-    from ..models.wide_bvh import WIDTH
+        return None, 0
     from .pipeline import check_mesh_tables
 
     check_mesh_tables(t, scene, device)
-    M = len(scene.mesh_geoms)
-    w = t.nee_wide
-    if w is None:
-        raise ValueError("the NEE kernels need every mesh geom's wide BVH "
-                         "(pack_scene_tables(scene, nee=True))")
-    N = w.box.shape[0]
-    _check_tensor(w.box, "nee_wide.box", torch.float32, (N, 6, WIDTH), device)
-    _check_tensor(w.ref, "nee_wide.ref", torch.int32, (N, 2, WIDTH), device)
-    _check_tensor(w.root, "nee_wide.root", torch.int32, (M,), device)
-    if w.walked != M or nee_stack(w) > NEE_STACK_MAX:
-        raise ValueError("the NEE kernels need every mesh geom's wide BVH "
-                         f"within their stack of {NEE_STACK_MAX} entries "
-                         "(pack_nee_wide_tables)")
-    return _ptrs(list(t.mesh) + [w.box, w.ref, w.root]), M, nee_stack(w)
+    if t.node is None or t.roots is None:
+        raise ValueError("the NEE kernels need the binary BVH's nodes and "
+                         "roots (pack_scene_tables(scene, nee=True))")
+    _check_tensor(t.node, "node", torch.int32, (scene.bvh_first.shape[0], 4), device)
+    _check_tensor(t.roots, "roots", torch.int32, (len(scene.mesh_geoms), 2), device)
+    return _ptrs(list(t.mesh) + [t.node, t.roots]), len(scene.mesh_geoms)
 
 
 # ---- the wrappers ----------------------------------------------------------

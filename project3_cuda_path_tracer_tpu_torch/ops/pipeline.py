@@ -102,7 +102,7 @@ import torch
 from ..models.device import MESH_CHUNK, MESH_SUPER, DeviceScene
 from ..models.wide_bvh import WIDTH, collapse, stack_bound
 from ..utils import debug
-from .bvh_traverse import _aabb_hit, _frobenius3, mesh_intersect_bvh, mesh_intersect_wide
+from .bvh_traverse import _aabb_hit, mesh_intersect_bvh, mesh_intersect_wide
 from .intersect import (
     FLT_MAX,
     MISS,
@@ -190,6 +190,15 @@ class Candidates(NamedTuple):
 
 
 # ---- plain versions --------------------------------------------------------
+
+def _frobenius3(inv: torch.Tensor) -> torch.Tensor:
+    """The Frobenius norm of inv's 3x3 block, summed row by row."""
+    return torch.sqrt(
+        inv[0, 0] * inv[0, 0] + inv[0, 1] * inv[0, 1] + inv[0, 2] * inv[0, 2]
+        + inv[1, 0] * inv[1, 0] + inv[1, 1] * inv[1, 1] + inv[1, 2] * inv[1, 2]
+        + inv[2, 0] * inv[2, 0] + inv[2, 1] * inv[2, 1] + inv[2, 2] * inv[2, 2]
+    )
+
 
 def mesh_candidacy(scene: DeviceScene, g: int, origins: Vec3, dirs: Vec3,
                    t_a: torch.Tensor) -> torch.Tensor:
@@ -331,8 +340,6 @@ def _mesh_sweep_plain(origins: Vec3, dirs: Vec3, cands: Candidates,
         best = _select(closer_hit(hit.t, best.t), hit, best)
         work["walks"][sel] += 1
         for k, v in sub.items():
-            if k == "tri":  # a geom's own winner: not work
-                continue
             w = work.setdefault(k, torch.zeros(n, dtype=torch.int64, device=device))
             w[sel] = torch.maximum(w[sel], v) if k == "stack" else w[sel] + v
     if probe is not None:
@@ -885,18 +892,14 @@ class WideTables(NamedTuple):
     root: torch.Tensor  # (M,) i32 per mesh geom: its root, -1 if #8 skips it
     stack: int  # stack entries a walk may need (wide_bvh.stack_bound)
     walked: int  # mesh geoms with a root (0: #8 writes "no hit" alone)
-    depth: int  # most inner nodes on a root-to-leaf path, over all trees
 
 
-def pack_wide_tables(scene: DeviceScene, every: bool = False) -> WideTables:
+def pack_wide_tables(scene: DeviceScene) -> WideTables:
     """The wide BVH of every geom #8 walks (`dense_geoms`), collapsed in
     numpy from the scene's binary BVH; root -1 for the geoms of the sorted
-    route. With `every`, of every mesh geom, the sorted route's included:
-    the tables of #5's and #6's walks (ops/megakernel.py::
-    pack_nee_wide_tables). The triangles stay where they are. Packed once,
-    with the scene's tables (object space: motion blur never re-packs
-    them)."""
-    dense = scene.mesh_geoms if every else dense_geoms(scene)
+    route. The triangles stay where they are. Packed once, with the
+    scene's tables (object space: motion blur never re-packs them)."""
+    dense = dense_geoms(scene)
     host = lambda a: a.detach().cpu().numpy()  # noqa: E731
     wide = collapse(
         np.stack([host(c) for c in scene.bvh_min], 1),
@@ -912,7 +915,6 @@ def pack_wide_tables(scene: DeviceScene, every: bool = False) -> WideTables:
         root=torch.from_numpy(wide.root).to(dev),
         stack=stack_bound(max(wide.depth, 1)),
         walked=int((wide.root >= 0).sum()),
-        depth=wide.depth,
     )
 
 

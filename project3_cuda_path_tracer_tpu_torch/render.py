@@ -46,7 +46,7 @@ has these tiers here, as in the JAX package:
   0..D-1 from plain `generate_rays`, the MIS aux state (previous pdf,
   previous non-delta flag) riding as two pool lanes. On a mesh scene
   both kernels run their mesh instantiations, which walk each mesh geom's
-  8-wide BVH for the nearest hit and for the shadow ray (every mesh geom,
+  binary BVH for the nearest hit and for the shadow ray (every mesh geom,
   the big-mesh route's included: no mesh pipeline launch on this path).
   --nee takes precedence over --direct-lighting and refuses compaction
   and the first-bounce cache (ValueError), as the JAX package does;
@@ -744,8 +744,9 @@ def shutter_time(iteration: int) -> float:
 def _device_tables(scene: DeviceScene,
                    settings: RenderSettings) -> SceneTables | None:
     """The kernels' packed tables on CUDA (with the light pdf model and
-    the NEE kernels' wide BVH under --nee, but for a slice of the
-    tri-shard tier, whose --nee runs the plain estimator); None where the
+    the binary BVH's nodes and roots that the NEE kernels walk under
+    --nee, but for a slice of the tri-shard tier, whose --nee runs the
+    plain estimator); None where the
     plain versions run (`runs_plain`: the CPU, or `settings.plain`),
     which read the DeviceScene itself."""
     if runs_plain(scene.device, settings.plain):

@@ -214,23 +214,31 @@ def validate_tables(scene, tables=None) -> None:
         _in_range("mesh.geoms (first node, end)",
                   np.concatenate([geoms[:, 1], geoms[:, 1] + geoms[:, 2]]), 0, B + 1,
                   "(BVH nodes)")
-    for name, wide, none in (("wide", tables.wide, -1), ("nee_wide", tables.nee_wide, 0)):
-        if wide is None:
-            continue
-        ref = _host(wide.ref)
+    if tables.node is not None:
+        node = _host(tables.node)
+        _in_range("node skip", node[:, 2], 0, B + 1, "(BVH nodes, or the end)")
+        lf = node[:, 3] != 0
+        _in_range("node leaf (first, end)",
+                  np.concatenate([node[lf, 0], node[lf, 0] + node[lf, 1]]), 0, T + 1,
+                  "(triangles)")
+    if tables.roots is not None:
+        roots = _host(tables.roots)
+        _in_range("roots (first node, end)",
+                  np.concatenate([roots[:, 0], roots[:, 0] + roots[:, 1]]), 0, B + 1,
+                  "(BVH nodes)")
+    if tables.wide is not None:
+        ref = _host(tables.wide.ref)
         N = ref.shape[0]
         inner = ref[:, 1, :] == 0
         leafc = ref[:, 1, :] > 0
-        _in_range(f"{name}.ref count", ref[:, 1, :], -1, WIDTH + 1,
+        _in_range("wide.ref count", ref[:, 1, :], -1, WIDTH + 1,
                   "(-1 none, 0 inner, 1..WIDTH a leaf)")
-        _in_range(f"{name}.ref inner child", ref[:, 0, :][inner], 0, N, "(wide nodes)")
-        _in_range(f"{name}.ref leaf (first, end)",
+        _in_range("wide.ref inner child", ref[:, 0, :][inner], 0, N, "(wide nodes)")
+        _in_range("wide.ref leaf (first, end)",
                   np.concatenate([ref[:, 0, :][leafc],
                                   ref[:, 0, :][leafc] + ref[:, 1, :][leafc]]), 0, T + 1,
                   "(triangles)")
-        # #8 skips a geom of root -1; #5 and #6 walk every geom
-        _in_range(f"{name}.root", _host(wide.root), none, N,
-                  "(wide nodes, -1 none)" if none < 0 else "(wide nodes)")
+        _in_range("wide.root", _host(tables.wide.root), -1, N, "(wide nodes, -1 none)")
     if tables.sweep is not None:
         for name, a, rows in (("sweep.tris", tables.sweep[0], C),
                               ("sweep.boxes", tables.sweep[1], S)):

@@ -1856,18 +1856,18 @@ def _nee_kernels_match_plain(cuda_device, ds, cam, settings):
 
 def test_deep_tree_renders_nee_on_cuda(cuda_device, tmp_path):
     """--nee on mesh.txt with its icosphere's BVH replaced by a chain over
-    600 of its triangles (chip_smoke.chain_bvh: wide depth past 14, twice
-    the scenes' deepest, its stack past the 48 KB a block takes without
-    opting in): #6 and #5 against their plain versions walking the same
-    chain, by the rules of test_nee_kernels_on_mesh_match_plain_on_cuda."""
-    from chip_smoke import chain_bvh
+    MESH_CHAIN_TRIS of its triangles (chip_smoke.chain_bvh: 909 binary
+    nodes, wide depth past 64, deeper than a walk with its stack in a
+    block's shared memory could take): the tables pack, and #6 and #5
+    against their plain versions walking the same chain, by the rules of
+    test_nee_kernels_on_mesh_match_plain_on_cuda."""
+    from chip_smoke import MESH_CHAIN_TRIS, chain_bvh, wide_depth
 
     ds, cam, settings = _mesh_nee_setup(cuda_device, tmp_path, "mesh.txt",
                                         {"antialias": True})
     (g,) = ds.mesh_geoms
-    ds = chain_bvh(ds, g, count=600)
-    wide = megakernel.pack_scene_tables(ds, nee=True).nee_wide
-    assert wide.depth >= 14 and megakernel.nee_stack(wide) * 4 * 128 > 48 * 1024
+    ds = chain_bvh(ds, g, count=MESH_CHAIN_TRIS)
+    assert wide_depth(ds) > 64
     _nee_kernels_match_plain(cuda_device, ds, cam, settings)
 
 
@@ -1971,10 +1971,10 @@ def test_mesh_nee_launches(cuda_device, name):
 
 @pytest.mark.parametrize("name", ["bunny.txt", "mesh_critter.txt", "mesh_stream.txt"])
 def test_big_meshes_render_nee_on_cuda(cuda_device, name):
-    """--nee on big-mesh scenes (every geom on the sorted route, which only
-    the NEE kernels' own wide tables cover; mesh_critter's tree the
-    deepest, wide depth 7: a stack of 49 entries a thread): #6 through
-    step_batch and #5 through step() against the plain versions
+    """--nee on big-mesh scenes (every geom on the sorted route, which #8's
+    tables give no root; the NEE tables root every geom's binary BVH;
+    mesh_critter's tree the deepest of the scenes): #6 through step_batch
+    and #5 through step() against the plain versions
     (RenderSettings.plain) by the NEE image rule, at 32x32."""
     scene = small(name, (32, 32))
     wrappers = (megakernel.full_iteration_nee, megakernel.bounce_step_nee)
@@ -1983,9 +1983,9 @@ def test_big_meshes_render_nee_on_cuda(cuda_device, name):
         r = Renderer(scene, RenderSettings(trace_depth=8, nee_mis=True, antialias=True,
                                            plain=plain), device=cuda_device)
         if not plain:
-            wide = megakernel.pack_scene_tables(r.dev_scene, nee=True).nee_wide
-            assert wide.walked == len(r.dev_scene.mesh_geoms)
-            assert megakernel.nee_stack(wide) <= megakernel.NEE_STACK_MAX
+            roots = megakernel.pack_scene_tables(r.dev_scene, nee=True).roots
+            assert roots.tolist() == [list(r.dev_scene.bvh_roots[g])
+                                      for g in r.dev_scene.mesh_geoms]
         before = [w.launches for w in wrappers]
         r.step_batch(1)
         r.step()

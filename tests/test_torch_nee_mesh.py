@@ -15,8 +15,8 @@ the JAX package from identical tables (the JAX DeviceScene handed over).
   `full_iteration_nee_pallas` in interpret mode on mesh.txt, by that
   rule;
 - the Renderer (`step_batch`: #6's plain version; `step()`: #5's) and the
-  CLI with --nee on the CPU, and the mesh geoms' wide roots that the NEE
-  kernels read (`pack_nee_wide_tables`)."""
+  CLI with --nee on the CPU, and the mesh geoms' BVH roots that the NEE
+  kernels read (`pack_nee_bvh`)."""
 
 import functools
 import os
@@ -255,17 +255,17 @@ def test_renderer_and_cli_render_mesh_nee_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("name", ["mesh.txt", "mesh_textured.txt"])
 def test_pack_mesh_roots_is_bvh_roots(name):
-    """The roots the NEE kernels start their walks at: every mesh geom's
-    wide root, collapsed from its scene.bvh_roots tree (the same tables as
-    #8's when no geom takes the sorted route), packed only with `nee`; the
-    mesh pipeline's `geoms` table is left as it was."""
+    """The (M,2) roots the NEE kernels start their walks at: every mesh
+    geom's (first node, node count) of scene.bvh_roots, in mesh order,
+    packed only with `nee`; the mesh pipeline's `geoms` table is left as
+    it was."""
     _, td, _, _ = both(name)
     t = tmk.pack_scene_tables(td, nee=True)
-    w = t.nee_wide
-    assert w.root.dtype == torch.int32 and w.root.shape == (len(td.mesh_geoms),)
-    assert (w.root >= 0).all() and w.walked == len(td.mesh_geoms)
-    assert w is t.wide
+    assert t.roots.dtype == torch.int32
+    np.testing.assert_array_equal(
+        t.roots.numpy(), np.array([td.bvh_roots[g] for g in td.mesh_geoms]))
+    assert (t.roots[:, 1] > 0).all()
     np.testing.assert_array_equal(t.mesh[3][:, 0].numpy(), td.mesh_geoms)
-    assert tmk.pack_scene_tables(td).nee_wide is None
+    assert tmk.pack_scene_tables(td).roots is None
     assert tmk.pack_scene_tables(tdevice.scene_to_device(
-        tscene.load_scene(os.path.join(SCENES, "cornell.txt")), "cpu"), nee=True).nee_wide is None
+        tscene.load_scene(os.path.join(SCENES, "cornell.txt")), "cpu"), nee=True).roots is None

@@ -140,8 +140,8 @@ def test_mesh_scene_raises():
     """A mesh geom above 16,384 triangles (mesh_big.txt's 51,200) is no
     longer refused: the Renderer builds it, with the chunk and supernode
     tables of the sorted route. Nor is a mesh scene under --nee: the
-    Renderer builds it, and its tables carry the wide BVH roots of the
-    NEE kernels' walks."""
+    Renderer builds it, and its tables carry the BVH roots of the NEE
+    kernels' walks."""
     scene = tscene.load_scene(os.path.join(SCENES, "mesh_big.txt"))
     assert int(scene.geoms.tri_count.max()) == 51_200
     r = trender.Renderer(scene, device="cpu")
@@ -152,9 +152,9 @@ def test_mesh_scene_raises():
                          trender.RenderSettings(nee_mis=True), device="cpu")
     assert r.settings.nee_mis and r.dev_scene.mesh_geoms
     assert trender.nee_kernel(r.settings)
-    wide = pack_scene_tables(r.dev_scene, nee=True).nee_wide
-    assert wide.walked == len(r.dev_scene.mesh_geoms)
-    assert wide.root.tolist() == [0]
+    roots = pack_scene_tables(r.dev_scene, nee=True).roots
+    assert roots.tolist() == [list(r.dev_scene.bvh_roots[g])
+                              for g in r.dev_scene.mesh_geoms]
 
 
 @pytest.mark.parametrize(
